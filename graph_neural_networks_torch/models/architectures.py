@@ -1,0 +1,362 @@
+"""Architectures: SelectionGNN and LocalGNN on the shared convolutional
+core.
+
+The port of the JAX package's ``models/architectures.py`` for this slice.
+As there, each architecture is a host-side wrapper that (1) orders the
+nodes, (2) precomputes the structure tables (GSO layout, input gather map,
+pooling neighborhoods) once into ``ctx``, and (3) owns a core module whose
+forward takes ``(x, ctx)``, so ``changeGSO`` rebuilds ctx and keeps the
+parameters. Constructors keep the JAX (and reference) argument names and
+add ``device`` and ``generator``: parameters are drawn on the CPU from the
+generator (a fresh ``torch.Generator`` seeded 0 when none is given) and
+then moved to the device.
+
+Signals x: (B, F0, N).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from graph_neural_networks_torch.models import layers as gll
+from graph_neural_networks_torch.ops import gso as gso_lib
+from graph_neural_networks_torch.utils import graph as gt
+from graph_neural_networks_torch.utils.device import resolve_device
+
+__all__ = ["SelectionGNN", "LocalGNN", "resolve_activation", "TorchDense",
+           "MLP"]
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "leaky_relu": nn.functional.leaky_relu,
+    "abs": torch.abs,
+    "identity": (lambda x: x),
+    "none": (lambda x: x),
+}
+
+
+def resolve_activation(f) -> Callable:
+    """Accept a callable or a registry name ('relu', 'tanh', ...)."""
+    if callable(f):
+        return f
+    if isinstance(f, str) and f.lower() in _ACTIVATIONS:
+        return _ACTIVATIONS[f.lower()]
+    raise ValueError(f"unknown nonlinearity: {f!r}")
+
+
+def _resolve_pool(rho) -> str:
+    if rho is None:
+        return "NoPool"
+    if isinstance(rho, str) and rho in ("NoPool", "MaxPoolLocal"):
+        return rho
+    if rho is gll.NoPool:
+        return "NoPool"
+    if rho is gll.MaxPoolLocal:
+        return "MaxPoolLocal"
+    raise ValueError(f"unknown pooling function: {rho!r}")
+
+
+class TorchDense(nn.Module):
+    """Linear layer with torch.nn.Linear's layout (weight (out, in)) and
+    default init U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = gll.uniform_parameter((out_features, in_features),
+                                            bound, generator, device)
+        self.bias = (gll.uniform_parameter((out_features,), bound, generator,
+                                           device) if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight, self.bias)
+
+
+class MLP(nn.Module):
+    """Dense stack with the reference's convention: nonlinearity between
+    layers, never after the last. No dims: identity."""
+
+    def __init__(self, in_features: int, dims, sigma: Callable,
+                 use_bias: bool = True, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        self.sigma = sigma
+        sizes = [in_features] + list(dims)
+        self.layers = nn.ModuleList(
+            TorchDense(a, b, use_bias, generator=generator, device=device)
+            for a, b in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            if i > 0:
+                y = self.sigma(y)
+            y = layer(y)
+        return y
+
+
+def _normalize_gso(GSO) -> np.ndarray:
+    GSO = np.asarray(GSO, dtype=np.float64)
+    if GSO.ndim == 2:
+        GSO = GSO[None]
+    if not (GSO.ndim == 3 and GSO.shape[1] == GSO.shape[2]):
+        raise ValueError(f"GSO must be (N, N) or (E, N, N), got {GSO.shape}")
+    return GSO
+
+
+def _as_tuple(x):
+    return tuple(int(v) for v in x)
+
+
+# ---------------------------------------------------------------------------
+# The shared convolutional core: (filter -> activation -> pooling) x L + readout
+# ---------------------------------------------------------------------------
+
+class _ConvCore(nn.Module):
+    """Stack of graph-filter layers plus readout. Ported kinds: graph_filter
+    filters, pointwise activations, no_pool/max_local pooling, mlp/per_node
+    readout; the others of the JAX core raise NotImplementedError."""
+
+    def __init__(self, *, filter_kind: str, dims: tuple, taps: tuple,
+                 n_nodes: tuple, sigma: Callable, act_kind: str = "pointwise",
+                 pool_kind: str = "max_local", readout_dims: tuple = (),
+                 readout_kind: str = "mlp", use_bias: bool = True,
+                 edge_features: int = 1, generator: torch.Generator,
+                 device):
+        super().__init__()
+        if filter_kind != "graph_filter":
+            raise NotImplementedError(
+                f"filter kind {filter_kind!r} is not ported yet")
+        if act_kind != "pointwise":
+            raise NotImplementedError(
+                f"activation kind {act_kind!r} is not ported yet")
+        if pool_kind not in ("no_pool", "max_local"):
+            raise NotImplementedError(
+                f"pooling kind {pool_kind!r} is not ported yet")
+        if readout_kind not in ("mlp", "per_node"):
+            raise NotImplementedError(
+                f"readout kind {readout_kind!r} is not ported yet")
+        self.dims, self.taps, self.n_nodes = dims, taps, n_nodes
+        self.sigma = sigma
+        self.pool_kind, self.readout_kind = pool_kind, readout_kind
+        L = len(taps)
+        self.filters = nn.ModuleList(
+            gll.GraphFilter(dims[l], dims[l + 1], taps[l], edge_features,
+                            use_bias, generator=generator, device=device)
+            for l in range(L))
+        readout_in = (dims[-1] * n_nodes[-1] if readout_kind == "mlp"
+                      else dims[-1])
+        self.readout = MLP(readout_in, readout_dims, sigma, use_bias,
+                           generator=generator, device=device)
+
+    def _pool(self, l: int, x, ctx):
+        if self.pool_kind == "no_pool":
+            return x
+        n_in, n_out = self.n_nodes[l], self.n_nodes[l + 1]
+        if n_in == n_out and ctx["pool_nbh"][l] is None:
+            return x
+        return gll.MaxPoolLocal(n_in, n_out, 0)(x, ctx["pool_nbh"][l])
+
+    def forward(self, x: torch.Tensor, ctx: dict):
+        # node reordering by gather map: map[j] = source node of slot j, or
+        # -1 for a fake (zero) node
+        idx = ctx["order_map"]
+        x = torch.where(idx >= 0, x[:, :, idx.clamp(min=0)], 0.0)
+        for l, graph_filter in enumerate(self.filters):
+            x = graph_filter(x, ctx["S"])
+            x = self.sigma(x)
+            x = self._pool(l, x, ctx)
+        y_gfl = x
+        if self.readout_kind == "mlp":
+            y = self.readout(x.reshape(x.shape[0], self.dims[-1] * x.shape[-1]))
+        else:
+            y = self.readout(x.transpose(1, 2)).transpose(1, 2)
+        return y, y_gfl
+
+
+# ---------------------------------------------------------------------------
+# Wrapper base
+# ---------------------------------------------------------------------------
+
+class _ArchBase:
+    """Host-side architecture wrapper: owns the core module, the ctx dict
+    of device tensors and the node order."""
+
+    core: _ConvCore
+    ctx: dict
+    order: list
+    device: torch.device
+
+    def parameters(self):
+        return self.core.parameters()
+
+    def to(self, device) -> "_ArchBase":
+        """Move parameters and ctx to `device` (in place, like nn.Module)."""
+        dev = resolve_device(device)
+        self.core.to(dev)
+        self.ctx = {k: _ctx_to(v, dev) for k, v in self.ctx.items()}
+        self.S = self.ctx["S"]
+        self.device = dev
+        return self
+
+    # -- forward contracts -------------------------------------------------
+    def split_forward(self, x):
+        """(readout output, last graph-filter-layer output)."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.dtype != torch.float32:
+            x = x.to(torch.float32)   # f64/int inputs: compute in f32
+        return self.core(x, self.ctx)
+
+    def apply(self, x):
+        return self.split_forward(x)[0]
+
+    def __call__(self, x):
+        return self.apply(x)
+
+    def single_node_forward(self, x, nodes):
+        """Output at specific (original-id) nodes, one per batch element."""
+        y = self.apply(x)                              # B x dim x N
+        B = y.shape[0]
+        if isinstance(nodes, int):
+            nodes = [nodes] * B
+        order = list(self.order)
+        perm_nodes = torch.as_tensor([order.index(int(n)) for n in nodes],
+                                     device=y.device)
+        return y[torch.arange(B, device=y.device), :, perm_nodes]
+
+
+def _ctx_to(v, dev):
+    if isinstance(v, (torch.Tensor, gso_lib.Gso)):
+        return v.to(dev)
+    if isinstance(v, tuple):
+        return tuple(_ctx_to(t, dev) for t in v)
+    return v
+
+
+def _pool_tables(S_np, N_list, alpha, L, device):
+    """Per-layer MaxPoolLocal neighborhood tables (or None when the layer
+    keeps all nodes — identity pooling)."""
+    tables = []
+    for l in range(L):
+        if N_list[l + 1] == N_list[l] and alpha[l] <= 1:
+            tables.append(None)
+            continue
+        tbl = gt.compute_neighborhood(S_np, alpha[l], n_rows=N_list[l + 1],
+                                      nb=N_list[l], output_type="matrix")
+        tables.append(torch.as_tensor(tbl, dtype=torch.long, device=device))
+    return tuple(tables)
+
+
+class _SelectionBase(_ArchBase):
+    """Shared build of SelectionGNN and LocalGNN: ordering, GSO layout,
+    pooling tables, core."""
+
+    readout_kind = "mlp"
+
+    def __init__(self, dims, taps, bias, nonlinearity, nSelectedNodes,
+                 poolingFunction, poolingSize, readout_dims, GSO, order,
+                 gsoMode, device, generator):
+        GSO = _normalize_gso(GSO)
+        if len(dims) != len(taps) + 1:
+            raise ValueError(f"{len(dims)} signal dims for {len(taps)} layers")
+        self.device = resolve_device(device)
+        self._cfg = dict(bias=bias, sigma=resolve_activation(nonlinearity),
+                         dims=_as_tuple(dims), taps=_as_tuple(taps),
+                         readout=_as_tuple(readout_dims),
+                         pool=_resolve_pool(poolingFunction))
+        self.E = GSO.shape[0]
+        self.order_name = order
+        self.gso_mode = gsoMode
+        self.core = None
+        self._generator = (torch.Generator().manual_seed(0)
+                           if generator is None else generator)
+        self._build(GSO, nSelectedNodes, poolingSize)
+
+    def _build(self, GSO, nSelectedNodes, poolingSize):
+        cfg = self._cfg
+        L = len(cfg["taps"])
+        S_np, order = gt.permutation_by_name(self.order_name)(GSO)
+        self.order = order
+        N = S_np.shape[1]
+        N_list = [N] + list(nSelectedNodes)
+        alpha = list(poolingSize)
+        self.alpha = alpha
+        pool_kind = "no_pool" if cfg["pool"] == "NoPool" else "max_local"
+        self.ctx = {
+            "S": gso_lib.as_gso(S_np, mode=self.gso_mode, device=self.device),
+            "order_map": torch.as_tensor(np.asarray(order), dtype=torch.long,
+                                         device=self.device),
+            "pool_nbh": (_pool_tables(S_np, N_list, alpha, L, self.device)
+                         if pool_kind == "max_local" else (None,) * L),
+        }
+        if self.core is None:
+            self.core = _ConvCore(
+                filter_kind="graph_filter", dims=cfg["dims"],
+                taps=cfg["taps"], n_nodes=tuple(N_list), sigma=cfg["sigma"],
+                pool_kind=pool_kind, readout_dims=cfg["readout"],
+                readout_kind=self.readout_kind, use_bias=cfg["bias"],
+                edge_features=self.E, generator=self._generator,
+                device=self.device)
+        else:
+            self.core.n_nodes = tuple(N_list)
+        self.S = self.ctx["S"]
+        self.N = N_list
+
+    def changeGSO(self, GSO, nSelectedNodes=None, poolingSize=None):
+        """Re-derive ordering and structure for a new GSO, keeping the
+        parameters."""
+        GSO = _normalize_gso(GSO)
+        if not nSelectedNodes:
+            nSelectedNodes = self.N[1:]
+        if not poolingSize:
+            poolingSize = self.alpha
+        self._build(GSO, nSelectedNodes, poolingSize)
+
+    change_gso = changeGSO
+
+
+# ---------------------------------------------------------------------------
+# Concrete architectures
+# ---------------------------------------------------------------------------
+
+class SelectionGNN(_SelectionBase):
+    """Selection GNN: (GraphFilter -> sigma -> pooling) x L + global MLP.
+
+    gsoMode: 'dense' (torch.einsum shifts), 'band' or 'bcsr' (the CUDA
+    SpMM kernels on a CUDA device). coarsening=True is not ported yet.
+    """
+
+    def __init__(self, dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                 nSelectedNodes, poolingFunction, poolingSize, dimLayersMLP,
+                 GSO, order=None, coarsening=False, gsoMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        if coarsening and _normalize_gso(GSO).shape[0] == 1:
+            # (the JAX SelectionGNN coarsens only single-edge-feature GSOs)
+            raise NotImplementedError(
+                "SelectionGNN(coarsening=True) is not ported yet")
+        super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, gsoMode, device, generator)
+
+
+class LocalGNN(_SelectionBase):
+    """Selection GNN with a per-node linear readout (+ single_node_forward).
+    Like the JAX LocalGNN it takes no gsoMode: its shifts are dense."""
+
+    readout_kind = "per_node"
+
+    def __init__(self, dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                 nSelectedNodes, poolingFunction, poolingSize, dimReadout,
+                 GSO, order=None, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimReadout, GSO, order, "dense", device, generator)

@@ -1,0 +1,94 @@
+"""Parameterized graph layers (torch.nn).
+
+The port of the JAX package's ``models/layers.py`` for this slice:
+GraphFilter, NoPool and MaxPoolLocal. As there, the GSO and the pooling
+tables are call arguments, not module state, and GraphFilter keeps the
+zero-pad/slice contract of selection pooling: pad x from its node count
+up to the GSO's N, filter, slice back. Parameter shapes equal the JAX
+ones, so flax parameters load one to one (utils.params).
+
+Signals: x is (B, F, N).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from graph_neural_networks_torch.ops import filters
+from graph_neural_networks_torch.ops import gso as gso_lib
+
+
+def uniform_parameter(shape, bound: float, generator: torch.Generator,
+                      device) -> nn.Parameter:
+    """U(-bound, bound) drawn on the CPU from `generator`, then moved to
+    `device`, so one seed gives the same weights on every device."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return nn.Parameter(((2 * u - 1) * bound).to(device))
+
+
+def _gso_n(S) -> int:
+    return S.n if isinstance(S, gso_lib.Gso) else S.shape[-1]
+
+
+def pad_slice(fn, x: torch.Tensor, N: int) -> torch.Tensor:
+    """Apply `fn` under the zero-pad/slice contract: pad the last axis of x
+    up to N, run, slice back to the input's node count."""
+    n_in = x.shape[-1]
+    if n_in < N:
+        x = nn.functional.pad(x, (0, N - n_in))
+    y = fn(x)
+    return y[..., :n_in] if n_in < N else y
+
+
+class GraphFilter(nn.Module):
+    """LSIGF layer. Params: weight (F,E,K,G), bias (F,1), both
+    U(-1/sqrt(G*K), 1/sqrt(G*K))."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 filter_taps: int, edge_features: int = 1,
+                 use_bias: bool = True, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        G, F, K, E = in_features, out_features, filter_taps, edge_features
+        stdv = 1.0 / math.sqrt(G * K)
+        self.weight = uniform_parameter((F, E, K, G), stdv, generator, device)
+        self.bias = (uniform_parameter((F, 1), stdv, generator, device)
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor, S) -> torch.Tensor:
+        return pad_slice(lambda xp: filters.lsigf(self.weight, S, xp,
+                                                  self.bias), x, _gso_n(S))
+
+
+class NoPool(nn.Module):
+    """Identity with the pooling interface."""
+
+    def __init__(self, n_input_nodes: int, n_output_nodes: int,
+                 n_hops: int = 0):
+        super().__init__()
+        self.n_input_nodes = n_input_nodes
+        self.n_output_nodes = n_output_nodes
+
+    def forward(self, x: torch.Tensor, nbh_table=None) -> torch.Tensor:
+        return x
+
+
+class MaxPoolLocal(nn.Module):
+    """Selection pooling: gather each kept node's neighborhood (restricted
+    to kept nodes) and take the max. nbh_table is the host-precomputed
+    (nOut, max_nbr) self-padded table."""
+
+    def __init__(self, n_input_nodes: int, n_output_nodes: int,
+                 n_hops: int = 0):
+        super().__init__()
+        self.n_input_nodes = n_input_nodes
+        self.n_output_nodes = n_output_nodes
+
+    def forward(self, x: torch.Tensor, nbh_table: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.n_input_nodes:
+            raise ValueError(f"MaxPoolLocal expects {self.n_input_nodes} "
+                             f"nodes, got {x.shape[-1]}")
+        return x[..., nbh_table].amax(dim=-1)      # B x F x nOut x max_nbr

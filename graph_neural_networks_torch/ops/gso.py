@@ -1,0 +1,230 @@
+"""The Graph Shift Operator container and the shift primitive.
+
+A :class:`Gso` holds the GSO of E edge features on one device in one of
+three layouts, chosen by ``mode``:
+
+  * ``dense`` -- (E, N, N); a shift is one ``torch.einsum``.
+  * ``band``  -- per-edge-feature band slabs; a shift runs
+    :func:`spmm.band_matmul`, and the K-tap register may run the fused
+    :func:`spmm.band_shift_register`.
+  * ``bcsr``  -- the nonzero 128x128 blocks, sorted by block column; a
+    shift runs :func:`spmm.bcsr_matmul`.
+
+The shift convention is the JAX package's: signals are row vectors per
+node, so one shift is ``y = x @ S_e``, i.e.
+``y[..., m] = sum_n x[..., n] * S[e, n, m]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from graph_neural_networks_torch.ops import spmm
+from graph_neural_networks_torch.utils.device import resolve_device
+
+MODES = ("dense", "band", "bcsr")
+
+
+@dataclasses.dataclass
+class Gso:
+    """Device-ready graph shift operator.
+
+    S : (E, N, N) dense GSO (None only if dropped by the caller).
+    s_band, s_band_t : (E, nb, (2w+1)*bs, bs) band slab of S and of S^T.
+    blocks, blocks_t : (E, nnzb, bs, bs) BCSR blocks of S and of S^T, with
+        (nnzb,) int32 block_row/block_col (and *_t) shared by all E.
+    The transposed layouts serve the backward shift of the training slice.
+    """
+
+    S: Optional[torch.Tensor]
+    n: int
+    n_edge_features: int = 1
+    mode: str = "dense"
+    block_size: int = 128
+    band_w: int = 0
+    s_band: Optional[torch.Tensor] = None
+    s_band_t: Optional[torch.Tensor] = None
+    blocks: Optional[torch.Tensor] = None
+    block_row: Optional[torch.Tensor] = None
+    block_col: Optional[torch.Tensor] = None
+    blocks_t: Optional[torch.Tensor] = None
+    block_row_t: Optional[torch.Tensor] = None
+    block_col_t: Optional[torch.Tensor] = None
+
+    @property
+    def N(self) -> int:
+        return self.n
+
+    @property
+    def E(self) -> int:
+        return self.n_edge_features
+
+    def to(self, device) -> "Gso":
+        """A copy with every tensor on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def _normalize_dense(S) -> np.ndarray:
+    S = np.asarray(S, dtype=np.float64)
+    if S.ndim == 2:
+        S = S[None]
+    if not (S.ndim == 3 and S.shape[1] == S.shape[2]):
+        raise ValueError(f"GSO must be (N, N) or (E, N, N), got {S.shape}")
+    return S
+
+
+def _band_layouts(S: np.ndarray, block_size: int):
+    """Band slabs of every S[e] and S[e]^T at one common w."""
+    E = S.shape[0]
+    w_max = max(spmm.dense_to_band(S[e], block_size)[1] for e in range(E))
+    slabs, slabs_t = [], []
+    for e in range(E):
+        sb, _ = spmm.dense_to_band(S[e], block_size)
+        sbt, _ = spmm.dense_to_band(S[e].T, block_size)
+        # re-extract at the common w so all edge features share a slab shape
+        if sb.shape[1] != (2 * w_max + 1) * block_size:
+            sb = spmm.dense_to_band_at(S[e], block_size, w_max)
+            sbt = spmm.dense_to_band_at(S[e].T, block_size, w_max)
+        slabs.append(sb)
+        slabs_t.append(sbt)
+    return np.stack(slabs), np.stack(slabs_t), w_max
+
+
+def _bcsr_layouts(S: np.ndarray, block_size: int):
+    """BCSR blocks of every S[e] on one shared pattern, and the transposed
+    layout."""
+    E = S.shape[0]
+    blocks, brow, bcol = [], None, None
+    for e in range(E):
+        b, r, c = spmm.dense_to_bcsr(S[e], block_size)
+        blocks.append(b)
+        if brow is None:
+            brow, bcol = r, c
+        elif not (np.array_equal(r, brow) and np.array_equal(c, bcol)):
+            # edge features with different patterns share the union pattern
+            _, brow, bcol = spmm.dense_to_bcsr(np.abs(S).sum(0), block_size)
+            blocks = [spmm.dense_to_bcsr_with_pattern(S[ee], block_size,
+                                                      brow, bcol)
+                      for ee in range(E)]
+            break
+    blocks = np.stack(blocks)
+    tr = [spmm.bcsr_transpose(blocks[e], brow, bcol) for e in range(E)]
+    return (blocks, brow, bcol, np.stack([t[0] for t in tr]), tr[0][1],
+            tr[0][2])
+
+
+def as_gso(S, mode: str = "dense", block_size: int = 128,
+           device="cuda") -> Gso:
+    """Build a :class:`Gso` on `device` from a dense (N, N) or (E, N, N)
+    array. A Gso passes through (moved to `device`)."""
+    dev = resolve_device(device)
+    if isinstance(S, Gso):
+        return S.to(dev)
+    if mode not in MODES:
+        raise ValueError(f"unknown GSO mode {mode!r}; one of {MODES}")
+    S = _normalize_dense(S)
+    E, N, _ = S.shape
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    gso = Gso(S=f32(S), n=N, n_edge_features=E, mode=mode,
+              block_size=block_size)
+    if mode == "band":
+        s_band, s_band_t, w = _band_layouts(S, block_size)
+        gso.s_band, gso.s_band_t, gso.band_w = f32(s_band), f32(s_band_t), w
+    elif mode == "bcsr":
+        blocks, brow, bcol, blocks_t, brow_t, bcol_t = _bcsr_layouts(
+            S, block_size)
+        gso.blocks, gso.block_row, gso.block_col = \
+            f32(blocks), i32(brow), i32(bcol)
+        gso.blocks_t, gso.block_row_t, gso.block_col_t = \
+            f32(blocks_t), i32(brow_t), i32(bcol_t)
+    return gso
+
+
+def dense(gso) -> torch.Tensor:
+    """The (E, N, N) dense GSO of a Gso or a raw (N, N)/(E, N, N) tensor."""
+    if isinstance(gso, Gso):
+        if gso.S is None:
+            raise ValueError("this Gso holds no dense GSO")
+        return gso.S
+    S = torch.as_tensor(gso)
+    return S[None] if S.ndim == 2 else S
+
+
+def gshift(gso, x: torch.Tensor) -> torch.Tensor:
+    """One graph shift: ``y[..., e, g, m] = sum_n x[..., e, g, n] S[e,n,m]``.
+
+    x: (..., E, G, N) with E matching the GSO's edge features. Dense mode
+    (or a raw tensor) is one einsum; band and bcsr flatten every axis but
+    (E, N) into rows and run one kernel launch per edge feature.
+    """
+    if not isinstance(gso, Gso) or gso.mode == "dense":
+        return torch.einsum("...egn,enm->...egm", x, dense(gso))
+    E = gso.n_edge_features
+    shp = x.shape
+    N = shp[-1]
+    xg = torch.movedim(x, -3, 0).reshape(E, -1, N).contiguous()  # (E, R, N)
+    if gso.mode == "band":
+        outs = [spmm.band_matmul(xg[e], gso.s_band[e], n_cols=N,
+                                 w=gso.band_w, block_size=gso.block_size)
+                for e in range(E)]
+    else:
+        outs = [spmm.bcsr_matmul(xg[e], gso.blocks[e], gso.block_row,
+                                 gso.block_col, n_cols=N,
+                                 block_size=gso.block_size)
+                for e in range(E)]
+    y = torch.stack(outs).reshape((E,) + shp[:-3] + shp[-2:-1] + (N,))
+    return torch.movedim(y, 0, -3)
+
+
+def gshift_register(gso, x: torch.Tensor, K: int) -> torch.Tensor:
+    """The K-tap shift register [x, xS, ..., xS^{K-1}] stacked on a new
+    axis: (B, E, G, N) -> (B, E, K, G, N).
+
+    On the band layout with f32 signals and at most
+    ``spmm.REGISTER_MAX_ROWS`` rows (B*G) it runs the fused
+    :func:`spmm.band_shift_register`, one launch per edge feature for all
+    K taps, when the kernel takes the layout (``spmm.register_fits``).
+    Everywhere else it chains K-1 :func:`gshift` calls.
+    """
+    if K == 1:
+        return x[:, :, None]
+    rows = x.shape[0] * x.shape[2] if x.ndim == 4 else 0
+    # The row rule is carried over from the JAX package (its TPU
+    # crossover); it has not been measured on the H100 yet.
+    fused = (
+        isinstance(gso, Gso) and gso.mode == "band"
+        and x.dtype == torch.float32 and x.ndim == 4
+        and gso.s_band.dtype == x.dtype
+        and rows <= spmm.REGISTER_MAX_ROWS
+        and spmm.register_fits(gso.block_size)
+    )
+    if fused:
+        E = gso.n_edge_features
+        B, E_, G, N = x.shape
+        if E_ != E:
+            raise ValueError(f"x has {E_} edge features, the GSO {E}")
+        xg = torch.movedim(x, 1, 0).reshape(E, B * G, N).contiguous()
+        outs = [spmm.band_shift_register(xg[e], gso.s_band[e], n_taps=K,
+                                         n_cols=N, w=gso.band_w,
+                                         block_size=gso.block_size)
+                for e in range(E)]
+        z = torch.stack(outs).reshape(E, K, B, G, N)
+        return z.permute(2, 0, 1, 3, 4)
+    zs = [x]
+    for _ in range(1, K):
+        x = gshift(gso, x)
+        zs.append(x)
+    return torch.stack(zs, dim=2)

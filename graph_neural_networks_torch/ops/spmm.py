@@ -1,0 +1,382 @@
+"""The graph shift ``y = x @ S`` on block-sparse layouts: host layouts,
+three CUDA kernels, and their plain PyTorch versions.
+
+Layouts (numpy, built once on the host, bit-identical to the JAX
+package's ``ops/spmm.py``):
+
+  * band  -- S block-banded with block bandwidth w, stored as the slab
+    ``s_band (nb, (2w+1)*bs, bs)``: ``s_band[j, t*bs:(t+1)*bs]`` is the S
+    block at (block row j+t-w, block column j), zero where that falls off
+    the matrix.
+  * bcsr  -- the nonzero (bs, bs) blocks of S with their block row and
+    column ids, sorted by (column, row).
+
+Kernels (``kernels/csrc/spmm.cu``), each behind a wrapper of the same name:
+
+  * :func:`band_matmul` -- y = x @ S on the band slab.
+  * :func:`band_shift_register` -- [x, xS, ..., xS^{K-1}] in one launch.
+  * :func:`bcsr_matmul` -- y = x @ S on the BCSR blocks.
+
+A wrapper runs its ``*_plain`` version when x lies on the CPU, and
+launches its kernel when x lies on a CUDA device; it never falls back from
+one to the other. Each kernel launch adds one to the wrapper's
+``launches`` count. The kernels are forward-only for now: with grad
+enabled and an input that requires grad they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graph_neural_networks_torch import kernels
+
+ZERO_TOL = 1e-9
+
+# Output column tile of the CUDA kernels (kBN in kernels/csrc/spmm.cu): a
+# tile never straddles two S block columns, so block_size must be a
+# multiple of it on CUDA.
+TILE_N = 64
+
+# Row-count rule for the fused register (gso.gshift_register): fused for at
+# most this many rows, chained band_matmul above. The value is carried over
+# from the JAX package, where it was the crossover measured on its TPU; it
+# has not been measured on the H100 for these kernels yet.
+REGISTER_MAX_ROWS = 512
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# Host layouts (numpy)
+# ---------------------------------------------------------------------------
+
+def _tiles(S: np.ndarray, block_size: int, dtype) -> np.ndarray:
+    """S zero-padded to whole blocks, as (nb, nb, bs, bs) tiles."""
+    N = S.shape[0]
+    nb = _cdiv(N, block_size)
+    Sp = np.zeros((nb * block_size, nb * block_size), dtype=dtype)
+    Sp[:N, :N] = S
+    return Sp.reshape(nb, block_size, nb, block_size).transpose(0, 2, 1, 3)
+
+
+def dense_to_bcsr(S: np.ndarray, block_size: int = 128):
+    """Tile a dense N x N matrix into its nonzero (bs x bs) blocks.
+
+    Returns (blocks (nnzb, bs, bs) f32, block_row (nnzb,) i32, block_col
+    (nnzb,) i32), sorted by (block_col, block_row). N is zero-padded up to
+    a multiple of block_size; an all-zero S keeps one zero block.
+    """
+    N = S.shape[0]
+    if S.shape != (N, N):
+        raise ValueError(f"S must be square, got {S.shape}")
+    tiles = _tiles(S, block_size, S.dtype)
+    nz = np.abs(tiles).sum(axis=(2, 3)) > ZERO_TOL
+    rows, cols = np.nonzero(nz)
+    order = np.lexsort((rows, cols))  # sort by col, then row
+    rows, cols = rows[order], cols[order]
+    if len(rows) == 0:  # keep at least one (zero) block for static shapes
+        rows = np.array([0])
+        cols = np.array([0])
+    blocks = tiles[rows, cols]
+    return blocks.astype(np.float32), rows.astype(np.int32), cols.astype(np.int32)
+
+
+def dense_to_bcsr_with_pattern(S: np.ndarray, block_size: int,
+                               block_row: np.ndarray, block_col: np.ndarray):
+    """The blocks of S at a fixed (block_row, block_col) pattern."""
+    tiles = _tiles(S, block_size, S.dtype)
+    return tiles[block_row, block_col].astype(np.float32)
+
+
+def bcsr_transpose(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray):
+    """Transpose a BCSR layout: swap row/col ids, transpose each tile,
+    re-sort by (col, row)."""
+    t_rows = np.asarray(cols)
+    t_cols = np.asarray(rows)
+    t_blocks = np.ascontiguousarray(np.swapaxes(np.asarray(blocks), 1, 2))
+    order = np.lexsort((t_rows, t_cols))
+    return (t_blocks[order], t_rows[order].astype(np.int32),
+            t_cols[order].astype(np.int32))
+
+
+def _band_slab(tiles: np.ndarray, w: int) -> np.ndarray:
+    nb, _, bs, _ = tiles.shape
+    s_band = np.zeros((nb, (2 * w + 1) * bs, bs), dtype=np.float32)
+    for j in range(nb):
+        for k, i in enumerate(range(j - w, j + w + 1)):
+            if 0 <= i < nb:
+                s_band[j, k * bs:(k + 1) * bs] = tiles[i, j]
+    return s_band
+
+
+def dense_to_band(S: np.ndarray, block_size: int = 128):
+    """Extract the block band of S: returns (s_band (nb, (2w+1)*bs, bs), w)
+    with w the smallest block bandwidth that covers every nonzero (w = nb-1
+    degenerates to dense)."""
+    tiles = _tiles(S, block_size, np.float32)
+    nz = np.abs(tiles).sum(axis=(2, 3)) > ZERO_TOL
+    rows, cols = np.nonzero(nz)
+    w = int(np.abs(rows - cols).max()) if len(rows) else 0
+    return _band_slab(tiles, w), w
+
+
+def dense_to_band_at(S: np.ndarray, block_size: int, w: int) -> np.ndarray:
+    """The band slab at a fixed block bandwidth w (nonzeros outside are
+    dropped; callers pick w >= the true bandwidth)."""
+    return _band_slab(_tiles(S, block_size, np.float32), w)
+
+
+def auto_col_tile(n_cols: int, block_size: int = 128) -> int:
+    """Largest col_tile in {4, 2, 1} dividing the block count: the JAX
+    band kernel's column tiling for this layout."""
+    nb = _cdiv(n_cols, block_size)
+    for c in (4, 2):
+        if nb % c == 0:
+            return c
+    return 1
+
+
+def auto_row_tile(n_rows: int) -> int:
+    """The JAX BCSR kernel's row tile for this row count: the largest of
+    1024, 512, 256 not above it (256 below that)."""
+    for rt in (1024, 512, 256):
+        if n_rows >= rt:
+            return rt
+    return 256
+
+
+def register_fits(block_size: int) -> bool:
+    """Whether band_shift_register's kernel takes this layout.
+
+    The JAX kernel keeps a whole row stripe resident in VMEM, so it tests
+    the stripe's size. The CUDA kernel keeps nothing resident: a cluster of
+    8 blocks shares an 8-row tile, each block holds 4.6 KB of static shared
+    memory whatever R and N are, and the taps pass through device memory
+    (L2). Its only limit is its column tile, which must not straddle a
+    band block.
+    """
+    return block_size % TILE_N == 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def band_matmul_plain(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
+                      w: int, block_size: int = 128) -> torch.Tensor:
+    """y = x @ S for S in the band layout: x (R, N) -> y (R, n_cols)."""
+    R, N = x.shape
+    bs = block_size
+    nb = _cdiv(n_cols, bs)
+    xb = x.new_zeros((R, nb * bs))
+    xb[:, :N] = x
+    xb = xb.view(R, nb, bs)
+    y = x.new_zeros((R, nb, bs))
+    for t in range(2 * w + 1):
+        # output block columns j whose window block i = j + t - w exists
+        j0, j1 = max(0, w - t), min(nb, nb + w - t)
+        if j0 >= j1:
+            continue
+        i0, i1 = j0 + t - w, j1 + t - w
+        y[:, j0:j1] += torch.einsum(
+            "rjb,jbc->rjc", xb[:, i0:i1], s_band[j0:j1, t * bs:(t + 1) * bs])
+    return y.reshape(R, nb * bs)[:, :n_cols]
+
+
+def band_shift_register_plain(x: torch.Tensor, s_band: torch.Tensor, *,
+                              n_taps: int, n_cols: int, w: int,
+                              block_size: int = 128) -> torch.Tensor:
+    """(R, N) -> (K, R, N) = [x, xS, ..., xS^{K-1}] for S in the band
+    layout."""
+    zs = [x]
+    for _ in range(1, n_taps):
+        zs.append(band_matmul_plain(zs[-1], s_band, n_cols=n_cols, w=w,
+                                    block_size=block_size))
+    return torch.stack(zs)
+
+
+def bcsr_matmul_plain(x: torch.Tensor, blocks: torch.Tensor,
+                      block_row: torch.Tensor, block_col: torch.Tensor, *,
+                      n_cols: int, block_size: int = 128) -> torch.Tensor:
+    """y = x @ S for S in the BCSR layout: gather x's block columns by
+    block_row, one product per block, add into output block columns by
+    block_col. x (R, N) sits on its own block grid; y is (R, n_cols)."""
+    R, N = x.shape
+    bs = block_size
+    nb_in, nb_out = _cdiv(N, bs), _cdiv(n_cols, bs)
+    xp = x.new_zeros((R, nb_in * bs))
+    xp[:, :N] = x
+    xg = xp.view(R, nb_in, bs)[:, block_row.long()]          # (R, nnzb, bs)
+    contrib = torch.einsum("rkb,kbc->rkc", xg, blocks)
+    y = x.new_zeros((R, nb_out, bs)).index_add_(1, block_col.long(), contrib)
+    return y.reshape(R, nb_out * bs)[:, :n_cols]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True when the call goes to the kernel (x on CUDA), False for the
+    plain version (x on the CPU). Raises on mixed devices and on a call
+    that would need a gradient through the kernel."""
+    for t in others:
+        if t.device != x.device:
+            raise ValueError(f"{name}: inputs on {x.device} and {t.device}")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *others)):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward-only; gradients through the "
+            "graph shift come with the training slice of the port")
+    return True
+
+
+def _check_kernel_inputs(name: str, block_size: int, **tensors) -> None:
+    for arg, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if block_size % TILE_N:
+        raise ValueError(f"{name}: the CUDA kernel needs block_size a "
+                         f"multiple of {TILE_N}, got {block_size}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
+                w: int, block_size: int = 128) -> torch.Tensor:
+    """y = x @ S for block-banded S: x (R, N), s_band (nb, (2w+1)*bs, bs)
+    with nb = ceil(n_cols / bs) -> y (R, n_cols). x's columns past N count
+    as zero (N <= nb*bs).
+
+    CUDA kernel: ``band_matmul_kernel`` in kernels/csrc/spmm.cu, replacing
+    the Pallas kernel of the JAX package's ``ops/spmm.py:band_matmul``.
+    """
+    R, N = x.shape
+    bs = block_size
+    nb = _cdiv(n_cols, bs)
+    if tuple(s_band.shape) != (nb, (2 * w + 1) * bs, bs):
+        raise ValueError(f"band_matmul: s_band {tuple(s_band.shape)} does "
+                         f"not fit n_cols={n_cols}, w={w}, bs={bs}")
+    if N > nb * bs:
+        raise ValueError(f"band_matmul: x has {N} columns, S only {nb * bs}")
+    if not _on_cuda("band_matmul", x, s_band):
+        return band_matmul_plain(x, s_band, n_cols=n_cols, w=w, block_size=bs)
+    _check_kernel_inputs("band_matmul", bs, x=(x, torch.float32),
+                         s_band=(s_band, torch.float32))
+    y = torch.empty((R, n_cols), dtype=torch.float32, device=x.device)
+    if R == 0:
+        return y
+    err = kernels.library().gnt_band_matmul(
+        x.data_ptr(), s_band.data_ptr(), y.data_ptr(), R, N, n_cols, nb, w,
+        bs, _stream())
+    kernels.check(err, "band_matmul")
+    band_matmul.launches += 1
+    return y
+
+
+band_matmul.launches = 0
+
+
+def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
+                        n_taps: int, n_cols: int, w: int,
+                        block_size: int = 128) -> torch.Tensor:
+    """All K taps in one launch: x (R, N) -> (K, R, N) = [x, xS, ...,
+    xS^{K-1}], S in the band layout with n_cols == N.
+
+    CUDA kernel: ``band_register_kernel`` in kernels/csrc/spmm.cu,
+    replacing the Pallas kernel of the JAX package's
+    ``ops/spmm.py:band_shift_register``.
+    """
+    R, N = x.shape
+    bs = block_size
+    nb = _cdiv(n_cols, bs)
+    if n_taps < 1:
+        raise ValueError(f"band_shift_register: n_taps={n_taps} < 1")
+    if N != n_cols:
+        raise ValueError(f"band_shift_register: x has {N} columns, "
+                         f"n_cols={n_cols}")
+    if tuple(s_band.shape) != (nb, (2 * w + 1) * bs, bs):
+        raise ValueError(f"band_shift_register: s_band "
+                         f"{tuple(s_band.shape)} does not fit n_cols="
+                         f"{n_cols}, w={w}, bs={bs}")
+    if not _on_cuda("band_shift_register", x, s_band):
+        return band_shift_register_plain(x, s_band, n_taps=n_taps,
+                                         n_cols=n_cols, w=w, block_size=bs)
+    _check_kernel_inputs("band_shift_register", bs, x=(x, torch.float32),
+                         s_band=(s_band, torch.float32))
+    out = torch.empty((n_taps, R, N), dtype=torch.float32, device=x.device)
+    if R == 0:
+        return out
+    err = kernels.library().gnt_band_register(
+        x.data_ptr(), s_band.data_ptr(), out.data_ptr(), R, N, nb, w, bs,
+        n_taps, _stream())
+    kernels.check(err, "band_shift_register")
+    band_shift_register.launches += 1
+    return out
+
+
+band_shift_register.launches = 0
+
+
+def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
+                block_row: torch.Tensor, block_col: torch.Tensor, *,
+                n_cols: int, block_size: int = 128) -> torch.Tensor:
+    """y = x @ S with S in the BCSR layout: x (R, N), blocks (nnzb, bs,
+    bs), block_row/block_col (nnzb,) int32 sorted by column -> y (R,
+    n_cols). n_cols may differ from N: block_row indexes x's block
+    columns, block_col the output's. Empty output columns are zero.
+
+    CUDA kernel: ``bcsr_matmul_kernel`` in kernels/csrc/spmm.cu, replacing
+    the Pallas kernel of the JAX package's ``ops/spmm.py:bcsr_matmul``.
+    """
+    R, N = x.shape
+    bs = block_size
+    nnzb = blocks.shape[0]
+    if (tuple(blocks.shape) != (nnzb, bs, bs)
+            or tuple(block_row.shape) != (nnzb,)
+            or tuple(block_col.shape) != (nnzb,)):
+        raise ValueError(f"bcsr_matmul: layout shapes {tuple(blocks.shape)}, "
+                         f"{tuple(block_row.shape)}, "
+                         f"{tuple(block_col.shape)} do not fit bs={bs}")
+    if not _on_cuda("bcsr_matmul", x, blocks, block_row, block_col):
+        return bcsr_matmul_plain(x, blocks, block_row, block_col,
+                                 n_cols=n_cols, block_size=bs)
+    _check_kernel_inputs("bcsr_matmul", bs, x=(x, torch.float32),
+                         blocks=(blocks, torch.float32),
+                         block_row=(block_row, torch.int32),
+                         block_col=(block_col, torch.int32))
+    nb = _cdiv(n_cols, bs)
+    # first block of each column segment (blocks sorted by column)
+    col_start = torch.searchsorted(
+        block_col, torch.arange(nb + 1, dtype=torch.int32, device=x.device),
+        out_int32=True)
+    y = torch.empty((R, n_cols), dtype=torch.float32, device=x.device)
+    if R == 0:
+        return y
+    err = kernels.library().gnt_bcsr_matmul(
+        x.data_ptr(), blocks.data_ptr(), block_row.data_ptr(),
+        col_start.data_ptr(), y.data_ptr(), R, N, n_cols, bs, _stream())
+    kernels.check(err, "bcsr_matmul")
+    bcsr_matmul.launches += 1
+    return y
+
+
+bcsr_matmul.launches = 0
+
+
+KERNEL_WRAPPERS = (band_matmul, band_shift_register, bcsr_matmul)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

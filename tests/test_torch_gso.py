@@ -1,0 +1,139 @@
+"""PyTorch port, ops/gso.py: Gso layouts, gshift and gshift_register in
+dense, band and bcsr mode, held against the JAX package on the CPU (its
+Pallas paths in TPU interpret mode). Tolerance atol = rtol = 1e-5 (f32
+sums of the same products in another order)."""
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from graph_neural_networks_torch.ops import gso as tgso
+from graph_neural_networks_torch.ops import spmm as tspmm
+from graph_neural_networks_tpu.ops import gso as jgso
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _banded(rng, N, half, per_row=4):
+    S = np.zeros((N, N))
+    for i in range(N):
+        js = np.clip(i + rng.integers(-half, half + 1, per_row), 0, N - 1)
+        S[i, js] = rng.random(len(js))
+    return S / N ** 0.5
+
+
+def _gsos(S, mode, bs):
+    with pltpu.force_tpu_interpret_mode():
+        j = jgso.as_gso(S, mode=mode, block_size=bs)
+    return j, tgso.as_gso(S, mode=mode, block_size=bs, device="cpu")
+
+
+# E=2 cases: the second edge feature has another band / block pattern, so
+# band re-extracts at a common w and bcsr falls back to the union pattern.
+def _edge_features(E, N, seed):
+    rng = np.random.default_rng(seed)
+    S = [_banded(rng, N, 10)]
+    if E == 2:
+        S.append(_banded(rng, N, 40))
+    return np.stack(S)
+
+
+@pytest.mark.parametrize("mode", ["dense", "band", "bcsr"])
+@pytest.mark.parametrize("E", [1, 2])
+def test_layouts_match(mode, E):
+    S = _edge_features(E, 90, E)
+    j, t = _gsos(S, mode, 16)
+    assert (t.n, t.n_edge_features, t.mode) == (j.n, j.n_edge_features, mode)
+    np.testing.assert_array_equal(t.S.numpy(), np.asarray(j.S))
+    if mode == "band":
+        assert t.band_w == j.band_w
+        np.testing.assert_array_equal(t.s_band.numpy(), np.asarray(j.s_band))
+        np.testing.assert_array_equal(t.s_band_t.numpy(),
+                                      np.asarray(j.s_band_t))
+    if mode == "bcsr":
+        for name in ("blocks", "block_row", "block_col", "blocks_t",
+                     "block_row_t", "block_col_t"):
+            np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                          np.asarray(getattr(j, name)))
+        assert t.block_row.dtype == torch.int32
+
+
+def test_union_pattern_used_for_differing_edge_features():
+    S = _edge_features(2, 90, 2)
+    t = tgso.as_gso(S, mode="bcsr", block_size=16, device="cpu")
+    _, r0, _ = tspmm.dense_to_bcsr(S[0], 16)
+    assert len(t.block_row) > len(r0)   # wider than feature 0's own pattern
+
+
+@pytest.mark.parametrize("mode", ["dense", "band", "bcsr"])
+@pytest.mark.parametrize("E", [1, 2])
+def test_gshift_matches_jax(mode, E):
+    rng = np.random.default_rng(5)
+    N = 90
+    S = _edge_features(E, N, 10 + E)
+    j, t = _gsos(S, mode, 16)
+    x = rng.standard_normal((3, E, 4, N)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jgso.gshift(j, x))
+    got = tgso.gshift(t, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("mode,bs", [
+    ("dense", 16), ("band", 16), ("bcsr", 16),
+    ("band", 64),    # block size the CUDA register kernel takes: fused path
+])
+@pytest.mark.parametrize("E", [1, 2])
+def test_gshift_register_matches_jax(mode, E, bs):
+    rng = np.random.default_rng(6)
+    N, K = 150, 4
+    S = _edge_features(E, N, 20 + E)
+    j, t = _gsos(S, mode, bs)
+    x = rng.standard_normal((2, E, 3, N)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jgso.gshift_register(j, x, K))
+    got = tgso.gshift_register(t, torch.from_numpy(x), K)
+    assert got.shape == (2, E, K, 3, N)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _count_calls(monkeypatch):
+    calls = {"band_shift_register": 0, "band_matmul": 0, "bcsr_matmul": 0}
+    for name in calls:
+        fn = getattr(tspmm, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tspmm, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("B,G,expect", [
+    # rows = B*G: fused register at <= REGISTER_MAX_ROWS, chained above
+    (32, 1, {"band_shift_register": 1, "band_matmul": 0, "bcsr_matmul": 0}),
+    (9, 64, {"band_shift_register": 0, "band_matmul": 4, "bcsr_matmul": 0}),
+])
+def test_gshift_register_dispatch(monkeypatch, B, G, expect):
+    N, K = 256, 5
+    S = _banded(np.random.default_rng(1), N, 60)
+    t = tgso.as_gso(S, mode="band", device="cpu")
+    calls = _count_calls(monkeypatch)
+    x = torch.randn(B, 1, G, N, generator=torch.Generator().manual_seed(0))
+    tgso.gshift_register(t, x, K)
+    assert calls == expect
+
+
+def test_bcsr_register_chains_bcsr_matmul(monkeypatch):
+    S = _banded(np.random.default_rng(2), 256, 60)
+    t = tgso.as_gso(S, mode="bcsr", device="cpu")
+    calls = _count_calls(monkeypatch)
+    tgso.gshift_register(t, torch.zeros(4, 1, 1, 256), 5)
+    assert calls == {"band_shift_register": 0, "band_matmul": 0,
+                     "bcsr_matmul": 4}
+
+
+def test_as_gso_rejects_unknown_mode():
+    with pytest.raises(ValueError):
+        tgso.as_gso(np.eye(8), mode="edge", device="cpu")
