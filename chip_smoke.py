@@ -28,7 +28,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet rates (on-chip-measurement guide): HBM bandwidth and
+# H100 SXM data-sheet rates: HBM bandwidth and
 # FP32 (non-tensor-core) FMA peak. The kernels run true-f32 FMAs.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
