@@ -3,13 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written SpMM kernels from kernels/csrc with nvcc, holds
-each against its plain PyTorch version at the serving path's shapes and at
-edge cases, times each beside its plain version, one library call and its
-bound, then serves the band_n4096 SelectionGNN (N=4096 banded graph,
-[1,64,64] features, K=5, batch 32) in band and bcsr mode through
-InferenceEngine and checks the answers against dense mode and the kernel
-launch counts. Every phase prints one JSON line; any failure exits
+Builds the hand-written kernels from kernels/csrc with nvcc (one nvcc a
+source, side by side), then drives two serving paths:
+
+* SpMM: holds the three graph-shift kernels against their plain PyTorch
+  versions at the serving path's shapes and at edge cases, times each
+  beside its plain version, one library call and its bound, then serves
+  the band_n4096 SelectionGNN (N=4096 banded graph, [1,64,64] features,
+  K=5, batch 32) in band and bcsr mode through InferenceEngine and checks
+  the answers against dense mode and the kernel launch counts.
+* Attention: holds the two flash-attention kernels (stats, apply) against
+  their plain versions at the served shape and at edge cases, times them
+  beside their bounds, then serves gat_band_n16384 (the band-mode
+  GraphAttentionNetwork, 2 heads, F=G=32, batch 8, N=16384) through
+  InferenceEngine against the materialized band path on the card, checks
+  2 stats + 2 apply launches a forward, serves GAT, GCAT and
+  EdgeVariantAttention at N=2048 against dense mode, and profiles the
+  served forward.
+
+Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
 Needs CUDA and this repository's graph_neural_networks_torch package;
@@ -32,6 +44,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # FP32 (non-tensor-core) FMA peak. The kernels run true-f32 FMAs.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# Special-function units: 16 exp2 results a clock on each SM (CUDA C
+# programming guide, arithmetic instruction throughput, compute capability
+# 9.0), 132 SMs at the 1.98 GHz boost clock behind the 67 TFLOP/s above.
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 # f32 agreement: |got - want| <= RTOL * |want| + ATOL_REL * max|want|.
 # The kernels and their plain versions sum the same products in another
@@ -47,6 +63,17 @@ N_GRAPH = 4096
 BATCH = 32
 REQUESTS = (32, 17, 1, 32)
 TAPS = 5
+
+# gat_band_n16384: experiments/tpu_r2_flashattn.py:74-81 (2 heads,
+# F = G = 32, batch 8, bench.make_graph(16384, 0.01, 256, seed=1)) as the
+# attentionMode="band" GraphAttentionNetwork of
+# experiments/tpu_r2_flash_train.py:53-55
+GAT_N = 16384
+GAT_DIMS = [32, 32, 32]
+GAT_HEADS = [2, 2]
+GAT_BATCH = 8
+GAT_REQUESTS = (8, 5, 1, 8)
+GAT_SMALL_N = 2048   # the RESULTS.md parity point
 
 
 class SmokeFailure(Exception):
@@ -400,8 +427,8 @@ def phase_serving(S_np, rng, dev):
 
 
 def _profile_forward(mode, eng, x, n=10):
-    """Where one served batch-32 forward spends its time: the host clock
-    per forward without the profiler, and device time by kernel from
+    """Where one served forward spends its time: the host clock per
+    forward without the profiler, and device time by kernel from
     torch.profiler over `n` forwards."""
     import torch
     from torch.autograd import DeviceType
@@ -436,11 +463,424 @@ def _profile_forward(mode, eng, x, n=10):
                    calls_per_forward=e.count / n) for e in top])
 
 
+# ---------------------------------------------------------------------------
+# Attention path (flash kernels)
+# ---------------------------------------------------------------------------
+
+def make_graph(N, density, bandwidth, seed=0):
+    """bench.py:make_graph: the banded, non-symmetric graph of the flash
+    attention benchmarks (edges within `bandwidth` of the diagonal)."""
+    rng = np.random.default_rng(seed)
+    S = np.zeros((N, N), np.float32)
+    ii = rng.integers(0, N, size=int(density * N * N))
+    jj = ii + rng.integers(-bandwidth, bandwidth + 1, size=len(ii))
+    ok = (jj >= 0) & (jj < N)
+    S[ii[ok], jj[ok]] = rng.random(ok.sum())
+    return S, int((np.abs(S) > 0).sum())
+
+
+def _attn_case(rng, N, w_target, E=1, bs=128):
+    """E non-symmetric banded GSOs whose block bandwidth is w_target (for
+    w_target = 0, nonzeros inside the diagonal blocks)."""
+    S = np.zeros((E, N, N), np.float32)
+    for e in range(E):
+        ii = rng.integers(0, N, 6 * N)
+        if w_target == 0:
+            jj = ii // bs * bs + rng.integers(0, bs, len(ii))
+        else:
+            jj = ii + rng.integers(1 - w_target * bs, w_target * bs, len(ii))
+        ok = (jj >= 0) & (jj < N)
+        S[e, ii[ok], jj[ok]] = rng.random(ok.sum())
+    return S
+
+
+def _attn_operands(rng, dev, Q, F, N, Np):
+    """Score projections (Q, Np) and signals (Q, F, Np), zero past N."""
+    import torch
+
+    def rand(*shape):
+        t = np.zeros(shape[:-1] + (Np,), np.float32)
+        t[..., :N] = rng.standard_normal(shape[:-1] + (N,))
+        return torch.as_tensor(t, device=dev)
+    return rand(Q, N), rand(Q, N), rand(Q, F, N)
+
+
+def _attention_counts():
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import spmm
+    return {fn.__name__: fn.launches
+            for fn in spmm.KERNEL_WRAPPERS + af.KERNEL_WRAPPERS}
+
+
+def _reset_counts():
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import spmm
+    spmm.reset_launch_counts()
+    af.reset_launch_counts()
+
+
+def phase_attention_kernels(gso, rng, dev):
+    """stats_call and apply_call against their plain versions on the card:
+    at the served shape (layer inputs of gat_band_n16384: Q = 16, F = 32,
+    with_s True and False) and at edge cases."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_band as ab
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check(name, case, got, want, served=False):
+        max_abs, max_rel, ok = compare(got, want)
+        results.append(dict(kernel=name, case=case, max_abs_err=max_abs,
+                            max_rel_err=max_rel,
+                            max_abs_plain=want.abs().max().item(), ok=ok))
+        if served:
+            errs[name] = max(errs.get(name, 0.0), max_abs)
+        require(ok, f"{name} [{case}] disagrees with its plain version: "
+                    f"max abs {max_abs}, max rel {max_rel}")
+
+    def both(case, g, Q, F, served=False, with_s=(True, False)):
+        ibs, w = g.block_size, g.band_w
+        Np = g.s_band.shape[1] * ibs
+        a1, a2, v = _attn_operands(rng, dev, Q, F, g.n, Np)
+        for e, aux in enumerate(af.band_auxes(g)):
+            tag = f"{case} e={e}" if g.E > 1 else case
+            mx, sm = af.stats_call(a1, a2, aux.mask_row, w=w, ibs=ibs)
+            pmx, psm = af.stats_plain(a1, a2, aux.mask_row, w=w, ibs=ibs)
+            check("stats_call", tag + " rowmax", mx, pmx, served)
+            check("stats_call", tag + " rowsum", sm, psm, served)
+            for ws in with_s:
+                args = (a1, a2, v, pmx, psm, aux.slab_col, aux.mask_col)
+                got = af.apply_call(*args, w=w, ibs=ibs, with_s=ws)
+                want = af.apply_plain(*args, w=w, ibs=ibs, with_s=ws)
+                check("apply_call", f"{tag} with_s={ws}", got, want, served)
+                require(bool(torch.isfinite(got).all()),
+                        f"apply_call [{tag}] is not finite")
+
+    both(f"served Q=16 F=32 N={GAT_N} w={gso.band_w}", gso, 16, 32,
+         served=True)
+    cases = [  # (N, w, E, Q, F)
+        (4000, 1, 1, 16, 32),     # ragged N: the last block is partial
+        (2048, 0, 1, 5, 32),      # w = 0: diagonal blocks only
+        (2048, 3, 1, 3, 40),      # w = 3; F past one 32-row pass
+        (1024, 2, 1, 1, 8),       # Q = 1, first and last w blocks
+        (2048, 7, 1, 2, 8),       # w = 7: the stats mask rows need > 48 KB
+        (1500, 1, 2, 4, 16),      # E = 2 with a shared support, ragged
+    ]
+    for N, w, E, Q, F in cases:
+        S = _attn_case(rng, N, w, E)
+        require(not np.allclose(S, np.swapaxes(S, 1, 2)), "S is symmetric")
+        g = gso_lib.as_gso(S, "band", device=dev)
+        both(f"N={N} w={g.band_w} E={E} Q={Q} F={F}", g, Q, F)
+        if E > 1:   # the entry point's edge-feature loop, against the
+            # materialized band path on the card
+            x = torch.as_tensor(rng.standard_normal((2, 6, N)),
+                                dtype=torch.float32, device=dev)
+            a = torch.as_tensor(rng.standard_normal((2, E, 2 * F)) * .3,
+                                dtype=torch.float32, device=dev)
+            W_p = torch.as_tensor(rng.standard_normal((2, E, F, 6)) * .3,
+                                  dtype=torch.float32, device=dev)
+            with torch.inference_mode():
+                got = af.graph_attention_band_flash(
+                    x, a, W_p, af.slab5(g), g.band_w,
+                    auxes=af.band_auxes(g))
+                want = ab.graph_attention_band(x, a, W_p, af.slab5(g),
+                                               g.band_w)
+            max_abs, _, ok = compare(got, want, SERVE_RTOL, SERVE_ATOL_REL)
+            results.append(dict(kernel="graph_attention_band_flash",
+                                case=f"N={N} E={E} vs materialized",
+                                max_abs_err=max_abs, ok=ok))
+            require(ok, f"flash GAT layer (E={E}) disagrees with the "
+                        f"materialized band path: {max_abs}")
+
+    # forward-only: a kernel call that would need a gradient raises (the
+    # plain CPU path differentiates)
+    if dev.type == "cuda":
+        aux = af.band_auxes(gso)[0]
+        a1, a2, v = _attn_operands(rng, dev, 2, 4, GAT_N, GAT_N)
+        try:
+            af.flash_apply(a1.requires_grad_(), a2, v, aux, gso.band_w,
+                           gso.block_size)
+            raise SmokeFailure("flash_apply accepted an input that needs "
+                               "grad")
+        except NotImplementedError:
+            pass
+        torch.cuda.synchronize()
+    emit(phase="attention_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
+         checks=results, seconds=time.perf_counter() - t_phase)
+    return errs
+
+
+def _attention_work(gso, Q, F, with_s=True):
+    """Scores, bytes and operations of one stats and one apply call at
+    (Q, F) on this band layout: dense-tile counts over the window blocks
+    inside the matrix (what the kernels run), and the scores on the S+I
+    support only."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    aux = af.band_auxes(gso)[0]
+    ibs, w = gso.block_size, gso.band_w
+    nb = gso.s_band.shape[1]
+    Np, W = nb * ibs, 2 * w + 1
+    tile = nb * W * ibs * ibs
+    scores = Q * _window_blocks(nb, w) * ibs * ibs
+    support = Q * int(aux.mask_row.sum().item())
+    stats_bytes = 4 * (4 * Q * Np + tile)   # a1, a2, mask_row; max, sum
+    apply_bytes = 4 * (2 * Q * F * Np + 4 * Q * Np + (2 if with_s else 1)
+                       * tile)
+    # per score: the score (add, LeakyReLU, e*m - (1-m)*1e12: 6 flops),
+    # then max, subtract, sum (stats) or subtract, divide, *m, *S and the
+    # 2F aggregation (apply); one exp in either
+    stats_flops, apply_flops = 9, 9 + int(with_s) + 2 * F
+    return dict(scores=scores, support_scores=support,
+                stats=(stats_bytes, stats_flops), apply=(apply_bytes,
+                                                         apply_flops))
+
+
+def _attention_bound(nbytes, flops_per, exps):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops_per * exps / FP32_FLOPS_PER_S,
+                exps / SFU_EXP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_timing(gso, dev):
+    """Each attention kernel at the served shape (Q = 16, F = 32, with_s)
+    beside its plain version and its bound; the flash GAT layer beside the
+    materialized band layer, for scale (no single PyTorch call computes
+    either kernel's function)."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_band as ab
+    from graph_neural_networks_torch.ops import attention_flash as af
+    t_phase = time.perf_counter()
+    Q, F = GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1]
+    ibs, w = gso.block_size, gso.band_w
+    aux = af.band_auxes(gso)[0]
+    a1, a2, v = _attn_operands(np.random.default_rng(5), dev, Q, F, GAT_N,
+                               GAT_N)
+    kw = dict(w=w, ibs=ibs)
+    mx, sm = af.stats_plain(a1, a2, aux.mask_row, **kw)
+    app = (a1, a2, v, mx, sm, aux.slab_col, aux.mask_col)
+    work = _attention_work(gso, Q, F)
+    shape = f"Q={Q} F={F} N={GAT_N} w={w} ibs={ibs}"
+    rows = {
+        "stats_call": dict(
+            shape=shape,
+            ms=time_ms(lambda: af.stats_call(a1, a2, aux.mask_row, **kw)),
+            plain_ms=time_ms(lambda: af.stats_plain(a1, a2, aux.mask_row,
+                                                    **kw), reps=5, inner=2),
+            work=work["stats"]),
+        "apply_call": dict(
+            shape=shape + " with_s",
+            ms=time_ms(lambda: af.apply_call(*app, **kw)),
+            plain_ms=time_ms(lambda: af.apply_plain(*app, **kw), reps=5,
+                             inner=2),
+            work=work["apply"]),
+    }
+    for row in rows.values():
+        # the bound counts the work on the S+I support only: a masked score
+        # adds exactly 0 to the max, the sum and the aggregation, so the
+        # function needs no exp or FMA for it; the dense-tile figure (every
+        # score of every window tile, what the kernels execute) beside it
+        nbytes, flops_per = row.pop("work")
+        row["bound_ms"], row["bound_by"] = _attention_bound(
+            nbytes, flops_per, work["support_scores"])
+        row["bound_ms_dense_tiles"], row["bound_by_dense_tiles"] = (
+            _attention_bound(nbytes, flops_per, work["scores"]))
+        row["bytes"], row["flops"] = nbytes, flops_per * work["support_scores"]
+        row["library_ms"] = None
+    # one GAT layer (B = 8, G = F = 32, 2 heads) both ways, for scale
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(GAT_BATCH, GAT_DIMS[0], GAT_N, generator=g).to(dev)
+    a = (torch.randn(2, 1, 2 * F, generator=g) * .1).to(dev)
+    W_p = (torch.randn(2, 1, F, GAT_DIMS[0], generator=g) * .1).to(dev)
+    s5 = af.slab5(gso)
+    with torch.inference_mode():
+        flash_layer_ms = time_ms(lambda: af.graph_attention_band_flash(
+            x, a, W_p, s5, w, auxes=af.band_auxes(gso)), reps=10, inner=3)
+        torch.cuda.reset_peak_memory_stats()
+        band_layer_ms = time_ms(lambda: ab.graph_attention_band(
+            x, a, W_p, s5, w), reps=5, inner=1)
+        band_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit(phase="attention_timing", rows=rows, scores=work["scores"],
+         support_scores=work["support_scores"],
+         peaks=dict(hbm_tb_s=HBM_BYTES_PER_S / 1e12,
+                    fp32_tflops=FP32_FLOPS_PER_S / 1e12,
+                    sfu_texp_s=SFU_EXP_PER_S / 1e12),
+         library="none: no single PyTorch call computes either function",
+         flash_gat_layer_ms=flash_layer_ms,
+         materialized_band_gat_layer_ms=band_layer_ms,
+         materialized_band_layer_peak_gb=band_peak_gb,
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def _build_gat(cls_name, S, mode, dev, dims=GAT_DIMS, heads=GAT_HEADS,
+               taps=None):
+    import torch
+    from graph_neural_networks_torch.models import architectures as archs
+    N = S.shape[0]
+    L = len(dims) - 1
+    common = dict(attentionMode=mode, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    if cls_name == "GraphAttentionNetwork":
+        return archs.GraphAttentionNetwork(
+            dims, heads, "relu", [N] * L, "NoPool", [1] * L, [4], True, S,
+            **common)
+    return getattr(archs, cls_name)(
+        dims, taps, heads, True, "relu", [N] * L, "NoPool", [1] * L, [4], S,
+        **common)
+
+
+def _materialized_forward(arch, x):
+    """A served GAT through the port's materialized band attention
+    (ops/attention_band.py), layer by layer with the model's weights:
+    (readout output, last attention layer's output)."""
+    import torch
+    from graph_neural_networks_torch.models.layers import _heads_out
+    from graph_neural_networks_torch.ops import attention_band as ab
+    from graph_neural_networks_torch.ops import attention_flash as af
+    S = arch.S
+    with torch.inference_mode():
+        x = torch.as_tensor(x, device=arch.device)[:, :, arch.ctx["order_map"]]
+        for layer in arch.core.filters:
+            y = ab.graph_attention_band(x, layer.mixer, layer.weight,
+                                        af.slab5(S), S.band_w)
+            x = _heads_out(y, layer.nonlinearity, layer.concatenate)
+        return arch.core.readout(x.reshape(x.shape[0], -1)), x
+
+
+def phase_attention_serving(rng, dev):
+    """Serve gat_band_n16384 (the main path of this phase) and check it
+    against the materialized band path on the card; then GAT, GCAT and
+    EdgeVariantAttention at N = 2048 against dense mode."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    S, nnz = make_graph(GAT_N, 0.01, 256, seed=1)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch = _build_gat("GraphAttentionNetwork", S, "band", dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    # the band structure's build time, on a copy thrown away: the engine
+    # builds the model's own at its first request
+    t0 = time.perf_counter()
+    spare = af._auxes(af.slab5(arch.S), arch.S.band_w)
+    torch.cuda.synchronize()
+    t_aux = time.perf_counter() - t0
+    del spare
+    eng = InferenceEngine(arch, GAT_BATCH, dev)
+    require(getattr(arch.S, "_band_auxes", None) is None,
+            "the band structure was built before the first request")
+    emit(phase="attention_graph", N=GAT_N, nnz=nnz, band_w=arch.S.band_w,
+         nb=arch.S.s_band.shape[1], host_seconds_make_graph=t_graph,
+         host_seconds_build_model=t_build, seconds_band_aux=t_aux)
+    requests = [rng.standard_normal((n, GAT_DIMS[0], GAT_N)).astype(
+        np.float32) for n in GAT_REQUESTS]
+
+    # the main path: counts set to 0 just before, read just after
+    _reset_counts()
+    t0 = time.perf_counter()
+    answers = [eng(requests[0])]
+    torch.cuda.synchronize()
+    seconds_first = time.perf_counter() - t0   # band structure built here
+    t0 = time.perf_counter()
+    answers += [eng(x) for x in requests[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _attention_counts()
+    auxes = getattr(eng.arch.S, "_band_auxes", None)
+    require(eng.arch.S is arch.S and auxes is not None
+            and not any(t.is_inference() for aux in auxes for t in aux),
+            "the first request did not cache the band structure on the "
+            "model's GSO outside inference mode")
+    per_forward = {k: v / len(GAT_REQUESTS) for k, v in counts.items()}
+    expected = {k: 0 for k in counts}
+    expected.update(stats_call=2, apply_call=2)
+    require(per_forward == expected,
+            f"gat_band_n16384: launches per forward {per_forward}, "
+            f"expected {expected}")
+    checks = []
+
+    def check(model, x, against, got, want, **extra):
+        """Readout outputs and last attention layer outputs (the
+        readout's 65536-input sum can round small errors away)."""
+        for what, g, w in zip(("y", "y_gfl"), got, want):
+            max_abs, max_rel, ok = compare(g, w, SERVE_RTOL, SERVE_ATOL_REL)
+            checks.append(dict(model=model, batch=x.shape[0], output=what,
+                               against=against, max_abs_err=max_abs,
+                               max_rel_err=max_rel,
+                               max_abs_ref=w.abs().max().item(), ok=ok,
+                               **extra))
+            require(ok, f"{model} batch {x.shape[0]}: {what} disagrees with "
+                        f"{against}: {max_abs}")
+
+    for x, y in zip(requests, answers):
+        require(tuple(y.shape) == (x.shape[0], 4) and y.dtype ==
+                torch.float32 and bool(torch.isfinite(y).all()),
+                f"gat_band_n16384: output {tuple(y.shape)}")
+        with torch.inference_mode():
+            gfl = eng.arch.split_forward(x)[1]
+        check("gat_band_n16384", x, "materialized band", (y, gfl),
+              _materialized_forward(eng.arch, x))
+    emit(phase="attention_serving", model="gat_band_n16384",
+         requests=list(GAT_REQUESTS), seconds_first_request=seconds_first,
+         seconds_other_requests=seconds, launches=counts,
+         launches_per_forward=per_forward)
+    launches = dict(counts)
+
+    # N = 2048: band mode against dense mode, same weights
+    S2, _ = make_graph(GAT_SMALL_N, 0.01, 256, seed=1)
+    small = [("GraphAttentionNetwork", GAT_DIMS, GAT_HEADS, None),
+             ("GraphConvolutionAttentionNetwork", [64, 16, 16], [2, 2],
+              [3, 2]),
+             ("EdgeVariantAttention", [32, 16], [2], [3])]
+    for cls_name, dims, heads, taps in small:
+        engines = {m: InferenceEngine(
+            _build_gat(cls_name, S2, m, dev, dims, heads, taps), GAT_BATCH,
+            dev) for m in ("band", "dense")}
+        require(all(torch.equal(p, q) for p, q in zip(
+            engines["band"].arch.parameters(),
+            engines["dense"].arch.parameters())),
+            f"{cls_name}: band and dense weights differ")
+        xs = [rng.standard_normal((n, dims[0], GAT_SMALL_N)).astype(
+            np.float32) for n in (GAT_BATCH, 3)]
+        _reset_counts()
+        got = [engines["band"](x) for x in xs]
+        counts = _attention_counts()
+        require(counts["stats_call"] > 0 and counts["apply_call"] > 0,
+                f"{cls_name}: the band model launched no attention kernel")
+        for x, y in zip(xs, got):
+            with torch.inference_mode():
+                gfl = engines["band"].arch.split_forward(x)[1]
+                want = engines["dense"].arch.split_forward(x)
+            check(f"{cls_name} N={GAT_SMALL_N}", x, "dense", (y, gfl),
+                  want, launches=counts)
+    emit(phase="attention_serving_check", rtol=SERVE_RTOL,
+         atol=f"{SERVE_ATOL_REL}*max|reference|", checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    return eng, requests[0], launches
+
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
     "bcsr_matmul": "graph_neural_networks_tpu/ops/spmm.py:151",
+    "stats_call": "graph_neural_networks_tpu/ops/attention_flash.py:212",
+    "apply_call": "graph_neural_networks_tpu/ops/attention_flash.py:234",
 }
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(phase="phase_seconds", of=name, seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -463,7 +903,7 @@ def main() -> int:
     try:
         dev = resolve_device("cuda")
         card = phase_device()
-        phase_build()
+        timed("build", phase_build)
         rng = np.random.default_rng(0)
         t0 = time.perf_counter()
         S_np = banded_graph(rng, N_GRAPH, 256, 0.05)
@@ -473,9 +913,23 @@ def main() -> int:
              slab=list(graph["band"].s_band.shape[1:]),
              nnzb=int(graph["bcsr"].blocks.shape[1]),
              seconds=time.perf_counter() - t0)
-        errs = phase_kernels(graph, np.random.default_rng(1), dev)
-        rows = phase_timing(graph, dev)
-        launches = phase_serving(S_np, np.random.default_rng(3), dev)
+        errs = timed("kernels", phase_kernels, graph,
+                     np.random.default_rng(1), dev)
+        rows = timed("timing", phase_timing, graph, dev)
+        launches = timed("serving", phase_serving, S_np,
+                         np.random.default_rng(3), dev)
+        eng, x8, attn_launches = timed(
+            "attention_serving", phase_attention_serving,
+            np.random.default_rng(4), dev)
+        launches.update({k: v for k, v in attn_launches.items()
+                         if k in ("stats_call", "apply_call")})
+        gso = eng.arch.S
+        errs.update(timed("attention_kernels", phase_attention_kernels, gso,
+                          np.random.default_rng(6), dev))
+        rows.update(timed("attention_timing", phase_attention_timing, gso,
+                          dev))
+        timed("attention_profile", _profile_forward, "gat_band_n16384", eng,
+              x8)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -486,11 +940,14 @@ def main() -> int:
                   "path", file=sys.stderr)
             return 1
     summary = []
-    for name in ("bcsr_matmul", "band_shift_register", "band_matmul"):
+    for name in ("bcsr_matmul", "band_shift_register", "band_matmul",
+                 "stats_call", "apply_call"):
         row = rows["bcsr_matmul@R=2048" if name == "bcsr_matmul" else name]
+        source = ("attention_flash.cu" if name in ("stats_call", "apply_call")
+                  else "spmm.cu")
         summary.append(dict(
             name=name, route="cuda",
-            source="graph_neural_networks_torch/kernels/csrc/spmm.cu",
+            source=f"graph_neural_networks_torch/kernels/csrc/{source}",
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=errs[name], ms=row["ms"], kernel_ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

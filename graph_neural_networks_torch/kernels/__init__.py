@@ -1,7 +1,9 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written CUDA kernels, and the
+helpers every kernel wrapper shares.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc -c`` per source, all started together, then
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at the first CUDA call that needs it, never
 at import, into ``kernels/build/<source hash>/`` (listed in .gitignore), so
 a CPU-only machine imports the package without a compiler.
@@ -17,15 +19,18 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
-SOURCES = ("spmm.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("spmm.cu", "attention_flash.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each launcher in csrc/spmm.cu; all return cudaError_t.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each launcher in csrc/; all return cudaError_t.
 _SIGNATURES = {
     # x, s_band, y, R, N, n_cols, nb, w, bs, stream
     "gnt_band_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -33,6 +38,12 @@ _SIGNATURES = {
     "gnt_bcsr_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, s_band, out, R, N, nb, w, bs, K, stream
     "gnt_band_register": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope, stream
+    "gnt_attn_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w,
+    # ibs, with_s, slope, stream
+    "gnt_attn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _F, _P),
 }
 
 
@@ -52,31 +63,45 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[str, str, float]:
     """Compile the sources if this hash is not built yet.
 
     Returns (library path, nvcc's output with the -Xptxas -v resource
     report, build seconds); seconds is 0.0 when the library was already
-    there. The library is written under a temporary name and renamed, so
-    concurrent processes never load a half-written file.
+    there. Each source compiles in its own nvcc process, all at once; the
+    library is linked under a temporary name and renamed, so concurrent
+    processes never load a half-written file.
     """
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib = os.path.join(out_dir, "libgnt_kernels.so")
     if os.path.exists(lib):
         return lib, "", 0.0
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr, time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o,
+                         os.path.join(CSRC, s)]
+                        for s, o in zip(SOURCES, objs)])
+        tmp = os.path.join(tmp_dir, "lib.so")
+        log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+                          *objs]])
+        os.replace(tmp, lib)
+    return lib, log, time.perf_counter() - t0
 
 
 @functools.cache
@@ -98,3 +123,36 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().gnt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
+
+
+def on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True when a wrapper's call goes to its kernel (x on CUDA), False for
+    its plain version (x on the CPU). Raises on mixed devices and on a
+    call that would need a gradient through the kernel."""
+    for t in others:
+        if t.device != x.device:
+            raise ValueError(f"{name}: inputs on {x.device} and {t.device}")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *others)):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward-only; gradients through it "
+            "come with the training slice of the port")
+    return True
+
+
+def check_inputs(name: str, **tensors) -> None:
+    """Raise unless each ``arg=(tensor, dtype)`` has that dtype and is
+    contiguous (what the kernels take)."""
+    for arg, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def stream() -> int:
+    """The current CUDA stream, as the launchers take it."""
+    return torch.cuda.current_stream().cuda_stream

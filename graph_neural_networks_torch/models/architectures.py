@@ -1,7 +1,9 @@
-"""Architectures: SelectionGNN and LocalGNN on the shared convolutional
-core.
+"""Architectures: SelectionGNN, LocalGNN and the attention family
+(GraphAttentionNetwork, GraphConvolutionAttentionNetwork,
+EdgeVariantAttention) on the shared convolutional core.
 
-The port of the JAX package's ``models/architectures.py`` for this slice.
+The port of the JAX package's ``models/architectures.py`` for the ported
+slices.
 As there, each architecture is a host-side wrapper that (1) orders the
 nodes, (2) precomputes the structure tables (GSO layout, input gather map,
 pooling neighborhoods) once into ``ctx``, and (3) owns a core module whose
@@ -28,8 +30,12 @@ from graph_neural_networks_torch.ops import gso as gso_lib
 from graph_neural_networks_torch.utils import graph as gt
 from graph_neural_networks_torch.utils.device import resolve_device
 
-__all__ = ["SelectionGNN", "LocalGNN", "resolve_activation", "TorchDense",
-           "MLP"]
+__all__ = ["SelectionGNN", "LocalGNN", "GraphAttentionNetwork",
+           "GraphConvolutionAttentionNetwork", "EdgeVariantAttention",
+           "resolve_activation", "TorchDense", "MLP"]
+
+ATTENTION_KINDS = ("gat", "gcat", "ev_attention")
+ATTENTION_MODES = ("dense", "band")
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -122,17 +128,24 @@ def _as_tuple(x):
 
 class _ConvCore(nn.Module):
     """Stack of graph-filter layers plus readout. Ported kinds: graph_filter
-    filters, pointwise activations, no_pool/max_local pooling, mlp/per_node
-    readout; the others of the JAX core raise NotImplementedError."""
+    and the attention filters (gat, gcat, ev_attention), pointwise
+    activations, no_pool/max_local pooling, mlp/per_node readout; the
+    others of the JAX core raise NotImplementedError.
+
+    taps: K per layer (heads for gat); taps2: heads per layer for gcat and
+    ev_attention. Attention layers grow the features by concatenating
+    their heads on inner layers (g_in = F[l] * heads[l-1]), average them on
+    the last, and apply the nonlinearity themselves.
+    """
 
     def __init__(self, *, filter_kind: str, dims: tuple, taps: tuple,
-                 n_nodes: tuple, sigma: Callable, act_kind: str = "pointwise",
-                 pool_kind: str = "max_local", readout_dims: tuple = (),
-                 readout_kind: str = "mlp", use_bias: bool = True,
-                 edge_features: int = 1, generator: torch.Generator,
-                 device):
+                 n_nodes: tuple, sigma: Callable, taps2: tuple = (),
+                 act_kind: str = "pointwise", pool_kind: str = "max_local",
+                 readout_dims: tuple = (), readout_kind: str = "mlp",
+                 use_bias: bool = True, edge_features: int = 1,
+                 generator: torch.Generator, device):
         super().__init__()
-        if filter_kind != "graph_filter":
+        if filter_kind not in ("graph_filter",) + ATTENTION_KINDS:
             raise NotImplementedError(
                 f"filter kind {filter_kind!r} is not ported yet")
         if act_kind != "pointwise":
@@ -144,18 +157,34 @@ class _ConvCore(nn.Module):
         if readout_kind not in ("mlp", "per_node"):
             raise NotImplementedError(
                 f"readout kind {readout_kind!r} is not ported yet")
-        self.dims, self.taps, self.n_nodes = dims, taps, n_nodes
+        self.filter_kind = filter_kind
+        self.dims, self.taps, self.taps2 = dims, taps, taps2
+        self.n_nodes = n_nodes
         self.sigma = sigma
         self.pool_kind, self.readout_kind = pool_kind, readout_kind
-        L = len(taps)
         self.filters = nn.ModuleList(
-            gll.GraphFilter(dims[l], dims[l + 1], taps[l], edge_features,
-                            use_bias, generator=generator, device=device)
-            for l in range(L))
+            self._make_filter(l, use_bias, edge_features, generator, device)
+            for l in range(len(taps)))
         readout_in = (dims[-1] * n_nodes[-1] if readout_kind == "mlp"
                       else dims[-1])
         self.readout = MLP(readout_in, readout_dims, sigma, use_bias,
                            generator=generator, device=device)
+
+    def _make_filter(self, l, use_bias, E, generator, device) -> nn.Module:
+        F, K, kind = self.dims, self.taps, self.filter_kind
+        made = dict(generator=generator, device=device)
+        if kind == "graph_filter":
+            return gll.GraphFilter(F[l], F[l + 1], K[l], E, use_bias, **made)
+        heads = K if kind == "gat" else self.taps2
+        g_in = F[l] if l == 0 else F[l] * heads[l - 1]
+        concat = l < len(K) - 1
+        if kind == "gat":
+            return gll.GraphAttentional(g_in, F[l + 1], heads[l], E,
+                                        self.sigma, concat, **made)
+        layer = (gll.GraphFilterAttentional if kind == "gcat"
+                 else gll.EdgeVariantAttentional)
+        return layer(g_in, F[l + 1], K[l], heads[l], E, use_bias, self.sigma,
+                     concat, **made)
 
     def _pool(self, l: int, x, ctx):
         if self.pool_kind == "no_pool":
@@ -172,7 +201,8 @@ class _ConvCore(nn.Module):
         x = torch.where(idx >= 0, x[:, :, idx.clamp(min=0)], 0.0)
         for l, graph_filter in enumerate(self.filters):
             x = graph_filter(x, ctx["S"])
-            x = self.sigma(x)
+            if self.filter_kind == "graph_filter":
+                x = self.sigma(x)   # attention layers apply it inside
             x = self._pool(l, x, ctx)
         y_gfl = x
         if self.readout_kind == "mlp":
@@ -256,25 +286,38 @@ def _pool_tables(S_np, N_list, alpha, L, device):
 
 
 class _SelectionBase(_ArchBase):
-    """Shared build of SelectionGNN and LocalGNN: ordering, GSO layout,
-    pooling tables, core."""
+    """Shared build of the Selection-GNN-shaped architectures: ordering,
+    GSO layout, pooling tables, core. The attention family builds its GSO
+    in ``attentionMode`` ('dense', or 'band' for the flash kernels)."""
 
     readout_kind = "mlp"
+    filter_kind = "graph_filter"
 
     def __init__(self, dims, taps, bias, nonlinearity, nSelectedNodes,
                  poolingFunction, poolingSize, readout_dims, GSO, order,
-                 gsoMode, device, generator):
+                 gsoMode, device, generator, taps2=(),
+                 attentionMode="dense"):
         GSO = _normalize_gso(GSO)
         if len(dims) != len(taps) + 1:
             raise ValueError(f"{len(dims)} signal dims for {len(taps)} layers")
+        if attentionMode == "edge":
+            raise NotImplementedError(
+                "attentionMode='edge' (the edge-list attention of "
+                "ops/attention_sparse.py) is not ported yet (ROADMAP queue 1 "
+                "item 8)")
+        if attentionMode not in ATTENTION_MODES:
+            raise ValueError(f"unknown attentionMode {attentionMode!r}; one "
+                             f"of {ATTENTION_MODES} ('edge' not ported)")
         self.device = resolve_device(device)
         self._cfg = dict(bias=bias, sigma=resolve_activation(nonlinearity),
                          dims=_as_tuple(dims), taps=_as_tuple(taps),
+                         taps2=_as_tuple(taps2),
                          readout=_as_tuple(readout_dims),
                          pool=_resolve_pool(poolingFunction))
         self.E = GSO.shape[0]
         self.order_name = order
-        self.gso_mode = gsoMode
+        self.gso_mode = (attentionMode if self.filter_kind in ATTENTION_KINDS
+                         else gsoMode)
         self.core = None
         self._generator = (torch.Generator().manual_seed(0)
                            if generator is None else generator)
@@ -299,8 +342,9 @@ class _SelectionBase(_ArchBase):
         }
         if self.core is None:
             self.core = _ConvCore(
-                filter_kind="graph_filter", dims=cfg["dims"],
-                taps=cfg["taps"], n_nodes=tuple(N_list), sigma=cfg["sigma"],
+                filter_kind=self.filter_kind, dims=cfg["dims"],
+                taps=cfg["taps"], taps2=cfg["taps2"],
+                n_nodes=tuple(N_list), sigma=cfg["sigma"],
                 pool_kind=pool_kind, readout_dims=cfg["readout"],
                 readout_kind=self.readout_kind, use_bias=cfg["bias"],
                 edge_features=self.E, generator=self._generator,
@@ -360,3 +404,58 @@ class LocalGNN(_SelectionBase):
         super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
                          nSelectedNodes, poolingFunction, poolingSize,
                          dimReadout, GSO, order, "dense", device, generator)
+
+
+class GraphAttentionNetwork(_SelectionBase):
+    """GAT stack: heads concatenated on inner layers, averaged on the last.
+    Reference: architectures.py:3575-3814.
+
+    attentionMode: 'dense' (torch.einsum over the (B,P,E,N,N)
+    coefficients) or 'band' (the flash attention kernels on a CUDA
+    device; their plain versions on the CPU); 'edge' is not ported yet.
+    """
+
+    filter_kind = "gat"
+
+    def __init__(self, dimNodeSignals, nAttentionHeads, nonlinearity,
+                 nSelectedNodes, poolingFunction, poolingSize, dimLayersMLP,
+                 bias, GSO, order=None, attentionMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nAttentionHeads, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         attentionMode=attentionMode)
+
+
+class GraphConvolutionAttentionNetwork(_SelectionBase):
+    """GCAT stack (K-tap filters over the learned attention GSO).
+    Reference: architectures.py:3815-4087. attentionMode as
+    GraphAttentionNetwork."""
+
+    filter_kind = "gcat"
+
+    def __init__(self, dimNodeSignals, nFilterTaps, nAttentionHeads, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, attentionMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         taps2=nAttentionHeads, attentionMode=attentionMode)
+
+
+class EdgeVariantAttention(_SelectionBase):
+    """Edge-variant filters parameterized by per-hop attention.
+    Reference: architectures.py:4088-4356. attentionMode as
+    GraphAttentionNetwork."""
+
+    filter_kind = "ev_attention"
+
+    def __init__(self, dimNodeSignals, nFilterTaps, nAttentionHeads, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, attentionMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         taps2=nAttentionHeads, attentionMode=attentionMode)

@@ -1,0 +1,413 @@
+"""Flash banded attention: the band-mode GAT family with the attention
+coefficients alpha never in device memory.
+
+The port of the JAX package's ``ops/attention_flash.py``, forward only.
+Scores are recomputed tile by tile in two kernels
+(``kernels/csrc/attention_flash.cu``), each behind a wrapper:
+
+  * :func:`stats_call` -- per row: the rowmax and exp-rowsum of the masked
+    LeakyReLU scores over the row's column window (softmax denominators).
+  * :func:`apply_call` -- per output column block: alpha re-derived from
+    (a1x, a2x, stats), times the band slab (or not: GCAT shifts with alpha
+    alone), aggregated over v.
+
+Orientation matches the reference (graphML.py:713, 807): score
+e_ij = LeakyReLU(a2.Wx_i + a1.Wx_j), softmax over each ROW i's column
+window, output at column m aggregates alpha-weighted rows. Masking keeps
+the reference arithmetic: e*mask - (1-mask)*1e12, then alpha*mask.
+
+A wrapper runs its ``*_plain`` version when its inputs lie on the CPU and
+launches its kernel when they lie on a CUDA device; it never falls back
+from one to the other. Each launch adds one to the wrapper's ``launches``
+count. With grad enabled and an input that requires grad, the CUDA path
+raises NotImplementedError (the backward kernel comes with training).
+
+The band structure (:class:`BandAux`: the slab in the column-window
+layout and the S+I support in the column- and row-window layouts) is built
+once per band-mode ``Gso`` by :func:`band_auxes`, on the Gso's device, and
+cached on the Gso (the JAX functions rebuild it inside every call); the
+entry points take it as the required ``auxes=``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from graph_neural_networks_torch import kernels
+
+INFINITE = 1e12  # reference's additive -inf (graphML.py:73)
+
+# Output column tile of the apply kernel (kCT in attention_flash.cu): the
+# CUDA path needs the block size ibs to be a multiple of it.
+TILE_N = 64
+
+
+# ---------------------------------------------------------------------------
+# Band structure
+# ---------------------------------------------------------------------------
+
+def _diag_win(t: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., nb, W, p, q) -> out[r, k] = t[r + k - w, k] (zeros beyond)."""
+    nb, W = t.shape[-4], t.shape[-3]
+    tp = nn.functional.pad(t, (0, 0, 0, 0, 0, 0, w, w))
+    return torch.stack([tp[..., k:k + nb, k, :, :] for k in range(W)],
+                       dim=-3)
+
+
+class BandAux(NamedTuple):
+    """Static band-structure operands of :func:`flash_apply`.
+
+    slab_col : (nb, W, ibs, ibs) -- slab_col[j, k] = S[rows j+k-w, cols j]
+    mask_col : the support of S+I as 0/1 floats, in the same layout
+    mask_row : (nb, W, ibs, ibs) -- mask_row[i, k] = the support at
+               [rows i, cols i+k-w]
+    """
+    slab_col: torch.Tensor
+    mask_col: torch.Tensor
+    mask_row: torch.Tensor
+
+
+def make_support(slab5: torch.Tensor, w: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """S+I support shared across edge features, column layout: 0/1
+    (nb, W, ibs, ibs) from the (E, nb, W, ibs, ibs) slab."""
+    ibs = slab5.shape[3]
+    sup = slab5.abs().sum(0) > 1e-9
+    sup[:, w] |= torch.eye(ibs, dtype=torch.bool, device=slab5.device)
+    return sup.to(dtype)
+
+
+def make_aux(slab5_e: torch.Tensor, support: torch.Tensor, w: int) -> BandAux:
+    """BandAux for ONE edge feature's slab (nb, W, ibs, ibs); `support`
+    from :func:`make_support`."""
+    mask_row = _diag_win(torch.flip(support, dims=(-3,)), w)
+    return BandAux(slab5_e.contiguous(), support, mask_row)
+
+
+def _auxes(slab5: torch.Tensor, w: int) -> list:
+    """Per-edge-feature BandAux list (shared S+I support)."""
+    support = make_support(slab5, w, slab5.dtype)
+    return [make_aux(slab5[e], support, w) for e in range(slab5.shape[0])]
+
+
+def slab5(gso) -> torch.Tensor:
+    """A band-mode Gso's slab as (E, nb, W, ibs, ibs) (a view)."""
+    E, nb, Wibs, ibs = gso.s_band.shape
+    return gso.s_band.view(E, nb, Wibs // ibs, ibs, ibs)
+
+
+def band_auxes(gso) -> list:
+    """The per-edge-feature BandAux of a band-mode Gso, built on first use
+    on the Gso's device and cached on it (3 (nb, W, ibs, ibs) tensors a
+    feature, 126 MB at N = 16384).
+
+    Built outside inference mode even when first asked for inside it (as
+    ``InferenceEngine`` does at its first request): the cache outlives the
+    request, and a later forward with grad enabled saves it for backward.
+    """
+    auxes = getattr(gso, "_band_auxes", None)
+    if auxes is None:
+        with torch.inference_mode(False):
+            auxes = gso._band_auxes = _auxes(slab5(gso), gso.band_w)
+    return auxes
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def _win(vb: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., nb, ibs) -> (..., nb, W, ibs): out[r, k] = vb[r + k - w]
+    (zeros beyond the ends)."""
+    nb = vb.shape[-2]
+    vp = nn.functional.pad(vb, (0, 0, w, w))
+    return torch.stack([vp[..., k:k + nb, :] for k in range(2 * w + 1)],
+                       dim=-2)
+
+
+def _masked_scores(a2, a1, m, slope):
+    e = nn.functional.leaky_relu(a2 + a1, negative_slope=slope)
+    return e * m - (1.0 - m) * INFINITE
+
+
+def stats_plain(a1x: torch.Tensor, a2x: torch.Tensor,
+                mask_row: torch.Tensor, *, w: int, ibs: int,
+                slope: float = 0.2):
+    """(rowmax, rowsum), each (Q, Np): the max and the exp-sum of each
+    row's masked scores over its column window. a1x, a2x (Q, Np);
+    mask_row (nb, W, ibs, ibs)."""
+    Q, Np = a1x.shape
+    nb = Np // ibs
+    a1w = _win(a1x.reshape(Q, nb, ibs), w)                # Q, nb, W, ibs
+    a2b = a2x.reshape(Q, nb, 1, ibs, 1)
+    e = _masked_scores(a2b, a1w[:, :, :, None, :], mask_row[None], slope)
+    mx = e.amax(dim=(2, 4))                               # Q, nb, ibs
+    sm = torch.exp(e - mx[:, :, None, :, None]).sum(dim=(2, 4))
+    return mx.reshape(Q, Np), sm.reshape(Q, Np)
+
+
+def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+                rowmax: torch.Tensor, rowsum: torch.Tensor,
+                slab_col: torch.Tensor, mask_col: torch.Tensor, *, w: int,
+                ibs: int, with_s: bool = True,
+                slope: float = 0.2) -> torch.Tensor:
+    """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha re-derived from
+    (a1x, a2x, rowmax, rowsum); v (Q, F, Np), the rest (Q, Np) and
+    (nb, W, ibs, ibs)."""
+    Q, F, Np = v.shape
+    nb = Np // ibs
+
+    def rows(t):   # (Q, Np) -> (Q, nb, W, ibs, 1): the window's rows
+        return _win(t.reshape(Q, nb, ibs), w)[..., None]
+
+    e = _masked_scores(rows(a2x), a1x.reshape(Q, nb, 1, 1, ibs),
+                       mask_col[None], slope)             # Q, nb, W, p, c
+    al = (torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30)
+          * mask_col[None])
+    coeff = al * slab_col[None] if with_s else al
+    vw = _win(v.reshape(Q, F, nb, ibs), w)                # Q, F, nb, W, p
+    y = torch.einsum("qjkpc,qfjkp->qfjc", coeff, vw)
+    return y.reshape(Q, F, Np)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_band(name: str, Np: int, w: int, ibs: int, **tiles) -> int:
+    if Np % ibs:
+        raise ValueError(f"{name}: Np={Np} is not a multiple of ibs={ibs}")
+    nb = Np // ibs
+    for arg, t in tiles.items():
+        if tuple(t.shape) != (nb, 2 * w + 1, ibs, ibs):
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} does not fit "
+                             f"nb={nb}, w={w}, ibs={ibs}")
+    return nb
+
+
+def _check_tile(name: str, ibs: int) -> None:
+    if ibs % TILE_N:
+        raise ValueError(f"{name}: the CUDA kernel needs ibs a multiple of "
+                         f"{TILE_N}, got {ibs}")
+
+
+def stats_call(a1x: torch.Tensor, a2x: torch.Tensor, mask_row: torch.Tensor,
+               *, w: int, ibs: int, slope: float = 0.2):
+    """Row softmax stats of the masked band scores: (rowmax, rowsum), each
+    (Q, Np), from a1x, a2x (Q, Np) and mask_row (nb, W, ibs, ibs).
+
+    CUDA kernel: ``attn_stats_kernel`` in kernels/csrc/attention_flash.cu,
+    replacing the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_stats_call``.
+    """
+    Q, Np = a1x.shape
+    if tuple(a2x.shape) != (Q, Np):
+        raise ValueError(f"stats_call: a1x {tuple(a1x.shape)} vs a2x "
+                         f"{tuple(a2x.shape)}")
+    nb = _check_band("stats_call", Np, w, ibs, mask_row=mask_row)
+    if not kernels.on_cuda("stats_call", a1x, a2x, mask_row):
+        return stats_plain(a1x, a2x, mask_row, w=w, ibs=ibs, slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("stats_call", a1x=(a1x, f32), a2x=(a2x, f32),
+                         mask_row=(mask_row, f32))
+    _check_tile("stats_call", ibs)
+    rowmax = torch.empty((Q, Np), dtype=f32, device=a1x.device)
+    rowsum = torch.empty((Q, Np), dtype=f32, device=a1x.device)
+    if Q == 0:
+        return rowmax, rowsum
+    err = kernels.library().gnt_attn_stats(
+        a1x.data_ptr(), a2x.data_ptr(), mask_row.data_ptr(),
+        rowmax.data_ptr(), rowsum.data_ptr(), Q, Np, nb, w, ibs, slope,
+        kernels.stream())
+    kernels.check(err, "stats_call")
+    stats_call.launches += 1
+    return rowmax, rowsum
+
+
+stats_call.launches = 0
+
+
+def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+               rowmax: torch.Tensor, rowsum: torch.Tensor,
+               slab_col: torch.Tensor, mask_col: torch.Tensor, *, w: int,
+               ibs: int, with_s: bool = True,
+               slope: float = 0.2) -> torch.Tensor:
+    """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha recomputed tile
+    by tile from a1x, a2x and the stats of :func:`stats_call`.
+
+    CUDA kernel: ``attn_apply_kernel`` in kernels/csrc/attention_flash.cu,
+    replacing the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_apply_call``.
+    """
+    Q, F, Np = v.shape
+    for arg, t in (("a1x", a1x), ("a2x", a2x), ("rowmax", rowmax),
+                   ("rowsum", rowsum)):
+        if tuple(t.shape) != (Q, Np):
+            raise ValueError(f"apply_call: {arg} {tuple(t.shape)} does not "
+                             f"fit v {tuple(v.shape)}")
+    nb = _check_band("apply_call", Np, w, ibs, slab_col=slab_col,
+                     mask_col=mask_col)
+    operands = (a1x, a2x, v, rowmax, rowsum, slab_col, mask_col)
+    if not kernels.on_cuda("apply_call", *operands):
+        return apply_plain(*operands, w=w, ibs=ibs, with_s=with_s,
+                           slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("apply_call", a1x=(a1x, f32), a2x=(a2x, f32),
+                         v=(v, f32), rowmax=(rowmax, f32),
+                         rowsum=(rowsum, f32), slab_col=(slab_col, f32),
+                         mask_col=(mask_col, f32))
+    _check_tile("apply_call", ibs)
+    y = torch.empty((Q, F, Np), dtype=f32, device=v.device)
+    if Q == 0 or F == 0:
+        return y
+    err = kernels.library().gnt_attn_apply(
+        *(t.data_ptr() for t in operands), y.data_ptr(), Q, F, Np, nb, w,
+        ibs, int(with_s), slope, kernels.stream())
+    kernels.check(err, "apply_call")
+    apply_call.launches += 1
+    return y
+
+
+apply_call.launches = 0
+
+
+KERNEL_WRAPPERS = (stats_call, apply_call)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def flash_apply(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+                aux: BandAux, w: int, ibs: int, with_s: bool = True,
+                slope: float = 0.2) -> torch.Tensor:
+    """y = v @ (S * alpha(a1x, a2x)) on the band, alpha never materialized.
+
+    a1x, a2x: (Q, Np) score projections (Np = nb*ibs, zero-padded);
+    v: (Q, F, Np) signals; aux: the band structure; with_s=False shifts
+    with alpha alone (the GCAT convention, reference graphML.py:876-879).
+    Returns (Q, F, Np). Forward only: the stats kernel, then the apply
+    kernel (CPU tensors: their plain versions).
+    """
+    rowmax, rowsum = stats_call(a1x, a2x, aux.mask_row, w=w, ibs=ibs,
+                                slope=slope)
+    return apply_call(a1x, a2x, v, rowmax, rowsum, aux.slab_col,
+                      aux.mask_col, w=w, ibs=ibs, with_s=with_s, slope=slope)
+
+
+# ---------------------------------------------------------------------------
+# GAT-family entry points (flash counterparts of ops.attention_band)
+# ---------------------------------------------------------------------------
+
+def _pad_nodes(t: torch.Tensor, Np: int) -> torch.Tensor:
+    """Zero-pad the last (node) axis up to Np; contiguous."""
+    n = t.shape[-1]
+    if n < Np:
+        t = nn.functional.pad(t, (0, Np - n))
+    return t.contiguous()
+
+
+def _projections(x, a, W_p):
+    """Wx (B,P,E,F,N), a1Wx/a2Wx (B,P,E,N) from x (B,G,N)."""
+    F = W_p.shape[2]
+    Wx = torch.einsum("pefg,bgn->bpefn", W_p, x)
+    a1, a2 = a[..., :F], a[..., F:]
+    a1Wx = torch.einsum("pef,bpefn->bpen", a1, Wx)
+    a2Wx = torch.einsum("pef,bpefn->bpen", a2, Wx)
+    return Wx, a1Wx, a2Wx
+
+
+def _scores_per_edge(a1Wx, a2Wx, Np):
+    """(B,P,E,N) score projections -> two (E, B*P, Np), padded, contiguous."""
+    B, P, E, N = a1Wx.shape
+
+    def per_edge(t):
+        return _pad_nodes(t.permute(2, 0, 1, 3).reshape(E, B * P, N), Np)
+    return per_edge(a1Wx), per_edge(a2Wx)
+
+
+def _geometry(slab5_: torch.Tensor):
+    """(ibs, Np = nb * ibs) of a (E, nb, W, ibs, ibs) slab."""
+    nb, ibs = slab5_.shape[1], slab5_.shape[3]
+    return ibs, nb * ibs
+
+
+def graph_attention_band_flash(x, a, W_p, slab5_, w,
+                               n_out: Optional[int] = None,
+                               negative_slope: float = 0.2, *,
+                               auxes: list):
+    """Flash GAT layer: y = sum_e Wx (S_e * alpha_e). Matches
+    attention_band.graph_attention_band. Returns (B, P, F, N)."""
+    B, G, N = x.shape
+    P, E, F, _ = W_p.shape
+    ibs, Np = _geometry(slab5_)
+    Wx, a1Wx, a2Wx = _projections(x, a, W_p)
+    a1p, a2p = _scores_per_edge(a1Wx, a2Wx, Np)
+    vp = _pad_nodes(Wx.permute(2, 0, 1, 3, 4).reshape(E, B * P, F, N), Np)
+    y = None
+    for e in range(E):
+        ye = flash_apply(a1p[e], a2p[e], vp[e], auxes[e], w, ibs, True,
+                         negative_slope)
+        y = ye if y is None else y + ye
+    n = N if n_out is None else n_out
+    return y.reshape(B, P, F, Np)[..., :n]
+
+
+def gat_lsigf_band_flash(h, x, a, W_p, slab5_, w, b=None,
+                         negative_slope: float = 0.2, *,
+                         auxes: list):
+    """Flash GCAT: K-tap LSIGF over alpha (shift = alpha alone).
+    Matches attention_band.gat_lsigf_band. h: (E,K) -> (B,P,F,N)."""
+    E, K = h.shape
+    P, _, F, G = W_p.shape
+    B, _, N = x.shape
+    ibs, Np = _geometry(slab5_)
+    _, a1Wx, a2Wx = _projections(x, a, W_p)
+    a1p, a2p = _scores_per_edge(a1Wx, a2Wx, Np)
+    W_taps = W_p.permute(0, 3, 1, 2).reshape(P, F, E, 1, G)
+    hW = h[None, None, :, :, None] * W_taps              # P,F,E,K,G
+    x0 = _pad_nodes(x, Np)[:, None].expand(B, P, G, Np).reshape(B * P, G, Np)
+    zs = []                                              # per e: K x (BP,G,Np)
+    for e in range(E):
+        ze = [x0]
+        for _ in range(1, K):
+            ze.append(flash_apply(a1p[e], a2p[e], ze[-1], auxes[e], w, ibs,
+                                  False, negative_slope))
+        zs.append(torch.stack(ze))
+    z = torch.stack(zs)                                  # E,K,BP,G,Np
+    z = z.reshape(E, K, B, P, G, Np)[..., :N]
+    y = torch.einsum("ekbpgn,pfekg->bpfn", z, hW)
+    return y if b is None else y + b
+
+
+def gat_evgf_band_flash(x, a, W_p, slab5_, w, b=None,
+                        negative_slope: float = 0.2, *,
+                        auxes: list):
+    """Flash banded attention EVGF (per-hop attention, cumulative product).
+    Matches attention_band.gat_evgf_band. a: (P,K,E,2F), W_p: (P,K,E,F,G)
+    -> (B,P,F,N)."""
+    P, K, E, F, G = W_p.shape
+    B, _, N = x.shape
+    ibs, Np = _geometry(slab5_)
+
+    def apply_all(k, v):
+        """Hop k's attention shift of v (E, BP, F, Np)."""
+        _, a1Wx, a2Wx = _projections(x, a[:, k], W_p[:, k])
+        a1p, a2p = _scores_per_edge(a1Wx, a2Wx, Np)
+        return torch.stack([
+            flash_apply(a1p[e], a2p[e], v[e], auxes[e], w, ibs, True,
+                        negative_slope)
+            for e in range(E)])
+
+    v = torch.einsum("pefg,bgn->ebpfn", W_p[:, 0], x).reshape(E, B * P, F, N)
+    v = apply_all(0, _pad_nodes(v, Np))
+    y = v
+    for k in range(1, K):
+        v = apply_all(k, v)
+        y = y + v
+    y = y.sum(0).reshape(B, P, F, Np)[..., :N]
+    return y if b is None else y + b

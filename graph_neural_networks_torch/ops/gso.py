@@ -64,7 +64,15 @@ class Gso:
         return self.n_edge_features
 
     def to(self, device) -> "Gso":
-        """A copy with every tensor on `device`."""
+        """A copy with every tensor on `device`; self when they all are
+        there already (so what is cached on it, such as the attention
+        band structure, is kept)."""
+        dev = torch.device(device)
+        tensors = [getattr(self, f.name) for f in dataclasses.fields(self)]
+        if all(t.device.type == dev.type
+               and dev.index in (None, t.device.index)
+               for t in tensors if isinstance(t, torch.Tensor)):
+            return self
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)

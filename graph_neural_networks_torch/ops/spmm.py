@@ -219,37 +219,11 @@ def bcsr_matmul_plain(x: torch.Tensor, blocks: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
-    """True when the call goes to the kernel (x on CUDA), False for the
-    plain version (x on the CPU). Raises on mixed devices and on a call
-    that would need a gradient through the kernel."""
-    for t in others:
-        if t.device != x.device:
-            raise ValueError(f"{name}: inputs on {x.device} and {t.device}")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *others)):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; gradients through the "
-            "graph shift come with the training slice of the port")
-    return True
-
-
 def _check_kernel_inputs(name: str, block_size: int, **tensors) -> None:
-    for arg, (t, dtype) in tensors.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+    kernels.check_inputs(name, **tensors)
     if block_size % TILE_N:
         raise ValueError(f"{name}: the CUDA kernel needs block_size a "
                          f"multiple of {TILE_N}, got {block_size}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
@@ -269,7 +243,7 @@ def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
                          f"not fit n_cols={n_cols}, w={w}, bs={bs}")
     if N > nb * bs:
         raise ValueError(f"band_matmul: x has {N} columns, S only {nb * bs}")
-    if not _on_cuda("band_matmul", x, s_band):
+    if not kernels.on_cuda("band_matmul", x, s_band):
         return band_matmul_plain(x, s_band, n_cols=n_cols, w=w, block_size=bs)
     _check_kernel_inputs("band_matmul", bs, x=(x, torch.float32),
                          s_band=(s_band, torch.float32))
@@ -278,7 +252,7 @@ def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
         return y
     err = kernels.library().gnt_band_matmul(
         x.data_ptr(), s_band.data_ptr(), y.data_ptr(), R, N, n_cols, nb, w,
-        bs, _stream())
+        bs, kernels.stream())
     kernels.check(err, "band_matmul")
     band_matmul.launches += 1
     return y
@@ -309,7 +283,7 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
         raise ValueError(f"band_shift_register: s_band "
                          f"{tuple(s_band.shape)} does not fit n_cols="
                          f"{n_cols}, w={w}, bs={bs}")
-    if not _on_cuda("band_shift_register", x, s_band):
+    if not kernels.on_cuda("band_shift_register", x, s_band):
         return band_shift_register_plain(x, s_band, n_taps=n_taps,
                                          n_cols=n_cols, w=w, block_size=bs)
     _check_kernel_inputs("band_shift_register", bs, x=(x, torch.float32),
@@ -319,7 +293,7 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
         return out
     err = kernels.library().gnt_band_register(
         x.data_ptr(), s_band.data_ptr(), out.data_ptr(), R, N, nb, w, bs,
-        n_taps, _stream())
+        n_taps, kernels.stream())
     kernels.check(err, "band_shift_register")
     band_shift_register.launches += 1
     return out
@@ -348,7 +322,7 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
         raise ValueError(f"bcsr_matmul: layout shapes {tuple(blocks.shape)}, "
                          f"{tuple(block_row.shape)}, "
                          f"{tuple(block_col.shape)} do not fit bs={bs}")
-    if not _on_cuda("bcsr_matmul", x, blocks, block_row, block_col):
+    if not kernels.on_cuda("bcsr_matmul", x, blocks, block_row, block_col):
         return bcsr_matmul_plain(x, blocks, block_row, block_col,
                                  n_cols=n_cols, block_size=bs)
     _check_kernel_inputs("bcsr_matmul", bs, x=(x, torch.float32),
@@ -365,7 +339,8 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
         return y
     err = kernels.library().gnt_bcsr_matmul(
         x.data_ptr(), blocks.data_ptr(), block_row.data_ptr(),
-        col_start.data_ptr(), y.data_ptr(), R, N, n_cols, bs, _stream())
+        col_start.data_ptr(), y.data_ptr(), R, N, n_cols, bs,
+        kernels.stream())
     kernels.check(err, "bcsr_matmul")
     bcsr_matmul.launches += 1
     return y

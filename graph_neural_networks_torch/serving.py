@@ -19,8 +19,12 @@ __all__ = ["InferenceEngine"]
 class InferenceEngine:
     """Fixed-shape forward for serving one architecture.
 
-    arch: a ported architecture (SelectionGNN, LocalGNN); it is moved to
-    `device` with its parameters and structure tables.
+    arch: a ported architecture (SelectionGNN, LocalGNN,
+    GraphAttentionNetwork, GraphConvolutionAttentionNetwork,
+    EdgeVariantAttention); it is moved to `device` with its parameters and
+    structure tables. A band-mode attention model builds its band
+    structure (``attention_flash.band_auxes``) at the first request and
+    keeps it on the GSO.
     """
 
     def __init__(self, arch, batch_size: int, device="cuda"):

@@ -19,15 +19,16 @@ def _flatten(tree, prefix=()):
 def _flax_names(core):
     """flax leaf path -> (torch parameter, transpose?) for a _ConvCore.
 
-    The JAX core names its submodules in creation order: GraphFilter_<l>
-    for layer l, and MLP_0 holding TorchDense_<i>. A flax dense kernel is
-    (fan_in, out); the torch weight is (out, fan_in).
+    The JAX core names its submodules in creation order: <LayerClass>_<l>
+    for filter layer l (GraphFilter_0, GraphAttentional_1, ...), whose
+    parameters carry the torch layer's names (weight, bias, mixer,
+    filterWeight), and MLP_0 holding TorchDense_<i>. A flax dense kernel
+    is (fan_in, out); the torch weight is (out, fan_in).
     """
     names = {}
     for l, f in enumerate(core.filters):
-        names[("GraphFilter_%d" % l, "weight")] = (f.weight, False)
-        if f.bias is not None:
-            names[("GraphFilter_%d" % l, "bias")] = (f.bias, False)
+        for name, p in f.named_parameters():
+            names[(f"{type(f).__name__}_{l}", name)] = (p, False)
     for i, layer in enumerate(core.readout.layers):
         names[("MLP_0", "TorchDense_%d" % i, "kernel")] = (layer.weight, True)
         if layer.bias is not None:
@@ -40,7 +41,10 @@ def load_flax_params(arch, params) -> None:
 
     params: the tree ``arch.init`` returns on the JAX side, as nested
     dicts of numpy arrays, e.g. ``{'params': {'GraphFilter_0': {'weight',
-    'bias'}, 'MLP_0': {'TorchDense_0': {'kernel', 'bias'}}}}``. Raises
+    'bias'}, 'MLP_0': {'TorchDense_0': {'kernel', 'bias'}}}}``; the
+    attention family's layers are ``GraphAttentional_<l>`` (mixer,
+    weight), ``GraphFilterAttentional_<l>`` (mixer, weight, filterWeight,
+    bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias). Raises
     KeyError if a leaf on either side is left unmatched, ValueError on a
     shape mismatch.
     """
