@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from kernels/csrc with nvcc (one nvcc a
-source, side by side), then drives two serving paths:
+source, side by side), then drives two serving paths and the training
+path:
 
 * SpMM: holds the three graph-shift kernels against their plain PyTorch
   versions at the serving path's shapes and at edge cases, times each
@@ -20,6 +21,18 @@ source, side by side), then drives two serving paths:
   2 stats + 2 apply launches a forward, serves GAT, GCAT and
   EdgeVariantAttention at N=2048 against dense mode, and profiles the
   served forward.
+* Training: holds the flash backward kernel (bwd_call) against its plain
+  version at the served shape, the GCAT shape and edge cases, and the
+  three differentiable SpMM shifts' input gradients against the plain
+  backward shifts; times bwd_call beside its bound and one flash GAT layer
+  forward + backward beside the materialized layer's; checks the full-width
+  gat_band_n16384 gradients against the materialized band path; trains it
+  through Model.train (Adam, 8 steps, validation at steps 0 and 4) and
+  evaluate with exactly 2 stats + 2 apply + 2 bwd launches a step; trains
+  band_n4096 (band: 1 register + 8 band_matmul a step; bcsr: 12
+  bcsr_matmul) and GAT, GCAT and EdgeVariantAttention at N=2048 against
+  dense mode (first-step gradients, 8 steps of loss); and profiles a
+  training step of each.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -30,10 +43,12 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -243,8 +258,8 @@ def phase_kernels(graph, rng, dev):
           spmm.bcsr_matmul(x32[:, :N], bl2, br2, bc2, n_cols=N),
           spmm.bcsr_matmul_plain(x32[:, :N], bl2, br2, bc2, n_cols=N))
 
-    # forward-only: a kernel call that would need a gradient raises (the
-    # plain CPU path differentiates)
+    # the raw wrappers record no gradient: a kernel call that would need
+    # one raises (the autograd Functions call them with grad off)
     if dev.type == "cuda":
         xg = rand(8, N).requires_grad_()
         try:
@@ -417,7 +432,7 @@ def phase_serving(S_np, rng, dev):
     # CPU (the plain path the CPU tests hold against the JAX package)
     S_small = banded_graph(np.random.default_rng(1), 384, 160, 0.05)
     x = rng.standard_normal((4, 1, 384)).astype(np.float32)
-    with torch.inference_mode():   # the kernels are forward-only
+    with torch.inference_mode():
         cpu = _build_model(S_small, "band", "cpu")(x)
         gpu = _build_model(S_small, "band", dev)(x)
     max_abs, _, ok = compare(gpu.cpu(), cpu, SERVE_RTOL, SERVE_ATOL_REL)
@@ -430,37 +445,14 @@ def _profile_forward(mode, eng, x, n=10):
     """Where one served forward spends its time: the host clock per
     forward without the profiler, and device time by kernel from
     torch.profiler over `n` forwards."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        eng(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        eng(x)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng(x)
-        torch.cuda.synchronize()
-    # kernel rows only: an operator's row repeats its kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in events) / n / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
+    prof = _device_profile(lambda: eng(x), n)
     emit(phase="profile", mode=mode, batch=int(x.shape[0]),
-         wall_ms_per_forward=wall_ms,
-         device_ms_per_forward=device_ms if events else "not measured",
-         device_idle_share=(1 - device_ms / wall_ms) if events
-         else "not measured",
-         top=[dict(name=e.key[:80],
-                   ms_per_forward=e.self_device_time_total / n / 1e3,
-                   calls_per_forward=e.count / n) for e in top])
+         wall_ms_per_forward=prof["wall_ms"],
+         profiled_wall_ms_per_forward=prof["profiled_wall_ms"],
+         device_ms_per_forward=prof["device_ms"],
+         device_idle_share=prof["device_idle_share"],
+         top=[dict(name=t["name"], ms_per_forward=t["ms"],
+                   calls_per_forward=t["calls"]) for t in prof["top"]])
 
 
 # ---------------------------------------------------------------------------
@@ -594,15 +586,15 @@ def phase_attention_kernels(gso, rng, dev):
             require(ok, f"flash GAT layer (E={E}) disagrees with the "
                         f"materialized band path: {max_abs}")
 
-    # forward-only: a kernel call that would need a gradient raises (the
-    # plain CPU path differentiates)
+    # the raw wrappers record no gradient: a kernel call that would need
+    # one raises (FlashApply calls them with grad off)
     if dev.type == "cuda":
         aux = af.band_auxes(gso)[0]
         a1, a2, v = _attn_operands(rng, dev, 2, 4, GAT_N, GAT_N)
         try:
-            af.flash_apply(a1.requires_grad_(), a2, v, aux, gso.band_w,
-                           gso.block_size)
-            raise SmokeFailure("flash_apply accepted an input that needs "
+            af.stats_call(a1.requires_grad_(), a2, aux.mask_row,
+                          w=gso.band_w, ibs=gso.block_size)
+            raise SmokeFailure("stats_call accepted an input that needs "
                                "grad")
         except NotImplementedError:
             pass
@@ -732,16 +724,17 @@ def _build_gat(cls_name, S, mode, dev, dims=GAT_DIMS, heads=GAT_HEADS,
         **common)
 
 
-def _materialized_forward(arch, x):
+def _materialized_forward(arch, x, grad=False):
     """A served GAT through the port's materialized band attention
     (ops/attention_band.py), layer by layer with the model's weights:
-    (readout output, last attention layer's output)."""
+    (readout output, last attention layer's output). grad=True records
+    autograd (the reference of the training gradients)."""
     import torch
     from graph_neural_networks_torch.models.layers import _heads_out
     from graph_neural_networks_torch.ops import attention_band as ab
     from graph_neural_networks_torch.ops import attention_flash as af
     S = arch.S
-    with torch.inference_mode():
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         x = torch.as_tensor(x, device=arch.device)[:, :, arch.ctx["order_map"]]
         for layer in arch.core.filters:
             y = ab.graph_attention_band(x, layer.mixer, layer.weight,
@@ -865,6 +858,555 @@ def phase_attention_serving(rng, dev):
     return eng, requests[0], launches
 
 
+# ---------------------------------------------------------------------------
+# Training path (flash backward kernel, differentiable shifts)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8
+# Training holds the band/bcsr/flash paths against a reference path on the
+# card (dense mode; the materialized band path at N = 16384): first-step
+# gradients within rtol 1e-4, atol 1e-4*max|reference| (f32 sums in
+# another order through two layers and their VJPs), and the losses of 8
+# Adam steps within rtol 1e-4 (the same differences carried through the
+# optimizer).
+TRAIN_RTOL = 1e-4
+TRAIN_ATOL_REL = 1e-4
+LOSS_RTOL = 1e-4
+# At N = 16384 the reference is the materialized band path in f64 on the
+# flash forward's ReLU gates (_relu_gates): among 8.4M outputs a layer a
+# few lie within f32 rounding of 0, and a gate that flips between two f32
+# paths moves a weight gradient by ~1e-3 of its max. A gradient whose f32
+# materialized value misses the tolerance itself (the first layer's
+# attention vector: its per-score terms cancel to ~1e-4 of their sum) is
+# held to at most ILL_COND_FACTOR times that path's error instead.
+ILL_COND_FACTOR = 2.0
+
+
+def phase_train_kernels(gso, graph, rng, dev):
+    """bwd_call against bwd_plain on the card at the served shape (Q = 16,
+    F = 32, with S), the GCAT shape (F = 64, without S) and edge cases;
+    then the input gradients of the three SpMM Functions against the plain
+    versions of their backward shifts."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    from graph_neural_networks_torch.ops import spmm
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check(name, case, got, want, served=False):
+        max_abs, max_rel, ok = compare(got, want)
+        results.append(dict(kernel=name, case=case, max_abs_err=max_abs,
+                            max_rel_err=max_rel,
+                            max_abs_plain=want.abs().max().item(), ok=ok))
+        if served:
+            errs[name] = max(errs.get(name, 0.0), max_abs)
+        require(ok, f"{name} [{case}] disagrees with its plain version: "
+                    f"max abs {max_abs}, max rel {max_rel}")
+
+    def bwd(case, g, Q, F, with_s=(True, False), served=False):
+        ibs, w = g.block_size, g.band_w
+        Np = g.s_band.shape[1] * ibs
+        a1, a2, v = _attn_operands(rng, dev, Q, F, g.n, Np)
+        ct = _attn_operands(rng, dev, Q, F, g.n, Np)[2]
+        for e, aux in enumerate(af.band_auxes(g)):
+            tag = f"{case} e={e}" if g.E > 1 else case
+            mx, sm = af.stats_plain(a1, a2, aux.mask_row, w=w, ibs=ibs)
+            args = (a1, a2, v, mx, sm, aux.slab_col, aux.mask_row, ct)
+            for ws in with_s:
+                got = af.bwd_call(*args, w=w, ibs=ibs, with_s=ws)
+                torch.cuda.synchronize()
+                want = af.bwd_plain(*args, w=w, ibs=ibs, with_s=ws)
+                for what, t, p in zip(("da2", "da1p", "dv"), got, want):
+                    require(bool(torch.isfinite(t).all()),
+                            f"bwd_call [{tag}] {what} is not finite")
+                    check("bwd_call", f"{tag} with_s={ws} {what}", t, p,
+                          served)
+                del got, want
+
+    F = GAT_DIMS[1]
+    Q = GAT_BATCH * GAT_HEADS[0]
+    bwd(f"served Q={Q} F={F} N={GAT_N} w={gso.band_w}", gso, Q, F,
+        with_s=(True,), served=True)
+    bwd(f"GCAT shape Q={Q} F=64 N={GAT_N}", gso, Q, 64, with_s=(False,))
+    cases = [  # (N, w in blocks, ibs, E, Q, F)
+        (4000, 1, 128, 1, 16, 32),    # ragged N: the last block is partial
+        (2048, 0, 128, 1, 5, 32),     # w = 0: diagonal blocks only
+        (2048, 3, 128, 1, 3, 40),     # w = 3; F = 40: two feature steps
+        (1024, 2, 128, 1, 1, 5),      # Q = 1, F = 5 (not a tile multiple)
+        (1000, 3, 64, 2, 2, 8),       # ibs = 64, ragged, E = 2
+    ]
+    for N, w, ibs, E, Qe, Fe in cases:
+        S = _attn_case(rng, N, w, E, bs=ibs)
+        require(not np.allclose(S, np.swapaxes(S, 1, 2)), "S is symmetric")
+        g = gso_lib.as_gso(S, "band", block_size=ibs, device=dev)
+        bwd(f"N={N} w={g.band_w} ibs={ibs} E={E} Q={Qe} F={Fe}", g, Qe, Fe)
+
+    # the SpMM Functions: input gradients through the kernels against the
+    # plain versions of their backward shifts on the transposed layouts
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def input_grad(fn, x, ct):
+        x = x.clone().requires_grad_()
+        (fn(x) * ct).sum().backward()
+        torch.cuda.synchronize()
+        return x.grad
+
+    N, gb, gc = N_GRAPH, graph["band"], graph["bcsr"]
+    w, sb, sbt = gb.band_w, gb.s_band[0], gb.s_band_t[0]
+    layout_t = (gc.blocks_t[0], gc.block_row_t, gc.block_col_t)
+    for R in (2048, BATCH):
+        x, ct = rand(R, N), rand(R, N)
+        check("BandShift", f"dx R={R} N={N} w={w}",
+              input_grad(lambda t: spmm.BandShift.apply(t, sb, sbt, N, w),
+                         x, ct),
+              spmm.band_matmul_plain(ct, sbt, n_cols=N, w=w))
+        check("BcsrShift", f"dx R={R} N={N}",
+              input_grad(lambda t: spmm.BcsrShift.apply(
+                  t, gc.blocks[0], gc.block_row, gc.block_col, *layout_t, N),
+                  x, ct),
+              spmm.bcsr_matmul_plain(ct, *layout_t, n_cols=N))
+    x, ct = rand(BATCH, N), rand(TAPS, BATCH, N)
+    want = ct[TAPS - 1]
+    for k in range(TAPS - 2, -1, -1):
+        want = spmm.band_matmul_plain(want, sbt, n_cols=N, w=w) + ct[k]
+    check("BandRegister", f"dx R={BATCH} N={N} K={TAPS}",
+          input_grad(lambda t: spmm.BandRegister.apply(t, sb, sbt, TAPS, N,
+                                                       w), x, ct), want)
+    emit(phase="train_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
+         checks=results, seconds=time.perf_counter() - t_phase)
+    return errs
+
+
+def _peak_gb(fn):
+    """(fn(), peak device memory above what was allocated before it, in
+    GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_train_timing(gso, dev):
+    """bwd_call at the served shape beside its plain version and its
+    bound; one flash GAT layer forward + backward beside the materialized
+    band layer's, each with its peak memory."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_band as ab
+    from graph_neural_networks_torch.ops import attention_flash as af
+    t_phase = time.perf_counter()
+    Q, F = GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1]
+    ibs, w = gso.block_size, gso.band_w
+    nb = gso.s_band.shape[1]
+    Np, W = nb * ibs, 2 * w + 1
+    aux = af.band_auxes(gso)[0]
+    rng = np.random.default_rng(7)
+    a1, a2, v = _attn_operands(rng, dev, Q, F, GAT_N, Np)
+    ct = _attn_operands(rng, dev, Q, F, GAT_N, Np)[2]
+    kw = dict(w=w, ibs=ibs)
+    mx, sm = af.stats_plain(a1, a2, aux.mask_row, **kw)
+    args = (a1, a2, v, mx, sm, aux.slab_col, aux.mask_row, ct)
+    work = _attention_work(gso, Q, F)
+    tile = nb * W * ibs * ibs
+    # g and v in, dv out; a1, a2, rowmax, rowsum in, da2 out; mask_row and
+    # slab_col in; the da1 partials out
+    nbytes = 4 * (3 * Q * F * Np + 5 * Q * Np + 2 * tile + Q * nb * W * ibs)
+    # per support score: the score and alpha (9), v^T dy (2F), dalpha,
+    # delta, de, dpre, da2 and da1 sums, the coefficient (~11), dv (2F)
+    flops_per = 4 * F + 20
+    row = dict(shape=f"Q={Q} F={F} N={GAT_N} w={w} ibs={ibs} with_s",
+               ms=time_ms(lambda: af.bwd_call(*args, **kw)),
+               plain_ms=time_ms(lambda: af.bwd_plain(*args, **kw), reps=5,
+                                inner=2),
+               library_ms=None, bytes=nbytes,
+               flops=flops_per * work["support_scores"])
+    row["bound_ms"], row["bound_by"] = _attention_bound(
+        nbytes, flops_per, work["support_scores"])
+    row["bound_ms_dense_tiles"], row["bound_by_dense_tiles"] = (
+        _attention_bound(nbytes, flops_per, work["scores"]))
+
+    # one GAT layer (B = 8, G = F = 32, 2 heads) forward + backward
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(GAT_BATCH, GAT_DIMS[0], GAT_N, generator=g).to(dev)
+    a = (torch.randn(2, 1, 2 * F, generator=g) * .1).to(dev)
+    W_p = (torch.randn(2, 1, F, GAT_DIMS[0], generator=g) * .1).to(dev)
+    ct_y = torch.randn(GAT_BATCH, 2, F, GAT_N, generator=g).to(dev)
+    a.requires_grad_()
+    W_p.requires_grad_()
+    s5 = af.slab5(gso)
+
+    def step(layer):
+        a.grad = W_p.grad = None
+        (layer() * ct_y).sum().backward()
+
+    def flash():
+        return af.graph_attention_band_flash(x, a, W_p, s5, w,
+                                             auxes=af.band_auxes(gso))
+
+    def band():
+        return ab.graph_attention_band(x, a, W_p, s5, w)
+    layer = dict(
+        flash_fwd_bwd_ms=time_ms(lambda: step(flash), reps=10, inner=3),
+        flash_fwd_bwd_peak_gb=_peak_gb(lambda: step(flash))[1],
+        materialized_fwd_bwd_ms=time_ms(lambda: step(band), reps=5, inner=1),
+        materialized_fwd_bwd_peak_gb=_peak_gb(lambda: step(band))[1])
+    emit(phase="train_timing", bwd_call=row, scores=work["scores"],
+         support_scores=work["support_scores"],
+         library="none: no single PyTorch call computes the function",
+         gat_layer=layer, seconds=time.perf_counter() - t_phase)
+    return {"bwd_call": row}
+
+
+def _synthetic_data(rng, sizes, features, N, classes):
+    """A DataForClassification of seeded Gaussian signals (n, features, N)
+    with uniform labels, for train/valid/test `sizes`."""
+    from graph_neural_networks_torch.data import DataForClassification
+    data = DataForClassification()
+    data.nTrain, data.nValid, data.nTest = sizes
+    for split, n in zip(("train", "valid", "test"), sizes):
+        data.samples[split]["signals"] = rng.standard_normal(
+            (n, features, N)).astype(np.float32)
+        data.samples[split]["targets"] = rng.integers(0, classes, n)
+    return data
+
+
+def _model(arch, name, out_dir, lr=1e-3):
+    from graph_neural_networks_torch import training
+    return training.Model(arch, training.losses.cross_entropy_loss,
+                          {"name": "ADAM", "lr": lr}, training.Trainer,
+                          training.evaluate, name=name, saveDir=out_dir)
+
+
+def _first_grads(arch, data, batch):
+    """Parameter gradients of the CE loss on the Trainer's first batch."""
+    import torch
+    from graph_neural_networks_torch.training import losses
+    idx = np.random.default_rng(0).permutation(data.nTrain)[:batch]
+    x, y = data.getSamples("train", idx)
+    loss = losses.cross_entropy_loss(
+        arch.split_forward(x)[0], torch.as_tensor(y, device=arch.device))
+    return loss.item(), torch.autograd.grad(loss, list(arch.parameters()))
+
+
+@contextlib.contextmanager
+def _relu_gates(arch, gates):
+    """Within the block each attention layer of `arch` applies its ReLU as
+    the product with its gate (pre-activation > 0): recorded into `gates`
+    when it comes empty, else taken from it, so that two paths
+    differentiate the same linear piece of the network."""
+    layers = list(arch.core.filters)
+    saved = [layer.nonlinearity for layer in layers]
+    record = not gates
+
+    def gate(i):
+        def act(t):
+            if record:
+                gates.append(t > 0)
+            return t * gates[i].to(t.dtype)
+        return act
+    for i, layer in enumerate(layers):
+        layer.nonlinearity = gate(i)
+    try:
+        yield gates
+    finally:
+        for layer, fn in zip(layers, saved):
+            layer.nonlinearity = fn
+
+
+def _full_width_grads(arch, x, y):
+    """Parameter gradients of the CE loss of one batch through the flash
+    path, through the materialized band path in f32, and through it in
+    f64 (a copy of the model), all three on the flash path's ReLU gates;
+    the f32 materialized path's gradients on its own gates; each path's
+    peak memory, its loss, and the count of gates on which the
+    materialized path's own forward disagrees."""
+    import copy
+
+    import torch
+    from graph_neural_networks_torch.training import losses
+
+    def grads(model, forward):
+        loss = losses.cross_entropy_loss(forward(), y)
+        return loss.item(), [g.double() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
+    gates, own = [], []
+    with _relu_gates(arch, gates):
+        flash, peak_flash = _peak_gb(
+            lambda: grads(arch, lambda: arch.split_forward(x)[0]))
+    with _relu_gates(arch, own):
+        _materialized_forward(arch, x)
+    flips = sum(int((g != o).sum()) for g, o in zip(gates, own))
+    with _relu_gates(arch, gates):
+        mat, peak_mat = _peak_gb(lambda: grads(
+            arch, lambda: _materialized_forward(arch, x, grad=True)[0]))
+    own_gates = grads(arch, lambda: _materialized_forward(arch, x,
+                                                          grad=True)[0])
+    a64 = copy.deepcopy(arch)
+    a64.core.double()
+    a64.S.s_band = a64.S.s_band.double()
+    with _relu_gates(a64, gates):
+        ref = grads(a64, lambda: _materialized_forward(
+            a64, x.double(), grad=True)[0])
+    del a64
+    torch.cuda.empty_cache()
+    return dict(flash=flash, materialized=mat, f64=ref,
+                materialized_own_gates=own_gates,
+                peak_gb=dict(flash=peak_flash, materialized=peak_mat),
+                gate_flips=flips, gates=sum(g.numel() for g in gates))
+
+
+def _check_full_width(checks, model, flash, mat, ref, own):
+    """Flash gradients against the f64 reference (see ILL_COND_FACTOR);
+    `own` (the materialized path on its own gates) only shows what the
+    flipped gates move."""
+    for i, (g, m, r, o) in enumerate(zip(flash, mat, ref, own)):
+        max_abs, max_rel, ok = compare(g, r, TRAIN_RTOL, TRAIN_ATOL_REL)
+        mat_abs, _, mat_ok = compare(m, r, TRAIN_RTOL, TRAIN_ATOL_REL)
+        by = "tolerance" if ok else "ill_conditioned"
+        if not ok:
+            ok = not mat_ok and max_abs <= ILL_COND_FACTOR * mat_abs
+        checks.append(dict(model=model, against="materialized band f64",
+                           param=i, max_abs_err=max_abs, max_rel_err=max_rel,
+                           materialized_f32_max_abs_err=mat_abs,
+                           own_gates_moved=(o - m).abs().max().item(),
+                           max_abs_ref=r.abs().max().item(), ok=ok,
+                           passed_by=by))
+        require(ok, f"{model}: gradient of parameter {i} is {max_abs} from "
+                    f"the f64 reference (the f32 materialized path "
+                    f"{mat_abs})")
+
+
+def _check_grads(checks, model, against, got, want):
+    for i, (g, r) in enumerate(zip(got, want)):
+        max_abs, max_rel, ok = compare(g, r, TRAIN_RTOL, TRAIN_ATOL_REL)
+        checks.append(dict(model=model, against=against, param=i,
+                           max_abs_err=max_abs, max_rel_err=max_rel,
+                           max_abs_ref=r.abs().max().item(), ok=ok))
+        require(ok, f"{model}: gradient of parameter {i} disagrees with "
+                    f"{against}: {max_abs}")
+
+
+def _train_counts(model, data, batch, expected=None):
+    """Model.train for TRAIN_STEPS steps (validation at step 0 only), the
+    counts set to 0 just before and read just after; then the losses."""
+    import torch
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = model.train(data, nEpochs=1, batchSize=batch,
+                      validationInterval=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _attention_counts()
+    losses = out["lossTrain"]
+    require(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+            f"{model.name}: losses {losses}")
+    if expected is not None:
+        require(counts == expected, f"{model.name}: launches {counts}, "
+                                    f"expected {expected}")
+    return out, counts, seconds
+
+
+def _vs_dense(label, build, modes, data, batch, checks, out_dir,
+              expected=None):
+    """First-step gradients and TRAIN_STEPS Adam steps of loss in each
+    kernel mode against dense mode, the same weights on the card."""
+    dense = build("dense")
+    _, want = _first_grads(dense, data, batch)
+    ref, _, _ = _train_counts(_model(dense, f"{label}_dense", out_dir),
+                              data, batch)
+    trained, launches = {}, {}
+    for mode in modes:
+        arch = build(mode)
+        _, got = _first_grads(arch, data, batch)
+        _check_grads(checks, f"{label} {mode}", "dense", got, want)
+        model = _model(arch, f"{label}_{mode}", out_dir)
+        out, counts, seconds = _train_counts(
+            model, data, batch, None if expected is None else expected[mode])
+        if expected is None:
+            require(counts["bwd_call"] > 0, f"{label} {mode}: no bwd_call")
+        ok = bool(np.allclose(out["lossTrain"], ref["lossTrain"],
+                              rtol=LOSS_RTOL, atol=0))
+        checks.append(dict(model=f"{label} {mode}", against="dense",
+                           losses=out["lossTrain"].tolist(),
+                           dense_losses=ref["lossTrain"].tolist(), ok=ok,
+                           launches=counts, seconds=seconds))
+        require(ok, f"{label} {mode}: losses {out['lossTrain']} vs dense "
+                    f"{ref['lossTrain']}")
+        trained[mode] = (model, data, batch)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return trained, launches
+
+
+def phase_training(eng, S_np, rng, dev, out_dir):
+    """The training path: full-width gradients of gat_band_n16384 against
+    the materialized band path, Model.train + evaluate on it with its
+    launch counts, then band_n4096 (band, bcsr) and the three attention
+    models at N = 2048 against dense mode."""
+    import torch
+    t_phase = time.perf_counter()
+    arch = eng.arch
+    checks = []
+
+    # full-width gradients of one step: flash against the materialized
+    # band path, on the flash path's ReLU gates
+    x = torch.as_tensor(rng.standard_normal(
+        (GAT_BATCH, GAT_DIMS[0], GAT_N)).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.integers(0, 4, GAT_BATCH), device=dev)
+    fw = _full_width_grads(arch, x, y)
+    _check_full_width(checks, "gat_band_n16384", fw["flash"][1],
+                      fw["materialized"][1], fw["f64"][1],
+                      fw["materialized_own_gates"][1])
+    emit(phase="training_grads", model="gat_band_n16384",
+         loss=fw["flash"][0], materialized_loss=fw["materialized"][0],
+         f64_loss=fw["f64"][0], peak_gb=fw["peak_gb"],
+         relu_gates=fw["gates"],
+         gates_flipped_by_materialized_f32=fw["gate_flips"],
+         rtol=TRAIN_RTOL, atol=f"{TRAIN_ATOL_REL}*max|reference|",
+         ill_conditioned_factor=ILL_COND_FACTOR, checks=checks)
+    del fw
+
+    # the main path: Model.train + evaluate on gat_band_n16384
+    data = _synthetic_data(rng, (TRAIN_STEPS * GAT_BATCH, GAT_BATCH,
+                                 GAT_BATCH), GAT_DIMS[0], GAT_N, 4)
+    model = _model(arch, "gat_band_n16384", out_dir)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = model.train(data, nEpochs=1, batchSize=GAT_BATCH,
+                      validationInterval=4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _attention_counts()
+    n_val = len(out["costValid"])
+    expected = {k: 0 for k in counts}
+    expected.update(stats_call=(TRAIN_STEPS + n_val) * 2,
+                    apply_call=(TRAIN_STEPS + n_val) * 2,
+                    bwd_call=TRAIN_STEPS * 2)
+    require(n_val == 2 and counts == expected,
+            f"gat_band_n16384: {n_val} validations, launches {counts}, "
+            f"expected {expected}")
+    require(bool(np.isfinite(out["lossTrain"]).all())
+            and len(out["lossTrain"]) == TRAIN_STEPS,
+            f"gat_band_n16384: losses {out['lossTrain']}")
+    result = model.evaluate(data, doSaveVars=False)
+    require(all(r is not None and 0 <= r <= 1 for r in result.values()),
+            f"gat_band_n16384: evaluate {result}")
+    launches = dict(counts)
+    emit(phase="training", model="gat_band_n16384", steps=TRAIN_STEPS,
+         batch=GAT_BATCH, losses=out["lossTrain"].tolist(),
+         cost_valid=out["costValid"].tolist(), evaluate=result,
+         seconds=seconds, step_ms=(np.asarray(out["timeTrain"]) *
+                                   1e3).tolist(),
+         launches=counts, launches_per_step=dict(stats_call=2, apply_call=2,
+                                                 bwd_call=2),
+         validation_forwards=n_val)
+    trained = {"gat_band_n16384": (model, data, GAT_BATCH)}
+
+    # band_n4096, band and bcsr mode, against dense mode
+    checks = []
+    data = _synthetic_data(rng, (TRAIN_STEPS * BATCH, BATCH, BATCH), 1,
+                           N_GRAPH, 5)
+
+    def per(step, val):   # TRAIN_STEPS steps + one validation forward
+        counts = {k: 0 for k in _attention_counts()}
+        counts.update({k: TRAIN_STEPS * n + val.get(k, 0)
+                       for k, n in step.items()})
+        return counts
+    expected = {
+        "band": per({"band_shift_register": 1, "band_matmul": 8},
+                    {"band_shift_register": 1, "band_matmul": 4}),
+        "bcsr": per({"bcsr_matmul": 12}, {"bcsr_matmul": 8})}
+    sel, sel_launches = _vs_dense(
+        "band_n4096", lambda m: _build_model(S_np, m, dev), ("band", "bcsr"),
+        data, BATCH, checks, out_dir, expected)
+    for mode, entry in sel.items():
+        trained[f"band_n4096 {mode}"] = entry
+    for k, n in sel_launches.items():
+        launches[k] += n
+
+    # GAT, GCAT and EdgeVariantAttention at N = 2048, against dense mode
+    S2, _ = make_graph(GAT_SMALL_N, 0.01, 256, seed=1)
+    small = [("GraphAttentionNetwork", GAT_DIMS, GAT_HEADS, None),
+             ("GraphConvolutionAttentionNetwork", [64, 16, 16], [2, 2],
+              [3, 2]),
+             ("EdgeVariantAttention", [32, 16], [2], [3])]
+    for cls_name, dims, heads, taps in small:
+        data = _synthetic_data(rng, (TRAIN_STEPS * GAT_BATCH, GAT_BATCH,
+                                     GAT_BATCH), dims[0], GAT_SMALL_N, 4)
+        _vs_dense(f"{cls_name} N={GAT_SMALL_N}",
+                  lambda m: _build_gat(cls_name, S2, m, dev, dims, heads,
+                                       taps),
+                  ("band",), data, GAT_BATCH, checks, out_dir)
+    emit(phase="training_check", rtol=TRAIN_RTOL,
+         atol=f"{TRAIN_ATOL_REL}*max|dense|", loss_rtol=LOSS_RTOL,
+         checks=checks, seconds=time.perf_counter() - t_phase)
+    return launches, trained
+
+
+def _device_profile(fn, n):
+    """Host ms per call of `fn` (no profiler, synchronized), device ms per
+    call and the top device kernels from torch.profiler over `n` calls,
+    and the device's idle share of those profiled calls' host time (the
+    same window: the unprofiled calls' time can be shorter than the
+    device time of the profiled ones)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) / n * 1e3
+    # kernel rows only: an operator's row, or a user annotation's such as
+    # "Optimizer.step#Adam.step", repeats its kernels' device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / n / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return dict(
+        wall_ms=wall_ms, profiled_wall_ms=profiled_ms,
+        device_ms=device_ms if events else "not measured",
+        device_idle_share=(1 - device_ms / profiled_ms) if events
+        else "not measured",
+        top=[dict(name=e.key[:80], ms=e.self_device_time_total / n / 1e3,
+                  calls=e.count / n) for e in top])
+
+
+def phase_train_profile(trained, n=6):
+    """Where one training step (forward, loss, backward, Adam) spends its
+    time, for each trained model of the training phase."""
+    from graph_neural_networks_torch import training
+    for name, (model, data, batch) in trained.items():
+        trainer = training.Trainer(model, data, 1, batch)
+        batches = [np.arange(i * batch, (i + 1) * batch) % data.nTrain
+                   for i in range(n + 3)]
+        it = iter(batches * 3)
+        prof = _device_profile(lambda: trainer.train_batch(next(it)), n)
+        emit(phase="train_profile", model=name, batch=batch,
+             host_ms_per_step=prof["wall_ms"],
+             profiled_host_ms_per_step=prof["profiled_wall_ms"],
+             device_ms_per_step=prof["device_ms"],
+             device_idle_share=prof["device_idle_share"],
+             top=[dict(name=t["name"], ms_per_step=t["ms"],
+                       calls_per_step=t["calls"]) for t in prof["top"]])
+
 
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
@@ -872,6 +1414,7 @@ REPLACES = {
     "bcsr_matmul": "graph_neural_networks_tpu/ops/spmm.py:151",
     "stats_call": "graph_neural_networks_tpu/ops/attention_flash.py:212",
     "apply_call": "graph_neural_networks_tpu/ops/attention_flash.py:234",
+    "bwd_call": "graph_neural_networks_tpu/ops/attention_flash.py:261",
 }
 
 
@@ -930,6 +1473,17 @@ def main() -> int:
                           dev))
         timed("attention_profile", _profile_forward, "gat_band_n16384", eng,
               x8)
+        errs.update(timed("train_kernels", phase_train_kernels, gso, graph,
+                          np.random.default_rng(8), dev))
+        rows.update(timed("train_timing", phase_train_timing, gso, dev))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            # the Best/Last checkpoints of the trained models
+            train_launches, trained = timed(
+                "training", phase_training, eng, S_np,
+                np.random.default_rng(9), dev, out_dir)
+        for k, n in train_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        timed("train_profile", phase_train_profile, trained)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -941,9 +1495,10 @@ def main() -> int:
             return 1
     summary = []
     for name in ("bcsr_matmul", "band_shift_register", "band_matmul",
-                 "stats_call", "apply_call"):
+                 "stats_call", "apply_call", "bwd_call"):
         row = rows["bcsr_matmul@R=2048" if name == "bcsr_matmul" else name]
-        source = ("attention_flash.cu" if name in ("stats_call", "apply_call")
+        source = ("attention_flash.cu"
+                  if name in ("stats_call", "apply_call", "bwd_call")
                   else "spmm.cu")
         summary.append(dict(
             name=name, route="cuda",

@@ -1,0 +1,7 @@
+"""Data layer: dataset base classes and the ported task datasets (numpy on
+the host; the Trainer moves each batch to the device)."""
+
+from graph_neural_networks_torch.data.base import (  # noqa: F401
+    Data, DataForClassification)
+from graph_neural_networks_torch.data.datasets import (  # noqa: F401
+    SourceLocalization)

@@ -44,6 +44,22 @@ _SIGNATURES = {
     # ibs, with_s, slope, stream
     "gnt_attn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _F, _P),
+    # g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
+    # Np, nb, w, ibs, with_s, slope, stream
+    "gnt_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _I, _I, _I, _F, _P),
+}
+
+# The differentiable form of each kernel wrapper: a torch.autograd.Function
+# whose forward and backward call the wrappers with grad off.
+AUTOGRAD_FUNCTIONS = {
+    "band_matmul": "ops.spmm.BandShift",
+    "band_shift_register": "ops.spmm.BandRegister",
+    "bcsr_matmul": "ops.spmm.BcsrShift",
+    "stats_call": "ops.attention_flash.FlashApply",
+    "apply_call": "ops.attention_flash.FlashApply",
+    "bwd_call": "ops.attention_flash.FlashApply (it is that Function's "
+                "backward)",
 }
 
 
@@ -128,7 +144,9 @@ def check(err: int, name: str) -> None:
 def on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
     """True when a wrapper's call goes to its kernel (x on CUDA), False for
     its plain version (x on the CPU). Raises on mixed devices and on a
-    call that would need a gradient through the kernel."""
+    call that would need a gradient through the raw wrapper: the kernels
+    are differentiated by their autograd Functions (AUTOGRAD_FUNCTIONS),
+    which call the wrappers with grad off."""
     for t in others:
         if t.device != x.device:
             raise ValueError(f"{name}: inputs on {x.device} and {t.device}")
@@ -138,8 +156,9 @@ def on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *others)):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; gradients through it "
-            "come with the training slice of the port")
+            f"{name}: the raw kernel wrapper records no gradient; call "
+            f"graph_neural_networks_torch.{AUTOGRAD_FUNCTIONS[name]} to "
+            "differentiate through the kernel")
     return True
 
 

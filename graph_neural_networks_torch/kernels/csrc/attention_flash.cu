@@ -1,10 +1,11 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
-// Two kernels, the counterparts of two Pallas kernels of the JAX package
-// (graph_neural_networks_tpu/ops/attention_flash.py):
+// Three kernels, the counterparts of three Pallas kernels of the JAX
+// package (graph_neural_networks_tpu/ops/attention_flash.py):
 //
 //   attn_stats_kernel  <- attention_flash.py:_stats_call (_make_stats_kernel)
 //   attn_apply_kernel  <- attention_flash.py:_apply_call (_make_apply_kernel)
+//   attn_bwd_kernel    <- attention_flash.py:_bwd_call (_make_bwd_kernel)
 //
 // The math (orientation of the reference GAT, graphML.py:713/807): for a
 // signal row q, the score of the pair (row i, column j) is
@@ -45,6 +46,32 @@
 //    so after the first the tiles come from L2 (50 MB), not from memory.
 //    The scores cost ~30 instructions each (expf, an IEEE division) against
 //    F = 32 FMAs, so this simple design stays well above the FMA bound.
+//  * bwd: the flash backward of apply (the VJP of y in a1, a2 and v; S is
+//    structure). Per row: recompute alpha, dalpha = (v^T dy) (* S), the
+//    softmax VJP's row product delta = sum alpha * dalpha, then
+//    de = alpha (dalpha - delta) and dpre = de * m * LeakyReLU'(pre), and
+//    from those da2 = sum over columns of dpre, the da1 window partials =
+//    sum over the row block's rows of dpre, dv = dy . coeff^T. On the S+I
+//    support only (3.7e7 scores at the served shape) it needs one exp and
+//    ~4F + 20 flops a score (2F for v^T dy, 2F for dv) against ~190 MB
+//    (g, v, a1, a2, stats, mask, slab in; da2, partials, dv out), so FP32
+//    operations bound it (~0.08 ms); over the dense window tiles it runs
+//    it is 4.5x that. Design: one block per (q, row block i), q fastest in
+//    the grid (the Q blocks of a row block share its mask and slab tiles
+//    through L2); the block walks its ibs rows in tiles of kBRT = 16 rows
+//    and each window tile in chunks of kBCC = 64 columns. Pass 1 forms
+//    v^T dy for the 16 x 64 chunk as a shared-memory GEMM over F, turns
+//    it into dalpha, keeps dalpha for the tile's whole window in shared
+//    memory (W * 16 * ibs floats, 40 KB at w = 2) and sums delta; pass 2
+//    recomputes alpha (cheaper than keeping it), forms dpre and the
+//    coefficients, sums da1 partials per column in a fixed order, and
+//    accumulates dv with a second small GEMM. The Pallas kernel keeps
+//    alpha, dalpha, pre and m for a whole 128-row block (1.3 MB at w = 2);
+//    a Hopper block has 227 KB, hence the row tiles. No cross-block sum:
+//    the da1 partials (Q, nb, W, ibs) are folded outside, as in the JAX
+//    package, so the result is deterministic without atomics. S in the
+//    row-window layout is the column-layout slab at a mirrored index,
+//    slab_row[i, k] = slab_col[i + k - w, 2w - k], read in place.
 // No TF32 wgmma and no --use_fast_math: the tolerances assume true f32.
 //
 // Every launcher has a plain C interface and returns the cudaError_t of the
@@ -71,6 +98,16 @@ constexpr int kTF = 4;
 constexpr int kTC = 4;
 constexpr int kApplyThreads = (kFT / kTF) * (kCT / kTC);
 constexpr int kLDV = kFT + 4;  // Vs row stride: float4-aligned, fewer conflicts
+
+// bwd: a block owns one row block; kBRT rows a tile, kBCC columns a chunk,
+// kBFT features a GEMM step. Thread (tp, tc): row tp of the tile, columns
+// 4*tc .. 4*tc+3 of the chunk.
+constexpr int kBRT = 16;
+constexpr int kBCC = 64;  // ibs % kBCC == 0
+constexpr int kBFT = 32;
+constexpr int kBwdThreads = 256;
+constexpr int kBU = kBRT * kBCC / kBwdThreads;  // chunk columns a thread: 4
+constexpr int kLDC = kBCC + 1;                  // Cs row stride, no conflicts
 
 __device__ __forceinline__ float masked_score(float a2, float a1, float m,
                                               float slope) {
@@ -223,6 +260,196 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   }
 }
 
+constexpr int kLDY = kBCC + 4;  // DYs row stride: float4-aligned, fewer conflicts
+
+// Static shared memory of attn_bwd_kernel, in bytes (the launcher adds the
+// dynamic part, bwd_dynamic_floats).
+constexpr size_t kBwdStaticBytes =
+    sizeof(float) * (kBFT * kBRT + kBFT * kLDY + kBRT * kLDC + kBRT * kBCC +
+                     kBCC);
+
+// The backward of apply for one (q, row block i). g, v (Q, F, Np) are the
+// cotangent dy and the signals; a1, a2, rowmax, rowsum (Q, Np); slab_col
+// and mask_row as in the other two kernels. Outputs: da2 (Q, Np), da1p
+// (Q, nb, W, ibs) with da1p[q, i, k, c] = sum over the rows of block i of
+// dpre at column (i+k-w)*ibs + c (0 where that block is off the matrix),
+// dv (Q, F, Np).
+// Grid: Q * nb blocks, q fastest; dynamic shared memory
+// bwd_dynamic_floats(W, ibs, F) floats.
+__global__ void __launch_bounds__(kBwdThreads)
+attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
+                const float* __restrict__ a2, const float* __restrict__ v,
+                const float* __restrict__ rowmax,
+                const float* __restrict__ rowsum,
+                const float* __restrict__ slab_col,
+                const float* __restrict__ mask_row, float* __restrict__ da2,
+                float* __restrict__ da1p, float* __restrict__ dv, int Q,
+                int F, int Np, int nb, int w, int ibs, int with_s,
+                float slope) {
+  __shared__ __align__(16) float Vs[kBFT * kBRT];   // v chunk, [f][p]
+  __shared__ __align__(16) float DYs[kBFT * kLDY];  // dy chunk, [f][c]
+  __shared__ float Cs[kBRT * kLDC];                 // alpha (* S), [p][c]
+  __shared__ float Ds[kBRT * kBCC];                 // dpre, [p][c]
+  __shared__ float a1_s[kBCC];
+  extern __shared__ float dyn[];
+  const int W = 2 * w + 1;
+  float* Dal = dyn;                         // dalpha, [k][p][c] over ibs cols
+  float* da1_acc = Dal + W * kBRT * ibs;    // [k][c]
+  float* DVs = da1_acc + W * ibs;           // dv of the row tile, [f][p]
+
+  const int q = blockIdx.x % Q;
+  const int i = blockIdx.x / Q;
+  const int tid = threadIdx.x;
+  const int tp = tid / (kBCC / kBU);        // score phase: row of the tile
+  const int tcol = (tid % (kBCC / kBU)) * kBU;
+  const int gp = tid % kBRT;                // dv GEMM: row, feature pair
+  const int gf = 2 * (tid / kBRT);
+  const int64_t qn = (int64_t)q * Np;
+  const int k0 = max(0, w - i), k1 = min(W, nb + w - i);
+
+  for (int e = tid; e < W * ibs; e += kBwdThreads) da1_acc[e] = 0.f;
+  for (int e = tid; e < F * kBRT; e += kBwdThreads) DVs[e] = 0.f;
+
+  for (int t = 0; t < ibs; t += kBRT) {
+    const int r0 = i * ibs + t;  // first row of the tile
+    const float a2v = a2[qn + r0 + tp];
+    const float mxv = rowmax[qn + r0 + tp];
+    const float smv = fmaxf(rowsum[qn + r0 + tp], 1e-30f);
+
+    // pass 1: dalpha for the tile's whole window, and delta
+    float delta = 0.f;
+    for (int k = k0; k < k1; ++k) {
+      const int col0 = (i + k - w) * ibs;
+      const int64_t mtile = (((int64_t)i * W + k) * ibs + t) * ibs;
+      const int64_t stile =
+          (((int64_t)(i + k - w) * W + (2 * w - k)) * ibs + t) * ibs;
+      for (int cc = 0; cc < ibs; cc += kBCC) {
+        float acc[kBU] = {};
+        for (int f0 = 0; f0 < F; f0 += kBFT) {
+          __syncthreads();  // the previous step's readers are done
+          if (f0 == 0 && tid < kBCC) a1_s[tid] = a1[qn + col0 + cc + tid];
+          for (int e = tid; e < kBFT * kBRT; e += kBwdThreads) {
+            const int f = e / kBRT, p = e % kBRT;
+            Vs[e] = f0 + f < F ? v[((int64_t)q * F + f0 + f) * Np + r0 + p]
+                               : 0.f;
+          }
+          for (int e = tid; e < kBFT * kBCC; e += kBwdThreads) {
+            const int f = e / kBCC, c = e % kBCC;
+            DYs[f * kLDY + c] =
+                f0 + f < F ? g[((int64_t)q * F + f0 + f) * Np + col0 + cc + c]
+                           : 0.f;
+          }
+          __syncthreads();
+#pragma unroll 8
+          for (int f = 0; f < kBFT; ++f) {
+            const float vv = Vs[f * kBRT + tp];
+            const float4 d =
+                *reinterpret_cast<const float4*>(&DYs[f * kLDY + tcol]);
+            acc[0] = fmaf(vv, d.x, acc[0]);
+            acc[1] = fmaf(vv, d.y, acc[1]);
+            acc[2] = fmaf(vv, d.z, acc[2]);
+            acc[3] = fmaf(vv, d.w, acc[3]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBU; ++u) {
+          const int c = cc + tcol + u;
+          const float m = mask_row[mtile + (int64_t)tp * ibs + c];
+          const float s = masked_score(a2v, a1_s[tcol + u], m, slope);
+          const float al =
+              __fmul_rn(__fdiv_rn(expf(__fsub_rn(s, mxv)), smv), m);
+          const float dal =
+              with_s ? __fmul_rn(acc[u], slab_col[stile + (int64_t)tp * ibs + c])
+                     : acc[u];
+          Dal[(k * kBRT + tp) * ibs + c] = dal;
+          delta = fmaf(al, dal, delta);
+        }
+      }
+    }
+    // the 16 threads of row tp are one half-warp
+#pragma unroll
+    for (int o = kBCC / kBU / 2; o > 0; o >>= 1)
+      delta += __shfl_xor_sync(0xffffffffu, delta, o);
+
+    // pass 2: dpre, the da1 partials, da2 and dv
+    float da2_part = 0.f;
+    for (int k = k0; k < k1; ++k) {
+      const int col0 = (i + k - w) * ibs;
+      const int64_t mtile = (((int64_t)i * W + k) * ibs + t) * ibs;
+      const int64_t stile =
+          (((int64_t)(i + k - w) * W + (2 * w - k)) * ibs + t) * ibs;
+      for (int cc = 0; cc < ibs; cc += kBCC) {
+        __syncthreads();  // the previous chunk's readers are done
+        if (tid < kBCC) a1_s[tid] = a1[qn + col0 + cc + tid];
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kBU; ++u) {
+          const int c = cc + tcol + u;
+          const float m = mask_row[mtile + (int64_t)tp * ibs + c];
+          const float a1v = a1_s[tcol + u];
+          const float s = masked_score(a2v, a1v, m, slope);
+          const float al =
+              __fmul_rn(__fdiv_rn(expf(__fsub_rn(s, mxv)), smv), m);
+          const float dal = Dal[(k * kBRT + tp) * ibs + c];
+          const float de = al * (dal - delta);
+          const float dpre = de * m * (__fadd_rn(a2v, a1v) > 0.f ? 1.f : slope);
+          da2_part += dpre;
+          Ds[tp * kBCC + tcol + u] = dpre;
+          Cs[tp * kLDC + tcol + u] =
+              with_s ? __fmul_rn(al, slab_col[stile + (int64_t)tp * ibs + c])
+                     : al;
+        }
+        __syncthreads();
+        if (tid < kBCC) {  // column sums over the tile's rows, fixed order
+          float s = 0.f;
+#pragma unroll
+          for (int p = 0; p < kBRT; ++p) s += Ds[p * kBCC + tid];
+          da1_acc[k * ibs + cc + tid] += s;
+        }
+        for (int f0 = 0; f0 < F; f0 += kBFT) {
+          if (f0 > 0) __syncthreads();
+          for (int e = tid; e < kBFT * kBCC; e += kBwdThreads) {
+            const int f = e / kBCC, c = e % kBCC;
+            DYs[f * kLDY + c] =
+                f0 + f < F ? g[((int64_t)q * F + f0 + f) * Np + col0 + cc + c]
+                           : 0.f;
+          }
+          __syncthreads();
+          float d0 = 0.f, d1 = 0.f;
+#pragma unroll 8
+          for (int c = 0; c < kBCC; ++c) {
+            const float cv = Cs[gp * kLDC + c];
+            d0 = fmaf(DYs[gf * kLDY + c], cv, d0);
+            d1 = fmaf(DYs[(gf + 1) * kLDY + c], cv, d1);
+          }
+          if (f0 + gf < F) DVs[(f0 + gf) * kBRT + gp] += d0;
+          if (f0 + gf + 1 < F) DVs[(f0 + gf + 1) * kBRT + gp] += d1;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = kBCC / kBU / 2; o > 0; o >>= 1)
+      da2_part += __shfl_xor_sync(0xffffffffu, da2_part, o);
+    if (tid % (kBCC / kBU) == 0) da2[qn + r0 + tp] = da2_part;
+    __syncthreads();  // DVs complete
+    for (int e = tid; e < F * kBRT; e += kBwdThreads) {
+      const int f = e / kBRT, p = e % kBRT;
+      dv[((int64_t)q * F + f) * Np + r0 + p] = DVs[e];
+      DVs[e] = 0.f;  // each thread clears what it wrote out
+    }
+  }
+  __syncthreads();  // da1_acc complete
+  for (int e = tid; e < W * ibs; e += kBwdThreads) {
+    const int k = e / ibs;
+    da1p[((int64_t)q * nb + i) * W * ibs + e] =
+        k >= k0 && k < k1 ? da1_acc[e] : 0.f;
+  }
+}
+
+size_t bwd_dynamic_floats(int W, int ibs, int F) {
+  return (size_t)W * kBRT * ibs + (size_t)W * ibs + (size_t)F * kBRT;
+}
+
 }  // namespace
 
 extern "C" {
@@ -258,6 +485,31 @@ cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
   attn_apply_kernel<<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
       a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w, ibs,
       with_s, slope);
+  return cudaGetLastError();
+}
+
+cudaError_t gnt_attn_bwd(const float* g, const float* a1, const float* a2,
+                         const float* v, const float* rowmax,
+                         const float* rowsum, const float* slab_col,
+                         const float* mask_row, float* da2, float* da1p,
+                         float* dv, int Q, int F, int Np, int nb, int w,
+                         int ibs, int with_s, float slope,
+                         cudaStream_t stream) {
+  if (Q <= 0 || F <= 0 || ibs % kBCC != 0 || Np != nb * ibs || w < 0)
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)Q * nb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(float) * bwd_dynamic_floats(2 * w + 1, ibs, F);
+  if (smem + kBwdStaticBytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem + kBwdStaticBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_bwd_kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(
+      g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
+      Np, nb, w, ibs, with_s, slope);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """Flash banded attention: the band-mode GAT family with the attention
 coefficients alpha never in device memory.
 
-The port of the JAX package's ``ops/attention_flash.py``, forward only.
-Scores are recomputed tile by tile in two kernels
+The port of the JAX package's ``ops/attention_flash.py``. Scores are
+recomputed tile by tile in three kernels
 (``kernels/csrc/attention_flash.cu``), each behind a wrapper:
 
   * :func:`stats_call` -- per row: the rowmax and exp-rowsum of the masked
@@ -10,6 +10,14 @@ Scores are recomputed tile by tile in two kernels
   * :func:`apply_call` -- per output column block: alpha re-derived from
     (a1x, a2x, stats), times the band slab (or not: GCAT shifts with alpha
     alone), aggregated over v.
+  * :func:`bwd_call` -- per row block: the flash backward of apply
+    (recompute alpha, dalpha = v^T dy, the softmax VJP, the LeakyReLU
+    chain) giving d_a2x, the window partials of d_a1x (folded by
+    :func:`fold_window_partials`) and dv.
+
+:class:`FlashApply` is the differentiable primitive (the JAX custom VJP of
+``flash_apply``): stats + apply forward, keeping a1x, a2x, v and the
+stats (never alpha), and bwd_call backward.
 
 Orientation matches the reference (graphML.py:713, 807): score
 e_ij = LeakyReLU(a2.Wx_i + a1.Wx_j), softmax over each ROW i's column
@@ -19,8 +27,9 @@ the reference arithmetic: e*mask - (1-mask)*1e12, then alpha*mask.
 A wrapper runs its ``*_plain`` version when its inputs lie on the CPU and
 launches its kernel when they lie on a CUDA device; it never falls back
 from one to the other. Each launch adds one to the wrapper's ``launches``
-count. With grad enabled and an input that requires grad, the CUDA path
-raises NotImplementedError (the backward kernel comes with training).
+count. The raw wrappers record no gradient: on CUDA, with grad enabled and
+an input that requires grad, they raise NotImplementedError; the entry
+points differentiate through :class:`FlashApply`.
 
 The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
@@ -80,11 +89,17 @@ def make_support(slab5: torch.Tensor, w: int,
     return sup.to(dtype)
 
 
+def row_layout(t_col: torch.Tensor, w: int) -> torch.Tensor:
+    """The row-window layout of a column-window tile set (nb, W, ibs, ibs):
+    out[i, k] = t_col[i + k - w, 2w - k] (zeros off the matrix), the same
+    (row, column) orientation inside each tile."""
+    return _diag_win(torch.flip(t_col, dims=(-3,)), w)
+
+
 def make_aux(slab5_e: torch.Tensor, support: torch.Tensor, w: int) -> BandAux:
     """BandAux for ONE edge feature's slab (nb, W, ibs, ibs); `support`
     from :func:`make_support`."""
-    mask_row = _diag_win(torch.flip(support, dims=(-3,)), w)
-    return BandAux(slab5_e.contiguous(), support, mask_row)
+    return BandAux(slab5_e.contiguous(), support, row_layout(support, w))
 
 
 def _auxes(slab5: torch.Tensor, w: int) -> list:
@@ -171,6 +186,50 @@ def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     vw = _win(v.reshape(Q, F, nb, ibs), w)                # Q, F, nb, W, p
     y = torch.einsum("qjkpc,qfjkp->qfjc", coeff, vw)
     return y.reshape(Q, F, Np)
+
+
+def bwd_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+              rowmax: torch.Tensor, rowsum: torch.Tensor,
+              slab_col: torch.Tensor, mask_row: torch.Tensor,
+              g: torch.Tensor, *, w: int, ibs: int, with_s: bool = True,
+              slope: float = 0.2):
+    """The backward of :func:`apply_plain` in (a1x, a2x, v) for the
+    cotangent g (Q, F, Np), per row block over its column window:
+    (da2 (Q, Np), da1p (Q, nb, W, ibs), dv (Q, F, Np)), where
+    da1p[q, i, k] holds the sum over block i's rows at column block
+    i + k - w (see :func:`fold_window_partials`)."""
+    Q, F, Np = v.shape
+    nb = Np // ibs
+    a1w = _win(a1x.reshape(Q, nb, ibs), w)                # Q, nb, W, c
+    pre = a2x.reshape(Q, nb, 1, ibs, 1) + a1w[:, :, :, None, :]
+    m = mask_row[None]                                    # Q, nb, W, p, c
+    e = nn.functional.leaky_relu(pre, negative_slope=slope)
+    e = e * m - (1.0 - m) * INFINITE
+
+    def rows(t):   # (Q, Np) -> (Q, nb, 1, ibs, 1)
+        return t.reshape(Q, nb, 1, ibs, 1)
+    al = torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30) * m
+    gw = _win(g.reshape(Q, F, nb, ibs), w)                # Q, F, nb, W, c
+    dco = torch.einsum("qfip,qfikc->qikpc", v.reshape(Q, F, nb, ibs), gw)
+    s_row = row_layout(slab_col, w)[None] if with_s else None
+    dal = dco * s_row if with_s else dco
+    delta = (al * dal).sum(dim=(2, 4))                    # Q, nb, p
+    de = al * (dal - delta[:, :, None, :, None])
+    dpre = de * m * torch.where(pre > 0, 1.0, slope)
+    coeff = al * s_row if with_s else al
+    dv = torch.einsum("qfikc,qikpc->qfip", gw, coeff)
+    return (dpre.sum(dim=(2, 4)).reshape(Q, Np), dpre.sum(dim=3),
+            dv.reshape(Q, F, Np))
+
+
+def fold_window_partials(da1p: torch.Tensor, w: int) -> torch.Tensor:
+    """(Q, nb, W, ibs) window partials -> d_a1x (Q, nb*ibs):
+    d_a1x[column block j] = sum_k da1p[j + w - k, k] (the JAX package's
+    fold, attention_flash.py:_bwd_call)."""
+    Q, nb, W, ibs = da1p.shape
+    dpp = nn.functional.pad(da1p, (0, 0, 0, 0, w, w))
+    da1 = sum(dpp[:, 2 * w - k:2 * w - k + nb, k] for k in range(W))
+    return da1.reshape(Q, nb * ibs)
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +333,115 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
 apply_call.launches = 0
 
 
-KERNEL_WRAPPERS = (stats_call, apply_call)
+# Shared memory of attn_bwd_kernel (attention_flash.cu): 4816 static floats
+# plus W*16*ibs (dalpha of a 16-row tile's window) + W*ibs (da1 partials)
+# + 16*F (dv of the tile) dynamic ones, within a block's 227 KB.
+_BWD_STATIC_FLOATS = 4816
+_BLOCK_SMEM_BYTES = 227 * 1024
+
+
+def _bwd_smem_bytes(w: int, ibs: int, F: int) -> int:
+    W = 2 * w + 1
+    return 4 * (_BWD_STATIC_FLOATS + W * 16 * ibs + W * ibs + 16 * F)
+
+
+def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+             rowmax: torch.Tensor, rowsum: torch.Tensor,
+             slab_col: torch.Tensor, mask_row: torch.Tensor, g: torch.Tensor,
+             *, w: int, ibs: int, with_s: bool = True, slope: float = 0.2):
+    """The flash backward of :func:`apply_call` for the cotangent g
+    (Q, F, Np): (da2 (Q, Np), da1p (Q, nb, W, ibs) window partials, dv
+    (Q, F, Np)); fold da1p with :func:`fold_window_partials`. S is read in
+    its column layout (slab_col) at the mirrored index of the row layout,
+    the support in the row layout (mask_row).
+
+    CUDA kernel: ``attn_bwd_kernel`` in kernels/csrc/attention_flash.cu,
+    replacing the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_bwd_call``.
+    """
+    Q, F, Np = v.shape
+    if tuple(g.shape) != (Q, F, Np):
+        raise ValueError(f"bwd_call: g {tuple(g.shape)} does not fit v "
+                         f"{tuple(v.shape)}")
+    for arg, t in (("a1x", a1x), ("a2x", a2x), ("rowmax", rowmax),
+                   ("rowsum", rowsum)):
+        if tuple(t.shape) != (Q, Np):
+            raise ValueError(f"bwd_call: {arg} {tuple(t.shape)} does not "
+                             f"fit v {tuple(v.shape)}")
+    nb = _check_band("bwd_call", Np, w, ibs, slab_col=slab_col,
+                     mask_row=mask_row)
+    operands = (a1x, a2x, v, rowmax, rowsum, slab_col, mask_row, g)
+    if not kernels.on_cuda("bwd_call", *operands):
+        return bwd_plain(*operands, w=w, ibs=ibs, with_s=with_s, slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("bwd_call", a1x=(a1x, f32), a2x=(a2x, f32),
+                         v=(v, f32), rowmax=(rowmax, f32),
+                         rowsum=(rowsum, f32), slab_col=(slab_col, f32),
+                         mask_row=(mask_row, f32), g=(g, f32))
+    _check_tile("bwd_call", ibs)
+    if _bwd_smem_bytes(w, ibs, F) > _BLOCK_SMEM_BYTES:
+        raise ValueError(f"bwd_call: w={w}, ibs={ibs}, F={F} need "
+                         f"{_bwd_smem_bytes(w, ibs, F)} bytes of shared "
+                         f"memory a block, above {_BLOCK_SMEM_BYTES}")
+    W = 2 * w + 1
+    da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
+    da1p = torch.empty((Q, nb, W, ibs), dtype=f32, device=v.device)
+    dv = torch.empty((Q, F, Np), dtype=f32, device=v.device)
+    if Q == 0 or F == 0:
+        return da2.zero_(), da1p.zero_(), dv
+    err = kernels.library().gnt_attn_bwd(
+        g.data_ptr(), a1x.data_ptr(), a2x.data_ptr(), v.data_ptr(),
+        rowmax.data_ptr(), rowsum.data_ptr(), slab_col.data_ptr(),
+        mask_row.data_ptr(), da2.data_ptr(), da1p.data_ptr(), dv.data_ptr(),
+        Q, F, Np, nb, w, ibs, int(with_s), slope, kernels.stream())
+    kernels.check(err, "bwd_call")
+    bwd_call.launches += 1
+    return da2, da1p, dv
+
+
+bwd_call.launches = 0
+
+
+KERNEL_WRAPPERS = (stats_call, apply_call, bwd_call)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+class FlashApply(torch.autograd.Function):
+    """y = v @ (S * alpha(a1x, a2x)) on the band, differentiable in a1x,
+    a2x and v (S and the support are structure). Forward: stats_call then
+    apply_call, keeping a1x, a2x, v, rowmax and rowsum for backward (alpha
+    is recomputed there, never kept). Backward: one bwd_call and the fold
+    of its da1 partials. The JAX package's ``flash_apply`` custom VJP.
+    """
+
+    @staticmethod
+    def forward(ctx, a1x, a2x, v, aux: BandAux, w: int, ibs: int,
+                with_s: bool, slope: float):
+        rowmax, rowsum = stats_call(a1x, a2x, aux.mask_row, w=w, ibs=ibs,
+                                    slope=slope)
+        y = apply_call(a1x, a2x, v, rowmax, rowsum, aux.slab_col,
+                       aux.mask_col, w=w, ibs=ibs, with_s=with_s, slope=slope)
+        ctx.save_for_backward(a1x, a2x, v, rowmax, rowsum)
+        ctx.aux, ctx.cfg = aux, (w, ibs, with_s, slope)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a1x, a2x, v, rowmax, rowsum = ctx.saved_tensors
+        w, ibs, with_s, slope = ctx.cfg
+        da2, da1p, dv = bwd_call(a1x, a2x, v, rowmax, rowsum,
+                                 ctx.aux.slab_col, ctx.aux.mask_row,
+                                 g.contiguous(), w=w, ibs=ibs, with_s=with_s,
+                                 slope=slope)
+        need = ctx.needs_input_grad
+        return (fold_window_partials(da1p, w) if need[0] else None,
+                da2 if need[1] else None, dv if need[2] else None,
+                None, None, None, None, None)
 
 
 def flash_apply(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
@@ -290,13 +452,10 @@ def flash_apply(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     a1x, a2x: (Q, Np) score projections (Np = nb*ibs, zero-padded);
     v: (Q, F, Np) signals; aux: the band structure; with_s=False shifts
     with alpha alone (the GCAT convention, reference graphML.py:876-879).
-    Returns (Q, F, Np). Forward only: the stats kernel, then the apply
-    kernel (CPU tensors: their plain versions).
+    Returns (Q, F, Np), differentiable in a1x, a2x and v through
+    :class:`FlashApply` (CPU tensors: the kernels' plain versions).
     """
-    rowmax, rowsum = stats_call(a1x, a2x, aux.mask_row, w=w, ibs=ibs,
-                                slope=slope)
-    return apply_call(a1x, a2x, v, rowmax, rowsum, aux.slab_col,
-                      aux.mask_col, w=w, ibs=ibs, with_s=with_s, slope=slope)
+    return FlashApply.apply(a1x, a2x, v, aux, w, ibs, with_s, slope)
 
 
 # ---------------------------------------------------------------------------

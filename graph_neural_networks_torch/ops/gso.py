@@ -37,7 +37,8 @@ class Gso:
     s_band, s_band_t : (E, nb, (2w+1)*bs, bs) band slab of S and of S^T.
     blocks, blocks_t : (E, nnzb, bs, bs) BCSR blocks of S and of S^T, with
         (nnzb,) int32 block_row/block_col (and *_t) shared by all E.
-    The transposed layouts serve the backward shift of the training slice.
+    The transposed layouts serve the backward shift (spmm.BandShift,
+    BandRegister, BcsrShift).
     """
 
     S: Optional[torch.Tensor]
@@ -185,13 +186,14 @@ def gshift(gso, x: torch.Tensor) -> torch.Tensor:
     N = shp[-1]
     xg = torch.movedim(x, -3, 0).reshape(E, -1, N).contiguous()  # (E, R, N)
     if gso.mode == "band":
-        outs = [spmm.band_matmul(xg[e], gso.s_band[e], n_cols=N,
-                                 w=gso.band_w, block_size=gso.block_size)
+        outs = [spmm.BandShift.apply(xg[e], gso.s_band[e], gso.s_band_t[e],
+                                     N, gso.band_w, gso.block_size)
                 for e in range(E)]
     else:
-        outs = [spmm.bcsr_matmul(xg[e], gso.blocks[e], gso.block_row,
-                                 gso.block_col, n_cols=N,
-                                 block_size=gso.block_size)
+        outs = [spmm.BcsrShift.apply(xg[e], gso.blocks[e], gso.block_row,
+                                     gso.block_col, gso.blocks_t[e],
+                                     gso.block_row_t, gso.block_col_t, N,
+                                     gso.block_size)
                 for e in range(E)]
     y = torch.stack(outs).reshape((E,) + shp[:-3] + shp[-2:-1] + (N,))
     return torch.movedim(y, 0, -3)
@@ -225,9 +227,9 @@ def gshift_register(gso, x: torch.Tensor, K: int) -> torch.Tensor:
         if E_ != E:
             raise ValueError(f"x has {E_} edge features, the GSO {E}")
         xg = torch.movedim(x, 1, 0).reshape(E, B * G, N).contiguous()
-        outs = [spmm.band_shift_register(xg[e], gso.s_band[e], n_taps=K,
-                                         n_cols=N, w=gso.band_w,
-                                         block_size=gso.block_size)
+        outs = [spmm.BandRegister.apply(xg[e], gso.s_band[e],
+                                        gso.s_band_t[e], K, N, gso.band_w,
+                                        gso.block_size)
                 for e in range(E)]
         z = torch.stack(outs).reshape(E, K, B, G, N)
         return z.permute(2, 0, 1, 3, 4)

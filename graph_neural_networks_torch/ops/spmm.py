@@ -20,8 +20,16 @@ Kernels (``kernels/csrc/spmm.cu``), each behind a wrapper of the same name:
 A wrapper runs its ``*_plain`` version when x lies on the CPU, and
 launches its kernel when x lies on a CUDA device; it never falls back from
 one to the other. Each kernel launch adds one to the wrapper's
-``launches`` count. The kernels are forward-only for now: with grad
-enabled and an input that requires grad they raise NotImplementedError.
+``launches`` count.
+
+Gradients go through three ``torch.autograd.Function``s, the JAX package's
+custom VJPs (S is structure, not differentiated): :class:`BandShift` and
+:class:`BcsrShift` shift the cotangent by S^T on the transposed layout
+(``s_band_t``, ``blocks_t``), and :class:`BandRegister` runs the Horner
+chain dx = g_0 + (g_1 + (...) S^T) S^T of K-1 ``band_matmul``s. All
+backward work runs on the same three kernels. The raw wrappers record no
+gradient: on CUDA, with grad enabled and an input that requires grad, they
+raise NotImplementedError naming the Function to call.
 """
 
 from __future__ import annotations
@@ -355,3 +363,78 @@ KERNEL_WRAPPERS = (band_matmul, band_shift_register, bcsr_matmul)
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiable shifts (the JAX package's custom VJPs)
+# ---------------------------------------------------------------------------
+
+class BandShift(torch.autograd.Function):
+    """y = x @ S on the band slab; dx = g @ S^T on the transposed slab
+    (JAX ``spmm.band_shift``). S is square: x (R, n_cols)."""
+
+    @staticmethod
+    def forward(ctx, x, s_band, s_band_t, n_cols: int, w: int,
+                block_size: int = 128):
+        ctx.s_band_t, ctx.cfg = s_band_t, (n_cols, w, block_size)
+        return band_matmul(x, s_band, n_cols=n_cols, w=w,
+                           block_size=block_size)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 6
+        n_cols, w, bs = ctx.cfg
+        dx = band_matmul(g.contiguous(), ctx.s_band_t, n_cols=n_cols, w=w,
+                         block_size=bs)
+        return dx, None, None, None, None, None
+
+
+class BcsrShift(torch.autograd.Function):
+    """y = x @ S on the BCSR blocks; dx = g @ S^T on the transposed layout
+    (JAX ``spmm.bcsr_shift``). S is square: x (R, n_cols)."""
+
+    @staticmethod
+    def forward(ctx, x, blocks, block_row, block_col, blocks_t, block_row_t,
+                block_col_t, n_cols: int, block_size: int = 128):
+        ctx.layout_t = (blocks_t, block_row_t, block_col_t)
+        ctx.cfg = (n_cols, block_size)
+        return bcsr_matmul(x, blocks, block_row, block_col, n_cols=n_cols,
+                           block_size=block_size)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 9
+        n_cols, bs = ctx.cfg
+        dx = bcsr_matmul(g.contiguous(), *ctx.layout_t, n_cols=n_cols,
+                         block_size=bs)
+        return (dx,) + (None,) * 8
+
+
+class BandRegister(torch.autograd.Function):
+    """(R, N) -> (K, R, N) = [x, xS, ..., xS^{K-1}] in one launch of
+    band_shift_register; backward dx = g_0 + (g_1 + (...) S^T) S^T, K-1
+    band_matmuls on the transposed slab (JAX ``spmm.band_register``)."""
+
+    @staticmethod
+    def forward(ctx, x, s_band, s_band_t, n_taps: int, n_cols: int, w: int,
+                block_size: int = 128):
+        ctx.s_band_t, ctx.cfg = s_band_t, (n_taps, n_cols, w, block_size)
+        return band_shift_register(x, s_band, n_taps=n_taps, n_cols=n_cols,
+                                   w=w, block_size=block_size)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        K, n_cols, w, bs = ctx.cfg
+        g = g.contiguous()
+        dx = g[K - 1]
+        for k in range(K - 2, -1, -1):
+            dx = band_matmul(dx, ctx.s_band_t, n_cols=n_cols, w=w,
+                             block_size=bs) + g[k]
+        return dx, None, None, None, None, None, None

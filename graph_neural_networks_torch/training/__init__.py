@@ -1,0 +1,10 @@
+"""Training and evaluation: losses, Model (Best/Last checkpoints), Trainer
+and evaluate, ported from the JAX package's ``training/``."""
+
+from graph_neural_networks_torch.training import losses  # noqa: F401
+from graph_neural_networks_torch.training.evaluation import (  # noqa: F401
+    evaluate)
+from graph_neural_networks_torch.training.model import (  # noqa: F401
+    Model, make_optimizer)
+from graph_neural_networks_torch.training.trainer import (  # noqa: F401
+    Trainer)

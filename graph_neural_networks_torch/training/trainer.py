@@ -1,0 +1,228 @@
+"""The general training loop: the port of the JAX package's
+``training/trainer.py:Trainer`` (reference ``alegnn/modules/training.py``,
+:29-578).
+
+Minibatches with an uneven last batch, a per-epoch permutation from
+``np.random.default_rng(seed)`` (the batch order of the JAX Trainer),
+validation every ``validationInterval`` steps under ``torch.no_grad()``,
+Best checkpoints on validation, early stopping, resume from Last, a JSONL
+metrics file, and a staircase learning-rate decay. A step is eager
+PyTorch: forward, loss, ``backward`` (through the kernels' autograd
+Functions on a band/bcsr GSO), optimizer step.
+
+Not ported in this slice: ``TrainerSingleNode`` and ``TrainerFlocking``;
+data-parallel training (``mesh=``); bf16 mixed precision
+(``precision="bf16"``: the kernels take f32 only). ``scanDispatch`` and
+``scanMemoryBudget`` (the JAX Trainer's many-steps-in-one-dispatch scan)
+are accepted and have no effect: PyTorch dispatches each step eagerly, and
+CUDA graphs would be the tool for that overhead.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from graph_neural_networks_torch.utils.misc import append_jsonl
+
+
+def _batch_bounds(n_train: int, batch_size) -> list:
+    """Batch index bounds with uneven last batch
+    (reference training.py:176-200)."""
+    if isinstance(batch_size, int):
+        if n_train < batch_size:
+            sizes = [n_train]
+        else:
+            n_batches = int(np.ceil(n_train / batch_size))
+            sizes = [batch_size] * n_batches
+            if sum(sizes) != n_train:
+                sizes[-1] = n_train - sum(sizes[:-1])
+    else:
+        sizes = list(batch_size)
+    return [0] + [int(b) for b in np.cumsum(sizes)]
+
+
+def staircase_decay(rate: float, period_steps: int):
+    """The schedule of optax.exponential_decay(lr, period_steps, rate,
+    staircase=True) as a StepLR factory (stepped once a training step):
+    lr at step s = lr * rate ** (s // period_steps)."""
+    return lambda opt: torch.optim.lr_scheduler.StepLR(
+        opt, step_size=period_steps, gamma=rate)
+
+
+class Trainer:
+
+    def __init__(self, model, data, nEpochs: int, batchSize: int, **kwargs):
+        self.model = model
+        self.data = data
+        self.nEpochs = nEpochs
+        self.batchSize = batchSize
+        self.validationInterval = kwargs.get("validationInterval",
+                                             max(data.nTrain // batchSize, 1))
+        self.printInterval = kwargs.get("printInterval", 0)
+        self.doPrint = self.printInterval > 0
+        self.earlyStoppingLag = kwargs.get("earlyStoppingLag", 0)
+        self.doEarlyStopping = self.earlyStoppingLag > 0
+        self.learningRateDecayRate = kwargs.get("learningRateDecayRate")
+        self.learningRateDecayPeriod = kwargs.get("learningRateDecayPeriod")
+        self.doSaveVars = kwargs.get("doSaveVars", False)
+        self.metricsFile = kwargs.get("metricsFile")
+        self.logger = kwargs.get("logger")  # a Visualizer-like scalar logger
+        self.resume = kwargs.get("resume", False)
+        # scanDispatch and scanMemoryBudget are accepted and ignored
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=...): data-parallel training comes with the "
+                "port of parallel/ (ROADMAP queue 1, parallel/)")
+        self.precision = kwargs.get("precision")
+        if self.precision == "bf16":
+            raise NotImplementedError(
+                "Trainer(precision='bf16'): bf16 training is not ported "
+                "(ROADMAP queue 1, bf16 training); the kernels take f32")
+        if self.precision not in (None, "f32"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+        self.rng = np.random.default_rng(kwargs.get("seed", 0))
+        self.device = next(iter(model.archit.parameters())).device
+
+    # -- one step ----------------------------------------------------------
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model.archit.split_forward(x)[0]
+
+    def _to_device(self, x, y):
+        """The batch as the step takes it: f32 signals; integer targets
+        kept, floating ones in f32 (as the JAX step's jnp.asarray)."""
+        x = torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                            device=self.device)
+        y = torch.as_tensor(np.asarray(y), device=self.device)
+        if y.is_floating_point():
+            y = y.float()
+        return x, y
+
+    def train_batch(self, idx):
+        x, y = self._to_device(*self.data.getSamples("train", idx))
+        model = self.model
+        t0 = time.perf_counter()
+        model.optimizer.zero_grad(set_to_none=True)
+        loss = model.loss(self._forward(x).float(), y)
+        loss.backward()
+        model.optimizer.step()
+        if model.scheduler is not None:
+            model.scheduler.step()
+        loss = loss.item()   # waits for the step
+        return loss, time.perf_counter() - t0
+
+    def _valid_cost(self) -> float:
+        x, y = self.data.getSamples("valid")
+        with torch.no_grad():
+            yHat = self._forward(self._to_device(x, y)[0])
+        return float(self.data.evaluate(yHat.cpu().numpy(), y))
+
+    # -- the loop ----------------------------------------------------------
+    def train(self):
+        model, data = self.model, self.data
+        n_train = data.nTrain
+        bounds = _batch_bounds(n_train, self.batchSize)
+        n_batches = len(bounds) - 1
+
+        if (self.learningRateDecayRate is not None
+                and self.learningRateDecayPeriod is not None
+                and isinstance(model.optimizer_spec, dict)):
+            model.rebuild_optimizer(staircase_decay(
+                self.learningRateDecayRate,
+                self.learningRateDecayPeriod * n_batches))
+
+        loss_train, cost_valid, time_train = [], [], []
+        best_score = None
+        best_epoch = best_batch = 0
+        lag = 0
+        epoch = 0
+        if self.resume:
+            # pick up where 'Last' left off: epoch counter, RNG state,
+            # best-score bookkeeping
+            try:
+                state = model.load("Last")
+            except FileNotFoundError:
+                state = None
+            if state:
+                epoch = state["next_epoch"]
+                best_score = state["best_score"]
+                best_epoch = state["best_epoch"]
+                best_batch = state["best_batch"]
+                lag = state["lag"]
+                self.rng.bit_generator.state = state["np_rng"]
+                loss_train = list(state["loss_train"])
+                cost_valid = list(state["cost_valid"])
+
+        def _loop_state():
+            return {
+                "next_epoch": epoch, "best_score": best_score,
+                "best_epoch": best_epoch, "best_batch": best_batch,
+                "lag": lag, "np_rng": self.rng.bit_generator.state,
+                "loss_train": loss_train, "cost_valid": cost_valid,
+            }
+
+        def post_step(epoch, batch, loss, elapsed):
+            """Record, print, log, validate/checkpoint/early-stop."""
+            nonlocal best_score, best_epoch, best_batch, lag
+            loss_train.append(loss)
+            time_train.append(elapsed)
+            step_no = epoch * n_batches + batch
+            if self.doPrint and step_no % self.printInterval == 0:
+                print(f"\t(E: {epoch + 1:2d}, B: {batch + 1:3d}) "
+                      f"loss {loss:7.4f} - {elapsed:.4f}s")
+            if self.logger is not None:
+                self.logger.scalar_summary("Training", step_no,
+                                           lossTrain=loss)
+            if step_no % self.validationInterval == 0:
+                cost = self._valid_cost()
+                cost_valid.append(cost)
+                if self.metricsFile:
+                    append_jsonl(self.metricsFile, {
+                        "step": step_no, "loss": loss, "valid_cost": cost})
+                if self.logger is not None:
+                    self.logger.scalar_summary("Validation", step_no,
+                                               costValid=cost)
+                if best_score is None or cost < best_score:
+                    best_score = cost
+                    best_epoch, best_batch = epoch, batch
+                    model.save(label="Best")
+                    lag = 0
+                elif self.doEarlyStopping:
+                    lag += 1
+
+        def going():
+            return lag < self.earlyStoppingLag or not self.doEarlyStopping
+
+        while epoch < self.nEpochs and going():
+            perm = self.rng.permutation(n_train)
+            batch = 0
+            while batch < n_batches and going():
+                loss, elapsed = self.train_batch(
+                    perm[bounds[batch]:bounds[batch + 1]])
+                post_step(epoch, batch, loss, elapsed)
+                batch += 1
+            epoch += 1
+            # per-epoch resumable checkpoint (params + opt + loop state)
+            model.save(label="Last", extra=_loop_state())
+
+        model.save(label="Last", extra=_loop_state())
+        if best_score is not None:
+            model.load(label="Best")  # reference reloads Best at end (:571)
+        train_vars = {
+            "nEpochs": self.nEpochs, "nBatches": n_batches,
+            "batchSize": self.batchSize, "lossTrain": np.array(loss_train),
+            "costValid": np.array(cost_valid),
+            "timeTrain": np.array(time_train),
+            "bestScore": best_score, "bestEpoch": best_epoch,
+            "bestBatch": best_batch,
+        }
+        if self.doSaveVars:
+            d = os.path.join(model.saveDir, "trainVars")
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"{model.name}.pkl"), "wb") as f:
+                pickle.dump(train_vars, f)
+        return train_vars

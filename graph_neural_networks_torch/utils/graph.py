@@ -1,9 +1,11 @@
 """Host-side graph math (numpy/scipy) that the ported models need.
 
 The port's own copy of the pieces of the JAX package's
-``utils/graph.py`` used by this slice: node orderings (Identity, Degree,
-RCM) and K-hop neighborhood tables for selection pooling. Like there,
-everything here runs once at build time and emits index arrays.
+``utils/graph.py`` that the ported slices use: node orderings (Identity,
+Degree, RCM), K-hop neighborhood tables for selection pooling, and for the
+source-localization task the SBM generator, the ``Graph`` container, the
+GFT, matrix powers and source-node selection. Like there, everything here
+runs once at build time on the host.
 """
 
 from __future__ import annotations
@@ -14,8 +16,55 @@ import scipy.sparse.csgraph
 
 ZERO_TOL = 1e-9
 
-__all__ = ["compute_neighborhood", "perm_identity", "perm_degree",
+__all__ = ["adjacency_to_laplacian", "compute_gft", "matrix_powers",
+           "compute_neighborhood", "compute_source_nodes", "is_connected",
+           "create_graph", "Graph", "perm_identity", "perm_degree",
            "perm_rcm", "permutation_by_name"]
+
+
+def adjacency_to_laplacian(W: np.ndarray) -> np.ndarray:
+    """Combinatorial Laplacian L = D - W."""
+    if W.shape[0] != W.shape[1]:
+        raise ValueError(f"W must be square, got {W.shape}")
+    return np.diag(W.sum(axis=1)) - W
+
+
+def compute_gft(S: np.ndarray, order: str = "no"):
+    """Eigendecomposition of a GSO.
+
+    Returns (E, V) with E = diag(eigenvalues) ordered by `order`:
+      'no'             -- whatever the solver returns,
+      'increasing'     -- by |lambda|,
+      'totalVariation' -- by |lambda - lambda_max| (graph frequency).
+    """
+    if order not in ("no", "increasing", "totalVariation"):
+        raise ValueError(f"unknown GFT order {order!r}")
+    if S.shape[0] != S.shape[1]:
+        raise ValueError(f"S must be square, got {S.shape}")
+    if np.allclose(S, S.T, atol=ZERO_TOL):
+        e, V = np.linalg.eigh(S)
+    else:
+        e, V = np.linalg.eig(S)
+    if order == "totalVariation":
+        idx = np.argsort(np.abs(e - np.max(e.real)))
+    elif order == "increasing":
+        idx = np.argsort(np.abs(e))
+    else:
+        idx = np.arange(S.shape[0])
+    return np.diag(e[idx]), V[:, idx]
+
+
+def matrix_powers(S: np.ndarray, K: int) -> np.ndarray:
+    """Stack [I, S, S^2, ..., S^{K-1}]; accepts N x N or E x N x N."""
+    single = S.ndim == 2
+    if single:
+        S = S[None]
+    E, N, _ = S.shape
+    out = np.empty((E, K, N, N), dtype=S.dtype)
+    out[:, 0] = np.eye(N, dtype=S.dtype)
+    for k in range(1, K):
+        out[:, k] = out[:, k - 1] @ S
+    return out[0] if single else out
 
 
 def _binary_connectivity(S) -> scipy.sparse.csr_matrix:
@@ -66,6 +115,91 @@ def compute_neighborhood(S, K: int, n_rows=None, nb=None, output_type="list"):
         out[i, :len(nb_i)] = nb_i
         out[i, len(nb_i):] = i  # pad with self
     return out
+
+
+def compute_source_nodes(A: np.ndarray, C: int, seed=0):
+    """Spectral-cluster A into C communities; return the max-degree node of
+    each community (the class labels of the source-localization task).
+    Needs scikit-learn."""
+    from sklearn.cluster import SpectralClustering
+    degree = A.sum(axis=0)
+    labels = SpectralClustering(
+        n_clusters=C, affinity="precomputed", assign_labels="discretize",
+        random_state=seed,
+    ).fit(A).labels_
+    sources = []
+    for c in range(C):
+        members = np.flatnonzero(labels == c)
+        sources.append(int(members[np.argmax(degree[members])]))
+    return sources
+
+
+def is_connected(W: np.ndarray) -> bool:
+    """Connectivity of the undirected support of W."""
+    Wb = scipy.sparse.csr_matrix((np.abs(W) + np.abs(W.T)) > ZERO_TOL)
+    n_comp, _ = scipy.sparse.csgraph.connected_components(Wb, directed=False)
+    return n_comp == 1
+
+
+def _create_sbm(N, n_communities, prob_intra, prob_inter, rng):
+    """Balanced-community SBM, resampled until connected."""
+    C = n_communities
+    sizes = [N // C] * C
+    for c in range(N - sum(sizes)):
+        sizes[c] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    prob = np.full((N, N), prob_inter)
+    for c in range(C):
+        prob[bounds[c]:bounds[c + 1], bounds[c]:bounds[c + 1]] = prob_intra
+    while True:
+        W = (rng.random((N, N)) < prob).astype(np.float64)
+        W = np.triu(W, 1)
+        W = W + W.T
+        if is_connected(W):
+            return W
+
+
+def create_graph(graph_type: str, N: int, options: dict, rng=None):
+    """Graph generator: 'SBM' or 'adjacency' (the JAX package's
+    'SmallWorld' and 'fuseEdges' are not ported). Returns the (weighted)
+    adjacency matrix."""
+    rng = np.random.default_rng() if rng is None else rng
+    if graph_type == "SBM":
+        return _create_sbm(N, options["nCommunities"], options["probIntra"],
+                           options["probInter"], rng)
+    if graph_type == "adjacency":
+        W = np.asarray(options["adjacencyMatrix"])
+        if W.shape != (N, N):
+            raise ValueError(f"adjacency {W.shape} is not {N} x {N}")
+        return W
+    if graph_type in ("SmallWorld", "fuseEdges"):
+        raise NotImplementedError(
+            f"graph type {graph_type!r} is not ported to PyTorch yet")
+    raise ValueError(f"unknown graph type: {graph_type!r}")
+
+
+class Graph:
+    """Build-time graph container.
+
+    Attributes: N, M (edges), W (weighted adjacency), A (binary), D (degree
+    matrix), L (Laplacian if undirected & no self-loops), S (GSO; defaults to
+    W), undirected, self_loops.
+    """
+
+    def __init__(self, graph_type: str, N: int, options: dict, rng=None):
+        if N <= 0:
+            raise ValueError(f"N must be positive, got {N}")
+        self.W = create_graph(graph_type, N, options, rng=rng)
+        self.N = self.W.shape[0]
+        self.undirected = np.allclose(self.W, self.W.T, atol=ZERO_TOL)
+        self.self_loops = bool(np.any(np.abs(np.diag(self.W)) > ZERO_TOL))
+        self.D = np.diag(self.W.sum(axis=1))
+        self.M = int(np.sum(np.triu(self.W)) if self.undirected
+                     else np.sum(self.W))
+        self.A = (np.abs(self.W) > 0).astype(self.W.dtype)
+        self.L = (adjacency_to_laplacian(self.W)
+                  if self.undirected and not self.self_loops else None)
+        self.S = self.W
 
 
 def _as_batched(S):
