@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from kernels/csrc with nvcc (one nvcc a
-source, side by side), then drives two serving paths and the training
-path:
+source, side by side), then drives two serving paths, the training path
+and the flocking deployment path:
 
 * SpMM: holds the three graph-shift kernels against their plain PyTorch
   versions at the serving path's shapes and at edge cases, times each
@@ -33,6 +33,15 @@ path:
   bcsr_matmul) and GAT, GCAT and EdgeVariantAttention at N=2048 against
   dense mode (first-step gradients, 8 steps of loss); and profiles a
   training step of each.
+* Flocking: holds the three grid-environment kernels (grid_window,
+  table_build, table_transpose) against their plain versions bit for bit
+  at flock_n262k's shapes and at edge cases; one flock_n4096 env step
+  (fused and gather builds) against the dense all-pairs step; serves
+  flock_n262k (LocalGNN_DB [6,32]/[4], N=262144: rollout_cost and
+  rollout_traj_device over 100 steps, compute_trajectory with its graphs
+  over 25) and flock_n4096 (2 samples, 100 steps) through Flocking's
+  entry points against the same rollouts on the plain versions, with
+  exact launch counts; times the kernels and profiles a rollout step.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -1408,6 +1417,511 @@ def phase_train_profile(trained, n=6):
                        calls_per_step=t["calls"]) for t in prof["top"]])
 
 
+# ---------------------------------------------------------------------------
+# Flocking path (cell-grid environment kernels)
+# ---------------------------------------------------------------------------
+
+# flock_n262k: bench.py:284-318 (the JAX package's flagship closed loop):
+# LocalGNN_DB([6,32], [4], True, "tanh", [2], 1), N = 262144, one sample,
+# circular initial geometry from default_rng(0); flock_n4096: the
+# deployment of examples/largeswarm.py:84-90, 184-217 (LocalGNN_DB([6,64],
+# [3]), N = 4096, 2 samples, default_rng(1)). Both: commRadius 2, repelDist
+# 1, samplingTime 0.01, env_grid=True (side-2r cells, C = 32, 4 windows),
+# ell_degree 32, lam_iters 0. Random weights from a torch seed: the JAX
+# init cannot run here (the CPU tests carry JAX weights across).
+FLOCK = {
+    "flock_n262k": dict(N=262144, B=1, seed=0, dims=[6, 32], taps=[4],
+                        wseed=1),
+    "flock_n4096": dict(N=4096, B=2, seed=1, dims=[6, 64], taps=[3],
+                        wseed=2),
+}
+FLOCK_D = 32
+FLOCK_T_EVAL = 100     # 1 s at dt = 0.01, as examples/largeswarm.py deploys
+FLOCK_T_TRAIN = 25     # bench.py's long chain
+# The grid kernels' plain versions do the same IEEE operations and sum in
+# the kernels' order (gridwin._warp_sum), so kernel and plain outputs, and
+# whole rollouts on either, are held equal bit for bit.
+
+
+def _flock_setup(name, dev):
+    """(env, initPos, initVel, policy) of a flocking configuration."""
+    import torch
+    from graph_neural_networks_torch.data.flocking import Flocking
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    c = FLOCK[name]
+    env = Flocking.for_rollout(c["N"], commRadius=2.0, repelDist=1.0,
+                               samplingTime=0.01,
+                               rng=np.random.default_rng(c["seed"]),
+                               device=dev)
+    ip, iv = env.compute_initial_positions(
+        c["N"], c["B"], env.commRadius, minDist=env.initMinDist,
+        geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    return env, ip, iv, net
+
+
+def _flock_counts():
+    from graph_neural_networks_torch.ops import gridwin
+    return {fn.__name__: fn.launches for fn in gridwin.KERNEL_WRAPPERS}
+
+
+@contextlib.contextmanager
+def _plain_gridwin():
+    """The grid env with the kernels' plain versions in their place (the
+    smoke's own substitution; the package has no switch)."""
+    from graph_neural_networks_torch.ops import gridwin
+    saved = {fn.__name__: fn for fn in gridwin.KERNEL_WRAPPERS}
+    for name in saved:
+        setattr(gridwin, name, getattr(gridwin, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(gridwin, name, fn)
+
+
+def _grid_inputs(pos, vel, factor, C, table_size=None, v=None, pay=None,
+                 builder="fused"):
+    """A grid table and the window operands of every agent: (table
+    (B*H, W), own, slots, keep, H, W, ok)."""
+    from graph_neural_networks_torch.data import flocking as fl
+    B, _, N = pos.shape
+    H, Gx, Gy, C = fl._grid_geometry(N, table_size, C, factor)
+    inv_s = 1.0 / (factor * 2.0)
+    px, py, vx, vy = pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1]
+    rows, cx, cy, ok, _ = fl._grid_build_table(
+        px, py, vx, vy, inv_s, H, Gx, Gy, C, v=v, pay=pay, builder=builder)
+    own, slots, keep = fl._window_operands(px, py, vx, vy, cx, cy, H, Gx,
+                                           Gy, inv_s, factor)
+    W = rows.shape[-1]
+    return rows.view(B * H, W), own, slots, keep, H, W, bool(ok.all())
+
+
+def _cell_starts(pos):
+    """(starts (1, H+1) int32, H): the run starts of the agents' cells in
+    the quad scheme's table (one sample), as table_build takes them."""
+    import torch
+    from graph_neural_networks_torch.data import flocking as fl
+    N = pos.shape[-1]
+    H, Gx, Gy, _ = fl._grid_geometry(N, None, 32, 2)
+    cell = lambda x: torch.floor(x * 0.25).to(torch.int32)
+    h = fl._grid_hash(cell(pos[0, 0]), cell(pos[0, 1]), Gx, Gy)
+    starts = torch.zeros(1, H + 1, dtype=torch.int32, device=pos.device)
+    starts[0, 1:] = torch.cumsum(torch.bincount(h.long(), minlength=H), 0)
+    return starts, H
+
+
+def _edge_swarm(rng, n, extent, dev):
+    """n agents uniform in [-extent, extent]^2, a 6 x 6 cluster of spacing
+    0.25 on the cell corner (4, 4) (35+ neighbors each, more than d_max),
+    and two pairs at exactly d^2 = r^2; (1, 2, n + 40) positions and
+    velocities."""
+    import torch
+    g = 0.25 * np.arange(6) - 0.625
+    gx, gy = np.meshgrid(g, g)
+    pos = np.concatenate(
+        [rng.uniform(-extent, extent, (2, n)),
+         np.array([[0.5, 0.5], [0.5, 2.5], [-3.0, 1.0], [-1.0, 1.0]]).T,
+         np.stack([4.0 + gx.ravel(), 4.0 + gy.ravel()])], axis=1)
+    vel = rng.normal(size=pos.shape)
+    as_t = lambda a: torch.as_tensor(a[None].astype(np.float32), device=dev)
+    return as_t(pos), as_t(vel)
+
+
+def phase_flock_kernels(rng, dev):
+    """grid_window, table_build and table_transpose against their plain
+    versions on the card, bit for bit: at the served shapes of flock_n262k
+    and at edge cases."""
+    import torch
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check_window(case, args, d_max, n_pay, wv_only=False, r2=4.0,
+                     C=32):
+        kw = dict(C=C, r2=r2, d_max=d_max, wv_only=wv_only, n_pay=n_pay)
+        got = gridwin.grid_window(*args, **kw)
+        want = gridwin.grid_window_plain(*args, **kw)
+        same = bool(torch.equal(got, want))
+        max_abs = (got - want).abs().max().item()
+        results.append(dict(kernel="grid_window", case=case, equal=same,
+                            max_abs_err=max_abs))
+        errs.setdefault("grid_window", max_abs)
+        require(same, f"grid_window [{case}] differs from its plain version "
+                      f"(max abs {max_abs})")
+        return got
+
+    def check_table(name, case, got, want):
+        same = bool(torch.equal(got, want))
+        results.append(dict(kernel=name, case=case, equal=same))
+        errs.setdefault(name, 0.0 if same else float("nan"))
+        require(same, f"{name} [{case}] differs from its plain version")
+
+    # served shapes: flock_n262k's initial swarm, payload P = 18
+    env, ip, iv, _ = _flock_setup("flock_n262k", dev)
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    N = pos.shape[-1]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    v = torch.rand(1, N, generator=g).to(dev)
+    pay = torch.randn(1, N, 18, generator=g).to(dev)
+    tables = {}
+    for builder in ("scatter", "gather", "fused"):
+        tables[builder] = _grid_inputs(pos, vel, 2, 32, v=v, pay=pay,
+                                       builder=builder)
+        require(tables[builder][-1], f"262k {builder} table overflowed")
+    for builder in ("gather", "fused"):
+        same = bool(torch.equal(tables[builder][0], tables["scatter"][0]))
+        results.append(dict(kernel="table_build" if builder == "fused"
+                             else "table_transpose",
+                             case=f"262k {builder} build == scatter build",
+                             equal=same))
+        require(same, f"262k {builder} table differs from the scatter table")
+    table, own, slots, keep, H, W, _ = tables["fused"]
+    args = (table, own, slots, keep)
+    check_window("262k eval: d_max=0 n_pay=18", args, 0, 18)
+    check_window("262k train: d_max=32 n_pay=18", args, 32, 18)
+    check_window("262k lambda pass: wv_only", args, 0, 0, wv_only=True)
+    check_window("262k n_pay=12 d_max=32", args, 32, 12)
+    init_args = _grid_inputs(pos, vel, 2, 32, v=v)[:4]   # P = 0, W = 256
+    check_window("262k init step: d_max=32 n_pay=0", init_args, 32, 0)
+
+    # table_build and table_transpose at the served shape (F = 25)
+    starts, Hh = _cell_starts(pos)
+    fs = torch.randn(1, N, 25, generator=g).to(dev)
+    check_table("table_build", "262k F=25", gridwin.table_build(
+        fs, starts, C=32), gridwin.table_build_plain(fs, starts, C=32))
+    mm = torch.randn(Hh * 32, 25, generator=g).to(dev)
+    check_table("table_transpose", "262k F=25 (H*C, 25)",
+                gridwin.table_transpose(mm, C=32, F=25),
+                gridwin.table_transpose_plain(mm, C=32, F=25))
+    mm128 = torch.randn(4096 * 16, 128, generator=g).to(dev)
+    check_table("table_transpose", "H=4096 C=16 F=7 L=128 (pad lanes)",
+                gridwin.table_transpose(mm128, C=16, F=7),
+                gridwin.table_transpose_plain(mm128, C=16, F=7))
+
+    # edge cases: both schemes, > d_max neighbors, d^2 = r^2 pairs, empty
+    # cells, aliased windows, the exp test, an overflowing cell
+    epos, evel = _edge_swarm(rng, 400, 12.0, dev)
+    n_e = epos.shape[-1]
+    ev = torch.rand(1, n_e, generator=g).to(dev)
+    for factor, C in ((2, 32), (1, 16)):
+        for n_pay in (0, 12, 18):
+            epay = torch.randn(1, n_e, n_pay, generator=g).to(dev)
+            ea = _grid_inputs(epos, evel, factor, C, v=ev,
+                              pay=epay if n_pay else None)
+            require(ea[-1], f"edge swarm overflowed (factor {factor})")
+            for d_max in (0, 32):
+                out = check_window(f"factor={factor} C={C} n_pay={n_pay} "
+                                   f"d_max={d_max}", ea[:4], d_max, n_pay,
+                                   C=C)
+            cnt = out[:, 2 * 32 + 7]
+            require(cnt.max().item() > 32, "no row with > d_max neighbors")
+            # both boundary pairs (ids 400..403) see each other
+            ids = out[:, :32]
+            for a, b in ((400, 401), (402, 403)):
+                require(bool((ids[a] == b).any() and (ids[b] == a).any()),
+                        f"d^2 = r^2 pair {a}, {b} not neighbors")
+        check_window(f"factor={factor} wv_only", ea[:4], 0, 0, wv_only=True,
+                     C=C)
+    for factor, C, ts in ((1, 64, 4), (2, 128, 2)):
+        ea = _grid_inputs(epos[..., :200] / 4, evel[..., :200], factor, C,
+                          table_size=ts, v=ev[:, :200])
+        require(not bool(ea[3].all()), "no aliased window")
+        check_window(f"aliased windows: factor={factor} table={ts}", ea[:4],
+                     32, 0, C=C)
+    ea = _grid_inputs(epos[..., :200] / 3, evel[..., :200], 2, 128,
+                      table_size=4, v=ev[:, :200])
+    check_window("r2=25 (exp test on)", ea[:4], 32, 0, r2=25.0, C=128)
+    # an overflowing cell: the first C sorted members stay
+    counts = torch.tensor([[40, 0, 7, 33, 1, 0, 0, 19]], dtype=torch.int32)
+    st = torch.zeros(1, 9, dtype=torch.int32)
+    st[0, 1:] = torch.cumsum(counts[0], 0)
+    fs_o = torch.randn(1, int(st[0, -1]), 9, generator=g).to(dev)
+    st = st.to(dev)
+    check_table("table_build", "overflowing runs (40, 33 > C=32)",
+                gridwin.table_build(fs_o, st, C=32),
+                gridwin.table_build_plain(fs_o, st, C=32))
+    tb = gridwin.table_build(fs_o, st, C=32)
+    require(bool(torch.equal(tb[0, 0, :32], fs_o[0, :32, 0])),
+            "table_build overflow did not keep the first C members")
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    emit(phase="flock_kernels", checks=results,
+         seconds=time.perf_counter() - t_phase)
+    return errs
+
+
+def phase_flock_env(dev):
+    """One grid env step of flock_n4096 (2 samples, payload P = 12) on the
+    kernels against the dense all-pairs reference: the neighbor sets as
+    0/1 matrices, the states, the payload shift against W @ payload, and
+    lambda against the same Rayleigh fold on the dense W; once with the
+    fused build and once with the gather build (table_transpose), which
+    must agree bit for bit."""
+    import torch
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    env, ip, iv, _ = _flock_setup("flock_n4096", dev)
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    B, _, N = pos.shape
+    g = torch.Generator(device="cpu").manual_seed(4)
+    v0 = (torch.rand(B, N, generator=g) + 0.5).to(dev)
+    pay = torch.randn(B, N, 12, generator=g).to(dev)
+    gridwin.reset_launch_counts()
+    outs = {b: fl.env_step_grid(pos, vel, 2.0, FLOCK_D, v0, lam_iters=0,
+                                cell_cap=32, cell_factor=2, payload=pay,
+                                builder=b) for b in ("fused", "gather")}
+    counts = _flock_counts()
+    expected = dict(grid_window=2, table_build=1, table_transpose=1)
+    require(counts == expected, f"flock_env launches {counts}, expected "
+                                f"{expected}")
+    for a, b in zip(outs["fused"], outs["gather"]):
+        require(bool(torch.equal(a, b)), "gather-built step differs from "
+                                         "the fused-built step")
+    idx, val, st, v, sh, ok = outs["fused"]
+    require(bool(ok), "flock_n4096 step: cell overflow or in-degree > d_max")
+    W = (fl.comm_graph(pos, 2.0, "power") > 0).float()
+    lam_ref = (torch.einsum("bn,bnm,bm->b", v0, W, v0)
+               / (v0 * v0).sum(-1))
+    lam = 1.0 / val.amax(dim=(1, 2))
+    Sg = torch.zeros_like(W)
+    Sg.scatter_add_(2, idx.long(), (val > 0).float())
+    same_sets = bool(torch.equal(Sg, W))
+    require(same_sets, "grid neighbor sets differ from the dense graph")
+    checks = {}
+    for name, got, want, axis in (
+            ("states", st, fl.states(pos, vel, W), 1),
+            ("shift", sh, torch.einsum("bmn,bnp->bmp", W, pay)
+             / lam_ref[:, None, None], 2),
+            ("v", v, torch.einsum("bnm,bn->bm", W, v0), None),
+            ("lambda", lam, lam_ref, None)):
+        if name == "v":
+            want = want / want.norm(dim=-1, keepdim=True)
+        got, want = got.double(), want.double()
+        dims = tuple(i for i in range(want.dim()) if i != axis)
+        scale = (want.abs().amax(dim=dims, keepdim=True) if axis is not None
+                 else want.abs().max())
+        err = (got - want).abs()
+        ok_c = bool((err <= 1e-4 * want.abs() + 1e-5 * scale).all())
+        checks[name] = dict(max_abs_err=err.max().item(), ok=ok_c)
+        require(ok_c, f"flock_env {name} disagrees with the dense step: "
+                      f"{checks[name]}")
+    emit(phase="flock_env", config="flock_n4096", B=B, N=N,
+         edges=int(W.sum().item()), max_in_degree=int(W.sum(1).max().item()),
+         neighbor_sets_equal=same_sets, lam=lam.tolist(),
+         lam_dense=lam_ref.tolist(), checks=checks, launches=counts,
+         rtol=1e-4, atol="1e-5*max|dense| (per state channel)",
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def _rollout_compare(label, got, want):
+    """Kernel and plain rollouts' arrays must be equal bit for bit."""
+    import torch
+    out = {}
+    for name, a, b in zip(("pos", "vel", "accel", "states"), got, want):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        out[name] = dict(max_abs_err=(a - b).abs().max().item(),
+                         equal=bool(torch.equal(a, b)))
+        require(out[name]["equal"], f"{label}: kernel and plain rollouts "
+                                    f"differ in {name}: {out[name]}")
+    return out
+
+
+def phase_flock_serving(dev, card):
+    """The closed loop through Flocking's entry points on the kernels:
+    flock_n262k eval-shaped (rollout_cost, rollout_traj_device; T = 100)
+    and train-shaped (compute_trajectory with its ELL graphs; T = 25), and
+    flock_n4096 (rollout_cost; T = 100); each against the same rollout
+    with the plain versions substituted, ok true, exact launch counts."""
+    import torch
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    kw = dict(ell_degree=FLOCK_D, env_grid=True, lam_iters=0,
+              env_grid_strict=True)
+    launches = dict(grid_window=0, table_build=0, table_transpose=0)
+
+    def run(label, fn, T, n_steps_b, expect):
+        gridwin.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _flock_counts()
+        require(counts == expect, f"{label}: launches {counts}, expected "
+                                  f"{expect}")
+        for k, n in counts.items():
+            launches[k] += n
+        with _plain_gridwin():
+            t0 = time.perf_counter()
+            plain = fn()
+            torch.cuda.synchronize()
+            plain_seconds = time.perf_counter() - t0
+        return out, plain, dict(
+            config=label, T=T, seconds=seconds, plain_seconds=plain_seconds,
+            agent_steps_per_s=n_steps_b * (T - 1) / seconds, launches=counts)
+
+    def expect(T):
+        # 1 table build a step; the first step's window pass + 32 cold-start
+        # lambda passes (lam_iters 0 -> max(0, 32)), then one pass a step
+        return dict(grid_window=33 + (T - 1), table_build=T,
+                    table_transpose=0)
+
+    rows = []
+    env, ip, iv, net = _flock_setup("flock_n262k", dev)
+    N = FLOCK["flock_n262k"]["N"]
+    dur = FLOCK_T_EVAL * env.samplingTime
+    (cf, ce), (pcf, pce), row = run(
+        "flock_n262k eval rollout_cost", lambda: env.rollout_cost(
+            ip, iv, dur, net, **kw), FLOCK_T_EVAL, N, expect(FLOCK_T_EVAL))
+    require(np.isfinite(cf) and np.isfinite(ce), "non-finite cost")
+    require((cf, ce) == (pcf, pce), f"262k cost {cf}, {ce} vs plain "
+                                    f"{pcf}, {pce}")
+    rows.append(dict(row, cost_full=cf, cost_end=ce, plain_cost_full=pcf,
+                     plain_cost_end=pce))
+    (pos, vel), (ppos, pvel), row = run(
+        "flock_n262k eval rollout_traj_device", lambda:
+        env.rollout_traj_device(ip, iv, dur, net, **kw), FLOCK_T_EVAL, N,
+        expect(FLOCK_T_EVAL))
+    require(tuple(pos.shape) == (1, FLOCK_T_EVAL, 2, N)
+            and bool(torch.isfinite(pos).all()), "262k trajectory")
+    cost_dev = float(fl.evaluate_cost_device(vel))
+    require(abs(cost_dev - cf) <= 1e-5 * abs(cf),
+            f"trajectory cost {cost_dev} vs rollout_cost {cf}")
+    rows.append(dict(row, cost_of_trajectory=cost_dev,
+                     vs_plain=_rollout_compare("262k traj", (pos, vel),
+                                               (ppos, pvel))))
+    del pos, vel, ppos, pvel
+    dur_t = FLOCK_T_TRAIN * env.samplingTime
+    got, want, row = run(
+        "flock_n262k train compute_trajectory", lambda:
+        env.compute_trajectory(ip, iv, dur_t, net, return_graphs=True, **kw),
+        FLOCK_T_TRAIN, N, expect(FLOCK_T_TRAIN))
+    g, w = got[4], want[4]
+    require(g.idx.shape == (1, FLOCK_T_TRAIN, N, FLOCK_D)
+            and g.val.dtype == np.float64, f"graphs {g.idx.shape}")
+    require(np.array_equal(g.idx, w.idx) and np.array_equal(g.val, w.val),
+            "262k graph trajectory differs between kernel and plain")
+    rows.append(dict(row, edges=int((g.val > 0).sum()),
+                     max_in_degree=int((g.val > 0).sum(-1).max()),
+                     vs_plain=_rollout_compare("262k compute_trajectory",
+                                               got[:4], want[:4])))
+    del got, want, g, w
+    env4, ip4, iv4, net4 = _flock_setup("flock_n4096", dev)
+    c4 = FLOCK["flock_n4096"]
+    (cf4, ce4), (pcf4, pce4), row = run(
+        "flock_n4096 eval rollout_cost", lambda: env4.rollout_cost(
+            ip4, iv4, dur, net4, **kw), FLOCK_T_EVAL, c4["N"] * c4["B"],
+        expect(FLOCK_T_EVAL))
+    require((cf4, ce4) == (pcf4, pce4), f"4096 cost {cf4}, {ce4} vs plain "
+                                        f"{pcf4}, {pce4}")
+    rows.append(dict(row, cost_full=cf4, cost_end=ce4, plain_cost_full=pcf4,
+                     plain_cost_end=pce4))
+    emit(phase="flock_serving", nvidia_smi=card, rows=rows,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, (env, ip, iv, net)
+
+
+def phase_flock_timing(dev, card):
+    """Each grid kernel at flock_n262k's served shape beside its plain
+    version and its bound (bytes: grid_window counts its agents' n_win
+    whole table rows, though it loads only the lanes it needs); the
+    one-expression torch relayout as table_transpose's library call."""
+    import torch
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    env, ip, iv, _ = _flock_setup("flock_n262k", dev)
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    N = pos.shape[-1]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    v = torch.rand(1, N, generator=g).to(dev)
+    pay = torch.randn(1, N, 18, generator=g).to(dev)
+    table, own, slots, keep, H, W, ok = _grid_inputs(pos, vel, 2, 32, v=v,
+                                                     pay=pay)
+    R, n_win = slots.shape
+    C, F, P = 32, 25, 18
+    rows = {}
+
+    def window_row(shape, d_max, n_pay):
+        ow = gridwin._out_width(d_max, n_pay)
+        kw = dict(C=C, r2=4.0, d_max=d_max, n_pay=n_pay)
+        args = (table, own, slots, keep)
+        return dict(
+            shape=shape,
+            ms=time_ms(lambda: gridwin.grid_window(*args, **kw)),
+            plain_ms=time_ms(lambda: gridwin.grid_window_plain(*args, **kw),
+                             reps=5, inner=2),
+            library_ms=None,
+            bytes=4 * R * (n_win * W + 5 + n_win + ow) + R * n_win,
+            # per candidate: the distance and mask (~8 flops); per
+            # neighbor: the 6 state terms and the v, payload sums
+            flops=R * n_win * C * 8)
+
+    rows["grid_window"] = window_row(
+        f"R={R} n_win={n_win} C={C} W={W} d_max=0 n_pay={P}", 0, P)
+    rows["grid_window@train"] = window_row(
+        f"R={R} n_win={n_win} C={C} W={W} d_max=32 n_pay={P}", 32, P)
+    fs = torch.randn(1, N, F, generator=g).to(dev)
+    starts, _ = _cell_starts(pos)
+    rows["table_build"] = dict(
+        shape=f"N={N} F={F} H={H} C={C} W={W}",
+        ms=time_ms(lambda: gridwin.table_build(fs, starts, C=C)),
+        plain_ms=time_ms(lambda: gridwin.table_build_plain(fs, starts, C=C),
+                         reps=5, inner=2),
+        library_ms=None, bytes=4 * (N * F + (H + 1) + H * W), flops=0)
+    mm = torch.randn(H * C, F, generator=g).to(dev)
+    rows["table_transpose"] = dict(
+        shape=f"H={H} C={C} F={F} W={W}",
+        ms=time_ms(lambda: gridwin.table_transpose(mm, C=C, F=F)),
+        plain_ms=time_ms(lambda: gridwin.table_transpose_plain(mm, C=C, F=F),
+                         reps=5, inner=2),
+        library_ms=time_ms(lambda: mm.view(H, C, F)[:, :, :F].transpose(
+            1, 2).contiguous()),
+        library_call="mm.view(H, C, F)[:, :, :F].transpose(1, 2)"
+                     ".contiguous() (no lane padding)",
+        bytes=4 * (H * C * F + H * W), flops=0)
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+    emit(phase="flock_timing", nvidia_smi=card, rows=rows,
+         peaks=dict(hbm_tb_s=HBM_BYTES_PER_S / 1e12,
+                    fp32_tflops=FP32_FLOPS_PER_S / 1e12),
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def phase_flock_profile(setup, card, n=10):
+    """Where one flock_n262k eval-shaped rollout step (policy, physics, the
+    grid env step) spends its time."""
+    import torch
+    env, ip, iv, net = setup
+    init_fn, step_fn = env._chunked_pieces(net, FLOCK_D, 0, True,
+                                           return_graphs=False)
+    with torch.no_grad():
+        carry = [init_fn(env._as_device(ip), env._as_device(iv))[0]]
+
+        def step():
+            carry[0] = step_fn(carry[0])[0]
+
+        prof = _device_profile(step, n)
+    emit(phase="flock_profile", nvidia_smi=card,
+         config="flock_n262k eval step",
+         host_ms_per_step=prof["wall_ms"],
+         profiled_host_ms_per_step=prof["profiled_wall_ms"],
+         device_ms_per_step=prof["device_ms"],
+         device_idle_share=prof["device_idle_share"],
+         top=[dict(name=t["name"], ms_per_step=t["ms"],
+                   calls_per_step=t["calls"]) for t in prof["top"]])
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -1415,6 +1929,9 @@ REPLACES = {
     "stats_call": "graph_neural_networks_tpu/ops/attention_flash.py:212",
     "apply_call": "graph_neural_networks_tpu/ops/attention_flash.py:234",
     "bwd_call": "graph_neural_networks_tpu/ops/attention_flash.py:261",
+    "table_transpose": "graph_neural_networks_tpu/ops/gridwin.py:175",
+    "table_build": "graph_neural_networks_tpu/ops/gridwin.py:265",
+    "grid_window": "graph_neural_networks_tpu/ops/gridwin.py:356",
 }
 
 
@@ -1484,6 +2001,15 @@ def main() -> int:
         for k, n in train_launches.items():
             launches[k] = launches.get(k, 0) + n
         timed("train_profile", phase_train_profile, trained)
+        errs.update(timed("flock_kernels", phase_flock_kernels,
+                          np.random.default_rng(10), dev))
+        env_launches = timed("flock_env", phase_flock_env, dev)
+        serve_launches, setup = timed("flock_serving", phase_flock_serving,
+                                      dev, card)
+        for k in serve_launches:
+            launches[k] = env_launches[k] + serve_launches[k]
+        rows.update(timed("flock_timing", phase_flock_timing, dev, card))
+        timed("flock_profile", phase_flock_profile, setup, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1494,12 +2020,15 @@ def main() -> int:
                   "path", file=sys.stderr)
             return 1
     summary = []
+    sources = dict(stats_call="attention_flash.cu",
+                   apply_call="attention_flash.cu",
+                   bwd_call="attention_flash.cu", grid_window="gridwin.cu",
+                   table_build="gridwin.cu", table_transpose="gridwin.cu")
     for name in ("bcsr_matmul", "band_shift_register", "band_matmul",
-                 "stats_call", "apply_call", "bwd_call"):
+                 "stats_call", "apply_call", "bwd_call", "table_transpose",
+                 "table_build", "grid_window"):
         row = rows["bcsr_matmul@R=2048" if name == "bcsr_matmul" else name]
-        source = ("attention_flash.cu"
-                  if name in ("stats_call", "apply_call", "bwd_call")
-                  else "spmm.cu")
+        source = sources.get(name, "spmm.cu")
         summary.append(dict(
             name=name, route="cuda",
             source=f"graph_neural_networks_torch/kernels/csrc/{source}",

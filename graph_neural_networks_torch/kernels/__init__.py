@@ -24,7 +24,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
-SOURCES = ("spmm.cu", "attention_flash.cu")
+SOURCES = ("spmm.cu", "attention_flash.cu", "gridwin.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,6 +48,14 @@ _SIGNATURES = {
     # Np, nb, w, ibs, with_s, slope, stream
     "gnt_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _F, _P),
+    # table, own, slots, keep, out, R, W, n_win, C, r2, need_exp, d_max,
+    # wv_only, n_pay, stream
+    "gnt_grid_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _I, _P),
+    # fs, starts, out, B, H, N, F, C, W, stream
+    "gnt_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # mm, out, H, L, F, C, W, stream
+    "gnt_table_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # The differentiable form of each kernel wrapper: a torch.autograd.Function
@@ -155,10 +163,13 @@ def on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *others)):
+        how = (f"call graph_neural_networks_torch.{AUTOGRAD_FUNCTIONS[name]}"
+               " to differentiate through the kernel"
+               if name in AUTOGRAD_FUNCTIONS else
+               "the kernel has no gradient (the environment runs forward "
+               "only)")
         raise NotImplementedError(
-            f"{name}: the raw kernel wrapper records no gradient; call "
-            f"graph_neural_networks_torch.{AUTOGRAD_FUNCTIONS[name]} to "
-            "differentiate through the kernel")
+            f"{name}: the raw kernel wrapper records no gradient; {how}")
     return True
 
 

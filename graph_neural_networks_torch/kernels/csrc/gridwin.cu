@@ -1,0 +1,252 @@
+// Hopper (sm_90a) kernels for the cell-grid swarm environment, in FP32.
+//
+// Three kernels, each the counterpart of one Pallas kernel of the JAX
+// package (graph_neural_networks_tpu/ops/gridwin.py):
+//
+//   grid_window_kernel      <- gridwin.py:grid_window (_make_kernel)
+//   table_build_kernel      <- gridwin.py:table_build (_make_build_kernel)
+//   table_transpose_kernel  <- gridwin.py:table_transpose (_make_xpose_kernel)
+//
+// The cell table is (cells, W) f32, feature-blocked: row h holds
+// [px*C | py*C | vx*C | vy*C | valid*C | id*C | v*C | pay*C x P | 0 pad],
+// lane f*C + c is feature f of the cell's c-th member.
+//
+// What bounds them on an H100: all three move bytes and do a few flops a
+// byte, so device-memory traffic bounds them. The TPU kernels needed the
+// candidate rows gathered into one (n_win, rows, W) operand first, because
+// a Pallas kernel could not gather; here a warp reads each of its agent's
+// n_win cell rows straight from the table by slot, so the gathered operand
+// (3.8 GB at 262144 agents and W = 896) is never written or read. A warp
+// reads a row's feature block as one coalesced 128-byte line, and lanes
+// whose candidate is masked out load none of the features only a
+// neighbor needs.
+//
+// Numbers: the distance mask and the state terms spell out their roundings
+// (__fmul_rn, __fadd_rn, __fdiv_rn) so nvcc contracts nothing into an FMA;
+// the plain PyTorch versions (ops/gridwin.py) do the same separate IEEE
+// operations and sum in this kernel's order (per lane over the chunks,
+// then the xor-shuffle tree), so the two agree bit for bit.
+//
+// Every launcher has a plain C interface and returns the cudaError_t of the
+// launch; the Python wrappers raise if it is not cudaSuccess.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;  // agents (grid_window) or cells (builds) a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxChunks = 32;  // n_win * C <= 32 * kMaxChunks candidates
+constexpr float kZeroTol = 1e-9f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One warp an agent row r of R. Candidate j = w*C + c (window w of n_win,
+// member slot c of C) is lane j % 32 of chunk j / 32, in the JAX lane order,
+// so the first-d_max selection takes the same ids as the Pallas kernel.
+//
+// table (cells, W); own (R, 5) [px, py, vx, vy, id]; slots (R, n_win) the
+// table row of each window; keep (R, n_win) 0 for a window that repeats an
+// earlier one of the same agent (the modular map aliased them).
+// out (R, OW): [idx (d_max, float ids) | val (d_max, 0/1) | st (6) | wv |
+// cnt | wpay (n_pay)], OW = 2 d_max + 8 + n_pay; wv_only: out (R, 1) = wv.
+__global__ void __launch_bounds__(kThreads)
+grid_window_kernel(const float* __restrict__ table,
+                   const float* __restrict__ own,
+                   const int* __restrict__ slots,
+                   const unsigned char* __restrict__ keep,
+                   float* __restrict__ out, int R, int W, int n_win, int C,
+                   float r2, int need_exp, int d_max, int wv_only,
+                   int n_pay) {
+  __shared__ unsigned mask_s[kWarps][kMaxChunks];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= R) return;  // whole warps leave together
+  const float* o = own + (int64_t)r * 5;
+  const float opx = o[0], opy = o[1], ovx = o[2], ovy = o[3], oid = o[4];
+  const int M = n_win * C;
+  const int n_chunks = (M + 31) / 32;
+  const int OW = wv_only ? 1 : 2 * d_max + 8 + n_pay;
+  float* orow = out + (int64_t)r * OW;
+
+  float wv = 0.f, cnt = 0.f;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
+  int total = 0;  // masked candidates in earlier chunks: the rank base
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int j = ch * 32 + lane;
+    bool m = false;
+    float dpx = 0.f, dpy = 0.f, d2 = 0.f, cid = 0.f;
+    const float* row = nullptr;
+    int c = 0;
+    if (j < M) {
+      const int w = j / C;
+      c = j % C;
+      if (keep[(int64_t)r * n_win + w]) {
+        row = table + (int64_t)slots[(int64_t)r * n_win + w] * W;
+        const float valid = row[4 * C + c];
+        cid = row[5 * C + c];
+        dpx = __fsub_rn(opx, row[c]);
+        dpy = __fsub_rn(opy, row[C + c]);
+        d2 = __fadd_rn(__fmul_rn(dpx, dpx), __fmul_rn(dpy, dpy));
+        m = valid > 0.f && d2 <= r2 && cid != oid;
+        if (need_exp) m = m && expf(-d2) > kZeroTol;
+      }
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) mask_s[warp][ch] = bits;
+    if (m) {
+      wv = __fadd_rn(wv, row[6 * C + c]);
+      if (!wv_only) {
+        cnt = __fadd_rn(cnt, 1.f);
+        const float inv = d2 > kZeroTol ? __fdiv_rn(1.f, d2) : 0.f;
+        const float px_inv = __fmul_rn(dpx, inv), py_inv = __fmul_rn(dpy, inv);
+        s0 = __fadd_rn(s0, __fsub_rn(ovx, row[2 * C + c]));
+        s1 = __fadd_rn(s1, __fsub_rn(ovy, row[3 * C + c]));
+        s2 = __fadd_rn(s2, __fmul_rn(px_inv, inv));
+        s3 = __fadd_rn(s3, __fmul_rn(py_inv, inv));
+        s4 = __fadd_rn(s4, px_inv);
+        s5 = __fadd_rn(s5, py_inv);
+        // first-d_max selection: this candidate's rank among the masked
+        // ones, in candidate order, from the ballot of its chunk
+        const int t = total + __popc(bits & ((1u << lane) - 1u));
+        if (t < d_max) {
+          orow[t] = cid;
+          orow[d_max + t] = 1.f;
+        }
+      }
+    }
+    total += __popc(bits);
+  }
+  wv = warp_sum(wv);
+  if (wv_only) {
+    if (lane == 0) orow[0] = wv;
+    return;
+  }
+  for (int t = min(total, d_max) + lane; t < d_max; t += 32) {
+    orow[t] = 0.f;
+    orow[d_max + t] = 0.f;
+  }
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  s3 = warp_sum(s3);
+  s4 = warp_sum(s4);
+  s5 = warp_sum(s5);
+  cnt = warp_sum(cnt);
+  if (lane == 0) {
+    float* st = orow + 2 * d_max;
+    st[0] = s0;
+    st[1] = s1;
+    st[2] = s2;
+    st[3] = s3;
+    st[4] = s4;
+    st[5] = s5;
+    st[6] = wv;
+    st[7] = cnt;
+  }
+  // payload graph shift: one masked sum a payload feature, over the masks
+  // of the first pass (only masked lanes load)
+  __syncwarp();
+  for (int p = 0; p < n_pay; ++p) {
+    float acc = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if ((mask_s[warp][ch] >> lane) & 1u) {
+        const int j = ch * 32 + lane;
+        const int w = j / C;
+        const float* row = table + (int64_t)slots[(int64_t)r * n_win + w] * W;
+        acc = __fadd_rn(acc, row[(7 + p) * C + j % C]);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) orow[2 * d_max + 8 + p] = acc;
+  }
+}
+
+// One warp a cell (b, h) of B*H. fs (B, N, F): the agents' feature rows
+// sorted by cell slot; starts (B, H+1): each cell's run [starts[h],
+// starts[h+1]) in fs[b]. out (B*H, W): out[h, f*C + c] = fs[starts[h] + c, f]
+// for c < min(run, C), else 0. Reads only the run, so an overflowing cell
+// keeps its first C sorted members.
+__global__ void __launch_bounds__(kThreads)
+table_build_kernel(const float* __restrict__ fs,
+                   const int* __restrict__ starts, float* __restrict__ out,
+                   int B, int H, int N, int F, int C, int W) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t cell = (int64_t)blockIdx.x * kWarps + warp;
+  if (cell >= (int64_t)B * H) return;
+  const int b = (int)(cell / H), h = (int)(cell % H);
+  const int* st = starts + (int64_t)b * (H + 1);
+  const int s = st[h];
+  const int run = min(st[h + 1] - s, C);
+  const float* src = fs + ((int64_t)b * N + s) * F;
+  float* dst = out + cell * W;
+  for (int i = lane; i < W; i += 32) {
+    const int f = i / C, c = i % C;
+    dst[i] = (f < F && c < run) ? src[(int64_t)c * F + f] : 0.f;
+  }
+}
+
+// One warp a cell h of H. mm (H*C, L): member-major slot rows, L >= F.
+// out (H, W): out[h, f*C + c] = mm[h*C + c, f] for f < F, else 0.
+__global__ void __launch_bounds__(kThreads)
+table_transpose_kernel(const float* __restrict__ mm, float* __restrict__ out,
+                       int H, int L, int F, int C, int W) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t h = (int64_t)blockIdx.x * kWarps + warp;
+  if (h >= H) return;
+  const float* src = mm + h * C * L;
+  float* dst = out + h * W;
+  for (int i = lane; i < W; i += 32) {
+    const int f = i / C, c = i % C;
+    dst[i] = f < F ? src[(int64_t)c * L + f] : 0.f;
+  }
+}
+
+unsigned blocks_for(int64_t warps) {
+  return (unsigned)((warps + kWarps - 1) / kWarps);
+}
+
+}  // namespace
+
+extern "C" {
+
+cudaError_t gnt_grid_window(const float* table, const float* own,
+                            const int* slots, const unsigned char* keep,
+                            float* out, int R, int W, int n_win, int C,
+                            float r2, int need_exp, int d_max, int wv_only,
+                            int n_pay, cudaStream_t stream) {
+  if (R <= 0 || n_win <= 0 || C <= 0 || d_max < 0 || n_pay < 0 ||
+      n_win * C > 32 * kMaxChunks || (7 + n_pay) * C > W)
+    return cudaErrorInvalidValue;
+  grid_window_kernel<<<blocks_for(R), kThreads, 0, stream>>>(
+      table, own, slots, keep, out, R, W, n_win, C, r2, need_exp, d_max,
+      wv_only, n_pay);
+  return cudaGetLastError();
+}
+
+cudaError_t gnt_table_build(const float* fs, const int* starts, float* out,
+                            int B, int H, int N, int F, int C, int W,
+                            cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || F <= 0 || C <= 0 || F * C > W)
+    return cudaErrorInvalidValue;
+  table_build_kernel<<<blocks_for((int64_t)B * H), kThreads, 0, stream>>>(
+      fs, starts, out, B, H, N, F, C, W);
+  return cudaGetLastError();
+}
+
+cudaError_t gnt_table_transpose(const float* mm, float* out, int H, int L,
+                                int F, int C, int W, cudaStream_t stream) {
+  if (H <= 0 || F <= 0 || F > L || C <= 0 || F * C > W)
+    return cudaErrorInvalidValue;
+  table_transpose_kernel<<<blocks_for(H), kThreads, 0, stream>>>(
+      mm, out, H, L, F, C, W);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -43,6 +43,30 @@ def lsigf(h: torch.Tensor, gso, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Time-varying (delayed) filters
+# ---------------------------------------------------------------------------
+
+def tap_register_combine(w: torch.Tensor, b: Optional[torch.Tensor],
+                         shifted: torch.Tensor, x_nm: torch.Tensor):
+    """One causal step of a delayed graph filter given its ALREADY-shifted
+    tap register S(t)·z_{0..K-2}(t-1): build the tap stack and contract it
+    with the taps. The closed-loop rollouts get the shifted register from
+    the grid environment's window pass (data.flocking.env_step_grid).
+
+    w: (F,E,K,G); b: (F,1) or None; shifted: (B,N,E,K-1,G); x_nm: (B,N,G).
+    Returns (reg' (B,N,E,K-1,G), y (B,N,F)).
+    """
+    F, E, K, G = w.shape
+    B, N, _ = x_nm.shape
+    x0 = x_nm[:, :, None, None].expand(B, N, E, 1, G)
+    stack = torch.cat([x0, shifted], dim=-2) if K > 1 else x0
+    y = torch.einsum("bnekg,fekg->bnf", stack, w)
+    if b is not None:
+        y = y + b.reshape(-1)
+    return stack[..., : K - 1, :], y
+
+
+# ---------------------------------------------------------------------------
 # Attention (GAT family)
 # ---------------------------------------------------------------------------
 
@@ -53,7 +77,7 @@ def _attention_band(gso) -> bool:
     if hasattr(gso, "band_attention"):
         raise NotImplementedError(
             "sharded attention (parallel/attention.py) is not ported yet "
-            "(ROADMAP queue 1 item 11)")
+            "(ROADMAP queue 1 item 10)")
     if isinstance(gso, gso_lib.Gso):
         return gso.mode == "band"
     if isinstance(gso, (torch.Tensor, np.ndarray)):

@@ -7,6 +7,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from graph_neural_networks_torch.models.architectures_time import LocalGNN_DB
+
 
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
@@ -36,6 +38,26 @@ def _flax_names(core):
     return names
 
 
+def _flax_names_db(arch):
+    """flax leaf path -> (torch parameter, transpose?) for LocalGNN_DB.
+
+    The JAX _LocalDBCore names its filters GraphFilterDB_<l> (weight, bias)
+    and its readout MLP "Readout" (not the MLP_0 of _ConvCore), holding
+    TorchDense_<i> with (fan_in, out) kernels.
+    """
+    names = {}
+    for l, f in enumerate(arch.filters):
+        for name, p in f.named_parameters():
+            names[(f"GraphFilterDB_{l}", name)] = (p, False)
+    for i, layer in enumerate(arch.readout.layers):
+        names[("Readout", "TorchDense_%d" % i, "kernel")] = (layer.weight,
+                                                             True)
+        if layer.bias is not None:
+            names[("Readout", "TorchDense_%d" % i, "bias")] = (layer.bias,
+                                                               False)
+    return names
+
+
 def load_flax_params(arch, params) -> None:
     """Copy a JAX parameter tree into `arch`'s parameters, in place.
 
@@ -44,11 +66,13 @@ def load_flax_params(arch, params) -> None:
     'bias'}, 'MLP_0': {'TorchDense_0': {'kernel', 'bias'}}}}``; the
     attention family's layers are ``GraphAttentional_<l>`` (mixer,
     weight), ``GraphFilterAttentional_<l>`` (mixer, weight, filterWeight,
-    bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias). Raises
-    KeyError if a leaf on either side is left unmatched, ValueError on a
-    shape mismatch.
+    bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias); a
+    LocalGNN_DB's are ``GraphFilterDB_<l>`` (weight, bias) and
+    ``Readout/TorchDense_<i>``. Raises KeyError if a leaf on either side is
+    left unmatched, ValueError on a shape mismatch.
     """
-    names = _flax_names(arch.core)
+    names = (_flax_names_db(arch) if isinstance(arch, LocalGNN_DB)
+             else _flax_names(arch.core))
     leaves = dict(_flatten(params["params"]))
     extra = sorted(set(leaves) - set(names))
     missing = sorted(set(names) - set(leaves))

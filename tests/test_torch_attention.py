@@ -267,7 +267,7 @@ def test_unported_gso_containers_raise():
 
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tfilters.graph_attention(xt, at, Wt, EdgeList())
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tfilters.gat_lsigf(torch.ones(1, 2), xt, at, Wt, ShardedGso())
 
 

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from graph_neural_networks_torch import serving as tserving
+from graph_neural_networks_torch.data import flocking as tflock
 from graph_neural_networks_torch.models import architectures as tarch
+from graph_neural_networks_torch.models import architectures_time as tarcht
 from graph_neural_networks_torch.ops import gso as tgso
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,3 +57,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                               [2], S, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserving.InferenceEngine(arch, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tflock.Flocking.for_rollout(64, 2.0, 1.0, 0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tarcht.LocalGNN_DB([6, 32], [4], True, "tanh", [2], 1)
