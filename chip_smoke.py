@@ -1832,8 +1832,9 @@ def phase_flock_serving(dev, card):
 
 def phase_flock_timing(dev, card):
     """Each grid kernel at flock_n262k's served shape beside its plain
-    version and its bound (bytes: grid_window counts its agents' n_win
-    whole table rows, though it loads only the lanes it needs); the
+    version and its bound (bytes: each operand read once and the output
+    written once, so grid_window counts the table once; `bound_ms_rows`
+    counts its agents' n_win whole table rows instead); the
     one-expression torch relayout as table_transpose's library call."""
     import torch
     from graph_neural_networks_torch.ops import gridwin
@@ -1855,16 +1856,25 @@ def phase_flock_timing(dev, card):
         ow = gridwin._out_width(d_max, n_pay)
         kw = dict(C=C, r2=4.0, d_max=d_max, n_pay=n_pay)
         args = (table, own, slots, keep)
-        return dict(
+        nbytes = lambda t: t.numel() * t.element_size()
+        # each operand read once and the output written once; the agents
+        # of a cell share its row, so the table counts once
+        inputs = sum(nbytes(t) for t in args)
+        row = dict(
             shape=shape,
             ms=time_ms(lambda: gridwin.grid_window(*args, **kw)),
             plain_ms=time_ms(lambda: gridwin.grid_window_plain(*args, **kw),
                              reps=5, inner=2),
             library_ms=None,
-            bytes=4 * R * (n_win * W + 5 + n_win + ow) + R * n_win,
+            bytes=inputs + 4 * R * ow,
+            # the whole-row count: every agent's n_win table rows
+            bytes_rows=inputs - nbytes(table) + 4 * R * n_win * W
+            + 4 * R * ow,
             # per candidate: the distance and mask (~8 flops); per
             # neighbor: the 6 state terms and the v, payload sums
             flops=R * n_win * C * 8)
+        row["bound_ms_rows"], _ = _bound(row["bytes_rows"], row["flops"])
+        return row
 
     rows["grid_window"] = window_row(
         f"R={R} n_win={n_win} C={C} W={W} d_max=0 n_pay={P}", 0, P)

@@ -146,7 +146,9 @@ def _grid_build_table(px, py, vx, vy, inv_s, H, Gx, Gy, C, v=None,
     builder: 'fused' (the table_build kernel; the default), 'gather'
     (run starts by searchsorted, one row gather of every slot, the
     table_transpose kernel) or 'scatter' (plain torch). All three give the
-    same table bit for bit whenever ok.
+    same table bit for bit whenever ok. No Flocking entry point takes a
+    builder: 'gather' is reachable only through ``env_step_grid(builder=)``
+    and is kept as the counterpart of the JAX package's gather build.
     """
     B, N = px.shape
     # ids travel through the float table: exact only below 2^24
@@ -539,13 +541,18 @@ class Flocking(Data):
         return init_fn, step_fn
 
     def _rollout_args(self, archit, ell_degree, env_grid, step_mode):
-        step_mode = bool((step_mode is None or step_mode)
-                         and hasattr(archit, "rollout_step"))
+        # step_mode keeps the JAX signature: None or True, the step
+        # interface; False, the full-history forward, which is not ported
+        if step_mode is not None and not step_mode:
+            raise NotImplementedError(
+                "step_mode=False (the full-history rollout through "
+                f"archit.forward) is not ported yet {_NOT_PORTED}")
         if ell_degree is None:
             ell_degree = self.rollout_ell_degree
         if env_grid is None:
             env_grid = self.rollout_env_grid
-        if not step_mode or ell_degree is None or env_grid is None:
+        if (not hasattr(archit, "rollout_step_shifted") or ell_degree is None
+                or env_grid is None):
             raise NotImplementedError(
                 "only the grid-environment step-mode rollout is ported (pass "
                 "env_grid, ell_degree and a policy with the step interface);"

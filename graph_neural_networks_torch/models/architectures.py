@@ -108,6 +108,17 @@ class MLP(nn.Module):
             y = layer(y)
         return y
 
+    def flax_names(self, scope: str) -> dict:
+        """flax leaf path -> (torch parameter, transpose?) of the stack the
+        JAX model holds as `scope`/TorchDense_<i>. A flax dense kernel is
+        (fan_in, out); the torch weight is (out, fan_in)."""
+        names = {}
+        for i, layer in enumerate(self.layers):
+            names[(scope, f"TorchDense_{i}", "kernel")] = (layer.weight, True)
+            if layer.bias is not None:
+                names[(scope, f"TorchDense_{i}", "bias")] = (layer.bias, False)
+        return names
+
 
 def _normalize_gso(GSO) -> np.ndarray:
     GSO = np.asarray(GSO, dtype=np.float64)
@@ -211,6 +222,18 @@ class _ConvCore(nn.Module):
             y = self.readout(x.transpose(1, 2)).transpose(1, 2)
         return y, y_gfl
 
+    def flax_names(self) -> dict:
+        """flax leaf path -> (torch parameter, transpose?). The JAX core
+        names its submodules in creation order: <LayerClass>_<l> for filter
+        layer l (GraphFilter_0, GraphAttentional_1, ...), whose parameters
+        carry the torch layer's names (weight, bias, mixer, filterWeight),
+        and MLP_0 for the readout."""
+        names = {(f"{type(f).__name__}_{l}", name): (p, False)
+                 for l, f in enumerate(self.filters)
+                 for name, p in f.named_parameters()}
+        names.update(self.readout.flax_names("MLP_0"))
+        return names
+
 
 # ---------------------------------------------------------------------------
 # Wrapper base
@@ -227,6 +250,9 @@ class _ArchBase:
 
     def parameters(self):
         return self.core.parameters()
+
+    def flax_names(self) -> dict:
+        return self.core.flax_names()
 
     def to(self, device) -> "_ArchBase":
         """Move parameters and ctx to `device` (in place, like nn.Module)."""

@@ -91,6 +91,16 @@ class LocalGNN_DB(nn.Module):
         # sum(K_l - 1) + 1 past steps (chained delayed taps)
         self.causal_window = sum(k - 1 for k in self.taps) + 1
 
+    def flax_names(self) -> dict:
+        """flax leaf path -> (torch parameter, transpose?). The JAX
+        _LocalDBCore names its filters GraphFilterDB_<l> (weight, bias) and
+        its readout MLP "Readout" (not the MLP_0 of _ConvCore)."""
+        names = {(f"GraphFilterDB_{l}", name): (p, False)
+                 for l, f in enumerate(self.filters)
+                 for name, p in f.named_parameters()}
+        names.update(self.readout.flax_names("Readout"))
+        return names
+
     # -- step mode (closed-loop rollouts) -----------------------------------
     def rollout_init(self, B: int, N: int, dtype=torch.float32):
         """Zeroed per-layer tap registers (B, N, E, K_l-1, G_l): an all-zero
@@ -133,12 +143,3 @@ class LocalGNN_DB(nn.Module):
             h = self.sigma(y)
         z = _readout_apply(self.readout, h, self.sigma)
         return tuple(new_state), z.transpose(-1, -2)
-
-    def rollout_step(self, state, x_t, S_t):
-        """One causal step on an explicit per-step graph S_t (the unfused
-        step path): not ported yet."""
-        raise NotImplementedError(
-            "LocalGNN_DB.rollout_step shifts its registers over an ELL graph "
-            "(ops/ell.py ell_shift_rows), which is not ported yet (ROADMAP "
-            "queue 1 item 7: the unfused step path); the grid rollouts use "
-            "rollout_step_shifted")

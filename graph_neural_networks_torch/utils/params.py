@@ -7,8 +7,6 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from graph_neural_networks_torch.models.architectures_time import LocalGNN_DB
-
 
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
@@ -16,46 +14,6 @@ def _flatten(tree, prefix=()):
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
-
-
-def _flax_names(core):
-    """flax leaf path -> (torch parameter, transpose?) for a _ConvCore.
-
-    The JAX core names its submodules in creation order: <LayerClass>_<l>
-    for filter layer l (GraphFilter_0, GraphAttentional_1, ...), whose
-    parameters carry the torch layer's names (weight, bias, mixer,
-    filterWeight), and MLP_0 holding TorchDense_<i>. A flax dense kernel
-    is (fan_in, out); the torch weight is (out, fan_in).
-    """
-    names = {}
-    for l, f in enumerate(core.filters):
-        for name, p in f.named_parameters():
-            names[(f"{type(f).__name__}_{l}", name)] = (p, False)
-    for i, layer in enumerate(core.readout.layers):
-        names[("MLP_0", "TorchDense_%d" % i, "kernel")] = (layer.weight, True)
-        if layer.bias is not None:
-            names[("MLP_0", "TorchDense_%d" % i, "bias")] = (layer.bias, False)
-    return names
-
-
-def _flax_names_db(arch):
-    """flax leaf path -> (torch parameter, transpose?) for LocalGNN_DB.
-
-    The JAX _LocalDBCore names its filters GraphFilterDB_<l> (weight, bias)
-    and its readout MLP "Readout" (not the MLP_0 of _ConvCore), holding
-    TorchDense_<i> with (fan_in, out) kernels.
-    """
-    names = {}
-    for l, f in enumerate(arch.filters):
-        for name, p in f.named_parameters():
-            names[(f"GraphFilterDB_{l}", name)] = (p, False)
-    for i, layer in enumerate(arch.readout.layers):
-        names[("Readout", "TorchDense_%d" % i, "kernel")] = (layer.weight,
-                                                             True)
-        if layer.bias is not None:
-            names[("Readout", "TorchDense_%d" % i, "bias")] = (layer.bias,
-                                                               False)
-    return names
 
 
 def load_flax_params(arch, params) -> None:
@@ -68,11 +26,11 @@ def load_flax_params(arch, params) -> None:
     weight), ``GraphFilterAttentional_<l>`` (mixer, weight, filterWeight,
     bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias); a
     LocalGNN_DB's are ``GraphFilterDB_<l>`` (weight, bias) and
-    ``Readout/TorchDense_<i>``. Raises KeyError if a leaf on either side is
-    left unmatched, ValueError on a shape mismatch.
+    ``Readout/TorchDense_<i>``. Each model maps the leaves to its own
+    parameters (``arch.flax_names()``). Raises KeyError if a leaf on either
+    side is left unmatched, ValueError on a shape mismatch.
     """
-    names = (_flax_names_db(arch) if isinstance(arch, LocalGNN_DB)
-             else _flax_names(arch.core))
+    names = arch.flax_names()
     leaves = dict(_flatten(params["params"]))
     extra = sorted(set(leaves) - set(names))
     missing = sorted(set(names) - set(leaves))

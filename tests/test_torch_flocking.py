@@ -289,5 +289,10 @@ def test_unported_paths_raise(rollout_pair):
                          torch.ones(2, 128), lam_path="ell")
     with pytest.raises(NotImplementedError, match="for_rollout"):
         tF.Flocking(128, 2.0, 1.0, 1, 1, 1, 1.0, 0.01)
-    with pytest.raises(NotImplementedError, match="ELL"):
-        tnet.rollout_step(None, None, None)
+    with pytest.raises(NotImplementedError, match="step_mode=False"):
+        tenv.rollout_cost(ip, iv, 0.05, tnet, ell_degree=16, env_grid=True,
+                          step_mode=False)
+    # a policy without the step interface
+    with pytest.raises(NotImplementedError, match="grid-environment"):
+        tenv.rollout_traj_device(ip, iv, 0.05, object(), ell_degree=16,
+                                 env_grid=True)
