@@ -42,6 +42,18 @@ and the flocking deployment path:
   over 25) and flock_n4096 (2 samples, 100 steps) through Flocking's
   entry points against the same rollouts on the plain versions, with
   exact launch counts; times the kernels and profiles a rollout step.
+* Node-sharded serving (one process drives every shard; a mesh repeats
+  the one card): serves gat_band_n16384 through GraphAttentionNetwork
+  .shard() and InferenceEngine over a (1, 4) and a (2, 2) data x graph
+  mesh, 8 stats_ext_call + 8 apply_ext_call launches a forward, each
+  answer against the unsharded band-mode model and the sharded windowed
+  path; GCAT and EdgeVariantAttention at N=2048 sharded 4 ways against
+  dense mode; band_n4096 SelectionGNN.shard() (the ring shift on
+  band_matmul) against the unsharded band forward. Holds the two
+  ext-layout kernels against their plain versions on operands
+  halo-extended from real neighbour shards (first, interior and last
+  shard), times them beside their bounds, and profiles a sharded forward
+  beside the unsharded one.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -623,19 +635,10 @@ def _attention_work(gso, Q, F, with_s=True):
     ibs, w = gso.block_size, gso.band_w
     nb = gso.s_band.shape[1]
     Np, W = nb * ibs, 2 * w + 1
-    tile = nb * W * ibs * ibs
-    scores = Q * _window_blocks(nb, w) * ibs * ibs
-    support = Q * int(aux.mask_row.sum().item())
-    stats_bytes = 4 * (4 * Q * Np + tile)   # a1, a2, mask_row; max, sum
-    apply_bytes = 4 * (2 * Q * F * Np + 4 * Q * Np + (2 if with_s else 1)
-                       * tile)
-    # per score: the score (add, LeakyReLU, e*m - (1-m)*1e12: 6 flops),
-    # then max, subtract, sum (stats) or subtract, divide, *m, *S and the
-    # 2F aggregation (apply); one exp in either
-    stats_flops, apply_flops = 9, 9 + int(with_s) + 2 * F
-    return dict(scores=scores, support_scores=support,
-                stats=(stats_bytes, stats_flops), apply=(apply_bytes,
-                                                         apply_flops))
+    return _attention_work_at(
+        Q, F, Np, Np, nb * W * ibs * ibs,
+        Q * _window_blocks(nb, w) * ibs * ibs,
+        Q * int(aux.mask_row.sum().item()), with_s)
 
 
 def _attention_bound(nbytes, flops_per, exps):
@@ -1932,6 +1935,353 @@ def phase_flock_profile(setup, card, n=10):
                    calls_per_step=t["calls"]) for t in prof["top"]])
 
 
+# ---------------------------------------------------------------------------
+# Node-sharded path (single controller; the shards share the one card)
+# ---------------------------------------------------------------------------
+
+# gat_band_n16384 node-sharded with order="none": over a (1, 4) data x
+# graph mesh (4 shards: block 4096, ibs 128, nbl 32, w 2, halo 256) and a
+# (2, 2) one (2 data slices x 2 shards); both meshes repeat the one card.
+SHARD_PARTS = 4
+SHARD_MESHES = (((1, 4), None), ((2, 2), "data"))
+SHARD_REQUESTS = (8, 5, 1)
+
+
+def _shard_operands(rng, dev, part, Q, F, mc, mr):
+    """Global projections and signals at the partition's padded width
+    (zero on padded nodes), cut into shards on `dev` and halo-extended from
+    the real neighbour shards; each shard's masks on `dev`."""
+    import torch
+    from graph_neural_networks_torch.parallel.mesh import halo_ext
+    a1, a2, v = _attn_operands(rng, dev, Q, F, part.n_orig, part.n_padded)
+    bs, halo = part.block_size, part.halo
+
+    def shards(t):
+        return [t[..., p * bs:(p + 1) * bs].contiguous()
+                for p in range(part.n_parts)]
+    own = dict(a1=shards(a1), a2=shards(a2), v=shards(v))
+    ext = {k: halo_ext(t, halo) for k, t in own.items()}
+    masks = [(torch.as_tensor(mc[p], device=dev),
+              torch.as_tensor(mr[p], device=dev),
+              torch.as_tensor(part.slabs[p, 0], device=dev))
+             for p in range(part.n_parts)]
+    return own, ext, masks
+
+
+def phase_shard_kernels(part, mc, mr, rng, dev):
+    """stats_ext_call and apply_ext_call against their plain versions on
+    the card, on operands halo-extended from real neighbour shards: at the
+    served shard shape (gat_band_n16384 over 4 shards: Q = 16, F = 32,
+    Np = 4096, w = 2, ibs = 128) for the first, an interior and the last
+    shard, with_s True and False; and on a ragged 4-shard partition
+    (N = 2000, 48 padded nodes, F = 40)."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check(name, case, got, want, served):
+        max_abs, max_rel, ok = compare(got, want)
+        results.append(dict(kernel=name, case=case, max_abs_err=max_abs,
+                            max_rel_err=max_rel,
+                            max_abs_plain=want.abs().max().item(), ok=ok))
+        if served:
+            errs[name] = max(errs.get(name, 0.0), max_abs)
+        require(ok and bool(torch.isfinite(got).all()),
+                f"{name} [{case}] disagrees with its plain version: max abs "
+                f"{max_abs}, max rel {max_rel}")
+
+    def run(label, part, mc, mr, Q, F, served):
+        w, ibs = part.w, part.inner_bs
+        own, ext, masks = _shard_operands(rng, dev, part, Q, F, mc, mr)
+        stats = [af.stats_ext_plain(ext["a1"][p], own["a2"][p], masks[p][1],
+                                    w=w, ibs=ibs)
+                 for p in range(part.n_parts)]
+        mx_ext = halo_ext([s[0] for s in stats], part.halo)
+        sm_ext = halo_ext([s[1] for s in stats], part.halo)
+        for p in sorted({0, 1, part.n_parts - 1}):
+            case = f"{label} shard {p}/{part.n_parts}"
+            mx, sm = af.stats_ext_call(ext["a1"][p], own["a2"][p],
+                                       masks[p][1], w=w, ibs=ibs)
+            check("stats_ext_call", case + " rowmax", mx, stats[p][0], served)
+            check("stats_ext_call", case + " rowsum", sm, stats[p][1], served)
+            args = (own["a1"][p], ext["a2"][p], ext["v"][p], mx_ext[p],
+                    sm_ext[p], masks[p][2], masks[p][0])
+            for ws in (True, False):
+                got = af.apply_ext_call(*args, w=w, ibs=ibs, with_s=ws)
+                want = af.apply_ext_plain(*args, w=w, ibs=ibs, with_s=ws)
+                check("apply_ext_call", f"{case} with_s={ws}", got, want,
+                      served)
+
+    run(f"served Q=16 F=32 Np={part.block_size} w={part.w}", part, mc, mr,
+        GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1], True)
+    S2, _ = make_graph(2000, 0.01, 256, seed=2)
+    part2 = par.partition_nodes(S2, SHARD_PARTS, order="none")
+    require(part2.is_ring and part2.n_padded > part2.n_orig,
+            f"ragged case: w={part2.w}, nbl={part2.nbl}")
+    run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
+        *par.attention._row_col_masks(part2), 3, 40, False)
+    emit(phase="shard_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
+         checks=results, seconds=time.perf_counter() - t_phase)
+    return errs
+
+
+def _attention_work_at(Q, F, Np, n_rows, tile, scores, support,
+                       with_s=True):
+    """Scores, bytes and operations of one stats and one apply call. Np:
+    the own row length (a2 in stats; a1 and y in apply); n_rows: that of
+    the operands read through the window (a1 in stats; a2, the stats and v
+    in apply), Np + 2*w*ibs halo-extended; tile: the floats of one
+    (nb, W, ibs, ibs) mask or slab. Each operand's bytes counted once."""
+    stats_bytes = 4 * (Q * n_rows + 3 * Q * Np + tile)  # a1, a2; max, sum
+    apply_bytes = 4 * (Q * F * (n_rows + Np) + Q * Np + 3 * Q * n_rows
+                       + (2 if with_s else 1) * tile)
+    # per score: the score (add, LeakyReLU, e*m - (1-m)*1e12: 6 flops),
+    # then max, subtract, sum (stats) or subtract, divide, *m, *S and the
+    # 2F aggregation (apply); one exp in either
+    stats_flops, apply_flops = 9, 9 + int(with_s) + 2 * F
+    return dict(scores=scores, support_scores=support,
+                stats=(stats_bytes, stats_flops),
+                apply=(apply_bytes, apply_flops))
+
+
+def phase_shard_timing(part, mc, mr, dev):
+    """Each ext kernel at the served shard shape (an interior shard of
+    gat_band_n16384 over 4: Q = 16, F = 32, with_s) beside its plain
+    version and its bound (the S+I support of that shard's own rows or
+    columns; the dense-tile figure, every score of the W window blocks the
+    kernels walk, beside it). No single PyTorch call computes either."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext
+    t_phase = time.perf_counter()
+    Q, F = GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1]
+    w, ibs, Np = part.w, part.inner_bs, part.block_size
+    own, ext, masks = _shard_operands(np.random.default_rng(7), dev, part,
+                                      Q, F, mc, mr)
+    kw = dict(w=w, ibs=ibs)
+    stats = [af.stats_ext_plain(ext["a1"][q], own["a2"][q], masks[q][1],
+                                **kw) for q in range(part.n_parts)]
+    p = 1
+    mcol, mrow, slab = masks[p]
+    mx_ext = halo_ext([st[0] for st in stats], part.halo)[p]
+    sm_ext = halo_ext([st[1] for st in stats], part.halo)[p]
+    app = (own["a1"][p], ext["a2"][p], ext["v"][p], mx_ext, sm_ext, slab,
+           mcol)
+    n_rows = Np + 2 * part.halo
+    tile = part.nbl * (2 * w + 1) * ibs * ibs
+    scores = Q * part.nbl * (2 * w + 1) * ibs * ibs
+    shape = f"Q={Q} F={F} Np={Np} (+2*{part.halo} halo) w={w} ibs={ibs}"
+    rows = {
+        "stats_ext_call": dict(
+            shape=shape,
+            ms=time_ms(lambda: af.stats_ext_call(ext["a1"][p], own["a2"][p],
+                                                 mrow, **kw)),
+            plain_ms=time_ms(lambda: af.stats_ext_plain(
+                ext["a1"][p], own["a2"][p], mrow, **kw), reps=5, inner=2),
+            work=_attention_work_at(Q, F, Np, n_rows, tile, scores,
+                                    Q * int(mrow.sum().item()))["stats"],
+            support=Q * int(mrow.sum().item())),
+        "apply_ext_call": dict(
+            shape=shape + " with_s",
+            ms=time_ms(lambda: af.apply_ext_call(*app, **kw)),
+            plain_ms=time_ms(lambda: af.apply_ext_plain(*app, **kw), reps=5,
+                             inner=2),
+            work=_attention_work_at(Q, F, Np, n_rows, tile, scores,
+                                    Q * int(mcol.sum().item()))["apply"],
+            support=Q * int(mcol.sum().item())),
+    }
+    for row in rows.values():
+        nbytes, flops_per = row.pop("work")
+        support = row.pop("support")
+        row["bound_ms"], row["bound_by"] = _attention_bound(
+            nbytes, flops_per, support)
+        row["bound_ms_dense_tiles"], row["bound_by_dense_tiles"] = (
+            _attention_bound(nbytes, flops_per, scores))
+        row["bytes"], row["flops"] = nbytes, flops_per * support
+        row["support_scores"], row["scores"] = support, scores
+        row["library_ms"] = None
+    emit(phase="shard_timing", rows=rows,
+         library="none: no single PyTorch call computes either function",
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def _windowed_forward(arch, x, sattn):
+    """A sharded GAT through the sharded windowed path (plain torch,
+    parallel.attention with local_flash=False), layer by layer with the
+    model's weights: (readout output, last attention layer's output)."""
+    import torch
+    from graph_neural_networks_torch.models.layers import _heads_out
+    from graph_neural_networks_torch.parallel import attention as sha
+    with torch.inference_mode():
+        x = torch.as_tensor(x, device=arch.device)[:, :, arch.ctx["order_map"]]
+        for layer in arch.core.filters:
+            y = sha.sharded_graph_attention(x, layer.mixer, layer.weight,
+                                            sattn)
+            x = _heads_out(y, layer.nonlinearity, layer.concatenate)
+        return arch.core.readout(x.reshape(x.shape[0], -1)), x
+
+
+def phase_shard_serving(rng, dev):
+    """Serve gat_band_n16384 node-sharded over the (1, 4) and (2, 2) meshes
+    (the main path of this phase: 8 stats_ext_call + 8 apply_ext_call a
+    forward, no global flash launch), each answer against the unsharded
+    band-mode model (flash kernels 7-8) and the sharded windowed path;
+    then GCAT and EdgeVariantAttention at N = 2048 sharded 4 ways against
+    dense mode, and band_n4096 SelectionGNN.shard(mesh, 4) (the ring
+    shift on band_matmul) against the unsharded band forward."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    S, nnz = make_graph(GAT_N, 0.01, 256, seed=1)
+    ref = InferenceEngine(_build_gat("GraphAttentionNetwork", S, "band",
+                                     dev), GAT_BATCH, dev)
+    requests = [rng.standard_normal((n, GAT_DIMS[0], GAT_N)).astype(
+        np.float32) for n in SHARD_REQUESTS]
+    with torch.inference_mode():
+        want = [(ref(x), ref.arch.split_forward(x)[1]) for x in requests]
+    checks, launches, engines = [], {}, {}
+
+    def check(model, x, against, got, want, **extra):
+        for what, g, w in zip(("y", "y_gfl"), got, want):
+            max_abs, max_rel, ok = compare(g, w, SERVE_RTOL, SERVE_ATOL_REL)
+            checks.append(dict(model=model, batch=x.shape[0], output=what,
+                               against=against, max_abs_err=max_abs,
+                               max_rel_err=max_rel,
+                               max_abs_ref=w.abs().max().item(), ok=ok,
+                               **extra))
+            require(ok, f"{model} batch {x.shape[0]}: {what} disagrees with "
+                        f"{against}: {max_abs}")
+
+    for shape, data_axis in SHARD_MESHES:
+        label = f"gat_band_n16384 mesh {shape}"
+        mesh = par.make_mesh(shape, devices=[dev] * 4)
+        arch = _build_gat("GraphAttentionNetwork", S, "dense", dev)
+        t0 = time.perf_counter()
+        arch.shard(mesh, shape[1], data_axis=data_axis)
+        part = arch.S.partition
+        sattn = arch.S.band_attention
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        require(sattn.use_flash, f"{label}: the flash schedule is off")
+        eng = InferenceEngine(arch, GAT_BATCH, mesh.home)
+        require(eng.arch.S is arch.S, f"{label}: the engine moved the GSO")
+        # the main path: counts set to 0 just before, read just after
+        _reset_counts()
+        t0 = time.perf_counter()
+        answers = [eng(x) for x in requests]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _attention_counts()
+        per_forward = {k: v / len(requests) for k, v in counts.items()}
+        expected = {k: 0 for k in counts}
+        expected.update(stats_ext_call=8, apply_ext_call=8)
+        require(per_forward == expected,
+                f"{label}: launches per forward {per_forward}, expected "
+                f"{expected}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        windowed = par.ShardedBandAttention(mesh, part, data_axis=data_axis,
+                                            local_flash=False)
+        for x, y, (y_ref, gfl_ref) in zip(requests, answers, want):
+            require(tuple(y.shape) == (x.shape[0], 4) and bool(
+                torch.isfinite(y).all()), f"{label}: output {tuple(y.shape)}")
+            with torch.inference_mode():
+                gfl = eng.arch.split_forward(x)[1]
+            check(label, x, "unsharded band (kernels 7-8)", (y, gfl),
+                  (y_ref, gfl_ref))
+            check(label, x, "sharded windowed", (y, gfl),
+                  _windowed_forward(eng.arch, x, windowed))
+        emit(phase="shard_serving", model=label, nnz=nnz,
+             n_parts=part.n_parts, block=part.block_size, ibs=part.inner_bs,
+             nbl=part.nbl, w=part.w, halo=part.halo,
+             slab_mib=part.slabs.nbytes / 2 ** 20, seconds_shard=t_shard,
+             requests=list(SHARD_REQUESTS), seconds=seconds, launches=counts,
+             launches_per_forward=per_forward)
+        engines[shape] = eng
+        del windowed
+
+    # N = 2048: sharded 4 ways (block 512, nbl 4) against dense mode
+    S2, _ = make_graph(GAT_SMALL_N, 0.01, 256, seed=1)
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    small = [("GraphConvolutionAttentionNetwork", [64, 16, 16], [2, 2],
+              [3, 2]),
+             ("EdgeVariantAttention", [32, 16], [2], [3])]
+    for cls_name, dims, heads, taps in small:
+        dense = InferenceEngine(
+            _build_gat(cls_name, S2, "dense", dev, dims, heads, taps),
+            GAT_BATCH, dev)
+        sharded = _build_gat(cls_name, S2, "dense", dev, dims, heads, taps)
+        sharded.shard(mesh, SHARD_PARTS)
+        eng = InferenceEngine(sharded, GAT_BATCH, dev)
+        xs = [rng.standard_normal((n, dims[0], GAT_SMALL_N)).astype(
+            np.float32) for n in (GAT_BATCH, 3)]
+        _reset_counts()
+        got = [eng(x) for x in xs]
+        counts = _attention_counts()
+        require(counts["stats_ext_call"] > 0 and counts["apply_ext_call"] > 0
+                and counts["stats_call"] == counts["apply_call"] == 0,
+                f"{cls_name}: launches {counts}")
+        for x, y in zip(xs, got):
+            with torch.inference_mode():
+                gfl = eng.arch.split_forward(x)[1]
+                ref_out = dense.arch.split_forward(x)
+            check(f"{cls_name} N={GAT_SMALL_N} sharded "
+                  f"w={sharded.S.partition.w}", x, "dense", (y, gfl),
+                  ref_out, launches=counts)
+
+    # band_n4096: the ring shift's local contraction on band_matmul
+    rng4 = np.random.default_rng(0)
+    S4 = banded_graph(rng4, N_GRAPH, 256, 0.05)
+    unsharded = InferenceEngine(_build_model(S4, "band", dev), BATCH, dev)
+    arch4 = _build_model(S4, "band", dev).shard(mesh, SHARD_PARTS)
+    part4 = arch4.S.partition
+    eng4 = InferenceEngine(arch4, BATCH, dev)
+    xs = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+          for n in (BATCH, 17, 1)]
+    _reset_counts()
+    got = [eng4(x) for x in xs]
+    torch.cuda.synchronize()
+    counts = _attention_counts()
+    per_forward = {k: v / len(xs) for k, v in counts.items()}
+    expected = {k: 0 for k in counts}
+    expected.update(band_matmul=2 * (TAPS - 1) * SHARD_PARTS)
+    require(per_forward == expected,
+            f"band_n4096 sharded: launches per forward {per_forward}, "
+            f"expected {expected}")
+    for x, y in zip(xs, got):
+        max_abs, max_rel, ok = compare(y, unsharded(x), SERVE_RTOL,
+                                       SERVE_ATOL_REL)
+        checks.append(dict(model="band_n4096 sharded", batch=x.shape[0],
+                           output="y", against="unsharded band",
+                           max_abs_err=max_abs, max_rel_err=max_rel, ok=ok))
+        require(ok, f"band_n4096 sharded batch {x.shape[0]} disagrees with "
+                    f"the unsharded band forward: {max_abs}")
+    emit(phase="shard_serving", model="band_n4096 mesh (1, 4)",
+         block=part4.block_size, ibs=part4.inner_bs, nbl=part4.nbl,
+         w=part4.w, launches=counts, launches_per_forward=per_forward)
+    emit(phase="shard_serving_check", rtol=SERVE_RTOL,
+         atol=f"{SERVE_ATOL_REL}*max|reference|", checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    profiles = [("gat_band_n16384 unsharded", ref, requests[0])]
+    profiles += [(f"gat_band_n16384 sharded mesh {shape}", eng, requests[0])
+                 for shape, eng in engines.items()]
+    profiles += [("band_n4096 band unsharded", unsharded, xs[0]),
+                 ("band_n4096 sharded mesh (1, 4)", eng4, xs[0])]
+    return launches, engines, profiles
+
+
+def phase_shard_profile(profiles):
+    """One sharded forward beside the unsharded one of the same model
+    (gat_band_n16384, band_n4096): host ms, device ms, idle share and top
+    device ops."""
+    for label, eng, x in profiles:
+        _profile_forward(label, eng, x)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -1942,6 +2292,8 @@ REPLACES = {
     "table_transpose": "graph_neural_networks_tpu/ops/gridwin.py:175",
     "table_build": "graph_neural_networks_tpu/ops/gridwin.py:265",
     "grid_window": "graph_neural_networks_tpu/ops/gridwin.py:356",
+    "stats_ext_call": "graph_neural_networks_tpu/ops/attention_flash.py:312",
+    "apply_ext_call": "graph_neural_networks_tpu/ops/attention_flash.py:337",
 }
 
 
@@ -1968,6 +2320,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from graph_neural_networks_torch.ops import gso as gso_lib
+    from graph_neural_networks_torch.parallel import (
+        attention as par_attention)
     from graph_neural_networks_torch.utils.device import resolve_device
 
     try:
@@ -2020,6 +2374,18 @@ def main() -> int:
             launches[k] = env_launches[k] + serve_launches[k]
         rows.update(timed("flock_timing", phase_flock_timing, dev, card))
         timed("flock_profile", phase_flock_profile, setup, card)
+        shard_launches, engines, profiles = timed(
+            "shard_serving", phase_shard_serving, np.random.default_rng(11),
+            dev)
+        for k in ("stats_ext_call", "apply_ext_call"):
+            launches[k] = shard_launches[k]
+        part = engines[(1, SHARD_PARTS)].arch.S.partition
+        mc, mr = par_attention._row_col_masks(part)
+        errs.update(timed("shard_kernels", phase_shard_kernels, part, mc, mr,
+                          np.random.default_rng(12), dev))
+        rows.update(timed("shard_timing", phase_shard_timing, part, mc, mr,
+                          dev))
+        timed("shard_profile", phase_shard_profile, profiles)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2033,10 +2399,13 @@ def main() -> int:
     sources = dict(stats_call="attention_flash.cu",
                    apply_call="attention_flash.cu",
                    bwd_call="attention_flash.cu", grid_window="gridwin.cu",
-                   table_build="gridwin.cu", table_transpose="gridwin.cu")
+                   table_build="gridwin.cu", table_transpose="gridwin.cu",
+                   stats_ext_call="attention_flash.cu",
+                   apply_ext_call="attention_flash.cu")
     for name in ("bcsr_matmul", "band_shift_register", "band_matmul",
                  "stats_call", "apply_call", "bwd_call", "table_transpose",
-                 "table_build", "grid_window"):
+                 "table_build", "grid_window", "stats_ext_call",
+                 "apply_ext_call"):
         row = rows["bcsr_matmul@R=2048" if name == "bcsr_matmul" else name]
         source = sources.get(name, "spmm.cu")
         summary.append(dict(

@@ -40,10 +40,16 @@ _SIGNATURES = {
     "gnt_band_register": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope, stream
     "gnt_attn_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope, stream
+    "gnt_attn_stats_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w,
     # ibs, with_s, slope, stream
     "gnt_attn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _F, _P),
+    # a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col, mask_col, y, Q, F, Np, nb,
+    # w, ibs, with_s, slope, stream
+    "gnt_attn_apply_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _P),
     # g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
     # Np, nb, w, ibs, with_s, slope, stream
     "gnt_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,11 +1,30 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
-// Three kernels, the counterparts of three Pallas kernels of the JAX
-// package (graph_neural_networks_tpu/ops/attention_flash.py):
+// Three kernels, the counterparts of five Pallas calls of the JAX package
+// (graph_neural_networks_tpu/ops/attention_flash.py):
 //
-//   attn_stats_kernel  <- attention_flash.py:_stats_call (_make_stats_kernel)
-//   attn_apply_kernel  <- attention_flash.py:_apply_call (_make_apply_kernel)
-//   attn_bwd_kernel    <- attention_flash.py:_bwd_call (_make_bwd_kernel)
+//   attn_stats_kernel<false> <- attention_flash.py:_stats_call
+//   attn_apply_kernel<false> <- attention_flash.py:_apply_call
+//   attn_stats_kernel<true>  <- attention_flash.py:_stats_ext_call
+//   attn_apply_kernel<true>  <- attention_flash.py:_apply_ext_call
+//   attn_bwd_kernel          <- attention_flash.py:_bwd_call
+//
+// The JAX package runs one kernel body (_make_stats_kernel,
+// _make_apply_kernel) for a global call and its ext call; only the index
+// maps differ. Here the template parameter kExt picks the window
+// addressing the same way:
+//  * global (kExt = false): the operands are whole (Q, Np) rows; window
+//    block k of block i is block i + k - w, and blocks off the matrix are
+//    skipped.
+//  * ext (kExt = true): the shard-local step of the node-sharded attention
+//    (parallel/attention.py). The operands read through the window (a1 in
+//    stats; a2, rowmax, rowsum and v in apply) are halo-extended: w extra
+//    blocks a side, row length Np + 2*w*ibs, where Np is the shard's own
+//    width. Window block k of own block i is ext block i + k, and all W
+//    blocks are walked: past the global ends the halos are zero-filled
+//    and the mask is 0 (the -1e12 entries add exactly 0; a fully masked
+//    padded row sums W*ibs ones, as the JAX ext kernel does). The other
+//    operands (a2 in stats; a1 and y in apply) keep the shard's own Np.
 //
 // The math (orientation of the reference GAT, graphML.py:713/807): for a
 // signal row q, the score of the pair (row i, column j) is
@@ -72,6 +91,10 @@
 //    package, so the result is deterministic without atomics. S in the
 //    row-window layout is the column-layout slab at a mirrored index,
 //    slab_row[i, k] = slab_col[i + k - w, 2w - k], read in place.
+//  * stats and apply, ext: the same designs on one shard's own rows or
+//    columns (Np = 4096 of 16384 at the served shape sharded 4 ways), so
+//    the same bounds per shard, plus the 2*w*ibs halo columns the window
+//    reaches into. Only the strides and the window's first block differ.
 // No TF32 wgmma and no --use_fast_math: the tolerances assume true f32.
 //
 // Every launcher has a plain C interface and returns the cudaError_t of the
@@ -130,10 +153,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // rowmax/rowsum (Q, Np) of the masked scores of every row over its column
-// window. a1, a2 (Q, Np); mask_row (nb, W, ibs, ibs): mask_row[i, k, p, c]
-// is the support at (row i*ibs+p, column (i+k-w)*ibs+c).
+// window. a1 (Q, Np), or (Q, Np + 2*w*ibs) halo-extended when kExt; a2
+// (Q, Np); mask_row (nb, W, ibs, ibs): mask_row[i, k, p, c] is the support
+// at (row i*ibs+p, column (i+k-w)*ibs+c) of the global matrix.
 // Grid: Np / kStatsWarps blocks; dynamic shared memory kStatsWarps*W*ibs
 // floats.
+template <bool kExt>
 __global__ void __launch_bounds__(kStatsThreads)
 attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
                   const float* __restrict__ mask_row,
@@ -141,10 +166,13 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
                   int Q, int Np, int nb, int w, int ibs, float slope) {
   extern __shared__ float mask_s[];
   const int W = 2 * w + 1;
+  const int a1_len = kExt ? Np + 2 * w * ibs : Np;  // a1's row length
+  const int lag = kExt ? 0 : w;  // a1 block of window block k: i + k - lag
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * kStatsWarps + warp;
   const int i = row / ibs, p = row % ibs;
-  const int k0 = max(0, w - i), k1 = min(W, nb + w - i);
+  const int k0 = kExt ? 0 : max(0, w - i);
+  const int k1 = kExt ? W : min(W, nb + w - i);
   float* m_row = mask_s + warp * W * ibs;
   for (int k = k0; k < k1; ++k) {
     const float* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
@@ -152,18 +180,18 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   }
   __syncwarp();
   for (int q = 0; q < Q; ++q) {
-    const float* a1q = a1 + (int64_t)q * Np;
+    const float* a1q = a1 + (int64_t)q * a1_len;
     const float a2v = a2[(int64_t)q * Np + row];
     float mx = -INFINITY;
     for (int k = k0; k < k1; ++k) {
-      const float* a1k = a1q + (int64_t)(i + k - w) * ibs;
+      const float* a1k = a1q + (int64_t)(i + k - lag) * ibs;
       for (int c = lane; c < ibs; c += 32)
         mx = fmaxf(mx, masked_score(a2v, a1k[c], m_row[k * ibs + c], slope));
     }
     mx = warp_max(mx);
     float sum = 0.f;
     for (int k = k0; k < k1; ++k) {
-      const float* a1k = a1q + (int64_t)(i + k - w) * ibs;
+      const float* a1k = a1q + (int64_t)(i + k - lag) * ibs;
       for (int c = lane; c < ibs; c += 32)
         sum += expf(__fsub_rn(
             masked_score(a2v, a1k[c], m_row[k * ibs + c], slope), mx));
@@ -176,10 +204,12 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   }
 }
 
-// y (Q, F, Np) = v @ (alpha * S) on the band. v (Q, F, Np); a1, a2,
-// rowmax, rowsum (Q, Np); slab_col, mask_col (nb, W, ibs, ibs):
+// y (Q, F, Np) = v @ (alpha * S) on the band. a1 (Q, Np); v (Q, F, Np)
+// and a2, rowmax, rowsum (Q, Np), or with rows of Np + 2*w*ibs
+// (halo-extended) when kExt; slab_col, mask_col (nb, W, ibs, ibs):
 // slab_col[j, k, p, c] = S[row (j+k-w)*ibs+p, column j*ibs+c].
 // Grid: Q * (Np / kCT) blocks, q fastest.
+template <bool kExt>
 __global__ void __launch_bounds__(kApplyThreads)
 attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
                   const float* __restrict__ v,
@@ -194,24 +224,28 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   __shared__ float a1_s[kCT];
   __shared__ float a2_s[kP], mx_s[kP], sm_s[kP];
   const int W = 2 * w + 1;
+  const int rows_len = kExt ? Np + 2 * w * ibs : Np;  // a2/stats/v rows
+  const int lag = kExt ? 0 : w;  // row block of window block k: j + k - lag
   const int q = blockIdx.x % Q;
   const int c0 = (blockIdx.x / Q) * kCT;
   const int j = c0 / ibs, lc0 = c0 % ibs;
   const int tid = threadIdx.x;
   const int tx = tid % (kCT / kTC), ty = tid / (kCT / kTC);
   const int64_t qn = (int64_t)q * Np;
-  const int k0 = max(0, w - j), k1 = min(W, nb + w - j);
+  const int64_t qr = (int64_t)q * rows_len;
+  const int k0 = kExt ? 0 : max(0, w - j);
+  const int k1 = kExt ? W : min(W, nb + w - j);
   if (tid < kCT) a1_s[tid] = a1[qn + c0 + tid];
 
   for (int f0 = 0; f0 < F; f0 += kFT) {
     float acc[kTF][kTC] = {};
     for (int k = k0; k < k1; ++k) {
-      const int r_blk = (j + k - w) * ibs;  // first row of the window block
+      const int r_blk = (j + k - lag) * ibs;  // first row of the window block
       const int64_t tile = ((int64_t)j * W + k) * ibs * ibs + lc0;
       for (int p0 = 0; p0 < ibs; p0 += kP) {
         __syncthreads();  // the previous step's readers are done
         if (tid < kP) {
-          const int64_t r = qn + r_blk + p0 + tid;
+          const int64_t r = qr + r_blk + p0 + tid;
           a2_s[tid] = a2[r];
           mx_s[tid] = rowmax[r];
           sm_s[tid] = fmaxf(rowsum[r], 1e-30f);
@@ -219,8 +253,9 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
         for (int e = tid; e < kFT * kP; e += kApplyThreads) {
           const int f = e / kP, p = e % kP;
           Vs[p * kLDV + f] =
-              f0 + f < F ? v[((int64_t)q * F + f0 + f) * Np + r_blk + p0 + p]
-                         : 0.f;
+              f0 + f < F
+                  ? v[((int64_t)q * F + f0 + f) * rows_len + r_blk + p0 + p]
+                  : 0.f;
         }
         __syncthreads();
         for (int e = tid; e < kP * kCT; e += kApplyThreads) {
@@ -450,6 +485,44 @@ size_t bwd_dynamic_floats(int W, int ibs, int F) {
   return (size_t)W * kBRT * ibs + (size_t)W * ibs + (size_t)F * kBRT;
 }
 
+template <bool kExt>
+cudaError_t launch_stats(const float* a1, const float* a2,
+                         const float* mask_row, float* rowmax, float* rowsum,
+                         int Q, int Np, int nb, int w, int ibs, float slope,
+                         cudaStream_t stream) {
+  if (Q <= 0 || ibs % kStatsWarps != 0 || Np != nb * ibs || w < 0 ||
+      (kExt && w > nb))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * kStatsWarps * (2 * w + 1) * ibs;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_stats_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_stats_kernel<kExt><<<Np / kStatsWarps, kStatsThreads, smem, stream>>>(
+      a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope);
+  return cudaGetLastError();
+}
+
+template <bool kExt>
+cudaError_t launch_apply(const float* a1, const float* a2, const float* v,
+                         const float* rowmax, const float* rowsum,
+                         const float* slab_col, const float* mask_col,
+                         float* y, int Q, int F, int Np, int nb, int w,
+                         int ibs, int with_s, float slope,
+                         cudaStream_t stream) {
+  if (Q <= 0 || F <= 0 || ibs % kCT != 0 || Np != nb * ibs || w < 0 ||
+      (kExt && w > nb))
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)Q * (Np / kCT);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  attn_apply_kernel<kExt><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
+      a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w, ibs,
+      with_s, slope);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -458,18 +531,18 @@ cudaError_t gnt_attn_stats(const float* a1, const float* a2,
                            const float* mask_row, float* rowmax,
                            float* rowsum, int Q, int Np, int nb, int w,
                            int ibs, float slope, cudaStream_t stream) {
-  if (Q <= 0 || ibs % kStatsWarps != 0 || Np != nb * ibs || w < 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kStatsWarps * (2 * w + 1) * ibs;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  attn_stats_kernel<<<Np / kStatsWarps, kStatsThreads, smem, stream>>>(
-      a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope);
-  return cudaGetLastError();
+  return launch_stats<false>(a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w,
+                             ibs, slope, stream);
+}
+
+// a1_ext (Q, Np + 2*w*ibs); a2 (Q, Np) the shard's own rows; nb = Np / ibs
+// the shard's own blocks (the ring needs w <= nb).
+cudaError_t gnt_attn_stats_ext(const float* a1_ext, const float* a2,
+                               const float* mask_row, float* rowmax,
+                               float* rowsum, int Q, int Np, int nb, int w,
+                               int ibs, float slope, cudaStream_t stream) {
+  return launch_stats<true>(a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb,
+                            w, ibs, slope, stream);
 }
 
 cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
@@ -478,14 +551,22 @@ cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
                            float* y, int Q, int F, int Np, int nb, int w,
                            int ibs, int with_s, float slope,
                            cudaStream_t stream) {
-  if (Q <= 0 || F <= 0 || ibs % kCT != 0 || Np != nb * ibs || w < 0)
-    return cudaErrorInvalidValue;
-  const long long blocks = (long long)Q * (Np / kCT);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  attn_apply_kernel<<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-      a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w, ibs,
-      with_s, slope);
-  return cudaGetLastError();
+  return launch_apply<false>(a1, a2, v, rowmax, rowsum, slab_col, mask_col,
+                             y, Q, F, Np, nb, w, ibs, with_s, slope, stream);
+}
+
+// a1 (Q, Np) the shard's own columns; a2_ext, mx_ext, sm_ext
+// (Q, Np + 2*w*ibs) and v_ext (Q, F, Np + 2*w*ibs) halo-extended rows;
+// y (Q, F, Np).
+cudaError_t gnt_attn_apply_ext(const float* a1, const float* a2_ext,
+                               const float* v_ext, const float* mx_ext,
+                               const float* sm_ext, const float* slab_col,
+                               const float* mask_col, float* y, int Q, int F,
+                               int Np, int nb, int w, int ibs, int with_s,
+                               float slope, cudaStream_t stream) {
+  return launch_apply<true>(a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col,
+                            mask_col, y, Q, F, Np, nb, w, ibs, with_s, slope,
+                            stream);
 }
 
 cudaError_t gnt_attn_bwd(const float* g, const float* a1, const float* a2,

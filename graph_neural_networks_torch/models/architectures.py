@@ -22,6 +22,7 @@ import math
 from typing import Callable, Optional
 
 import numpy as np
+import scipy.sparse
 import torch
 from torch import nn
 
@@ -255,10 +256,12 @@ class _ArchBase:
         return self.core.flax_names()
 
     def to(self, device) -> "_ArchBase":
-        """Move parameters and ctx to `device` (in place, like nn.Module)."""
+        """Move parameters and ctx to `device` (in place, like nn.Module).
+        A sharded model (:meth:`shard`) stays on its mesh: it takes only the
+        mesh's home device and raises on any other."""
         dev = resolve_device(device)
-        self.core.to(dev)
         self.ctx = {k: _ctx_to(v, dev) for k, v in self.ctx.items()}
+        self.core.to(dev)
         self.S = self.ctx["S"]
         self.device = dev
         return self
@@ -290,7 +293,8 @@ class _ArchBase:
 
 
 def _ctx_to(v, dev):
-    if isinstance(v, (torch.Tensor, gso_lib.Gso)):
+    # tensors, a Gso and a parallel.ShardedGso (duck-typed on `to`)
+    if hasattr(v, "to"):
         return v.to(dev)
     if isinstance(v, tuple):
         return tuple(_ctx_to(t, dev) for t in v)
@@ -354,6 +358,9 @@ class _SelectionBase(_ArchBase):
         L = len(cfg["taps"])
         S_np, order = gt.permutation_by_name(self.order_name)(GSO)
         self.order = order
+        # the ordered GSO that shard() partitions, kept sparse
+        self._S_sparse = [scipy.sparse.csr_matrix(m) for m in
+                          (S_np if S_np.ndim == 3 else S_np[None])]
         N = S_np.shape[1]
         N_list = [N] + list(nSelectedNodes)
         alpha = list(poolingSize)
@@ -391,6 +398,47 @@ class _SelectionBase(_ArchBase):
         self._build(GSO, nSelectedNodes, poolingSize)
 
     change_gso = changeGSO
+
+    def shard(self, mesh, n_parts: int, order: str = "none",
+              data_axis: Optional[str] = None) -> "_SelectionBase":
+        """Run this architecture's graph shifts and attention node-sharded
+        over `mesh`'s 'graph' axis: ctx['S'] becomes a parallel.ShardedGso
+        backed by a sparse band-slab partition of the ordered GSO (never a
+        dense N x N on the device), and the model moves to the mesh's home
+        device, where its inputs and outputs live. In place; returns self.
+
+        order: 'none' keeps this architecture's own node ordering (exact
+        parity with the unsharded forward; a halo ring only if that
+        ordering is already banded). 'rcm' composes a locality-preserving
+        reorder into the model's input gather map, allowed only with
+        identity pooling: selection pooling is position-semantic in the
+        reference (graphML.py:2003-2019), so reordering would change it.
+        data_axis: also shard the batch over this mesh axis (hybrid data x
+        graph parallelism).
+        """
+        if order != "none" and self.core.pool_kind != "no_pool" and any(
+                t is not None for t in self.ctx["pool_nbh"]):
+            raise ValueError("order='rcm' requires identity pooling "
+                             "(position-semantic selection pooling forbids "
+                             "reordering)")
+        from graph_neural_networks_torch.parallel import (ShardedGso,
+                                                          partition_nodes)
+        part = partition_nodes(self._S_sparse, n_parts, order=order)
+        self.to(mesh.home)
+        if order != "none":
+            # compose the partition order into the input gather map and
+            # extend it with fake (-1 -> zero) nodes for the padding
+            old_map = self.ctx["order_map"].cpu().numpy()
+            new_map = old_map[part.order]
+            pad = part.n_padded - len(new_map)
+            if pad:
+                new_map = np.concatenate(
+                    [new_map, np.full(pad, -1, new_map.dtype)])
+            self.ctx = dict(self.ctx, order_map=torch.as_tensor(
+                new_map, dtype=torch.long, device=self.device))
+            self.order = [self.order[i] for i in part.order]
+        self.ctx["S"] = self.S = ShardedGso(mesh, part, data_axis=data_axis)
+        return self
 
 
 # ---------------------------------------------------------------------------

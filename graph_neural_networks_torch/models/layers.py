@@ -33,7 +33,12 @@ def uniform_parameter(shape, bound: float, generator: torch.Generator,
 
 
 def _gso_n(S) -> int:
-    return S.n if isinstance(S, gso_lib.Gso) else S.shape[-1]
+    if isinstance(S, gso_lib.Gso):
+        return S.n
+    n = getattr(S, "n", None)  # duck-typed GSOs (parallel.ShardedGso)
+    if isinstance(n, int):
+        return n
+    return S.shape[-1]
 
 
 def pad_slice(fn, x: torch.Tensor, N: int) -> torch.Tensor:

@@ -19,6 +19,12 @@ recomputed tile by tile in three kernels
 ``flash_apply``): stats + apply forward, keeping a1x, a2x, v and the
 stats (never alpha), and bwd_call backward.
 
+:func:`stats_ext_call` and :func:`apply_ext_call` run the stats and apply
+kernels on one shard's halo-extended layout (the shard-local step of
+``parallel.attention``): the operands read through the window carry w
+halo blocks a side, so window block k of own block j is ext block j + k.
+Forward only (the sharded backward is ROADMAP queue 1 item 10.1).
+
 Orientation matches the reference (graphML.py:713, 807): score
 e_ij = LeakyReLU(a2.Wx_i + a1.Wx_j), softmax over each ROW i's column
 window, output at column m aggregates alpha-weighted rows. Masking keeps
@@ -402,7 +408,163 @@ def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
 bwd_call.launches = 0
 
 
-KERNEL_WRAPPERS = (stats_call, apply_call, bwd_call)
+# ---------------------------------------------------------------------------
+# Ext-layout calls: the shard-local step of parallel.attention. The
+# operands read through the window carry w halo blocks a side (row length
+# Np + 2*w*ibs, zero past the global ends), so window block k of own block
+# j is ext block j + k, never clipped. Np is the shard's own width.
+# ---------------------------------------------------------------------------
+
+def _ext_win(t: torch.Tensor, nbl: int, W: int) -> torch.Tensor:
+    """(..., nbl + W - 1, ibs) -> (..., nbl, W, ibs): out[j, k] = t[j + k]."""
+    return torch.stack([t[..., k:k + nbl, :] for k in range(W)], dim=-2)
+
+
+def stats_ext_plain(a1_ext: torch.Tensor, a2x: torch.Tensor,
+                    mask_row: torch.Tensor, *, w: int, ibs: int,
+                    slope: float = 0.2):
+    """(rowmax, rowsum), each (Q, Np), of the shard's own rows over their
+    whole column window. a1_ext (Q, Np + 2*w*ibs) halo-extended, a2x
+    (Q, Np) own, mask_row (nbl, W, ibs, ibs) in global-column layout."""
+    Q, Np = a2x.shape
+    nbl, W = Np // ibs, 2 * w + 1
+    a1w = _ext_win(a1_ext.reshape(Q, nbl + 2 * w, ibs), nbl, W)
+    e = _masked_scores(a2x.reshape(Q, nbl, 1, ibs, 1),
+                       a1w[:, :, :, None, :], mask_row[None], slope)
+    mx = e.amax(dim=(2, 4))                               # Q, nbl, ibs
+    sm = torch.exp(e - mx[:, :, None, :, None]).sum(dim=(2, 4))
+    return mx.reshape(Q, Np), sm.reshape(Q, Np)
+
+
+def apply_ext_plain(a1x: torch.Tensor, a2_ext: torch.Tensor,
+                    v_ext: torch.Tensor, mx_ext: torch.Tensor,
+                    sm_ext: torch.Tensor, slab_col: torch.Tensor,
+                    mask_col: torch.Tensor, *, w: int, ibs: int,
+                    with_s: bool = True, slope: float = 0.2) -> torch.Tensor:
+    """y (Q, F, Np) for the shard's own output columns: alpha re-derived
+    from a1x (Q, Np) own and the halo-extended rows a2_ext, mx_ext, sm_ext
+    (Q, Np + 2*w*ibs), aggregated over v_ext (Q, F, Np + 2*w*ibs);
+    slab_col, mask_col (nbl, W, ibs, ibs)."""
+    Q, Np = a1x.shape
+    F = v_ext.shape[1]
+    nbl, W = Np // ibs, 2 * w + 1
+
+    def rows(t):   # (Q, Npe) -> (Q, nbl, W, ibs, 1): the window's rows
+        return _ext_win(t.reshape(Q, nbl + 2 * w, ibs), nbl, W)[..., None]
+
+    e = _masked_scores(rows(a2_ext), a1x.reshape(Q, nbl, 1, 1, ibs),
+                       mask_col[None], slope)             # Q, nbl, W, p, c
+    # the stats are zero past the global ends, where mask_col is 0: the
+    # guard keeps alpha 0 there, not 0/0
+    al = (torch.exp(e - rows(mx_ext)) / rows(sm_ext).clamp_min(1e-30)
+          * mask_col[None])
+    coeff = al * slab_col[None] if with_s else al
+    vw = _ext_win(v_ext.reshape(Q, F, nbl + 2 * w, ibs), nbl, W)
+    y = torch.einsum("qjkpc,qfjkp->qfjc", coeff, vw)
+    return y.reshape(Q, F, Np)
+
+
+def _check_shapes(name: str, **expected) -> None:
+    """Raise unless each ``arg=(tensor, shape)`` has that shape."""
+    for arg, (t, shape) in expected.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)}, expected "
+                             f"{shape} (halo-extended: Np + 2*w*ibs)")
+
+
+def _check_ext_kernel(name: str, nbl: int, w: int, ibs: int) -> None:
+    _check_tile(name, ibs)
+    if w > nbl:
+        raise ValueError(f"{name}: the halo of w={w} blocks is wider than "
+                         f"the shard's nbl={nbl} blocks (not a ring)")
+
+
+def stats_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor,
+                   mask_row: torch.Tensor, *, w: int, ibs: int,
+                   slope: float = 0.2):
+    """Row softmax stats (rowmax, rowsum), each (Q, Np), of one shard's own
+    rows: a1_ext (Q, Np + 2*w*ibs) halo-extended, a2x (Q, Np) own,
+    mask_row (nbl, W, ibs, ibs).
+
+    CUDA kernel: ``attn_stats_kernel<true>`` in
+    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
+    JAX package's ``ops/attention_flash.py:_stats_ext_call``.
+    """
+    Q, Np = a2x.shape
+    nbl = _check_band("stats_ext_call", Np, w, ibs, mask_row=mask_row)
+    _check_shapes("stats_ext_call",
+                  a1_ext=(a1_ext, (Q, Np + 2 * w * ibs)))
+    if not kernels.on_cuda("stats_ext_call", a1_ext, a2x, mask_row):
+        return stats_ext_plain(a1_ext, a2x, mask_row, w=w, ibs=ibs,
+                               slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("stats_ext_call", a1_ext=(a1_ext, f32),
+                         a2x=(a2x, f32), mask_row=(mask_row, f32))
+    _check_ext_kernel("stats_ext_call", nbl, w, ibs)
+    rowmax = torch.empty((Q, Np), dtype=f32, device=a2x.device)
+    rowsum = torch.empty((Q, Np), dtype=f32, device=a2x.device)
+    if Q == 0:
+        return rowmax, rowsum
+    err = kernels.library().gnt_attn_stats_ext(
+        a1_ext.data_ptr(), a2x.data_ptr(), mask_row.data_ptr(),
+        rowmax.data_ptr(), rowsum.data_ptr(), Q, Np, nbl, w, ibs, slope,
+        kernels.stream())
+    kernels.check(err, "stats_ext_call")
+    stats_ext_call.launches += 1
+    return rowmax, rowsum
+
+
+stats_ext_call.launches = 0
+
+
+def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
+                   v_ext: torch.Tensor, mx_ext: torch.Tensor,
+                   sm_ext: torch.Tensor, slab_col: torch.Tensor,
+                   mask_col: torch.Tensor, *, w: int, ibs: int,
+                   with_s: bool = True, slope: float = 0.2) -> torch.Tensor:
+    """y (Q, F, Np) = v @ (alpha (* S)) for one shard's own output columns:
+    a1x (Q, Np) own; a2_ext, mx_ext, sm_ext (Q, Np + 2*w*ibs) and v_ext
+    (Q, F, Np + 2*w*ibs) halo-extended rows; slab_col, mask_col
+    (nbl, W, ibs, ibs).
+
+    CUDA kernel: ``attn_apply_kernel<true>`` in
+    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
+    JAX package's ``ops/attention_flash.py:_apply_ext_call``.
+    """
+    Q, Np = a1x.shape
+    F = v_ext.shape[1] if v_ext.dim() == 3 else -1
+    nbl = _check_band("apply_ext_call", Np, w, ibs, slab_col=slab_col,
+                      mask_col=mask_col)
+    Npe = Np + 2 * w * ibs
+    _check_shapes("apply_ext_call", a2_ext=(a2_ext, (Q, Npe)),
+                  v_ext=(v_ext, (Q, F, Npe)), mx_ext=(mx_ext, (Q, Npe)),
+                  sm_ext=(sm_ext, (Q, Npe)))
+    operands = (a1x, a2_ext, v_ext, mx_ext, sm_ext, slab_col, mask_col)
+    if not kernels.on_cuda("apply_ext_call", *operands):
+        return apply_ext_plain(*operands, w=w, ibs=ibs, with_s=with_s,
+                               slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("apply_ext_call", a1x=(a1x, f32),
+                         a2_ext=(a2_ext, f32), v_ext=(v_ext, f32),
+                         mx_ext=(mx_ext, f32), sm_ext=(sm_ext, f32),
+                         slab_col=(slab_col, f32), mask_col=(mask_col, f32))
+    _check_ext_kernel("apply_ext_call", nbl, w, ibs)
+    y = torch.empty((Q, F, Np), dtype=f32, device=a1x.device)
+    if Q == 0 or F == 0:
+        return y
+    err = kernels.library().gnt_attn_apply_ext(
+        *(t.data_ptr() for t in operands), y.data_ptr(), Q, F, Np, nbl, w,
+        ibs, int(with_s), slope, kernels.stream())
+    kernels.check(err, "apply_ext_call")
+    apply_ext_call.launches += 1
+    return y
+
+
+apply_ext_call.launches = 0
+
+
+KERNEL_WRAPPERS = (stats_call, apply_call, bwd_call, stats_ext_call,
+                   apply_ext_call)
 
 
 def reset_launch_counts() -> None:

@@ -5,9 +5,10 @@ Conventions (as in the JAX package's ``ops/filters.py``):
   y : (B, F, N). Shift = row-vector right-multiplication ``x @ S``.
 
 The attention family (GAT, GCAT, attention EVGF) runs in dense mode as
-``torch.einsum`` over the materialized (B, P, E, N, N) coefficients, and
-on a band-mode Gso through the flash kernels of ``ops.attention_flash``
-(coefficients never materialized), whatever the device.
+``torch.einsum`` over the materialized (B, P, E, N, N) coefficients, on a
+band-mode Gso through the flash kernels of ``ops.attention_flash``
+(coefficients never materialized), whatever the device, and on a
+``parallel.ShardedGso`` node-sharded through ``parallel.attention``.
 """
 
 from __future__ import annotations
@@ -70,14 +71,16 @@ def tap_register_combine(w: torch.Tensor, b: Optional[torch.Tensor],
 # Attention (GAT family)
 # ---------------------------------------------------------------------------
 
+def _sharded(gso) -> bool:
+    """True for a parallel.ShardedGso (duck-typed, as in the JAX
+    package): the functionals route to parallel.attention."""
+    return hasattr(gso, "band_attention")
+
+
 def _attention_band(gso) -> bool:
     """True for a band-mode Gso (the flash path), False for the dense path
     (any other Gso, or a raw (N, N)/(E, N, N) array). Raises for the GSO
     containers whose attention is not ported yet."""
-    if hasattr(gso, "band_attention"):
-        raise NotImplementedError(
-            "sharded attention (parallel/attention.py) is not ported yet "
-            "(ROADMAP queue 1 item 10)")
     if isinstance(gso, gso_lib.Gso):
         return gso.mode == "band"
     if isinstance(gso, (torch.Tensor, np.ndarray)):
@@ -131,6 +134,9 @@ def graph_attention(x: torch.Tensor, a: torch.Tensor, W: torch.Tensor, gso,
     Reference: graphML.py:739-809 (the output aggregates with the
     edge-weighted attention S * alpha). Returns (B, P, F, N).
     """
+    if _sharded(gso):
+        from graph_neural_networks_torch.parallel import attention as sha
+        return sha.sharded_graph_attention(x, a, W, gso.band_attention)
     if _attention_band(gso):
         s5, w, auxes = _band_args(gso)
         return af.graph_attention_band_flash(
@@ -150,6 +156,9 @@ def gat_lsigf(h: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     Reference: graphML.py:811-895. h: (E,K), x: (B,G,N), a: (P,E,2F),
     W: (P,E,F,G) -> y: (B,P,F,N).
     """
+    if _sharded(gso):
+        from graph_neural_networks_torch.parallel import attention as sha
+        return sha.sharded_gat_lsigf(h, x, a, W, gso.band_attention, b)
     if _attention_band(gso):
         s5, w, auxes = _band_args(gso)
         return af.gat_lsigf_band_flash(h, x, a, W, s5, w, b, negative_slope,
@@ -181,6 +190,9 @@ def gat_evgf(x: torch.Tensor, a: torch.Tensor, W: torch.Tensor, gso,
     Reference: graphML.py:897-969. a: (P,K,E,2F), W: (P,K,E,F,G) ->
     y: (B,P,F,N).
     """
+    if _sharded(gso):
+        from graph_neural_networks_torch.parallel import attention as sha
+        return sha.sharded_gat_evgf(x, a, W, gso.band_attention, b)
     if _attention_band(gso):
         s5, w, auxes = _band_args(gso)
         return af.gat_evgf_band_flash(x, a, W, s5, w, b, negative_slope,

@@ -177,8 +177,13 @@ def gshift(gso, x: torch.Tensor) -> torch.Tensor:
 
     x: (..., E, G, N) with E matching the GSO's edge features. Dense mode
     (or a raw tensor) is one einsum; band and bcsr flatten every axis but
-    (E, N) into rows and run one kernel launch per edge feature.
+    (E, N) into rows and run one kernel launch per edge feature. Any other
+    object with a ``shift(x)`` method (``parallel.ShardedGso``, the
+    node-sharded ring shift) shifts x itself.
     """
+    if not isinstance(gso, (Gso, torch.Tensor, np.ndarray)) \
+            and hasattr(gso, "shift"):
+        return gso.shift(x)
     if not isinstance(gso, Gso) or gso.mode == "dense":
         return torch.einsum("...egn,enm->...egm", x, dense(gso))
     E = gso.n_edge_features

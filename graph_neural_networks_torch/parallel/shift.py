@@ -1,0 +1,224 @@
+"""The ring graph shift over a device mesh (``y = x @ S`` node-sharded).
+
+The port of the JAX package's ``parallel/shift.py`` ring path
+(``sharded_gshift_ring``). S is stored as sharded band slabs
+(``parallel.partition``), never as a dense ``E x N x N`` array. When the
+ordered graph is banded (``GraphPartition.is_ring``), each shard needs
+only the ``w * inner_bs`` boundary nodes of its two neighbour shards: the
+halo strips are copied to its device (zeros beyond the global ends), and
+the shard contracts its own block and the halos against its local slab.
+
+Single-controller, as the JAX shard_map: the shards are a loop over the
+mesh's coordinates; inputs and outputs are global tensors on the mesh's
+home device. Two shard-local contractions, as in the JAX package:
+
+  * on a CUDA mesh: the square local band on ``spmm.BandShift`` (the
+    ``band_matmul`` kernel) on the shard's own block, plus the O(w^2)
+    halo corrections as small einsums; a shard boundary that carries no
+    edge skips the exchange. An inner block that is not a multiple of
+    ``spmm.TILE_N`` raises: the kernel never quietly gives way to the
+    einsum on the card,
+  * on the CPU: the windowed block einsum, interior blocks (which read
+    only the own block) apart from the w boundary blocks at each end.
+
+Both are differentiable by autograd (``BandShift`` is an autograd
+Function). ``sharded_gshift_allgather``, ``sharded_gshift_bcsr`` and
+``make_dp_train_step`` are not ported yet (ROADMAP queue 1 item 10.2).
+
+Signals follow the gshift convention: x (..., E, G, N_padded), node axis
+last, ordered and padded by the partition; any number of leading dims.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from graph_neural_networks_torch.ops import spmm
+from graph_neural_networks_torch.parallel.mesh import Mesh, halo_strips
+from graph_neural_networks_torch.parallel.partition import GraphPartition
+
+
+def _sq_slabs(part: GraphPartition):
+    """Per-shard SQUARE local band slabs + boundary-correction blocks for
+    the kernel's shard-local path (JAX ``parallel/shift.py:_sq_slabs``).
+
+    The kernel runs on the UNEXTENDED local block with the slab entries
+    that reference the halo zeroed, and the halo terms are added as
+    O(w^2) small block einsums fed directly by the halos.
+
+    Returns (s_sq, s_sq_t, lo, hi):
+      s_sq / s_sq_t: (P, E, nbl, (2w+1)*ibs, ibs) band_matmul layout,
+        entries with j+k-w outside [0, nbl) zeroed (s_sq_t is the
+        transposed band, for BandShift's backward);
+      lo: (P, E, w, w, ibs, ibs) -- lo[j, lb] multiplies from_left
+        block lb into output block j (= slab[j, lb-j], j <= lb < w);
+      hi: (P, E, w, w, ibs, ibs) -- hi[j_rel, rb] multiplies from_right
+        block rb into output block nbl-w+j_rel
+        (= slab[nbl-w+j_rel, 2w-j_rel+rb], rb <= j_rel).
+
+    Requires nbl >= w (the ring).
+    """
+    Pn, E, nbl, W, ibs, _ = part.slabs.shape
+    w = part.w
+    s_sq = np.array(part.slabs, np.float32, copy=True)
+    for j in range(nbl):
+        for k in range(W):
+            if not 0 <= j + k - w < nbl:
+                s_sq[:, :, j, k] = 0.0
+    s_sq_t = np.zeros_like(s_sq)
+    for j in range(nbl):
+        for k in range(W):
+            src = j + k - w
+            if 0 <= src < nbl:
+                s_sq_t[:, :, j, k] = np.swapaxes(
+                    s_sq[:, :, src, 2 * w - k], -1, -2)
+    lo = np.zeros((Pn, E, w, w, ibs, ibs), np.float32)
+    hi = np.zeros((Pn, E, w, w, ibs, ibs), np.float32)
+    for j in range(min(w, nbl)):
+        for lb in range(j, w):
+            lo[:, :, j, lb] = part.slabs[:, :, j, lb - j]
+    for j_rel in range(w):
+        j = nbl - w + j_rel
+        if j < 0:
+            continue
+        for rb in range(j_rel + 1):
+            hi[:, :, j_rel, rb] = part.slabs[:, :, j, 2 * w - j_rel + rb]
+    shape = (Pn, E, nbl, W * ibs, ibs)
+    return s_sq.reshape(shape), s_sq_t.reshape(shape), lo, hi
+
+
+def _kernel_local_contract(x_blk, from_left, from_right, s_sq, s_sq_t, lo,
+                           hi, w, ibs, nbl):
+    """Shard-local band contraction on the band_matmul kernel: the square
+    local band on the UNEXTENDED block + the boundary-correction einsums
+    on the halos. x_blk: (L, E, G, nbl*ibs); from_left/from_right:
+    (L, E, G, w*ibs), or None when the shard boundary carries no edge (lo
+    and hi are zero: the corrections are skipped)."""
+    L, E, G, n_loc = x_blk.shape
+    y = torch.stack([
+        spmm.BandShift.apply(x_blk[:, e].reshape(L * G, n_loc), s_sq[e],
+                             s_sq_t[e], n_loc, w, ibs).reshape(L, G, n_loc)
+        for e in range(E)], dim=1)                # L, E, G, nbl*ibs
+    if w and from_left is not None:
+        fl = from_left.reshape(L, E, G, w, ibs)
+        fr = from_right.reshape(L, E, G, w, ibs)
+        cl = torch.einsum("legbn,ejbnm->legjm", fl, lo).reshape(
+            L, E, G, w * ibs)
+        ch = torch.einsum("legbn,ejbnm->legjm", fr, hi).reshape(
+            L, E, G, w * ibs)
+        pad = (nbl - w) * ibs
+        y = (y + torch.nn.functional.pad(cl, (0, pad))
+             + torch.nn.functional.pad(ch, (pad, 0)))
+    return y
+
+
+def _band_contract(x_ext: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
+    """Local windowed band contraction. x_ext: (L, E, G, (nbl + 2w) * ibs)
+    halo-extended signal block; slab: (E, nbl, 2w+1, ibs, ibs) (slab[e, j,
+    k] multiplies input inner block j+k). Returns (L, E, G, nbl * ibs)."""
+    E, nbl, W, ibs, _ = slab.shape
+    L, _, G, _ = x_ext.shape
+    xb = x_ext.reshape(L, E, G, nbl + W - 1, ibs)
+    win = torch.stack([xb[:, :, :, k:k + nbl] for k in range(W)], dim=4)
+    y = torch.einsum("legjkn,ejknm->legjm", win, slab)
+    return y.reshape(L, E, G, nbl * ibs)
+
+
+def _window_local_contract(x_blk, from_left, from_right, slab, w, ibs, nbl):
+    """The windowed shard-local contraction: interior output blocks
+    [w, nbl-w) read only the own block; the w boundary blocks at each end
+    read a halo."""
+    if nbl <= 2 * w:
+        return _band_contract(
+            torch.cat([from_left, x_blk, from_right], dim=-1), slab)
+    y_int = _band_contract(x_blk, slab[:, w:nbl - w])
+    x_lo = torch.cat([from_left, x_blk[..., :2 * w * ibs]], dim=-1)
+    x_hi = torch.cat([x_blk[..., -(2 * w) * ibs:], from_right], dim=-1)
+    return torch.cat([_band_contract(x_lo, slab[:, :w]), y_int,
+                      _band_contract(x_hi, slab[:, nbl - w:])], dim=-1)
+
+
+def _uses_band_kernel(mesh: Mesh, part: GraphPartition) -> bool:
+    """The JAX ``use_pallas`` rule in the port's terms: the band_matmul
+    kernel on a CUDA mesh, which raises on an inner block the kernel
+    cannot take (``nbl >= w`` holds on the ring)."""
+    if mesh.home.type != "cuda":
+        return False
+    if part.inner_bs % spmm.TILE_N:
+        raise ValueError(
+            f"the band_matmul kernel needs the partition's inner block a "
+            f"multiple of TILE_N={spmm.TILE_N}, got inner_bs="
+            f"{part.inner_bs}; shard into fewer parts")
+    return True
+
+
+def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
+                        axis: str = "graph",
+                        data_axis: Optional[str] = None) -> Callable:
+    """Halo-exchange shift: each shard receives the w*inner_bs boundary
+    nodes of its neighbours and contracts against its local band slab.
+    Requires part.is_ring. data_axis: also split the flattened leading
+    (batch) dim over this mesh axis when it divides it (else the shards of
+    the first data slice take all of it, as the JAX ShardedGso falls back
+    to its graph-only shift). Returns shift(x) on global
+    (..., E, G, N_padded) tensors."""
+    if not part.is_ring:
+        raise ValueError(
+            f"band half-width w={part.w} inner blocks exceeds the shard "
+            f"width (nbl={part.nbl}); the all-gather shift is not ported "
+            "yet (ROADMAP queue 1 item 10.2)")
+    if mesh.shape[axis] != part.n_parts:
+        raise ValueError(f"mesh axis {axis!r} has {mesh.shape[axis]} "
+                         f"devices for {part.n_parts} graph shards")
+    w, nbl, ibs, halo = part.w, part.nbl, part.inner_bs, part.halo
+    bs = part.block_size
+    grid = mesh.grid(axis, data_axis)
+    use_kernel = _uses_band_kernel(mesh, part)
+    if use_kernel:
+        sq = _sq_slabs(part)
+        # no cross-shard edge anywhere (always at n_parts=1): the halo
+        # exchange and the corrections are zero, skip both
+        has_boundary = bool(sq[2].any() or sq[3].any())
+        per_shard = sq
+    else:
+        has_boundary = True
+        per_shard = (part.slabs,)
+    # each shard's slabs on every device that runs that shard, built once
+    slabs = {}
+    for devs in grid:
+        for p, dev in enumerate(devs):
+            if (dev, p) not in slabs:
+                slabs[dev, p] = tuple(torch.as_tensor(t[p], device=dev)
+                                      for t in per_shard)
+
+    def local(x_blk, halos, s):
+        if use_kernel:
+            return _kernel_local_contract(x_blk, *halos, *s, w, ibs, nbl)
+        if halo == 0:
+            return _band_contract(x_blk, s[0])
+        return _window_local_contract(x_blk, *halos, s[0], w, ibs, nbl)
+
+    def shift4(x):
+        L = x.shape[0]
+        rows = grid if L % len(grid) == 0 else grid[:1]
+        Ld = L // len(rows)
+        ys = []
+        for d, devs in enumerate(rows):
+            blks = [x[d * Ld:(d + 1) * Ld, ..., p * bs:(p + 1) * bs]
+                    .to(dev).contiguous() for p, dev in enumerate(devs)]
+            halos = (halo_strips(blks, halo) if halo and has_boundary
+                     else [(None, None)] * len(blks))
+            y = [local(b, h, slabs[dev, p])
+                 for p, (dev, b, h) in enumerate(zip(devs, blks, halos))]
+            ys.append(torch.cat([t.to(x.device) for t in y], dim=-1))
+        return torch.cat(ys) if len(ys) > 1 else ys[0]
+
+    def shift(x):
+        lead = x.shape[:-3]
+        y = shift4(x.reshape((-1,) + tuple(x.shape[-3:])))
+        return y.reshape(tuple(lead) + tuple(y.shape[-3:]))
+
+    return shift

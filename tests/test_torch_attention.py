@@ -262,13 +262,8 @@ def test_unported_gso_containers_raise():
     class EdgeList:   # stands in for ops/attention_sparse.EdgeList
         n = 48
 
-    class ShardedGso:
-        band_attention = None
-
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tfilters.graph_attention(xt, at, Wt, EdgeList())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tfilters.gat_lsigf(torch.ones(1, 2), xt, at, Wt, ShardedGso())
 
 
 def test_kernel_wrappers_check_shapes():
