@@ -54,6 +54,18 @@ and the flocking deployment path:
   halo-extended from real neighbour shards (first, interior and last
   shard), times them beside their bounds, and profiles a sharded forward
   beside the unsharded one.
+* Node-sharded training: trains gat_band_n16384 .shard()ed over the
+  (1, 4) and (2, 2) meshes through Model.train and Trainer(mesh=...)
+  (8 Adam steps; 8 bwd_ext_call + 8 stats_ext_call + 8 apply_ext_call
+  launches a step, no global flash launch), its first-step gradients
+  (parameters, every layer's a1x, a2x, v) against the unsharded band
+  model's and its losses against that model's trajectory; GCAT and
+  EdgeVariantAttention at N=2048 and band_n4096 (the ring shift's
+  backward, 48 band_matmul a step) sharded 4 ways likewise. Holds the
+  shard-local flash backward (bwd_ext_call, kernel 12) against its plain
+  version on the first, an interior and the last shard and a ragged
+  partition, and all shards folded against the global bwd_call; times it
+  beside its bound, and profiles a sharded step beside the unsharded one.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -1203,14 +1215,15 @@ def _check_grads(checks, model, against, got, want):
                     f"{against}: {max_abs}")
 
 
-def _train_counts(model, data, batch, expected=None):
-    """Model.train for TRAIN_STEPS steps (validation at step 0 only), the
-    counts set to 0 just before and read just after; then the losses."""
+def _train_counts(model, data, batch, expected=None, **trainer_kw):
+    """Model.train for TRAIN_STEPS steps (validation at step 0 only; more
+    Trainer options in trainer_kw), the counts set to 0 just before and
+    read just after; then the losses."""
     import torch
     _reset_counts()
     t0 = time.perf_counter()
     out = model.train(data, nEpochs=1, batchSize=batch,
-                      validationInterval=TRAIN_STEPS)
+                      validationInterval=TRAIN_STEPS, **trainer_kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _attention_counts()
@@ -1401,9 +1414,9 @@ def _device_profile(fn, n):
                   calls=e.count / n) for e in top])
 
 
-def phase_train_profile(trained, n=6):
+def phase_train_profile(trained, n=6, phase="train_profile"):
     """Where one training step (forward, loss, backward, Adam) spends its
-    time, for each trained model of the training phase."""
+    time, for each trained model of a training phase."""
     from graph_neural_networks_torch import training
     for name, (model, data, batch) in trained.items():
         trainer = training.Trainer(model, data, 1, batch)
@@ -1411,7 +1424,7 @@ def phase_train_profile(trained, n=6):
                    for i in range(n + 3)]
         it = iter(batches * 3)
         prof = _device_profile(lambda: trainer.train_batch(next(it)), n)
-        emit(phase="train_profile", model=name, batch=batch,
+        emit(phase=phase, model=name, batch=batch,
              host_ms_per_step=prof["wall_ms"],
              profiled_host_ms_per_step=prof["profiled_wall_ms"],
              device_ms_per_step=prof["device_ms"],
@@ -2282,6 +2295,415 @@ def phase_shard_profile(profiles):
         _profile_forward(label, eng, x)
 
 
+# ---------------------------------------------------------------------------
+# Node-sharded training (kernel 12: the shard-local flash backward)
+# ---------------------------------------------------------------------------
+
+# A sharded model's first-step gradients against the unsharded band
+# model's (same weights, same batch): the flash kernels walk each shard's
+# row tiles in the unsharded kernels' order (da2 and dv the same sums; da1
+# and the ring shift's halo terms are folded in another order at the shard
+# edges), so rtol 1e-5, atol 1e-6*max|unsharded|, both on the unsharded
+# model's ReLU gates (_shared_gates); the losses of 8 Adam steps within
+# LOSS_RTOL, as the unsharded training. The ring shift sums
+# other products in another order (the square local band plus the halo
+# corrections against the whole band, and the register kernel in the
+# unsharded first layer), so a tap gradient, a sum of B*N = 131072
+# products, is held to atol 1e-5*max|unsharded| (1e-5 relative to its
+# largest entry).
+SHARD_GRAD_RTOL = 1e-5
+SHARD_GRAD_ATOL_REL = 1e-6
+SHARD_SHIFT_GRAD_ATOL_REL = 1e-5
+
+
+@contextlib.contextmanager
+def _attention_inputs(record):
+    """Within the block every flash attention application, sharded
+    (ShardedBandAttention.apply) or not (attention_flash.flash_apply),
+    appends its (a1x, a2x, v) to `record`, so that their gradients can be
+    asked for."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel import attention as sha
+    flash_apply, sharded_apply = af.flash_apply, sha.ShardedBandAttention.apply
+
+    def flash(a1x, a2x, v, *args, **kw):
+        record.append((a1x, a2x, v))
+        return flash_apply(a1x, a2x, v, *args, **kw)
+
+    def sharded(self, a1x, a2x, v, *args, **kw):
+        record.append((a1x, a2x, v))
+        return sharded_apply(self, a1x, a2x, v, *args, **kw)
+    af.flash_apply, sha.ShardedBandAttention.apply = flash, sharded
+    try:
+        yield record
+    finally:
+        af.flash_apply = flash_apply
+        sha.ShardedBandAttention.apply = sharded_apply
+
+
+@contextlib.contextmanager
+def _shared_gates(arch, gates, flips):
+    """Within the block every filter layer of `arch` applies its ReLU as
+    the product with a gate (pre-activation > 0), recorded into `gates`
+    when it comes empty, else taken from it (adding to flips[0] the
+    entries where this model's own gate differs): two models then
+    differentiate the same linear piece of the network. A gate within f32
+    rounding of 0 may flip between two paths that sum in another order,
+    and then moves a weight gradient by ~1e-3 of its max. Attention layers
+    apply their own nonlinearity (_relu_gates); a graph-filter core
+    applies core.sigma once a filter layer."""
+    if arch.core.filter_kind != "graph_filter":
+        with _relu_gates(arch, gates):
+            yield
+        return
+    core, record, calls = arch.core, not gates, iter(range(1 << 30))
+
+    def act(t):
+        i = next(calls)
+        if record:
+            gates.append(t > 0)
+        else:
+            flips[0] += int(((t > 0) != gates[i]).sum())
+        return t * gates[i].to(t.dtype)
+    saved, core.sigma = core.sigma, act
+    try:
+        yield
+    finally:
+        core.sigma = saved
+
+
+def _step_grads(arch, data, batch, gates, inputs=(0, 1, 2)):
+    """One CE step's gradients on the Trainer's first batch, on the ReLU
+    gates of `gates` (_shared_gates): of every parameter, then of each
+    attention application's a1x, a2x and v (`inputs` picks among them;
+    those that need a gradient); the kernel launches of the step, counted
+    from 0; and the gates where this model's own forward differs."""
+    import torch
+    from graph_neural_networks_torch.training import losses
+    idx = np.random.default_rng(0).permutation(data.nTrain)[:batch]
+    x, y = data.getSamples("train", idx)
+    record, flips = [], [0]
+    _reset_counts()
+    with _shared_gates(arch, gates, flips), _attention_inputs(record):
+        loss = losses.cross_entropy_loss(
+            arch.split_forward(x)[0], torch.as_tensor(y, device=arch.device))
+    wrt = list(arch.parameters()) + [ts[i] for ts in record for i in inputs
+                                     if ts[i].requires_grad]
+    grads = torch.autograd.grad(loss, wrt)
+    torch.cuda.synchronize()
+    return loss.item(), grads, _attention_counts(), flips[0]
+
+
+def _check_shard_grads(checks, model, got, want,
+                       atol_rel=SHARD_GRAD_ATOL_REL):
+    """Sharded gradients against the unsharded model's; counts those equal
+    bit for bit."""
+    import torch
+    require(len(got) == len(want), f"{model}: {len(got)} gradients against "
+                                   f"{len(want)}")
+    equal = 0
+    for i, (g, r) in enumerate(zip(got, want)):
+        max_abs, max_rel, ok = compare(g, r, SHARD_GRAD_RTOL, atol_rel)
+        equal += bool(torch.equal(g, r))
+        checks.append(dict(model=model, against="unsharded band", grad=i,
+                           max_abs_err=max_abs, max_rel_err=max_rel,
+                           max_abs_ref=r.abs().max().item(),
+                           atol=f"{atol_rel}*max|unsharded|",
+                           bit_equal=bool(torch.equal(g, r)), ok=ok))
+        require(ok, f"{model}: gradient {i} disagrees with the unsharded "
+                    f"band model's: max abs {max_abs}, max rel {max_rel}")
+    return equal
+
+
+def phase_shard_training(rng, dev, out_dir):
+    """Train node-sharded models through Model -> Trainer(mesh=...) ->
+    loss -> backward -> Adam (the main path of this phase): gat_band_n16384
+    over the (1, 4) and (2, 2) meshes, each step 8 bwd_ext_call + 8
+    stats_ext_call + 8 apply_ext_call launches and no global flash launch;
+    first-step gradients of every parameter and of every layer's a1x, a2x
+    and v against the unsharded band model (kernels 7-9), and the losses
+    of 8 Adam steps against its trajectory. Then GCAT and
+    EdgeVariantAttention at N = 2048 sharded 4 ways (kernel 12 with and
+    without S) and band_n4096 sharded 4 ways (the ring shift's backward on
+    band_matmul: 32 launches a forward, 16 a backward) against their
+    unsharded band models."""
+    from graph_neural_networks_torch import parallel as par
+    t_phase = time.perf_counter()
+    checks, launches, trained = [], {}, {}
+
+    def train(model, data, batch, expected, **kw):
+        out, counts, seconds = _train_counts(model, data, batch, expected,
+                                             **kw)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return out, counts, seconds
+
+    def vs_reference(label, unsharded, sharded, data, batch, per_step,
+                     per_fwd, meshes, atol_rel=SHARD_GRAD_ATOL_REL):
+        """The unsharded band model's first-step gradients and trajectory,
+        then each sharded model's (sharded(mesh)) against them."""
+        ref, gates = unsharded(), []
+        _, want, _, _ = _step_grads(ref, data, batch, gates)
+        ref_model = _model(ref, f"{label}_unsharded", out_dir)
+        ref_out, _, _ = _train_counts(ref_model, data, batch)
+        trained[f"{label} unsharded"] = (ref_model, data, batch)
+        for mesh, kw in meshes:
+            name = f"{label} mesh {tuple(mesh.devices.shape)}"
+            arch = sharded(mesh)
+            loss, got, counts, flips = _step_grads(arch, data, batch, gates)
+            step = {k: 0 for k in counts}
+            step.update(per_step)
+            require(counts == step, f"{name}: launches in a step {counts}, "
+                                    f"expected {step}")
+            equal = _check_shard_grads(checks, name, got, want, atol_rel)
+            model = _model(arch, name.replace(" ", "_"), out_dir)
+            n_val = 1   # validation at step 0 only: one forward
+            expected = {k: TRAIN_STEPS * n + n_val * per_fwd.get(k, 0)
+                        for k, n in step.items()}
+            out, counts, seconds = train(model, data, batch, expected,
+                                         mesh=mesh, **kw)
+            ok = bool(np.allclose(out["lossTrain"], ref_out["lossTrain"],
+                                  rtol=LOSS_RTOL, atol=0))
+            checks.append(dict(model=name, against="unsharded band",
+                               losses=out["lossTrain"].tolist(),
+                               unsharded_losses=ref_out["lossTrain"].tolist(),
+                               ok=ok, launches=counts, seconds=seconds,
+                               step_ms=(np.asarray(out["timeTrain"])
+                                        * 1e3).tolist()))
+            require(ok, f"{name}: losses {out['lossTrain']} vs unsharded "
+                        f"{ref_out['lossTrain']}")
+            emit(phase="shard_training", model=name, batch=batch,
+                 trainer_kwargs=dict(mesh=str(mesh), **kw),
+                 first_step_loss=loss, grads=len(got),
+                 grads_bit_equal=equal, relu_gates_flipped=flips,
+                 launches_per_step=per_step,
+                 launches=counts, steps=TRAIN_STEPS, seconds=seconds)
+            trained[name] = (model, data, batch)
+
+    S, _ = make_graph(GAT_N, 0.01, 256, seed=1)
+    gat_data = _synthetic_data(rng, (TRAIN_STEPS * GAT_BATCH, GAT_BATCH,
+                                     GAT_BATCH), GAT_DIMS[0], GAT_N, 4)
+    meshes = [(par.make_mesh(shape, devices=[dev] * SHARD_PARTS),
+               dict(meshAxis="data") if data_axis else {})
+              for shape, data_axis in SHARD_MESHES]
+
+    def shard_gat(arch, mesh):
+        n = mesh.shape["graph"]
+        data_axis = "data" if mesh.shape["data"] > 1 else None
+        arch.shard(mesh, n, data_axis=data_axis)
+        require(arch.S.band_attention.use_flash,
+                f"{mesh}: the flash schedule is off")
+        return arch
+    flash = dict(stats_ext_call=8, apply_ext_call=8)
+    vs_reference("gat_band_n16384",
+                 lambda: _build_gat("GraphAttentionNetwork", S, "band", dev),
+                 lambda mesh: shard_gat(_build_gat(
+                     "GraphAttentionNetwork", S, "dense", dev), mesh),
+                 gat_data, GAT_BATCH, dict(flash, bwd_ext_call=8), flash,
+                 meshes)
+
+    # GCAT and EdgeVariantAttention at N = 2048, sharded 4 ways: first-step
+    # gradients (kernel 12 with S, and without it in GCAT's taps)
+    S2, _ = make_graph(GAT_SMALL_N, 0.01, 256, seed=1)
+    mesh4 = meshes[0][0]
+    # (GCAT's v: the unsharded taps hand the stacked tensor itself to the
+    # next shift, the sharded ones a view of it, so the gradients of those
+    # two objects cover different uses; its a1x and a2x are compared)
+    small = [("GraphConvolutionAttentionNetwork", [64, 16, 16], [2, 2],
+              [3, 2], (0, 1)),
+             ("EdgeVariantAttention", [32, 16], [2], [3], (0, 1, 2))]
+    for cls_name, dims, heads, taps, inputs in small:
+        data = _synthetic_data(rng, (GAT_BATCH, GAT_BATCH, GAT_BATCH),
+                               dims[0], GAT_SMALL_N, 4)
+
+        def build(mode="band"):
+            return _build_gat(cls_name, S2, mode, dev, dims, heads, taps)
+        gates = []
+        _, want, _, _ = _step_grads(build(), data, GAT_BATCH, gates, inputs)
+        arch = shard_gat(build("dense"), mesh4)
+        _, got, counts, flips = _step_grads(arch, data, GAT_BATCH, gates,
+                                            inputs)
+        require(counts["bwd_ext_call"] > 0 and counts["bwd_call"] == 0
+                and counts["stats_call"] == counts["apply_call"] == 0,
+                f"{cls_name}: launches {counts}")
+        name = (f"{cls_name} N={GAT_SMALL_N} sharded "
+                f"w={arch.S.partition.w}")
+        equal = _check_shard_grads(checks, name, got, want)
+        emit(phase="shard_training", model=name, grads=len(got),
+             grads_bit_equal=equal, relu_gates_flipped=flips,
+             launches_per_step=counts)
+
+    # band_n4096: the ring shift's backward, 4 shards
+    S4 = banded_graph(np.random.default_rng(0), N_GRAPH, 256, 0.05)
+    sel_data = _synthetic_data(rng, (TRAIN_STEPS * BATCH, BATCH, BATCH), 1,
+                               N_GRAPH, 5)
+    shifts = 2 * (TAPS - 1) * SHARD_PARTS   # 2 layers, K - 1 shifts a shard
+    # backward: only the second layer's shifts act on an input that needs
+    # a gradient; the first layer's act on the data
+    vs_reference("band_n4096", lambda: _build_model(S4, "band", dev),
+                 lambda mesh: _build_model(S4, "band", dev).shard(
+                     mesh, SHARD_PARTS),
+                 sel_data, BATCH,
+                 dict(band_matmul=shifts + shifts // 2),
+                 dict(band_matmul=shifts), meshes[:1],
+                 SHARD_SHIFT_GRAD_ATOL_REL)
+    emit(phase="shard_training_check", rtol=SHARD_GRAD_RTOL,
+         loss_rtol=LOSS_RTOL, checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    return launches, trained
+
+
+def phase_shard_train_kernels(part, mc, mr, rng, dev):
+    """bwd_ext_call against bwd_ext_plain on the card, on operands
+    halo-extended from real neighbour shards: at the served shard shape
+    (Q = 16, F = 32, Np = 4096, w = 2, ibs = 128) for the first, an
+    interior and the last shard, with_s True and False, and on a ragged
+    4-shard partition (N = 2000, 48 padded nodes, F = 40). Then every
+    served-shape shard's backward, folded and halo-folded, against the
+    global bwd_call (kernel 9) on the same operands: da2 and dv are
+    expected bit-equal, da1 within ulps."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext, halo_fold
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check(case, got, want, served):
+        max_abs, max_rel, ok = compare(got, want)
+        results.append(dict(kernel="bwd_ext_call", case=case,
+                            max_abs_err=max_abs, max_rel_err=max_rel,
+                            max_abs_plain=want.abs().max().item(), ok=ok))
+        if served:
+            errs["bwd_ext_call"] = max(errs.get("bwd_ext_call", 0.0), max_abs)
+        require(ok and bool(torch.isfinite(got).all()),
+                f"bwd_ext_call [{case}] disagrees with its plain version: "
+                f"max abs {max_abs}, max rel {max_rel}")
+
+    def run(label, part, mc, mr, Q, F, served):
+        w, ibs, halo = part.w, part.inner_bs, part.halo
+        own, ext, masks = _shard_operands(rng, dev, part, Q, F, mc, mr)
+        bs = part.block_size
+        g = _attn_operands(rng, dev, Q, F, part.n_orig, part.n_padded)[2]
+        g_ext = halo_ext([g[..., p * bs:(p + 1) * bs].contiguous()
+                          for p in range(part.n_parts)], halo)
+        slabs = par.attention._ext_slabs(part)[:, 0]
+        stats = [af.stats_ext_plain(ext["a1"][p], own["a2"][p], masks[p][1],
+                                    w=w, ibs=ibs)
+                 for p in range(part.n_parts)]
+
+        def operands(p):
+            return (ext["a1"][p], own["a2"][p], own["v"][p], *stats[p],
+                    torch.as_tensor(slabs[p], device=dev), masks[p][1],
+                    g_ext[p])
+        for p in sorted({0, 1, part.n_parts - 1}):
+            args = operands(p)
+            for ws in (True, False):
+                got = af.bwd_ext_call(*args, w=w, ibs=ibs, with_s=ws)
+                torch.cuda.synchronize()
+                want = af.bwd_ext_plain(*args, w=w, ibs=ibs, with_s=ws)
+                for what, t, r in zip(("da2", "da1p", "dv"), got, want):
+                    check(f"{label} shard {p}/{part.n_parts} with_s={ws} "
+                          f"{what}", t, r, served)
+                del got, want
+        if not served:
+            return
+        # every shard against the global kernel 9 on the same operands
+        outs = [af.bwd_ext_call(*operands(p), w=w, ibs=ibs)
+                for p in range(part.n_parts)]
+        sharded = [torch.cat(ts, dim=-1) for ts in (
+            [o[0] for o in outs],
+            halo_fold([af.fold_ext_partials(o[1]) for o in outs], halo),
+            [o[2] for o in outs])]
+
+        def glob(ts):
+            return torch.cat(ts, dim=-1)
+        da2, da1p, dv = af.bwd_call(
+            glob(own["a1"]), glob(own["a2"]), glob(own["v"]),
+            glob([s[0] for s in stats]), glob([s[1] for s in stats]),
+            torch.as_tensor(np.concatenate(list(part.slabs[:, 0])),
+                            device=dev),
+            torch.as_tensor(np.concatenate(list(mr)), device=dev), g,
+            w=w, ibs=ibs)
+        torch.cuda.synchronize()
+        for what, t, r in zip(("da2", "da1", "dv"), sharded,
+                              (da2, af.fold_window_partials(da1p, w), dv)):
+            max_abs, max_rel, ok = compare(t, r)
+            results.append(dict(kernel="bwd_ext_call", case=(
+                f"{label} all shards, folded, against bwd_call {what}"),
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                bit_equal=bool(torch.equal(t, r)), ok=ok))
+            require(ok, f"sharded backward against bwd_call: {what} max abs "
+                        f"{max_abs}")
+
+    run(f"served Q=16 F=32 Np={part.block_size} w={part.w}", part, mc, mr,
+        GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1], True)
+    S2, _ = make_graph(2000, 0.01, 256, seed=2)
+    part2 = par.partition_nodes(S2, SHARD_PARTS, order="none")
+    require(part2.is_ring and part2.n_padded > part2.n_orig,
+            f"ragged case: w={part2.w}, nbl={part2.nbl}")
+    run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
+        *par.attention._row_col_masks(part2), 3, 40, False)
+    emit(phase="shard_train_kernels", rtol=RTOL,
+         atol=f"{ATOL_REL}*max|plain|", checks=results,
+         seconds=time.perf_counter() - t_phase)
+    return errs
+
+
+def phase_shard_train_timing(part, mc, mr, dev):
+    """bwd_ext_call at the served shard shape (an interior shard of
+    gat_band_n16384 over 4: Q = 16, F = 32, with_s) beside its plain
+    version and its bound: the bytes of its operands and outputs, each
+    once, and its operations on that shard's S+I support (halo columns
+    included), the larger; the dense-tile figure beside it. No single
+    PyTorch call computes the function."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext
+    t_phase = time.perf_counter()
+    Q, F = GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1]
+    w, ibs, Np, nbl = part.w, part.inner_bs, part.block_size, part.nbl
+    W = 2 * w + 1
+    rng = np.random.default_rng(7)
+    own, ext, masks = _shard_operands(rng, dev, part, Q, F, mc, mr)
+    g = _attn_operands(rng, dev, Q, F, part.n_orig, part.n_padded)[2]
+    p = 1
+    g_ext = halo_ext([g[..., q * Np:(q + 1) * Np].contiguous()
+                      for q in range(part.n_parts)], part.halo)[p]
+    mrow = masks[p][1]
+    mx, sm = af.stats_ext_plain(ext["a1"][p], own["a2"][p], mrow, w=w,
+                                ibs=ibs)
+    slab = torch.as_tensor(par.attention._ext_slabs(part)[p, 0], device=dev)
+    args = (ext["a1"][p], own["a2"][p], own["v"][p], mx, sm, slab, mrow,
+            g_ext)
+    kw = dict(w=w, ibs=ibs)
+    n_rows = Np + 2 * part.halo
+    tile = nbl * W * ibs * ibs
+    # g_ext and v in, dv out; a1_ext, a2, rowmax, rowsum in, da2 out;
+    # mask_row and the slab's row window in; the da1 partials out
+    nbytes = 4 * (Q * F * (n_rows + 2 * Np) + Q * n_rows + 4 * Q * Np
+                  + 2 * tile + Q * nbl * W * ibs)
+    flops_per = 4 * F + 20   # as bwd_call's (phase_train_timing)
+    support = Q * int(mrow.sum().item())
+    scores = Q * tile
+    row = dict(shape=(f"Q={Q} F={F} Np={Np} (+2*{part.halo} halo) w={w} "
+                      f"ibs={ibs} with_s"),
+               ms=time_ms(lambda: af.bwd_ext_call(*args, **kw)),
+               plain_ms=time_ms(lambda: af.bwd_ext_plain(*args, **kw),
+                                reps=5, inner=2),
+               library_ms=None, bytes=nbytes, flops=flops_per * support,
+               support_scores=support, scores=scores)
+    row["bound_ms"], row["bound_by"] = _attention_bound(nbytes, flops_per,
+                                                        support)
+    row["bound_ms_dense_tiles"], row["bound_by_dense_tiles"] = (
+        _attention_bound(nbytes, flops_per, scores))
+    emit(phase="shard_train_timing", bwd_ext_call=row,
+         library="none: no single PyTorch call computes the function",
+         seconds=time.perf_counter() - t_phase)
+    return {"bwd_ext_call": row}
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -2294,6 +2716,7 @@ REPLACES = {
     "grid_window": "graph_neural_networks_tpu/ops/gridwin.py:356",
     "stats_ext_call": "graph_neural_networks_tpu/ops/attention_flash.py:312",
     "apply_ext_call": "graph_neural_networks_tpu/ops/attention_flash.py:337",
+    "bwd_ext_call": "graph_neural_networks_tpu/ops/attention_flash.py:370",
 }
 
 
@@ -2386,6 +2809,19 @@ def main() -> int:
         rows.update(timed("shard_timing", phase_shard_timing, part, mc, mr,
                           dev))
         timed("shard_profile", phase_shard_profile, profiles)
+        del engines, profiles
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            st_launches, st_trained = timed(
+                "shard_training", phase_shard_training,
+                np.random.default_rng(13), dev, out_dir)
+            timed("shard_train_profile", phase_train_profile, st_trained, 6,
+                  "shard_train_profile")
+            del st_trained
+        launches["bwd_ext_call"] = st_launches["bwd_ext_call"]
+        errs.update(timed("shard_train_kernels", phase_shard_train_kernels,
+                          part, mc, mr, np.random.default_rng(14), dev))
+        rows.update(timed("shard_train_timing", phase_shard_train_timing,
+                          part, mc, mr, dev))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2401,11 +2837,12 @@ def main() -> int:
                    bwd_call="attention_flash.cu", grid_window="gridwin.cu",
                    table_build="gridwin.cu", table_transpose="gridwin.cu",
                    stats_ext_call="attention_flash.cu",
-                   apply_ext_call="attention_flash.cu")
+                   apply_ext_call="attention_flash.cu",
+                   bwd_ext_call="attention_flash.cu")
     for name in ("bcsr_matmul", "band_shift_register", "band_matmul",
                  "stats_call", "apply_call", "bwd_call", "table_transpose",
                  "table_build", "grid_window", "stats_ext_call",
-                 "apply_ext_call"):
+                 "apply_ext_call", "bwd_ext_call"):
         row = rows["bcsr_matmul@R=2048" if name == "bcsr_matmul" else name]
         source = sources.get(name, "spmm.cu")
         summary.append(dict(

@@ -54,6 +54,10 @@ _SIGNATURES = {
     # Np, nb, w, ibs, with_s, slope, stream
     "gnt_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _F, _P),
+    # g_ext, a1_ext, a2, v, rowmax, rowsum, slab_col_ext, mask_row, da2,
+    # da1p, dv, Q, F, Np, nb, w, ibs, with_s, slope, stream
+    "gnt_attn_bwd_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _P),
     # table, own, slots, keep, out, R, W, n_win, C, r2, need_exp, d_max,
     # wv_only, n_pay, stream
     "gnt_grid_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
@@ -74,6 +78,10 @@ AUTOGRAD_FUNCTIONS = {
     "apply_call": "ops.attention_flash.FlashApply",
     "bwd_call": "ops.attention_flash.FlashApply (it is that Function's "
                 "backward)",
+    "stats_ext_call": "parallel.attention.ShardedBandAttention.apply",
+    "apply_ext_call": "parallel.attention.ShardedBandAttention.apply",
+    "bwd_ext_call": "parallel.attention.ShardedBandAttention.apply (its "
+                    "backward)",
 }
 
 

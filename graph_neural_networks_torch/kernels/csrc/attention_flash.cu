@@ -1,18 +1,19 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
-// Three kernels, the counterparts of five Pallas calls of the JAX package
+// Three kernels, the counterparts of six Pallas calls of the JAX package
 // (graph_neural_networks_tpu/ops/attention_flash.py):
 //
 //   attn_stats_kernel<false> <- attention_flash.py:_stats_call
 //   attn_apply_kernel<false> <- attention_flash.py:_apply_call
+//   attn_bwd_kernel<false>   <- attention_flash.py:_bwd_call
 //   attn_stats_kernel<true>  <- attention_flash.py:_stats_ext_call
 //   attn_apply_kernel<true>  <- attention_flash.py:_apply_ext_call
-//   attn_bwd_kernel          <- attention_flash.py:_bwd_call
+//   attn_bwd_kernel<true>    <- attention_flash.py:_bwd_ext_call
 //
 // The JAX package runs one kernel body (_make_stats_kernel,
-// _make_apply_kernel) for a global call and its ext call; only the index
-// maps differ. Here the template parameter kExt picks the window
-// addressing the same way:
+// _make_apply_kernel, _make_bwd_kernel) for a global call and its ext
+// call; only the index maps differ. Here the template parameter kExt picks
+// the window addressing the same way:
 //  * global (kExt = false): the operands are whole (Q, Np) rows; window
 //    block k of block i is block i + k - w, and blocks off the matrix are
 //    skipped.
@@ -25,6 +26,18 @@
 //    and the mask is 0 (the -1e12 entries add exactly 0; a fully masked
 //    padded row sums W*ibs ones, as the JAX ext kernel does). The other
 //    operands (a2 in stats; a1 and y in apply) keep the shard's own Np.
+//    In bwd, g and a1 are read through the window (halo-extended); a2, v,
+//    the stats and the outputs are the shard's own rows, and the da1
+//    partials of window block k belong to ext column block i + k.
+//    S in the row layout: the global bwd reads the shard-free column slab
+//    at a mirrored index, slab_row[i, k] = slab_col[i + k - w, 2w - k].
+//    For a shard's first and last w row blocks that index leaves the
+//    shard's own column slab (their windows reach the neighbours'
+//    columns), so the ext bwd reads a halo-extended column slab
+//    (nb + 2w blocks, the neighbours' w edge blocks a side, zeros past
+//    the global ends) at slab_col_ext[i + k, 2w - k]: 12.5% more than the
+//    own slab at the served shape, where the JAX package keeps a second,
+//    row-layout slab (_row_slabs) as large as the first.
 //
 // The math (orientation of the reference GAT, graphML.py:713/807): for a
 // signal row q, the score of the pair (row i, column j) is
@@ -91,10 +104,14 @@
 //    package, so the result is deterministic without atomics. S in the
 //    row-window layout is the column-layout slab at a mirrored index,
 //    slab_row[i, k] = slab_col[i + k - w, 2w - k], read in place.
-//  * stats and apply, ext: the same designs on one shard's own rows or
-//    columns (Np = 4096 of 16384 at the served shape sharded 4 ways), so
-//    the same bounds per shard, plus the 2*w*ibs halo columns the window
-//    reaches into. Only the strides and the window's first block differ.
+//  * stats, apply and bwd, ext: the same designs on one shard's own rows
+//    or columns (Np = 4096 of 16384 at the served shape sharded 4 ways),
+//    so the same bounds per shard, plus the 2*w*ibs halo columns the
+//    window reaches into. Only the strides, the window's first block and
+//    (bwd) the slab's row index differ. The ext bwd walks all W window
+//    blocks; past the global ends they add exact zeros (zero halos, zero
+//    mask and slab), so each shard's da2 and dv equal the global kernel's
+//    rows bit for bit.
 // No TF32 wgmma and no --use_fast_math: the tolerances assume true f32.
 //
 // Every launcher has a plain C interface and returns the cudaError_t of the
@@ -309,8 +326,13 @@ constexpr size_t kBwdStaticBytes =
 // (Q, nb, W, ibs) with da1p[q, i, k, c] = sum over the rows of block i of
 // dpre at column (i+k-w)*ibs + c (0 where that block is off the matrix),
 // dv (Q, F, Np).
+// kExt: the shard's own rows i; the operands read through the window, g
+// and a1, are halo-extended (rows of Np + 2*w*ibs) and slab_col is the
+// halo-extended column slab (nb + 2w, W, ibs, ibs): window block k is ext
+// column block i + k for every k, and da1p[q, i, k] belongs to it.
 // Grid: Q * nb blocks, q fastest; dynamic shared memory
 // bwd_dynamic_floats(W, ibs, F) floats.
+template <bool kExt>
 __global__ void __launch_bounds__(kBwdThreads)
 attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
                 const float* __restrict__ a2, const float* __restrict__ v,
@@ -339,8 +361,12 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
   const int tcol = (tid % (kBCC / kBU)) * kBU;
   const int gp = tid % kBRT;                // dv GEMM: row, feature pair
   const int gf = 2 * (tid / kBRT);
+  const int cols_len = kExt ? Np + 2 * w * ibs : Np;  // g's and a1's rows
+  const int lag = kExt ? 0 : w;  // column block of window block k: i + k - lag
   const int64_t qn = (int64_t)q * Np;
-  const int k0 = max(0, w - i), k1 = min(W, nb + w - i);
+  const int64_t qc = (int64_t)q * cols_len;
+  const int k0 = kExt ? 0 : max(0, w - i);
+  const int k1 = kExt ? W : min(W, nb + w - i);
 
   for (int e = tid; e < W * ibs; e += kBwdThreads) da1_acc[e] = 0.f;
   for (int e = tid; e < F * kBRT; e += kBwdThreads) DVs[e] = 0.f;
@@ -354,15 +380,15 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
     // pass 1: dalpha for the tile's whole window, and delta
     float delta = 0.f;
     for (int k = k0; k < k1; ++k) {
-      const int col0 = (i + k - w) * ibs;
+      const int col0 = (i + k - lag) * ibs;
       const int64_t mtile = (((int64_t)i * W + k) * ibs + t) * ibs;
       const int64_t stile =
-          (((int64_t)(i + k - w) * W + (2 * w - k)) * ibs + t) * ibs;
+          (((int64_t)(i + k - lag) * W + (2 * w - k)) * ibs + t) * ibs;
       for (int cc = 0; cc < ibs; cc += kBCC) {
         float acc[kBU] = {};
         for (int f0 = 0; f0 < F; f0 += kBFT) {
           __syncthreads();  // the previous step's readers are done
-          if (f0 == 0 && tid < kBCC) a1_s[tid] = a1[qn + col0 + cc + tid];
+          if (f0 == 0 && tid < kBCC) a1_s[tid] = a1[qc + col0 + cc + tid];
           for (int e = tid; e < kBFT * kBRT; e += kBwdThreads) {
             const int f = e / kBRT, p = e % kBRT;
             Vs[e] = f0 + f < F ? v[((int64_t)q * F + f0 + f) * Np + r0 + p]
@@ -371,8 +397,9 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
           for (int e = tid; e < kBFT * kBCC; e += kBwdThreads) {
             const int f = e / kBCC, c = e % kBCC;
             DYs[f * kLDY + c] =
-                f0 + f < F ? g[((int64_t)q * F + f0 + f) * Np + col0 + cc + c]
-                           : 0.f;
+                f0 + f < F
+                    ? g[((int64_t)q * F + f0 + f) * cols_len + col0 + cc + c]
+                    : 0.f;
           }
           __syncthreads();
 #pragma unroll 8
@@ -409,13 +436,13 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
     // pass 2: dpre, the da1 partials, da2 and dv
     float da2_part = 0.f;
     for (int k = k0; k < k1; ++k) {
-      const int col0 = (i + k - w) * ibs;
+      const int col0 = (i + k - lag) * ibs;
       const int64_t mtile = (((int64_t)i * W + k) * ibs + t) * ibs;
       const int64_t stile =
-          (((int64_t)(i + k - w) * W + (2 * w - k)) * ibs + t) * ibs;
+          (((int64_t)(i + k - lag) * W + (2 * w - k)) * ibs + t) * ibs;
       for (int cc = 0; cc < ibs; cc += kBCC) {
         __syncthreads();  // the previous chunk's readers are done
-        if (tid < kBCC) a1_s[tid] = a1[qn + col0 + cc + tid];
+        if (tid < kBCC) a1_s[tid] = a1[qc + col0 + cc + tid];
         __syncthreads();
 #pragma unroll
         for (int u = 0; u < kBU; ++u) {
@@ -446,8 +473,9 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
           for (int e = tid; e < kBFT * kBCC; e += kBwdThreads) {
             const int f = e / kBCC, c = e % kBCC;
             DYs[f * kLDY + c] =
-                f0 + f < F ? g[((int64_t)q * F + f0 + f) * Np + col0 + cc + c]
-                           : 0.f;
+                f0 + f < F
+                    ? g[((int64_t)q * F + f0 + f) * cols_len + col0 + cc + c]
+                    : 0.f;
           }
           __syncthreads();
           float d0 = 0.f, d1 = 0.f;
@@ -483,6 +511,33 @@ attn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a1,
 
 size_t bwd_dynamic_floats(int W, int ibs, int F) {
   return (size_t)W * kBRT * ibs + (size_t)W * ibs + (size_t)F * kBRT;
+}
+
+template <bool kExt>
+cudaError_t launch_bwd(const float* g, const float* a1, const float* a2,
+                       const float* v, const float* rowmax,
+                       const float* rowsum, const float* slab_col,
+                       const float* mask_row, float* da2, float* da1p,
+                       float* dv, int Q, int F, int Np, int nb, int w,
+                       int ibs, int with_s, float slope,
+                       cudaStream_t stream) {
+  if (Q <= 0 || F <= 0 || ibs % kBCC != 0 || Np != nb * ibs || w < 0 ||
+      (kExt && w > nb))
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)Q * nb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(float) * bwd_dynamic_floats(2 * w + 1, ibs, F);
+  if (smem + kBwdStaticBytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem + kBwdStaticBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_bwd_kernel<kExt><<<(unsigned)blocks, kBwdThreads, smem, stream>>>(
+      g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
+      Np, nb, w, ibs, with_s, slope);
+  return cudaGetLastError();
 }
 
 template <bool kExt>
@@ -576,22 +631,27 @@ cudaError_t gnt_attn_bwd(const float* g, const float* a1, const float* a2,
                          float* dv, int Q, int F, int Np, int nb, int w,
                          int ibs, int with_s, float slope,
                          cudaStream_t stream) {
-  if (Q <= 0 || F <= 0 || ibs % kBCC != 0 || Np != nb * ibs || w < 0)
-    return cudaErrorInvalidValue;
-  const long long blocks = (long long)Q * nb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float) * bwd_dynamic_floats(2 * w + 1, ibs, F);
-  if (smem + kBwdStaticBytes > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem + kBwdStaticBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  attn_bwd_kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(
-      g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
-      Np, nb, w, ibs, with_s, slope);
-  return cudaGetLastError();
+  return launch_bwd<false>(g, a1, a2, v, rowmax, rowsum, slab_col, mask_row,
+                           da2, da1p, dv, Q, F, Np, nb, w, ibs, with_s, slope,
+                           stream);
+}
+
+// g_ext (Q, F, Np + 2*w*ibs) and a1_ext (Q, Np + 2*w*ibs) halo-extended;
+// a2, rowmax, rowsum (Q, Np) and v (Q, F, Np) the shard's own rows;
+// slab_col_ext (nb + 2w, W, ibs, ibs) the halo-extended column slab;
+// mask_row (nb, W, ibs, ibs). da2 (Q, Np), da1p (Q, nb, W, ibs) in ext
+// column coordinates (block i + k), dv (Q, F, Np).
+cudaError_t gnt_attn_bwd_ext(const float* g_ext, const float* a1_ext,
+                             const float* a2, const float* v,
+                             const float* rowmax, const float* rowsum,
+                             const float* slab_col_ext,
+                             const float* mask_row, float* da2, float* da1p,
+                             float* dv, int Q, int F, int Np, int nb, int w,
+                             int ibs, int with_s, float slope,
+                             cudaStream_t stream) {
+  return launch_bwd<true>(g_ext, a1_ext, a2, v, rowmax, rowsum, slab_col_ext,
+                          mask_row, da2, da1p, dv, Q, F, Np, nb, w, ibs,
+                          with_s, slope, stream);
 }
 
 }  // extern "C"

@@ -19,11 +19,11 @@ recomputed tile by tile in three kernels
 ``flash_apply``): stats + apply forward, keeping a1x, a2x, v and the
 stats (never alpha), and bwd_call backward.
 
-:func:`stats_ext_call` and :func:`apply_ext_call` run the stats and apply
-kernels on one shard's halo-extended layout (the shard-local step of
-``parallel.attention``): the operands read through the window carry w
-halo blocks a side, so window block k of own block j is ext block j + k.
-Forward only (the sharded backward is ROADMAP queue 1 item 10.1).
+:func:`stats_ext_call`, :func:`apply_ext_call` and :func:`bwd_ext_call`
+run the three kernels on one shard's halo-extended layout (the
+shard-local step of ``parallel.attention``, whose flash schedule is their
+autograd Function): the operands read through the window carry w halo
+blocks a side, so window block k of own block j is ext block j + k.
 
 Orientation matches the reference (graphML.py:713, 807): score
 e_ij = LeakyReLU(a2.Wx_i + a1.Wx_j), softmax over each ROW i's column
@@ -194,6 +194,34 @@ def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     return y.reshape(Q, F, Np)
 
 
+def _bwd_windowed(a1w, a2x, v, rowmax, rowsum, s_row, mask_row, gw,
+                  slope):
+    """The flash backward on windowed operands, per row block i of own
+    rows over its column window k: a1w (Q, nb, W, ibs) and gw
+    (Q, F, nb, W, ibs) the window's columns of a1 and g, s_row the slab in
+    the row-window layout (None: alpha alone), the rest as in
+    :func:`bwd_plain`. Returns (da2, da1p, dv) as there."""
+    Q, F, Np = v.shape
+    nb, ibs = a1w.shape[1], a1w.shape[3]
+    pre = a2x.reshape(Q, nb, 1, ibs, 1) + a1w[:, :, :, None, :]
+    m = mask_row[None]                                    # Q, nb, W, p, c
+    e = nn.functional.leaky_relu(pre, negative_slope=slope)
+    e = e * m - (1.0 - m) * INFINITE
+
+    def rows(t):   # (Q, Np) -> (Q, nb, 1, ibs, 1)
+        return t.reshape(Q, nb, 1, ibs, 1)
+    al = torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30) * m
+    dco = torch.einsum("qfip,qfikc->qikpc", v.reshape(Q, F, nb, ibs), gw)
+    dal = dco if s_row is None else dco * s_row[None]
+    delta = (al * dal).sum(dim=(2, 4))                    # Q, nb, p
+    de = al * (dal - delta[:, :, None, :, None])
+    dpre = de * m * torch.where(pre > 0, 1.0, slope)
+    coeff = al if s_row is None else al * s_row[None]
+    dv = torch.einsum("qfikc,qikpc->qfip", gw, coeff)
+    return (dpre.sum(dim=(2, 4)).reshape(Q, Np), dpre.sum(dim=3),
+            dv.reshape(Q, F, Np))
+
+
 def bwd_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
               rowmax: torch.Tensor, rowsum: torch.Tensor,
               slab_col: torch.Tensor, mask_row: torch.Tensor,
@@ -206,26 +234,10 @@ def bwd_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     i + k - w (see :func:`fold_window_partials`)."""
     Q, F, Np = v.shape
     nb = Np // ibs
-    a1w = _win(a1x.reshape(Q, nb, ibs), w)                # Q, nb, W, c
-    pre = a2x.reshape(Q, nb, 1, ibs, 1) + a1w[:, :, :, None, :]
-    m = mask_row[None]                                    # Q, nb, W, p, c
-    e = nn.functional.leaky_relu(pre, negative_slope=slope)
-    e = e * m - (1.0 - m) * INFINITE
-
-    def rows(t):   # (Q, Np) -> (Q, nb, 1, ibs, 1)
-        return t.reshape(Q, nb, 1, ibs, 1)
-    al = torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30) * m
-    gw = _win(g.reshape(Q, F, nb, ibs), w)                # Q, F, nb, W, c
-    dco = torch.einsum("qfip,qfikc->qikpc", v.reshape(Q, F, nb, ibs), gw)
-    s_row = row_layout(slab_col, w)[None] if with_s else None
-    dal = dco * s_row if with_s else dco
-    delta = (al * dal).sum(dim=(2, 4))                    # Q, nb, p
-    de = al * (dal - delta[:, :, None, :, None])
-    dpre = de * m * torch.where(pre > 0, 1.0, slope)
-    coeff = al * s_row if with_s else al
-    dv = torch.einsum("qfikc,qikpc->qfip", gw, coeff)
-    return (dpre.sum(dim=(2, 4)).reshape(Q, Np), dpre.sum(dim=3),
-            dv.reshape(Q, F, Np))
+    return _bwd_windowed(
+        _win(a1x.reshape(Q, nb, ibs), w), a2x, v, rowmax, rowsum,
+        row_layout(slab_col, w) if with_s else None, mask_row,
+        _win(g.reshape(Q, F, nb, ibs), w), slope)
 
 
 def fold_window_partials(da1p: torch.Tensor, w: int) -> torch.Tensor:
@@ -236,6 +248,19 @@ def fold_window_partials(da1p: torch.Tensor, w: int) -> torch.Tensor:
     dpp = nn.functional.pad(da1p, (0, 0, 0, 0, w, w))
     da1 = sum(dpp[:, 2 * w - k:2 * w - k + nb, k] for k in range(W))
     return da1.reshape(Q, nb * ibs)
+
+
+def fold_ext_partials(da1p: torch.Tensor) -> torch.Tensor:
+    """(Q, nbl, W, ibs) window partials of :func:`bwd_ext_call` -> d_a1 of
+    the shard's halo-extended columns (Q, (nbl + W - 1) * ibs): ext column
+    block j + k gathers da1p[j, k], k in order (the JAX package's fold,
+    parallel/attention.py:local_bwd). ``parallel.mesh.halo_fold`` then
+    returns the halo columns to the shards that own them."""
+    Q, nbl, W, ibs = da1p.shape
+    da1 = da1p.new_zeros((Q, nbl + W - 1, ibs))
+    for k in range(W):
+        da1[:, k:k + nbl] += da1p[:, :, k]
+    return da1.reshape(Q, (nbl + W - 1) * ibs)
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +489,38 @@ def apply_ext_plain(a1x: torch.Tensor, a2_ext: torch.Tensor,
     return y.reshape(Q, F, Np)
 
 
+def ext_row_layout(slab_col_ext: torch.Tensor, w: int) -> torch.Tensor:
+    """The row-window layout (nbl, W, ibs, ibs) of a shard's own rows from
+    its halo-extended column slab (nbl + 2w, W, ibs, ibs):
+    out[i, k] = slab_col_ext[i + k, 2w - k], S at (own row block i, ext
+    column block i + k)."""
+    W = 2 * w + 1
+    nbl = slab_col_ext.shape[0] - 2 * w
+    return torch.stack([slab_col_ext[k:k + nbl, 2 * w - k] for k in range(W)],
+                       dim=1)
+
+
+def bwd_ext_plain(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+                  rowmax: torch.Tensor, rowsum: torch.Tensor,
+                  slab_col_ext: torch.Tensor, mask_row: torch.Tensor,
+                  g_ext: torch.Tensor, *, w: int, ibs: int,
+                  with_s: bool = True, slope: float = 0.2):
+    """The flash backward for one shard's own rows: a1_ext (Q, Np + 2*w*ibs)
+    and the cotangent g_ext (Q, F, Np + 2*w*ibs) halo-extended; a2x,
+    rowmax, rowsum (Q, Np) and v (Q, F, Np) own; slab_col_ext
+    (nbl + 2w, W, ibs, ibs) the halo-extended column slab; mask_row
+    (nbl, W, ibs, ibs). Returns (da2 (Q, Np), da1p (Q, nbl, W, ibs) with
+    da1p[q, i, k] at ext column block i + k (:func:`fold_ext_partials`),
+    dv (Q, F, Np))."""
+    Q, F, Np = v.shape
+    nbl, W = Np // ibs, 2 * w + 1
+    return _bwd_windowed(
+        _ext_win(a1_ext.reshape(Q, nbl + 2 * w, ibs), nbl, W), a2x, v,
+        rowmax, rowsum, ext_row_layout(slab_col_ext, w) if with_s else None,
+        mask_row, _ext_win(g_ext.reshape(Q, F, nbl + 2 * w, ibs), nbl, W),
+        slope)
+
+
 def _check_shapes(name: str, **expected) -> None:
     """Raise unless each ``arg=(tensor, shape)`` has that shape."""
     for arg, (t, shape) in expected.items():
@@ -563,8 +620,66 @@ def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
 apply_ext_call.launches = 0
 
 
+def bwd_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
+                 rowmax: torch.Tensor, rowsum: torch.Tensor,
+                 slab_col_ext: torch.Tensor, mask_row: torch.Tensor,
+                 g_ext: torch.Tensor, *, w: int, ibs: int,
+                 with_s: bool = True, slope: float = 0.2):
+    """The flash backward of :func:`apply_ext_call`'s schedule for one
+    shard's own rows: (da2 (Q, Np), da1p (Q, nbl, W, ibs) window partials
+    in ext column coordinates, dv (Q, F, Np)) from a1_ext and the
+    cotangent g_ext halo-extended, a2x, v and the stats own, the
+    halo-extended column slab (nbl + 2w, W, ibs, ibs) and mask_row
+    (nbl, W, ibs, ibs); see :func:`bwd_ext_plain`.
+
+    CUDA kernel: ``attn_bwd_kernel<true>`` in
+    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
+    JAX package's ``ops/attention_flash.py:_bwd_ext_call``.
+    """
+    Q, F, Np = v.shape
+    nbl = _check_band("bwd_ext_call", Np, w, ibs, mask_row=mask_row)
+    Npe = Np + 2 * w * ibs
+    W = 2 * w + 1
+    _check_shapes("bwd_ext_call", a1_ext=(a1_ext, (Q, Npe)),
+                  a2x=(a2x, (Q, Np)), rowmax=(rowmax, (Q, Np)),
+                  rowsum=(rowsum, (Q, Np)), g_ext=(g_ext, (Q, F, Npe)),
+                  slab_col_ext=(slab_col_ext, (nbl + 2 * w, W, ibs, ibs)))
+    operands = (a1_ext, a2x, v, rowmax, rowsum, slab_col_ext, mask_row,
+                g_ext)
+    if not kernels.on_cuda("bwd_ext_call", *operands):
+        return bwd_ext_plain(*operands, w=w, ibs=ibs, with_s=with_s,
+                             slope=slope)
+    f32 = torch.float32
+    kernels.check_inputs("bwd_ext_call", a1_ext=(a1_ext, f32),
+                         a2x=(a2x, f32), v=(v, f32), rowmax=(rowmax, f32),
+                         rowsum=(rowsum, f32),
+                         slab_col_ext=(slab_col_ext, f32),
+                         mask_row=(mask_row, f32), g_ext=(g_ext, f32))
+    _check_ext_kernel("bwd_ext_call", nbl, w, ibs)
+    if _bwd_smem_bytes(w, ibs, F) > _BLOCK_SMEM_BYTES:
+        raise ValueError(f"bwd_ext_call: w={w}, ibs={ibs}, F={F} need "
+                         f"{_bwd_smem_bytes(w, ibs, F)} bytes of shared "
+                         f"memory a block, above {_BLOCK_SMEM_BYTES}")
+    da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
+    da1p = torch.empty((Q, nbl, W, ibs), dtype=f32, device=v.device)
+    dv = torch.empty((Q, F, Np), dtype=f32, device=v.device)
+    if Q == 0 or F == 0:
+        return da2.zero_(), da1p.zero_(), dv
+    err = kernels.library().gnt_attn_bwd_ext(
+        g_ext.data_ptr(), a1_ext.data_ptr(), a2x.data_ptr(), v.data_ptr(),
+        rowmax.data_ptr(), rowsum.data_ptr(), slab_col_ext.data_ptr(),
+        mask_row.data_ptr(), da2.data_ptr(), da1p.data_ptr(), dv.data_ptr(),
+        Q, F, Np, nbl, w, ibs, int(with_s), slope, kernels.stream())
+    kernels.check(err, "bwd_ext_call")
+    bwd_ext_call.launches += 1
+    return da2, da1p, dv
+
+
+bwd_ext_call.launches = 0
+
+
 KERNEL_WRAPPERS = (stats_call, apply_call, bwd_call, stats_ext_call,
-                   apply_ext_call)
+                   apply_ext_call, bwd_ext_call)
 
 
 def reset_launch_counts() -> None:

@@ -8,7 +8,7 @@ The port of the JAX package's ``parallel/`` for the ring path:
     after a locality ordering) and its band slabs,
   * ``shift``       -- the ring halo-exchange graph shift,
   * ``attention``   -- the node-sharded band attention (flash kernels
-    10-11, or the windowed path),
+    10-11 forward and 12 backward, or the windowed path),
   * ``sharded_gso`` -- ShardedGso, the GSO the filters and architectures
     take (``arch.shard(mesh, n_parts)``).
 

@@ -1,6 +1,6 @@
 """Node-sharded banded attention (GAT family) over a device mesh.
 
-The port of the JAX package's ``parallel/attention.py`` (forward). Each
+The port of the JAX package's ``parallel/attention.py``. Each
 graph shard owns a contiguous block of (ordered) nodes and keeps only its
 band slab and support masks (``parallel.partition``), on its own device.
 One attention application is three steps, as in the JAX shard_map:
@@ -23,10 +23,15 @@ outputs are global tensors on the mesh's home device.
 Two shard-local steps, chosen as in the JAX package (``local_flash``):
 
   * the flash kernels, ``ops.attention_flash.stats_ext_call`` and
-    ``apply_ext_call`` (kernels 10-11): alpha never exists, not even
-    shard-locally. Forward only: a backward through this schedule raises
-    NotImplementedError (the sharded flash backward, kernel 12, is ROADMAP
-    queue 1 item 10.1).
+    ``apply_ext_call`` (kernels 10-11) forward and ``bwd_ext_call``
+    (kernel 12) backward, as the JAX ``_make_flash`` custom VJP: alpha
+    never exists, not even shard-locally. The forward keeps each shard's
+    halo-extended a1, its own a2 and v and its stats (never alpha); the
+    backward halo-extends the cotangent, runs the ext backward per shard,
+    folds its da1 window partials into ext columns and ``halo_fold``s the
+    halo columns back to the shards that own them. S is read there from a
+    halo-extended column slab (the JAX package keeps a row-layout slab,
+    ``_row_slabs``, instead; see :func:`_ext_slabs`).
   * the windowed path, their plain versions ``stats_ext_plain`` and
     ``apply_ext_plain``: plain torch, differentiable by autograd through
     the halo copies, as the JAX ``_make`` is by autodiff.
@@ -45,8 +50,10 @@ import numpy as np
 import torch
 
 from graph_neural_networks_torch.ops import attention_flash as af
-from graph_neural_networks_torch.parallel.mesh import Mesh, halo_ext
+from graph_neural_networks_torch.parallel.mesh import (Mesh, halo_ext,
+                                                       halo_fold)
 from graph_neural_networks_torch.parallel.partition import GraphPartition
+
 
 def _row_col_masks(part: GraphPartition):
     """Host-side 0/1 support masks of S+I in both window layouts.
@@ -78,6 +85,24 @@ def _row_col_masks(part: GraphPartition):
     shape = (part.n_parts, nbl, W, ibs, ibs)
     return ((mc > 0).astype(np.float32).reshape(shape),
             (mr > 0).astype(np.float32).reshape(shape))
+
+
+def _ext_slabs(part: GraphPartition) -> np.ndarray:
+    """Each shard's column slab halo-extended by its neighbours' w edge
+    blocks, (P, E, nbl + 2w, W, ibs, ibs), zeros past the global ends:
+    out[p, e, j] = the column-layout slab of global column block
+    p*nbl + j - w. The own slab is out[p, :, w:w + nbl]; the flash
+    backward reads S in the row layout at out[p, e, i + k, 2w - k]
+    (``attention_flash.ext_row_layout``), which for a shard's first and
+    last w row blocks lies in a neighbour's columns. One slab a shard,
+    (nbl + 2w) / nbl of the own one, where a row-layout slab (the JAX
+    ``_row_slabs``) would add a second as large."""
+    Pn, E, nbl, W, ibs, _ = part.slabs.shape
+    w = part.w
+    flat = np.concatenate(list(part.slabs), axis=1)  # E, Pn*nbl, W, ibs, ibs
+    flat = np.pad(flat, ((0, 0), (w, w), (0, 0), (0, 0), (0, 0)))
+    return np.stack([flat[:, p * nbl:(p + 1) * nbl + 2 * w]
+                     for p in range(Pn)])
 
 
 class ShardedBandAttention:
@@ -122,16 +147,20 @@ class ShardedBandAttention:
                 "local_flash=False for the windowed path")
         self.use_flash = bool(local_flash)
         self.grid = mesh.grid(axis, data_axis)
-        # each shard's slab (E, nbl, W, ibs, ibs) and masks (nbl, W, ibs,
-        # ibs), built once on every device that runs that shard
+        # each shard's halo-extended slab (E, nbl + 2w, W, ibs, ibs), its
+        # own slab (a view of it) and masks (nbl, W, ibs, ibs), built once
+        # on every device that runs that shard
         mc, mr = _row_col_masks(part)
+        slabs_ext = _ext_slabs(part)
+        w, nbl = part.w, part.nbl
         self._shard_ops = {}
         for devs in self.grid:
             for p, dev in enumerate(devs):
                 if (dev, p) not in self._shard_ops:
-                    self._shard_ops[dev, p] = tuple(
-                        torch.as_tensor(t[p], device=dev)
-                        for t in (part.slabs, mc, mr))
+                    ext, mcol, mrow = (torch.as_tensor(t[p], device=dev)
+                                       for t in (slabs_ext, mc, mr))
+                    self._shard_ops[dev, p] = (ext[:, w:w + nbl], mcol,
+                                               mrow, ext)
 
     def apply(self, a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
               e: int = 0, with_s: bool = True) -> torch.Tensor:
@@ -147,21 +176,27 @@ class ShardedBandAttention:
         return self.schedule(a1x, a2x, v, rows, e, with_s,
                              af.stats_ext_plain, af.apply_ext_plain)
 
-    def schedule(self, a1x, a2x, v, rows, e, with_s, stats, apply):
+    def _shards(self, t, q, devs):
+        """Data slice q of the global t cut into its graph shards, each
+        on its device."""
+        bs = self.part.block_size
+        return [t[q, ..., p * bs:(p + 1) * bs].to(dev).contiguous()
+                for p, dev in enumerate(devs)]
+
+    def schedule(self, a1x, a2x, v, rows, e, with_s, stats, apply,
+                 saved=None):
         """The three steps for each data slice (a row of the device grid)
-        with the shard-local functions `stats` and `apply`."""
+        with the shard-local functions `stats` and `apply`. `saved`, a
+        list when given, receives for each data slice what the flash
+        backward needs: the shards' halo-extended a1, own a2 and v, and
+        stats."""
         part = self.part
-        bs, w, ibs, halo = part.block_size, part.w, part.inner_bs, part.halo
+        w, ibs, halo = part.w, part.inner_bs, part.halo
         Qd = a1x.shape[0] // len(rows)
         ys = []
         for d, devs in enumerate(rows):
             q = slice(d * Qd, (d + 1) * Qd)
-
-            def shards(t):
-                return [t[q, ..., p * bs:(p + 1) * bs].to(dev).contiguous()
-                        for p, dev in enumerate(devs)]
-
-            a1s, a2s, vs = shards(a1x), shards(a2x), shards(v)
+            a1s, a2s, vs = (self._shards(t, q, devs) for t in (a1x, a2x, v))
             ops = [self._shard_ops[dev, p] for p, dev in enumerate(devs)]
             a1e, a2e, ve = (halo_ext(t, halo) for t in (a1s, a2s, vs))
             st = [stats(a1e[p], a2s[p], ops[p][2], w=w, ibs=ibs)
@@ -172,24 +207,58 @@ class ShardedBandAttention:
                        ops[p][1], w=w, ibs=ibs, with_s=with_s)
                  for p in range(len(devs))]
             ys.append(torch.cat([t.to(a1x.device) for t in y], dim=-1))
+            if saved is not None:
+                saved.append((a1e, a2s, vs, st))
         return torch.cat(ys) if len(ys) > 1 else ys[0]
+
+    def schedule_bwd(self, g, rows, saved, e, with_s):
+        """The flash backward of :meth:`schedule` for the cotangent g
+        (Q, F, Np) on the home device: per data slice, g cut into shards
+        and halo-extended, ``bwd_ext_call`` on each shard, its da1 window
+        partials folded into ext columns and ``halo_fold``ed back to their
+        owners. Returns (da1x, da2x, dv) on g's device."""
+        part = self.part
+        w, ibs, halo = part.w, part.inner_bs, part.halo
+        Qd = g.shape[0] // len(rows)
+        outs = []
+        for d, (devs, (a1e, a2s, vs, st)) in enumerate(zip(rows, saved)):
+            ge = halo_ext(self._shards(g, slice(d * Qd, (d + 1) * Qd), devs),
+                          halo)
+            ops = [self._shard_ops[dev, p] for p, dev in enumerate(devs)]
+            grads = [af.bwd_ext_call(a1e[p], a2s[p], vs[p], *st[p],
+                                     ops[p][3][e], ops[p][2], ge[p], w=w,
+                                     ibs=ibs, with_s=with_s)
+                     for p in range(len(devs))]
+            da1 = halo_fold([af.fold_ext_partials(t[1]) for t in grads],
+                            halo)
+            outs.append([torch.cat([t.to(g.device) for t in ts], dim=-1)
+                         for ts in (da1, [t[0] for t in grads],
+                                    [t[2] for t in grads])])
+        return tuple(torch.cat(ts) if len(ts) > 1 else ts[0]
+                     for ts in zip(*outs))
 
 
 class _ShardedFlash(torch.autograd.Function):
-    """The flash schedule (kernels 10-11) as a forward-only Function: its
-    forward runs with grad off, and a backward through it raises."""
+    """The flash schedule as a Function, the JAX ``_make_flash`` custom
+    VJP: forward kernels 10-11, keeping each shard's operands and stats;
+    backward kernel 12 (:meth:`ShardedBandAttention.schedule_bwd`)."""
 
     @staticmethod
     def forward(ctx, a1x, a2x, v, sattn, rows, e, with_s):
+        ctx.saved = []
+        ctx.cfg = (sattn, rows, e, with_s)
         return sattn.schedule(a1x, a2x, v, rows, e, with_s,
-                              af.stats_ext_call, af.apply_ext_call)
+                              af.stats_ext_call, af.apply_ext_call,
+                              saved=ctx.saved)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of the sharded flash attention (kernel 12, "
-            "_bwd_ext_call) is not ported yet (ROADMAP queue 1 item 10.1); "
-            "train through ShardedBandAttention(local_flash=False)")
+        sattn, rows, e, with_s = ctx.cfg
+        grads = sattn.schedule_bwd(g, rows, ctx.saved, e, with_s)
+        need = ctx.needs_input_grad
+        return (*(t if n else None for t, n in zip(grads, need)), None,
+                None, None, None)
 
 
 # ---------------------------------------------------------------------------

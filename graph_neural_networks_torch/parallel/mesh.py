@@ -135,3 +135,24 @@ def halo_ext(shards: list, halo: int) -> list:
         return shards
     return [torch.cat([left, t, right], dim=-1)
             for t, (left, right) in zip(shards, halo_strips(shards, halo))]
+
+
+def halo_fold(shards_ext: list, halo: int) -> list:
+    """The transpose of :func:`halo_ext`: each shard's (..., bs + 2*halo)
+    block folded back to (..., bs) on its device. The left `halo` columns
+    of shard p are added to the last `halo` of shard p - 1, its right ones
+    to the first `halo` of shard p + 1 (each strip copied to the owner's
+    device); the strips past the global ends are dropped, as the zeros of
+    JAX's non-circular ``ppermute`` are (the JAX package's ``halo_fold``,
+    parallel/attention.py)."""
+    if halo == 0:
+        return shards_ext
+    out = []
+    for p, t in enumerate(shards_ext):
+        mid = t[..., halo:-halo].clone()
+        if p + 1 < len(shards_ext):   # the right neighbour's left strip
+            mid[..., -halo:] += shards_ext[p + 1][..., :halo].to(t.device)
+        if p:                         # the left neighbour's right strip
+            mid[..., :halo] += shards_ext[p - 1][..., -halo:].to(t.device)
+        out.append(mid)
+    return out

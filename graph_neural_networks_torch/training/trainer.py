@@ -10,12 +10,23 @@ metrics file, and a staircase learning-rate decay. A step is eager
 PyTorch: forward, loss, ``backward`` (through the kernels' autograd
 Functions on a band/bcsr GSO), optimizer step.
 
-Not ported in this slice: ``TrainerSingleNode`` and ``TrainerFlocking``;
-data-parallel training (``mesh=``); bf16 mixed precision
-(``precision="bf16"``: the kernels take f32 only). ``scanDispatch`` and
-``scanMemoryBudget`` (the JAX Trainer's many-steps-in-one-dispatch scan)
-are accepted and have no effect: PyTorch dispatches each step eagerly, and
-CUDA graphs would be the tool for that overhead.
+``mesh=`` (a ``parallel.Mesh``) and ``meshAxis=`` follow the JAX
+Trainer's data-parallel semantics: the batch split over the mesh's data
+axis, the parameters replicated, a step equal to the single-device step.
+The port is single-controller and its meshes may repeat one device: the
+batch goes to the mesh's home device, and a model sharded on the same mesh
+(``arch.shard(mesh, n_parts, data_axis=...)``) splits it over the data
+axis in its sharded operators (the ``rows`` of
+``ShardedBandAttention.apply``, ``ShardedGso``'s ``data_axis``). A mesh
+over devices other than the model's needs replicas on several cards and a
+gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
+
+Not ported yet: ``TrainerSingleNode`` and ``TrainerFlocking``; bf16
+mixed precision (``precision="bf16"``: the kernels take f32 only).
+``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
+many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
+dispatches each step eagerly, and CUDA graphs would be the tool for that
+overhead.
 """
 
 from __future__ import annotations
@@ -74,10 +85,11 @@ class Trainer:
         self.logger = kwargs.get("logger")  # a Visualizer-like scalar logger
         self.resume = kwargs.get("resume", False)
         # scanDispatch and scanMemoryBudget are accepted and ignored
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data-parallel training comes with the "
-                "port of parallel/ (ROADMAP queue 1, parallel/)")
+        self.device = next(iter(model.archit.parameters())).device
+        self.mesh = kwargs.get("mesh")
+        self.meshAxis = kwargs.get("meshAxis")
+        if self.mesh is not None:
+            self._check_mesh()
         self.precision = kwargs.get("precision")
         if self.precision == "bf16":
             raise NotImplementedError(
@@ -86,7 +98,31 @@ class Trainer:
         if self.precision not in (None, "f32"):
             raise ValueError(f"unknown precision {self.precision!r}")
         self.rng = np.random.default_rng(kwargs.get("seed", 0))
-        self.device = next(iter(model.archit.parameters())).device
+
+    def _check_mesh(self):
+        """Accept a parallel.Mesh all of whose devices are the model's
+        (the single controller's replicas share its parameters); default
+        meshAxis to the mesh's first axis, as the JAX Trainer does."""
+        from graph_neural_networks_torch.parallel.mesh import (
+            Mesh, normalize_device)
+        mesh = self.mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"Trainer(mesh=...) takes a "
+                            f"graph_neural_networks_torch.parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if self.meshAxis is None:
+            self.meshAxis = mesh.axis_names[0]
+        if self.meshAxis not in mesh.axis_names:
+            raise ValueError(f"meshAxis {self.meshAxis!r} is not an axis of "
+                             f"{mesh}")
+        others = {d for d in mesh.devices.flat
+                  if d != normalize_device(self.device)}
+        if others:
+            raise NotImplementedError(
+                f"Trainer(mesh=...) over devices {sorted(map(str, others))} "
+                f"besides the model's {self.device}: data-parallel replicas "
+                "on several devices with a gradient all-reduce are not "
+                "ported yet (ROADMAP queue 1 item 10.2b)")
 
     # -- one step ----------------------------------------------------------
     def _forward(self, x: torch.Tensor) -> torch.Tensor:

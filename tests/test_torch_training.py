@@ -298,6 +298,11 @@ def test_trainer_unported_options_raise(sbm_data, tmp_path):
     m = _small_model(S, tmp_path)
     with pytest.raises(NotImplementedError, match="bf16"):
         ttrain.Trainer(m, data, 1, 8, precision="bf16")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ttrain.Trainer(m, data, 1, 8, mesh=object())
+    from graph_neural_networks_torch import parallel as tpar
+    mesh = tpar.make_mesh((2,), ("data",), devices=[
+        torch.device("cpu"), torch.device("cuda", 0)])
+    with pytest.raises(NotImplementedError, match="item 10.2b"):
+        ttrain.Trainer(m, data, 1, 8, mesh=mesh)
     ttrain.Trainer(m, data, 1, 8, scanDispatch=True, scanMemoryBudget=1)
