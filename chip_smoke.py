@@ -29,7 +29,7 @@ and the flocking deployment path:
   gat_band_n16384 gradients against the materialized band path; trains it
   through Model.train (Adam, 8 steps, validation at steps 0 and 4) and
   evaluate with exactly 2 stats + 2 apply + 2 bwd launches a step; trains
-  band_n4096 (band: 1 register + 8 band_matmul a step; bcsr: 12
+  band_n4096 (band: 2 register + 4 band_matmul a step; bcsr: 12
   bcsr_matmul) and GAT, GCAT and EdgeVariantAttention at N=2048 against
   dense mode (first-step gradients, 8 steps of loss); and profiles a
   training step of each.
@@ -239,7 +239,8 @@ def phase_kernels(graph, rng, dev):
 
     N = N_GRAPH
     w, sb = S_band.band_w, S_band.s_band[0]
-    # slice shapes: layer 2 chained shift, layer 1 fused register, bcsr both
+    # slice shapes: band_matmul at layer 2's rows (its backward), the
+    # register at layer 1's, bcsr both
     x = rand(2048, N)
     check("band_matmul", "R=2048 N=4096 w=1",
           spmm.band_matmul(x, sb, n_cols=N, w=w),
@@ -268,6 +269,45 @@ def phase_kernels(graph, rng, dev):
                                        w=g.band_w),
               spmm.band_shift_register_plain(xe, g.s_band[0], n_taps=3,
                                              n_cols=Ne, w=g.band_w))
+    # the register's edge cases: K = 1 and 2; the served requests' rows;
+    # the row limit; enough rows that a block walks several row tiles and
+    # panels; w = 2 and the widest band register_fits admits; N % 4 != 0
+    # (the element-wise staging)
+    def check_register(case, xr, s, wr, K):
+        n = xr.shape[1]
+        check("band_shift_register", case,
+              spmm.band_shift_register(xr, s, n_taps=K, n_cols=n, w=wr),
+              spmm.band_shift_register_plain(xr, s, n_taps=K, n_cols=n,
+                                             w=wr))
+
+    for K in (1, 2):
+        check_register(f"R=32 N={N} w={w} K={K}", x32, sb, w, K)
+    for R in sorted({1, 17, 64, 65, 1000, spmm.REGISTER_MAX_ROWS}):
+        check_register(f"R={R} N={N} w={w} K={TAPS}", rand(R, N), sb, w,
+                       TAPS)
+    w_max = max(v for v in range(32) if spmm.register_fits(128, v))
+    for we in (2, w_max):
+        g = gso_lib.as_gso(_band_case(rng, N, 128, we), "band", device=dev)
+        require(g.band_w == we, f"band case has w={g.band_w}, not {we}")
+        for R in (32, 256):   # both tiles of the kernel
+            check_register(f"R={R} N={N} w={we} K={TAPS} (panel "
+                           f"{spmm.register_smem_bytes(128, we)} B)",
+                           rand(R, N), g.s_band[0], we, TAPS)
+    g = gso_lib.as_gso(_band_case(rng, 1001, 128, 1), "band", device=dev)
+    for R in (33, 300):
+        check_register(f"R={R} N=1001 w={g.band_w} K=4", rand(R, 1001),
+                       g.s_band[0], g.band_w, 4)
+    if dev.type == "cuda":
+        # one band wider than register_fits admits: the wrapper refuses
+        # (gso.gshift_register chains band_matmul there)
+        wide = torch.zeros(N // 128, (2 * w_max + 3) * 128, 128, device=dev)
+        try:
+            spmm.band_shift_register(x32, wide, n_taps=TAPS, n_cols=N,
+                                     w=w_max + 1)
+            raise SmokeFailure(f"band_shift_register took w={w_max + 1}")
+        except ValueError:
+            pass
+
     # rectangular BCSR with an empty output block column: x (R, 1000) on
     # its own 8-block grid, y (R, 640) on a 5-block grid, column 2 empty
     n_in, n_out = 1000, 640
@@ -376,6 +416,7 @@ def phase_timing(graph, dev):
             z = spmm.band_matmul(z, sb, n_cols=N, w=w)
 
     chained_band_ms = time_ms(chained_band)
+    sweep = _register_sweep(sb, Sd, N, w, dev)
     for R, xx in ((2048, x2048), (BATCH, x32)):
         rows[f"bcsr_matmul@R={R}"] = dict(
             shape=f"R={R} N={N} nnzb={nnzb}",
@@ -396,7 +437,49 @@ def phase_timing(graph, dev):
          peaks=dict(hbm_tb_s=HBM_BYTES_PER_S / 1e12,
                     fp32_tflops=FP32_FLOPS_PER_S / 1e12),
          rows=rows)
+    emit(phase="register_sweep", **sweep)
     return rows
+
+
+SWEEP_ROWS = (1, 8, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def _register_sweep(sb, Sd, N, w, dev):
+    """band_shift_register against its two alternatives, K-1 chained
+    band_matmul (what gso.gshift_register runs above REGISTER_MAX_ROWS)
+    and K-1 chained torch.matmul(z, S_dense), at each swept row count;
+    `register_wins_up_to` is the largest row count up to which the
+    register beats the chained band_matmul at every swept count."""
+    import torch
+    from graph_neural_networks_torch.ops import spmm
+    rows = []
+    for R in SWEEP_ROWS:
+        x = torch.randn(R, N, device=dev)
+        out = torch.empty(TAPS, R, N, device=dev)
+
+        def chained_band():
+            z = x
+            for _ in range(1, TAPS):
+                z = spmm.band_matmul(z, sb, n_cols=N, w=w)
+
+        def chained_dense():
+            out[0].copy_(x)
+            for k in range(1, TAPS):
+                torch.matmul(out[k - 1], Sd, out=out[k])
+
+        rows.append(dict(
+            R=R,
+            register_ms=time_ms(lambda: spmm.band_shift_register(
+                x, sb, n_taps=TAPS, n_cols=N, w=w), reps=11),
+            chained_band_matmul_ms=time_ms(chained_band, reps=11),
+            chained_dense_ms=time_ms(chained_dense, reps=11)))
+    wins = 0
+    for row in rows:
+        if row["register_ms"] >= row["chained_band_matmul_ms"]:
+            break
+        wins = row["R"]
+    return dict(N=N, w=w, K=TAPS, rows=rows, register_wins_up_to=wins,
+                REGISTER_MAX_ROWS=spmm.REGISTER_MAX_ROWS)
 
 
 def _build_model(S, mode, dev):
@@ -407,6 +490,18 @@ def _build_model(S, mode, dev):
         [1, 64, 64], [TAPS, TAPS], True, "relu", [N, N], "NoPool", [1, 1],
         [5], S, gsoMode=mode, device=dev,
         generator=torch.Generator().manual_seed(0))
+
+
+def _band_launches(step):
+    """band_n4096's band-mode SpMM launches in one forward (step=False) or
+    one training step: layer l's register has BATCH * G_l rows (G = 1,
+    64), one band_shift_register at most spmm.REGISTER_MAX_ROWS rows, else
+    TAPS-1 chained band_matmul; a step adds layer 2's backward, TAPS-1
+    band_matmul (layer 1's input needs no gradient)."""
+    from graph_neural_networks_torch.ops import spmm
+    fused = [BATCH * g <= spmm.REGISTER_MAX_ROWS for g in (1, 64)]
+    return {"band_shift_register": sum(fused),
+            "band_matmul": (TAPS - 1) * (fused.count(False) + int(step))}
 
 
 def phase_serving(S_np, rng, dev):
@@ -427,8 +522,7 @@ def phase_serving(S_np, rng, dev):
                 for n in REQUESTS]
     want = [engines["dense"](x) for x in requests]
 
-    expected = {"band": {"band_shift_register": 1, "band_matmul": 4,
-                         "bcsr_matmul": 0},
+    expected = {"band": dict(_band_launches(step=False), bcsr_matmul=0),
                 "bcsr": {"band_shift_register": 0, "band_matmul": 0,
                          "bcsr_matmul": 8}}
     launches, checks = {}, []
@@ -1343,8 +1437,7 @@ def phase_training(eng, S_np, rng, dev, out_dir):
                        for k, n in step.items()})
         return counts
     expected = {
-        "band": per({"band_shift_register": 1, "band_matmul": 8},
-                    {"band_shift_register": 1, "band_matmul": 4}),
+        "band": per(_band_launches(step=True), _band_launches(step=False)),
         "bcsr": per({"bcsr_matmul": 12}, {"bcsr_matmul": 8})}
     sel, sel_launches = _vs_dense(
         "band_n4096", lambda m: _build_model(S_np, m, dev), ("band", "bcsr"),
@@ -1617,6 +1710,24 @@ def phase_flock_kernels(rng, dev):
     check_table("table_transpose", "H=4096 C=16 F=7 L=128 (pad lanes)",
                 gridwin.table_transpose(mm128, C=16, F=7),
                 gridwin.table_transpose_plain(mm128, C=16, F=7))
+
+    # table_transpose edge cases: H not a multiple of the run (8 cells at
+    # C = 32, F = 25), one cell, one feature, C = 16 with L = 7, an odd C
+    # (the last run's span ends in 4-byte copies), an even F (restaged at
+    # an odd stride), a misaligned mm (both element-wise)
+    for H_, C_, F_ in ((1003, 32, 25), (1, 32, 25), (4099, 32, 1),
+                       (4099, 16, 7), (513, 3, 5), (999, 32, 8)):
+        mm_e = torch.randn(H_ * C_, F_, generator=g).to(dev)
+        check_table("table_transpose", f"H={H_} C={C_} F=L={F_}",
+                    gridwin.table_transpose(mm_e, C=C_, F=F_),
+                    gridwin.table_transpose_plain(mm_e, C=C_, F=F_))
+    flat = torch.randn(1003 * 32 * 25 + 1, generator=g).to(dev)
+    mm_m = flat[1:].view(1003 * 32, 25)
+    require(dev.type != "cuda" or mm_m.data_ptr() % 16 != 0,
+            "misaligned case is aligned")
+    check_table("table_transpose", "H=1003 C=32 F=L=25, mm 4 B past 16 B",
+                gridwin.table_transpose(mm_m, C=32, F=25),
+                gridwin.table_transpose_plain(mm_m, C=32, F=25))
 
     # edge cases: both schemes, > d_max neighbors, d^2 = r^2 pairs, empty
     # cells, aliased windows, the exp test, an overflowing cell
@@ -2308,7 +2419,7 @@ def phase_shard_profile(profiles):
 # LOSS_RTOL, as the unsharded training. The ring shift sums
 # other products in another order (the square local band plus the halo
 # corrections against the whole band, and the register kernel in the
-# unsharded first layer), so a tap gradient, a sum of B*N = 131072
+# unsharded layers), so a tap gradient, a sum of B*N = 131072
 # products, is held to atol 1e-5*max|unsharded| (1e-5 relative to its
 # largest entry).
 SHARD_GRAD_RTOL = 1e-5

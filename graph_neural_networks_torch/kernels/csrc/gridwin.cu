@@ -19,7 +19,11 @@
 // (3.8 GB at 262144 agents and W = 896) is never written or read. A warp
 // reads a row's feature block as one coalesced 128-byte line, and lanes
 // whose candidate is masked out load none of the features only a
-// neighbor needs.
+// neighbor needs. table_transpose is a pure relayout, one streaming read
+// and one streaming write: persistent blocks stage runs of whole cells
+// (whose member rows are one contiguous span) into shared memory with
+// cp.async and write the cells' rows back as coalesced stores, the next
+// run's copy in flight while this one is written (see the kernel).
 //
 // Numbers: the distance mask and the state terms spell out their roundings
 // (__fmul_rn, __fadd_rn, __fdiv_rn) so nvcc contracts nothing into an FMA;
@@ -32,6 +36,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -192,19 +197,98 @@ table_build_kernel(const float* __restrict__ fs,
   }
 }
 
-// One warp a cell h of H. mm (H*C, L): member-major slot rows, L >= F.
-// out (H, W): out[h, f*C + c] = mm[h*C + c, f] for f < F, else 0.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// table_transpose_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kXposeThreads = 256;
+// Floats of one staged run of cells (about 32 KB); a run is a multiple of 4
+// cells, so with a 16-byte aligned mm every run's span starts 16-byte
+// aligned, whatever C * L is.
+constexpr int kXposeSpan = 8192;
+// Shared memory a block may use on sm_90 (227 KB).
+constexpr size_t kMaxSmem = 232448;
+
+__device__ __forceinline__ unsigned smem_u32(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Stage the member rows of cells [h0, h0 + nc) into buf as (nc C, Fs):
+// member m's feature f at buf[m Fs + f]. kBulk (L == F == Fs, mm 16-byte
+// aligned): the cells' rows are one contiguous span, copied in 16-byte
+// pieces (a last run whose span is not a multiple of 4 floats ends in
+// 4-byte pieces). Else element by element (L > F, an even F restaged at
+// the odd stride Fs = F + 1, or a misaligned mm).
+template <bool kBulk>
+__device__ __forceinline__ void stage_run(float* buf,
+                                          const float* __restrict__ mm,
+                                          int h0, int nc, int L, int F,
+                                          int C, int Fs) {
+  if (kBulk) {
+    const int n = nc * C * F;
+    const float* src = mm + (int64_t)h0 * C * F;
+    for (int q = threadIdx.x * 4; q + 4 <= n; q += kXposeThreads * 4)
+      cp_async16(buf + q, src + q);
+    for (int e = n / 4 * 4 + threadIdx.x; e < n; e += kXposeThreads)
+      cp_async4(buf + e, src + e);
+  } else {
+    for (int e = threadIdx.x; e < nc * C * F; e += kXposeThreads) {
+      const int m = e / F, f = e % F;
+      cp_async4(buf + m * Fs + f, mm + ((int64_t)h0 * C + m) * L + f);
+    }
+  }
+}
+
+// out (H, W): out[h, f*C + c] = mm[h*C + c, f] for f < F, else 0; mm (H*C,
+// L) member-major slot rows, L >= F.
+//
+// The TPU kernel flips (C, 128) tiles in VMEM. Here the relayout is one
+// streaming read and one streaming write: persistent blocks walk runs of T
+// cells (gridDim.x apart), staging run r + gridDim.x with cp.async while
+// they write run r, double buffered. A thread owns output lanes i = tid,
+// tid + 256, ... of every row, so each warp store is 32 consecutive floats
+// (the pad lanes f >= F included) and reads its 32 members' feature f from
+// shared memory at the odd stride Fs: 32 distinct banks.
+template <bool kBulk>
+__global__ void __launch_bounds__(kXposeThreads)
 table_transpose_kernel(const float* __restrict__ mm, float* __restrict__ out,
-                       int H, int L, int F, int C, int W) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t h = (int64_t)blockIdx.x * kWarps + warp;
-  if (h >= H) return;
-  const float* src = mm + h * C * L;
-  float* dst = out + h * W;
-  for (int i = lane; i < W; i += 32) {
-    const int f = i / C, c = i % C;
-    dst[i] = f < F ? src[(int64_t)c * L + f] : 0.f;
+                       int H, int L, int F, int C, int W, int T, int Fs) {
+  extern __shared__ __align__(16) float xbuf[];  // 2 x (T C Fs)
+  const int span = T * C * Fs;
+  const int runs = (H + T - 1) / T;
+  int run = blockIdx.x;
+  if (run < runs)
+    stage_run<kBulk>(xbuf, mm, run * T, min(T, H - run * T), L, F, C, Fs);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int b = 0; run < runs; run += gridDim.x, b ^= 1) {
+    const int next = run + gridDim.x;
+    if (next < runs)
+      stage_run<kBulk>(xbuf + (b ^ 1) * span, mm, next * T,
+                       min(T, H - next * T), L, F, C, Fs);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const float* buf = xbuf + b * span;
+    const int h0 = run * T, nc = min(T, H - h0);
+    for (int i = threadIdx.x; i < W; i += kXposeThreads) {
+      const int f = i / C, c = i % C;
+      const bool live = f < F;
+      const float* s = buf + c * Fs + f;
+      float* d = out + (int64_t)h0 * W + i;
+      for (int hl = 0; hl < nc; ++hl)
+        d[(int64_t)hl * W] = live ? s[hl * C * Fs] : 0.f;
+    }
+    __syncthreads();  // buf is restaged for run + 2 gridDim.x
   }
 }
 
@@ -240,12 +324,39 @@ cudaError_t gnt_table_build(const float* fs, const int* starts, float* out,
   return cudaGetLastError();
 }
 
+// A run of T cells (a multiple of 4, about kXposeSpan floats) a step;
+// as many persistent blocks as there are runs, at most as many as the card
+// holds at once (the occupancy query, after the shared memory opt-in).
 cudaError_t gnt_table_transpose(const float* mm, float* out, int H, int L,
                                 int F, int C, int W, cudaStream_t stream) {
   if (H <= 0 || F <= 0 || F > L || C <= 0 || F * C > W)
     return cudaErrorInvalidValue;
-  table_transpose_kernel<<<blocks_for(H), kThreads, 0, stream>>>(
-      mm, out, H, L, F, C, W);
+  const bool bulk = L == F && F % 2 == 1 &&
+                    reinterpret_cast<uintptr_t>(mm) % 16 == 0;
+  const int Fs = F | 1;
+  const int T = 4 * std::max(1, kXposeSpan / (4 * C * Fs));
+  const size_t smem = 2 * sizeof(float) * (size_t)T * C * Fs;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const void* fn = bulk ? (const void*)table_transpose_kernel<true>
+                        : (const void*)table_transpose_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      kXposeThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int runs = (H + T - 1) / T;
+  const int grid = std::min(runs, std::max(1, per_sm) * sms);
+  if (bulk)
+    table_transpose_kernel<true><<<grid, kXposeThreads, smem, stream>>>(
+        mm, out, H, L, F, C, W, T, Fs);
+  else
+    table_transpose_kernel<false><<<grid, kXposeThreads, smem, stream>>>(
+        mm, out, H, L, F, C, W, T, Fs);
   return cudaGetLastError();
 }
 

@@ -14,14 +14,21 @@
 // serving shapes (R = 32 .. 2048, bs = 128, w = 1) that is 12 .. 90 flops a
 // byte, above the ~20 flop/byte ridge of FP32 FMA (67 TFLOP/s over
 // 3.35 TB/s) for the large R, so the big shifts are bound by FP32
-// operations and the small ones by bytes and by launching too few blocks.
+// operations. The register at few rows (R = 32) does 0.4 GFLOP in four
+// dependent taps: it is bound by latency and by how many SMs it keeps busy.
 //
-// The design answer in this first version is a plain shared-memory tiled
-// FP32 product: a BM x 64 output tile per block, 16-deep steps staged in
-// shared memory, a TM x 4 micro-tile of FMAs per thread. Ragged edges (rows
-// past R, x columns past N) are masked in the loads, so the wrapper never
-// copies x into a padded buffer. No wgmma/TMA: those need TF32 or lower,
-// which would change the numbers the JAX reference produces.
+// band_matmul / bcsr_matmul: a plain shared-memory tiled FP32 product, a
+// 64 x 64 output tile per block, 16-deep steps staged in shared memory, a
+// 4 x 4 micro-tile of FMAs per thread. Ragged edges (rows past R, x columns
+// past N) are masked in the loads, so the wrapper never copies x into a
+// padded buffer. No wgmma: it needs TF32 or lower, which would change the
+// numbers the JAX reference produces.
+//
+// band_register_kernel: one cooperative launch of persistent blocks. Each
+// block owns a 32-column panel of the output, keeps that panel's
+// (2w+1) bs rows of the band slab resident in shared memory for all K-1
+// taps, stages the previous tap's window with cp.async (double buffered),
+// and a grid-wide barrier orders the taps (see the kernel).
 //
 // Every launcher has a plain C interface and returns the cudaError_t of the
 // launch; the Python wrappers raise if it is not cudaSuccess.
@@ -43,62 +50,63 @@ constexpr int kPad = 4;   // As row padding: spreads the transposed stores over 
 // band_matmul / bcsr_matmul tile: 64 x 64 outputs, 4 x 4 per thread.
 constexpr int kBM = 64;
 constexpr int kTM = 4;
-// band_register tile: 8 x 64 outputs, 1 x 4 per thread, so that the few
-// rows the fused register serves (R <= 512) still spread over many blocks.
-constexpr int kRegBM = 8;
-constexpr int kRegTM = 1;
-// Blocks of one cluster share a row tile and split its columns; the cluster
-// barrier is what orders tap k-1's writes before tap k's reads.
-constexpr int kCluster = 8;
+constexpr int kThreads = (kBM / kTM) * (kBN / kTN);
 
-template <int BM, int TM>
-__host__ __device__ constexpr int threads_of() {
-  return (BM / TM) * (kBN / kTN);
-}
-constexpr int kThreads = threads_of<kBM, kTM>();
-constexpr int kRegThreads = threads_of<kRegBM, kRegTM>();
+// band_register: a block owns a kPanel-column output panel and walks row
+// tiles under it, 128 threads, each TM rows x kTN columns of the tile
+// (rows ty + 16 i). Two tiles, chosen by R: at most kRegWideRows rows,
+// 32-row tiles (TM = 2) staged in 64-deep slices, so that few rows still
+// spread over many blocks; above it 128-row tiles (TM = 8) staged in
+// 32-deep slices, 32 FMAs a thread for each 3 shared-memory loads.
+constexpr int kPanel = 32;
+constexpr int kRegThreads = 128;
+constexpr int kRegRowThreads = kRegThreads / (kPanel / kTN);  // 16
+constexpr int kRegWideRows = 64;
+constexpr int kNarrowTM = 2, kNarrowKD = 64;
+constexpr int kWideTM = 8, kWideKD = 32;
+constexpr int kAPad = 4;  // staged rows: KD + 4 floats, so a warp's float4
+                          // reads of 4 consecutive rows hit distinct banks
+// Shared memory a block may use on sm_90 (227 KB).
+constexpr size_t kMaxSmem = 232448;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// acc += X[r0 : r0+BM, xc0 : xc0+depth] @ B[0 : depth, 0 : kBN]
+// acc += X[r0 : r0+kBM, xc0 : xc0+depth] @ B[0 : depth, 0 : kBN]
 // X is row-major (ldx) with valid rows < R and valid columns < N (the rest
-// read as zero). B points at the tile's first column, row-major (ldb).
-// depth is a multiple of kBK. Every thread of the block must call this.
-// X is read through L2 (ld.global.cg): in band_register_kernel it is a tap
-// that other blocks of the cluster wrote, which must not come from L1.
-template <int BM, int TM>
-__device__ __forceinline__ void tile_mac(float (&acc)[TM][kTN],
+// read as zero), read with ld.global.cg. B points at the tile's first
+// column, row-major (ldb). depth is a multiple of kBK. Every thread of the
+// block must call this.
+__device__ __forceinline__ void tile_mac(float (&acc)[kTM][kTN],
                                          const float* __restrict__ x,
                                          int64_t ldx, int R, int N, int r0,
                                          int xc0, const float* __restrict__ b,
                                          int64_t ldb, int depth, float* As,
                                          float* Bs) {
-  constexpr int T = threads_of<BM, TM>();
-  constexpr int LDA = BM + kPad;
+  constexpr int LDA = kBM + kPad;
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN);
   const int ty = tid / (kBN / kTN);
   for (int k0 = 0; k0 < depth; k0 += kBK) {
-    for (int e = tid; e < BM * kBK; e += T) {
+    for (int e = tid; e < kBM * kBK; e += kThreads) {
       const int r = e / kBK, c = e % kBK;
       const int gr = r0 + r, gc = xc0 + k0 + c;
       As[c * LDA + r] =
           (gr < R && gc < N) ? __ldcg(x + (int64_t)gr * ldx + gc) : 0.f;
     }
-    for (int e = tid; e < kBK * kBN; e += T) {
+    for (int e = tid; e < kBK * kBN; e += kThreads) {
       const int r = e / kBN, c = e % kBN;
       Bs[r * kBN + c] = b[(int64_t)(k0 + r) * ldb + c];
     }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-      float a[TM];
+      float a[kTM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k * LDA + ty * TM + i];
+      for (int i = 0; i < kTM; ++i) a[i] = As[k * LDA + ty * kTM + i];
       const float4 bv = *reinterpret_cast<const float4*>(&Bs[k * kBN + tx * kTN]);
       const float bb[kTN] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < kTM; ++i)
 #pragma unroll
         for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
     }
@@ -106,15 +114,14 @@ __device__ __forceinline__ void tile_mac(float (&acc)[TM][kTN],
   }
 }
 
-template <int BM, int TM>
-__device__ __forceinline__ void tile_store(const float (&acc)[TM][kTN],
+__device__ __forceinline__ void tile_store(const float (&acc)[kTM][kTN],
                                            float* __restrict__ y, int64_t ldy,
                                            int R, int n_cols, int r0, int c0) {
   const int tx = threadIdx.x % (kBN / kTN);
   const int ty = threadIdx.x / (kBN / kTN);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = r0 + ty * TM + i;
+  for (int i = 0; i < kTM; ++i) {
+    const int gr = r0 + ty * kTM + i;
     if (gr >= R) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
@@ -124,28 +131,11 @@ __device__ __forceinline__ void tile_store(const float (&acc)[TM][kTN],
   }
 }
 
-// One band shift of a BM-row tile into output columns [c0, c0+kBN): the sum
-// over the 2w+1 window blocks of the block-banded S. Windows that fall off
-// the matrix are skipped (the JAX kernel clamps them onto zero slab rows).
-template <int BM, int TM>
-__device__ __forceinline__ void band_tile(float (&acc)[TM][kTN],
-                                          const float* __restrict__ x, int R,
-                                          int N, int r0, int c0,
-                                          const float* __restrict__ s_band,
-                                          int nb, int w, int bs, float* As,
-                                          float* Bs) {
-  const int W = 2 * w + 1;
-  const int j = c0 / bs, lc = c0 % bs;
-  for (int t = 0; t < W; ++t) {
-    const int i = j + t - w;
-    if (i < 0 || i >= nb) continue;
-    const float* b = s_band + ((int64_t)j * W + t) * bs * bs + lc;
-    tile_mac<BM, TM>(acc, x, N, R, N, r0, i * bs, b, bs, bs, As, Bs);
-  }
-}
-
 // y (R, n_cols) = x (R, N) @ S, S as the slab (nb, (2w+1) bs, bs).
-// Grid (n_cols / 64, R / 64): one block per (output column tile, row tile).
+// Grid (n_cols / 64, R / 64): one block per (output column tile, row tile),
+// summing over the 2w+1 window blocks of the block-banded S. Windows that
+// fall off the matrix are skipped (the JAX kernel clamps them onto zero
+// slab rows).
 __global__ void __launch_bounds__(kThreads)
 band_matmul_kernel(const float* __restrict__ x,
                    const float* __restrict__ s_band, float* __restrict__ y,
@@ -154,9 +144,16 @@ band_matmul_kernel(const float* __restrict__ x,
   __shared__ __align__(16) float Bs[kBK * kBN];
   const int c0 = blockIdx.x * kBN;
   const int r0 = blockIdx.y * kBM;
+  const int W = 2 * w + 1;
+  const int j = c0 / bs, lc = c0 % bs;
   float acc[kTM][kTN] = {};
-  band_tile<kBM, kTM>(acc, x, R, N, r0, c0, s_band, nb, w, bs, As, Bs);
-  tile_store<kBM, kTM>(acc, y, n_cols, R, n_cols, r0, c0);
+  for (int t = 0; t < W; ++t) {
+    const int i = j + t - w;
+    if (i < 0 || i >= nb) continue;
+    const float* b = s_band + ((int64_t)j * W + t) * bs * bs + lc;
+    tile_mac(acc, x, N, R, N, r0, i * bs, b, bs, bs, As, Bs);
+  }
+  tile_store(acc, y, n_cols, R, n_cols, r0, c0);
 }
 
 // y (R, n_cols) = x (R, N) @ S, S as nonzero (bs, bs) blocks sorted by
@@ -178,61 +175,219 @@ bcsr_matmul_kernel(const float* __restrict__ x,
   float acc[kTM][kTN] = {};
   for (int k = col_start[j]; k < k1; ++k) {
     const float* b = blocks + (int64_t)k * bs * bs + lc;
-    tile_mac<kBM, kTM>(acc, x, N, R, N, r0, block_row[k] * bs, b, bs, bs, As,
-                       Bs);
+    tile_mac(acc, x, N, R, N, r0, block_row[k] * bs, b, bs, bs, As, Bs);
   }
-  tile_store<kBM, kTM>(acc, y, n_cols, R, n_cols, r0, c0);
+  tile_store(acc, y, n_cols, R, n_cols, r0, c0);
+}
+
+// ---------------------------------------------------------------------------
+// band_register_kernel
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  // every group but the newest one has landed
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Shared memory of one band_register block: the slab panel and two staged
+// slices of TM * 16 rows x KD columns.
+size_t register_smem_bytes(int w, int bs, int TM, int KD) {
+  return sizeof(float) * ((size_t)(2 * w + 1) * bs * kPanel +
+                          2 * (size_t)kRegRowThreads * TM * (KD + kAPad));
+}
+
+// Stage rows [r0, r0 + BM) x columns [c0, c0 + KD) of the tap z (R, N)
+// into As (BM, KD + kAPad); rows past R and columns past N read as zero.
+// kVec: 16-byte cp.async (N % 4 == 0, aligned pointers), else element-wise
+// ld.global.cg. z is a tap other blocks wrote in this launch: both forms
+// read it from L2, never from a stale L1 line.
+template <int BM, int KD, bool kVec>
+__device__ __forceinline__ void stage_slice(float* As,
+                                            const float* __restrict__ z,
+                                            int R, int N, int r0, int c0) {
+  constexpr int lda = KD + kAPad;
+  if (kVec) {
+    for (int e = threadIdx.x; e < BM * KD / 4; e += kRegThreads) {
+      const int r = e / (KD / 4), c = (e % (KD / 4)) * 4;
+      const bool valid = r0 + r < R && c0 + c < N;
+      cp_async16(As + r * lda + c,
+                 valid ? z + (int64_t)(r0 + r) * N + c0 + c : z, valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * KD; e += kRegThreads) {
+      const int r = e / KD, c = e % KD;
+      As[r * lda + c] = r0 + r < R && c0 + c < N
+                            ? __ldcg(z + (int64_t)(r0 + r) * N + c0 + c)
+                            : 0.f;
+    }
+  }
 }
 
 // out (K, R, N) = [x, x S, ..., x S^(K-1)] in one launch.
 //
-// The TPU kernel keeps a whole row stripe in 12+ MiB of VMEM and walks its
-// grid in order. A Hopper block has at most 227 KB of shared memory and
-// blocks run in no order, so here a cluster of kCluster blocks owns a
-// kRegBM-row tile across all N columns: each block computes its share of
-// the column tiles of tap k, writes them to out[k], and after a cluster
-// barrier every block reads tap k back (from L2) as the input of tap k+1.
-// No grid-wide sync is needed, and the stripe never has to fit on chip.
-// Limits: any R and N; block_size % 64 == 0; 4.6 KB of static shared
-// memory a block.
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kRegThreads)
+// The TPU kernel keeps a whole row stripe in VMEM and walks its grid in
+// order. Here the work of a tap is split into items (a kPanel-column panel
+// of the output, a BM-row tile); the items are cut panel-major into
+// gridDim.x contiguous runs, one a block, so a block meets one or two
+// panels. A panel's output needs only the 2w+1 window blocks around its
+// block column j: the block loads those (2w+1) bs x kPanel entries of the
+// slab into shared memory once and keeps them for every tap (it reloads
+// only when its run crosses into the next panel; the run is walked forward
+// on odd taps and backward on even ones, so the panel loaded last in one
+// tap is the first one used in the next). Per item it stages the previous
+// tap's window, KD columns at a time, double buffered with cp.async, and
+// accumulates a TM x 4 register tile over it in window order. Tap k reads
+// tap k-1, which every block wrote: one grid-wide barrier between taps
+// (K-2 in all), so the launch must be cooperative. Window blocks off the
+// matrix are skipped. Tap 0 is a copy of x.
+template <int TM, int KD, bool kVec>
+__global__ void __launch_bounds__(kRegThreads)
 band_register_kernel(const float* __restrict__ x,
                      const float* __restrict__ s_band, float* out, int R,
                      int N, int nb, int w, int bs, int K) {
-  constexpr int T = kRegThreads;
-  __shared__ __align__(16) float As[kBK * (kRegBM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * kBN];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int r0 = (blockIdx.x / kCluster) * kRegBM;
+  constexpr int BM = kRegRowThreads * TM;
+  constexpr int lda = KD + kAPad;
+  extern __shared__ __align__(16) float smem[];
+  const int W = 2 * w + 1;
+  float* Sp = smem;                                // (W bs, kPanel)
+  float* As = smem + (size_t)W * bs * kPanel;      // 2 x (BM, lda)
+  const int tid = threadIdx.x;
+  const int tx = tid % (kPanel / kTN);
+  const int ty = tid / (kPanel / kTN);
   const int64_t plane = (int64_t)R * N;
 
   // tap 0 is x itself
-  const int rows = min(kRegBM, R - r0);
-  for (int64_t e = (int64_t)rank * T + threadIdx.x; e < (int64_t)rows * N;
-       e += (int64_t)kCluster * T) {
-    const int64_t off = (int64_t)r0 * N + e;
-    out[off] = x[off];
+  const int64_t stride = (int64_t)gridDim.x * kRegThreads;
+  if (kVec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int64_t e = (int64_t)blockIdx.x * kRegThreads + tid; e < plane / 4;
+         e += stride)
+      o4[e] = x4[e];
+  } else {
+    for (int64_t e = (int64_t)blockIdx.x * kRegThreads + tid; e < plane;
+         e += stride)
+      out[e] = x[e];
   }
 
-  const int n_tiles = cdiv(N, kBN);
+  const int n_rt = cdiv(R, BM);
+  const int64_t items = (int64_t)cdiv(N, kPanel) * n_rt;
+  const int64_t i0 = items * blockIdx.x / gridDim.x;
+  const int64_t i1 = items * (blockIdx.x + 1) / gridDim.x;
+  const int per_block = bs / KD;  // slices of one window block
+  int loaded = -1;  // the panel whose slab columns sit in Sp
   for (int k = 1; k < K; ++k) {
-    const float* src = x;
-    if (k >= 2) {
-      // tap k-1 is complete in every block of the cluster before any reads it
-      __threadfence();
-      cluster.sync();
-      src = out + (k - 1) * plane;
-    }
+    if (k >= 2) cg::this_grid().sync();  // tap k-1 complete everywhere
+    const float* src = k == 1 ? x : out + (k - 1) * plane;
     float* dst = out + k * plane;
-    for (int ct = rank; ct < n_tiles; ct += kCluster) {
-      float acc[kRegTM][kTN] = {};
-      band_tile<kRegBM, kRegTM>(acc, src, R, N, r0, ct * kBN, s_band, nb, w,
-                                bs, As, Bs);
-      tile_store<kRegBM, kRegTM>(acc, dst, N, R, N, r0, ct * kBN);
+    for (int64_t n = 0; n < i1 - i0; ++n) {
+      const int64_t it = k % 2 ? i0 + n : i1 - 1 - n;
+      const int p = (int)(it / n_rt);
+      const int r0 = (int)(it % n_rt) * BM;
+      const int c0 = p * kPanel;
+      const int j = c0 / bs, lc = c0 % bs;
+      const int t_lo = max(0, w - j), t_hi = min(W - 1, nb - 1 - j + w);
+      if (p != loaded) {
+        // the panel's slab rows; joins the first slice's group
+        const float* sj = s_band + (int64_t)j * W * bs * bs + lc;
+        const int rows = (t_hi - t_lo + 1) * bs;
+        for (int e = tid; e < rows * (kPanel / 4); e += kRegThreads) {
+          const int r = t_lo * bs + e / (kPanel / 4);
+          const int c = (e % (kPanel / 4)) * 4;
+          if (kVec) {
+            cp_async16(Sp + r * kPanel + c, sj + (int64_t)r * bs + c, true);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              Sp[r * kPanel + c + q] = sj[(int64_t)r * bs + c + q];
+          }
+        }
+        loaded = p;
+      }
+      // slice s: window block t_lo + s / per_block, depth offset
+      // (s % per_block) * KD; the matching slab rows start at t bs + that
+      const int n_slices = (t_hi - t_lo + 1) * per_block;
+      const int xc0 = (j + t_lo - w) * bs;  // x column of slice 0
+      float acc[TM][kTN] = {};
+      stage_slice<BM, KD, kVec>(As, src, R, N, r0, xc0);
+      cp_async_commit();
+      for (int sl = 0; sl < n_slices; ++sl) {
+        float* A = As + (sl & 1) * BM * lda;
+        if (sl + 1 < n_slices)
+          stage_slice<BM, KD, kVec>(As + ((sl + 1) & 1) * BM * lda, src, R,
+                                    N, r0, xc0 + (sl + 1) * KD);
+        cp_async_commit();
+        cp_async_wait_prev();
+        __syncthreads();
+        const float* B =
+            Sp + ((int64_t)t_lo * bs + sl * KD) * kPanel + tx * kTN;
+        const float* a0 = A + ty * lda;
+#pragma unroll
+        for (int kk = 0; kk < KD; kk += 4) {
+          float4 a[TM];
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            a[i] = *reinterpret_cast<const float4*>(
+                a0 + i * kRegRowThreads * lda + kk);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 b =
+                *reinterpret_cast<const float4*>(B + (kk + q) * kPanel);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float av = q == 0 ? a[i].x
+                               : q == 1 ? a[i].y
+                               : q == 2 ? a[i].z
+                                        : a[i].w;
+              acc[i][0] = fmaf(av, b.x, acc[i][0]);
+              acc[i][1] = fmaf(av, b.y, acc[i][1]);
+              acc[i][2] = fmaf(av, b.z, acc[i][2]);
+              acc[i][3] = fmaf(av, b.w, acc[i][3]);
+            }
+          }
+        }
+        __syncthreads();  // A is restaged two slices later
+      }
+      const int gc = c0 + tx * kTN;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int gr = r0 + ty + i * kRegRowThreads;
+        if (gr >= R) continue;
+        float* y = dst + (int64_t)gr * N + gc;
+        if (kVec && gc + kTN <= N) {
+          *reinterpret_cast<float4*>(y) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < kTN; ++q)
+            if (gc + q < N) y[q] = acc[i][q];
+        }
+      }
     }
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int TM, int KD>
+const void* register_kernel(bool vec) {
+  return vec ? (const void*)band_register_kernel<TM, KD, true>
+             : (const void*)band_register_kernel<TM, KD, false>;
 }
 
 }  // namespace
@@ -266,13 +421,46 @@ cudaError_t gnt_bcsr_matmul(const float* x, const float* blocks,
   return cudaGetLastError();
 }
 
+// A cooperative launch of as many blocks as there are items, at most as
+// many as the card holds at once (the occupancy query, after the shared
+// memory opt-in); refused launches are returned, never worked around.
 cudaError_t gnt_band_register(const float* x, const float* s_band,
                               float* out, int R, int N, int nb, int w, int bs,
                               int K, cudaStream_t stream) {
-  if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1) return cudaErrorInvalidValue;
-  const dim3 grid(kCluster * cdiv(R, kRegBM));
-  band_register_kernel<<<grid, kRegThreads, 0, stream>>>(
-      x, s_band, out, R, N, nb, w, bs, K);
+  if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1 || w < 0)
+    return cudaErrorInvalidValue;
+  // the wide tile (whose slices are the larger) must fit whatever R is, so
+  // that whether a layout runs never depends on R; ops/spmm.py:
+  // register_fits is the same rule
+  if (register_smem_bytes(w, bs, kWideTM, kWideKD) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const bool vec = N % 4 == 0 && aligned16(x) && aligned16(s_band) &&
+                   aligned16(out);
+  const bool wide = R > kRegWideRows;
+  const int BM = kRegRowThreads * (wide ? kWideTM : kNarrowTM);
+  const size_t smem = wide ? register_smem_bytes(w, bs, kWideTM, kWideKD)
+                           : register_smem_bytes(w, bs, kNarrowTM, kNarrowKD);
+  const void* fn = wide ? register_kernel<kWideTM, kWideKD>(vec)
+                        : register_kernel<kNarrowTM, kNarrowKD>(vec);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      kRegThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t items = (int64_t)cdiv(N, kPanel) * cdiv(R, BM);
+  const int grid = (int)(items < (int64_t)per_sm * sms
+                             ? items : (int64_t)per_sm * sms);
+  void* args[] = {(void*)&x, (void*)&s_band, (void*)&out, (void*)&R,
+                  (void*)&N, (void*)&nb, (void*)&w, (void*)&bs, (void*)&K};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kRegThreads), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

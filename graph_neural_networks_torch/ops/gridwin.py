@@ -54,6 +54,9 @@ _EXP_FREE_R2 = -math.log(ZERO_TOL)
 # grid_window: candidates an agent (n_win * C) at most (kMaxChunks * 32
 # in gridwin.cu)
 MAX_CANDIDATES = 1024
+# table_transpose on CUDA stages at least 4 cells, double buffered, in a
+# block's 227 KB of shared memory: C * (F | 1) floats a cell at most
+MAX_TRANSPOSE_CELL = 232448 // (2 * 4 * 4)
 
 
 def table_width(n_feat: int, C: int) -> int:
@@ -281,6 +284,9 @@ def table_transpose(mm: torch.Tensor, *, C: int, F: int) -> torch.Tensor:
     if not kernels.on_cuda("table_transpose", mm):
         return table_transpose_plain(mm, C=C, F=F)
     kernels.check_inputs("table_transpose", mm=(mm, torch.float32))
+    if C * (F | 1) > MAX_TRANSPOSE_CELL:
+        raise ValueError(f"table_transpose: a cell of C={C} x F={F} floats "
+                         f"exceeds the kernel's {MAX_TRANSPOSE_CELL}")
     H = HC // C
     W = table_width(F, C)
     out = torch.empty((H, W), dtype=torch.float32, device=mm.device)

@@ -211,20 +211,19 @@ def gshift_register(gso, x: torch.Tensor, K: int) -> torch.Tensor:
     On the band layout with f32 signals and at most
     ``spmm.REGISTER_MAX_ROWS`` rows (B*G) it runs the fused
     :func:`spmm.band_shift_register`, one launch per edge feature for all
-    K taps, when the kernel takes the layout (``spmm.register_fits``).
+    K taps, when the kernel takes the block size and bandwidth
+    (``spmm.register_fits``).
     Everywhere else it chains K-1 :func:`gshift` calls.
     """
     if K == 1:
         return x[:, :, None]
     rows = x.shape[0] * x.shape[2] if x.ndim == 4 else 0
-    # The row rule is carried over from the JAX package (its TPU
-    # crossover); it has not been measured on the H100 yet.
     fused = (
         isinstance(gso, Gso) and gso.mode == "band"
         and x.dtype == torch.float32 and x.ndim == 4
         and gso.s_band.dtype == x.dtype
         and rows <= spmm.REGISTER_MAX_ROWS
-        and spmm.register_fits(gso.block_size)
+        and spmm.register_fits(gso.block_size, gso.band_w)
     )
     if fused:
         E = gso.n_edge_features

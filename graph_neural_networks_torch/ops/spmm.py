@@ -47,10 +47,21 @@ ZERO_TOL = 1e-9
 TILE_N = 64
 
 # Row-count rule for the fused register (gso.gshift_register): fused for at
-# most this many rows, chained band_matmul above. The value is carried over
-# from the JAX package, where it was the crossover measured on its TPU; it
-# has not been measured on the H100 for these kernels yet.
-REGISTER_MAX_ROWS = 512
+# most this many rows, chained band_matmul above. Measured on an H100 by
+# chip_smoke.py's register_sweep (N = 4096, w = 1, K = 5; see PERF.md): the
+# register beats K-1 chained band_matmul at every swept row count up to
+# 2048, the largest; past it the rule keeps the chain, which is unmeasured
+# there. Both compute the same function: a speed rule only.
+REGISTER_MAX_ROWS = 2048
+
+# band_shift_register's CUDA blocks: a 32-column output panel of the slab
+# kept in shared memory, and two staged slices of the previous tap, at most
+# 128 rows x (32 + 4) floats (kPanel, kWideTM, kWideKD in
+# kernels/csrc/spmm.cu); the shared memory one block may use on the H100
+# (227 KB).
+REGISTER_PANEL = 32
+REGISTER_SLICE_FLOATS = 128 * (32 + 4)
+SMEM_PER_BLOCK = 232448
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -156,17 +167,27 @@ def auto_row_tile(n_rows: int) -> int:
     return 256
 
 
-def register_fits(block_size: int) -> bool:
-    """Whether band_shift_register's kernel takes this layout.
+def register_smem_bytes(block_size: int, w: int) -> int:
+    """Shared memory of one band_shift_register block on CUDA at its
+    larger tile: the (2w+1)*bs x 32 slab panel it keeps for all taps and
+    two staged (128, 32 + 4) slices (``register_smem_bytes`` in spmm.cu)."""
+    return 4 * ((2 * w + 1) * block_size * REGISTER_PANEL
+                + 2 * REGISTER_SLICE_FLOATS)
+
+
+def register_fits(block_size: int, w: int) -> bool:
+    """Whether band_shift_register's CUDA kernel takes this layout.
 
     The JAX kernel keeps a whole row stripe resident in VMEM, so it tests
-    the stripe's size. The CUDA kernel keeps nothing resident: a cluster of
-    8 blocks shares an 8-row tile, each block holds 4.6 KB of static shared
-    memory whatever R and N are, and the taps pass through device memory
-    (L2). Its only limit is its column tile, which must not straddle a
-    band block.
+    the stripe's size. The CUDA kernel keeps a 32-column panel of the slab
+    resident in a block's shared memory for all K-1 taps, so it tests that
+    panel (with the staged slices) against the 227 KB a block may use: at
+    block_size 128 it takes w <= 5, at 64 w <= 11, whatever the row count.
+    Its column tiles must also not straddle a band block (block_size %
+    TILE_N == 0).
     """
-    return block_size % TILE_N == 0
+    return (block_size % TILE_N == 0
+            and register_smem_bytes(block_size, w) <= SMEM_PER_BLOCK)
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +317,11 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
                                          n_cols=n_cols, w=w, block_size=bs)
     _check_kernel_inputs("band_shift_register", bs, x=(x, torch.float32),
                          s_band=(s_band, torch.float32))
+    if not register_fits(bs, w):
+        raise ValueError(f"band_shift_register: the slab panel of w={w}, "
+                         f"bs={bs} does not fit a block's shared memory "
+                         f"({register_smem_bytes(bs, w)} > {SMEM_PER_BLOCK} "
+                         "bytes); chain band_matmul instead")
     out = torch.empty((n_taps, R, N), dtype=torch.float32, device=x.device)
     if R == 0:
         return out

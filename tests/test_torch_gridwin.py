@@ -276,3 +276,18 @@ def test_table_transpose_plain_matches_pallas(C, F, H):
     got_f = tgw.table_transpose(torch.tensor(mm[:, :F].copy()), C=C,
                                 F=F).numpy()
     np.testing.assert_array_equal(got_f, want)
+
+
+@pytest.mark.parametrize("C,F,H", [
+    (3, 5, 37),    # C*F = 15 floats a cell: spans not 16-byte aligned
+    (32, 25, 13),  # the served C, F; H not a multiple of the kernel's run
+])
+def test_table_transpose_plain_unaligned_and_ragged(C, F, H):
+    rng = np.random.default_rng(H)
+    mm = np.zeros((H * C, 128), np.float32)
+    mm[:, :F] = rng.normal(size=(H * C, F))
+    want = np.asarray(jgw.table_transpose(jnp.asarray(mm), C=C, F=F,
+                                          interpret=True))
+    got = tgw.table_transpose_plain(torch.tensor(mm[:, :F].copy()), C=C,
+                                    F=F).numpy()
+    np.testing.assert_array_equal(got, want)

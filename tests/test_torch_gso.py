@@ -113,7 +113,7 @@ def _count_calls(monkeypatch):
 @pytest.mark.parametrize("B,G,expect", [
     # rows = B*G: fused register at <= REGISTER_MAX_ROWS, chained above
     (32, 1, {"band_shift_register": 1, "band_matmul": 0, "bcsr_matmul": 0}),
-    (9, 64, {"band_shift_register": 0, "band_matmul": 4, "bcsr_matmul": 0}),
+    (33, 64, {"band_shift_register": 0, "band_matmul": 4, "bcsr_matmul": 0}),
 ])
 def test_gshift_register_dispatch(monkeypatch, B, G, expect):
     N, K = 256, 5
@@ -123,6 +123,39 @@ def test_gshift_register_dispatch(monkeypatch, B, G, expect):
     x = torch.randn(B, 1, G, N, generator=torch.Generator().manual_seed(0))
     tgso.gshift_register(t, x, K)
     assert calls == expect
+
+
+@pytest.mark.parametrize("B,chained", [(2048, False), (2049, True)])
+def test_gshift_register_dispatch_at_row_limit(monkeypatch, B, chained):
+    """Fused at exactly REGISTER_MAX_ROWS rows, chained one row past."""
+    assert B - int(chained) == tspmm.REGISTER_MAX_ROWS
+    N, K = 256, 3
+    t = tgso.as_gso(_banded(np.random.default_rng(1), N, 60), mode="band",
+                    device="cpu")
+    calls = _count_calls(monkeypatch)
+    tgso.gshift_register(t, torch.zeros(B, 1, 1, N), K)
+    assert calls == {"band_shift_register": int(not chained),
+                     "band_matmul": (K - 1) * int(chained),
+                     "bcsr_matmul": 0}
+
+
+def test_gshift_register_chains_past_the_slab_panel(monkeypatch):
+    """A band too wide for the register's shared-memory slab panel
+    (register_fits) chains band_matmul, however few the rows."""
+    N, K = 1792, 5
+    S = _banded(np.random.default_rng(4), N, 6 * 128 + 100)
+    t = tgso.as_gso(S, mode="band", device="cpu")
+    assert t.band_w >= 6 and not tspmm.register_fits(128, t.band_w)
+    calls = _count_calls(monkeypatch)
+    x = torch.randn(1, 1, 2, N, generator=torch.Generator().manual_seed(0))
+    got = tgso.gshift_register(t, x, K)
+    assert calls == {"band_shift_register": 0, "band_matmul": K - 1,
+                     "bcsr_matmul": 0}
+    want = [x]
+    for _ in range(K - 1):
+        want.append(want[-1] @ torch.as_tensor(S, dtype=torch.float32))
+    torch.testing.assert_close(got, torch.stack(want, dim=2), atol=1e-4,
+                               rtol=1e-5)
 
 
 def test_bcsr_register_chains_bcsr_matmul(monkeypatch):

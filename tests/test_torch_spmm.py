@@ -175,6 +175,21 @@ def test_wrappers_check_shapes():
 
 
 def test_register_fit_rule():
-    assert tspmm.register_fits(128) and tspmm.register_fits(64)
-    assert not tspmm.register_fits(16)
-    assert tspmm.REGISTER_MAX_ROWS == jspmm.REGISTER_MAX_ROWS
+    assert tspmm.register_fits(128, 1) and tspmm.register_fits(64, 1)
+    assert not tspmm.register_fits(16, 1)
+    # measured on the H100 (chip_smoke.py register_sweep, PERF.md): the
+    # register beats chained band_matmul at every swept row count to 2048
+    assert tspmm.REGISTER_MAX_ROWS == 2048
+
+
+@pytest.mark.parametrize("bs,w,fits", [
+    (128, 1, True), (128, 2, True), (128, 5, True),   # 84, 116, 212 KB
+    (128, 6, False),                                  # 244 KB > 227 KB
+    (64, 11, True), (64, 12, False), (16, 0, False),
+])
+def test_register_fits_slab_panel(bs, w, fits):
+    """The CUDA register keeps a (2w+1)*bs x 32 slab panel and two staged
+    (128, 32 + 4) slices in one block's 227 KB of shared memory."""
+    assert tspmm.register_smem_bytes(bs, w) == 4 * (
+        (2 * w + 1) * bs * 32 + 2 * 128 * 36)
+    assert tspmm.register_fits(bs, w) is fits
