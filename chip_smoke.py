@@ -199,12 +199,20 @@ def phase_device():
 
 def phase_build():
     from graph_neural_networks_torch import kernels
-    _, log, secs = kernels.build()
+    _, secs = kernels.build()
     kernels.library()
-    resources = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=secs, sources=list(kernels.SOURCES),
-         ptxas=resources)
+    emit(phase="build", seconds=secs, sources=list(kernels.SOURCES))
+    # every kernel's registers and local (spill) bytes, as the runtime
+    # loaded them
+    attrs = kernels.attributes()
+    emit(phase="kernel_attributes", source="cudaFuncGetAttributes",
+         kernels=attrs)
+    for name, a in attrs.items():
+        require(a["local_bytes"] == 0,
+                f"{name} uses {a['local_bytes']} bytes of local memory")
+    require(len(attrs) == 16, f"{len(attrs)} kernels in the library's "
+            "tables, not 16 (12 kernels; band_register_kernel in 4 "
+            "instances, table_transpose_kernel in 2)")
 
 
 def _band_case(rng, N, bs, w_target):
@@ -1006,6 +1014,7 @@ def phase_train_kernels(gso, graph, rng, dev):
     then the input gradients of the three SpMM Functions against the plain
     versions of their backward shifts."""
     import torch
+    from graph_neural_networks_torch import kernels
     from graph_neural_networks_torch.ops import attention_flash as af
     from graph_neural_networks_torch.ops import gso as gso_lib
     from graph_neural_networks_torch.ops import spmm
@@ -1025,6 +1034,8 @@ def phase_train_kernels(gso, graph, rng, dev):
     def bwd(case, g, Q, F, with_s=(True, False), served=False):
         ibs, w = g.block_size, g.band_w
         Np = g.s_band.shape[1] * ibs
+        empty, total = _empty_subchunks(g)
+        case = f"{case} ({empty} of {total} sub-chunks skipped)"
         a1, a2, v = _attn_operands(rng, dev, Q, F, g.n, Np)
         ct = _attn_operands(rng, dev, Q, F, g.n, Np)[2]
         for e, aux in enumerate(af.band_auxes(g)):
@@ -1044,21 +1055,44 @@ def phase_train_kernels(gso, graph, rng, dev):
 
     F = GAT_DIMS[1]
     Q = GAT_BATCH * GAT_HEADS[0]
+    # the served graph's window tiles k = 0 and 2w lie half outside its
+    # band: the kernel skips their sub-chunks without support
+    require(_empty_subchunks(gso)[0] > 0, "no sub-chunk to skip")
     bwd(f"served Q={Q} F={F} N={GAT_N} w={gso.band_w}", gso, Q, F,
         with_s=(True,), served=True)
     bwd(f"GCAT shape Q={Q} F=64 N={GAT_N}", gso, Q, 64, with_s=(False,))
     cases = [  # (N, w in blocks, ibs, E, Q, F)
         (4000, 1, 128, 1, 16, 32),    # ragged N: the last block is partial
         (2048, 0, 128, 1, 5, 32),     # w = 0: diagonal blocks only
-        (2048, 3, 128, 1, 3, 40),     # w = 3; F = 40: two feature steps
+        (2048, 3, 128, 1, 3, 40),     # w = 3; F = 40: two feature slices
         (1024, 2, 128, 1, 1, 5),      # Q = 1, F = 5 (not a tile multiple)
-        (1000, 3, 64, 2, 2, 8),       # ibs = 64, ragged, E = 2
+        (1000, 3, 64, 2, 2, 8),       # ibs = 64 (half a row tile), E = 2
+        (2000, 1, 192, 1, 4, 32),     # ibs = 192: a partial last row tile
+        (2048, 1, 256, 1, 2, 36),     # ibs = 256: two row tiles
     ]
     for N, w, ibs, E, Qe, Fe in cases:
         S = _attn_case(rng, N, w, E, bs=ibs)
         require(not np.allclose(S, np.swapaxes(S, 1, 2)), "S is symmetric")
         g = gso_lib.as_gso(S, "band", block_size=ibs, device=dev)
         bwd(f"N={N} w={g.band_w} ibs={ibs} E={E} Q={Qe} F={Fe}", g, Qe, Fe)
+    # every sub-chunk of the window with support: nothing is skipped
+    N = 1024
+    blk = np.arange(N) // 128
+    S = (rng.random((1, N, N)) * (np.abs(blk[:, None] - blk[None]) <= 1)
+         ).astype(np.float32)
+    g = gso_lib.as_gso(S, "band", device=dev)
+    require(g.band_w == 1 and _empty_subchunks(g)[0] == 0,
+            "the dense band has sub-chunks without support")
+    bwd(f"dense band N={N} w=1 Q=4 F=32", g, 4, 32)
+    # attn_bwd_kernel's shared memory, as its launcher computes it: at
+    # F = 64 the window fits to w = 90, at w = 2 the features to F = 96
+    smem = kernels.library().gnt_attn_bwd_smem_bytes
+    for Fs, ws, fits in ((64, 90, True), (64, 91, False), (96, 2, True),
+                         (128, 2, False)):
+        need = smem(Fs, 2 * ws + 1, 128)
+        require((need <= af._BLOCK_SMEM_BYTES) == fits,
+                f"attn_bwd_kernel at F={Fs} w={ws} needs {need} bytes of "
+                f"shared memory (fits: {fits} expected)")
 
     # the SpMM Functions: input gradients through the kernels against the
     # plain versions of their backward shifts on the transposed layouts
@@ -1096,6 +1130,22 @@ def phase_train_kernels(gso, graph, rng, dev):
     emit(phase="train_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
          checks=results, seconds=time.perf_counter() - t_phase)
     return errs
+
+
+def _empty_subchunks(gso):
+    """(64-row x 64-column sub-chunks of a band Gso's window tiles inside
+    the matrix with no support, all of them inside the matrix): the
+    attention backward (attn_bwd_kernel) skips the first."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    mr = af.band_auxes(gso)[0].mask_row
+    nb, W, ibs, _ = mr.shape
+    n = ibs // 64
+    occ = mr.view(nb, W, n, 64, n, 64).amax(dim=(3, 5)) > 0
+    blk = (np.arange(nb)[:, None] + np.arange(W)[None] - (W - 1) // 2)
+    inside = np.broadcast_to(((blk >= 0) & (blk < nb))[..., None, None],
+                             occ.shape)
+    empty = (~occ.cpu().numpy()) & inside
+    return int(empty.sum()), int(inside.sum())
 
 
 def _peak_gb(fn):
@@ -1608,6 +1658,29 @@ def _grid_inputs(pos, vel, factor, C, table_size=None, v=None, pay=None,
     return rows.view(B * H, W), own, slots, keep, H, W, bool(ok.all())
 
 
+def _window_work(table, own, slots, keep, out, *, C, n_feat, d_max):
+    """What grid_window must do on this run's data, as a dict with bytes
+    and flops. Bytes: own, slots and keep read once, the output written
+    once, and of the table only what the kept windows reach: each touched
+    row's C valid lanes and its members' other n_feat - 1 lanes (an empty
+    slot needs only its valid lane; a row that no agent keeps, nothing).
+    Flops: 8 a valid candidate (the distance and the mask), and a
+    neighbour's 17 state operations and one add a payload feature."""
+    nbytes = lambda t: t.numel() * t.element_size()
+    members = (table[:, 4 * C:5 * C] > 0).sum(dim=1)   # valid lanes a row
+    touched = slots[keep].long().unique()
+    n_members = int(members[touched].sum())
+    table_bytes = 4 * (touched.numel() * C + n_members * (n_feat - 1))
+    candidates = int((members[slots.long()] * keep).sum())
+    neighbours = int(out[:, 2 * d_max + 7].sum())
+    return dict(bytes=nbytes(own) + nbytes(slots) + nbytes(keep)
+                + nbytes(out) + table_bytes,
+                table_bytes=table_bytes, touched_rows=touched.numel(),
+                touched_members=n_members, candidates=candidates,
+                neighbours=neighbours,
+                flops=8 * candidates + (17 + n_feat - 7) * neighbours)
+
+
 def _cell_starts(pos):
     """(starts (1, H+1) int32, H): the run starts of the agents' cells in
     the quad scheme's table (one sample), as table_build takes them."""
@@ -1730,25 +1803,30 @@ def phase_flock_kernels(rng, dev):
                 gridwin.table_transpose_plain(mm_m, C=32, F=25))
 
     # edge cases: both schemes, > d_max neighbors, d^2 = r^2 pairs, empty
-    # cells, aliased windows, the exp test, an overflowing cell
-    epos, evel = _edge_swarm(rng, 400, 12.0, dev)
+    # cells, aliased windows, the exp test, an overflowing cell; 8 + n_pay
+    # output sums at, one past and 33 past a warp's 32 lanes (each lane
+    # adds up one sum); 397 + 40 agents, so the last block of 4 warps is
+    # partial
+    epos, evel = _edge_swarm(rng, 397, 12.0, dev)
     n_e = epos.shape[-1]
+    require(n_e % 4 != 0, "the edge swarm fills its last block")
     ev = torch.rand(1, n_e, generator=g).to(dev)
     for factor, C in ((2, 32), (1, 16)):
-        for n_pay in (0, 12, 18):
+        for n_pay in (0, 12, 18, 24, 25, 57):
             epay = torch.randn(1, n_e, n_pay, generator=g).to(dev)
             ea = _grid_inputs(epos, evel, factor, C, v=ev,
                               pay=epay if n_pay else None)
             require(ea[-1], f"edge swarm overflowed (factor {factor})")
             for d_max in (0, 32):
                 out = check_window(f"factor={factor} C={C} n_pay={n_pay} "
-                                   f"d_max={d_max}", ea[:4], d_max, n_pay,
-                                   C=C)
+                                   f"d_max={d_max} R={n_e}", ea[:4], d_max,
+                                   n_pay, C=C)
             cnt = out[:, 2 * 32 + 7]
             require(cnt.max().item() > 32, "no row with > d_max neighbors")
-            # both boundary pairs (ids 400..403) see each other
+            # both boundary pairs (the 4 agents after the uniform ones)
+            # see each other
             ids = out[:, :32]
-            for a, b in ((400, 401), (402, 403)):
+            for a, b in ((n_e - 40, n_e - 39), (n_e - 38, n_e - 37)):
                 require(bool((ids[a] == b).any() and (ids[b] == a).any()),
                         f"d^2 = r^2 pair {a}, {b} not neighbors")
         check_window(f"factor={factor} wv_only", ea[:4], 0, 0, wv_only=True,
@@ -1762,6 +1840,11 @@ def phase_flock_kernels(rng, dev):
     ea = _grid_inputs(epos[..., :200] / 3, evel[..., :200], 2, 128,
                       table_size=4, v=ev[:, :200])
     check_window("r2=25 (exp test on)", ea[:4], 32, 0, r2=25.0, C=128)
+    # an overflowing cell (the 6 x 6 cluster puts 9 agents in each of its
+    # 4 cells, above C = 8): the table keeps the first C of each
+    ea = _grid_inputs(epos, evel, 1, 8, v=ev)
+    require(not ea[-1], "the cluster's cells did not overflow C = 8")
+    check_window("overflowing cells: factor=1 C=8", ea[:4], 32, 0, C=8)
     # an overflowing cell: the first C sorted members stay
     counts = torch.tensor([[40, 0, 7, 33, 1, 0, 0, 19]], dtype=torch.int32)
     st = torch.zeros(1, 9, dtype=torch.int32)
@@ -1960,9 +2043,10 @@ def phase_flock_serving(dev, card):
 def phase_flock_timing(dev, card):
     """Each grid kernel at flock_n262k's served shape beside its plain
     version and its bound (bytes: each operand read once and the output
-    written once, so grid_window counts the table once; `bound_ms_rows`
-    counts its agents' n_win whole table rows instead); the
-    one-expression torch relayout as table_transpose's library call."""
+    written once; grid_window's table counted as far as this run's windows
+    reach it, `_window_work`, and `bound_ms_rows` counting its agents'
+    n_win whole table rows instead); the one-expression torch relayout as
+    table_transpose's library call."""
     import torch
     from graph_neural_networks_torch.ops import gridwin
     t_phase = time.perf_counter()
@@ -1980,26 +2064,19 @@ def phase_flock_timing(dev, card):
     rows = {}
 
     def window_row(shape, d_max, n_pay):
-        ow = gridwin._out_width(d_max, n_pay)
         kw = dict(C=C, r2=4.0, d_max=d_max, n_pay=n_pay)
         args = (table, own, slots, keep)
-        nbytes = lambda t: t.numel() * t.element_size()
-        # each operand read once and the output written once; the agents
-        # of a cell share its row, so the table counts once
-        inputs = sum(nbytes(t) for t in args)
+        out = gridwin.grid_window(*args, **kw)
         row = dict(
             shape=shape,
             ms=time_ms(lambda: gridwin.grid_window(*args, **kw)),
             plain_ms=time_ms(lambda: gridwin.grid_window_plain(*args, **kw),
                              reps=5, inner=2),
             library_ms=None,
-            bytes=inputs + 4 * R * ow,
-            # the whole-row count: every agent's n_win table rows
-            bytes_rows=inputs - nbytes(table) + 4 * R * n_win * W
-            + 4 * R * ow,
-            # per candidate: the distance and mask (~8 flops); per
-            # neighbor: the 6 state terms and the v, payload sums
-            flops=R * n_win * C * 8)
+            **_window_work(*args, out, C=C, n_feat=7 + n_pay, d_max=d_max))
+        # the whole-row count: every agent's n_win table rows
+        row["bytes_rows"] = (row["bytes"] - row["table_bytes"]
+                             + 4 * R * n_win * W)
         row["bound_ms_rows"], _ = _bound(row["bytes_rows"], row["flops"])
         return row
 
@@ -2098,7 +2175,8 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
     served shard shape (gat_band_n16384 over 4 shards: Q = 16, F = 32,
     Np = 4096, w = 2, ibs = 128) for the first, an interior and the last
     shard, with_s True and False; and on a ragged 4-shard partition
-    (N = 2000, 48 padded nodes, F = 40)."""
+    (N = 2000, 48 padded nodes, F = 40) and on partitions with w = 1 and
+    3."""
     import torch
     from graph_neural_networks_torch import parallel as par
     from graph_neural_networks_torch.ops import attention_flash as af
@@ -2147,6 +2225,13 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
             f"ragged case: w={part2.w}, nbl={part2.nbl}")
     run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
         *par.attention._row_col_masks(part2), 3, 40, False)
+    # narrower and wider windows: w = 1 and 3 over 4 shards of 1024
+    for bandwidth, w in ((100, 1), (300, 3)):
+        S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
+        part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
+        require(part3.is_ring and part3.w == w, f"w={part3.w}, expected {w}")
+        run(f"N=4096 Q=4 F=32 Np={part3.block_size} w={w}", part3,
+            *par.attention._row_col_masks(part3), 4, 32, False)
     emit(phase="shard_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
          checks=results, seconds=time.perf_counter() - t_phase)
     return errs
@@ -2668,11 +2753,12 @@ def phase_shard_train_kernels(part, mc, mr, rng, dev):
     """bwd_ext_call against bwd_ext_plain on the card, on operands
     halo-extended from real neighbour shards: at the served shard shape
     (Q = 16, F = 32, Np = 4096, w = 2, ibs = 128) for the first, an
-    interior and the last shard, with_s True and False, and on a ragged
-    4-shard partition (N = 2000, 48 padded nodes, F = 40). Then every
-    served-shape shard's backward, folded and halo-folded, against the
-    global bwd_call (kernel 9) on the same operands: da2 and dv are
-    expected bit-equal, da1 within ulps."""
+    interior and the last shard, with_s True and False, on a ragged
+    4-shard partition (N = 2000, 48 padded nodes, F = 40) and on
+    partitions with w = 1 and 3. Then every served-shape shard's
+    backward, folded and halo-folded, against the global bwd_call (kernel
+    9) on the same operands: da2 and dv are expected bit-equal, da1
+    within ulps."""
     import torch
     from graph_neural_networks_torch import parallel as par
     from graph_neural_networks_torch.ops import attention_flash as af
@@ -2755,6 +2841,13 @@ def phase_shard_train_kernels(part, mc, mr, rng, dev):
             f"ragged case: w={part2.w}, nbl={part2.nbl}")
     run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
         *par.attention._row_col_masks(part2), 3, 40, False)
+    # narrower and wider windows: w = 1 and 3 over 4 shards of 1024
+    for bandwidth, w in ((100, 1), (300, 3)):
+        S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
+        part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
+        require(part3.is_ring and part3.w == w, f"w={part3.w}, expected {w}")
+        run(f"N=4096 Q=4 F=32 Np={part3.block_size} w={w}", part3,
+            *par.attention._row_col_masks(part3), 4, 32, False)
     emit(phase="shard_train_kernels", rtol=RTOL,
          atol=f"{ATOL_REL}*max|plain|", checks=results,
          seconds=time.perf_counter() - t_phase)

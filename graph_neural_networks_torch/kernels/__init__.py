@@ -26,11 +26,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
 SOURCES = ("spmm.cu", "attention_flash.cu", "gridwin.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each launcher in csrc/; all return cudaError_t.
+# C signature of each export in csrc/ but the kernel tables; all return
+# cudaError_t, but gnt_attn_bwd_smem_bytes a byte count.
 _SIGNATURES = {
     # x, s_band, y, R, N, n_cols, nb, w, bs, stream
     "gnt_band_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -62,11 +62,19 @@ _SIGNATURES = {
     # wv_only, n_pay, stream
     "gnt_grid_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                         _I, _P),
+    # F, W, ibs: attn_bwd_kernel's dynamic shared memory in bytes
+    "gnt_attn_bwd_smem_bytes": (_I, _I, _I),
+    # kernel (from a table below), out (4 ints): cudaFuncGetAttributes
+    "gnt_kernel_attributes": (_P, _P),
     # fs, starts, out, B, H, N, F, C, W, stream
     "gnt_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # mm, out, H, L, F, C, W, stream
     "gnt_table_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
+# Each source's table of its kernels: gnt_<source>_kernel(i, &name) gives
+# kernel i's address and name, or null past the last.
+_KERNEL_TABLES = ("gnt_spmm_kernel", "gnt_attention_kernel",
+                  "gnt_gridwin_kernel")
 
 # The differentiable form of each kernel wrapper: a torch.autograd.Function
 # whose forward and backward call the wrappers with grad off.
@@ -101,9 +109,9 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _run_all(cmds) -> str:
+def _run_all(cmds) -> None:
     """Run the commands side by side; raise with the output of the first
-    that fails, else return all their output."""
+    that fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -112,48 +120,69 @@ def _run_all(cmds) -> str:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): "
                                f"{' '.join(cmd)}\n{out}")
-    return "".join(outs)
 
 
-def build() -> tuple[str, str, float]:
+def build() -> tuple[str, float]:
     """Compile the sources if this hash is not built yet.
 
-    Returns (library path, nvcc's output with the -Xptxas -v resource
-    report, build seconds); seconds is 0.0 when the library was already
-    there. Each source compiles in its own nvcc process, all at once; the
-    library is linked under a temporary name and renamed, so concurrent
-    processes never load a half-written file.
+    Returns (library path, build seconds); seconds is 0.0 when the library
+    was already there. Each source compiles in its own nvcc process, all at
+    once; the library is linked under a temporary name and renamed, so
+    concurrent processes never load a half-written file.
     """
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib = os.path.join(out_dir, "libgnt_kernels.so")
     if os.path.exists(lib):
-        return lib, "", 0.0
+        return lib, 0.0
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
         objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
-        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o,
-                         os.path.join(CSRC, s)]
-                        for s, o in zip(SOURCES, objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o,
+                   os.path.join(CSRC, s)]
+                  for s, o in zip(SOURCES, objs)])
         tmp = os.path.join(tmp_dir, "lib.so")
-        log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
-                          *objs]])
+        _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, lib)
-    return lib, log, time.perf_counter() - t0
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    path, _, _ = build()
+    path, _ = build()
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name in _KERNEL_TABLES:
+        fn = getattr(lib, name)
+        fn.argtypes = (_I, ctypes.POINTER(ctypes.c_char_p))
+        fn.restype = _P
     lib.gnt_error_string.argtypes = (ctypes.c_int,)
     lib.gnt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def attributes() -> dict:
+    """cudaFuncGetAttributes of every kernel of the library, by kernel
+    name: its registers a thread, local (spill) bytes, static shared bytes
+    and most threads a block."""
+    lib = library()
+    found = {}
+    for table in _KERNEL_TABLES:
+        name = ctypes.c_char_p()
+        i = 0
+        while fn := getattr(lib, table)(i, ctypes.byref(name)):
+            out = (ctypes.c_int * 4)()
+            kernel = name.value.decode()
+            check(lib.gnt_kernel_attributes(fn, out), f"{kernel} attributes")
+            found[kernel] = dict(registers=out[0], local_bytes=out[1],
+                                 static_shared_bytes=out[2],
+                                 max_threads=out[3])
+            i += 1
+    return found
 
 
 def check(err: int, name: str) -> None:

@@ -12,18 +12,36 @@
 // lane f*C + c is feature f of the cell's c-th member.
 //
 // What bounds them on an H100: all three move bytes and do a few flops a
-// byte, so device-memory traffic bounds them. The TPU kernels needed the
-// candidate rows gathered into one (n_win, rows, W) operand first, because
-// a Pallas kernel could not gather; here a warp reads each of its agent's
-// n_win cell rows straight from the table by slot, so the gathered operand
-// (3.8 GB at 262144 agents and W = 896) is never written or read. A warp
-// reads a row's feature block as one coalesced 128-byte line, and lanes
-// whose candidate is masked out load none of the features only a
-// neighbor needs. table_transpose is a pure relayout, one streaming read
-// and one streaming write: persistent blocks stage runs of whole cells
-// (whose member rows are one contiguous span) into shared memory with
-// cp.async and write the cells' rows back as coalesced stores, the next
-// run's copy in flight while this one is written (see the kernel).
+// byte, so device-memory traffic bounds them by their operands' size. The
+// TPU kernels needed the candidate rows gathered into one (n_win, rows,
+// W) operand first, because a Pallas kernel could not gather; here a warp
+// reads each of its agent's n_win cell rows straight from the table by
+// slot, so the gathered operand (3.8 GB at 262144 agents and W = 896) is
+// never written or read.
+//
+// grid_window does not reach that bound: a warp serves one agent, and at
+// flock_n262k an agent's 128 candidate lanes hold ~58 agents of which
+// ~10 are neighbours, so almost every load instruction of a warp serves
+// one to a few lanes. The rows in use (18,299 occupied cells of 65,536,
+// 64 MB) mostly stay in the 50 MB L2, so the time goes to issuing and
+// waiting for those loads, and to the number of warps an SM keeps in
+// flight to hide them. The design: one pass over the candidates, the id
+// and position loaded only behind a set valid lane, a neighbour's
+// velocity, v and payload lanes all loaded at once; the state sums in
+// registers and the payload sums as per-lane partials in shared memory,
+// updated four at a time with 16-byte accesses, so a thread needs 40
+// registers whatever n_pay is and an SM holds 48 warps; the sums added up
+// by one lane each in the xor tree's order (tree_sum) instead of a
+// 5-shuffle warp_sum each. Visiting the agents in the table build's cell
+// order was measured slower than agent order on the card (the operands'
+// gather and the scattered output rows cost more than the rows' locality
+// gains), and so was serving a chunk's neighbours with the whole warp,
+// one loaded term a lane; the warps walk the agents in order.
+// table_transpose is a pure relayout, one streaming read and one
+// streaming write: persistent blocks stage runs of whole cells (whose
+// member rows are one contiguous span) into shared memory with cp.async
+// and write the cells' rows back as coalesced stores, the next run's copy
+// in flight while this one is written (see the kernel).
 //
 // Numbers: the distance mask and the state terms spell out their roundings
 // (__fmul_rn, __fadd_rn, __fdiv_rn) so nvcc contracts nothing into an FMA;
@@ -41,10 +59,28 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // agents (grid_window) or cells (builds) a block
+constexpr int kWarps = 8;  // cells a block (the table builds)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxChunks = 32;  // n_win * C <= 32 * kMaxChunks candidates
+constexpr int kMaxWin = 32;     // n_win <= 32: one lane a window's slot
+// grid_window: agents (warps) a block, and the blocks an SM should hold
+// (40 registers a thread)
+constexpr int kWinWarps = 4;
+constexpr int kWinBlocks = 12;
 constexpr float kZeroTol = 1e-9f;
+
+// A grid_window lane's row of partial sums in shared memory: n_val floats
+// rounded up to 4k with k odd, so that 8 lanes' 16-byte accesses at the
+// same offset hit 32 distinct banks.
+__host__ __device__ inline int acc_ld(int n_val) {
+  const int k = (n_val + 3) / 4;
+  return 4 * (k | 1);
+}
+
+// Shared floats of a grid_window warp's partial sums: 32 lanes' rows.
+__host__ __device__ inline int acc_floats(int n_val) {
+  return 32 * acc_ld(n_val);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -52,16 +88,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The 32 lane partials x[0], x[ld], .. x[31 ld] of a value summed in
+// warp_sum's order: the xor tree's pairs (offsets 16 .. 1) of lane 0, so
+// bit for bit what warp_sum gives (every lane of the tree holds the same
+// sums).
+__device__ __forceinline__ float tree_sum(const float* x, int ld) {
+  float y[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) y[l] = x[l * ld] + x[(l + 16) * ld];
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int l = 0; l < o; ++l) y[l] = y[l] + y[l + o];
+  return y[0];
+}
+
 // One warp an agent row r of R. Candidate j = w*C + c (window w of n_win,
-// member slot c of C) is lane j % 32 of chunk j / 32, in the JAX lane order,
-// so the first-d_max selection takes the same ids as the Pallas kernel.
+// member slot c of C) is lane j % 32 of chunk j / 32, in the JAX lane
+// order, so the first-d_max selection takes the same ids as the Pallas
+// kernel.
 //
 // table (cells, W); own (R, 5) [px, py, vx, vy, id]; slots (R, n_win) the
 // table row of each window; keep (R, n_win) 0 for a window that repeats an
 // earlier one of the same agent (the modular map aliased them).
 // out (R, OW): [idx (d_max, float ids) | val (d_max, 0/1) | st (6) | wv |
 // cnt | wpay (n_pay)], OW = 2 d_max + 8 + n_pay; wv_only: out (R, 1) = wv.
-__global__ void __launch_bounds__(kThreads)
+//
+// One pass over the chunks. A lane loads its candidate's valid lane, then
+// the id and position of a valid one, and a masked candidate's velocity,
+// v and payload lanes all at once. The state sums stay in registers; the
+// payload partials go to the lane's row of the warp's shared memory, 4 at
+// a time (16-byte accesses), so the registers do not grow with n_pay.
+// Lane u then adds output sum u's 32 partials in the xor tree's order
+// (tree_sum). Dynamic shared memory: kWinWarps acc_floats(8 + n_pay)
+// floats.
+__global__ void __launch_bounds__(32 * kWinWarps, kWinBlocks)
 grid_window_kernel(const float* __restrict__ table,
                    const float* __restrict__ own,
                    const int* __restrict__ slots,
@@ -69,54 +130,73 @@ grid_window_kernel(const float* __restrict__ table,
                    float* __restrict__ out, int R, int W, int n_win, int C,
                    float r2, int need_exp, int d_max, int wv_only,
                    int n_pay) {
-  __shared__ unsigned mask_s[kWarps][kMaxChunks];
+  extern __shared__ __align__(16) float acc_s[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = blockIdx.x * kWarps + warp;
+  const int r = blockIdx.x * kWinWarps + warp;
   if (r >= R) return;  // whole warps leave together
+  const int n_val = wv_only ? 0 : 8 + n_pay;  // output sums
+  const int ld = acc_ld(n_val);
+  float* acc = acc_s + warp * acc_floats(n_val);  // [lane][sum]
+  float* mine = acc + lane * ld;
   const float* o = own + (int64_t)r * 5;
   const float opx = o[0], opy = o[1], ovx = o[2], ovy = o[3], oid = o[4];
   const int M = n_win * C;
   const int n_chunks = (M + 31) / 32;
   const int OW = wv_only ? 1 : 2 * d_max + 8 + n_pay;
   float* orow = out + (int64_t)r * OW;
+  // lane w < n_win holds window w's table row and keep flag
+  int my_slot = 0, my_keep = 0;
+  if (lane < n_win) {
+    my_slot = slots[(int64_t)r * n_win + lane];
+    my_keep = keep[(int64_t)r * n_win + lane];
+  }
+  for (int u = 8; u < n_val; u += 4)
+    *reinterpret_cast<float4*>(mine + u) = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float wv = 0.f, cnt = 0.f;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
+  // st[0..5] the state sums, st[6] wv, st[7] the count
+  float st[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) st[u] = 0.f;
   int total = 0;  // masked candidates in earlier chunks: the rank base
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int j = ch * 32 + lane;
+    const int slot = __shfl_sync(0xffffffffu, my_slot, j / C);
+    const int kp = __shfl_sync(0xffffffffu, my_keep, j / C);
+    const float* rc = table + (int64_t)slot * W + j % C;  // the lane's
     bool m = false;
     float dpx = 0.f, dpy = 0.f, d2 = 0.f, cid = 0.f;
-    const float* row = nullptr;
-    int c = 0;
-    if (j < M) {
-      const int w = j / C;
-      c = j % C;
-      if (keep[(int64_t)r * n_win + w]) {
-        row = table + (int64_t)slots[(int64_t)r * n_win + w] * W;
-        const float valid = row[4 * C + c];
-        cid = row[5 * C + c];
-        dpx = __fsub_rn(opx, row[c]);
-        dpy = __fsub_rn(opy, row[C + c]);
-        d2 = __fadd_rn(__fmul_rn(dpx, dpx), __fmul_rn(dpy, dpy));
-        m = valid > 0.f && d2 <= r2 && cid != oid;
-        if (need_exp) m = m && expf(-d2) > kZeroTol;
-      }
+    if (j < M && kp && rc[4 * C] > 0.f) {
+      cid = rc[5 * C];
+      dpx = __fsub_rn(opx, rc[0]);
+      dpy = __fsub_rn(opy, rc[C]);
+      d2 = __fadd_rn(__fmul_rn(dpx, dpx), __fmul_rn(dpy, dpy));
+      m = d2 <= r2 && cid != oid;
+      if (need_exp) m = m && expf(-d2) > kZeroTol;
     }
     const unsigned bits = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) mask_s[warp][ch] = bits;
     if (m) {
-      wv = __fadd_rn(wv, row[6 * C + c]);
+      st[6] = __fadd_rn(st[6], rc[6 * C]);
       if (!wv_only) {
-        cnt = __fadd_rn(cnt, 1.f);
+        st[7] = __fadd_rn(st[7], 1.f);
         const float inv = d2 > kZeroTol ? __fdiv_rn(1.f, d2) : 0.f;
         const float px_inv = __fmul_rn(dpx, inv), py_inv = __fmul_rn(dpy, inv);
-        s0 = __fadd_rn(s0, __fsub_rn(ovx, row[2 * C + c]));
-        s1 = __fadd_rn(s1, __fsub_rn(ovy, row[3 * C + c]));
-        s2 = __fadd_rn(s2, __fmul_rn(px_inv, inv));
-        s3 = __fadd_rn(s3, __fmul_rn(py_inv, inv));
-        s4 = __fadd_rn(s4, px_inv);
-        s5 = __fadd_rn(s5, py_inv);
+        st[0] = __fadd_rn(st[0], __fsub_rn(ovx, rc[2 * C]));
+        st[1] = __fadd_rn(st[1], __fsub_rn(ovy, rc[3 * C]));
+        st[2] = __fadd_rn(st[2], __fmul_rn(px_inv, inv));
+        st[3] = __fadd_rn(st[3], __fmul_rn(py_inv, inv));
+        st[4] = __fadd_rn(st[4], px_inv);
+        st[5] = __fadd_rn(st[5], py_inv);
+#pragma unroll 1
+        for (int p = 0; p < n_pay; p += 4) {
+          float x[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            x[q] = p + q < n_pay ? rc[(7 + p + q) * C] : 0.f;
+          float4* d = reinterpret_cast<float4*>(mine + 8 + p);
+          const float4 part = *d;
+          *d = make_float4(__fadd_rn(part.x, x[0]), __fadd_rn(part.y, x[1]),
+                           __fadd_rn(part.z, x[2]), __fadd_rn(part.w, x[3]));
+        }
         // first-d_max selection: this candidate's rank among the masked
         // ones, in candidate order, from the ballot of its chunk
         const int t = total + __popc(bits & ((1u << lane) - 1u));
@@ -128,8 +208,8 @@ grid_window_kernel(const float* __restrict__ table,
     }
     total += __popc(bits);
   }
-  wv = warp_sum(wv);
   if (wv_only) {
+    const float wv = warp_sum(st[6]);
     if (lane == 0) orow[0] = wv;
     return;
   }
@@ -137,40 +217,12 @@ grid_window_kernel(const float* __restrict__ table,
     orow[t] = 0.f;
     orow[d_max + t] = 0.f;
   }
-  s0 = warp_sum(s0);
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  s3 = warp_sum(s3);
-  s4 = warp_sum(s4);
-  s5 = warp_sum(s5);
-  cnt = warp_sum(cnt);
-  if (lane == 0) {
-    float* st = orow + 2 * d_max;
-    st[0] = s0;
-    st[1] = s1;
-    st[2] = s2;
-    st[3] = s3;
-    st[4] = s4;
-    st[5] = s5;
-    st[6] = wv;
-    st[7] = cnt;
-  }
-  // payload graph shift: one masked sum a payload feature, over the masks
-  // of the first pass (only masked lanes load)
+  *reinterpret_cast<float4*>(mine) = make_float4(st[0], st[1], st[2], st[3]);
+  *reinterpret_cast<float4*>(mine + 4) =
+      make_float4(st[4], st[5], st[6], st[7]);
   __syncwarp();
-  for (int p = 0; p < n_pay; ++p) {
-    float acc = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if ((mask_s[warp][ch] >> lane) & 1u) {
-        const int j = ch * 32 + lane;
-        const int w = j / C;
-        const float* row = table + (int64_t)slots[(int64_t)r * n_win + w] * W;
-        acc = __fadd_rn(acc, row[(7 + p) * C + j % C]);
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) orow[2 * d_max + 8 + p] = acc;
-  }
+  for (int u = lane; u < n_val; u += 32)
+    orow[2 * d_max + u] = tree_sum(acc + u, ld);
 }
 
 // One warp a cell (b, h) of B*H. fs (B, N, F): the agents' feature rows
@@ -296,6 +348,20 @@ unsigned blocks_for(int64_t warps) {
   return (unsigned)((warps + kWarps - 1) / kWarps);
 }
 
+// The file's kernels by name (gnt_gridwin_kernel).
+struct NamedKernel {
+  const char* name;
+  const void* fn;
+};
+const NamedKernel kKernels[] = {
+    {"grid_window_kernel", (const void*)grid_window_kernel},
+    {"table_build_kernel", (const void*)table_build_kernel},
+    {"table_transpose_kernel<true>",
+     (const void*)table_transpose_kernel<true>},
+    {"table_transpose_kernel<false>",
+     (const void*)table_transpose_kernel<false>},
+};
+
 }  // namespace
 
 extern "C" {
@@ -305,13 +371,31 @@ cudaError_t gnt_grid_window(const float* table, const float* own,
                             float* out, int R, int W, int n_win, int C,
                             float r2, int need_exp, int d_max, int wv_only,
                             int n_pay, cudaStream_t stream) {
-  if (R <= 0 || n_win <= 0 || C <= 0 || d_max < 0 || n_pay < 0 ||
-      n_win * C > 32 * kMaxChunks || (7 + n_pay) * C > W)
+  if (R <= 0 || n_win <= 0 || n_win > kMaxWin || C <= 0 || d_max < 0 ||
+      n_pay < 0 || n_win * C > 32 * kMaxChunks || (7 + n_pay) * C > W)
     return cudaErrorInvalidValue;
-  grid_window_kernel<<<blocks_for(R), kThreads, 0, stream>>>(
+  const size_t smem =
+      sizeof(float) * kWinWarps * acc_floats(wv_only ? 0 : 8 + n_pay);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grid_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  grid_window_kernel<<<(unsigned)((R + kWinWarps - 1) / kWinWarps),
+                       32 * kWinWarps, smem, stream>>>(
       table, own, slots, keep, out, R, W, n_win, C, r2, need_exp, d_max,
       wv_only, n_pay);
   return cudaGetLastError();
+}
+
+// Kernel i of this file and its name, or null past the last.
+const void* gnt_gridwin_kernel(int i, const char** name) {
+  if (i < 0 || i >= (int)(sizeof(kKernels) / sizeof(kKernels[0])))
+    return nullptr;
+  *name = kKernels[i].name;
+  return kKernels[i].fn;
 }
 
 cudaError_t gnt_table_build(const float* fs, const int* starts, float* out,

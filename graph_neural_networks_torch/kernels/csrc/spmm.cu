@@ -390,12 +390,53 @@ const void* register_kernel(bool vec) {
              : (const void*)band_register_kernel<TM, KD, false>;
 }
 
+// The file's kernels by name (gnt_spmm_kernel).
+struct NamedKernel {
+  const char* name;
+  const void* fn;
+};
+#define GNT_REGISTER(TM, KD, V)                                 \
+  {"band_register_kernel<" #TM ", " #KD ", " #V ">",            \
+   (const void*)band_register_kernel<TM, KD, V>}
+const NamedKernel kKernels[] = {
+    {"band_matmul_kernel", (const void*)band_matmul_kernel},
+    {"bcsr_matmul_kernel", (const void*)bcsr_matmul_kernel},
+    GNT_REGISTER(kNarrowTM, kNarrowKD, true),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, false),
+    GNT_REGISTER(kWideTM, kWideKD, true),
+    GNT_REGISTER(kWideTM, kWideKD, false),
+};
+#undef GNT_REGISTER
+
 }  // namespace
 
 extern "C" {
 
 const char* gnt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Kernel i of this file and its name, or null past the last. Each source
+// has such a table (gnt_attention_kernel, gnt_gridwin_kernel).
+const void* gnt_spmm_kernel(int i, const char** name) {
+  if (i < 0 || i >= (int)(sizeof(kKernels) / sizeof(kKernels[0])))
+    return nullptr;
+  *name = kKernels[i].name;
+  return kKernels[i].fn;
+}
+
+// numRegs, localSizeBytes, sharedSizeBytes and maxThreadsPerBlock of a
+// kernel of the library (from a gnt_*_kernel table), from
+// cudaFuncGetAttributes.
+cudaError_t gnt_kernel_attributes(const void* fn, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = fa.maxThreadsPerBlock;
+  return cudaSuccess;
 }
 
 cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,

@@ -210,7 +210,9 @@ def _bwd_windowed(a1w, a2x, v, rowmax, rowsum, s_row, mask_row, gw,
 
     def rows(t):   # (Q, Np) -> (Q, nb, 1, ibs, 1)
         return t.reshape(Q, nb, 1, ibs, 1)
-    al = torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30) * m
+    # one reciprocal of rowsum a row, as the kernel (apply divides)
+    rinv = 1.0 / rows(rowsum).clamp_min(1e-30)
+    al = torch.exp(e - rows(rowmax)) * rinv * m
     dco = torch.einsum("qfip,qfikc->qikpc", v.reshape(Q, F, nb, ibs), gw)
     dal = dco if s_row is None else dco * s_row[None]
     delta = (al * dal).sum(dim=(2, 4))                    # Q, nb, p
@@ -364,16 +366,19 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
 apply_call.launches = 0
 
 
-# Shared memory of attn_bwd_kernel (attention_flash.cu): 4816 static floats
-# plus W*16*ibs (dalpha of a 16-row tile's window) + W*ibs (da1 partials)
-# + 16*F (dv of the tile) dynamic ones, within a block's 227 KB.
-_BWD_STATIC_FLOATS = 4816
+# A block's shared memory on the card (attn_bwd_kernel's layout is
+# bwd_layout in attention_flash.cu; gnt_attn_bwd_smem_bytes gives its size)
 _BLOCK_SMEM_BYTES = 227 * 1024
 
 
-def _bwd_smem_bytes(w: int, ibs: int, F: int) -> int:
-    W = 2 * w + 1
-    return 4 * (_BWD_STATIC_FLOATS + W * 16 * ibs + W * ibs + 16 * F)
+def _check_bwd_smem(name: str, w: int, ibs: int, F: int) -> None:
+    """Raise unless attn_bwd_kernel's shared memory at (w, ibs, F) fits a
+    block."""
+    need = kernels.library().gnt_attn_bwd_smem_bytes(F, 2 * w + 1, ibs)
+    if need > _BLOCK_SMEM_BYTES:
+        raise ValueError(f"{name}: w={w}, ibs={ibs}, F={F} need {need} bytes "
+                         f"of shared memory a block, above "
+                         f"{_BLOCK_SMEM_BYTES}")
 
 
 def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
@@ -410,10 +415,7 @@ def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                          rowsum=(rowsum, f32), slab_col=(slab_col, f32),
                          mask_row=(mask_row, f32), g=(g, f32))
     _check_tile("bwd_call", ibs)
-    if _bwd_smem_bytes(w, ibs, F) > _BLOCK_SMEM_BYTES:
-        raise ValueError(f"bwd_call: w={w}, ibs={ibs}, F={F} need "
-                         f"{_bwd_smem_bytes(w, ibs, F)} bytes of shared "
-                         f"memory a block, above {_BLOCK_SMEM_BYTES}")
+    _check_bwd_smem("bwd_call", w, ibs, F)
     W = 2 * w + 1
     da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
     da1p = torch.empty((Q, nb, W, ibs), dtype=f32, device=v.device)
@@ -656,10 +658,7 @@ def bwd_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                          slab_col_ext=(slab_col_ext, f32),
                          mask_row=(mask_row, f32), g_ext=(g_ext, f32))
     _check_ext_kernel("bwd_ext_call", nbl, w, ibs)
-    if _bwd_smem_bytes(w, ibs, F) > _BLOCK_SMEM_BYTES:
-        raise ValueError(f"bwd_ext_call: w={w}, ibs={ibs}, F={F} need "
-                         f"{_bwd_smem_bytes(w, ibs, F)} bytes of shared "
-                         f"memory a block, above {_BLOCK_SMEM_BYTES}")
+    _check_bwd_smem("bwd_ext_call", w, ibs, F)
     da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
     da1p = torch.empty((Q, nbl, W, ibs), dtype=f32, device=v.device)
     dv = torch.empty((Q, F, Np), dtype=f32, device=v.device)

@@ -52,8 +52,9 @@ _TOL32 = float(np.float32(ZERO_TOL))
 # exp test is implied by d2 <= r2, and the JAX kernel skips it statically
 _EXP_FREE_R2 = -math.log(ZERO_TOL)
 # grid_window: candidates an agent (n_win * C) at most (kMaxChunks * 32
-# in gridwin.cu)
+# in gridwin.cu), and windows (one lane a window: kMaxWin)
 MAX_CANDIDATES = 1024
+MAX_WINDOWS = 32
 # table_transpose on CUDA stages at least 4 cells, double buffered, in a
 # block's 227 KB of shared memory: C * (F | 1) floats a cell at most
 MAX_TRANSPOSE_CELL = 232448 // (2 * 4 * 4)
@@ -216,6 +217,9 @@ def grid_window(table: torch.Tensor, own: torch.Tensor, slots: torch.Tensor,
     kernels.check_inputs("grid_window", table=(table, torch.float32),
                          own=(own, torch.float32), slots=(slots, torch.int32),
                          keep=(keep, torch.bool))
+    if n_win > MAX_WINDOWS:
+        raise ValueError(f"grid_window: the kernel takes {MAX_WINDOWS} "
+                         f"windows an agent at most, got {n_win}")
     OW = 1 if wv_only else _out_width(d_max, n_pay)
     out = torch.empty((R, OW), dtype=torch.float32, device=table.device)
     if R == 0:

@@ -108,6 +108,81 @@ def test_bwd_plain_matches_jax_kernel(N, half, ibs, w, with_s):
     assert taf.bwd_call.launches == 0   # CPU tensors: the plain version
 
 
+def _chunk_graph(kind, N=320, ibs=64, seed=3):
+    """A non-symmetric band GSO at the kernel's 64-node granularity:
+    'empty' has nonzeros within 40 of the diagonal plus two 100 apart (one
+    two blocks off the diagonal), so its block bandwidth is 2 and most
+    64 x 64 tiles of its outer window blocks hold no support; 'full' fills every block within one of the
+    diagonal (w = 1), so no tile of its window is empty."""
+    rng = np.random.default_rng(seed)
+    blk = np.arange(N) // ibs
+    if kind == "full":
+        near = np.abs(blk[:, None] - blk[None]) <= 1
+        return (rng.random((1, N, N)) * near).astype(np.float32)
+    S = np.zeros((1, N, N), np.float32)
+    ii = rng.integers(0, N, 4 * N)
+    jj = ii + rng.integers(-40, 41, len(ii))
+    ok = (jj >= 0) & (jj < N)
+    S[0, ii[ok], jj[ok]] = rng.random(ok.sum())
+    S[0, [5, 200], [105, 100]] = 0.5          # two entries 100 apart
+    return S
+
+
+def _empty_subchunks(mask_row, w, sub=64):
+    """(tiles of sub x sub nodes of the row-window mask inside the matrix
+    without support, all inside the matrix): what the CUDA backward
+    skips, from the mask in numpy."""
+    mr = np.asarray(mask_row)
+    nb, W, ibs, _ = mr.shape
+    empty = total = 0
+    for i in range(nb):
+        for k in range(W):
+            if not 0 <= i + k - w < nb:
+                continue
+            for r in range(0, ibs, sub):
+                for c in range(0, ibs, sub):
+                    total += 1
+                    empty += not mr[i, k, r:r + sub, c:c + sub].any()
+    return empty, total
+
+
+@pytest.mark.parametrize("with_s", [True, False])
+@pytest.mark.parametrize("kind", ["empty", "full"])
+def test_bwd_plain_matches_jax_with_and_without_empty_chunks(kind, with_s):
+    """bwd_plain + fold against JAX _bwd_call on a graph where the CUDA
+    kernel skips sub-chunks without support and on one where it skips
+    none (the plain version computes every score either way)."""
+    ibs, Q, F = 64, 3, 8
+    S = _chunk_graph(kind)
+    N = S.shape[-1]
+    tg = tgso.as_gso(S, mode="band", block_size=ibs, device="cpu")
+    jg = jgso.as_gso(S, mode="band", block_size=ibs)
+    w = tg.band_w
+    assert w == (2 if kind == "empty" else 1)
+    taux = taf.band_auxes(tg)[0]
+    empty, total = _empty_subchunks(taux.mask_row.numpy(), w)
+    assert total > 0 and (empty > 0 if kind == "empty" else empty == 0)
+    rng = np.random.default_rng(11)
+    a1, a2 = (rng.standard_normal((Q, N)).astype(np.float32)
+              for _ in range(2))
+    v, g = (rng.standard_normal((Q, F, N)).astype(np.float32)
+            for _ in range(2))
+    mx, sm = taf.stats_plain(*_t(a1, a2), taux.mask_row, w=w, ibs=ibs)
+    jaux = jaf._auxes(jfilters._slab5(jg), w)[0]
+    stats = (t.numpy().reshape(Q, -1, 1, ibs) for t in (mx, sm))
+    with pltpu.force_tpu_interpret_mode():
+        jda2, jda1, jdv = jaf._bwd_call(
+            *_j(a1, a2, v, *stats), jaux.slab_row, jaux.mask_row,
+            jnp.asarray(g), w, ibs, with_s, 0.2, True)
+    da2, da1p, dv = taf.bwd_call(*_t(a1, a2, v), mx, sm, taux.slab_col,
+                                 taux.mask_row, *_t(g), w=w, ibs=ibs,
+                                 with_s=with_s)
+    np.testing.assert_allclose(da2.numpy(), np.asarray(jda2), **TOL)
+    np.testing.assert_allclose(taf.fold_window_partials(da1p, w).numpy(),
+                               np.asarray(jda1), **TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), **TOL)
+
+
 @pytest.mark.parametrize("N,half,ibs,w", BWD_CASES, ids=BWD_IDS)
 def test_slab_col_mirrored_index_is_jax_slab_row(N, half, ibs, w):
     """slab_row[i, k] = slab_col[i + k - w, 2w - k]: the index the CUDA
@@ -234,6 +309,3 @@ def test_bwd_call_checks_shapes():
     with pytest.raises(ValueError, match="mask_row"):
         taf.bwd_call(a1t, a2t, vt, mx, sm, aux.slab_col, aux.mask_row[1:],
                      gt, w=w, ibs=16)
-    # the kernel's shared memory: 16-row tiles of the window fit to w = 11
-    assert taf._bwd_smem_bytes(11, 128, 64) <= taf._BLOCK_SMEM_BYTES
-    assert taf._bwd_smem_bytes(14, 128, 64) > taf._BLOCK_SMEM_BYTES

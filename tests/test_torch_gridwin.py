@@ -291,3 +291,40 @@ def test_table_transpose_plain_unaligned_and_ragged(C, F, H):
     got = tgw.table_transpose_plain(torch.tensor(mm[:, :F].copy()), C=C,
                                     F=F).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+EDGE_CASES = [  # (cell factor, C, n_pay, d_max, wv_only, table_size)
+    (2, 32, 18, 0, False, None), (2, 32, 0, 0, True, None),
+    (1, 16, 25, 32, False, None),      # 33 output sums, more than lanes
+    (1, 8, 0, 32, False, None),        # the cluster's cells overflow C = 8
+    (1, 64, 12, 32, False, 4),         # aliased windows, with a payload
+]
+
+
+@pytest.mark.parametrize("factor,C,n_pay,d_max,wv_only,table_size",
+                         EDGE_CASES)
+def test_grid_window_plain_matches_pallas_edge_cases(
+        factor, C, n_pay, d_max, wv_only, table_size):
+    """The cases the CUDA kernel's layout makes special (more output sums
+    than a warp has lanes, an overflowing cell, aliased windows with a
+    payload) and the served eval and lambda-pass shapes, against the JAX
+    kernel."""
+    small = table_size is not None
+    case = _case(60 + factor + C + n_pay, factor, C, n_pay,
+                 table_size=table_size, extent=3.0 if small else 9.0,
+                 cluster=not small)
+    assert case["ok"] == (C != 8)
+    if small:
+        assert not case["keep"].all()
+    got, want = _run_both(case, R_RADIUS ** 2, d_max, n_pay,
+                          wv_only=wv_only)
+    if wv_only:
+        assert got.shape == (case["N"], 1)
+        _assert_sums(got[:, 0:1], want[:, 0:1])
+        return
+    D = d_max
+    assert got.shape == (case["N"], tgw._out_width(D, n_pay))
+    np.testing.assert_array_equal(got[:, :2 * D], want[:, :2 * D])
+    np.testing.assert_array_equal(got[:, 2 * D + 7], want[:, 2 * D + 7])
+    _assert_sums(got[:, 2 * D:2 * D + 7], want[:, 2 * D:2 * D + 7])
+    _assert_sums(got[:, 2 * D + 8:], want[:, 2 * D + 8:2 * D + 8 + n_pay])

@@ -189,6 +189,67 @@ def test_bwd_ext_plain_matches_jax(ext_case, p, with_s):
                                    **TOL)
 
 
+def _chunk_partition(kind):
+    """A 4-shard partition at the CUDA kernel's 64-node granularity (nbl =
+    2 inner blocks of 64): 'empty', nonzeros within 40 of the diagonal and
+    two 130 apart (w = 2; most 64 x 64 tiles of the outer window blocks
+    without support); 'full', every block within one of the diagonal
+    filled (w = 1; no empty tile)."""
+    rng = np.random.default_rng(5)
+    N, ibs = 512, 64
+    blk = np.arange(N) // ibs
+    if kind == "full":
+        S = (rng.random((N, N))
+             * (np.abs(blk[:, None] - blk[None]) <= 1)).astype(np.float32)
+    else:
+        S = _band(N, 40, 1, seed=6)[0]
+        S[[10, 300], [140, 170]] = 0.5
+    return (tpar.partition_nodes(S, 4, order="none", inner_block=ibs),
+            jpar.partition_nodes(S, 4, order="none", inner_block=ibs))
+
+
+@pytest.mark.parametrize("p", [0, 1, 3], ids=["first", "interior", "last"])
+@pytest.mark.parametrize("kind", ["empty", "full"])
+def test_bwd_ext_plain_matches_jax_with_and_without_empty_chunks(kind, p):
+    """bwd_ext_plain against the JAX _bwd_ext_call on a partition where
+    the CUDA kernel skips sub-chunks without support (the halo blocks past
+    the global ends among them) and on one where it skips none inside the
+    matrix."""
+    part, jpart = _chunk_partition(kind)
+    w, ibs, bs, halo = part.w, part.inner_bs, part.block_size, part.halo
+    assert (ibs, part.nbl, w) == (64, 2, 2 if kind == "empty" else 1)
+    mc, mr = tsha._row_col_masks(part)
+    occupied = mr[p].reshape(part.nbl, 2 * w + 1, -1).any(-1)
+    inside = [[0 <= p * part.nbl + i + k - w < 4 * part.nbl
+               for k in range(2 * w + 1)] for i in range(part.nbl)]
+    empty_inside = int((~occupied & np.array(inside)).sum())
+    assert empty_inside > 0 if kind == "empty" else empty_inside == 0
+    rng = np.random.default_rng(12 + p)
+    Q, F, Np = 2, 8, part.n_padded
+    a1, a2 = (rng.standard_normal((Q, Np)).astype(np.float32)
+              for _ in range(2))
+    v, g = (rng.standard_normal((Q, F, Np)).astype(np.float32)
+            for _ in range(2))
+    own = slice(p * bs, (p + 1) * bs)
+    a1e = _ext(a1, p, part)
+    mx, sm = (t.numpy() for t in taf.stats_ext_plain(
+        *_t(a1e, a2[:, own], mr[p]), w=w, ibs=ibs))
+    head = (a1e, a2[:, own], v[:, :, own], mx, sm)
+    g_ext = _ext(g, p, part)
+    got = taf.bwd_ext_plain(*_t(*head, tsha._ext_slabs(part)[p, 0], mr[p],
+                                g_ext), w=w, ibs=ibs)
+    bwd_j = jax.jit(jaf._bwd_ext_call, static_argnums=(8, 9, 10, 11, 12))
+    want = bwd_j(*map(jnp.asarray, head),
+                 jnp.asarray(jsha._row_slabs(jpart)[p, 0]),
+                 jnp.asarray(jsha._row_col_masks(jpart)[1][p]),
+                 jnp.asarray(g_ext), w, ibs, True, SLOPE, True)
+    assert halo == w * ibs
+    for name, gt, wt in zip(("da2", "da1p", "dv"), got, want):
+        assert np.isfinite(gt.numpy()).all(), name
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), err_msg=name,
+                                   **TOL)
+
+
 def test_bwd_ext_call_takes_the_plain_version_on_the_cpu(ext_case):
     """On CPU tensors the wrapper returns bwd_ext_plain's result and counts
     no launch; it checks the halo-extended shapes first."""
