@@ -182,6 +182,36 @@ def time_ms(fn, reps=25, inner=10):
     return float(np.median(times))
 
 
+def graph_ms(fn, n=10, reps=20):
+    """Device time of one call: the median over `reps` replays of a CUDA
+    graph of `n` calls, over n. Unlike time_ms it leaves out the host's
+    launch overhead (the Python wrapper and its ctypes call), which a
+    kernel of a few microseconds does not hide."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
 def phase_device():
     import torch
     smi = subprocess.run(
@@ -210,9 +240,10 @@ def phase_build():
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 16, f"{len(attrs)} kernels in the library's "
-            "tables, not 16 (12 kernels; band_register_kernel in 4 "
-            "instances, table_transpose_kernel in 2)")
+    require(len(attrs) == 23, f"{len(attrs)} kernels in the library's "
+            "tables, not 23 (12 kernels; band_register_kernel in 4 "
+            "instances, bcsr_matmul_kernel with 3 narrow-tile instances, "
+            "attn_apply_kernel in 6, table_transpose_kernel in 2)")
 
 
 def _band_case(rng, N, bs, w_target):
@@ -258,10 +289,32 @@ def phase_kernels(graph, rng, dev):
           spmm.band_shift_register(x32, sb, n_taps=TAPS, n_cols=N, w=w),
           spmm.band_shift_register_plain(x32, sb, n_taps=TAPS, n_cols=N, w=w))
     bl, br, bc = S_bcsr.blocks[0], S_bcsr.block_row, S_bcsr.block_col
-    for xx in (x, x32):
-        check("bcsr_matmul", f"R={xx.shape[0]} N=4096 nnzb={bl.shape[0]}",
-              spmm.bcsr_matmul(xx, bl, br, bc, n_cols=N),
+    cs, cs_t = S_bcsr.col_start, S_bcsr.col_start_t
+    # the served and trained row counts (32, 17, 1 at layer 1; 2048, 1088,
+    # 64 at layer 2), both sides of each tile's row limit, forward on the
+    # Gso's cached segment offsets and backward on the transposed layout
+    for R in (2048, 1088, 65, 64, 63, 32, 17, 1):
+        xx = x[:R]
+        check("bcsr_matmul", f"R={R} N=4096 nnzb={bl.shape[0]}",
+              spmm.bcsr_matmul(xx, bl, br, bc, n_cols=N, col_start=cs),
               spmm.bcsr_matmul_plain(xx, bl, br, bc, n_cols=N))
+        if R in (1, 32, 64, 2048):
+            bt, rt, ct = (S_bcsr.blocks_t[0], S_bcsr.block_row_t,
+                          S_bcsr.block_col_t)
+            check("bcsr_matmul", f"R={R} N=4096 blocks_t",
+                  spmm.bcsr_matmul(xx, bt, rt, ct, n_cols=N, col_start=cs_t),
+                  spmm.bcsr_matmul_plain(xx, bt, rt, ct, n_cols=N))
+    # N % 4 != 0 (4-byte staging of x) and a ragged last block (N = 4000),
+    # both tiles; segment offsets computed by the wrapper
+    for Ne in (4001, 4000):
+        g = gso_lib.as_gso(_band_case(rng, Ne, 128, 1), "bcsr", device=dev)
+        for R in (17, 64, 100):
+            xe = rand(R, Ne)
+            check("bcsr_matmul", f"R={R} N={Ne} nnzb={g.blocks.shape[1]}",
+                  spmm.bcsr_matmul(xe, g.blocks[0], g.block_row, g.block_col,
+                                   n_cols=Ne),
+                  spmm.bcsr_matmul_plain(xe, g.blocks[0], g.block_row,
+                                         g.block_col, n_cols=Ne))
 
     # edge cases
     for Ne, we, R in ((4000, 1, 100), (1024, 0, 70), (1000, 2, 9)):
@@ -316,9 +369,10 @@ def phase_kernels(graph, rng, dev):
         except ValueError:
             pass
 
-    # rectangular BCSR with an empty output block column: x (R, 1000) on
-    # its own 8-block grid, y (R, 640) on a 5-block grid, column 2 empty
-    n_in, n_out = 1000, 640
+    # rectangular BCSR with an empty output block column: x (R, n_in) on
+    # its own 8-block grid, y (R, 640) on a 5-block grid, column 2 empty;
+    # n_in = 1001 stages x by 4-byte copies
+    n_out = 640
     pattern = [(r, c) for c in (0, 1, 3, 4) for r in range(8)
                if rng.random() < 0.5 or r == c]
     brow = torch.tensor([p[0] for p in pattern], dtype=torch.int32,
@@ -326,11 +380,14 @@ def phase_kernels(graph, rng, dev):
     bcol = torch.tensor([p[1] for p in pattern], dtype=torch.int32,
                         device=dev)
     blocks = rand(len(pattern), 128, 128)
-    xr = rand(50, n_in)
-    yr = spmm.bcsr_matmul(xr, blocks, brow, bcol, n_cols=n_out)
-    require(bool((yr[:, 256:384] == 0).all()), "bcsr empty column not zero")
-    check("bcsr_matmul", f"rect R=50 {n_in}->{n_out}, empty column",
-          yr, spmm.bcsr_matmul_plain(xr, blocks, brow, bcol, n_cols=n_out))
+    for n_in, R in ((1000, 50), (1001, 50), (1000, 130)):
+        xr = rand(R, n_in)
+        yr = spmm.bcsr_matmul(xr, blocks, brow, bcol, n_cols=n_out)
+        require(bool((yr[:, 256:384] == 0).all()),
+                "bcsr empty column not zero")
+        check("bcsr_matmul", f"rect R={R} {n_in}->{n_out}, empty column",
+              yr, spmm.bcsr_matmul_plain(xr, blocks, brow, bcol,
+                                         n_cols=n_out))
     # square BCSR with a hole: drop block column 5 of the graph's layout
     keep = bc != 5
     bl2, br2, bc2 = (bl[keep].contiguous(), br[keep].contiguous(),
@@ -374,6 +431,7 @@ def phase_timing(graph, dev):
     nb = N // bs
     sb = S_band.s_band[0]
     bl, br, bc = S_bcsr.blocks[0], S_bcsr.block_row, S_bcsr.block_col
+    cs = S_bcsr.col_start
     nnzb = bl.shape[0]
     Sd = S_band.S[0]
     win = _window_blocks(nb, w)
@@ -428,7 +486,10 @@ def phase_timing(graph, dev):
     for R, xx in ((2048, x2048), (BATCH, x32)):
         rows[f"bcsr_matmul@R={R}"] = dict(
             shape=f"R={R} N={N} nnzb={nnzb}",
-            ms=time_ms(lambda: spmm.bcsr_matmul(xx, bl, br, bc, n_cols=N)),
+            ms=time_ms(lambda: spmm.bcsr_matmul(xx, bl, br, bc, n_cols=N,
+                                                col_start=cs)),
+            graph_ms=graph_ms(lambda: spmm.bcsr_matmul(
+                xx, bl, br, bc, n_cols=N, col_start=cs)),
             plain_ms=time_ms(lambda: spmm.bcsr_matmul_plain(
                 xx, bl, br, bc, n_cols=N)),
             library_ms=time_ms(lambda: torch.matmul(xx, Sd)),
@@ -538,7 +599,8 @@ def phase_serving(S_np, rng, dev):
         eng = engines[mode]
         spmm.reset_launch_counts()
         t0 = time.perf_counter()
-        answers = [eng(x) for x in requests]
+        with _cached_structure(f"serving {mode}"):
+            answers = [eng(x) for x in requests]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches for fn in spmm.KERNEL_WRAPPERS}
@@ -621,6 +683,26 @@ def _attn_case(rng, N, w_target, E=1, bs=128):
     return S
 
 
+def _attn_holes_case(rng, N=2048, bs=128):
+    """A w = 2 band with holes: no support in the whole window tile of row
+    block 3 and column block 5 (k = 0 of column block 5), nor in the
+    32 x 64 sub-tile at rows 6 bs .. 6 bs + 32, columns 7 bs .. 7 bs + 64
+    (k = 1 of column block 7): the apply kernel skips both."""
+    S = _attn_case(rng, N, 2)
+    S[0, 3 * bs:4 * bs, 5 * bs:6 * bs] = 0
+    S[0, 6 * bs:6 * bs + 32, 7 * bs:7 * bs + 64] = 0
+    return S
+
+
+def _apply_group(Q, F, Np, dev):
+    """The signal rows a block of attn_apply_kernel serves at (Q, F, Np),
+    as its launcher picks them ("plain" off the card)."""
+    if dev.type != "cuda":
+        return "plain"
+    from graph_neural_networks_torch import kernels
+    return kernels.library().gnt_attn_apply_group(Q, F, Np)
+
+
 def _attn_operands(rng, dev, Q, F, N, Np):
     """Score projections (Q, Np) and signals (Q, F, Np), zero past N."""
     import torch
@@ -671,6 +753,7 @@ def phase_attention_kernels(gso, rng, dev):
         ibs, w = g.block_size, g.band_w
         Np = g.s_band.shape[1] * ibs
         a1, a2, v = _attn_operands(rng, dev, Q, F, g.n, Np)
+        case = f"{case} G={_apply_group(Q, F, Np, dev)}"
         for e, aux in enumerate(af.band_auxes(g)):
             tag = f"{case} e={e}" if g.E > 1 else case
             mx, sm = af.stats_call(a1, a2, aux.mask_row, w=w, ibs=ibs)
@@ -679,7 +762,8 @@ def phase_attention_kernels(gso, rng, dev):
             check("stats_call", tag + " rowsum", sm, psm, served)
             for ws in with_s:
                 args = (a1, a2, v, pmx, psm, aux.slab_col, aux.mask_col)
-                got = af.apply_call(*args, w=w, ibs=ibs, with_s=ws)
+                got = af.apply_call(*args, w=w, ibs=ibs, with_s=ws,
+                                    lists=aux.lists)
                 want = af.apply_plain(*args, w=w, ibs=ibs, with_s=ws)
                 check("apply_call", f"{tag} with_s={ws}", got, want, served)
                 require(bool(torch.isfinite(got).all()),
@@ -687,13 +771,17 @@ def phase_attention_kernels(gso, rng, dev):
 
     both(f"served Q=16 F=32 N={GAT_N} w={gso.band_w}", gso, 16, 32,
          served=True)
+    # the apply kernel serves G = 4, 2 or 1 signal rows a block (G = 4 to
+    # F = 32, 2 to F = 64), the rows past Q of the last group idle
     cases = [  # (N, w, E, Q, F)
         (4000, 1, 1, 16, 32),     # ragged N: the last block is partial
-        (2048, 0, 1, 5, 32),      # w = 0: diagonal blocks only
-        (2048, 3, 1, 3, 40),      # w = 3; F past one 32-row pass
-        (1024, 2, 1, 1, 8),       # Q = 1, first and last w blocks
+        (2048, 0, 1, 5, 32),      # w = 0: diagonal blocks only; Q = 4 + 1
+        (2048, 3, 1, 3, 40),      # w = 3; F = 40 in a 64-feature pass
+        (1024, 2, 1, 1, 8),       # Q = 1, F = 8, first and last w blocks
         (2048, 7, 1, 2, 8),       # w = 7: the stats mask rows need > 48 KB
         (1500, 1, 2, 4, 16),      # E = 2 with a shared support, ragged
+        (2048, 2, 1, 7, 64),      # Q = 7 = 2 + 2 + 2 + 1, F = 64
+        (2048, 2, 1, 16, 64),     # Q = 16 at F = 64
     ]
     for N, w, E, Q, F in cases:
         S = _attn_case(rng, N, w, E)
@@ -720,6 +808,11 @@ def phase_attention_kernels(gso, rng, dev):
                                 max_abs_err=max_abs, ok=ok))
             require(ok, f"flash GAT layer (E={E}) disagrees with the "
                         f"materialized band path: {max_abs}")
+
+    g = gso_lib.as_gso(_attn_holes_case(rng), "band", device=dev)
+    require(g.band_w == 2, f"holes case has w={g.band_w}")
+    both("holes: an empty window tile and sub-tile, N=2048 w=2 Q=16 F=32",
+         g, 16, 32)
 
     # the raw wrappers record no gradient: a kernel call that would need
     # one raises (FlashApply calls them with grad off)
@@ -779,6 +872,7 @@ def phase_attention_timing(gso, dev):
     kw = dict(w=w, ibs=ibs)
     mx, sm = af.stats_plain(a1, a2, aux.mask_row, **kw)
     app = (a1, a2, v, mx, sm, aux.slab_col, aux.mask_col)
+    lists = aux.lists
     work = _attention_work(gso, Q, F)
     shape = f"Q={Q} F={F} N={GAT_N} w={w} ibs={ibs}"
     rows = {
@@ -790,7 +884,10 @@ def phase_attention_timing(gso, dev):
             work=work["stats"]),
         "apply_call": dict(
             shape=shape + " with_s",
-            ms=time_ms(lambda: af.apply_call(*app, **kw)),
+            ms=time_ms(lambda: af.apply_call(*app, **kw, lists=lists)),
+            graph_ms=graph_ms(lambda: af.apply_call(*app, **kw,
+                                                    lists=lists)),
+            G=_apply_group(Q, F, GAT_N, dev),
             plain_ms=time_ms(lambda: af.apply_plain(*app, **kw), reps=5,
                              inner=2),
             work=work["apply"]),
@@ -903,11 +1000,13 @@ def phase_attention_serving(rng, dev):
     # the main path: counts set to 0 just before, read just after
     _reset_counts()
     t0 = time.perf_counter()
-    answers = [eng(requests[0])]
+    with _cached_structure("gat_band_n16384 first request", lists=1):
+        answers = [eng(requests[0])]   # band structure built here
     torch.cuda.synchronize()
-    seconds_first = time.perf_counter() - t0   # band structure built here
+    seconds_first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    answers += [eng(x) for x in requests[1:]]
+    with _cached_structure("gat_band_n16384"):
+        answers += [eng(x) for x in requests[1:]]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _attention_counts()
@@ -1359,6 +1458,42 @@ def _check_grads(checks, model, against, got, want):
                     f"{against}: {max_abs}")
 
 
+@contextlib.contextmanager
+def _cached_structure(what, lists=0):
+    """Fail if the calls inside build graph structure that is built once
+    and cached: a BCSR shift computing its segment offsets
+    (``spmm.bcsr_col_start``, two launches on the card) instead of taking
+    the Gso's, or more than `lists` builds of the flash apply's entry lists
+    (``attention_flash.support_lists``, a nonzero with its host sync and
+    some ten launches; a band Gso builds its own once, at first use)."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import spmm
+    calls = {"bcsr_col_start": [], "support_lists": []}
+    origs = {"bcsr_col_start": (spmm, spmm.bcsr_col_start),
+             "support_lists": (af, af.support_lists)}
+
+    def counted(name):
+        mod, orig = origs[name]
+
+        def fn(*a, **kw):
+            calls[name].append(1)
+            return orig(*a, **kw)
+        return fn
+    for name, (mod, _) in origs.items():
+        setattr(mod, name, counted(name))
+    try:
+        yield
+    finally:
+        for name, (mod, orig) in origs.items():
+            setattr(mod, name, orig)
+    require(not calls["bcsr_col_start"],
+            f"{what}: {len(calls['bcsr_col_start'])} BCSR segment offsets "
+            "computed per call, not taken from the Gso")
+    require(len(calls["support_lists"]) <= lists,
+            f"{what}: {len(calls['support_lists'])} builds of the apply "
+            f"kernel's entry lists, expected at most {lists}")
+
+
 def _train_counts(model, data, batch, expected=None, **trainer_kw):
     """Model.train for TRAIN_STEPS steps (validation at step 0 only; more
     Trainer options in trainer_kw), the counts set to 0 just before and
@@ -1366,8 +1501,9 @@ def _train_counts(model, data, batch, expected=None, **trainer_kw):
     import torch
     _reset_counts()
     t0 = time.perf_counter()
-    out = model.train(data, nEpochs=1, batchSize=batch,
-                      validationInterval=TRAIN_STEPS, **trainer_kw)
+    with _cached_structure(model.name):
+        out = model.train(data, nEpochs=1, batchSize=batch,
+                          validationInterval=TRAIN_STEPS, **trainer_kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _attention_counts()
@@ -1446,8 +1582,9 @@ def phase_training(eng, S_np, rng, dev, out_dir):
     model = _model(arch, "gat_band_n16384", out_dir)
     _reset_counts()
     t0 = time.perf_counter()
-    out = model.train(data, nEpochs=1, batchSize=GAT_BATCH,
-                      validationInterval=4)
+    with _cached_structure("gat_band_n16384 training"):
+        out = model.train(data, nEpochs=1, batchSize=GAT_BATCH,
+                          validationInterval=4)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _attention_counts()
@@ -2198,6 +2335,7 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
     def run(label, part, mc, mr, Q, F, served):
         w, ibs = part.w, part.inner_bs
         own, ext, masks = _shard_operands(rng, dev, part, Q, F, mc, mr)
+        label = f"{label} G={_apply_group(Q, F, part.block_size, dev)}"
         stats = [af.stats_ext_plain(ext["a1"][p], own["a2"][p], masks[p][1],
                                     w=w, ibs=ibs)
                  for p in range(part.n_parts)]
@@ -2211,8 +2349,10 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
             check("stats_ext_call", case + " rowsum", sm, stats[p][1], served)
             args = (own["a1"][p], ext["a2"][p], ext["v"][p], mx_ext[p],
                     sm_ext[p], masks[p][2], masks[p][0])
+            lists = af.support_lists(masks[p][0])
             for ws in (True, False):
-                got = af.apply_ext_call(*args, w=w, ibs=ibs, with_s=ws)
+                got = af.apply_ext_call(*args, w=w, ibs=ibs, with_s=ws,
+                                        lists=lists)
                 want = af.apply_ext_plain(*args, w=w, ibs=ibs, with_s=ws)
                 check("apply_ext_call", f"{case} with_s={ws}", got, want,
                       served)
@@ -2225,13 +2365,17 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
             f"ragged case: w={part2.w}, nbl={part2.nbl}")
     run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
         *par.attention._row_col_masks(part2), 3, 40, False)
-    # narrower and wider windows: w = 1 and 3 over 4 shards of 1024
-    for bandwidth, w in ((100, 1), (300, 3)):
+    # narrower and wider windows over 4 shards of 1024 (w = 1, 3, 7; the
+    # first and last shards' halos past the global ends are fully masked
+    # rows), with Q and F across the apply kernel's groups
+    for bandwidth, w, Q, F in ((100, 1, 4, 32), (300, 3, 4, 32),
+                               (300, 3, 1, 64), (850, 7, 7, 8),
+                               (850, 7, 5, 64)):
         S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
         part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
         require(part3.is_ring and part3.w == w, f"w={part3.w}, expected {w}")
-        run(f"N=4096 Q=4 F=32 Np={part3.block_size} w={w}", part3,
-            *par.attention._row_col_masks(part3), 4, 32, False)
+        run(f"N=4096 Q={Q} F={F} Np={part3.block_size} w={w}", part3,
+            *par.attention._row_col_masks(part3), Q, F, False)
     emit(phase="shard_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
          checks=results, seconds=time.perf_counter() - t_phase)
     return errs
@@ -2278,6 +2422,7 @@ def phase_shard_timing(part, mc, mr, dev):
     sm_ext = halo_ext([st[1] for st in stats], part.halo)[p]
     app = (own["a1"][p], ext["a2"][p], ext["v"][p], mx_ext, sm_ext, slab,
            mcol)
+    lists = af.support_lists(mcol)
     n_rows = Np + 2 * part.halo
     tile = part.nbl * (2 * w + 1) * ibs * ibs
     scores = Q * part.nbl * (2 * w + 1) * ibs * ibs
@@ -2294,7 +2439,10 @@ def phase_shard_timing(part, mc, mr, dev):
             support=Q * int(mrow.sum().item())),
         "apply_ext_call": dict(
             shape=shape + " with_s",
-            ms=time_ms(lambda: af.apply_ext_call(*app, **kw)),
+            ms=time_ms(lambda: af.apply_ext_call(*app, **kw, lists=lists)),
+            graph_ms=graph_ms(lambda: af.apply_ext_call(*app, **kw,
+                                                        lists=lists)),
+            G=_apply_group(Q, F, Np, dev),
             plain_ms=time_ms(lambda: af.apply_ext_plain(*app, **kw), reps=5,
                              inner=2),
             work=_attention_work_at(Q, F, Np, n_rows, tile, scores,
@@ -2381,7 +2529,8 @@ def phase_shard_serving(rng, dev):
         # the main path: counts set to 0 just before, read just after
         _reset_counts()
         t0 = time.perf_counter()
-        answers = [eng(x) for x in requests]
+        with _cached_structure(label):
+            answers = [eng(x) for x in requests]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _attention_counts()
@@ -2841,13 +2990,17 @@ def phase_shard_train_kernels(part, mc, mr, rng, dev):
             f"ragged case: w={part2.w}, nbl={part2.nbl}")
     run(f"ragged N=2000 Q=3 F=40 Np={part2.block_size} w={part2.w}", part2,
         *par.attention._row_col_masks(part2), 3, 40, False)
-    # narrower and wider windows: w = 1 and 3 over 4 shards of 1024
-    for bandwidth, w in ((100, 1), (300, 3)):
+    # narrower and wider windows over 4 shards of 1024 (w = 1, 3, 7; the
+    # first and last shards' halos past the global ends are fully masked
+    # rows), with Q and F across the apply kernel's groups
+    for bandwidth, w, Q, F in ((100, 1, 4, 32), (300, 3, 4, 32),
+                               (300, 3, 1, 64), (850, 7, 7, 8),
+                               (850, 7, 5, 64)):
         S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
         part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
         require(part3.is_ring and part3.w == w, f"w={part3.w}, expected {w}")
-        run(f"N=4096 Q=4 F=32 Np={part3.block_size} w={w}", part3,
-            *par.attention._row_col_masks(part3), 4, 32, False)
+        run(f"N=4096 Q={Q} F={F} Np={part3.block_size} w={w}", part3,
+            *par.attention._row_col_masks(part3), Q, F, False)
     emit(phase="shard_train_kernels", rtol=RTOL,
          atol=f"{ATOL_REL}*max|plain|", checks=results,
          seconds=time.perf_counter() - t_phase)

@@ -30,7 +30,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each export in csrc/ but the kernel tables; all return
-# cudaError_t, but gnt_attn_bwd_smem_bytes a byte count.
+# cudaError_t, but gnt_attn_bwd_smem_bytes a byte count and
+# gnt_attn_apply_group a row count.
 _SIGNATURES = {
     # x, s_band, y, R, N, n_cols, nb, w, bs, stream
     "gnt_band_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -42,14 +43,14 @@ _SIGNATURES = {
     "gnt_attn_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope, stream
     "gnt_attn_stats_ext": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w,
-    # ibs, with_s, slope, stream
-    "gnt_attn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _F, _P),
-    # a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col, mask_col, y, Q, F, Np, nb,
-    # w, ibs, with_s, slope, stream
-    "gnt_attn_apply_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _P),
+    # a1, a2, v, rowmax, rowsum, slab_col, sup_entries, sup_offs, y, Q, F,
+    # Np, nb, w, ibs, with_s, slope, stream
+    "gnt_attn_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _F, _P),
+    # a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col, sup_entries, sup_offs,
+    # y, Q, F, Np, nb, w, ibs, with_s, slope, stream
+    "gnt_attn_apply_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _P),
     # g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
     # Np, nb, w, ibs, with_s, slope, stream
     "gnt_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -64,6 +65,8 @@ _SIGNATURES = {
                         _I, _P),
     # F, W, ibs: attn_bwd_kernel's dynamic shared memory in bytes
     "gnt_attn_bwd_smem_bytes": (_I, _I, _I),
+    # Q, F, Np: the signal rows a block of attn_apply_kernel serves
+    "gnt_attn_apply_group": (_I, _I, _I),
     # kernel (from a table below), out (4 ints): cudaFuncGetAttributes
     "gnt_kernel_attributes": (_P, _P),
     # fs, starts, out, B, H, N, F, C, W, stream

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
 // Three kernels, the counterparts of six Pallas calls of the JAX package
-// (graph_neural_networks_tpu/ops/attention_flash.py):
+// (graph_neural_networks_tpu/ops/attention_flash.py); apply in instances
+// for G = 4, 2, 1 (attn_apply_kernel<kExt, G>):
 //
 //   attn_stats_kernel<false> <- attention_flash.py:_stats_call
 //   attn_apply_kernel<false> <- attention_flash.py:_apply_call
@@ -45,12 +46,13 @@
 // with m the 0/1 support of S+I. Stats normalise each ROW i over its column
 // window (mask_row layout); apply produces each output COLUMN block j from
 // the rows of its window (mask_col / slab_col layout):
-//   alpha = exp(e - rowmax[i]) / max(rowsum[i], 1e-30) * m
+//   alpha = exp(e - rowmax[i]) * (1 / max(rowsum[i], 1e-30)) * m
 //   y[q, f, j] = sum_i v[q, f, i] * alpha * (S[i, j] if with_s)
-// alpha never exists in device memory. Both kernels compute the score with
-// one device function (masked_score), with every rounding step spelled out
-// (__fadd_rn & co.), so the apply kernel recomputes bit for bit the scores
-// the stats kernel reduced. Window blocks that fall off the matrix are
+// (one reciprocal a row; the plain versions likewise). alpha never exists
+// in device memory. The scores are computed with every rounding step
+// spelled out (__fadd_rn & co.): masked_score in stats, alpha() in apply
+// and bwd, which for m = 1 is bit for bit masked_score, so apply and bwd
+// recompute exactly the scores the stats kernel reduced. Window blocks that fall off the matrix are
 // skipped: the JAX kernels clamp them onto zero-mask tiles, whose entries
 // are -1e12 and add exactly 0 to every sum.
 //
@@ -68,16 +70,21 @@
 //    the exp-sum) with warp shuffles; the row's mask is staged in shared
 //    memory once and reused for every q, so the mask is read from memory
 //    once per call, not Q times.
-//  * apply: an FP32 product of 2*F flops a score (1.1e10 flops, 0.16 ms at
-//    67 TFLOP/s) against ~155 MB of v, y, mask and slab (0.05 ms), so FP32
-//    operations bound it. Design: one block per (q, 64-column tile),
-//    q fastest in the grid; a 32-row step stages alpha*S (computed once,
-//    used for all F rows) and the v chunk in shared memory, then each
-//    thread runs a 4 x 4 micro-tile of FMAs. The mask and slab tiles are
-//    shared by all Q rows: the blocks of one column tile run side by side,
-//    so after the first the tiles come from L2 (50 MB), not from memory.
-//    The scores cost ~30 instructions each (expf, an IEEE division) against
-//    F = 32 FMAs, so this simple design stays well above the FMA bound.
+//  * apply: on the support, 0.05 ms of bytes (v, y, mask and slab, 155 MB);
+//    over the dense window tiles an FP32 product of 2*F flops a score
+//    (1.1e10 flops, 0.16 ms at 67 TFLOP/s). Design: a block owns a
+//    64-column tile for a group of G signal rows (G = 4, 2 or 1, picked by
+//    the launcher so that a pass covers F and the grid fills the card) and
+//    walks the window in 32-row chunks, staged by cp.async one chunk ahead
+//    (the slab sub-tile and the support's entry list once for all G rows,
+//    the rows' v chunk), so the support and slab come from L2 once per
+//    group, not once per q; alpha = exp(s - rowmax) * (1 / rowsum), one
+//    reciprocal a row. Each chunk: the scores of the support only, a
+//    warp's lanes on the entries of its rows (the lists are built once
+//    per band structure, ops/attention_flash.py:support_lists; a score on
+//    each dense mask tile ran slower), into a coefficient tile; then,
+//    unless the chunk has no support (a __syncthreads_or), the G products
+//    y += v . coeff in 8 x 4 register tiles over the dense tile.
 //  * bwd: the flash backward of apply (the VJP of y in a1, a2 and v; S is
 //    structure). Per row: alpha, dalpha = (v^T dy) (* S), the softmax
 //    VJP's row product delta = sum alpha * dalpha, de = alpha (dalpha -
@@ -145,15 +152,38 @@ constexpr float kInfinite = 1e12f;  // the reference's additive -inf
 constexpr int kStatsWarps = 8;
 constexpr int kStatsThreads = 32 * kStatsWarps;
 
-// apply: a block computes y[q, f0 : f0+kFT, c0 : c0+kCT], kP window rows a
-// step, a kTF x kTC micro-tile a thread
+// apply: a block computes y[q, :, c0 : c0+kCT] for a group of G signal
+// rows q (G = 4, 2 or 1, picked by the launcher), the window in chunks of
+// kAP rows; kApplyRows = G * FP rows of v staged a chunk (FP features a
+// pass), kAF of them a thread.
 constexpr int kCT = 64;  // ibs % kCT == 0
-constexpr int kFT = 32;
-constexpr int kP = 32;
-constexpr int kTF = 4;
-constexpr int kTC = 4;
-constexpr int kApplyThreads = (kFT / kTF) * (kCT / kTC);
-constexpr int kLDV = kFT + 4;  // Vs row stride: float4-aligned, fewer conflicts
+constexpr int kAP = 32;  // ibs % kAP == 0
+constexpr int kApplyThreads = 256;
+constexpr int kApplyRows = 128;
+constexpr int kAF = 8;
+constexpr int kLDV = kAP + 4;  // staged v row stride: float4-aligned; a
+                               // warp's two feature rows on distinct banks
+
+// Dynamic shared memory of attn_apply_kernel<., G>, offsets in words:
+// two staged chunks of the support's entry list (at most kAP * kCT int16),
+// slab and v, the coefficients Cs, two chunks of the rows' a2, rowmax and
+// 1 / rowsum, and a1 of the block's columns; the chunks' entry offsets
+// follow past words (apply_smem_bytes).
+struct ApplyLayout {
+  int ents, slab, vs, cs, rows, a1, words;
+};
+
+__host__ __device__ constexpr ApplyLayout apply_layout(int G) {
+  return ApplyLayout{0,
+                     kAP * kCT,
+                     3 * kAP * kCT,
+                     3 * kAP * kCT + 2 * kApplyRows * kLDV,
+                     3 * kAP * kCT + 2 * kApplyRows * kLDV + G * kAP * kCT,
+                     3 * kAP * kCT + 2 * kApplyRows * kLDV + G * kAP * kCT +
+                         6 * G * kAP,
+                     3 * kAP * kCT + 2 * kApplyRows * kLDV + G * kAP * kCT +
+                         6 * G * kAP + G * kCT};
+}
 
 // bwd: a block owns the row block i of one signal row q and walks it in
 // row tiles of kBR rows (two halves of kBH), each window tile in chunks of
@@ -243,97 +273,6 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   }
 }
 
-// y (Q, F, Np) = v @ (alpha * S) on the band. a1 (Q, Np); v (Q, F, Np)
-// and a2, rowmax, rowsum (Q, Np), or with rows of Np + 2*w*ibs
-// (halo-extended) when kExt; slab_col, mask_col (nb, W, ibs, ibs):
-// slab_col[j, k, p, c] = S[row (j+k-w)*ibs+p, column j*ibs+c].
-// Grid: Q * (Np / kCT) blocks, q fastest.
-template <bool kExt>
-__global__ void __launch_bounds__(kApplyThreads)
-attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
-                  const float* __restrict__ v,
-                  const float* __restrict__ rowmax,
-                  const float* __restrict__ rowsum,
-                  const float* __restrict__ slab_col,
-                  const float* __restrict__ mask_col, float* __restrict__ y,
-                  int Q, int F, int Np, int nb, int w, int ibs, int with_s,
-                  float slope) {
-  __shared__ __align__(16) float Cs[kP * kCT];   // alpha (* S), [p][c]
-  __shared__ __align__(16) float Vs[kP * kLDV];  // v chunk, [p][f]
-  __shared__ float a1_s[kCT];
-  __shared__ float a2_s[kP], mx_s[kP], sm_s[kP];
-  const int W = 2 * w + 1;
-  const int rows_len = kExt ? Np + 2 * w * ibs : Np;  // a2/stats/v rows
-  const int lag = kExt ? 0 : w;  // row block of window block k: j + k - lag
-  const int q = blockIdx.x % Q;
-  const int c0 = (blockIdx.x / Q) * kCT;
-  const int j = c0 / ibs, lc0 = c0 % ibs;
-  const int tid = threadIdx.x;
-  const int tx = tid % (kCT / kTC), ty = tid / (kCT / kTC);
-  const int64_t qn = (int64_t)q * Np;
-  const int64_t qr = (int64_t)q * rows_len;
-  const int k0 = kExt ? 0 : max(0, w - j);
-  const int k1 = kExt ? W : min(W, nb + w - j);
-  if (tid < kCT) a1_s[tid] = a1[qn + c0 + tid];
-
-  for (int f0 = 0; f0 < F; f0 += kFT) {
-    float acc[kTF][kTC] = {};
-    for (int k = k0; k < k1; ++k) {
-      const int r_blk = (j + k - lag) * ibs;  // first row of the window block
-      const int64_t tile = ((int64_t)j * W + k) * ibs * ibs + lc0;
-      for (int p0 = 0; p0 < ibs; p0 += kP) {
-        __syncthreads();  // the previous step's readers are done
-        if (tid < kP) {
-          const int64_t r = qr + r_blk + p0 + tid;
-          a2_s[tid] = a2[r];
-          mx_s[tid] = rowmax[r];
-          sm_s[tid] = fmaxf(rowsum[r], 1e-30f);
-        }
-        for (int e = tid; e < kFT * kP; e += kApplyThreads) {
-          const int f = e / kP, p = e % kP;
-          Vs[p * kLDV + f] =
-              f0 + f < F
-                  ? v[((int64_t)q * F + f0 + f) * rows_len + r_blk + p0 + p]
-                  : 0.f;
-        }
-        __syncthreads();
-        for (int e = tid; e < kP * kCT; e += kApplyThreads) {
-          const int p = e / kCT, c = e % kCT;
-          const int64_t off = tile + (int64_t)(p0 + p) * ibs + c;
-          const float m = mask_col[off];
-          const float s = masked_score(a2_s[p], a1_s[c], m, slope);
-          float al = __fmul_rn(
-              __fdiv_rn(expf(__fsub_rn(s, mx_s[p])), sm_s[p]), m);
-          if (with_s) al = __fmul_rn(al, slab_col[off]);
-          Cs[p * kCT + c] = al;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int p = 0; p < kP; ++p) {
-          const float4 av =
-              *reinterpret_cast<const float4*>(&Vs[p * kLDV + ty * kTF]);
-          const float4 bv =
-              *reinterpret_cast<const float4*>(&Cs[p * kCT + tx * kTC]);
-          const float a[kTF] = {av.x, av.y, av.z, av.w};
-          const float b[kTC] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int u = 0; u < kTF; ++u)
-#pragma unroll
-            for (int t = 0; t < kTC; ++t) acc[u][t] = fmaf(a[u], b[t], acc[u][t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kTF; ++u) {
-      const int f = f0 + ty * kTF + u;
-      if (f < F)
-        *reinterpret_cast<float4*>(y + ((int64_t)q * F + f) * Np + c0 +
-                                   tx * kTC) =
-            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-    }
-  }
-}
-
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -346,6 +285,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)), "l"(src) : "memory");
+}
+
+// 16 bytes, or (valid false) 16 zeros with nothing read
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -371,6 +318,226 @@ __device__ __forceinline__ float alpha(float a2, float a1, float m,
   const float pre = __fadd_rn(a2, a1);
   const float e = pre >= 0.f ? pre : __fmul_rn(pre, slope);
   return m != 0.f ? __fmul_rn(expf(__fsub_rn(e, mx)), rinv) : 0.f;
+}
+
+// y (Q, F, Np) = v @ (alpha * S) on the band. a1 (Q, Np); v (Q, F, Np)
+// and a2, rowmax, rowsum (Q, Np), or with rows of Np + 2*w*ibs
+// (halo-extended) when kExt; slab_col (nb, W, ibs, ibs):
+// slab_col[j, k, p, c] = S[row (j+k-w)*ibs+p, column j*ibs+c]; the S+I
+// support of the same layout as entry lists (sup_entries, sup_offs:
+// ops/attention_flash.py:SupportLists).
+//
+// A block owns the kCT output columns from c0 for a group of G signal rows
+// q0 .. q0 + G - 1 (slots; the slots past Q are idle), and walks the
+// window in chunks of kAP rows, staged by cp.async one chunk ahead: the
+// chunk's slab sub-tile and its list of support entries once for all G
+// rows, the G rows' v chunk ([s][f][p], FP = 128 / G features a pass),
+// and their a2, rowmax and 1 / rowsum (loaded into registers a chunk
+// ahead; one reciprocal a row). Per chunk:
+//  * the coefficients alpha (* S) into Cs ([s][p][c]), exp only on the
+//    support: each warp zeroes its 4 G rows of its slot's Cs and fills in
+//    the support entries of those rows from the chunk's list (p * 64 + c,
+//    in the rows' order; sup_offs gives each 4-row group's first entry),
+//    a lane an entry, so the warps run only the support's scores;
+//  * if any coefficient of the chunk is on the support (__syncthreads_or),
+//    y += v . Cs: thread (slot, fg, cg) = (tid / TPS, tid / 16 % (FP / 8),
+//    tid % 16) holds features fg + (FP / 8) i (i < 8) x columns 4 cg + t,
+//    4 + 4 16-byte shared loads for 64 FMAs.
+// Two barriers a chunk. Grid (Np / kCT) * ceil(Q / G) blocks, the G-row
+// groups of one column tile adjacent (they read the same lists and slab
+// tiles); dynamic shared memory apply_smem_bytes(G, W, ibs). v,
+// sup_entries, slab_col and y 16-byte aligned.
+template <bool kExt, int G>
+__global__ void __launch_bounds__(kApplyThreads, 2)
+attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
+                  const float* __restrict__ v,
+                  const float* __restrict__ rowmax,
+                  const float* __restrict__ rowsum,
+                  const float* __restrict__ slab_col,
+                  const int16_t* __restrict__ sup_entries,
+                  const int* __restrict__ sup_offs, float* __restrict__ y,
+                  int Q, int F, int Np, int nb, int w, int ibs, int with_s,
+                  float slope) {
+  constexpr int FP = kApplyRows / G;  // features a pass
+  constexpr int NFG = FP / kAF;       // feature groups
+  constexpr int TPS = kApplyThreads / G;  // threads a slot
+  constexpr int GPW = G;  // 4-row groups a warp (8 a slot)
+  constexpr ApplyLayout L = apply_layout(G);
+  extern __shared__ __align__(16) float smem[];
+  float* const Cs = smem + L.cs;
+  float* const a1s = smem + L.a1;
+  int* const offs = reinterpret_cast<int*>(smem + L.words);
+  const int W = 2 * w + 1;
+  const int rows_len = kExt ? Np + 2 * w * ibs : Np;  // a2/stats/v rows
+  const int lag = kExt ? 0 : w;  // row block of window block k: j + k - lag
+  const int n_groups = (Q + G - 1) / G;
+  const int q0 = (blockIdx.x % n_groups) * G;
+  const int nq = min(G, Q - q0);  // slots in use
+  const int c0 = (blockIdx.x / n_groups) * kCT;
+  const int j = c0 / ibs, lc0 = c0 % ibs;
+  const int tid = threadIdx.x;
+  const int slot = tid / TPS;  // the same in both phases: warp-uniform
+  const int u = tid % TPS;                               // scores
+  const int cg = tid % 16, fg = (tid / 16) % NFG;        // product
+  const int k0 = kExt ? 0 : max(0, w - j);
+  const int k1 = kExt ? W : min(W, nb + w - j);
+  const int cpb = ibs / kAP;  // chunks a window block
+  const int nch = (k1 - k0) * cpb;
+
+  // first row, in v's and the stats' rows, and slab offset of chunk ci
+  auto row_of = [&](int ci) {
+    return (int64_t)(j + k0 + ci / cpb - lag) * ibs + (ci % cpb) * kAP;
+  };
+  auto tile_of = [&](int ci) {
+    return (((int64_t)j * W + k0 + ci / cpb) * ibs + (ci % cpb) * kAP) * ibs +
+           lc0;
+  };
+  auto stage = [&](int b, int ci, int f0) {
+    const int64_t mt = tile_of(ci), r0 = row_of(ci);
+    float* es = smem + L.ents + b * kAP * kCT / 2;
+    float* ss = smem + L.slab + b * kAP * kCT;
+    const int* o = offs + ci * 9;  // the chunk's entries, padded to 16 bytes
+    for (int e = tid; e < (o[8] - o[0] + 7) / 8; e += kApplyThreads)
+      cp_async16(es + 4 * e,
+                 reinterpret_cast<const float*>(sup_entries + o[0]) + 4 * e);
+    if (with_s) {
+#pragma unroll 1
+      for (int e = tid; e < kAP * kCT / 4; e += kApplyThreads) {
+        const int p = e / (kCT / 4), c = 4 * (e % (kCT / 4));
+        cp_async16(ss + p * kCT + c, slab_col + mt + (int64_t)p * ibs + c);
+      }
+    }
+    float* vs = smem + L.vs + b * kApplyRows * kLDV;
+#pragma unroll 1
+    for (int e = tid; e < kApplyRows * kAP / 4; e += kApplyThreads) {
+      const int row = e / (kAP / 4), p = 4 * (e % (kAP / 4));
+      const int s = row / FP, f = f0 + row % FP;
+      const bool ok = s < nq && f < F;
+      cp_async16z(vs + row * kLDV + p,
+                  ok ? v + ((int64_t)(q0 + s) * F + f) * rows_len + r0 + p : v,
+                  ok);
+    }
+  };
+  // a2, rowmax and 1 / rowsum of chunk ci's rows: one row a thread of the
+  // first G * kAP, loaded into registers after the chunk's first barrier
+  // and stored, the reciprocal taken, after its product
+  const bool has_row = tid < G * kAP && tid / kAP < nq;
+  float ra2 = 0.f, rmx = 0.f, rsm = 0.f;
+  auto load_rows = [&](int ci) {
+    if (has_row) {
+      const int64_t r =
+          (int64_t)(q0 + tid / kAP) * rows_len + row_of(ci) + tid % kAP;
+      ra2 = a2[r];
+      rmx = rowmax[r];
+      rsm = rowsum[r];
+    }
+  };
+  auto store_rows = [&](int b) {
+    if (tid < G * kAP) {
+      float* rs = smem + L.rows + b * 3 * G * kAP;
+      rs[tid] = ra2;
+      rs[G * kAP + tid] = rmx;
+      rs[2 * G * kAP + tid] = __fdiv_rn(1.f, fmaxf(rsm, 1e-30f));
+    }
+  };
+
+  for (int e = tid; e < G * kCT; e += kApplyThreads)
+    a1s[e] = e / kCT < nq ? a1[(int64_t)(q0 + e / kCT) * Np + c0 + e % kCT]
+                          : 0.f;
+  {  // the 4-row groups' entry offsets of the block's chunks
+    const int64_t first =
+        (((int64_t)j * (ibs / kCT) + lc0 / kCT) * W + k0) * cpb;
+    for (int e = tid; e < nch * 9; e += kApplyThreads)
+      offs[e] = sup_offs[first * 9 + e];
+  }
+  for (int f0 = 0; f0 < F; f0 += FP) {
+    float acc[kAF][4] = {};
+    __syncthreads();  // the previous pass's readers are done
+    stage(0, 0, f0);
+    cp_commit();
+    load_rows(0);
+    store_rows(0);
+    for (int ci = 0; ci < nch; ++ci) {
+      const int b = ci & 1;
+      cp_wait<0>();
+      // chunk ci has landed for every thread; every thread is done with
+      // chunk ci - 1 (Cs and the other buffers)
+      __syncthreads();
+      if (ci + 1 < nch) {
+        stage(b ^ 1, ci + 1, f0);
+        load_rows(ci + 1);
+      }
+      cp_commit();
+      // the slot's coefficients alpha (* S) of the chunk
+      bool nz = false;
+      if (slot < nq) {
+        const int16_t* es =
+            reinterpret_cast<const int16_t*>(smem + L.ents + b * kAP * kCT / 2);
+        const float* ss = smem + L.slab + b * kAP * kCT;
+        const float* rs = smem + L.rows + b * 3 * G * kAP + slot * kAP;
+        const int lane = tid % 32, g0 = (u / 32) * GPW;
+        float4* cz =
+            reinterpret_cast<float4*>(Cs + (slot * kAP + 4 * g0) * kCT);
+        for (int e = lane; e < GPW * kCT; e += 32)
+          cz[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        __syncwarp();
+        const int* o = offs + ci * 9;
+        const float* a1r = a1s + slot * kCT;
+        const int e1 = o[g0 + GPW] - o[0];
+        nz = o[g0] < o[g0 + GPW];
+        for (int e = o[g0] - o[0] + lane; e < e1; e += 32) {
+          const int idx = es[e], p = idx / kCT, c = idx % kCT;
+          const float al = alpha(rs[p], a1r[c], 1.f, rs[G * kAP + p],
+                                 rs[2 * G * kAP + p], slope);
+          Cs[(slot * kAP + p) * kCT + c] =
+              with_s ? __fmul_rn(al, ss[p * kCT + c]) : al;
+        }
+      }
+      // a chunk with no support adds exact zeros: skip its product
+      const int live = __syncthreads_or(nz);
+      if (live && slot < nq) {
+        const float* vr = smem + L.vs + b * kApplyRows * kLDV +
+                          (slot * FP + fg) * kLDV;
+        const float* cr = Cs + slot * kAP * kCT + 4 * cg;
+        // the thread's features in two halves, so that the four rows of
+        // coefficients and half the features' v are live at once
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll 2
+          for (int p = 0; p < kAP; p += 4) {
+            float4 c[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              c[t] = *reinterpret_cast<const float4*>(cr + (p + t) * kCT);
+#pragma unroll
+            for (int i = h * kAF / 2; i < (h + 1) * kAF / 2; ++i) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(vr + i * NFG * kLDV + p);
+              const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                acc[i][0] = fmaf(av[t], c[t].x, acc[i][0]);
+                acc[i][1] = fmaf(av[t], c[t].y, acc[i][1]);
+                acc[i][2] = fmaf(av[t], c[t].z, acc[i][2]);
+                acc[i][3] = fmaf(av[t], c[t].w, acc[i][3]);
+              }
+            }
+          }
+        }
+      }
+      if (ci + 1 < nch) store_rows(b ^ 1);
+    }
+    if (slot < nq) {
+#pragma unroll
+      for (int i = 0; i < kAF; ++i) {
+        const int f = f0 + fg + NFG * i;
+        if (f < F)
+          *reinterpret_cast<float4*>(y + ((int64_t)(q0 + slot) * F + f) * Np +
+                                     c0 + 4 * cg) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
 }
 
 // Dynamic shared memory of attn_bwd_kernel, offsets in 4-byte words.
@@ -801,22 +968,74 @@ cudaError_t launch_stats(const float* a1, const float* a2,
   return cudaGetLastError();
 }
 
-template <bool kExt>
-cudaError_t launch_apply(const float* a1, const float* a2, const float* v,
-                         const float* rowmax, const float* rowsum,
-                         const float* slab_col, const float* mask_col,
-                         float* y, int Q, int F, int Np, int nb, int w,
-                         int ibs, int with_s, float slope,
-                         cudaStream_t stream) {
-  if (Q <= 0 || F <= 0 || ibs % kCT != 0 || Np != nb * ibs || w < 0 ||
-      (kExt && w > nb))
-    return cudaErrorInvalidValue;
-  const long long blocks = (long long)Q * (Np / kCT);
+// apply_layout's words and the block's entry offsets: 9 ints a chunk of
+// its window.
+size_t apply_smem_bytes(int G, int W, int ibs) {
+  return sizeof(float) * (apply_layout(G).words + (size_t)W * (ibs / kAP) * 9);
+}
+
+// G, the signal rows a block of attn_apply_kernel serves: a pass covers
+// kApplyRows / G >= F features if it can (G = 4 to F = 32, 2 to 64), no
+// wider than Q needs, and narrower while the blocks would fill less than
+// 90% of what the card holds at once (2 an SM).
+int apply_group(int Q, int F, int Np) {
+  int G = F > 2 * kApplyRows / 4 ? 1 : F > kApplyRows / 4 ? 2 : 4;
+  while (G > 1 && G / 2 >= Q) G /= 2;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  const long long tiles = Np / kCT;
+  while (G > 1 && tiles * ((Q + G - 1) / G) * 10 < 2LL * sms * 9) G /= 2;
+  return G;
+}
+
+struct ApplyArgs {
+  const float *a1, *a2, *v, *rowmax, *rowsum, *slab_col;
+  const int16_t* sup_entries;
+  const int* sup_offs;
+  float* y;
+  int Q, F, Np, nb, w, ibs, with_s;
+  float slope;
+};
+
+template <bool kExt, int G>
+cudaError_t launch_apply_g(const ApplyArgs& A, cudaStream_t stream) {
+  const long long blocks = (long long)(A.Np / kCT) * ((A.Q + G - 1) / G);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  attn_apply_kernel<kExt><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-      a1, a2, v, rowmax, rowsum, slab_col, mask_col, y, Q, F, Np, nb, w, ibs,
-      with_s, slope);
+  const size_t smem = apply_smem_bytes(G, 2 * A.w + 1, A.ibs);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_apply_kernel<kExt, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_apply_kernel<kExt, G><<<(unsigned)blocks, kApplyThreads, smem, stream>>>(
+      A.a1, A.a2, A.v, A.rowmax, A.rowsum, A.slab_col, A.sup_entries,
+      A.sup_offs, A.y, A.Q, A.F, A.Np, A.nb, A.w, A.ibs, A.with_s, A.slope);
   return cudaGetLastError();
+}
+
+// sup_entries, sup_offs: the entry lists of the support
+// (ops/attention_flash.py:support_lists).
+template <bool kExt>
+cudaError_t launch_apply(const ApplyArgs& A, cudaStream_t stream) {
+  if (A.Q <= 0 || A.F <= 0 || A.ibs % kCT != 0 || A.ibs % kAP != 0 ||
+      A.Np != A.nb * A.ibs || A.w < 0 || (kExt && A.w > A.nb) ||
+      A.sup_entries == nullptr || A.sup_offs == nullptr)
+    return cudaErrorInvalidValue;
+  for (const void* p :
+       {(const void*)A.v, (const void*)A.sup_entries, (const void*)A.y})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  if (A.with_s && reinterpret_cast<uintptr_t>(A.slab_col) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  switch (apply_group(A.Q, A.F, A.Np)) {
+    case 4: return launch_apply_g<kExt, 4>(A, stream);
+    case 2: return launch_apply_g<kExt, 2>(A, stream);
+    case 1: return launch_apply_g<kExt, 1>(A, stream);
+    default: return cudaErrorInvalidDevice;  // the SM count was not read
+  }
 }
 
 // The file's kernels by name (gnt_attention_kernel).
@@ -827,8 +1046,12 @@ struct NamedKernel {
 const NamedKernel kKernels[] = {
     {"attn_stats_kernel<false>", (const void*)attn_stats_kernel<false>},
     {"attn_stats_kernel<true>", (const void*)attn_stats_kernel<true>},
-    {"attn_apply_kernel<false>", (const void*)attn_apply_kernel<false>},
-    {"attn_apply_kernel<true>", (const void*)attn_apply_kernel<true>},
+    {"attn_apply_kernel<false, 4>", (const void*)attn_apply_kernel<false, 4>},
+    {"attn_apply_kernel<false, 2>", (const void*)attn_apply_kernel<false, 2>},
+    {"attn_apply_kernel<false, 1>", (const void*)attn_apply_kernel<false, 1>},
+    {"attn_apply_kernel<true, 4>", (const void*)attn_apply_kernel<true, 4>},
+    {"attn_apply_kernel<true, 2>", (const void*)attn_apply_kernel<true, 2>},
+    {"attn_apply_kernel<true, 1>", (const void*)attn_apply_kernel<true, 1>},
     {"attn_bwd_kernel<false>", (const void*)attn_bwd_kernel<false>},
     {"attn_bwd_kernel<true>", (const void*)attn_bwd_kernel<true>},
 };
@@ -855,14 +1078,18 @@ cudaError_t gnt_attn_stats_ext(const float* a1_ext, const float* a2,
                             w, ibs, slope, stream);
 }
 
+// sup_entries, sup_offs: the entry lists of the support (the scores run
+// on the support only).
 cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
                            const float* rowmax, const float* rowsum,
-                           const float* slab_col, const float* mask_col,
-                           float* y, int Q, int F, int Np, int nb, int w,
-                           int ibs, int with_s, float slope,
-                           cudaStream_t stream) {
-  return launch_apply<false>(a1, a2, v, rowmax, rowsum, slab_col, mask_col,
-                             y, Q, F, Np, nb, w, ibs, with_s, slope, stream);
+                           const float* slab_col, const int16_t* sup_entries,
+                           const int* sup_offs, float* y, int Q, int F,
+                           int Np, int nb, int w, int ibs, int with_s,
+                           float slope, cudaStream_t stream) {
+  return launch_apply<false>({a1, a2, v, rowmax, rowsum, slab_col,
+                              sup_entries, sup_offs, y, Q, F, Np, nb, w, ibs,
+                              with_s, slope},
+                             stream);
 }
 
 // a1 (Q, Np) the shard's own columns; a2_ext, mx_ext, sm_ext
@@ -871,11 +1098,13 @@ cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
 cudaError_t gnt_attn_apply_ext(const float* a1, const float* a2_ext,
                                const float* v_ext, const float* mx_ext,
                                const float* sm_ext, const float* slab_col,
-                               const float* mask_col, float* y, int Q, int F,
+                               const int16_t* sup_entries,
+                               const int* sup_offs, float* y, int Q, int F,
                                int Np, int nb, int w, int ibs, int with_s,
                                float slope, cudaStream_t stream) {
-  return launch_apply<true>(a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col,
-                            mask_col, y, Q, F, Np, nb, w, ibs, with_s, slope,
+  return launch_apply<true>({a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col,
+                             sup_entries, sup_offs, y, Q, F, Np, nb, w, ibs,
+                             with_s, slope},
                             stream);
 }
 
@@ -885,6 +1114,12 @@ const void* gnt_attention_kernel(int i, const char** name) {
     return nullptr;
   *name = kKernels[i].name;
   return kKernels[i].fn;
+}
+
+// The signal rows a block of attn_apply_kernel serves at (Q, F, Np): the
+// instance <., G> the launchers pick; -1 if the device cannot be read.
+int gnt_attn_apply_group(int Q, int F, int Np) {
+  return apply_group(Q, F, Np);
 }
 
 // The dynamic shared memory attn_bwd_kernel takes at (F, W, ibs), in

@@ -17,12 +17,31 @@
 // operations. The register at few rows (R = 32) does 0.4 GFLOP in four
 // dependent taps: it is bound by latency and by how many SMs it keeps busy.
 //
-// band_matmul / bcsr_matmul: a plain shared-memory tiled FP32 product, a
-// 64 x 64 output tile per block, 16-deep steps staged in shared memory, a
-// 4 x 4 micro-tile of FMAs per thread. Ragged edges (rows past R, x columns
-// past N) are masked in the loads, so the wrapper never copies x into a
-// padded buffer. No wgmma: it needs TF32 or lower, which would change the
-// numbers the JAX reference produces.
+// band_matmul: a plain shared-memory tiled FP32 product, a 64 x 64 output
+// tile per block, 16-deep steps staged in shared memory, a 4 x 4
+// micro-tile of FMAs per thread (tile_mac). Ragged edges (rows past R, x
+// columns past N) are masked in the loads, so the wrapper never copies x
+// into a padded buffer. No wgmma: it needs TF32 or lower, which would
+// change the numbers the JAX reference produces.
+//
+// bcsr_matmul: y = x @ S over the nonzero blocks of each block column (the
+// segment col_start[j] .. col_start[j+1], built once with the layout). At
+// R = 2048 rows (N = 4096, 94 blocks) it does 6.3 GFLOP against 8.4 MB of
+// blocks and 67 MB of x and y: bound by FP32 operations (0.094 ms); at
+// R = 32 by the bytes of the blocks it must stream (6.2 MB, 2 us), and in
+// practice by how many SMs the few rows keep busy. Two tiles, picked by R:
+//  * above 64 rows, 128 x 64 outputs a block, 256 threads, an 8 x 4
+//    register tile a thread (4 + 8 16-byte shared loads for 128 FMAs: x
+//    read 4 k at a time along its rows, no transpose), 64-deep K-steps
+//    double buffered by cp.async, one barrier a step, 2 blocks an SM;
+//  * at most 64 rows, BM x 16 outputs a block (BM = 16, 32, 64, the
+//    fewest that hold R, so no half-masked row tile), n_cols / 16 blocks
+//    (256 at N = 4096, filling the 132 SMs at any R), 64-deep K-steps in 4
+//    cp.async stages, the block's threads split over the depth of each
+//    step (4 x 4 tiles), their partial tiles added in a fixed order at the
+//    end: deterministic, and each S block streams once.
+// x rows go by 16-byte copies when N % 4 == 0, else by 4-byte ones (zero
+// filled past R and N either way); band_matmul_kernel keeps its own loop.
 //
 // band_register_kernel: one cooperative launch of persistent blocks. Each
 // block owns a 32-column panel of the output, keeps that panel's
@@ -156,32 +175,8 @@ band_matmul_kernel(const float* __restrict__ x,
   tile_store(acc, y, n_cols, R, n_cols, r0, c0);
 }
 
-// y (R, n_cols) = x (R, N) @ S, S as nonzero (bs, bs) blocks sorted by
-// block column; col_start[j] .. col_start[j+1] is column j's segment. The
-// x tile of each block is chosen by block_row (data-dependent). An empty
-// segment writes zeros. x may sit on its own block grid (N != n_cols).
-__global__ void __launch_bounds__(kThreads)
-bcsr_matmul_kernel(const float* __restrict__ x,
-                   const float* __restrict__ blocks,
-                   const int* __restrict__ block_row,
-                   const int* __restrict__ col_start, float* __restrict__ y,
-                   int R, int N, int n_cols, int bs) {
-  __shared__ __align__(16) float As[kBK * (kBM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * kBN];
-  const int c0 = blockIdx.x * kBN;
-  const int r0 = blockIdx.y * kBM;
-  const int j = c0 / bs, lc = c0 % bs;
-  const int k1 = col_start[j + 1];
-  float acc[kTM][kTN] = {};
-  for (int k = col_start[j]; k < k1; ++k) {
-    const float* b = blocks + (int64_t)k * bs * bs + lc;
-    tile_mac(acc, x, N, R, N, r0, block_row[k] * bs, b, bs, bs, As, Bs);
-  }
-  tile_store(acc, y, n_cols, R, n_cols, r0, c0);
-}
-
 // ---------------------------------------------------------------------------
-// band_register_kernel
+// bcsr_matmul: its own pipelined mainloop (band_matmul keeps tile_mac)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -193,14 +188,254 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_prev() {
-  // every group but the newest one has landed
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  // every group but the newest kPending has landed
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
+
+// Stage rows [r0, r0 + BM) x columns [xc, xc + KD) of x (R, N) into As
+// (BM rows of lda floats); rows past R and columns past N read as zero.
+// vec: 16-byte copies (N % 4 == 0, x 16-byte aligned), else 4-byte ones.
+template <int BM, int KD, int NT>
+__device__ __forceinline__ void stage_x(float* As, int lda,
+                                        const float* __restrict__ x, int R,
+                                        int N, int r0, int xc, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < BM * KD / 4; e += NT) {
+      const int r = e / (KD / 4), c = 4 * (e % (KD / 4));
+      const bool ok = r0 + r < R && xc + c < N;
+      cp_async16(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
+                 ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * KD; e += NT) {
+      const int r = e / KD, c = e % KD;
+      const bool ok = r0 + r < R && xc + c < N;
+      cp_async4(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
+                ok);
+    }
+  }
+}
+
+// Stage rows [kd, kd + KD) x columns [lc, lc + BN) of one (bs, bs) block
+// of S into Bs (KD rows of BN floats), 16-byte copies.
+template <int KD, int BN, int NT>
+__device__ __forceinline__ void stage_s(float* Bs,
+                                        const float* __restrict__ blk, int bs,
+                                        int kd, int lc) {
+  for (int e = threadIdx.x; e < KD * BN / 4; e += NT) {
+    const int r = e / (BN / 4), c = 4 * (e % (BN / 4));
+    cp_async16(Bs + r * BN + c, blk + (int64_t)(kd + r) * bs + lc + c, true);
+  }
+}
+
+// acc[i][t] += sum over k < KD of A[i * a_row + k] * B[k * ldb + t] for a
+// thread's TM rows and 4 columns, k in order, 4 k a step: TM + 4 16-byte
+// shared loads for 16 TM FMAs.
+template <int TM, int KD>
+__device__ __forceinline__ void mac_rows(float (&acc)[TM][4], const float* A,
+                                         int a_row, const float* B,
+                                         int ldb) {
+#pragma unroll
+  for (int kk = 0; kk < KD; kk += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      b[q] = *reinterpret_cast<const float4*>(B + (kk + q) * ldb);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(A + i * a_row + kk);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[i][0] = fmaf(av[q], b[q].x, acc[i][0]);
+        acc[i][1] = fmaf(av[q], b[q].y, acc[i][1]);
+        acc[i][2] = fmaf(av[q], b[q].z, acc[i][2]);
+        acc[i][3] = fmaf(av[q], b[q].w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// The wide tile: 128 x 64 outputs a block, 256 threads, thread (ty, tx) =
+// (tid / 16, tid % 16) owns rows ty + 16 i (i < 8) and columns 4 tx + t;
+// K-steps of 64, double buffered by cp.async (2 blocks an SM; fewer
+// barriers than 32-deep steps in 3 stages, which ran 5-6% slower on an
+// H100).
+constexpr int kCsrBM = 128, kCsrBN = 64, kCsrBK = 64, kCsrStages = 2;
+constexpr int kCsrThreads = 256;
+constexpr int kCsrLDA = kCsrBK + 4;  // As row stride: the rows a warp
+                                     // reads at once on distinct banks
+constexpr int kCsrStage = kCsrBM * kCsrLDA + kCsrBK * kCsrBN;  // floats
+
+// The narrow tiles (R <= 64): BM x 16 outputs a block (BM = 16, 32, 64),
+// 256 threads in 64 / BM k-groups, each thread a 4 x 4 register tile of
+// rows rg + (BM / 4) i over its group's 16 BM / 64 rows of each 64-deep
+// K-step, 4 cp.async stages; the groups' partial tiles are added in group
+// order at the end (deterministic).
+constexpr int kNarBN = 16, kNarKD = 64, kNarStages = 4;
+constexpr int kNarLDA = kNarKD + 4;
+constexpr int kNarMaxRows = 64;
+
+__host__ __device__ constexpr int nar_stage(int BM) {
+  return BM * kNarLDA + kNarKD * kNarBN;
+}
+
+size_t bcsr_smem_bytes(int BM) {
+  return sizeof(float) * (BM > kNarMaxRows
+                              ? (size_t)kCsrStages * kCsrStage
+                              : (size_t)kNarStages * nar_stage(BM));
+}
+
+// y (R, n_cols) = x (R, N) @ S, S as nonzero (bs, bs) blocks sorted by
+// block column; col_start[j] .. col_start[j+1] is column j's segment. The
+// x tile of each block is chosen by block_row (data-dependent). An empty
+// segment writes zeros. x may sit on its own block grid (N != n_cols).
+// vec_x: x rows staged by 16-byte copies (N % 4 == 0, x aligned); vec_y:
+// 16-byte stores (n_cols % 4 == 0, y aligned).
+// Grid (n_cols / 64, R / 128), dynamic shared memory bcsr_smem_bytes(128).
+__global__ void __launch_bounds__(kCsrThreads, 2)
+bcsr_matmul_kernel(const float* __restrict__ x,
+                   const float* __restrict__ blocks,
+                   const int* __restrict__ block_row,
+                   const int* __restrict__ col_start, float* __restrict__ y,
+                   int R, int N, int n_cols, int bs, int vec_x, int vec_y) {
+  extern __shared__ __align__(16) float smem[];
+  const int c0 = blockIdx.x * kCsrBN;
+  const int r0 = blockIdx.y * kCsrBM;
+  const int j = c0 / bs, lc = c0 % bs;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int seg0 = col_start[j];
+  const int per_block = bs / kCsrBK;
+  const int n_steps = (col_start[j + 1] - seg0) * per_block;
+  // K-step s: block seg0 + s / per_block, depth (s % per_block) * kCsrBK
+  auto stage = [&](int s) {
+    float* As = smem + (s % kCsrStages) * kCsrStage;
+    const int kb = seg0 + s / per_block, kd = (s % per_block) * kCsrBK;
+    stage_x<kCsrBM, kCsrBK, kCsrThreads>(As, kCsrLDA, x, R, N, r0,
+                                         block_row[kb] * bs + kd, vec_x);
+    stage_s<kCsrBK, kCsrBN, kCsrThreads>(As + kCsrBM * kCsrLDA,
+                                         blocks + (int64_t)kb * bs * bs, bs,
+                                         kd, lc);
+  };
+  float acc[8][4] = {};
+#pragma unroll
+  for (int s = 0; s < kCsrStages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kCsrStages - 2>();
+    // step s has landed for every thread, and every thread is done with
+    // step s - 1, whose buffer the next stage refills
+    __syncthreads();
+    if (s + kCsrStages - 1 < n_steps) stage(s + kCsrStages - 1);
+    cp_async_commit();
+    const float* As = smem + (s % kCsrStages) * kCsrStage;
+    mac_rows<8, kCsrBK>(acc, As + ty * kCsrLDA, 16 * kCsrLDA,
+                        As + kCsrBM * kCsrLDA + 4 * tx, kCsrBN);
+  }
+  const int gc = c0 + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = r0 + ty + 16 * i;
+    if (gr >= R) continue;
+    float* d = y + (int64_t)gr * n_cols + gc;
+    if (vec_y && gc + 4 <= n_cols) {
+      *reinterpret_cast<float4*>(d) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (gc + t < n_cols) d[t] = acc[i][t];
+    }
+  }
+}
+
+// bcsr_matmul_kernel's function for R <= BM <= 64 rows: BM x 16 output
+// tiles, so that few rows still make n_cols / 16 blocks (256 at N = 4096),
+// and each S block streams once, in 64-byte rows of 16 columns. Grid
+// (n_cols / 16, R / BM), dynamic shared memory bcsr_smem_bytes(BM).
+template <int BM>
+__global__ void __launch_bounds__(kCsrThreads)
+bcsr_narrow_kernel(const float* __restrict__ x,
+                   const float* __restrict__ blocks,
+                   const int* __restrict__ block_row,
+                   const int* __restrict__ col_start, float* __restrict__ y,
+                   int R, int N, int n_cols, int bs, int vec_x) {
+  constexpr int kRG = BM / 4;                       // row groups
+  constexpr int kGroups = kCsrThreads / (kRG * 4);  // k-groups
+  constexpr int kSub = kNarKD / kGroups;            // a group's depth a step
+  constexpr int kStage = nar_stage(BM);
+  extern __shared__ __align__(16) float smem[];
+  const int c0 = blockIdx.x * kNarBN;
+  const int r0 = blockIdx.y * BM;
+  const int j = c0 / bs, lc = c0 % bs;
+  const int tid = threadIdx.x;
+  const int cg = tid % 4, rg = (tid / 4) % kRG, kg = tid / (4 * kRG);
+  const int seg0 = col_start[j];
+  const int per_block = bs / kNarKD;
+  const int n_steps = (col_start[j + 1] - seg0) * per_block;
+  auto stage = [&](int s) {
+    float* As = smem + (s % kNarStages) * kStage;
+    const int kb = seg0 + s / per_block, kd = (s % per_block) * kNarKD;
+    stage_x<BM, kNarKD, kCsrThreads>(As, kNarLDA, x, R, N, r0,
+                                     block_row[kb] * bs + kd, vec_x);
+    stage_s<kNarKD, kNarBN, kCsrThreads>(As + BM * kNarLDA,
+                                         blocks + (int64_t)kb * bs * bs, bs,
+                                         kd, lc);
+  };
+  float acc[4][4] = {};
+#pragma unroll
+  for (int s = 0; s < kNarStages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kNarStages - 2>();
+    __syncthreads();
+    if (s + kNarStages - 1 < n_steps) stage(s + kNarStages - 1);
+    cp_async_commit();
+    const float* As = smem + (s % kNarStages) * kStage;
+    mac_rows<4, kSub>(acc, As + rg * kNarLDA + kg * kSub, kRG * kNarLDA,
+                      As + BM * kNarLDA + kg * kSub * kNarBN + 4 * cg,
+                      kNarBN);
+  }
+  // the k-groups' partial tiles, added in group order
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the stages
+  float* red = smem;  // [kg][row][column]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(red + (kg * BM + rg + kRG * i) * kNarBN +
+                               4 * cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  for (int e = tid; e < BM * kNarBN; e += kCsrThreads) {
+    const int r = e / kNarBN, c = e % kNarBN;
+    float sum = red[e];
+    for (int g = 1; g < kGroups; ++g) sum += red[g * BM * kNarBN + e];
+    if (r0 + r < R && c0 + c < n_cols)
+      y[(int64_t)(r0 + r) * n_cols + c0 + c] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// band_register_kernel
+// ---------------------------------------------------------------------------
 
 // Shared memory of one band_register block: the slab panel and two staged
 // slices of TM * 16 rows x KD columns.
@@ -330,7 +565,7 @@ band_register_kernel(const float* __restrict__ x,
           stage_slice<BM, KD, kVec>(As + ((sl + 1) & 1) * BM * lda, src, R,
                                     N, r0, xc0 + (sl + 1) * KD);
         cp_async_commit();
-        cp_async_wait_prev();
+        cp_async_wait<1>();
         __syncthreads();
         const float* B =
             Sp + ((int64_t)t_lo * bs + sl * KD) * kPanel + tx * kTN;
@@ -401,6 +636,9 @@ struct NamedKernel {
 const NamedKernel kKernels[] = {
     {"band_matmul_kernel", (const void*)band_matmul_kernel},
     {"bcsr_matmul_kernel", (const void*)bcsr_matmul_kernel},
+    {"bcsr_narrow_kernel<16>", (const void*)bcsr_narrow_kernel<16>},
+    {"bcsr_narrow_kernel<32>", (const void*)bcsr_narrow_kernel<32>},
+    {"bcsr_narrow_kernel<64>", (const void*)bcsr_narrow_kernel<64>},
     GNT_REGISTER(kNarrowTM, kNarrowKD, true),
     GNT_REGISTER(kNarrowTM, kNarrowKD, false),
     GNT_REGISTER(kWideTM, kWideKD, true),
@@ -450,15 +688,40 @@ cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,
   return cudaGetLastError();
 }
 
+// The wide tile above kNarMaxRows rows, else the narrow one of the fewest
+// rows (16, 32 or 64) that holds R: a dispatch on the shape.
 cudaError_t gnt_bcsr_matmul(const float* x, const float* blocks,
                             const int* block_row, const int* col_start,
                             float* y, int R, int N, int n_cols, int bs,
                             cudaStream_t stream) {
-  if (bs % kBN != 0 || R <= 0 || n_cols <= 0) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(n_cols, kBN), cdiv(R, kBM));
+  if (bs % kNarKD != 0 || R <= 0 || n_cols <= 0 || N <= 0)
+    return cudaErrorInvalidValue;
+  if (!aligned16(blocks)) return cudaErrorMisalignedAddress;
+  const int vec_x = N % 4 == 0 && aligned16(x);
+  const int vec_y = n_cols % 4 == 0 && aligned16(y);
+  const int BM = R > kNarMaxRows ? kCsrBM : R > 32 ? 64 : R > 16 ? 32 : 16;
+  const void* fn = BM == kCsrBM ? (const void*)bcsr_matmul_kernel
+                   : BM == 64   ? (const void*)bcsr_narrow_kernel<64>
+                   : BM == 32   ? (const void*)bcsr_narrow_kernel<32>
+                                : (const void*)bcsr_narrow_kernel<16>;
+  const size_t smem = bcsr_smem_bytes(BM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(n_cols, BM == kCsrBM ? kCsrBN : kNarBN), cdiv(R, BM));
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  bcsr_matmul_kernel<<<grid, kThreads, 0, stream>>>(
-      x, blocks, block_row, col_start, y, R, N, n_cols, bs);
+  if (BM == kCsrBM)
+    bcsr_matmul_kernel<<<grid, kCsrThreads, smem, stream>>>(
+        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x, vec_y);
+  else if (BM == 64)
+    bcsr_narrow_kernel<64><<<grid, kCsrThreads, smem, stream>>>(
+        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
+  else if (BM == 32)
+    bcsr_narrow_kernel<32><<<grid, kCsrThreads, smem, stream>>>(
+        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
+  else
+    bcsr_narrow_kernel<16><<<grid, kCsrThreads, smem, stream>>>(
+        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
   return cudaGetLastError();
 }
 

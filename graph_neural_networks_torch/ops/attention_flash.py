@@ -41,7 +41,9 @@ The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
 once per band-mode ``Gso`` by :func:`band_auxes`, on the Gso's device, and
 cached on the Gso (the JAX functions rebuild it inside every call); the
-entry points take it as the required ``auxes=``.
+entry points take it as the required ``auxes=``. It includes the support
+as entry lists (:class:`SupportLists`), which the apply kernel's scores
+walk on CUDA.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ INFINITE = 1e12  # reference's additive -inf (graphML.py:73)
 # Output column tile of the apply kernel (kCT in attention_flash.cu): the
 # CUDA path needs the block size ibs to be a multiple of it.
 TILE_N = 64
+# Window rows the apply kernel stages a step (kAP), in 4-row groups.
+APPLY_CHUNK = 32
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +83,19 @@ class BandAux(NamedTuple):
     mask_col : the support of S+I as 0/1 floats, in the same layout
     mask_row : (nb, W, ibs, ibs) -- mask_row[i, k] = the support at
                [rows i, cols i+k-w]
+    sup_entries, sup_offs : mask_col's :class:`SupportLists` (what the
+               apply kernel reads: :attr:`lists`), empty where ibs is not
+               a multiple of TILE_N
     """
     slab_col: torch.Tensor
     mask_col: torch.Tensor
     mask_row: torch.Tensor
+    sup_entries: torch.Tensor
+    sup_offs: torch.Tensor
+
+    @property
+    def lists(self) -> SupportLists:
+        return SupportLists(self.sup_entries, self.sup_offs)
 
 
 def make_support(slab5: torch.Tensor, w: int,
@@ -102,16 +115,24 @@ def row_layout(t_col: torch.Tensor, w: int) -> torch.Tensor:
     return _diag_win(torch.flip(t_col, dims=(-3,)), w)
 
 
-def make_aux(slab5_e: torch.Tensor, support: torch.Tensor, w: int) -> BandAux:
+def make_aux(slab5_e: torch.Tensor, support: torch.Tensor, w: int,
+             lists: Optional[SupportLists] = None) -> BandAux:
     """BandAux for ONE edge feature's slab (nb, W, ibs, ibs); `support`
-    from :func:`make_support`."""
-    return BandAux(slab5_e.contiguous(), support, row_layout(support, w))
+    from :func:`make_support`, `lists` its entry lists (built here if not
+    given)."""
+    if lists is None:
+        lists = support_lists_or_empty(support)
+    return BandAux(slab5_e.contiguous(), support, row_layout(support, w),
+                   *lists)
 
 
 def _auxes(slab5: torch.Tensor, w: int) -> list:
-    """Per-edge-feature BandAux list (shared S+I support)."""
+    """Per-edge-feature BandAux list (shared S+I support and its entry
+    lists)."""
     support = make_support(slab5, w, slab5.dtype)
-    return [make_aux(slab5[e], support, w) for e in range(slab5.shape[0])]
+    lists = support_lists_or_empty(support)
+    return [make_aux(slab5[e], support, w, lists)
+            for e in range(slab5.shape[0])]
 
 
 def slab5(gso) -> torch.Tensor:
@@ -120,10 +141,65 @@ def slab5(gso) -> torch.Tensor:
     return gso.s_band.view(E, nb, Wibs // ibs, ibs, ibs)
 
 
+class SupportLists(NamedTuple):
+    """The S+I support of a column-layout mask (nb, W, ibs, ibs) as lists
+    of entries, what the apply kernel's scores walk instead of the dense
+    mask tiles. Chunk (j, h, k, pc) -- output columns j*ibs + 64 h .. + 64,
+    window block k, rows pc*32 .. + 32 of it -- has id
+    ((j * ibs/64 + h) * W + k) * ibs/32 + pc.
+
+    entries : (n,) int16 -- each chunk's support as p * 64 + c (row p < 32,
+              column c < 64 of the chunk), in row-major order, padded with
+              -1 to a multiple of 8 entries (16 bytes)
+    offsets : (n_chunks, 9) int32 -- offsets[i, g] is the index in entries
+              of chunk i's first entry in rows 4g and up; offsets[i, 8] the
+              end of its entries (before the padding)
+    """
+    entries: torch.Tensor
+    offsets: torch.Tensor
+
+
+def support_lists(mask_col: torch.Tensor) -> SupportLists:
+    """:class:`SupportLists` of a 0/1 column-layout mask, on its device
+    (ibs a multiple of 64). Deterministic: nonzero's row-major order."""
+    nb, W, ibs, _ = mask_col.shape
+    if ibs % TILE_N:
+        raise ValueError(f"support_lists: ibs={ibs} is not a multiple of "
+                         f"{TILE_N}")
+    nh, cpb = ibs // TILE_N, ibs // APPLY_CHUNK
+    n = nb * nh * W * cpb
+    m = (mask_col.reshape(nb, W, cpb, APPLY_CHUNK, nh, TILE_N)
+         .permute(0, 4, 1, 2, 3, 5).reshape(n, APPLY_CHUNK * TILE_N) != 0)
+    counts = m.sum(1)
+    padded = (counts + 7) // 8 * 8
+    start = torch.cumsum(padded, 0) - padded
+    chunk, idx = m.nonzero(as_tuple=True)
+    rank = (torch.arange(len(idx), device=m.device)
+            - (torch.cumsum(counts, 0) - counts)[chunk])
+    entries = torch.full((max(int(padded.sum()), 8),), -1,
+                         dtype=torch.int16, device=m.device)
+    entries[start[chunk] + rank] = idx.to(torch.int16)
+    groups = m.reshape(n, APPLY_CHUNK // 4, 4 * TILE_N).sum(2)
+    offsets = torch.cat([torch.zeros_like(groups[:, :1]),
+                         torch.cumsum(groups, 1)], 1) + start[:, None]
+    return SupportLists(entries, offsets.to(torch.int32).contiguous())
+
+
+def support_lists_or_empty(support: torch.Tensor) -> SupportLists:
+    """:func:`support_lists` of a support, or empty lists where ibs is not
+    a multiple of TILE_N (no kernel tiles it; the plain versions read the
+    mask)."""
+    if support.shape[-1] % TILE_N == 0:
+        return support_lists(support)
+    dev = support.device
+    return SupportLists(torch.zeros(0, dtype=torch.int16, device=dev),
+                        torch.zeros((0, 9), dtype=torch.int32, device=dev))
+
+
 def band_auxes(gso) -> list:
     """The per-edge-feature BandAux of a band-mode Gso, built on first use
     on the Gso's device and cached on it (3 (nb, W, ibs, ibs) tensors a
-    feature, 126 MB at N = 16384).
+    feature, 126 MB at N = 16384, and the support's entry lists).
 
     Built outside inference mode even when first asked for inside it (as
     ``InferenceEngine`` does at its first request): the cache outlives the
@@ -176,8 +252,8 @@ def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                 ibs: int, with_s: bool = True,
                 slope: float = 0.2) -> torch.Tensor:
     """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha re-derived from
-    (a1x, a2x, rowmax, rowsum); v (Q, F, Np), the rest (Q, Np) and
-    (nb, W, ibs, ibs)."""
+    (a1x, a2x, rowmax, rowsum) as exp(score - rowmax) * (1 / rowsum) * m;
+    v (Q, F, Np), the rest (Q, Np) and (nb, W, ibs, ibs)."""
     Q, F, Np = v.shape
     nb = Np // ibs
 
@@ -186,8 +262,9 @@ def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
 
     e = _masked_scores(rows(a2x), a1x.reshape(Q, nb, 1, 1, ibs),
                        mask_col[None], slope)             # Q, nb, W, p, c
-    al = (torch.exp(e - rows(rowmax)) / rows(rowsum).clamp_min(1e-30)
-          * mask_col[None])
+    # one reciprocal of rowsum a row, as the kernel
+    rinv = 1.0 / rows(rowsum).clamp_min(1e-30)
+    al = torch.exp(e - rows(rowmax)) * rinv * mask_col[None]
     coeff = al * slab_col[None] if with_s else al
     vw = _win(v.reshape(Q, F, nb, ibs), w)                # Q, F, nb, W, p
     y = torch.einsum("qjkpc,qfjkp->qfjc", coeff, vw)
@@ -210,7 +287,7 @@ def _bwd_windowed(a1w, a2x, v, rowmax, rowsum, s_row, mask_row, gw,
 
     def rows(t):   # (Q, Np) -> (Q, nb, 1, ibs, 1)
         return t.reshape(Q, nb, 1, ibs, 1)
-    # one reciprocal of rowsum a row, as the kernel (apply divides)
+    # one reciprocal of rowsum a row, as the kernel
     rinv = 1.0 / rows(rowsum).clamp_min(1e-30)
     al = torch.exp(e - rows(rowmax)) * rinv * m
     dco = torch.einsum("qfip,qfikc->qikpc", v.reshape(Q, F, nb, ibs), gw)
@@ -322,13 +399,36 @@ def stats_call(a1x: torch.Tensor, a2x: torch.Tensor, mask_row: torch.Tensor,
 stats_call.launches = 0
 
 
+def _lists_ptrs(name: str, lists: Optional[SupportLists],
+                mask_col: torch.Tensor):
+    """The apply launchers' sup_entries, sup_offs: the pointers of
+    mask_col's entry lists, built once with the band structure; raises if
+    they are missing or do not fit mask_col."""
+    if lists is None:
+        raise ValueError(f"{name}: the kernel reads the support's entry "
+                         "lists: pass lists=support_lists(mask_col), built "
+                         "once with the band structure (BandAux.lists)")
+    nb, W, ibs, _ = mask_col.shape
+    n = nb * (ibs // TILE_N) * W * (ibs // APPLY_CHUNK)
+    if tuple(lists.offsets.shape) != (n, 9):
+        raise ValueError(f"{name}: lists.offsets "
+                         f"{tuple(lists.offsets.shape)} do not fit mask_col "
+                         f"{tuple(mask_col.shape)}: expected ({n}, 9)")
+    kernels.on_cuda(name, mask_col, *lists)
+    kernels.check_inputs(name, entries=(lists.entries, torch.int16),
+                         offsets=(lists.offsets, torch.int32))
+    return lists.entries.data_ptr(), lists.offsets.data_ptr()
+
+
 def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                rowmax: torch.Tensor, rowsum: torch.Tensor,
                slab_col: torch.Tensor, mask_col: torch.Tensor, *, w: int,
-               ibs: int, with_s: bool = True,
-               slope: float = 0.2) -> torch.Tensor:
+               ibs: int, with_s: bool = True, slope: float = 0.2,
+               lists: Optional[SupportLists] = None) -> torch.Tensor:
     """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha recomputed tile
-    by tile from a1x, a2x and the stats of :func:`stats_call`.
+    by tile from a1x, a2x and the stats of :func:`stats_call`. lists:
+    mask_col's :func:`support_lists`, on whose entries the kernel runs the
+    scores; required on CUDA (BandAux.lists), unused by the plain version.
 
     CUDA kernel: ``attn_apply_kernel`` in kernels/csrc/attention_flash.cu,
     replacing the Pallas kernel of the JAX package's
@@ -352,12 +452,13 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                          rowsum=(rowsum, f32), slab_col=(slab_col, f32),
                          mask_col=(mask_col, f32))
     _check_tile("apply_call", ibs)
+    sup = _lists_ptrs("apply_call", lists, mask_col)
     y = torch.empty((Q, F, Np), dtype=f32, device=v.device)
     if Q == 0 or F == 0:
         return y
     err = kernels.library().gnt_attn_apply(
-        *(t.data_ptr() for t in operands), y.data_ptr(), Q, F, Np, nb, w,
-        ibs, int(with_s), slope, kernels.stream())
+        *(t.data_ptr() for t in operands[:6]), *sup, y.data_ptr(), Q, F, Np,
+        nb, w, ibs, int(with_s), slope, kernels.stream())
     kernels.check(err, "apply_call")
     apply_call.launches += 1
     return y
@@ -467,11 +568,14 @@ def apply_ext_plain(a1x: torch.Tensor, a2_ext: torch.Tensor,
                     v_ext: torch.Tensor, mx_ext: torch.Tensor,
                     sm_ext: torch.Tensor, slab_col: torch.Tensor,
                     mask_col: torch.Tensor, *, w: int, ibs: int,
-                    with_s: bool = True, slope: float = 0.2) -> torch.Tensor:
+                    with_s: bool = True, slope: float = 0.2,
+                    lists: Optional[SupportLists] = None) -> torch.Tensor:
     """y (Q, F, Np) for the shard's own output columns: alpha re-derived
     from a1x (Q, Np) own and the halo-extended rows a2_ext, mx_ext, sm_ext
     (Q, Np + 2*w*ibs), aggregated over v_ext (Q, F, Np + 2*w*ibs);
-    slab_col, mask_col (nbl, W, ibs, ibs)."""
+    slab_col, mask_col (nbl, W, ibs, ibs). lists, the kernel's entry
+    lists, is not read (mask_col is): it is taken so that the sharded
+    schedule calls this and :func:`apply_ext_call` alike."""
     Q, Np = a1x.shape
     F = v_ext.shape[1]
     nbl, W = Np // ibs, 2 * w + 1
@@ -481,10 +585,11 @@ def apply_ext_plain(a1x: torch.Tensor, a2_ext: torch.Tensor,
 
     e = _masked_scores(rows(a2_ext), a1x.reshape(Q, nbl, 1, 1, ibs),
                        mask_col[None], slope)             # Q, nbl, W, p, c
-    # the stats are zero past the global ends, where mask_col is 0: the
-    # guard keeps alpha 0 there, not 0/0
-    al = (torch.exp(e - rows(mx_ext)) / rows(sm_ext).clamp_min(1e-30)
-          * mask_col[None])
+    # one reciprocal of rowsum a row, as the kernel; the stats are zero
+    # past the global ends, where mask_col is 0: the guard keeps alpha 0
+    # there (exp(-1e12) * 1e30 * 0), not 0/0
+    rinv = 1.0 / rows(sm_ext).clamp_min(1e-30)
+    al = torch.exp(e - rows(mx_ext)) * rinv * mask_col[None]
     coeff = al * slab_col[None] if with_s else al
     vw = _ext_win(v_ext.reshape(Q, F, nbl + 2 * w, ibs), nbl, W)
     y = torch.einsum("qjkpc,qfjkp->qfjc", coeff, vw)
@@ -580,11 +685,12 @@ def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
                    v_ext: torch.Tensor, mx_ext: torch.Tensor,
                    sm_ext: torch.Tensor, slab_col: torch.Tensor,
                    mask_col: torch.Tensor, *, w: int, ibs: int,
-                   with_s: bool = True, slope: float = 0.2) -> torch.Tensor:
+                   with_s: bool = True, slope: float = 0.2,
+                   lists: Optional[SupportLists] = None) -> torch.Tensor:
     """y (Q, F, Np) = v @ (alpha (* S)) for one shard's own output columns:
     a1x (Q, Np) own; a2_ext, mx_ext, sm_ext (Q, Np + 2*w*ibs) and v_ext
     (Q, F, Np + 2*w*ibs) halo-extended rows; slab_col, mask_col
-    (nbl, W, ibs, ibs).
+    (nbl, W, ibs, ibs); lists as in :func:`apply_call`.
 
     CUDA kernel: ``attn_apply_kernel<true>`` in
     kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
@@ -608,12 +714,13 @@ def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
                          mx_ext=(mx_ext, f32), sm_ext=(sm_ext, f32),
                          slab_col=(slab_col, f32), mask_col=(mask_col, f32))
     _check_ext_kernel("apply_ext_call", nbl, w, ibs)
+    sup = _lists_ptrs("apply_ext_call", lists, mask_col)
     y = torch.empty((Q, F, Np), dtype=f32, device=a1x.device)
     if Q == 0 or F == 0:
         return y
     err = kernels.library().gnt_attn_apply_ext(
-        *(t.data_ptr() for t in operands), y.data_ptr(), Q, F, Np, nbl, w,
-        ibs, int(with_s), slope, kernels.stream())
+        *(t.data_ptr() for t in operands[:6]), *sup, y.data_ptr(), Q, F, Np,
+        nbl, w, ibs, int(with_s), slope, kernels.stream())
     kernels.check(err, "apply_ext_call")
     apply_ext_call.launches += 1
     return y
@@ -700,7 +807,8 @@ class FlashApply(torch.autograd.Function):
         rowmax, rowsum = stats_call(a1x, a2x, aux.mask_row, w=w, ibs=ibs,
                                     slope=slope)
         y = apply_call(a1x, a2x, v, rowmax, rowsum, aux.slab_col,
-                       aux.mask_col, w=w, ibs=ibs, with_s=with_s, slope=slope)
+                       aux.mask_col, w=w, ibs=ibs, with_s=with_s, slope=slope,
+                       lists=aux.lists)
         ctx.save_for_backward(a1x, a2x, v, rowmax, rowsum)
         ctx.aux, ctx.cfg = aux, (w, ibs, with_s, slope)
         return y

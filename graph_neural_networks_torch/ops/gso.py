@@ -36,7 +36,9 @@ class Gso:
     S : (E, N, N) dense GSO (None only if dropped by the caller).
     s_band, s_band_t : (E, nb, (2w+1)*bs, bs) band slab of S and of S^T.
     blocks, blocks_t : (E, nnzb, bs, bs) BCSR blocks of S and of S^T, with
-        (nnzb,) int32 block_row/block_col (and *_t) shared by all E.
+        (nnzb,) int32 block_row/block_col (and *_t) shared by all E, and
+        each layout's (nb + 1,) int32 segment offsets col_start (and
+        col_start_t; ``spmm.bcsr_col_start``), built once with it.
     The transposed layouts serve the backward shift (spmm.BandShift,
     BandRegister, BcsrShift).
     """
@@ -55,6 +57,8 @@ class Gso:
     blocks_t: Optional[torch.Tensor] = None
     block_row_t: Optional[torch.Tensor] = None
     block_col_t: Optional[torch.Tensor] = None
+    col_start: Optional[torch.Tensor] = None
+    col_start_t: Optional[torch.Tensor] = None
 
     @property
     def N(self) -> int:
@@ -108,7 +112,7 @@ def _band_layouts(S: np.ndarray, block_size: int):
 
 def _bcsr_layouts(S: np.ndarray, block_size: int):
     """BCSR blocks of every S[e] on one shared pattern, and the transposed
-    layout."""
+    layout; each with its segment offsets (``spmm.bcsr_col_start``)."""
     E = S.shape[0]
     blocks, brow, bcol = [], None, None
     for e in range(E):
@@ -125,8 +129,10 @@ def _bcsr_layouts(S: np.ndarray, block_size: int):
             break
     blocks = np.stack(blocks)
     tr = [spmm.bcsr_transpose(blocks[e], brow, bcol) for e in range(E)]
-    return (blocks, brow, bcol, np.stack([t[0] for t in tr]), tr[0][1],
-            tr[0][2])
+    N = S.shape[1]
+    return (blocks, brow, bcol, spmm.bcsr_col_start(bcol, N, block_size),
+            np.stack([t[0] for t in tr]), tr[0][1], tr[0][2],
+            spmm.bcsr_col_start(tr[0][2], N, block_size))
 
 
 def as_gso(S, mode: str = "dense", block_size: int = 128,
@@ -153,12 +159,12 @@ def as_gso(S, mode: str = "dense", block_size: int = 128,
         s_band, s_band_t, w = _band_layouts(S, block_size)
         gso.s_band, gso.s_band_t, gso.band_w = f32(s_band), f32(s_band_t), w
     elif mode == "bcsr":
-        blocks, brow, bcol, blocks_t, brow_t, bcol_t = _bcsr_layouts(
-            S, block_size)
-        gso.blocks, gso.block_row, gso.block_col = \
-            f32(blocks), i32(brow), i32(bcol)
-        gso.blocks_t, gso.block_row_t, gso.block_col_t = \
-            f32(blocks_t), i32(brow_t), i32(bcol_t)
+        (blocks, brow, bcol, cs, blocks_t, brow_t, bcol_t,
+         cs_t) = _bcsr_layouts(S, block_size)
+        gso.blocks, gso.block_row, gso.block_col, gso.col_start = \
+            f32(blocks), i32(brow), i32(bcol), i32(cs)
+        gso.blocks_t, gso.block_row_t, gso.block_col_t, gso.col_start_t = \
+            f32(blocks_t), i32(brow_t), i32(bcol_t), i32(cs_t)
     return gso
 
 
@@ -198,7 +204,8 @@ def gshift(gso, x: torch.Tensor) -> torch.Tensor:
         outs = [spmm.BcsrShift.apply(xg[e], gso.blocks[e], gso.block_row,
                                      gso.block_col, gso.blocks_t[e],
                                      gso.block_row_t, gso.block_col_t, N,
-                                     gso.block_size)
+                                     gso.block_size, gso.col_start,
+                                     gso.col_start_t)
                 for e in range(E)]
     y = torch.stack(outs).reshape((E,) + shp[:-3] + shp[-2:-1] + (N,))
     return torch.movedim(y, 0, -3)

@@ -34,6 +34,8 @@ raise NotImplementedError naming the Function to call.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -336,16 +338,36 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
 band_shift_register.launches = 0
 
 
+def bcsr_col_start(block_col, n_cols: int, block_size: int = 128):
+    """The first block of each output block column's segment, (nb + 1,)
+    int32 with nb = ceil(n_cols / bs): column j's blocks are
+    ``col_start[j]:col_start[j + 1]`` of a layout sorted by column. numpy
+    in, numpy out (what a Gso caches with its layout); a tensor in, a
+    tensor on its device out."""
+    nb = _cdiv(n_cols, block_size)
+    if isinstance(block_col, torch.Tensor):
+        return torch.searchsorted(
+            block_col, torch.arange(nb + 1, dtype=torch.int32,
+                                    device=block_col.device),
+            out_int32=True)
+    return np.searchsorted(np.asarray(block_col),
+                           np.arange(nb + 1)).astype(np.int32)
+
+
 def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
                 block_row: torch.Tensor, block_col: torch.Tensor, *,
-                n_cols: int, block_size: int = 128) -> torch.Tensor:
+                n_cols: int, block_size: int = 128,
+                col_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ S with S in the BCSR layout: x (R, N), blocks (nnzb, bs,
     bs), block_row/block_col (nnzb,) int32 sorted by column -> y (R,
     n_cols). n_cols may differ from N: block_row indexes x's block
     columns, block_col the output's. Empty output columns are zero.
+    col_start: the layout's segment offsets (:func:`bcsr_col_start`), as a
+    Gso caches them; without it the CUDA path computes them on the card.
 
-    CUDA kernel: ``bcsr_matmul_kernel`` in kernels/csrc/spmm.cu, replacing
-    the Pallas kernel of the JAX package's ``ops/spmm.py:bcsr_matmul``.
+    CUDA kernel: ``bcsr_matmul_kernel`` (and ``bcsr_narrow_kernel`` at
+    most 64 rows) in kernels/csrc/spmm.cu, replacing the Pallas kernel of
+    the JAX package's ``ops/spmm.py:bcsr_matmul``.
     """
     R, N = x.shape
     bs = block_size
@@ -356,18 +378,22 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
         raise ValueError(f"bcsr_matmul: layout shapes {tuple(blocks.shape)}, "
                          f"{tuple(block_row.shape)}, "
                          f"{tuple(block_col.shape)} do not fit bs={bs}")
-    if not kernels.on_cuda("bcsr_matmul", x, blocks, block_row, block_col):
+    nb = _cdiv(n_cols, bs)
+    if col_start is not None and tuple(col_start.shape) != (nb + 1,):
+        raise ValueError(f"bcsr_matmul: col_start {tuple(col_start.shape)} "
+                         f"does not fit n_cols={n_cols}, bs={bs}")
+    cached = () if col_start is None else (col_start,)
+    if not kernels.on_cuda("bcsr_matmul", x, blocks, block_row, block_col,
+                           *cached):
         return bcsr_matmul_plain(x, blocks, block_row, block_col,
                                  n_cols=n_cols, block_size=bs)
     _check_kernel_inputs("bcsr_matmul", bs, x=(x, torch.float32),
                          blocks=(blocks, torch.float32),
                          block_row=(block_row, torch.int32),
                          block_col=(block_col, torch.int32))
-    nb = _cdiv(n_cols, bs)
-    # first block of each column segment (blocks sorted by column)
-    col_start = torch.searchsorted(
-        block_col, torch.arange(nb + 1, dtype=torch.int32, device=x.device),
-        out_int32=True)
+    if col_start is None:
+        col_start = bcsr_col_start(block_col, n_cols, bs)
+    kernels.check_inputs("bcsr_matmul", col_start=(col_start, torch.int32))
     y = torch.empty((R, n_cols), dtype=torch.float32, device=x.device)
     if R == 0:
         return y
@@ -419,25 +445,29 @@ class BandShift(torch.autograd.Function):
 
 class BcsrShift(torch.autograd.Function):
     """y = x @ S on the BCSR blocks; dx = g @ S^T on the transposed layout
-    (JAX ``spmm.bcsr_shift``). S is square: x (R, n_cols)."""
+    (JAX ``spmm.bcsr_shift``). S is square: x (R, n_cols). col_start and
+    col_start_t: the two layouts' cached segment offsets (a Gso's), or
+    None."""
 
     @staticmethod
     def forward(ctx, x, blocks, block_row, block_col, blocks_t, block_row_t,
-                block_col_t, n_cols: int, block_size: int = 128):
-        ctx.layout_t = (blocks_t, block_row_t, block_col_t)
+                block_col_t, n_cols: int, block_size: int = 128,
+                col_start=None, col_start_t=None):
+        ctx.layout_t = (blocks_t, block_row_t, block_col_t, col_start_t)
         ctx.cfg = (n_cols, block_size)
         return bcsr_matmul(x, blocks, block_row, block_col, n_cols=n_cols,
-                           block_size=block_size)
+                           block_size=block_size, col_start=col_start)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 9
+            return (None,) * 11
         n_cols, bs = ctx.cfg
-        dx = bcsr_matmul(g.contiguous(), *ctx.layout_t, n_cols=n_cols,
-                         block_size=bs)
-        return (dx,) + (None,) * 8
+        blocks_t, block_row_t, block_col_t, col_start_t = ctx.layout_t
+        dx = bcsr_matmul(g.contiguous(), blocks_t, block_row_t, block_col_t,
+                         n_cols=n_cols, block_size=bs, col_start=col_start_t)
+        return (dx,) + (None,) * 10
 
 
 class BandRegister(torch.autograd.Function):

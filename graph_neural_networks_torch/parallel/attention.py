@@ -148,8 +148,9 @@ class ShardedBandAttention:
         self.use_flash = bool(local_flash)
         self.grid = mesh.grid(axis, data_axis)
         # each shard's halo-extended slab (E, nbl + 2w, W, ibs, ibs), its
-        # own slab (a view of it) and masks (nbl, W, ibs, ibs), built once
-        # on every device that runs that shard
+        # own slab (a view of it), masks (nbl, W, ibs, ibs) and, for the
+        # flash apply, the column mask's entry lists, built once on every
+        # device that runs that shard
         mc, mr = _row_col_masks(part)
         slabs_ext = _ext_slabs(part)
         w, nbl = part.w, part.nbl
@@ -159,8 +160,10 @@ class ShardedBandAttention:
                 if (dev, p) not in self._shard_ops:
                     ext, mcol, mrow = (torch.as_tensor(t[p], device=dev)
                                        for t in (slabs_ext, mc, mr))
+                    lists = (af.support_lists_or_empty(mcol)
+                             if self.use_flash else None)
                     self._shard_ops[dev, p] = (ext[:, w:w + nbl], mcol,
-                                               mrow, ext)
+                                               mrow, ext, lists)
 
     def apply(self, a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
               e: int = 0, with_s: bool = True) -> torch.Tensor:
@@ -204,7 +207,8 @@ class ShardedBandAttention:
             mxe = halo_ext([s[0] for s in st], halo)
             sme = halo_ext([s[1] for s in st], halo)
             y = [apply(a1s[p], a2e[p], ve[p], mxe[p], sme[p], ops[p][0][e],
-                       ops[p][1], w=w, ibs=ibs, with_s=with_s)
+                       ops[p][1], w=w, ibs=ibs, with_s=with_s,
+                       lists=ops[p][4])
                  for p in range(len(devs))]
             ys.append(torch.cat([t.to(a1x.device) for t in y], dim=-1))
             if saved is not None:

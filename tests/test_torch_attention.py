@@ -93,9 +93,12 @@ def test_band_aux_bit_equal_to_jax(N, half, ibs, E):
     jaux = jaf._auxes(jfilters._slab5(jg), jg.band_w)
     assert len(taux) == len(jaux) == E
     for t, j in zip(taux, jaux):
-        for name in taf.BandAux._fields:
+        for name in ("slab_col", "mask_col", "mask_row"):
             assert np.array_equal(getattr(t, name).numpy(),
                                   np.asarray(getattr(j, name))), name
+        # the apply kernel's entry lists, which the JAX package has no
+        # counterpart of: empty at ibs < 64, which no kernel tiles
+        assert t.sup_entries.numel() == 0 and t.sup_offs.shape == (0, 9)
     # built once per Gso, kept across a same-device move
     assert taf.band_auxes(tg) is taux
     assert taf.band_auxes(tg.to("cpu")) is taux
@@ -141,6 +144,139 @@ def test_apply_plain_matches_jax_kernel(N, half, ibs, with_s):
     # masked entries give exactly zero, never NaN
     assert torch.isfinite(got).all()
     assert taf.apply_call.launches == 0
+
+
+def _holes_graph(N=96, seed=11):
+    """A w = 2 band at ibs 16 with no support in the whole window tile of
+    row block 1 and column block 3 (mask_col[3, 0]), nor in the 8 x 8
+    sub-tile at rows 64..72, columns 80..88 (mask_col[5, 1, :8, :8]): the
+    CUDA apply kernel skips both."""
+    S = _graph(N, 20, 1, seed)
+    S[0, 16:32, 48:64] = 0
+    S[0, 64:72, 80:88] = 0
+    return S
+
+
+def _block_diagonal_graph(N=64, ibs=16, seed=12):
+    """Support inside the diagonal blocks only: w = 0."""
+    rng = np.random.default_rng(seed)
+    S = np.zeros((1, N, N), np.float32)
+    ii = rng.integers(0, N, 4 * N)
+    jj = ii // ibs * ibs + rng.integers(0, ibs, 4 * N)
+    ok = jj < N
+    S[0, ii[ok], jj[ok]] = rng.random(ok.sum())
+    return S
+
+
+@pytest.mark.parametrize("with_s", [True, False])
+@pytest.mark.parametrize("case", ["holes", "w0"])
+def test_apply_plain_reciprocal_form_matches_jax_kernel(case, with_s):
+    """apply_plain in the kernel's form (one reciprocal of rowsum a row:
+    exp(s - rowmax) * (1 / rowsum) * m) against the JAX _apply_call, which
+    divides every score, at the unchanged tolerance: on a graph with an
+    empty window tile and an empty sub-tile, and at w = 0."""
+    ibs, Q, F = 16, 3, 4
+    S = _holes_graph() if case == "holes" else _block_diagonal_graph()
+    tg = tgso.as_gso(S, mode="band", block_size=ibs, device="cpu")
+    jg = jgso.as_gso(S, mode="band", block_size=ibs)
+    w = tg.band_w
+    taux = taf.band_auxes(tg)[0]
+    if case == "holes":
+        assert w == 2
+        assert not taux.mask_col[3, 0].any()
+        assert not taux.mask_col[5, 1, :8, :8].any()
+        assert taux.mask_col[5, 1].any()
+    else:
+        assert w == 0
+    rng = np.random.default_rng(13)
+    N, Np = S.shape[1], tg.s_band.shape[1] * ibs
+    a1, a2 = (np.pad(rng.standard_normal((Q, N)).astype(np.float32),
+                     ((0, 0), (0, Np - N))) for _ in range(2))
+    v = np.pad(rng.standard_normal((Q, F, N)).astype(np.float32),
+               ((0, 0), (0, 0), (0, Np - N)))
+    jaux = jaf._auxes(jfilters._slab5(jg), w)[0]
+    with pltpu.force_tpu_interpret_mode():
+        jmx, jsm = jaf._stats_call(*_j(a1, a2), jaux.mask_row, w, ibs, 0.2,
+                                   True)
+        want = jaf._apply_call(*_j(a1, a2, v), jmx, jsm, jaux.slab_col,
+                               jaux.mask_col, w, ibs, with_s, 0.2, True)
+    mx, sm = (torch.from_numpy(np.array(t).reshape(a1.shape))
+              for t in (jmx, jsm))
+    got = taf.apply_plain(*_t(a1, a2, v), mx, sm, taux.slab_col,
+                          taux.mask_col, w=w, ibs=ibs, with_s=with_s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("case", ["band", "holes"])
+def test_support_lists_cover_the_support(case):
+    """support_lists, the apply kernel's entry lists: every listed entry
+    lies on the support of mask_col, every support entry is listed once,
+    in row-major order within its chunk; each 4-row group's offsets bound
+    its rows; chunks start 16-byte aligned with -1 padding; the result is
+    deterministic, and band_auxes builds it once, shared by the edge
+    features' BandAux."""
+    ibs = 64
+    S = _graph(256, 80, 1, 21)
+    if case == "holes":
+        S[0, 0:64, 128:192] = 0          # mask_col[2, 0]: a whole tile
+        S[0, 96:128, 128:192] = 0        # and a 32-row chunk of k = 1
+    S = np.concatenate([S, 0.5 * S])     # two edge features
+    tg = tgso.as_gso(S, mode="band", block_size=ibs, device="cpu")
+    auxes = taf.band_auxes(tg)
+    mask = auxes[0].mask_col
+    nb, W = mask.shape[:2]
+    sup = taf.support_lists(mask)
+    entries, offsets = sup.entries.long(), sup.offsets.long()
+    n_chunks = nb * W * (ibs // taf.TILE_N) * (ibs // taf.APPLY_CHUNK)
+    assert offsets.shape == (n_chunks, 9)
+    listed = torch.zeros_like(mask)
+    cid = 0
+    for j in range(nb):
+        for h in range(ibs // taf.TILE_N):
+            for k in range(W):
+                for pc in range(ibs // taf.APPLY_CHUNK):
+                    o = offsets[cid]
+                    assert o[0] % 8 == 0
+                    got = entries[o[0]:o[8]]
+                    assert torch.equal(got, got.sort().values)
+                    p, c = got // taf.TILE_N, got % taf.TILE_N
+                    for g in range(8):
+                        rows = entries[o[g]:o[g + 1]] // taf.TILE_N
+                        assert ((rows >= 4 * g) & (rows < 4 * g + 4)).all()
+                    pad = -(-int(o[8] - o[0]) // 8) * 8
+                    assert (entries[o[8]:o[0] + pad] == -1).all()
+                    r0 = pc * taf.APPLY_CHUNK
+                    listed[j, k, r0 + p, h * taf.TILE_N + c] += 1
+                    cid += 1
+    np.testing.assert_array_equal(listed.numpy(), (mask != 0).numpy())
+    if case == "holes":
+        assert not mask[2, 0].any() and not mask[2, 1, 32:64].any()
+    again = taf.support_lists(mask)
+    assert torch.equal(again.entries, sup.entries)
+    assert torch.equal(again.offsets, sup.offsets)
+    for aux in auxes:
+        assert aux.sup_entries is auxes[0].sup_entries
+        assert aux.sup_offs is auxes[0].sup_offs
+    assert torch.equal(auxes[0].lists.entries, sup.entries)
+    assert torch.equal(auxes[0].lists.offsets, sup.offsets)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        taf.support_lists(torch.ones(2, 3, 32, 32))
+
+
+def test_apply_lists_checked():
+    """The apply wrappers' entry lists: missing lists, and lists of
+    another mask's shape, are refused before any launch; the band
+    structure's own lists are taken."""
+    S = _graph(256, 80, 1, 21)
+    aux = taf.band_auxes(tgso.as_gso(S, mode="band", block_size=64,
+                                     device="cpu"))[0]
+    with pytest.raises(ValueError, match="entry lists"):
+        taf._lists_ptrs("apply_call", None, aux.mask_col)
+    with pytest.raises(ValueError, match="do not fit"):
+        taf._lists_ptrs("apply_call", aux.lists, aux.mask_col[1:])
+    assert taf._lists_ptrs("apply_call", aux.lists, aux.mask_col) == (
+        aux.sup_entries.data_ptr(), aux.sup_offs.data_ptr())
 
 
 @pytest.mark.parametrize("with_s", [True, False])

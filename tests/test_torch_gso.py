@@ -59,6 +59,49 @@ def test_layouts_match(mode, E):
         assert t.block_row.dtype == torch.int32
 
 
+@pytest.mark.parametrize("E", [1, 2])
+def test_bcsr_segment_offsets_cached_with_the_layouts(E):
+    """Both BCSR layouts carry their segment offsets, built once with
+    them: col_start = searchsorted(block_col, arange(nb + 1)), and kept by
+    a device move."""
+    S = _edge_features(E, 90, E)
+    t = tgso.as_gso(S, mode="bcsr", block_size=16, device="cpu")
+    nb = -(-90 // 16)
+    for cs, bc in ((t.col_start, t.block_col), (t.col_start_t,
+                                                 t.block_col_t)):
+        assert cs.dtype == torch.int32 and cs.shape == (nb + 1,)
+        np.testing.assert_array_equal(
+            cs.numpy(), np.searchsorted(bc.numpy(), np.arange(nb + 1)))
+    assert t.to("cpu") is t
+
+
+def test_bcsr_shift_takes_the_cached_offsets(monkeypatch):
+    """gshift on a bcsr Gso passes the layout's cached segment offsets to
+    every bcsr_matmul, forward (col_start) and backward (col_start_t), and
+    its input gradient equals dense mode's."""
+    S = _edge_features(1, 90, 3)
+    t = tgso.as_gso(S, mode="bcsr", block_size=16, device="cpu")
+    seen = []
+    orig = tspmm.bcsr_matmul
+
+    def recorder(*a, **kw):
+        seen.append(kw.get("col_start"))
+        return orig(*a, **kw)
+    monkeypatch.setattr(tspmm, "bcsr_matmul", recorder)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 1, 2, 90)).astype(
+        np.float32)).requires_grad_()
+    ct = torch.from_numpy(rng.standard_normal((3, 1, 2, 90)).astype(
+        np.float32))
+    (tgso.gshift(t, x) * ct).sum().backward()
+    assert len(seen) == 2
+    assert seen[0] is t.col_start and seen[1] is t.col_start_t
+    xd = x.detach().clone().requires_grad_()
+    dense = tgso.as_gso(S, mode="dense", device="cpu")
+    (tgso.gshift(dense, xd) * ct).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), xd.grad.numpy(), **TOL)
+
+
 def test_union_pattern_used_for_differing_edge_features():
     S = _edge_features(2, 90, 2)
     t = tgso.as_gso(S, mode="bcsr", block_size=16, device="cpu")

@@ -190,6 +190,92 @@ def test_apply_ext_plain_matches_jax(ext_case, p, with_s):
     assert taf.apply_ext_call.launches == 0
 
 
+def _ext_case_of(kind, seed=3):
+    """A 4-shard partition (inner blocks of 16) of a graph with support
+    inside the diagonal inner blocks only (kind "w0": w = 0, no halo) or of
+    a w = 2 band with an empty window tile and an empty sub-tile in shard
+    1 (kind "holes"); (Q, Np) projections and (Q, F, Np) signals zero on
+    the padded nodes, every shard's stats from stats_ext_plain."""
+    rng = np.random.default_rng(seed)
+    N, Q, F = 200, 3, 5
+    S = np.zeros((N, N), np.float32)
+    ii = rng.integers(0, N, 4 * N)
+    jj = (ii // 16 * 16 + rng.integers(0, 16, 4 * N) if kind == "w0"
+          else ii + rng.integers(-24, 25, 4 * N))
+    ok = (jj >= 0) & (jj < N)
+    S[ii[ok], jj[ok]] = rng.random(ok.sum())
+    if kind == "holes":   # shard 1 owns columns 64..128
+        S[64:80, 96:112] = 0     # own column block 2, window block k = 0
+        S[88:96, 64:72] = 0      # own column block 0, a sub-tile of k = 3
+    part = tpar.partition_nodes(S, 4, order="none", inner_block=16)
+    assert part.w == (0 if kind == "w0" else 2)
+    Np = part.n_padded
+
+    def rand(*shape):
+        t = np.zeros(shape[:-1] + (Np,), np.float32)
+        t[..., :N] = rng.standard_normal(shape[:-1] + (N,))
+        return t
+    a1, a2, v = rand(Q, N), rand(Q, N), rand(Q, F, N)
+    mc, mr = tsha._row_col_masks(part)
+    bs = part.block_size
+    stats = [[t.numpy() for t in taf.stats_ext_plain(
+        *_t(_ext(a1, s, part), a2[:, s * bs:(s + 1) * bs], mr[s]),
+        w=part.w, ibs=part.inner_bs)] for s in range(4)]
+    return part, a1, a2, v, mc, stats
+
+
+def _apply_ext_ops(part, a1, a2, v, mc, stats, p):
+    bs = part.block_size
+    mx, sm = (np.concatenate([s[i] for s in stats], axis=-1)
+              for i in (0, 1))
+    return (a1[:, p * bs:(p + 1) * bs], _ext(a2, p, part), _ext(v, p, part),
+            _ext(mx, p, part), _ext(sm, p, part), part.slabs[p, 0], mc[p])
+
+
+@pytest.mark.parametrize("with_s", [True, False])
+@pytest.mark.parametrize("kind", ["w0", "holes"])
+def test_apply_ext_plain_reciprocal_form_matches_jax(kind, with_s):
+    """apply_ext_plain in the kernel's form (one reciprocal of rowsum a
+    row) against the JAX _apply_ext_call, which divides, at w = 0 and on
+    a shard with an empty window tile and sub-tile."""
+    part, *rest = _ext_case_of(kind)
+    p = 1
+    ops = _apply_ext_ops(part, *rest, p)
+    if kind == "holes":
+        mcol = ops[-1]
+        assert not mcol[2, 0].any() and not mcol[0, 3, 8:, :8].any()
+    got = taf.apply_ext_plain(*_t(*ops), w=part.w, ibs=part.inner_bs,
+                              with_s=with_s)
+    apply_j = jax.jit(jaf._apply_ext_call,
+                      static_argnums=(7, 8, 9, 10, 11))
+    with pltpu.force_tpu_interpret_mode():
+        want = apply_j(*map(jnp.asarray, ops), part.w, part.inner_bs,
+                       with_s, SLOPE, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.isfinite(got.numpy()).all()
+
+
+def test_apply_ext_plain_fully_masked_halo_rows(ext_case):
+    """The first shard's left halo lies past the global start: its rows
+    have zero stats (rowsum 0, so the guarded reciprocal is 1e30) and no
+    support. alpha there is exactly 0: no NaN, and whatever v holds in
+    those rows never reaches y."""
+    part, a1, a2, v, mc, stats, _ = ext_case
+    halo = part.halo
+    ops = list(_apply_ext_ops(part, a1, a2, v, mc, stats, 0))
+    assert halo > 0 and not ops[4][:, :halo].any()    # sm_ext
+    assert not ops[3][:, :halo].any()                 # mx_ext
+    got = taf.apply_ext_plain(*_t(*ops), w=part.w, ibs=part.inner_bs)
+    assert np.isfinite(got.numpy()).all()
+    v_ext = ops[2].copy()
+    v_ext[..., :halo] = np.random.default_rng(0).standard_normal(
+        v_ext[..., :halo].shape) * 1e3
+    ops[2] = v_ext
+    np.testing.assert_array_equal(
+        taf.apply_ext_plain(*_t(*ops), w=part.w, ibs=part.inner_bs).numpy(),
+        got.numpy())
+
+
 def test_ext_wrappers_check_shapes():
     part, a1, a2, v = _ext_operands()
     mc, mr = (torch.from_numpy(t[1]) for t in tsha._row_col_masks(part))

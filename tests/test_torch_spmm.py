@@ -148,6 +148,53 @@ def test_bcsr_matmul_plain_matches_jax(n_in, n_cols, empty_col):
         assert not got[:, empty_col * bs:(empty_col + 1) * bs].any()
 
 
+@pytest.mark.parametrize("R,n_in,n_cols", [
+    (1, 96, 96),         # one row: the narrowest row tile on the card
+    (17, 96, 96),        # a served request's rows, past a 16-row tile
+    (65, 96, 96),        # one row past the narrow tiles
+    (17, 90, 40),        # ragged rectangular: x on its own ragged grid
+])
+def test_bcsr_matmul_plain_matches_jax_at_row_counts(R, n_in, n_cols):
+    """The plain version against the JAX kernel at the row counts that
+    pick the CUDA kernel's tiles, with the layout's segment offsets passed
+    as a Gso passes them."""
+    rng = np.random.default_rng(R + n_in + n_cols)
+    bs = 16
+    blocks, rows, cols = _bcsr_case(rng, n_in, n_cols, bs, None)
+    x = rng.standard_normal((R, n_in)).astype(np.float32)
+    want = jspmm.bcsr_matmul(jnp.asarray(x), jnp.asarray(blocks),
+                             jnp.asarray(rows), jnp.asarray(cols),
+                             n_cols=n_cols, block_size=bs, row_tile=8,
+                             interpret=True)
+    cs = torch.from_numpy(tspmm.bcsr_col_start(cols, n_cols, bs))
+    got = tspmm.bcsr_matmul(torch.from_numpy(x), torch.from_numpy(blocks),
+                            torch.from_numpy(rows), torch.from_numpy(cols),
+                            n_cols=n_cols, block_size=bs, col_start=cs)
+    assert got.shape == (R, n_cols)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("n_cols,empty_col", [(96, None), (90, 2),
+                                              (40, 1)])
+def test_bcsr_col_start_is_the_segment_offsets(n_cols, empty_col):
+    """bcsr_col_start (numpy, as a Gso caches it, and torch) equals
+    searchsorted(block_col, arange(nb + 1)), the JAX kernel's offsets: an
+    empty column has an empty segment."""
+    bs = 16
+    _, _, cols = _bcsr_case(np.random.default_rng(n_cols), 64, n_cols, bs,
+                            empty_col)
+    nb = -(-n_cols // bs)
+    want = np.searchsorted(cols, np.arange(nb + 1))
+    got = tspmm.bcsr_col_start(cols, n_cols, bs)
+    assert got.dtype == np.int32 and got.shape == (nb + 1,)
+    np.testing.assert_array_equal(got, want)
+    got_t = tspmm.bcsr_col_start(torch.from_numpy(cols), n_cols, bs)
+    assert got_t.dtype == torch.int32
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    if empty_col is not None:
+        assert got[empty_col] == got[empty_col + 1]
+
+
 def test_bcsr_matmul_of_graph_matches_dense():
     rng = np.random.default_rng(3)
     S = _banded(rng, 100, 30)
@@ -172,6 +219,12 @@ def test_wrappers_check_shapes():
                           torch.zeros(2, dtype=torch.int32),
                           torch.zeros(3, dtype=torch.int32), n_cols=64,
                           block_size=16)
+    with pytest.raises(ValueError, match="col_start"):
+        tspmm.bcsr_matmul(x, torch.zeros(3, 16, 16),
+                          torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(3, dtype=torch.int32), n_cols=64,
+                          block_size=16,
+                          col_start=torch.zeros(4, dtype=torch.int32))
 
 
 def test_register_fit_rule():
