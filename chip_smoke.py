@@ -240,10 +240,12 @@ def phase_build():
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 23, f"{len(attrs)} kernels in the library's "
-            "tables, not 23 (12 kernels; band_register_kernel in 4 "
-            "instances, bcsr_matmul_kernel with 3 narrow-tile instances, "
-            "attn_apply_kernel in 6, table_transpose_kernel in 2)")
+    require(len(attrs) == 26, f"{len(attrs)} kernels in the library's "
+            "tables, not 26 (12 kernels; band_register_kernel in 4 "
+            "instances; bcsr_matmul_kernel and its 3 narrow-tile "
+            "instances on 2 block layouts, BCSR and band, 8; "
+            "attn_apply_kernel in 6, attn_stats_kernel and attn_bwd_kernel "
+            "in 2 each, table_transpose_kernel in 2)")
 
 
 def _band_case(rng, N, bs, w_target):
@@ -330,6 +332,21 @@ def phase_kernels(graph, rng, dev):
                                        w=g.band_w),
               spmm.band_shift_register_plain(xe, g.s_band[0], n_taps=3,
                                              n_cols=Ne, w=g.band_w))
+    # band_matmul on the BCSR mainloop: both sides of each tile's row
+    # limit (R = 1, 17, 33 the narrow tiles of 16, 32, 64 rows; 64, 65),
+    # ragged N and n_cols (a partial last block; x narrower than S, so its
+    # columns past N read as zero; N % 4 != 0 takes the 4-byte staging),
+    # w = 0 and 3; and the sharded ring shift's shapes (n_cols = 1024,
+    # w = 1: R = 32 at layer 1, 2048 at layer 2)
+    for Ne, we, Nx in ((4000, 1, 4000), (1000, 0, 1000), (1001, 3, 990),
+                       (1024, 1, 1024)):
+        g = gso_lib.as_gso(_band_case(rng, Ne, 128, we), "band", device=dev)
+        require(g.band_w == we, f"band case has w={g.band_w}, not {we}")
+        for R in (1, 17, 33, 64, 65) + ((32, 2048) if Ne == 1024 else ()):
+            xe = rand(R, Nx)
+            check("band_matmul", f"R={R} N={Nx} n_cols={Ne} w={we}",
+                  spmm.band_matmul(xe, g.s_band[0], n_cols=Ne, w=we),
+                  spmm.band_matmul_plain(xe, g.s_band[0], n_cols=Ne, w=we))
     # the register's edge cases: K = 1 and 2; the served requests' rows;
     # the row limit; enough rows that a block walks several row tiles and
     # panels; w = 2 and the widest band register_fits admits; N % 4 != 0
@@ -425,6 +442,7 @@ def _bound(bytes_moved, flops):
 
 def phase_timing(graph, dev):
     import torch
+    from graph_neural_networks_torch.ops import gso as gso_lib
     from graph_neural_networks_torch.ops import spmm
     S_band, S_bcsr = graph["band"], graph["bcsr"]
     N, bs, w = N_GRAPH, 128, S_band.band_w
@@ -457,12 +475,34 @@ def phase_timing(graph, dev):
     rows["band_matmul"] = dict(
         shape=f"R={R} N={N} w={w}",
         ms=time_ms(lambda: spmm.band_matmul(x2048, sb, n_cols=N, w=w)),
+        graph_ms=graph_ms(lambda: spmm.band_matmul(x2048, sb, n_cols=N,
+                                                   w=w)),
         plain_ms=time_ms(lambda: spmm.band_matmul_plain(x2048, sb, n_cols=N,
                                                         w=w)),
         library_ms=time_ms(lambda: torch.matmul(x2048, Sd)),
         library_call="torch.matmul(x, S_dense), TF32 off",
         flops=2 * R * win * bs * bs,
-        bytes=4 * (R * N + R * N + sb.numel()))
+        bytes=4 * (2 * R * N + win * bs * bs))
+    # the sharded ring shift's band_matmul (band_n4096 over 4 shards: the
+    # own block of 1024 nodes, w = 1) at layer 1's and layer 2's rows
+    Ns = N // SHARD_PARTS
+    gs = gso_lib.as_gso(_band_case(np.random.default_rng(2), Ns, bs, 1),
+                        "band", device=dev)
+    sbs, Sds = gs.s_band[0], gs.S[0]
+    wins = _window_blocks(Ns // bs, 1)
+    for R in (BATCH, 2048):
+        xs = torch.randn(R, Ns, device=dev)
+        rows[f"band_matmul@R={R} n_cols={Ns}"] = dict(
+            shape=f"R={R} N={Ns} w=1",
+            ms=time_ms(lambda: spmm.band_matmul(xs, sbs, n_cols=Ns, w=1)),
+            graph_ms=graph_ms(lambda: spmm.band_matmul(xs, sbs, n_cols=Ns,
+                                                       w=1)),
+            plain_ms=time_ms(lambda: spmm.band_matmul_plain(
+                xs, sbs, n_cols=Ns, w=1)),
+            library_ms=time_ms(lambda: torch.matmul(xs, Sds)),
+            library_call="torch.matmul(x, S_dense), TF32 off",
+            flops=2 * R * wins * bs * bs,
+            bytes=4 * (2 * R * Ns + wins * bs * bs))
     R = BATCH
     rows["band_shift_register"] = dict(
         shape=f"R={R} N={N} w={w} K={TAPS}",
@@ -703,6 +743,31 @@ def _apply_group(Q, F, Np, dev):
     return kernels.library().gnt_attn_apply_group(Q, F, Np)
 
 
+def _empty_rows(mask_row, rows):
+    """mask_row (nb, W, ibs, ibs) with the given rows' support removed:
+    rows without support."""
+    m = mask_row.clone()
+    ibs = m.shape[-1]
+    for r in rows:
+        m[r // ibs, :, r % ibs, :] = 0
+    return m
+
+
+def _other_rows(Np, rows):
+    """The row indices below Np but those given."""
+    return sorted(set(range(Np)) - set(rows))
+
+
+def _check_empty_rows(name, mx, sm, rows, W, ibs):
+    """A row without support: rowmax -1e12 and rowsum W*ibs (every window
+    entry, as the JAX kernels count them), exactly."""
+    require(bool((mx[:, rows] == -1e12).all())
+            and bool((sm[:, rows] == float(W * ibs)).all()),
+            f"{name}: a row without support has rowmax "
+            f"{mx[:, rows].unique().tolist()}, rowsum "
+            f"{sm[:, rows].unique().tolist()}, not -1e12 and {W * ibs}")
+
+
 def _attn_operands(rng, dev, Q, F, N, Np):
     """Score projections (Q, Np) and signals (Q, F, Np), zero past N."""
     import torch
@@ -813,6 +878,30 @@ def phase_attention_kernels(gso, rng, dev):
     require(g.band_w == 2, f"holes case has w={g.band_w}")
     both("holes: an empty window tile and sub-tile, N=2048 w=2 Q=16 F=32",
          g, 16, 32)
+    # rows without support in the first and last w row blocks (whose
+    # windows leave the matrix) and in the middle: rowmax -1e12 and rowsum
+    # W*ibs, as the JAX kernel and stats_plain give them
+    ibs, w = g.block_size, g.band_w
+    Np = g.s_band.shape[1] * ibs
+    rows = [0, 5, ibs + 64, Np // 2 + 3, Np - 2 * ibs + 1, Np - 1]
+    mrow = _empty_rows(af.band_auxes(g)[0].mask_row, rows)
+    for Q in (16, 5):
+        a1, a2, _ = _attn_operands(rng, dev, Q, 8, g.n, Np)
+        mx, sm = af.stats_call(a1, a2, mrow, w=w, ibs=ibs)
+        pmx, psm = af.stats_plain(a1, a2, mrow, w=w, ibs=ibs)
+        case = f"empty rows {rows} N={g.n} w={w} Q={Q}"
+        keep = _other_rows(Np, rows)   # -1e12 would set the tolerance
+        check("stats_call", case + " rowmax", mx[:, keep], pmx[:, keep])
+        check("stats_call", case + " rowsum", sm[:, keep], psm[:, keep])
+        _check_empty_rows("stats_call", mx, sm, rows, 2 * w + 1, ibs)
+        _check_empty_rows("stats_plain", pmx, psm, rows, 2 * w + 1, ibs)
+    # a negative LeakyReLU slope: the score is not monotone in a1
+    mx, sm = af.stats_call(a1, a2, mrow, w=w, ibs=ibs, slope=-0.3)
+    pmx, psm = af.stats_plain(a1, a2, mrow, w=w, ibs=ibs, slope=-0.3)
+    check("stats_call", f"slope=-0.3 N={g.n} w={w} Q=5 rowmax",
+          mx[:, keep], pmx[:, keep])
+    check("stats_call", f"slope=-0.3 N={g.n} w={w} Q=5 rowsum",
+          sm[:, keep], psm[:, keep])
 
     # the raw wrappers record no gradient: a kernel call that would need
     # one raises (FlashApply calls them with grad off)
@@ -879,6 +968,8 @@ def phase_attention_timing(gso, dev):
         "stats_call": dict(
             shape=shape,
             ms=time_ms(lambda: af.stats_call(a1, a2, aux.mask_row, **kw)),
+            graph_ms=graph_ms(lambda: af.stats_call(a1, a2, aux.mask_row,
+                                                    **kw)),
             plain_ms=time_ms(lambda: af.stats_plain(a1, a2, aux.mask_row,
                                                     **kw), reps=5, inner=2),
             work=work["stats"]),
@@ -2359,6 +2450,31 @@ def phase_shard_kernels(part, mc, mr, rng, dev):
 
     run(f"served Q=16 F=32 Np={part.block_size} w={part.w}", part, mc, mr,
         GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1], True)
+    # rows without support on the first and last shards, in their first
+    # and last w row blocks (windows into a halo past the global end) and
+    # in the middle: rowmax -1e12 and rowsum W*ibs, as stats_call gives
+    # the same rows
+    w, ibs, Np = part.w, part.inner_bs, part.block_size
+    rows = [0, 7, ibs + 1, Np // 2, Np - ibs - 1, Np - 1]
+    mr_e = [_empty_rows(torch.as_tensor(mr[p], device=dev), rows)
+            for p in range(part.n_parts)]
+    for Q in (16, 3):
+        own, ext, _ = _shard_operands(rng, dev, part, Q, 8, mc, mr)
+        for p in (0, part.n_parts - 1):
+            case = f"empty rows {rows} shard {p}/{part.n_parts} Q={Q}"
+            mx, sm = af.stats_ext_call(ext["a1"][p], own["a2"][p], mr_e[p],
+                                       w=w, ibs=ibs)
+            pmx, psm = af.stats_ext_plain(ext["a1"][p], own["a2"][p],
+                                          mr_e[p], w=w, ibs=ibs)
+            keep = _other_rows(Np, rows)
+            check("stats_ext_call", case + " rowmax", mx[:, keep],
+                  pmx[:, keep], False)
+            check("stats_ext_call", case + " rowsum", sm[:, keep],
+                  psm[:, keep], False)
+            _check_empty_rows("stats_ext_call", mx, sm, rows, 2 * w + 1,
+                              ibs)
+            _check_empty_rows("stats_ext_plain", pmx, psm, rows, 2 * w + 1,
+                              ibs)
     S2, _ = make_graph(2000, 0.01, 256, seed=2)
     part2 = par.partition_nodes(S2, SHARD_PARTS, order="none")
     require(part2.is_ring and part2.n_padded > part2.n_orig,
@@ -2432,6 +2548,8 @@ def phase_shard_timing(part, mc, mr, dev):
             shape=shape,
             ms=time_ms(lambda: af.stats_ext_call(ext["a1"][p], own["a2"][p],
                                                  mrow, **kw)),
+            graph_ms=graph_ms(lambda: af.stats_ext_call(
+                ext["a1"][p], own["a2"][p], mrow, **kw)),
             plain_ms=time_ms(lambda: af.stats_ext_plain(
                 ext["a1"][p], own["a2"][p], mrow, **kw), reps=5, inner=2),
             work=_attention_work_at(Q, F, Np, n_rows, tile, scores,

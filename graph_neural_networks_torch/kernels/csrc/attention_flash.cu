@@ -24,9 +24,10 @@
 //    blocks a side, row length Np + 2*w*ibs, where Np is the shard's own
 //    width. Window block k of own block i is ext block i + k, and all W
 //    blocks are walked: past the global ends the halos are zero-filled
-//    and the mask is 0 (the -1e12 entries add exactly 0; a fully masked
-//    padded row sums W*ibs ones, as the JAX ext kernel does). The other
-//    operands (a2 in stats; a1 and y in apply) keep the shard's own Np.
+//    and the mask is 0 (the -1e12 entries add exactly 0; a row without
+//    support sums W*ibs ones, in both instances, as the JAX kernels do).
+//    The other operands (a2 in stats; a1 and y in apply) keep the
+//    shard's own Np.
 //    In bwd, g and a1 are read through the window (halo-extended); a2, v,
 //    the stats and the outputs are the shard's own rows, and the da1
 //    partials of window block k belong to ext column block i + k.
@@ -50,26 +51,37 @@
 //   y[q, f, j] = sum_i v[q, f, i] * alpha * (S[i, j] if with_s)
 // (one reciprocal a row; the plain versions likewise). alpha never exists
 // in device memory. The scores are computed with every rounding step
-// spelled out (__fadd_rn & co.): masked_score in stats, alpha() in apply
-// and bwd, which for m = 1 is bit for bit masked_score, so apply and bwd
-// recompute exactly the scores the stats kernel reduced. Window blocks that fall off the matrix are
-// skipped: the JAX kernels clamp them onto zero-mask tiles, whose entries
-// are -1e12 and add exactly 0 to every sum.
+// spelled out (__fadd_rn & co.): leaky_score, the masked score at m = 1 bit
+// for bit, in stats and in alpha() (apply and bwd), so apply and bwd
+// recompute exactly the scores the stats kernel reduced. Window blocks
+// that fall off the matrix are skipped: the JAX kernels clamp them onto
+// zero-mask tiles, whose entries are -1e12 and add exactly 0 to every
+// sum (a row without support is the exception stats spells out).
 //
 // What bounds them on an H100, at the served shape (Q = B*P = 16 signal
 // rows, Np = 16384, ibs = 128, W = 2w+1 = 5, F = 32; Q*nb*W*ibs^2 = 1.7e8
 // scores a call, of which 22% lie on the S+I support). A masked score adds
 // exactly 0 to every max, sum and product, so the function itself needs
 // only the support's exps and FMAs and is bound by its bytes (46 MB for
-// stats, 155 MB for apply). These kernels compute every score of every
-// window tile, and for that work they are bound by operations:
-//  * stats: one expf a score (1.7e8; the SFU computes 16 exp2 a clock on
-//    each of 132 SMs) against a 42 MB mask, so the special-function units
-//    bound it before bytes. Design: one warp a row,
-//    lanes across the window's columns (coalesced), two passes (max, then
-//    the exp-sum) with warp shuffles; the row's mask is staged in shared
-//    memory once and reused for every q, so the mask is read from memory
-//    once per call, not Q times.
+// stats, 155 MB for apply). Over every score of every window tile they
+// would be bound by operations (stats: one expf a score, 1.7e8 against
+// the SFU's 16 exp2 a clock on each of 132 SMs); so each runs its scores
+// on the support only:
+//  * stats: bound by the 42 MB mask it must read (0.014 ms); on the
+//    support 3.7e7 scores, each a max step and an expf. Design: a warp
+//    compacts its row's support once a call, from the mask it reads
+//    (ballot and popc over 32 columns a load, int16 window positions in
+//    shared memory, W*ibs <= 32767), then runs two passes over that list
+//    only for each signal row: the max of the LeakyReLU scores, then the
+//    exp-sum in a fixed lane order, 4 signal rows at a time for one list
+//    read. A block (8 warps, RW = 4, 2 or 1 rows each, all in one row
+//    block) stages its rows' a1 window for QB signal rows once by
+//    cp.async, so a1 is read from L2 once a block, not once a (q, row).
+//    The launcher picks QB (all Q if the stage and the lists fit 57 KB,
+//    4 blocks an SM; else fewer, each group reading the mask again) and
+//    RW (the most rows that keep the grid at 90% of what the card holds
+//    at once): at the served shape QB = 16, 51 KB, RW = 4 for
+//    Np = 16384 and 1 for a 4096-row shard.
 //  * apply: on the support, 0.05 ms of bytes (v, y, mask and slab, 155 MB);
 //    over the dense window tiles an FP32 product of 2*F flops a score
 //    (1.1e10 flops, 0.16 ms at 67 TFLOP/s). Design: a block owns a
@@ -148,9 +160,12 @@ namespace {
 
 constexpr float kInfinite = 1e12f;  // the reference's additive -inf
 
-// stats: rows a block, one warp each
+// stats: 8 warps a block, each RW rows (RW = 4, 2 or 1, picked by the
+// launcher), for QB signal rows staged at once; a warp reduces kStatsQV
+// signal rows at a time.
 constexpr int kStatsWarps = 8;
 constexpr int kStatsThreads = 32 * kStatsWarps;
+constexpr int kStatsQV = 4;
 
 // apply: a block computes y[q, :, c0 : c0+kCT] for a group of G signal
 // rows q (G = 4, 2 or 1, picked by the launcher), the window in chunks of
@@ -201,11 +216,12 @@ constexpr int kLDT = kBR + 4;  // Ct row stride: float4-aligned
 // Shared memory a block may use on sm_90 (227 KB).
 constexpr size_t kMaxSmem = 232448;
 
-__device__ __forceinline__ float masked_score(float a2, float a1, float m,
-                                              float slope) {
+// The LeakyReLU score of (row, column) on the support, every rounding
+// step spelled out: the masked score e * m - (1 - m) * 1e12 at m = 1,
+// which is e bit for bit.
+__device__ __forceinline__ float leaky_score(float a2, float a1, float slope) {
   const float pre = __fadd_rn(a2, a1);
-  const float e = pre >= 0.f ? pre : __fmul_rn(pre, slope);
-  return __fsub_rn(__fmul_rn(e, m), __fmul_rn(__fsub_rn(1.f, m), kInfinite));
+  return pre >= 0.f ? pre : __fmul_rn(pre, slope);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -219,58 +235,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// rowmax/rowsum (Q, Np) of the masked scores of every row over its column
-// window. a1 (Q, Np), or (Q, Np + 2*w*ibs) halo-extended when kExt; a2
-// (Q, Np); mask_row (nb, W, ibs, ibs): mask_row[i, k, p, c] is the support
-// at (row i*ibs+p, column (i+k-w)*ibs+c) of the global matrix.
-// Grid: Np / kStatsWarps blocks; dynamic shared memory kStatsWarps*W*ibs
-// floats.
-template <bool kExt>
-__global__ void __launch_bounds__(kStatsThreads)
-attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
-                  const float* __restrict__ mask_row,
-                  float* __restrict__ rowmax, float* __restrict__ rowsum,
-                  int Q, int Np, int nb, int w, int ibs, float slope) {
-  extern __shared__ float mask_s[];
-  const int W = 2 * w + 1;
-  const int a1_len = kExt ? Np + 2 * w * ibs : Np;  // a1's row length
-  const int lag = kExt ? 0 : w;  // a1 block of window block k: i + k - lag
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kStatsWarps + warp;
-  const int i = row / ibs, p = row % ibs;
-  const int k0 = kExt ? 0 : max(0, w - i);
-  const int k1 = kExt ? W : min(W, nb + w - i);
-  float* m_row = mask_s + warp * W * ibs;
-  for (int k = k0; k < k1; ++k) {
-    const float* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
-    for (int c = lane; c < ibs; c += 32) m_row[k * ibs + c] = src[c];
-  }
-  __syncwarp();
-  for (int q = 0; q < Q; ++q) {
-    const float* a1q = a1 + (int64_t)q * a1_len;
-    const float a2v = a2[(int64_t)q * Np + row];
-    float mx = -INFINITY;
-    for (int k = k0; k < k1; ++k) {
-      const float* a1k = a1q + (int64_t)(i + k - lag) * ibs;
-      for (int c = lane; c < ibs; c += 32)
-        mx = fmaxf(mx, masked_score(a2v, a1k[c], m_row[k * ibs + c], slope));
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int k = k0; k < k1; ++k) {
-      const float* a1k = a1q + (int64_t)(i + k - lag) * ibs;
-      for (int c = lane; c < ibs; c += 32)
-        sum += expf(__fsub_rn(
-            masked_score(a2v, a1k[c], m_row[k * ibs + c], slope), mx));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      rowmax[(int64_t)q * Np + row] = mx;
-      rowsum[(int64_t)q * Np + row] = sum;
-    }
-  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -308,16 +272,174 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// rowmax and rowsum of one row for NQ signal rows, from the row's support
+// list ent[0 .. n) (window positions k * ibs + c, ascending) and the rows'
+// a1 windows staged at a1s + j * WI. Lane l takes the entries l, l + 32,
+// ...; the warp tree adds the lanes' sums in a fixed order, so the result
+// depends on the list alone, not on the window's addressing.
+template <int NQ>
+__device__ __forceinline__ void stats_rows(const float* a1s, int WI,
+                                           const int16_t* ent, int n,
+                                           int lane, const float (&a2)[NQ],
+                                           float slope, float (&mx)[NQ],
+                                           float (&sum)[NQ]) {
+  float m[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) m[j] = -INFINITY;
+  for (int t = lane; t < n; t += 32) {
+    const int c = ent[t];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      m[j] = fmaxf(m[j], leaky_score(a2[j], a1s[j * WI + c], slope));
+  }
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) mx[j] = warp_max(m[j]);
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) sum[j] = 0.f;
+  for (int t = lane; t < n; t += 32) {
+    const int c = ent[t];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      sum[j] = __fadd_rn(sum[j], expf(__fsub_rn(
+                   leaky_score(a2[j], a1s[j * WI + c], slope), mx[j])));
+  }
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) sum[j] = warp_sum(sum[j]);
+}
+
+// rowmax/rowsum (Q, Np) of the masked scores of every row over its column
+// window. a1 (Q, Np), or (Q, Np + 2*w*ibs) halo-extended when kExt; a2
+// (Q, Np); mask_row (nb, W, ibs, ibs): mask_row[i, k, p, c] is the support
+// at (row i*ibs+p, column (i+k-w)*ibs+c) of the global matrix.
+//
+// A block serves 8 * rw rows of one row block i for the signal rows
+// q0 .. q0 + qb (grid: Np / (8 rw) row groups x ceil(Q / qb) signal
+// groups, the signal group fastest, so the blocks that read one row's mask
+// run side by side). It stages the a1 window of block i for its qb signal
+// rows in shared memory with cp.async (vec: 16-byte copies; else 4-byte
+// ones), while each warp compacts the support of its first row: it reads
+// the row's mask across the window, 32 columns a load, ballots m != 0 and
+// writes the support's window positions in ascending order (popc
+// prefixes) into its list in shared memory. Then for each signal row two
+// passes over the list only: the max, then the exp-sum. A masked score is
+// -1e12 and adds exactly 0 to the sum, so only the order of the support's
+// terms differs from the dense form. A row without support (every score
+// -1e12) gets rowmax -1e12 and rowsum W * ibs, as the JAX kernels give
+// it: they clamp the off-matrix window blocks onto zero-mask tiles. Both
+// instances build the same list for a row (ext window block k is global
+// window block k; the global instance leaves out the blocks past the
+// matrix, whose mask is 0), so they give a row the same bits.
+// Dynamic shared memory: qb * W * ibs floats of a1, then 8 lists of
+// W * ibs int16 (stats_plan).
+template <bool kExt>
+__global__ void __launch_bounds__(kStatsThreads)
+attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
+                  const float* __restrict__ mask_row,
+                  float* __restrict__ rowmax, float* __restrict__ rowsum,
+                  int Q, int Np, int nb, int w, int ibs, float slope, int rw,
+                  int qb, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int W = 2 * w + 1, WI = W * ibs;
+  const int a1_len = kExt ? Np + 2 * w * ibs : Np;  // a1's row length
+  const int lag = kExt ? 0 : w;  // a1 block of window block k: i + k - lag
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_qg = (Q + qb - 1) / qb;
+  const int q0 = (blockIdx.x % n_qg) * qb, nq = min(qb, Q - q0);
+  const int row0 = (blockIdx.x / n_qg) * kStatsWarps * rw;
+  const int i = row0 / ibs;  // ibs % (8 rw) == 0: one row block a block
+  const int k0 = kExt ? 0 : max(0, w - i);
+  const int k1 = kExt ? W : min(W, nb + w - i);
+  float* a1s = smem;
+  int16_t* ent = reinterpret_cast<int16_t*>(smem + (size_t)qb * WI) +
+                 warp * WI;
+
+  // a1[q0 + qq, window blocks k0 .. k1) -> a1s[qq * WI + k * ibs + c]
+  const int span = (k1 - k0) * ibs;
+  const float* a1w = a1 + (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
+  if (vec) {
+    for (int e = 4 * tid; e < nq * span; e += 4 * kStatsThreads) {
+      const int qq = e / span, c = e % span;
+      cp_async16(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
+    }
+  } else {
+    for (int e = tid; e < nq * span; e += kStatsThreads) {
+      const int qq = e / span, c = e % span;
+      cp_async4(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
+    }
+  }
+  cp_commit();
+
+  const unsigned below = (1u << lane) - 1u;
+  for (int r = 0; r < rw; ++r) {
+    const int row = row0 + warp * rw + r, p = row % ibs;
+    int n = 0;
+    for (int k = k0; k < k1; ++k) {
+      const float* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
+      for (int c0 = 0; c0 < ibs; c0 += 128) {  // ibs % 32 == 0
+        float m[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          m[u] = c0 + 32 * u < ibs ? __ldg(src + c0 + 32 * u + lane) : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned b = __ballot_sync(0xffffffffu, m[u] != 0.f);
+          if (m[u] != 0.f)
+            ent[n + __popc(b & below)] =
+                (int16_t)(k * ibs + c0 + 32 * u + lane);
+          n += __popc(b);
+        }
+      }
+    }
+    __syncwarp();
+    if (r == 0) {
+      cp_wait<0>();
+      __syncthreads();  // a1s complete
+    }
+    if (n == 0) {
+      for (int qq = lane; qq < nq; qq += 32) {
+        rowmax[(int64_t)(q0 + qq) * Np + row] = -kInfinite;
+        rowsum[(int64_t)(q0 + qq) * Np + row] = (float)WI;
+      }
+    } else {
+      int qq = 0;
+      for (; qq + kStatsQV <= nq; qq += kStatsQV) {
+        float a2v[kStatsQV], mx[kStatsQV], sm[kStatsQV];
+#pragma unroll
+        for (int j = 0; j < kStatsQV; ++j)
+          a2v[j] = a2[(int64_t)(q0 + qq + j) * Np + row];
+        stats_rows<kStatsQV>(a1s + qq * WI, WI, ent, n, lane, a2v, slope, mx,
+                             sm);
+        if (lane == 0)
+#pragma unroll
+          for (int j = 0; j < kStatsQV; ++j) {
+            rowmax[(int64_t)(q0 + qq + j) * Np + row] = mx[j];
+            rowsum[(int64_t)(q0 + qq + j) * Np + row] = sm[j];
+          }
+      }
+      for (; qq < nq; ++qq) {
+        const float a2v[1] = {a2[(int64_t)(q0 + qq) * Np + row]};
+        float mx[1], sm[1];
+        stats_rows<1>(a1s + qq * WI, WI, ent, n, lane, a2v, slope, mx, sm);
+        if (lane == 0) {
+          rowmax[(int64_t)(q0 + qq) * Np + row] = mx[0];
+          rowsum[(int64_t)(q0 + qq) * Np + row] = sm[0];
+        }
+      }
+    }
+    __syncwarp();  // the list is rebuilt for the next row
+  }
+}
+
 // alpha = exp(s - rowmax) * (1 / rowsum) * m of a score, with m the 0/1
 // support: for m = 1 the masked score s is the LeakyReLU score itself, for
-// m = 0 alpha is 0, so this is bit for bit exp(masked_score - rowmax) *
-// rinv * m without the masking arithmetic or a division (the rows'
-// reciprocals are taken once).
+// m = 0 alpha is 0, so this is bit for bit exp(s - rowmax) * rinv * m
+// without the masking arithmetic or a division (the rows' reciprocals are
+// taken once); s is the score the stats kernel reduced.
 __device__ __forceinline__ float alpha(float a2, float a1, float m,
                                        float mx, float rinv, float slope) {
-  const float pre = __fadd_rn(a2, a1);
-  const float e = pre >= 0.f ? pre : __fmul_rn(pre, slope);
-  return m != 0.f ? __fmul_rn(expf(__fsub_rn(e, mx)), rinv) : 0.f;
+  return m != 0.f
+             ? __fmul_rn(expf(__fsub_rn(leaky_score(a2, a1, slope), mx)), rinv)
+             : 0.f;
 }
 
 // y (Q, F, Np) = v @ (alpha * S) on the band. a1 (Q, Np); v (Q, F, Np)
@@ -948,23 +1070,70 @@ cudaError_t launch_bwd(const float* g, const float* a1, const float* a2,
   return cudaGetLastError();
 }
 
+// stats: the signal rows a block stages (qb), the rows a warp serves (rw)
+// and the dynamic shared memory, for (Q, Np, W, ibs). qb: all Q if their a1
+// windows and the 8 support lists fit a quarter of a block's shared
+// memory (so 4 blocks an SM), else as many as fit, at least 1, balanced
+// over the groups (each group reads the mask again, mostly from L2). rw:
+// 4, 2 or 1 rows a warp, the most that keeps the grid at 90% of the
+// blocks the card holds at once (more rows a block stage a1 fewer times).
+struct StatsPlan {
+  int rw, qb;
+  size_t smem;
+};
+
+template <bool kExt>
+cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
+  const size_t lists = sizeof(int16_t) * kStatsWarps * W * ibs;
+  const size_t per_q = sizeof(float) * W * ibs;
+  if (W * ibs > 32767 || lists + per_q > kMaxSmem)
+    return cudaErrorInvalidValue;  // int16 positions; one signal row fits
+  const size_t budget = kMaxSmem / 4;
+  int qb = budget > lists + per_q ? (int)((budget - lists) / per_q) : 1;
+  qb = qb < Q ? qb : Q;
+  const int n_qg = (Q + qb - 1) / qb;
+  qb = (Q + n_qg - 1) / n_qg;
+  plan->qb = qb;
+  plan->smem = sizeof(float) * (size_t)qb * W * ibs + lists;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_stats_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)plan->smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, attn_stats_kernel<kExt>, kStatsThreads, plan->smem);
+  if (err != cudaSuccess) return err;
+  plan->rw = 4;
+  while (plan->rw > 1 && (long long)Np / (kStatsWarps * plan->rw) * n_qg *
+                                 10 <
+                             9LL * per_sm * sms)
+    plan->rw /= 2;
+  return cudaSuccess;
+}
+
 template <bool kExt>
 cudaError_t launch_stats(const float* a1, const float* a2,
                          const float* mask_row, float* rowmax, float* rowsum,
                          int Q, int Np, int nb, int w, int ibs, float slope,
                          cudaStream_t stream) {
-  if (Q <= 0 || ibs % kStatsWarps != 0 || Np != nb * ibs || w < 0 ||
+  // ibs % 32 == 0: a block's 8 rw rows lie in one row block
+  if (Q <= 0 || ibs % (kStatsWarps * 4) != 0 || Np != nb * ibs || w < 0 ||
       (kExt && w > nb))
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kStatsWarps * (2 * w + 1) * ibs;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_stats_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  attn_stats_kernel<kExt><<<Np / kStatsWarps, kStatsThreads, smem, stream>>>(
-      a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w, ibs, slope);
+  StatsPlan plan;
+  const cudaError_t err = stats_plan<kExt>(Q, Np, 2 * w + 1, ibs, &plan);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)Np / (kStatsWarps * plan.rw) *
+                           ((Q + plan.qb - 1) / plan.qb);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int vec = reinterpret_cast<uintptr_t>(a1) % 16 == 0;
+  attn_stats_kernel<kExt><<<(unsigned)blocks, kStatsThreads, plan.smem,
+                            stream>>>(a1, a2, mask_row, rowmax, rowsum, Q, Np,
+                                      nb, w, ibs, slope, plan.rw, plan.qb,
+                                      vec);
   return cudaGetLastError();
 }
 

@@ -1,35 +1,37 @@
 // Hopper (sm_90a) kernels for the graph shift y = x @ S, in true FP32.
 //
 // Three kernels, each the counterpart of one Pallas kernel of the JAX
-// package (graph_neural_networks_tpu/ops/spmm.py):
+// package (graph_neural_networks_tpu/ops/spmm.py); band_matmul and
+// bcsr_matmul run one mainloop on two block layouts:
 //
-//   band_matmul_kernel    <- spmm.py:band_matmul (_make_band_kernel)
-//   bcsr_matmul_kernel    <- spmm.py:bcsr_matmul (_make_bcsr_kernel)
+//   bcsr_matmul_kernel<BandBlocks>, bcsr_narrow_kernel<., BandBlocks>
+//                         <- spmm.py:band_matmul (_make_band_kernel)
+//   bcsr_matmul_kernel<BcsrBlocks>, bcsr_narrow_kernel<., BcsrBlocks>
+//                         <- spmm.py:bcsr_matmul (_make_bcsr_kernel)
 //   band_register_kernel  <- spmm.py:band_shift_register (_make_fused_kernel)
 //
 // What bounds them on an H100: the JAX default for f32 signals is true f32
 // (Precision.HIGHEST), so the products run as FP32 FMAs on the CUDA cores,
-// not on TF32 tensor cores. A band shift of an (R, N) signal executes
-// 2 R N (2w+1) bs flops against 4 (2 R N + nb (2w+1) bs^2) bytes; at the
-// serving shapes (R = 32 .. 2048, bs = 128, w = 1) that is 12 .. 90 flops a
-// byte, above the ~20 flop/byte ridge of FP32 FMA (67 TFLOP/s over
-// 3.35 TB/s) for the large R, so the big shifts are bound by FP32
-// operations. The register at few rows (R = 32) does 0.4 GFLOP in four
-// dependent taps: it is bound by latency and by how many SMs it keeps busy.
+// not on TF32 tensor cores (no wgmma: it needs TF32 or lower, which would
+// change the numbers the JAX reference produces). A band shift of an
+// (R, N) signal executes 2 R N (2w+1) bs flops against
+// 4 (2 R N + nb (2w+1) bs^2) bytes; at the serving shapes (R = 32 .. 2048,
+// bs = 128, w = 1) that is 12 .. 90 flops a byte, above the ~20 flop/byte
+// ridge of FP32 FMA (67 TFLOP/s over 3.35 TB/s) for the large R, so the
+// big shifts are bound by FP32 operations. The register at few rows
+// (R = 32) does 0.4 GFLOP in four dependent taps: it is bound by latency
+// and by how many SMs it keeps busy.
 //
-// band_matmul: a plain shared-memory tiled FP32 product, a 64 x 64 output
-// tile per block, 16-deep steps staged in shared memory, a 4 x 4
-// micro-tile of FMAs per thread (tile_mac). Ragged edges (rows past R, x
-// columns past N) are masked in the loads, so the wrapper never copies x
-// into a padded buffer. No wgmma: it needs TF32 or lower, which would
-// change the numbers the JAX reference produces.
-//
-// bcsr_matmul: y = x @ S over the nonzero blocks of each block column (the
-// segment col_start[j] .. col_start[j+1], built once with the layout). At
-// R = 2048 rows (N = 4096, 94 blocks) it does 6.3 GFLOP against 8.4 MB of
-// blocks and 67 MB of x and y: bound by FP32 operations (0.094 ms); at
-// R = 32 by the bytes of the blocks it must stream (6.2 MB, 2 us), and in
-// practice by how many SMs the few rows keep busy. Two tiles, picked by R:
+// band_matmul and bcsr_matmul: y = x @ S over the blocks of each output
+// block column. The band slab is a BCSR in disguise: column j's segment
+// is the window blocks t that fall inside the matrix, block t at
+// s_band[j, t bs : (t+1) bs], x block column j + t - w (BandBlocks); the
+// BCSR segment is col_start[j] .. col_start[j+1], built once with the
+// layout (BcsrBlocks). At R = 2048 rows (N = 4096, w = 1: 94 blocks) either
+// does 6.3 GFLOP against 8.4 MB of blocks and 67 MB of x and y: bound by
+// FP32 operations (0.094 ms); at R = 32 by the bytes of the blocks it
+// must stream (6.2 MB, 2 us), and in practice by how many SMs the few
+// rows keep busy. Two tiles, picked by R:
 //  * above 64 rows, 128 x 64 outputs a block, 256 threads, an 8 x 4
 //    register tile a thread (4 + 8 16-byte shared loads for 128 FMAs: x
 //    read 4 k at a time along its rows, no transpose), 64-deep K-steps
@@ -41,7 +43,8 @@
 //    step (4 x 4 tiles), their partial tiles added in a fixed order at the
 //    end: deterministic, and each S block streams once.
 // x rows go by 16-byte copies when N % 4 == 0, else by 4-byte ones (zero
-// filled past R and N either way); band_matmul_kernel keeps its own loop.
+// filled past R and N either way), so the wrappers never copy x into a
+// padded buffer; the blocks by 16-byte copies.
 //
 // band_register_kernel: one cooperative launch of persistent blocks. Each
 // block owns a 32-column panel of the output, keeps that panel's
@@ -61,15 +64,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBN = 64;   // output columns per block; block_size % kBN == 0
-constexpr int kBK = 16;   // depth of one shared-memory step
+constexpr int kBN = 64;   // block_size % kBN == 0: no tile straddles a block
 constexpr int kTN = 4;    // output columns per thread (one float4)
-constexpr int kPad = 4;   // As row padding: spreads the transposed stores over banks
-
-// band_matmul / bcsr_matmul tile: 64 x 64 outputs, 4 x 4 per thread.
-constexpr int kBM = 64;
-constexpr int kTM = 4;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);
 
 // band_register: a block owns a kPanel-column output panel and walks row
 // tiles under it, 128 threads, each TM rows x kTN columns of the tile
@@ -90,93 +86,8 @@ constexpr size_t kMaxSmem = 232448;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// acc += X[r0 : r0+kBM, xc0 : xc0+depth] @ B[0 : depth, 0 : kBN]
-// X is row-major (ldx) with valid rows < R and valid columns < N (the rest
-// read as zero), read with ld.global.cg. B points at the tile's first
-// column, row-major (ldb). depth is a multiple of kBK. Every thread of the
-// block must call this.
-__device__ __forceinline__ void tile_mac(float (&acc)[kTM][kTN],
-                                         const float* __restrict__ x,
-                                         int64_t ldx, int R, int N, int r0,
-                                         int xc0, const float* __restrict__ b,
-                                         int64_t ldb, int depth, float* As,
-                                         float* Bs) {
-  constexpr int LDA = kBM + kPad;
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
-  for (int k0 = 0; k0 < depth; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, c = e % kBK;
-      const int gr = r0 + r, gc = xc0 + k0 + c;
-      As[c * LDA + r] =
-          (gr < R && gc < N) ? __ldcg(x + (int64_t)gr * ldx + gc) : 0.f;
-    }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int r = e / kBN, c = e % kBN;
-      Bs[r * kBN + c] = b[(int64_t)(k0 + r) * ldb + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = As[k * LDA + ty * kTM + i];
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k * kBN + tx * kTN]);
-      const float bb[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void tile_store(const float (&acc)[kTM][kTN],
-                                           float* __restrict__ y, int64_t ldy,
-                                           int R, int n_cols, int r0, int c0) {
-  const int tx = threadIdx.x % (kBN / kTN);
-  const int ty = threadIdx.x / (kBN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gr = r0 + ty * kTM + i;
-    if (gr >= R) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gc = c0 + tx * kTN + j;
-      if (gc < n_cols) y[(int64_t)gr * ldy + gc] = acc[i][j];
-    }
-  }
-}
-
-// y (R, n_cols) = x (R, N) @ S, S as the slab (nb, (2w+1) bs, bs).
-// Grid (n_cols / 64, R / 64): one block per (output column tile, row tile),
-// summing over the 2w+1 window blocks of the block-banded S. Windows that
-// fall off the matrix are skipped (the JAX kernel clamps them onto zero
-// slab rows).
-__global__ void __launch_bounds__(kThreads)
-band_matmul_kernel(const float* __restrict__ x,
-                   const float* __restrict__ s_band, float* __restrict__ y,
-                   int R, int N, int n_cols, int nb, int w, int bs) {
-  __shared__ __align__(16) float As[kBK * (kBM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * kBN];
-  const int c0 = blockIdx.x * kBN;
-  const int r0 = blockIdx.y * kBM;
-  const int W = 2 * w + 1;
-  const int j = c0 / bs, lc = c0 % bs;
-  float acc[kTM][kTN] = {};
-  for (int t = 0; t < W; ++t) {
-    const int i = j + t - w;
-    if (i < 0 || i >= nb) continue;
-    const float* b = s_band + ((int64_t)j * W + t) * bs * bs + lc;
-    tile_mac(acc, x, N, R, N, r0, i * bs, b, bs, bs, As, Bs);
-  }
-  tile_store(acc, y, n_cols, R, n_cols, r0, c0);
-}
-
 // ---------------------------------------------------------------------------
-// bcsr_matmul: its own pipelined mainloop (band_matmul keeps tile_mac)
+// band_matmul and bcsr_matmul: one pipelined mainloop on two block layouts
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -300,36 +211,70 @@ size_t bcsr_smem_bytes(int BM) {
                               : (size_t)kNarStages * nar_stage(BM));
 }
 
-// y (R, n_cols) = x (R, N) @ S, S as nonzero (bs, bs) blocks sorted by
-// block column; col_start[j] .. col_start[j+1] is column j's segment. The
-// x tile of each block is chosen by block_row (data-dependent). An empty
-// segment writes zeros. x may sit on its own block grid (N != n_cols).
-// vec_x: x rows staged by 16-byte copies (N % 4 == 0, x aligned); vec_y:
-// 16-byte stores (n_cols % 4 == 0, y aligned).
+// The block layouts the two mainloops walk: output block column j sums
+// the blocks kb of its segment first(j) .. first(j) + count(j), block kb
+// at block(j, kb) (bs x bs, row-major), multiplying x's block column
+// x_block(j, kb).
+//  * BcsrBlocks: the nonzero blocks sorted by block column; the segment
+//    is col_start[j] .. col_start[j+1] (built once with the layout), the x
+//    block column is block_row[kb] (data-dependent).
+//  * BandBlocks: the band slab (nb, (2w+1) bs, bs), a BCSR in disguise:
+//    block t of column j is the slab's rows t bs .. (t+1) bs of j, x block
+//    column j + t - w; the segment is the t that keep that inside the
+//    matrix, max(0, w - j) .. min(2w+1, nb + w - j), computed, not read.
+struct BcsrBlocks {
+  const float* blocks;
+  const int* block_row;
+  const int* col_start;
+  int bs;
+  __device__ int first(int j) const { return col_start[j]; }
+  __device__ int count(int j) const { return col_start[j + 1] - col_start[j]; }
+  __host__ __device__ const float* block(int, int kb) const {
+    return blocks + (int64_t)kb * bs * bs;
+  }
+  __device__ int x_block(int, int kb) const { return block_row[kb]; }
+};
+
+struct BandBlocks {
+  const float* s_band;
+  int nb, w, bs;
+  __device__ int first(int j) const { return max(0, w - j); }
+  __device__ int count(int j) const {
+    return max(0, min(2 * w + 1, nb + w - j) - first(j));
+  }
+  __host__ __device__ const float* block(int j, int t) const {
+    return s_band + ((int64_t)j * (2 * w + 1) + t) * bs * bs;
+  }
+  __device__ int x_block(int j, int t) const { return j + t - w; }
+};
+
+// y (R, n_cols) = x (R, N) @ S over the blocks of each output block column
+// (Blocks: BcsrBlocks or BandBlocks). An empty segment writes zeros. x may
+// sit on its own block grid (N != n_cols); its columns past N read as
+// zero. vec_x: x rows staged by 16-byte copies (N % 4 == 0, x aligned);
+// vec_y: 16-byte stores (n_cols % 4 == 0, y aligned).
 // Grid (n_cols / 64, R / 128), dynamic shared memory bcsr_smem_bytes(128).
+template <class Blocks>
 __global__ void __launch_bounds__(kCsrThreads, 2)
-bcsr_matmul_kernel(const float* __restrict__ x,
-                   const float* __restrict__ blocks,
-                   const int* __restrict__ block_row,
-                   const int* __restrict__ col_start, float* __restrict__ y,
-                   int R, int N, int n_cols, int bs, int vec_x, int vec_y) {
+bcsr_matmul_kernel(const float* __restrict__ x, const Blocks blk,
+                   float* __restrict__ y, int R, int N, int n_cols, int bs,
+                   int vec_x, int vec_y) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * kCsrBN;
   const int r0 = blockIdx.y * kCsrBM;
   const int j = c0 / bs, lc = c0 % bs;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int seg0 = col_start[j];
+  const int seg0 = blk.first(j);
   const int per_block = bs / kCsrBK;
-  const int n_steps = (col_start[j + 1] - seg0) * per_block;
+  const int n_steps = blk.count(j) * per_block;
   // K-step s: block seg0 + s / per_block, depth (s % per_block) * kCsrBK
   auto stage = [&](int s) {
     float* As = smem + (s % kCsrStages) * kCsrStage;
     const int kb = seg0 + s / per_block, kd = (s % per_block) * kCsrBK;
     stage_x<kCsrBM, kCsrBK, kCsrThreads>(As, kCsrLDA, x, R, N, r0,
-                                         block_row[kb] * bs + kd, vec_x);
+                                         blk.x_block(j, kb) * bs + kd, vec_x);
     stage_s<kCsrBK, kCsrBN, kCsrThreads>(As + kCsrBM * kCsrLDA,
-                                         blocks + (int64_t)kb * bs * bs, bs,
-                                         kd, lc);
+                                         blk.block(j, kb), bs, kd, lc);
   };
   float acc[8][4] = {};
 #pragma unroll
@@ -369,13 +314,11 @@ bcsr_matmul_kernel(const float* __restrict__ x,
 // tiles, so that few rows still make n_cols / 16 blocks (256 at N = 4096),
 // and each S block streams once, in 64-byte rows of 16 columns. Grid
 // (n_cols / 16, R / BM), dynamic shared memory bcsr_smem_bytes(BM).
-template <int BM>
+template <int BM, class Blocks>
 __global__ void __launch_bounds__(kCsrThreads)
-bcsr_narrow_kernel(const float* __restrict__ x,
-                   const float* __restrict__ blocks,
-                   const int* __restrict__ block_row,
-                   const int* __restrict__ col_start, float* __restrict__ y,
-                   int R, int N, int n_cols, int bs, int vec_x) {
+bcsr_narrow_kernel(const float* __restrict__ x, const Blocks blk,
+                   float* __restrict__ y, int R, int N, int n_cols, int bs,
+                   int vec_x) {
   constexpr int kRG = BM / 4;                       // row groups
   constexpr int kGroups = kCsrThreads / (kRG * 4);  // k-groups
   constexpr int kSub = kNarKD / kGroups;            // a group's depth a step
@@ -386,17 +329,16 @@ bcsr_narrow_kernel(const float* __restrict__ x,
   const int j = c0 / bs, lc = c0 % bs;
   const int tid = threadIdx.x;
   const int cg = tid % 4, rg = (tid / 4) % kRG, kg = tid / (4 * kRG);
-  const int seg0 = col_start[j];
+  const int seg0 = blk.first(j);
   const int per_block = bs / kNarKD;
-  const int n_steps = (col_start[j + 1] - seg0) * per_block;
+  const int n_steps = blk.count(j) * per_block;
   auto stage = [&](int s) {
     float* As = smem + (s % kNarStages) * kStage;
     const int kb = seg0 + s / per_block, kd = (s % per_block) * kNarKD;
     stage_x<BM, kNarKD, kCsrThreads>(As, kNarLDA, x, R, N, r0,
-                                     block_row[kb] * bs + kd, vec_x);
-    stage_s<kNarKD, kNarBN, kCsrThreads>(As + BM * kNarLDA,
-                                         blocks + (int64_t)kb * bs * bs, bs,
-                                         kd, lc);
+                                     blk.x_block(j, kb) * bs + kd, vec_x);
+    stage_s<kNarKD, kNarBN, kCsrThreads>(As + BM * kNarLDA, blk.block(j, kb),
+                                         bs, kd, lc);
   };
   float acc[4][4] = {};
 #pragma unroll
@@ -619,6 +561,44 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The wide tile above kNarMaxRows rows, else the narrow one of the fewest
+// rows (16, 32 or 64) that holds R: a dispatch on the shape. The blocks
+// (S) are staged by 16-byte copies, so they must be 16-byte aligned.
+template <class Blocks>
+cudaError_t launch_mainloop(const float* x, const Blocks& blk, float* y,
+                            int R, int N, int n_cols, int bs,
+                            cudaStream_t stream) {
+  if (bs % kNarKD != 0 || R <= 0 || n_cols <= 0 || N < 0)
+    return cudaErrorInvalidValue;
+  if (!aligned16(blk.block(0, 0))) return cudaErrorMisalignedAddress;
+  const int vec_x = N % 4 == 0 && aligned16(x);
+  const int vec_y = n_cols % 4 == 0 && aligned16(y);
+  const int BM = R > kNarMaxRows ? kCsrBM : R > 32 ? 64 : R > 16 ? 32 : 16;
+  const void* fn = BM == kCsrBM ? (const void*)bcsr_matmul_kernel<Blocks>
+                   : BM == 64   ? (const void*)bcsr_narrow_kernel<64, Blocks>
+                   : BM == 32   ? (const void*)bcsr_narrow_kernel<32, Blocks>
+                                : (const void*)bcsr_narrow_kernel<16, Blocks>;
+  const size_t smem = bcsr_smem_bytes(BM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(n_cols, BM == kCsrBM ? kCsrBN : kNarBN), cdiv(R, BM));
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  if (BM == kCsrBM)
+    bcsr_matmul_kernel<Blocks><<<grid, kCsrThreads, smem, stream>>>(
+        x, blk, y, R, N, n_cols, bs, vec_x, vec_y);
+  else if (BM == 64)
+    bcsr_narrow_kernel<64, Blocks><<<grid, kCsrThreads, smem, stream>>>(
+        x, blk, y, R, N, n_cols, bs, vec_x);
+  else if (BM == 32)
+    bcsr_narrow_kernel<32, Blocks><<<grid, kCsrThreads, smem, stream>>>(
+        x, blk, y, R, N, n_cols, bs, vec_x);
+  else
+    bcsr_narrow_kernel<16, Blocks><<<grid, kCsrThreads, smem, stream>>>(
+        x, blk, y, R, N, n_cols, bs, vec_x);
+  return cudaGetLastError();
+}
+
 template <int TM, int KD>
 const void* register_kernel(bool vec) {
   return vec ? (const void*)band_register_kernel<TM, KD, true>
@@ -633,18 +613,21 @@ struct NamedKernel {
 #define GNT_REGISTER(TM, KD, V)                                 \
   {"band_register_kernel<" #TM ", " #KD ", " #V ">",            \
    (const void*)band_register_kernel<TM, KD, V>}
+#define GNT_MAINLOOP(B)                                                  \
+  {"bcsr_matmul_kernel<" #B ">", (const void*)bcsr_matmul_kernel<B>},    \
+  {"bcsr_narrow_kernel<16, " #B ">", (const void*)bcsr_narrow_kernel<16, B>}, \
+  {"bcsr_narrow_kernel<32, " #B ">", (const void*)bcsr_narrow_kernel<32, B>}, \
+  {"bcsr_narrow_kernel<64, " #B ">", (const void*)bcsr_narrow_kernel<64, B>}
 const NamedKernel kKernels[] = {
-    {"band_matmul_kernel", (const void*)band_matmul_kernel},
-    {"bcsr_matmul_kernel", (const void*)bcsr_matmul_kernel},
-    {"bcsr_narrow_kernel<16>", (const void*)bcsr_narrow_kernel<16>},
-    {"bcsr_narrow_kernel<32>", (const void*)bcsr_narrow_kernel<32>},
-    {"bcsr_narrow_kernel<64>", (const void*)bcsr_narrow_kernel<64>},
+    GNT_MAINLOOP(BcsrBlocks),
+    GNT_MAINLOOP(BandBlocks),
     GNT_REGISTER(kNarrowTM, kNarrowKD, true),
     GNT_REGISTER(kNarrowTM, kNarrowKD, false),
     GNT_REGISTER(kWideTM, kWideKD, true),
     GNT_REGISTER(kWideTM, kWideKD, false),
 };
 #undef GNT_REGISTER
+#undef GNT_MAINLOOP
 
 }  // namespace
 
@@ -677,52 +660,23 @@ cudaError_t gnt_kernel_attributes(const void* fn, int* out) {
   return cudaSuccess;
 }
 
-cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,
-                            int R, int N, int n_cols, int nb, int w, int bs,
-                            cudaStream_t stream) {
-  if (bs % kBN != 0 || R <= 0 || n_cols <= 0) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(n_cols, kBN), cdiv(R, kBM));
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  band_matmul_kernel<<<grid, kThreads, 0, stream>>>(
-      x, s_band, y, R, N, n_cols, nb, w, bs);
-  return cudaGetLastError();
-}
-
-// The wide tile above kNarMaxRows rows, else the narrow one of the fewest
-// rows (16, 32 or 64) that holds R: a dispatch on the shape.
+// y = x @ S on the BCSR blocks.
 cudaError_t gnt_bcsr_matmul(const float* x, const float* blocks,
                             const int* block_row, const int* col_start,
                             float* y, int R, int N, int n_cols, int bs,
                             cudaStream_t stream) {
-  if (bs % kNarKD != 0 || R <= 0 || n_cols <= 0 || N <= 0)
-    return cudaErrorInvalidValue;
-  if (!aligned16(blocks)) return cudaErrorMisalignedAddress;
-  const int vec_x = N % 4 == 0 && aligned16(x);
-  const int vec_y = n_cols % 4 == 0 && aligned16(y);
-  const int BM = R > kNarMaxRows ? kCsrBM : R > 32 ? 64 : R > 16 ? 32 : 16;
-  const void* fn = BM == kCsrBM ? (const void*)bcsr_matmul_kernel
-                   : BM == 64   ? (const void*)bcsr_narrow_kernel<64>
-                   : BM == 32   ? (const void*)bcsr_narrow_kernel<32>
-                                : (const void*)bcsr_narrow_kernel<16>;
-  const size_t smem = bcsr_smem_bytes(BM);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(n_cols, BM == kCsrBM ? kCsrBN : kNarBN), cdiv(R, BM));
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  if (BM == kCsrBM)
-    bcsr_matmul_kernel<<<grid, kCsrThreads, smem, stream>>>(
-        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x, vec_y);
-  else if (BM == 64)
-    bcsr_narrow_kernel<64><<<grid, kCsrThreads, smem, stream>>>(
-        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
-  else if (BM == 32)
-    bcsr_narrow_kernel<32><<<grid, kCsrThreads, smem, stream>>>(
-        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
-  else
-    bcsr_narrow_kernel<16><<<grid, kCsrThreads, smem, stream>>>(
-        x, blocks, block_row, col_start, y, R, N, n_cols, bs, vec_x);
-  return cudaGetLastError();
+  return launch_mainloop(x, BcsrBlocks{blocks, block_row, col_start, bs}, y,
+                         R, N, n_cols, bs, stream);
+}
+
+// y = x @ S on the band slab s_band (nb, (2w+1) bs, bs), nb = n_cols / bs
+// rounded up.
+cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,
+                            int R, int N, int n_cols, int nb, int w, int bs,
+                            cudaStream_t stream) {
+  if (w < 0 || nb != cdiv(n_cols, bs)) return cudaErrorInvalidValue;
+  return launch_mainloop(x, BandBlocks{s_band, nb, w, bs}, y, R, N, n_cols,
+                         bs, stream);
 }
 
 // A cooperative launch of as many blocks as there are items, at most as

@@ -235,7 +235,9 @@ def stats_plain(a1x: torch.Tensor, a2x: torch.Tensor,
                 slope: float = 0.2):
     """(rowmax, rowsum), each (Q, Np): the max and the exp-sum of each
     row's masked scores over its column window. a1x, a2x (Q, Np);
-    mask_row (nb, W, ibs, ibs)."""
+    mask_row (nb, W, ibs, ibs). A row without support has every score
+    -1e12 (window blocks off the matrix included, as the JAX kernel's
+    clamped zero-mask tiles): rowmax -1e12, rowsum W*ibs."""
     Q, Np = a1x.shape
     nb = Np // ibs
     a1w = _win(a1x.reshape(Q, nb, ibs), w)                # Q, nb, W, ibs
@@ -368,9 +370,12 @@ def stats_call(a1x: torch.Tensor, a2x: torch.Tensor, mask_row: torch.Tensor,
     """Row softmax stats of the masked band scores: (rowmax, rowsum), each
     (Q, Np), from a1x, a2x (Q, Np) and mask_row (nb, W, ibs, ibs).
 
-    CUDA kernel: ``attn_stats_kernel`` in kernels/csrc/attention_flash.cu,
-    replacing the Pallas kernel of the JAX package's
-    ``ops/attention_flash.py:_stats_call``.
+    CUDA kernel: ``attn_stats_kernel<false>`` in
+    kernels/csrc/attention_flash.cu (the scores on each row's support,
+    compacted from mask_row on the card), replacing the Pallas kernel of
+    the JAX package's ``ops/attention_flash.py:_stats_call``. The window
+    (2w+1)*ibs must fit the kernel's int16 positions and shared memory
+    (it raises past ~11,600 columns).
     """
     Q, Np = a1x.shape
     if tuple(a2x.shape) != (Q, Np):

@@ -49,11 +49,14 @@ ZERO_TOL = 1e-9
 TILE_N = 64
 
 # Row-count rule for the fused register (gso.gshift_register): fused for at
-# most this many rows, chained band_matmul above. Measured on an H100 by
-# chip_smoke.py's register_sweep (N = 4096, w = 1, K = 5; see PERF.md): the
-# register beats K-1 chained band_matmul at every swept row count up to
-# 2048, the largest; past it the rule keeps the chain, which is unmeasured
-# there. Both compute the same function: a speed rule only.
+# most this many rows, chained band_matmul above. Both compute the same
+# function: a speed rule only. chip_smoke.py's register_sweep measures it on
+# an H100 (N = 4096, w = 1, K = 5; see PERF.md): the register beat K-1
+# chained band_matmul at every swept row count up to 2048 while band_matmul
+# ran a 64 x 64 tile loop of its own; since band_matmul runs the BCSR
+# mainloop, the chain is as fast at 256 rows and faster above. The rule
+# still fuses up to 2048 rows, which keeps the launch counts of the band
+# paths; moving it is a change of its own, measured end to end.
 REGISTER_MAX_ROWS = 2048
 
 # band_shift_register's CUDA blocks: a 32-column output panel of the slab
@@ -263,8 +266,10 @@ def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
     with nb = ceil(n_cols / bs) -> y (R, n_cols). x's columns past N count
     as zero (N <= nb*bs).
 
-    CUDA kernel: ``band_matmul_kernel`` in kernels/csrc/spmm.cu, replacing
-    the Pallas kernel of the JAX package's ``ops/spmm.py:band_matmul``.
+    CUDA kernel: ``bcsr_matmul_kernel<BandBlocks>`` (above 64 rows) or
+    ``bcsr_narrow_kernel<BM, BandBlocks>`` in kernels/csrc/spmm.cu, the
+    BCSR mainloop on the band slab's blocks, replacing the Pallas kernel of
+    the JAX package's ``ops/spmm.py:band_matmul``.
     """
     R, N = x.shape
     bs = block_size

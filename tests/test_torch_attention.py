@@ -123,6 +123,35 @@ def test_stats_plain_matches_jax_kernel(N, half, ibs):
     assert taf.stats_call.launches == 0   # CPU tensors: the plain version
 
 
+@pytest.mark.parametrize("N,half,ibs", [(96, 20, 16), (90, 40, 16),
+                                        (120, 30, 32)],
+                         ids=["w2", "ragged", "ibs32"])
+def test_stats_plain_rows_without_support_match_jax_kernel(N, half, ibs):
+    """Rows without support in the first and last w row blocks (whose
+    windows leave the matrix) and in the middle: stats_plain against the
+    JAX _stats_call, which clamps the off-matrix window blocks onto
+    zero-mask tiles, so such a row has rowmax -1e12 and rowsum W*ibs (the
+    convention the CUDA kernel keeps, in both instances)."""
+    tg, jg, a1, a2, _ = _kernel_operands(3, N=N, half=half, ibs=ibs)
+    w = tg.band_w
+    mask = taf.band_auxes(tg)[0].mask_row.numpy().copy()
+    nb = mask.shape[0]
+    Np, W = nb * ibs, 2 * w + 1
+    assert w >= 1 and nb >= 2 * w
+    rows = [0, w * ibs - 1, Np // 2 + 1, Np - w * ibs, Np - 1]
+    for r in rows:
+        mask[r // ibs, :, r % ibs, :] = 0
+    with pltpu.force_tpu_interpret_mode():
+        jmx, jsm = jaf._stats_call(*_j(a1, a2, mask), w, ibs, 0.2, True)
+    jmx, jsm = (np.asarray(t).reshape(a1.shape) for t in (jmx, jsm))
+    mx, sm = taf.stats_plain(*_t(a1, a2, mask), w=w, ibs=ibs)
+    np.testing.assert_allclose(mx.numpy(), jmx, **TOL)
+    np.testing.assert_allclose(sm.numpy(), jsm, **TOL)
+    for got_mx, got_sm in ((mx.numpy(), sm.numpy()), (jmx, jsm)):
+        assert (got_mx[:, rows] == np.float32(-1e12)).all()
+        assert (got_sm[:, rows] == W * ibs).all()
+
+
 @pytest.mark.parametrize("with_s", [True, False])
 @pytest.mark.parametrize("N,half,ibs", [(96, 20, 16), (90, 40, 16)],
                          ids=["w2", "ragged"])

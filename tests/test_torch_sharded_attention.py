@@ -162,6 +162,33 @@ def test_stats_ext_plain_matches_jax(ext_case, p):
                                    (2 * part.w + 1) * part.inner_bs)
 
 
+@pytest.mark.parametrize("p", [0, 1, 3], ids=["first", "interior", "last"])
+def test_stats_ext_plain_rows_without_support_match_jax(ext_case, p):
+    """Rows without support in a shard's first and last w row blocks
+    (whose windows reach a neighbour's halo, or zeros past the global
+    ends) and in the middle: stats_ext_plain against the JAX
+    _stats_ext_call, rowmax -1e12 and rowsum W*ibs on those rows (as
+    stats_plain gives the same rows of the unsharded graph)."""
+    part, a1, a2, *_ = ext_case
+    _, mr = tsha._row_col_masks(part)
+    w, ibs, bs = part.w, part.inner_bs, part.block_size
+    rows = [0, ibs + 1, bs // 2, bs - ibs - 1, bs - 1]
+    mask = mr[p].copy()
+    for r in rows:
+        mask[r // ibs, :, r % ibs, :] = 0
+    ops = (_ext(a1, p, part), a2[:, p * bs:(p + 1) * bs], mask)
+    got = [t.numpy() for t in taf.stats_ext_plain(*_t(*ops), w=w, ibs=ibs)]
+    stats_j = jax.jit(jaf._stats_ext_call, static_argnums=(3, 4, 5, 6))
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(t).reshape(a1.shape[0], bs) for t in stats_j(
+            *map(jnp.asarray, ops), w, ibs, SLOPE, True)]
+    for g, wt in zip(got, want):
+        np.testing.assert_allclose(g, wt, **TOL)
+    for mx, sm in (got, want):
+        assert (mx[:, rows] == np.float32(-1e12)).all()
+        assert (sm[:, rows] == (2 * w + 1) * ibs).all()
+
+
 @pytest.mark.parametrize("with_s", [True, False])
 @pytest.mark.parametrize("p", [0, 1, 3], ids=["first", "interior", "last"])
 def test_apply_ext_plain_matches_jax(ext_case, p, with_s):

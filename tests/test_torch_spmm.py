@@ -97,6 +97,32 @@ def test_band_matmul_plain_matches_jax(N, half, col_tile):
     assert torch.equal(y, got) and tspmm.band_matmul.launches == before
 
 
+@pytest.mark.parametrize("R,N,n_cols,half,w", [
+    (1, 96, 96, 20, 2),     # one row: the narrowest row tile on the card
+    (17, 90, 90, 20, 2),    # ragged N = n_cols, past a 16-row tile
+    (33, 85, 90, 20, 2),    # x narrower than S: its columns past N are 0
+    (65, 90, 90, 20, 2),    # one row past the narrow tiles
+    (17, 64, 64, 0, 0),     # w = 0: the diagonal blocks only
+    (33, 96, 96, 40, 3),    # w = 3
+])
+def test_band_matmul_plain_matches_jax_at_row_counts(R, N, n_cols, half, w):
+    """The plain version against the JAX kernel at the row counts that
+    pick the CUDA kernel's tiles (it runs the BCSR mainloop on the band
+    slab's blocks), ragged shapes and block bandwidths 0 and 3."""
+    rng = np.random.default_rng(R + N + half)
+    bs = 16
+    s_band, w_got = tspmm.dense_to_band(_banded(rng, n_cols, half), bs)
+    assert w_got == w
+    x = rng.standard_normal((R, N)).astype(np.float32)
+    want = jspmm.band_matmul(jnp.asarray(x), jnp.asarray(s_band),
+                             n_cols=n_cols, w=w, block_size=bs, row_tile=8,
+                             interpret=True)
+    got = tspmm.band_matmul(torch.from_numpy(x), torch.from_numpy(s_band),
+                            n_cols=n_cols, w=w, block_size=bs)
+    assert got.shape == (R, n_cols)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("N,half,K", [(96, 20, 4), (90, 40, 3), (64, 0, 2)])
 def test_band_shift_register_plain_matches_jax(N, half, K):
     rng = np.random.default_rng(11)
