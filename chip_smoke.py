@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from kernels/csrc with nvcc (one nvcc a
-source, side by side), then drives two serving paths, the training path
-and the flocking deployment path:
+source, side by side), then drives two serving paths, the training path,
+the flocking deployment and training paths and the node-sharded paths:
 
 * SpMM: holds the three graph-shift kernels against their plain PyTorch
   versions at the serving path's shapes and at edge cases, times each
@@ -42,6 +42,19 @@ and the flocking deployment path:
   over 25) and flock_n4096 (2 samples, 100 steps) through Flocking's
   entry points against the same rollouts on the plain versions, with
   exact launch counts; times the kernels and profiles a rollout step.
+* Flocking training: holds grid_window at the training path's new shapes
+  (the expert's repel pass, r2 = 1 and d_max = 1; the recompute's main
+  pass, d_max = 32 without payload) against its plain version bit for bit
+  on flock_n262k's swarm and an edge swarm with d^2 = 1 pairs, and times
+  the repel shape; trains flock_train_n262k (LocalGNN_DB [6,64]/[3],
+  N=262144, T=50, ellDegree 32) through Flocking.large_device, Model.train
+  with TrainerFlocking over the device-resident store (3 epochs, batch 1,
+  randomEpoch DAGger at probExpert 0.5) and evaluate_flocking, with exact
+  grid-kernel launch counts per step, re-roll and validation; checks the
+  first batch's recompute bit for bit against the plain versions, the grid
+  expert against the all-pairs expert and the ELL lsigf_db forward and
+  gradient against the dense one at N=4096; profiles a training step
+  (recompute and learning halves) and its peak memory.
 * Node-sharded serving (one process drives every shard; a mesh repeats
   the one card): serves gat_band_n16384 through GraphAttentionNetwork
   .shard() and InferenceEngine over a (1, 4) and a (2, 2) data x graph
@@ -2365,6 +2378,421 @@ def phase_flock_profile(setup, card, n=10):
 
 
 # ---------------------------------------------------------------------------
+# Flocking training (the device-resident DAGger store)
+# ---------------------------------------------------------------------------
+
+# flock_train_n262k: examples/largeswarm.py --deviceStore as RESULTS.md
+# records its 262,144-agent training run (--nTrain 4 --batch 1
+# --trainDuration 0.5 --ellDegree 32): LocalGNN_DB([6,64], [3], True,
+# "tanh", [2], 1), Flocking.large_device(262144, commRadius 2, repelDist 1,
+# nTrain 4, nValid 1, nTest 1, duration 0.5, dt 0.01: T = 50, ell_degree
+# 32, env_grid=True, lam_iters 1, default_rng(0)), TrainerFlocking
+# (deviceStore, ellDegree 32, randomEpoch DAGger), batch 1, Adam 5e-4,
+# MSE. The smoke trains 3 epochs at probExpert 0.5 (the DAGger-heavy
+# regime RESULTS.md records) with validation every 4 steps; random
+# weights from a torch seed. The ELL-vs-dense check runs at flock_n4096's
+# N (the dense (1, 50, 1, N, N) stack is 3.4 GB there).
+FLOCK_TRAIN = dict(N=262144, nTrain=4, nValid=1, nTest=1, duration=0.5,
+                   dims=[6, 64], taps=[3], D=32, lam_iters=1, seed=0,
+                   wseed=3, epochs=3, probExpert=0.5, valid_every=4,
+                   n_ref=4096, bit_steps=10)
+
+
+def _recompute_launches(T, lam):
+    """A training batch's recompute (B = 1): one table a step; the main,
+    the repel and max(lam, 32) lambda passes at t = 0, then the main, the
+    repel and lam lambda passes a step."""
+    return dict(grid_window=2 + max(lam, 32) + (T - 1) * (2 + lam),
+                table_build=T, table_transpose=0)
+
+
+def _rollout_launches(T, lam):
+    """One fused-policy rollout (any B): the main pass and max(lam, 32)
+    lambda passes at t = 0, then the main pass and lam lambda passes a
+    step."""
+    return dict(grid_window=1 + max(lam, 32) + (T - 1) * (1 + lam),
+                table_build=T, table_transpose=0)
+
+
+def _repel_edge_swarm(rng, dev):
+    """The edge swarm plus two isolated pairs at exactly d^2 = 1 (the
+    repel boundary, where the window pass counts a pair and the all-pairs
+    expert does not): (pos, vel, [(a, b), ...])."""
+    import torch
+    epos, evel = _edge_swarm(rng, 397, 12.0, dev)
+    n = epos.shape[-1]
+    extra = torch.tensor([[14.0, 15.0, 14.0, 14.0],
+                          [14.0, 14.0, -14.0, -15.0]], device=dev)[None]
+    pos = torch.cat([epos, extra], dim=2)
+    vel = torch.cat([evel, torch.ones_like(extra)], dim=2)
+    return pos, vel, [(n, n + 1), (n + 2, n + 3)]
+
+
+def phase_flock_train_kernels(rng, dev):
+    """grid_window at the training path's two new shapes against its plain
+    version, bit for bit: the expert's repel pass (r2 = 1, d_max = 1,
+    n_pay = 0) and the recompute's main pass (d_max = 32, n_pay = 0, the
+    table with v lanes), on flock_n262k's swarm and on the edge swarm;
+    then the repel shape timed beside its bound."""
+    import torch
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    results, errs = [], {}
+
+    def check(case, args, **kw):
+        got = gridwin.grid_window(*args, **kw)
+        want = gridwin.grid_window_plain(*args, **kw)
+        same = bool(torch.equal(got, want))
+        max_abs = (got - want).abs().max().item()
+        results.append(dict(kernel="grid_window", case=case, equal=same,
+                            max_abs_err=max_abs))
+        errs["grid_window"] = max(errs.get("grid_window", 0.0), max_abs)
+        require(same, f"grid_window [{case}] differs from its plain version "
+                      f"(max abs {max_abs})")
+        return got
+
+    repel = dict(C=32, r2=1.0, d_max=1, n_pay=0)
+    main = dict(C=32, r2=4.0, d_max=32, n_pay=0)
+    _, ip, iv, _ = _flock_setup("flock_n262k", dev)
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    N = pos.shape[-1]
+    g = torch.Generator(device="cpu").manual_seed(6)
+    v = torch.rand(1, N, generator=g).to(dev)
+    table, own, slots, keep, H, W, ok = _grid_inputs(pos, vel, 2, 32, v=v)
+    require(ok, "262k table overflowed")
+    args = (table, own, slots, keep)
+    out_r = check("262k repel: r2=1 d_max=1 n_pay=0", args, **repel)
+    check("262k recompute: d_max=32 n_pay=0", args, **main)
+    require(out_r[:, 2 + 7].max().item() > 1,
+            "no agent of the 262k swarm has two repel-range neighbors")
+
+    epos, evel, pairs = _repel_edge_swarm(rng, dev)
+    ev = torch.rand(1, epos.shape[-1], generator=g).to(dev)
+    for factor, C in ((2, 32), (1, 16)):
+        ea = _grid_inputs(epos, evel, factor, C, v=ev)
+        require(ea[-1], f"edge swarm overflowed (factor {factor})")
+        out = check(f"edge repel: factor={factor} C={C}", ea[:4],
+                    **dict(repel, C=C))
+        check(f"edge recompute: factor={factor} C={C} d_max=32", ea[:4],
+              **dict(main, C=C))
+        cnt = out[:, 2 + 7]
+        require(cnt.max().item() > 1, "no edge-swarm agent with two "
+                                      "repel-range neighbors")
+        for a, b in pairs:   # d^2 = 1 exactly: the window pass counts it
+            require(out[a, 0].item() == b and out[b, 0].item() == a
+                    and cnt[a].item() == 1 and cnt[b].item() == 1,
+                    f"d^2 = 1 pair {a}, {b}: ids {out[a, 0].item()}, "
+                    f"{out[b, 0].item()}, counts {cnt[a].item()}, "
+                    f"{cnt[b].item()}")
+
+    # the repel shape at 262k: CUDA events, a CUDA graph's device time, the
+    # plain version, and the bound by the bytes this run's windows reach
+    R, n_win = slots.shape
+    row = dict(
+        shape=f"R={R} n_win={n_win} C=32 W={W} r2=1 d_max=1 n_pay=0",
+        ms=time_ms(lambda: gridwin.grid_window(*args, **repel)),
+        graph_ms=graph_ms(lambda: gridwin.grid_window(*args, **repel)),
+        plain_ms=time_ms(lambda: gridwin.grid_window_plain(*args, **repel),
+                         reps=5, inner=2),
+        library_ms=None,
+        **_window_work(*args, out_r, C=32, n_feat=7, d_max=1))
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+    emit(phase="flock_train_kernels", checks=results, repel_timing=row,
+         seconds=time.perf_counter() - t_phase)
+    return errs, {"grid_window@repel": row}
+
+
+def _ell_dense(ell, N):
+    """The dense (B, T, E, N, N) stack of an EllGso on its device:
+    S[..., e, n, m] = val[..., e, m, d] for n = idx[..., m, d]."""
+    import torch
+    idx, val = ell.idx, ell.val
+    St = torch.zeros(val.shape[:-1] + (N,), dtype=val.dtype,
+                     device=val.device)                      # (..., e, m, n)
+    St.scatter_add_(-1, idx[..., None, :, :].expand(val.shape).long(), val)
+    return St.transpose(-1, -2)
+
+
+def _counting_trainer(log):
+    """TrainerFlocking with each training step, DAGger store update,
+    validation and coverage check logged with its grid-kernel launches
+    (the wrappers' count deltas) and its wall seconds, the card synced at
+    both ends, into `log`; a store update also logs whether it changed the
+    store."""
+    import torch
+    from graph_neural_networks_torch.training import TrainerFlocking
+
+    class CountingTrainerFlocking(TrainerFlocking):
+        def _counted(self, what, fn, *args):
+            torch.cuda.synchronize()
+            before = _flock_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = _flock_counts()
+            log.append(dict(what=what, seconds=seconds, launches={
+                k: after[k] - before[k] for k in after}))
+            return out
+
+        def train_batch(self, idx):
+            return self._counted("step", super().train_batch, idx)
+
+        def _device_store_update(self, sel):
+            self._counted("reroll", super()._device_store_update, sel)
+            t = self.posAll.new_tensor(np.asarray(sel)).long()
+            log[-1].update(learners=len(sel), store_changed=bool(
+                (self.posAll[t] != self.posOrig[t]).any()))
+
+        def _valid_cost(self):
+            return self._counted("validation", super()._valid_cost)
+
+        def _grid_coverage_check(self):
+            return self._counted("coverage check",
+                                 super()._grid_coverage_check)
+
+    return CountingTrainerFlocking
+
+
+def _train_checks(data, dev):
+    """The checks beside flock_train_n262k's path: the first batch's
+    recompute over its first steps on the kernels against the plain
+    versions (bit for bit); the grid expert against the all-pairs expert
+    at flock_n4096's swarm; LocalGNN_DB's ELL forward, loss and gradient
+    against the dense lsigf_db at N = n_ref, T = 50."""
+    import torch
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    c = FLOCK_TRAIN
+    out = {}
+    first = np.random.default_rng(c["seed"]).permutation(c["nTrain"])[:1]
+    pos = data.pos["train"][first, :c["bit_steps"]]
+    vel = data.vel["train"][first, :c["bit_steps"]]
+    args = (pos, vel, 2.0, 1.0, fl.EXPERT_ACCEL_MAX, c["D"], True)
+    got = fl.recompute_supervision_grid(*args, lam_iters=c["lam_iters"])
+    with _plain_gridwin():
+        want = fl.recompute_supervision_grid(*args, lam_iters=c["lam_iters"])
+    same = {name: bool(torch.equal(a, b)) for name, a, b in (
+        ("states", got[0], want[0]), ("labels", got[1], want[1]),
+        ("idx", got[2].idx, want[2].idx), ("val", got[2].val, want[2].val))}
+    require(all(same.values()), f"recompute kernels vs plain: {same}")
+    require(bool(got[3]) and int(got[4]) <= c["D"],
+            f"first batch: ok {bool(got[3])}, max in-degree {int(got[4])}")
+    out["recompute_vs_plain"] = dict(batch=first.tolist(),
+                                     steps=c["bit_steps"], equal=same,
+                                     max_in_degree=int(got[4]))
+    del got, want
+
+    _, ip, iv, _ = _flock_setup("flock_n4096", dev)
+    p4 = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    v4 = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    # the collision sums themselves: at zero velocity and no clip the
+    # expert is its repel term alone (the velocity term, thousands at this
+    # swarm, would clip nearly every entry at 10 and hide the sums)
+    z4 = torch.zeros_like(v4)
+    rep_grid, ok = fl.expert_accel_grid(p4, z4, 2.0, 1.0, 1e9)
+    rep_ref = fl.expert_accel(p4, z4, 1.0, 1e9)
+    err, rel, agree = compare(rep_grid, rep_ref, rtol=1e-4, atol_rel=1e-5)
+    d2 = ((p4[:, :, :, None] - p4[:, :, None, :]) ** 2).sum(1)
+    n_edge = int((d2 == 1.0).sum())
+    del d2
+    require(bool(ok) and agree, f"grid collision sums vs all-pairs: max abs "
+                                f"{err}, rel {rel}, ok {bool(ok)}")
+    a_grid = fl.expert_accel_grid(p4, v4, 2.0, 1.0, 10.0)[0]
+    a_ref = fl.expert_accel(p4, v4, 1.0, 10.0)
+    err_c, rel_c, agree_c = compare(a_grid, a_ref, rtol=1e-4, atol_rel=1e-5)
+    require(agree_c, f"grid expert vs all-pairs, clipped at 10: max abs "
+                     f"{err_c}, rel {rel_c}")
+    out["expert_vs_all_pairs"] = dict(
+        N=p4.shape[-1], B=p4.shape[0], rtol=1e-4,
+        atol="1e-5*max|all-pairs|", pairs_at_d2_eq_1=n_edge,
+        collision_sums=dict(
+            max_abs_err=err, max_rel_err=rel,
+            max_abs=float(rep_ref.abs().max()),
+            nonzero_share=float((rep_ref != 0).double().mean())),
+        clipped_at_10=dict(max_abs_err=err_c, max_rel_err=rel_c,
+                           clipped_share=float(
+                               (a_ref.abs() >= 10.0).double().mean())))
+
+    ref = fl.Flocking.large_device(
+        c["n_ref"], commRadius=2.0, repelDist=1.0, nTrain=1, nValid=0,
+        nTest=0, duration=c["duration"], samplingTime=0.01,
+        ell_degree=c["D"], lam_iters=c["lam_iters"],
+        rng=np.random.default_rng(1), env_grid=True, device=dev)
+    x, y, ell, ok, deg = fl.recompute_supervision_grid(
+        ref.pos["train"], ref.vel["train"], 2.0, 1.0, fl.EXPERT_ACCEL_MAX,
+        c["D"], True, lam_iters=c["lam_iters"])
+    require(bool(ok) and int(deg) <= c["D"], "n_ref recompute not exact")
+    S = _ell_dense(ell, c["n_ref"])
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1,
+                      device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    params = list(net.parameters())
+    res = {}
+    for name, graph in (("ell", ell), ("dense", S)):
+        yh = net(x, graph)
+        loss = ((yh - y) ** 2).mean()
+        res[name] = (yh.detach(), loss.detach(),
+                     torch.autograd.grad(loss, params))
+    rows = {}
+    pairs = [("forward", res["ell"][0], res["dense"][0]),
+             ("loss", res["ell"][1], res["dense"][1])]
+    pairs += [(f"grad {n}", a, b) for (n, _), a, b in zip(
+        net.named_parameters(), res["ell"][2], res["dense"][2])]
+    for name, a, b in pairs:
+        err, rel, agree = compare(a, b, rtol=1e-4, atol_rel=1e-4)
+        rows[name] = dict(max_abs_err=err, max_rel_err=rel)
+        require(agree, f"ELL vs dense lsigf_db, {name}: max abs {err}, "
+                       f"rel {rel}")
+    out["ell_vs_dense"] = dict(N=c["n_ref"], T=x.shape[1],
+                               dense_gb=S.numel() * 4 / 1e9, rtol=1e-4,
+                               atol="1e-4*max|dense|", checks=rows)
+    return out
+
+
+def phase_flock_training(dev, card, out_dir):
+    """flock_train_n262k through its entry points: Flocking.large_device,
+    Model.train with TrainerFlocking (device store, randomEpoch DAGger),
+    evaluate_flocking; the counts of the grid kernels from 0 over that
+    path, and per step, re-roll and validation; then the checks of
+    _train_checks."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_TRAIN
+    T = len(np.arange(0, c["duration"], 0.01))
+    lam = c["lam_iters"]
+    n_samples = c["nTrain"] + c["nValid"] + c["nTest"]
+    log = []
+
+    gridwin.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = fl.Flocking.large_device(
+        c["N"], commRadius=2.0, repelDist=1.0, nTrain=c["nTrain"],
+        nValid=c["nValid"], nTest=c["nTest"], duration=c["duration"],
+        samplingTime=0.01, ell_degree=c["D"], lam_iters=lam,
+        rng=np.random.default_rng(c["seed"]), env_grid=True, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = _flock_counts()
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    model = training.Model(net, training.losses.mse_loss,
+                           {"name": "ADAM", "lr": 5e-4},
+                           _counting_trainer(log), training.evaluate_flocking,
+                           name="flock_train", saveDir=out_dir)
+    t0 = time.perf_counter()
+    out = model.train(data, c["epochs"], 1, deviceStore=True,
+                      ellDegree=c["D"], probExpert=c["probExpert"],
+                      DAGgerType="randomEpoch",
+                      validationInterval=c["valid_every"], seed=c["seed"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    costs = model.evaluate(data)
+    eval_s = time.perf_counter() - t0
+    launches = _flock_counts()
+
+    store = [getattr(data, a)[s] for a in ("pos", "vel")
+             for s in ("train", "valid", "test")]
+    require(all(bool(torch.isfinite(a).all()) for a in store),
+            "non-finite generated store")
+    require(data.generation_ok, "grid overflow during generation")
+    losses, valid = out["lossTrain"], out["costValid"]
+    require(len(losses) == c["epochs"] * c["nTrain"]
+            and np.isfinite(losses).all(), f"losses {losses}")
+    require(len(valid) > 0 and np.isfinite(valid).all(), f"valid {valid}")
+    require(sorted(costs) == ["costBestEnd", "costBestFull", "costLastEnd",
+                              "costLastFull"]
+            and np.isfinite(list(costs.values())).all(), f"costs {costs}")
+    rerolls = [e for e in log if e["what"] == "reroll"]
+    require(rerolls and all(e["store_changed"] for e in rerolls),
+            f"learner re-rolls {rerolls}")
+
+    # launch counts: generation, each logged part, evaluation (2
+    # checkpoints x compute_trajectory at its default lam_iters 8)
+    recompute = _recompute_launches(T, lam)
+    expect = {"step": recompute, "reroll": _rollout_launches(T, lam),
+              "validation": _rollout_launches(T, lam),
+              "coverage check": {k: n * c["nTrain"]
+                                 for k, n in recompute.items()}}
+    want = {k: n * n_samples for k, n in recompute.items()}
+    require(gen_counts == want, f"generation launches {gen_counts}, "
+                                f"expected {want}")
+    for e in log:
+        require(e["launches"] == expect[e["what"]],
+                f"{e['what']}: launches {e['launches']}, expected "
+                f"{expect[e['what']]}")
+    ev = _rollout_launches(T, 8)
+    total = {k: gen_counts[k] + sum(e["launches"][k] for e in log)
+             + 2 * ev[k] for k in launches}
+    require(launches == total, f"path launches {launches}, its parts add "
+                               f"up to {total}")
+    emit(phase="flock_training", nvidia_smi=card, config="flock_train_n262k",
+         N=c["N"], T=T, dims=c["dims"], taps=c["taps"], ell_degree=c["D"],
+         store_gb=sum(a.numel() * a.element_size() for a in store) / 1e9,
+         generation_s=gen_s, train_s=train_s, evaluate_s=eval_s,
+         loss=[float(v) for v in losses], cost_valid=[float(v) for v in valid],
+         evaluate=costs, rerolls=rerolls,
+         launches_per=dict(generation_sample=recompute, step=recompute,
+                           reroll=expect["reroll"],
+                           validation=expect["validation"],
+                           evaluate_rollout=ev),
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    checks = _train_checks(data, dev)
+    emit(phase="flock_training_check", checks=checks,
+         seconds=time.perf_counter() - t0)
+    return launches, (model, data)
+
+
+def phase_flock_train_profile(trained, card, n=4):
+    """Where one flock_train_n262k training step spends its time: the whole
+    step, its recompute (no grad: the grid kernels) and its learning half
+    (full-history forward over the ELL graphs, loss, backward, Adam), each
+    after warm-up; and the peak device memory of one step."""
+    import torch
+    from graph_neural_networks_torch import training
+    model, data = trained
+    c = FLOCK_TRAIN
+    trainer = training.TrainerFlocking(
+        model, data, 1, 1, deviceStore=True, ellDegree=c["D"],
+        coverageCheck=False)
+    idx = np.arange(1)
+    pos, vel = trainer._step_args(idx)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    _, peak_gb = _peak_gb(lambda: trainer.train_batch(idx))
+    batch = trainer._recompute(pos, vel)
+    profs = dict(
+        step=_device_profile(lambda: trainer.train_batch(idx), n),
+        recompute=_device_profile(lambda: trainer._recompute(pos, vel), n),
+        learn=_device_profile(lambda: trainer._learn(*batch[:3]), n))
+    step_dev = profs["step"]["device_ms"]
+    rows = {k: dict(host_ms=p["wall_ms"], profiled_host_ms=p["profiled_wall_ms"],
+                    device_ms=p["device_ms"],
+                    device_idle_share=p["device_idle_share"],
+                    top=[dict(name=t["name"], ms=t["ms"], calls=t["calls"])
+                         for t in p["top"]])
+            for k, p in profs.items()}
+    emit(phase="flock_train_profile", nvidia_smi=card,
+         config="flock_train_n262k step (B = 1, T = 50)",
+         peak_gb_above_base=peak_gb, base_allocated_gb=base_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         recompute_share_of_step_device_ms=(
+             profs["recompute"]["device_ms"] / step_dev
+             if isinstance(step_dev, float) else "not measured"),
+         **rows)
+
+
+# ---------------------------------------------------------------------------
 # Node-sharded path (single controller; the shards share the one card)
 # ---------------------------------------------------------------------------
 
@@ -3272,6 +3700,22 @@ def main() -> int:
             launches[k] = env_launches[k] + serve_launches[k]
         rows.update(timed("flock_timing", phase_flock_timing, dev, card))
         timed("flock_profile", phase_flock_profile, setup, card)
+        del setup
+        train_errs, train_rows = timed(
+            "flock_train_kernels", phase_flock_train_kernels,
+            np.random.default_rng(15), dev)
+        errs["grid_window"] = max(errs["grid_window"],
+                                  train_errs["grid_window"])
+        rows.update(train_rows)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            flock_train_launches, trained = timed(
+                "flock_training", phase_flock_training, dev, card, out_dir)
+            timed("flock_train_profile", phase_flock_train_profile, trained,
+                  card)
+            del trained
+        for k in ("grid_window", "table_build"):
+            launches[k] += flock_train_launches[k]
+        torch.cuda.empty_cache()
         shard_launches, engines, profiles = timed(
             "shard_serving", phase_shard_serving, np.random.default_rng(11),
             dev)

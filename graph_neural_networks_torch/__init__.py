@@ -4,7 +4,10 @@ Graph shift operators, the LSIGF graph filter, SelectionGNN/LocalGNN, the
 attention family (GAT, GCAT, EdgeVariantAttention) and their serving
 engine, with hand-written Hopper kernels for the block-sparse graph shift
 (``ops/spmm.py``, ``kernels/csrc/spmm.cu``) and for flash banded attention
-(``ops/attention_flash.py``, ``kernels/csrc/attention_flash.cu``), and
-node-sharded execution over a device mesh (``parallel/``). Entry points
-run on CUDA unless the caller passes ``device="cpu"``.
+(``ops/attention_flash.py``, ``kernels/csrc/attention_flash.cu``),
+node-sharded execution over a device mesh (``parallel/``), and the
+flocking controller (``LocalGNN_DB``) deployed and trained on the
+cell-grid swarm environment (``data/flocking.py``, ``ops/gridwin.py``,
+``kernels/csrc/gridwin.cu``). Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 """

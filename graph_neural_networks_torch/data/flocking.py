@@ -1,23 +1,33 @@
-"""Flocking: closed-loop deployment of a decentralized swarm controller on
-the cell-grid environment.
+"""Flocking: a decentralized swarm controller on the cell-grid
+environment, trained by imitation of the centralized expert and deployed
+closed loop.
 
-The port of the JAX package's ``data/flocking.py`` for its serving side: a
-swarm of N agents rolls forward with a trained delayed-filter policy in the
-loop (``Flocking.rollout_cost``, ``rollout_traj_device``,
-``compute_trajectory(env_grid=...)``), each environment step on the O(N)
-cell-list grid (:func:`env_step_grid`) whose table and window passes run
-the kernels of ``ops/gridwin.py``. Forward only, f32, on device tensors;
-the rollout is a Python loop over steps, and the grid's exactness flag
-``ok`` stays on the device until the rollout ends.
+The port of the JAX package's ``data/flocking.py`` for its device paths.
 
-The dense all-pairs step (:func:`comm_graph`, :func:`states`,
-:func:`lambda_max_power`) is kept as the independent reference for one
-environment step.
+* Deployment: a swarm of N agents rolls forward with a trained
+  delayed-filter policy in the loop (``Flocking.rollout_cost``,
+  ``rollout_traj_device``, ``compute_trajectory(env_grid=...)``), each
+  environment step on the O(N) cell-list grid (:func:`env_step_grid`)
+  whose table and window passes run the kernels of ``ops/gridwin.py``.
+* Training with the device-resident store: ``Flocking.large_device``
+  generates the expert's (pos, vel) trajectories on the device (the grid
+  env plus the expert's repel pass, :func:`expert_accel_grid`'s
+  arithmetic) and keeps only those; each training batch recomputes its
+  states, expert labels and ELL graphs from them
+  (:func:`recompute_supervision_grid`), and ``training.TrainerFlocking``
+  re-rolls learner trajectories for DAGger with ``rollout_traj_device``.
 
-Not ported yet (ROADMAP queue 1): the expert-supervised dataset and its
-trainer (the flocking training slice), the unfused step path (policies
-whose registers shift over the emitted ELL graph), the segmented and
-chunked all-pairs rollouts, and ``lam_path="ell"``.
+f32 device tensors throughout; rollouts are Python loops over steps, and
+the grid's exactness flag ``ok`` stays on the device until a rollout
+ends. The dense all-pairs step (:func:`comm_graph`, :func:`states`,
+:func:`lambda_max_power`, :func:`expert_accel`) is kept as the independent
+reference for one environment step.
+
+Not ported yet (ROADMAP queue 1): the host-numpy store (the
+``Flocking(...)`` constructor, ``compute_optimal_trajectory``,
+``Flocking.large``; item 7.1b), the unfused step path (policies whose
+registers shift over the emitted ELL graph), the segmented and chunked
+all-pairs rollouts, and ``lam_path="ell"``.
 """
 
 from __future__ import annotations
@@ -269,10 +279,29 @@ def _grid_rows(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C, r2, d_max,
             out[..., 2 * D + 7], out[..., 2 * D + 8:])
 
 
+def _check_repel(repel_dist, comm_radius) -> None:
+    """The cells are sized by comm_radius: a larger repel radius would drop
+    collision pairs outside the windows."""
+    if float(repel_dist) > float(comm_radius):
+        raise ValueError(f"repel_dist {repel_dist} exceeds comm_radius "
+                         f"{comm_radius}: the cells are sized by the latter")
+
+
+def _repel_sums(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C, repel_dist,
+                inv_s, factor) -> torch.Tensor:
+    """The expert's collision sums (B,2,N): one window pass over the table
+    at r2 = repel_dist^2, d_max = 1, whose dp*inv and dp*inv^2 state
+    columns give rep = 2*(st2 + st4, st3 + st5). It reads no v lane."""
+    st = _grid_rows(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C,
+                    float(repel_dist) ** 2, 1, inv_s=inv_s, factor=factor)[2]
+    return 2.0 * torch.stack([st[:, 2] + st[:, 4], st[:, 3] + st[:, 5]], dim=1)
+
+
 def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
                   table_size=None, cell_cap: int = 16,
                   lam_path: str = "auto", cell_factor: int = 1,
-                  payload=None, builder: str = "fused"):
+                  payload=None, builder: str = "fused", expert_repel=None,
+                  in_degree: bool = False):
     """One O(N·k) cell-list environment step (JAX ``_jnp_env_step_grid``,
     its window-lambda path).
 
@@ -289,16 +318,30 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     iteration; lam_iters >= 1 runs that many further window passes
     (``wv_only``), each after rewriting the table's v lanes in place.
 
+    expert_repel=repelDist (<= comm_radius, so the windows cover every
+    repel-range pair): a SECOND window pass over the same table at r2 =
+    repelDist^2, d_max = 1, run before any lambda pass rewrites the v
+    lanes; its states are the centralized expert's collision sums, and the
+    step also returns rep = 2*(st2 + st4, st3 + st5) (B,2,N). It equals
+    :func:`expert_accel`'s pairwise sum up to float association and the
+    boundary comparator: d2 <= repel^2 here, < there. in_degree=True also
+    returns each sample's largest true in-degree (B,) int32, the main
+    pass's count of in-range neighbors before any d_max cut.
+
     pos/vel (B,2,N), v_prev (B,N), payload (B,N,P) or None. Returns (idx
     (B,N,D) int32, val_norm (B,N,D), states (B,6,N), v (B,N), [shifted
-    (B,N,P) = (W/lambda) @ payload,] ok ()), ok a 0-d bool tensor on the
-    device. With a payload and d_max > 0, ok also requires every in-degree
-    <= d_max (the payload shift is untruncated, the emitted graph is not).
+    (B,N,P) = (W/lambda) @ payload,] [rep (B,2,N),] [deg (B,),] ok ()), ok
+    a 0-d bool
+    tensor on the device. With a payload and d_max > 0, ok also requires
+    every in-degree <= d_max (the payload shift is untruncated, the emitted
+    graph is not).
     """
     if lam_path not in ("auto", "window"):
         raise NotImplementedError(
             f"lam_path={lam_path!r}: the ELL-matvec power iteration is not "
             f"ported yet {_NOT_PORTED}")
+    if expert_repel is not None:
+        _check_repel(expert_repel, comm_radius)
     B, _, N = pos.shape
     H, Gx, Gy, C = _grid_geometry(N, table_size, cell_cap, cell_factor)
     r2 = comm_radius ** 2
@@ -314,6 +357,10 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     idx, val, st, wv, cnt, wpay = rows(n_pay=P)
     if P and d_max > 0:
         ok = ok & (cnt.amax(dim=1) <= d_max)
+    rep = None
+    if expert_repel is not None:
+        rep = _repel_sums(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C,
+                          expert_repel, inv_s, cell_factor)
     flat = cell_rows.view(B, -1)
 
     def wv_pass(vb):
@@ -338,7 +385,120 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     out = (idx, val / lam[:, None, None], st, v)
     if P:
         out = out + (wpay / lam[:, None, None],)
+    if rep is not None:
+        out = out + (rep,)
+    if in_degree:
+        out = out + (cnt.amax(dim=1).to(torch.int32),)
     return out + (ok.all(),)
+
+
+# ---------------------------------------------------------------------------
+# The centralized expert and the training-batch supervision
+# ---------------------------------------------------------------------------
+
+def _velocity_term(vel: torch.Tensor) -> torch.Tensor:
+    """The expert's velocity consensus -sum_j (v_i - v_j) = -(N v_i -
+    sum v), a global O(N) reduction; vel (B,2,N)."""
+    N = vel.shape[-1]
+    return -(N * vel - vel.sum(dim=-1, keepdim=True))
+
+
+def _expert_from_repel(vel: torch.Tensor, rep: torch.Tensor,
+                       accel_max: float) -> torch.Tensor:
+    """The expert's acceleration from its collision sums rep (B,2,N): the
+    velocity consensus plus rep, clipped at +-accel_max."""
+    return torch.clamp(_velocity_term(vel) + rep, -accel_max, accel_max)
+
+
+def expert_accel(pos: torch.Tensor, vel: torch.Tensor, repel_dist: float,
+                 accel_max: float) -> torch.Tensor:
+    """The centralized expert's acceleration from all pairs (B,2,N) ->
+    (B,2,N): velocity consensus plus the collision-avoidance sum over the
+    pairs with d2 < repel_dist^2 (JAX ``_jnp_expert_accel_chunked``, one
+    chunk; reference dataTools.py:3406-3507). The plain reference of
+    :func:`expert_accel_grid` and of the recompute's labels; O(N^2)."""
+    dp = pos[:, :, :, None] - pos[:, :, None, :]          # B,2,N,N
+    d2 = (dp ** 2).sum(1)
+    m = (d2 < repel_dist ** 2).to(pos.dtype)
+    inv = torch.where(d2 > ZERO_TOL, 1.0 / d2, torch.zeros_like(d2))
+    w = (m * (inv ** 2 + inv))[:, None]
+    return _expert_from_repel(vel, 2.0 * (dp * w).sum(-1), accel_max)
+
+
+def expert_accel_grid(pos: torch.Tensor, vel: torch.Tensor,
+                      comm_radius: float, repel_dist: float,
+                      accel_max: float, table_size=None, cell_cap: int = 32,
+                      factor: int = 2):
+    """The centralized expert's acceleration on the cell grid, O(N): the
+    environment's cell geometry (sized by comm_radius >= repel_dist), one
+    window pass at r2 = repel_dist^2 whose dp*inv and dp*inv^2 columns are
+    the collision sums, and the global velocity term. Returns (accel
+    (B,2,N), ok 0-d: False iff a cell overflowed cell_cap). Equals
+    :func:`expert_accel` up to float association and the d2 == repel^2
+    comparator (JAX ``_jnp_expert_accel_grid``)."""
+    _check_repel(repel_dist, comm_radius)
+    B, _, N = pos.shape
+    H, Gx, Gy, C = _grid_geometry(N, table_size, cell_cap, factor)
+    inv_s = 1.0 / (factor * comm_radius)
+    px, py, vx, vy = pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1]
+    cell_rows, cx, cy, ok, _ = _grid_build_table(px, py, vx, vy, inv_s, H,
+                                                 Gx, Gy, C)
+    rep = _repel_sums(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C,
+                      repel_dist, inv_s, factor)
+    return _expert_from_repel(vel, rep, accel_max), ok.all()
+
+
+# the expert's clip in the generated supervision: the reference expert's
+# default (dataTools.py:3406), as the JAX generators use it
+EXPERT_ACCEL_MAX = 100.0
+
+
+@torch.no_grad()
+def recompute_supervision_grid(pos: torch.Tensor, vel: torch.Tensor,
+                               comm_radius: float, repel_dist: float,
+                               accel_max: float, d_max: int, grid,
+                               lam_iters: int = 1):
+    """Everything a training batch needs, recomputed on the device from its
+    (pos, vel) trajectories alone (JAX ``_jnp_recompute_supervision_grid``):
+    (states (B,T,6,N), expert accel (B,T,2,N), the ELL graphs as an EllGso
+    (idx (B,T,N,D), val (B,T,1,N,D)), ok 0-d, deg 0-d int32: the largest
+    true in-degree over the batch).
+
+    Each step is one grid env step with the expert's repel pass
+    (:func:`env_step_grid` with ``expert_repel``); the lambda eigenvector
+    is carried across t (t = 0 cold-starts at max(lam_iters, 32) passes).
+    ``accel_max`` is the expert's clip (EXPERT_ACCEL_MAX for the generated
+    labels); accel[T-1] is zeroed, the reference convention (it never
+    drives a transition inside the horizon). ``ok`` covers cell
+    overflow only, as in the JAX package: the emitted graphs are the
+    first-d_max truncation of the untruncated neighbor sums wherever an
+    in-degree exceeds d_max, which ``deg > d_max`` tells (the trainer's
+    coverage check reads it).
+    """
+    gts, gcc, gcf = _parse_env_grid(grid)
+    B, T, _, N = pos.shape
+    D = min(int(d_max), N)
+    dev, dt = pos.device, pos.dtype
+    x = torch.empty((B, T, 6, N), dtype=dt, device=dev)
+    y = torch.empty((B, T, 2, N), dtype=dt, device=dev)
+    gi = torch.empty((B, T, N, D), dtype=torch.int32, device=dev)
+    gv = torch.empty((B, T, 1, N, D), dtype=dt, device=dev)
+    v = torch.ones((B, N), dtype=dt, device=dev) / math.sqrt(N)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    deg = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in range(T):
+        pos_t, vel_t = pos[:, t], vel[:, t]
+        i_t, s_t, x_t, v, rep, deg_t, ok_t = env_step_grid(
+            pos_t, vel_t, comm_radius, D, v,
+            lam_iters=max(lam_iters, 32) if t == 0 else lam_iters,
+            table_size=gts, cell_cap=gcc, cell_factor=gcf,
+            expert_repel=repel_dist, in_degree=True)
+        x[:, t], gi[:, t], gv[:, t, 0] = x_t, i_t, s_t
+        y[:, t] = _expert_from_repel(vel_t, rep, accel_max)
+        ok = ok & ok_t
+        deg = torch.maximum(deg, deg_t.amax())
+    y[:, T - 1] = 0.0
+    return x, y, EllGso(gi, gv), ok, deg
 
 
 def evaluate_cost_device(vel: torch.Tensor) -> torch.Tensor:
@@ -371,8 +531,10 @@ class Flocking(Data):
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "the expert-supervised Flocking dataset is not ported yet "
-            f"{_NOT_PORTED}; build the environment with Flocking.for_rollout")
+            "the host-numpy expert-supervised Flocking dataset is not ported "
+            "yet (ROADMAP queue 1 item 7.1b); build the training set on the "
+            "device with Flocking.large_device, or the environment alone "
+            "with Flocking.for_rollout")
 
     @classmethod
     def for_rollout(cls, nAgents, commRadius, repelDist, samplingTime,
@@ -402,7 +564,109 @@ class Flocking(Data):
         self.dataType = dataType
         self.rollout_ell_degree = None
         self.rollout_env_grid = None
+        self.initPos, self.initVel = {}, {}
+        self.pos, self.vel, self.accel = {}, {}, {}
+        self.commGraph, self.state = {}, {}
         return self
+
+    @classmethod
+    def large_device(cls, nAgents, commRadius, repelDist, nTrain, nValid,
+                     nTest, duration, samplingTime, ell_degree,
+                     lam_iters: int = 1, gen_batch: int = 1, rng=None,
+                     env_grid=True, device="cuda", **kw):
+        """The device-resident training set (JAX ``Flocking.large_device``):
+        the expert's trajectories generated on ``device`` by the grid env
+        and the grid expert in eval shape (d_max = 0: no graph is emitted),
+        and only (pos, vel) kept, (n, T, 2, N) f32 device tensors a split.
+        ``TrainerFlocking(deviceStore=True, ellDegree=D)`` recomputes each
+        batch's states, graphs and labels from them. ``lam_iters`` is the
+        one lambda setting of generation, DAGger re-rolls, validation
+        (``rollout_traj_device`` reads it) and the recompute. Samples are
+        generated gen_batch at a time, the last chunk ragged (eager PyTorch
+        needs no fixed shape, so it is not padded as the JAX generator's
+        is); a RuntimeWarning reports a cell overflow."""
+        self = cls.for_rollout(nAgents, commRadius, repelDist, samplingTime,
+                               rng=rng, device=device, **kw)
+        self.duration = float(duration)
+        self.nTrain, self.nValid, self.nTest = nTrain, nValid, nTest
+        self.rollout_ell_degree = min(ell_degree, nAgents)
+        self.rollout_env_grid = env_grid
+        self.rollout_lam_iters = lam_iters
+        gts, gcc, gcf = _parse_env_grid(env_grid)
+        n_samples = nTrain + nValid + nTest
+        init_pos, init_vel = self.compute_initial_positions(
+            nAgents, n_samples, commRadius, minDist=self.initMinDist,
+            geometry=self.initGeometry, xMaxInitVel=self.initVelValue,
+            yMaxInitVel=self.initVelValue)
+        dt = samplingTime
+        T = len(np.arange(0, duration, dt))
+
+        def env(pos, vel, v, iters):
+            *_, v, rep, ok = env_step_grid(
+                pos, vel, commRadius, 0, v, lam_iters=iters,
+                table_size=gts, cell_cap=gcc, cell_factor=gcf,
+                expert_repel=repelDist)
+            return _expert_from_repel(vel, rep, EXPERT_ACCEL_MAX), v, ok
+
+        @torch.no_grad()
+        def gen(pos0, vel0):
+            B, _, N = pos0.shape
+            pos = pos0.new_empty((B, T, 2, N))
+            vel = pos0.new_empty((B, T, 2, N))
+            pos[:, 0], vel[:, 0] = pos0, vel0
+            v = torch.ones((B, N), dtype=pos0.dtype,
+                           device=pos0.device) / math.sqrt(N)
+            a, v, ok = env(pos0, vel0, v, max(lam_iters, 32))
+            for t in range(1, T):
+                p, u = pos[:, t - 1], vel[:, t - 1]
+                vel[:, t] = a * dt + u
+                pos[:, t] = a * dt * dt / 2 + u * dt + p
+                a, v, ok_t = env(pos[:, t], vel[:, t], v, lam_iters)
+                ok = ok & ok_t
+            return pos, vel, ok
+
+        pos_l, vel_l, oks = [], [], []
+        for lo in range(0, n_samples, gen_batch):
+            p, v, ok = gen(self._as_device(init_pos[lo:lo + gen_batch]),
+                           self._as_device(init_vel[lo:lo + gen_batch]))
+            pos_l.append(p)
+            vel_l.append(v)
+            oks.append(ok)
+        pos = torch.cat(pos_l, 0)
+        vel = torch.cat(vel_l, 0)
+        del pos_l, vel_l
+        self.generation_ok = bool(torch.stack(oks).all())
+        if not self.generation_ok:
+            warnings.warn("grid overflow during large_device expert "
+                          "generation: raise cell_cap/table_size",
+                          RuntimeWarning)
+        bounds = [0, nTrain, nTrain + nValid, n_samples]
+        for i, name in enumerate(("train", "valid", "test")):
+            sl = slice(bounds[i], bounds[i + 1])
+            self.initPos[name] = init_pos[sl]
+            self.initVel[name] = init_vel[sl]
+            self.pos[name] = pos[sl]           # device-resident
+            self.vel[name] = vel[sl]
+        return self
+
+    def getData(self, name, samplesType, *args):
+        """Auxiliary trajectories: 'pos'|'vel'|'accel'|'commGraph'|'state'|
+        'initPos'|'initVel' of a split (reference dataTools.py:3021-3080);
+        an int argument draws that many samples at random (numpy's global
+        generator, as the JAX package does), an index array selects."""
+        store = {"pos": self.pos, "vel": self.vel, "accel": self.accel,
+                 "commGraph": self.commGraph, "state": self.state,
+                 "initPos": self.initPos, "initVel": self.initVel}[name]
+        out = store[samplesType]
+        if len(args) == 1:
+            if isinstance(args[0], int):
+                idx = np.random.permutation(out.shape[0])[:args[0]]
+            else:
+                idx = np.asarray(args[0])
+            out = out[idx]
+        return out
+
+    get_data = getData
 
     # -- initial conditions (reference dataTools.py:3508-3700) --------------
     def compute_initial_positions(self, nAgents, nSamples, commRadius,
@@ -625,14 +889,19 @@ class Flocking(Data):
                 EllGso(host(g.idx), host(g.val).astype(np.float64)))
 
     def rollout_traj_device(self, initPos, initVel, duration, archit,
-                            ell_degree=None, lam_iters: int = 8,
+                            ell_degree=None, lam_iters=None,
                             step_mode=None, env_grid=None,
                             env_grid_strict: bool = False):
         """The closed-loop rollout's DEVICE (pos, vel), (B,T,2,N) float32:
         nothing else is stacked, and the exactness flag is the one scalar
-        read. The same step closures as compute_trajectory."""
+        read. The same step closures as compute_trajectory. lam_iters
+        defaults to the dataset's ``rollout_lam_iters`` (set by
+        ``large_device``, so DAGger re-rolls normalize their graphs as
+        generation and the recompute do), else 8."""
         ell_degree, env_grid = self._rollout_args(archit, ell_degree,
                                                   env_grid, step_mode)
+        if lam_iters is None:
+            lam_iters = getattr(self, "rollout_lam_iters", 8)
         T = len(np.arange(0, duration, self.samplingTime))
         pos, vel, ok = self._rollout(
             self._as_device(initPos), self._as_device(initVel), T, archit,

@@ -1,0 +1,158 @@
+"""Train the LocalGNN_DB flocking controller on a large swarm through the
+device-resident DAGger store, then deploy it closed loop on another swarm.
+
+The port of the JAX package's ``examples/largeswarm.py --deviceStore``:
+``Flocking.large_device`` generates the expert's (pos, vel) trajectories
+on the device (grid env + the expert's repel pass), ``TrainerFlocking
+(deviceStore=True)`` recomputes each batch's states, labels and ELL graphs
+there and re-rolls learner trajectories for DAGger, and the evaluation is
+scalars-only: the closed-loop test cost (``rollout_cost``) beside the
+expert's, then a deployment rollout at --deployAgents.
+
+Run:  python -m graph_neural_networks_torch.examples.largeswarm
+          [--device cpu] [--quick] [--trainAgents 262144] [--nTrain 4]
+          [--nEpochs 5] [--batch 1] [--trainDuration 0.5] [--ellDegree 32]
+
+Without --quick it trains at the JAX driver's full setting (50 agents,
+400 trajectories of 2 s); the record of the JAX package's 262,144-agent
+run is ``--trainAgents 262144 --nTrain 4 --nEpochs 5 --batch 1
+--trainDuration 0.5``. Checkpoints go to --saveDir, or to a temporary
+directory removed at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+
+def _args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--saveDir", default=None)
+    ap.add_argument("--trainAgents", type=int, default=None)
+    ap.add_argument("--deployAgents", type=int, default=None)
+    ap.add_argument("--ellDegree", type=int, default=32)
+    ap.add_argument("--lamIters", type=int, default=0,
+                    help="lambda passes a deployment step (0: the Rayleigh "
+                         "fold of the main window pass)")
+    ap.add_argument("--duration", type=float, default=None,
+                    help="deployment rollout duration in seconds")
+    ap.add_argument("--nTrain", type=int, default=None)
+    ap.add_argument("--nEpochs", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--trainDuration", type=float, default=None,
+                    help="training-trajectory duration in seconds")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    from graph_neural_networks_torch import training as T
+    from graph_neural_networks_torch.data.flocking import (
+        Flocking, evaluate_cost_device)
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    from graph_neural_networks_torch.utils.device import resolve_device
+
+    args = _args(argv)
+    dev = resolve_device(args.device)
+    if args.quick:
+        n_train_agents, duration, dt = 12, 1.0, 0.1
+        nTrain, nValid, nTest, nEpochs, batch = 40, 8, 8, 3, 10
+        F, K = [6, 16], [3]
+        n_deploy, deploy_T_s = 64, 1.0
+    else:
+        n_train_agents, duration, dt = 50, 2.0, 0.01
+        nTrain, nValid, nTest, nEpochs, batch = 400, 20, 20, 30, 20
+        F, K = [6, 64], [3]
+        n_deploy, deploy_T_s = 4096, 1.0
+    if args.trainAgents is not None:
+        n_train_agents = args.trainAgents
+    if args.deployAgents is not None:
+        n_deploy = args.deployAgents
+    if args.duration is not None:
+        deploy_T_s = args.duration
+    if args.nTrain is not None:
+        nTrain = args.nTrain
+        nValid = nTest = max(nTrain // 4, 1)
+    if args.nEpochs is not None:
+        nEpochs = args.nEpochs
+    if args.batch is not None:
+        batch = args.batch
+    if args.trainDuration is not None:
+        duration = args.trainDuration
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    print(f"== train: {n_train_agents} agents (Flocking.large_device, "
+          f"{dev}) ==", flush=True)
+    t0 = time.perf_counter()
+    data = Flocking.large_device(
+        n_train_agents, commRadius=2.0, repelDist=1.0, nTrain=nTrain,
+        nValid=nValid, nTest=nTest, duration=duration, samplingTime=dt,
+        ell_degree=args.ellDegree,
+        rng=np.random.default_rng(args.seed), env_grid=True, device=dev)
+    sync()
+    t_gen = time.perf_counter() - t0
+    arch = LocalGNN_DB(F, K, True, "tanh", [2], 1, device=dev,
+                       generator=torch.Generator().manual_seed(args.seed))
+    with tempfile.TemporaryDirectory(prefix="largeswarm_") as tmp:
+        model = T.Model(arch, T.losses.mse_loss, {"name": "ADAM", "lr": 5e-4},
+                        T.TrainerFlocking, T.evaluate_flocking,
+                        name="LocalGNNxfer", saveDir=args.saveDir or tmp)
+        t0 = time.perf_counter()
+        out = model.train(data, nEpochs, batch, validationInterval=20,
+                          probExpert=0.993, deviceStore=True,
+                          ellDegree=args.ellDegree, seed=args.seed)
+        sync()
+        t_train = time.perf_counter() - t0
+    print(f"  generation {t_gen:.1f} s, training {t_train:.1f} s "
+          f"({t_train / nEpochs:.1f} s/epoch)", flush=True)
+    # scalars-only evaluation: the closed-loop test cost (Best weights,
+    # reloaded by the trainer) against the expert's on the same split
+    expert = float(evaluate_cost_device(data.getData("vel", "test")))
+    cf, ce = data.rollout_cost(data.getData("initPos", "test"),
+                               data.getData("initVel", "test"), duration,
+                               arch, lam_iters=args.lamIters)
+    print(f"  closed-loop test cost {cf:.4f} (end {ce:.5f}) vs grid expert "
+          f"{expert:.4f} ({cf / max(expert, 1e-9):.3f}x)", flush=True)
+
+    print(f"== deploy: {n_deploy} agents (ellDegree={args.ellDegree}, "
+          f"cell-list grid env) ==", flush=True)
+    env = Flocking.for_rollout(n_deploy, commRadius=2.0, repelDist=1.0,
+                               samplingTime=dt, device=dev,
+                               rng=np.random.default_rng(args.seed + 1))
+    ip, iv = env.compute_initial_positions(
+        n_deploy, 2, env.commRadius, minDist=env.initMinDist,
+        geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
+    env.rollout_ell_degree = args.ellDegree
+    env.rollout_env_grid = True
+    t0 = time.perf_counter()
+    cf_d, ce_d = env.rollout_cost(ip, iv, deploy_T_s, arch,
+                                  lam_iters=args.lamIters)
+    t_roll = time.perf_counter() - t0
+    steps = len(np.arange(0, deploy_T_s, dt))
+    print(f"  {steps}-step closed loop (scalars-only): {t_roll:.2f} s, "
+          f"velocity-variance cost {cf_d:.4f} (end {ce_d:.5f})", flush=True)
+    result = dict(device=str(dev), train_agents=n_train_agents,
+                  loss_first=float(out["lossTrain"][0]),
+                  loss_last=float(out["lossTrain"][-1]),
+                  best_valid=float(np.min(out["costValid"])),
+                  cost_small=cf, cost_small_end=ce, expert=expert,
+                  deploy_agents=n_deploy, cost_big=cf_d, cost_big_end=ce_d,
+                  generation_s=t_gen, train_s=t_train, deploy_s=t_roll)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,24 @@
 """Time-varying architectures: the decentralized-controller models of the
 flocking task, with unit-delay information propagation.
 
-The port of the JAX package's ``models/architectures_time.py`` for the
-closed-loop deployment path: ``LocalGNN_DB`` and its step interface. At
-time t a node only uses information that has had time to arrive over the
-graph, so every k-th filter tap applies k time-delayed shifts; a
-closed-loop rollout carries the (K-1)-deep node-major tap registers across
-environment steps and shifts them once a step. The grid environment's
-window pass does that shift (``rollout_payload`` rides its cell table),
-and ``rollout_step_shifted`` is the math after it.
+The port of the JAX package's ``models/architectures_time.py`` for
+``LocalGNN_DB``. At time t a node only uses information that has had time
+to arrive over the graph, so every k-th filter tap applies k time-delayed
+shifts (``ops.filters.lsigf_db``).
 
-Not ported yet: the full-history ``forward(x, S)`` (lsigf_db), which
-waits for the flocking training slice, and ``rollout_step`` with an
-ELL-graph shift, which waits for the unfused step path (ROADMAP queue 1).
+Two interfaces compute the same outputs:
+
+  * the full-history ``forward(x, S)`` / ``split_forward`` over a
+    (B,T,E,N,N) dense stack or an ``ops.ell.EllGso`` with leading axes
+    (B,T): what the trainer differentiates;
+  * the step interface for closed-loop rollouts, which carries the
+    (K-1)-deep node-major tap registers across environment steps and
+    shifts them once a step: ``rollout_step`` over a per-step graph, or
+    ``rollout_step_shifted`` given the shift the grid environment's
+    window pass computed (``rollout_payload`` rides its cell table).
+
+Not ported: ``GraphRecurrentNN_DB`` and ``AggregationGNN_DB`` (ROADMAP
+queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 from graph_neural_networks_torch.models import layers as gll
 from graph_neural_networks_torch.models.architectures import (
     MLP, resolve_activation)
+from graph_neural_networks_torch.ops import ell as ell_lib
 from graph_neural_networks_torch.ops import filters
 from graph_neural_networks_torch.utils.device import resolve_device
 
@@ -41,9 +48,26 @@ def _readout_apply(readout: MLP, z: torch.Tensor, sigma) -> torch.Tensor:
     return z
 
 
+def _normalize_S(S):
+    """An EllGso as it is; a dense (B,T,N,N) or (B,T,E,N,N) stack as an
+    f32 (B,T,E,N,N) tensor (JAX ``_normalize_S``)."""
+    if isinstance(S, ell_lib.EllGso):
+        return S
+    S = torch.as_tensor(S)
+    if S.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        S = S.to(torch.float32)
+    if S.dim() == 4:              # B x T x N x N -> add E
+        S = S[:, :, None]
+    if S.dim() != 5:
+        raise ValueError(f"a dense GSO stack is (B,T,[E,]N,N), got "
+                         f"{tuple(S.shape)}")
+    return S
+
+
 class GraphFilterDB(nn.Module):
-    """Delayed time-varying graph filter's parameters: weight (F,E,K,G),
-    bias (F,1), both U(-1/sqrt(G*K), 1/sqrt(G*K))."""
+    """Delayed time-varying graph filter: weight (F,E,K,G), bias (F,1),
+    both U(-1/sqrt(G*K), 1/sqrt(G*K)); forward(x (B,T,G,N), S) ->
+    (B,T,F,N)."""
 
     def __init__(self, in_features: int, out_features: int,
                  filter_taps: int, edge_features: int = 1,
@@ -56,6 +80,9 @@ class GraphFilterDB(nn.Module):
                                             device)
         self.bias = (gll.uniform_parameter((F, 1), stdv, generator, device)
                      if use_bias else None)
+
+    def forward(self, x: torch.Tensor, S) -> torch.Tensor:
+        return filters.lsigf_db(self.weight, S, x, self.bias)
 
 
 class LocalGNN_DB(nn.Module):
@@ -101,6 +128,23 @@ class LocalGNN_DB(nn.Module):
         names.update(self.readout.flax_names("Readout"))
         return names
 
+    # -- full history --------------------------------------------------------
+    def split_forward(self, x: torch.Tensor, S):
+        """x (B,T,F0,N), S a dense (B,T,[E,]N,N) stack or an EllGso with
+        leading (B,T) -> (y (B,T,dimReadout[-1],N), the last filter
+        layer's output (B,T,F_L,N))."""
+        x = torch.as_tensor(x)
+        if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+            x = x.to(torch.float32)
+        S = _normalize_S(S)
+        for layer in self.filters:
+            x = self.sigma(layer(x, S))
+        y = _readout_apply(self.readout, x.transpose(2, 3), self.sigma)
+        return y.transpose(2, 3), x
+
+    def forward(self, x: torch.Tensor, S) -> torch.Tensor:
+        return self.split_forward(x, S)[0]
+
     # -- step mode (closed-loop rollouts) -----------------------------------
     def rollout_init(self, B: int, N: int, dtype=torch.float32):
         """Zeroed per-layer tap registers (B, N, E, K_l-1, G_l): an all-zero
@@ -143,3 +187,14 @@ class LocalGNN_DB(nn.Module):
             h = self.sigma(y)
         z = _readout_apply(self.readout, h, self.sigma)
         return tuple(new_state), z.transpose(-1, -2)
+
+    def rollout_step(self, state, x_t: torch.Tensor, S_t):
+        """One causal step: (state', y_t (B,dimReadout[-1],N)), y_t equal
+        to ``forward`` on the full history at time t up to float
+        association. x_t: (B,F0,N); S_t: EllGso with leading (B,) or dense
+        (B,N,N)/(B,E,N,N). All layers' registers shift in ONE wide
+        node-major shift, then combine per layer."""
+        pay = self.rollout_payload(state)
+        shifted = (filters.step_shift_rows(pay, S_t) if pay.shape[-1]
+                   else pay)
+        return self.rollout_step_shifted(state, x_t, shifted)

@@ -4,6 +4,10 @@ Conventions (as in the JAX package's ``ops/filters.py``):
   x : (B, G, N) graph signals, h : (F, E, K, G) taps, S : (E, N, N) GSO,
   y : (B, F, N). Shift = row-vector right-multiplication ``x @ S``.
 
+Time-varying: x : (B, T, G, N) with S a dense (B, T, E, N, N) stack or an
+``ops.ell.EllGso`` (``lsigf_db``, the delayed filters of the flocking
+controllers).
+
 The attention family (GAT, GCAT, attention EVGF) runs in dense mode as
 ``torch.einsum`` over the materialized (B, P, E, N, N) coefficients, on a
 band-mode Gso through the flash kernels of ``ops.attention_flash``
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from graph_neural_networks_torch.ops import attention_flash as af
+from graph_neural_networks_torch.ops import ell as ell_lib
 from graph_neural_networks_torch.ops import gso as gso_lib
 
 INFINITE = af.INFINITE  # reference's additive -inf (graphML.py:73)
@@ -47,12 +52,31 @@ def lsigf(h: torch.Tensor, gso, x: torch.Tensor,
 # Time-varying (delayed) filters
 # ---------------------------------------------------------------------------
 
+def db_graph_shift(xe: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """One per-(batch, time) graph shift of xe: (B,T,E,G,N) by a dense
+    (B,T,E,N,N) stack (an EllGso's shifts run node-major, in
+    :func:`_lsigf_db_ell_rows`)."""
+    return torch.einsum("btegn,btenm->btegm", xe, S)
+
+
+def step_shift_rows(r: torch.Tensor, S_t) -> torch.Tensor:
+    """One node-major graph shift of r (B,N,E,C) by a per-step GSO:
+    ell.EllGso with leading (B,), or dense (B,N,N)/(B,E,N,N)."""
+    if isinstance(S_t, ell_lib.EllGso):
+        return S_t.db_shift_rows(r)
+    S = torch.as_tensor(S_t)
+    if S.dim() == 3:
+        S = S[:, None]
+    return torch.einsum("bnec,benm->bmec", r, S.to(r.dtype))
+
+
 def tap_register_combine(w: torch.Tensor, b: Optional[torch.Tensor],
                          shifted: torch.Tensor, x_nm: torch.Tensor):
     """One causal step of a delayed graph filter given its ALREADY-shifted
     tap register S(t)·z_{0..K-2}(t-1): build the tap stack and contract it
     with the taps. The closed-loop rollouts get the shifted register from
-    the grid environment's window pass (data.flocking.env_step_grid).
+    the grid environment's window pass (data.flocking.env_step_grid);
+    :func:`tap_register_step` shifts it over a per-step graph.
 
     w: (F,E,K,G); b: (F,1) or None; shifted: (B,N,E,K-1,G); x_nm: (B,N,G).
     Returns (reg' (B,N,E,K-1,G), y (B,N,F)).
@@ -65,6 +89,73 @@ def tap_register_combine(w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         y = y + b.reshape(-1)
     return stack[..., : K - 1, :], y
+
+
+def tap_register_step(w: torch.Tensor, b: Optional[torch.Tensor],
+                      reg: torch.Tensor, x_nm: torch.Tensor, S_t):
+    """One causal step of a delayed graph filter on the node-major tap
+    register: the recurrence z_k(t) = S(t)·z_{k-1}(t-1) that defines the
+    DB family, shared by :func:`lsigf_db`'s ELL form and the
+    architectures' ``rollout_step``, as in the JAX package.
+
+    w: (F,E,K,G); reg: (B,N,E,K-1,G) holding z_{0..K-2}(t-1); x_nm:
+    (B,N,G); S_t: ell.EllGso with leading (B,) or dense (B,[E,]N,N).
+    Returns (reg' (B,N,E,K-1,G), y (B,N,F)).
+    """
+    F, E, K, G = w.shape
+    B, N, _ = x_nm.shape
+    if K > 1:
+        r = reg.reshape(B, N, E, (K - 1) * G)
+        shifted = step_shift_rows(r, S_t).reshape(B, N, E, K - 1, G)
+    else:
+        shifted = x_nm.new_zeros((B, N, E, 0, G))
+    return tap_register_combine(w, b, shifted, x_nm)
+
+
+def _lsigf_db_ell_rows(h: torch.Tensor, S, x: torch.Tensor,
+                       b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ELL lsigf_db in the node-major layout: x (B,T,G,N) -> y (B,T,N,F).
+
+    A Python loop over T carrying the K-1 deep delayed register
+    node-major (the JAX package's ``lax.scan``): each step is ONE
+    ``ell_shift_rows`` of row width E·(K-1)·G and one tap contraction.
+    """
+    F, E, K, G = h.shape
+    B, T, _, N = x.shape
+    xr = x.transpose(-1, -2)                           # B x T x N x G
+    reg = x.new_zeros((B, N, E, K - 1, G))
+    ys = []
+    for t in range(T):
+        reg, y = tap_register_step(h, None, reg, xr[:, t], S.time_step(t))
+        ys.append(y)
+    y = torch.stack(ys, dim=1)                         # B x T x N x F
+    return y if b is None else y + b.reshape(-1)
+
+
+def lsigf_db(h: torch.Tensor, S, x: torch.Tensor,
+             b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Delayed LSIGF over a per-(batch, time) GSO.
+
+    y(t) = sum_k h_k x(t-k) S(t-k+1)...S(t) (unit-delay information
+    propagation for decentralized controllers; reference
+    graphML.py:977-1094). h: (F,E,K,G), x: (B,T,G,N); S: dense
+    (B,T,E,N,N) or an O(N·deg) ell.EllGso with leading axes (B,T).
+    b: (F,1) or None. Returns (B,T,F,N).
+    """
+    if isinstance(S, ell_lib.EllGso):
+        return _lsigf_db_ell_rows(h, S, x, b).transpose(-1, -2)
+    F, E, K, G = h.shape
+    B, T, _, N = x.shape
+    xe = x[:, :, None].expand(B, T, E, G, N)
+    zs = [xe]
+    for _ in range(1, K):
+        # shift down the time axis (zero-pad t=0), then shift on the graph
+        xe = torch.cat([torch.zeros_like(xe[:, :1]), xe[:, :-1]], dim=1)
+        xe = db_graph_shift(xe, S)
+        zs.append(xe)
+    z = torch.stack(zs, dim=2)                        # B x T x K x E x G x N
+    y = torch.einsum("btkegn,fekg->btfn", z, h)
+    return y if b is None else y + b
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-"""Training and evaluation: losses, Model (Best/Last checkpoints), Trainer
-and evaluate, ported from the JAX package's ``training/``."""
+"""Training and evaluation: losses, Model (Best/Last checkpoints), Trainer,
+TrainerFlocking (the device-resident DAGger store) and the evaluators,
+ported from the JAX package's ``training/``."""
 
 from graph_neural_networks_torch.training import losses  # noqa: F401
 from graph_neural_networks_torch.training.evaluation import (  # noqa: F401
-    evaluate)
+    evaluate, evaluate_flocking, evaluateFlocking)
 from graph_neural_networks_torch.training.model import (  # noqa: F401
     Model, make_optimizer)
 from graph_neural_networks_torch.training.trainer import (  # noqa: F401
-    Trainer)
+    Trainer, TrainerFlocking)

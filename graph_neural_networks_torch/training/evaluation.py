@@ -1,7 +1,7 @@
 """Evaluators: run the Best and Last checkpoints on the test set; the port
-of ``evaluate`` of the JAX package's ``training/evaluation.py`` (reference
-``alegnn/modules/evaluation.py:18-89``). ``evaluate_single_node`` and
-``evaluate_flocking`` come with their trainers."""
+of ``evaluate`` and ``evaluate_flocking`` of the JAX package's
+``training/evaluation.py`` (reference ``alegnn/modules/evaluation.py``).
+``evaluate_single_node`` comes with its trainer."""
 
 from __future__ import annotations
 
@@ -43,3 +43,38 @@ def evaluate(model, data, doSaveVars: bool = True, **kwargs):
         with open(os.path.join(d, f"{model.name}evalVars.pkl"), "wb") as f:
             pickle.dump(result, f)
     return result
+
+
+def evaluate_flocking(model, data, nVideos: int = 0, **kwargs):
+    """Closed-loop trajectory cost of the Best and Last checkpoints over
+    the test initial conditions: the cost over the whole trajectory and at
+    the final step (costBestFull, costBestEnd, costLastFull, costLastEnd).
+
+    The rollout is ``data.compute_trajectory`` through the architecture's
+    step interface on the grid environment (its defaults: the dataset's
+    ell_degree and grid, lam_iters 8); the JAX evaluator runs the windowed
+    re-forward there, which equals it up to float association.
+    """
+    if nVideos:
+        raise NotImplementedError("evaluate_flocking(nVideos=...): "
+                                  "saveVideo is not ported")
+    init_pos = data.getData("initPos", "test")
+    init_vel = data.getData("initVel", "test")
+
+    def run(m):
+        _, vel, _, _, _ = data.compute_trajectory(
+            init_pos, init_vel, data.duration, m.archit,
+            return_graphs="auto")   # the cost never reads the graphs
+        return {"full": float(data.evaluate(vel=vel)),
+                "end": float(data.evaluate(vel=vel[:, -1:]))}
+
+    out = _with_checkpoints(model, run)
+    result = {}
+    for label in ("Best", "Last"):
+        if label in out:
+            result[f"cost{label}Full"] = out[label]["full"]
+            result[f"cost{label}End"] = out[label]["end"]
+    return result
+
+
+evaluateFlocking = evaluate_flocking

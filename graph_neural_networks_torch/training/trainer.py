@@ -21,7 +21,10 @@ axis in its sharded operators (the ``rows`` of
 over devices other than the model's needs replicas on several cards and a
 gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
 
-Not ported yet: ``TrainerSingleNode`` and ``TrainerFlocking``; bf16
+``TrainerFlocking`` trains the flocking controller over the
+device-resident DAGger store (``Flocking.large_device``; the grid kernels
+recompute each batch's supervision). Not ported yet: ``TrainerSingleNode``,
+``TrainerFlocking``'s host-numpy store (ROADMAP queue 1 item 7.1b), bf16
 mixed precision (``precision="bf16"``: the kernels take f32 only).
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
@@ -34,6 +37,7 @@ from __future__ import annotations
 import os
 import pickle
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -234,11 +238,15 @@ class Trainer:
             return lag < self.earlyStoppingLag or not self.doEarlyStopping
 
         while epoch < self.nEpochs and going():
+            # the permutation is drawn before the epoch hook, as in the JAX
+            # Trainer, so that a subclass's draws (DAGger) follow it
             perm = self.rng.permutation(n_train)
+            self._on_epoch_start(epoch)
             batch = 0
             while batch < n_batches and going():
-                loss, elapsed = self.train_batch(
-                    perm[bounds[batch]:bounds[batch + 1]])
+                idx = perm[bounds[batch]:bounds[batch + 1]]
+                self._on_batch_start(epoch, batch, idx)
+                loss, elapsed = self.train_batch(idx)
                 post_step(epoch, batch, loss, elapsed)
                 batch += 1
             epoch += 1
@@ -262,3 +270,184 @@ class Trainer:
             with open(os.path.join(d, f"{model.name}.pkl"), "wb") as f:
                 pickle.dump(train_vars, f)
         return train_vars
+
+    # hooks for subclasses
+    def _on_epoch_start(self, epoch):
+        pass
+
+    def _on_batch_start(self, epoch, batch, idx):
+        pass
+
+
+_HOST_STORE = ("the host-numpy trajectory store (no deviceStore, or "
+               "DAGgerType='fixedBatch') is not ported yet (ROADMAP queue 1 "
+               "item 7.1b); train over Flocking.large_device with "
+               "deviceStore=True")
+
+
+class TrainerFlocking(Trainer):
+    """Imitation learning of the expert flocking controller over the
+    device-resident store, with optional DAGger (JAX
+    ``TrainerFlocking(deviceStore=True)``; reference training.py:716-1696).
+
+    The training set lives on the device as (n, T, 2, N) pos/vel only
+    (``Flocking.large_device``). A step recomputes the batch's states,
+    expert labels and ELL graphs from them without grad
+    (``data.flocking.recompute_supervision_grid``: the grid kernels), then
+    runs the full-history forward over the ELL graphs, the loss, the
+    backward and the optimizer step. DAGger ('randomEpoch' or
+    'replaceTimeBatch', with ``probExpert``) re-rolls learner trajectories
+    with ``Flocking.rollout_traj_device`` and writes them into the store;
+    validation is the closed-loop cost of a device rollout. Expert labels
+    are zeroed at t = T-1 (the reference generation convention).
+
+    A coverage check at construction recomputes every stored trajectory
+    once and warns on a cell overflow or an in-degree above ellDegree
+    (``coverageCheck=False`` skips it). It reads the in-degree from the
+    window pass, which the JAX check does not: JAX misses an in-degree
+    above ellDegree when no payload rides the table (ROADMAP queue 3).
+    """
+
+    def __init__(self, model, data, nEpochs, batchSize, **kwargs):
+        self.probExpert = kwargs.get("probExpert")
+        self.doDAGger = self.probExpert is not None
+        self.DAGgerType = kwargs.get("DAGgerType", "randomEpoch")
+        self.ellDegree = kwargs.get("ellDegree")
+        self.deviceStore = bool(kwargs.get("deviceStore", False))
+        if not self.deviceStore or (self.doDAGger
+                                    and self.DAGgerType == "fixedBatch"):
+            raise NotImplementedError(_HOST_STORE)
+        if self.doDAGger and self.DAGgerType not in ("randomEpoch",
+                                                     "replaceTimeBatch"):
+            raise ValueError(f"unknown DAGgerType {self.DAGgerType!r}")
+        if getattr(data, "rollout_env_grid", None) is None:
+            raise NotImplementedError(
+                "deviceStore over a dataset without the grid env (the dense "
+                "reference-scale recompute) is not ported yet (ROADMAP "
+                "queue 1 item 7.1b); build it with Flocking.large_device")
+        if self.ellDegree is None:
+            raise ValueError("the grid deviceStore needs ellDegree (the "
+                             "recomputed ELL graph width D)")
+        if not hasattr(model.archit, "rollout_step_shifted"):
+            raise ValueError("deviceStore re-rolls and validates through the "
+                             "step interface (rollout_step_shifted)")
+        super().__init__(model, data, nEpochs, batchSize, **kwargs)
+        self.initPosAll = data.getData("initPos", "train")
+        self.initVelAll = data.getData("initVel", "train")
+        self.posAll = torch.as_tensor(data.getData("pos", "train"),
+                                      dtype=torch.float32, device=self.device)
+        self.velAll = torch.as_tensor(data.getData("vel", "train"),
+                                      dtype=torch.float32, device=self.device)
+        # the store's originals; a re-roll writes into fresh copies
+        self.posOrig, self.velOrig = self.posAll, self.velAll
+        self.rolloutChunk = int(kwargs.get(
+            "rolloutChunk", max(1, min(16, data.nTrain))))
+        if kwargs.get("coverageCheck", True):
+            self._grid_coverage_check()
+
+    def _recompute(self, pos, vel):
+        """(x, y, EllGso, ok, largest in-degree): the batch's supervision
+        at the dataset's lambda setting and the expert's clip."""
+        from graph_neural_networks_torch.data import flocking as fl
+        data = self.data
+        return fl.recompute_supervision_grid(
+            pos, vel, data.commRadius, data.repelDist, fl.EXPERT_ACCEL_MAX,
+            self.ellDegree, data.rollout_env_grid,
+            lam_iters=getattr(data, "rollout_lam_iters", 1))
+
+    def _grid_coverage_check(self):
+        """Recompute every stored training trajectory once and warn if a
+        cell overflowed or an in-degree exceeds ellDegree: the recomputed
+        graphs would then be top-D truncations of the dynamics' neighbor
+        sums. The in-degree is the window pass's count, which the JAX check
+        does not read when no payload rides the table."""
+        ok, deg = True, 0
+        for i in range(self.posAll.shape[0]):
+            *_, ok_i, deg_i = self._recompute(self.posAll[i:i + 1],
+                                              self.velAll[i:i + 1])
+            ok = ok and bool(ok_i)
+            deg = max(deg, int(deg_i))
+        self.maxInDegree = deg
+        if not ok or deg > self.ellDegree:
+            warnings.warn(
+                "grid deviceStore: a stored training trajectory overflows "
+                "cell_cap or has an in-degree above ellDegree; recomputed "
+                "training graphs are truncated inconsistently with the "
+                "dynamics: raise ellDegree / cell_cap", RuntimeWarning)
+
+    def _step_args(self, idx):
+        idxd = torch.as_tensor(np.asarray(idx), device=self.device)
+        return self.posAll[idxd], self.velAll[idxd]
+
+    def _learn(self, x, y, S) -> torch.Tensor:
+        """Forward over the recomputed graphs, loss, backward, optimizer
+        step; returns the loss tensor (not waited for)."""
+        model = self.model
+        model.optimizer.zero_grad(set_to_none=True)
+        loss = model.loss(model.archit.split_forward(x, S)[0].float(), y)
+        loss.backward()
+        model.optimizer.step()
+        if model.scheduler is not None:
+            model.scheduler.step()
+        return loss
+
+    def train_batch(self, idx):
+        t0 = time.perf_counter()
+        x, y, S, _, _ = self._recompute(*self._step_args(idx))
+        loss = self._learn(x, y, S).item()   # waits for the step
+        return loss, time.perf_counter() - t0
+
+    def _on_epoch_start(self, epoch):
+        if self.doDAGger and epoch > 0 and self.DAGgerType == "randomEpoch":
+            self._random_epoch_dagger(epoch)
+
+    def _on_batch_start(self, epoch, batch, idx):
+        if self.doDAGger and (epoch > 0 or batch > 0) \
+                and self.DAGgerType == "replaceTimeBatch":
+            self._replace_time_batch_dagger(epoch)
+
+    # -- DAGger ------------------------------------------------------------
+    def _device_store_update(self, sel):
+        """Re-roll the policy from the initial conditions `sel` (host int
+        array) in chunks of at most rolloutChunk samples (a bound on the
+        rollout's memory; the last chunk is ragged, as eager PyTorch needs
+        no fixed shape) and write the (pos, vel) trajectories into the
+        store. The store is copied first, so the originals stay intact."""
+        data = self.data
+        chunk = self.rolloutChunk
+        if self.posAll is self.posOrig:
+            self.posAll = self.posOrig.clone()
+            self.velAll = self.velOrig.clone()
+        for lo in range(0, len(sel), chunk):
+            sub = np.asarray(sel[lo:lo + chunk])
+            pos, vel = data.rollout_traj_device(
+                self.initPosAll[sub], self.initVelAll[sub], data.duration,
+                self.model.archit)
+            tgt = torch.as_tensor(sub, device=self.device)
+            self.posAll[tgt] = pos
+            self.velAll[tgt] = vel
+            del pos, vel
+
+    def _random_epoch_dagger(self, epoch):
+        p = max(self.probExpert ** epoch, 0.5)
+        n = self.initPosAll.shape[0]
+        use_expert = self.rng.binomial(1, p, n).astype(bool)
+        learner_idx = np.flatnonzero(~use_expert)
+        self.posAll, self.velAll = self.posOrig, self.velOrig
+        if len(learner_idx):
+            self._device_store_update(learner_idx)
+
+    def _replace_time_batch_dagger(self, epoch, nReplace: int = 10):
+        n = self.initPosAll.shape[0]
+        sel = self.rng.permutation(n)[:min(nReplace, n)]
+        self._device_store_update(sel)
+
+    # -- validation: closed-loop cost --------------------------------------
+    def _valid_cost(self) -> float:
+        from graph_neural_networks_torch.data.flocking import (
+            evaluate_cost_device)
+        data = self.data
+        _, vel = data.rollout_traj_device(
+            data.getData("initPos", "valid"), data.getData("initVel", "valid"),
+            data.duration, self.model.archit)
+        return float(evaluate_cost_device(vel))
