@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from kernels/csrc with nvcc (one nvcc a
 source, side by side), then drives two serving paths, the training path,
-the flocking deployment and training paths and the node-sharded paths:
+the flocking deployment and training paths (device and host stores) and
+the node-sharded paths:
 
 * SpMM: holds the three graph-shift kernels against their plain PyTorch
   versions at the serving path's shapes and at edge cases, times each
@@ -55,6 +56,21 @@ the flocking deployment and training paths and the node-sharded paths:
   expert against the all-pairs expert and the ELL lsigf_db forward and
   gradient against the dense one at N=4096; profiles a training step
   (recompute and learning halves) and its peak memory.
+* Flocking through the host store: trains flock_ref_n50 (the reference
+  flockingGNN.py configuration: Flocking(...) of 50 agents, 440
+  trajectories of T = 200 generated in f64 numpy on the host,
+  LocalGNN_DB [6,64]/[3], batch 20; 2 epochs, randomEpoch DAGger at
+  probExpert 0.993) through Model.train with TrainerFlocking's host store
+  and evaluate_flocking on the all-pairs env; checks its closed loop on
+  the card against the CPU, the dense recompute against the host store
+  and the device store's first loss against the host store's; then
+  trains flock_largetrain_n65536 (Flocking.large(env_grid=True): the
+  expert's supervision on the grid kernels, ELL graphs of width 32 in the
+  host store; 3 epochs, batch 1) with exact grid-kernel launch counts for
+  the generation, a step, a re-roll, a relabel and a validation, the
+  relabel's collision sums against all pairs, the generation bit-equal to
+  the plain grid versions at T = 8, and a step of each store profiled at
+  N = 65536.
 * Node-sharded serving (one process drives every shard; a mesh repeats
   the one card): serves gat_band_n16384 through GraphAttentionNetwork
   .shard() and InferenceEngine over a (1, 4) and a (2, 2) data x graph
@@ -2793,6 +2809,558 @@ def phase_flock_train_profile(trained, card, n=4):
 
 
 # ---------------------------------------------------------------------------
+# Flocking through the host-numpy store (Flocking(...), Flocking.large)
+# ---------------------------------------------------------------------------
+
+# flock_ref_n50: the reference flockingGNN.py configuration as JAX
+# examples/flocking.py runs it without --quick: Flocking(nAgents=50,
+# commRadius=2, repelDist=1, nTrain=400, nValid=20, nTest=20, duration=2,
+# samplingTime=0.01) from default_rng(0) (T = 200), LocalGNN_DB([6,64],
+# [3], True, "tanh", [2], 1), TrainerFlocking's host store, batch 20, Adam
+# lr 5e-4, MSE, randomEpoch DAGger at probExpert 0.993. Cut: 2 epochs of
+# 30 (epoch 1 runs a DAGger re-roll); random weights from a torch seed.
+FLOCK_REF = dict(N=50, nTrain=400, nValid=20, nTest=20, duration=2.0,
+                 dims=[6, 64], taps=[3], batch=20, lr=5e-4, probExpert=0.993,
+                 epochs=2, seed=0, wseed=4, device_steps=3)
+# The closed loop of 20 validation samples over 200 steps on the card
+# against the same loop on the CPU: f32 sums in another order grow along
+# the loop, so rtol 1e-3 and atol 1e-3 * the largest magnitude.
+REF_LOOP_RTOL = 1e-3
+REF_LOOP_ATOL_REL = 1e-3
+
+# flock_largetrain_n65536: JAX examples/largeswarm.py --largeTrain
+# --trainAgents 65536 --nTrain 4 --batch 1 --trainDuration 0.5
+# --ellDegree 32: Flocking.large(65536, commRadius=2, repelDist=1,
+# nTrain=4, nValid=1, nTest=1, duration=0.5, samplingTime=0.01,
+# ell_degree=32, env_grid=True) from default_rng(0) (T = 50, the quad grid,
+# lam_iters 8), LocalGNN_DB([6,64], [3]), TrainerFlocking(ellDegree=32)'s
+# host store, batch 1, randomEpoch at 0.993. Cut: 3 epochs of 30, N = 65536
+# (at 262144 the host store alone would be ~20 GB of numpy).
+FLOCK_LARGE = dict(N=65536, nTrain=4, nValid=1, nTest=1, duration=0.5, D=32,
+                   lam_iters=8, dims=[6, 64], taps=[3], epochs=3,
+                   probExpert=0.993, seed=0, wseed=5, bit_T=8, profile_n=3,
+                   device_lam_iters=1, check_rows=4096, check_steps=(0, 25, 49))
+
+
+def _host_gb(*arrays):
+    """GB of host numpy arrays and numpy-leaf EllGsos."""
+    total = 0
+    for a in arrays:
+        for leaf in ((a.idx, a.val) if hasattr(a, "idx") else (a,)):
+            total += np.asarray(leaf).nbytes
+    return total / 1e9
+
+
+def _counting_host_trainer(log, trainers):
+    """TrainerFlocking logging, with its grid-kernel launches and its wall
+    seconds (the card synced at both ends), each step, each learner
+    re-roll with its relabel (rollout_policy), each relabel alone and each
+    validation into `log`; every trainer made is appended to `trainers`."""
+    import torch
+    from graph_neural_networks_torch.training import TrainerFlocking
+
+    class CountingHostTrainer(TrainerFlocking):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+        def _counted(self, what, fn, *args, **kw):
+            torch.cuda.synchronize()
+            before = _flock_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = _flock_counts()
+            log.append(dict(what=what, seconds=seconds, launches={
+                k: after[k] - before[k] for k in after}))
+            return out
+
+        def train_batch(self, idx):
+            return self._counted("step", super().train_batch, idx)
+
+        def _rollout_policy(self, init_pos, init_vel, *a, **k):
+            out = self._counted("rollout_policy", super()._rollout_policy,
+                                init_pos, init_vel, *a, **k)
+            log[-1]["learners"] = len(init_pos)
+            return out
+
+        def _expert_accel(self, pos, vel):
+            return self._counted("relabel", super()._expert_accel, pos, vel)
+
+        def _valid_cost(self):
+            return self._counted("validation", super()._valid_cost)
+
+    return CountingHostTrainer
+
+
+def _step_profile(trainer, idx, n, profiled=True):
+    """A training step's host ms, device ms, idle share and top kernels
+    (torch.profiler over n steps), its peak device memory, and the upload
+    alone (the host store's index and copy to the card; the device store's
+    gather) in host ms, synchronized. profiled=False: host ms only (a step
+    of thousands of small launches would take the profiler minutes)."""
+    import torch
+    _, peak_gb = _peak_gb(lambda: trainer.train_batch(idx))
+    if profiled:
+        prof = _device_profile(lambda: trainer.train_batch(idx), n)
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_batch(idx)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+        prof = dict(wall_ms=wall, profiled_wall_ms="not profiled",
+                    device_ms="not measured",
+                    device_idle_share="not measured", top=[])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer._step_args(idx)
+        torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) / n * 1e3
+    return dict(host_ms=prof["wall_ms"],
+                profiled_host_ms=prof["profiled_wall_ms"],
+                device_ms=prof["device_ms"],
+                device_idle_share=prof["device_idle_share"],
+                upload_host_ms=upload_ms, peak_gb_above_base=peak_gb,
+                top=[dict(name=t["name"], ms=t["ms"], calls=t["calls"])
+                     for t in prof["top"]])
+
+
+def _ref_model(dev, out_dir, trainer_cls, name):
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    c = FLOCK_REF
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    return training.Model(net, training.losses.mse_loss,
+                          {"name": "ADAM", "lr": c["lr"]}, trainer_cls,
+                          training.evaluate_flocking, name=name,
+                          saveDir=out_dir)
+
+
+def phase_flock_ref_training(dev, card, out_dir):
+    """flock_ref_n50 through its entry points: Flocking(...) on the host,
+    Model.train with TrainerFlocking's host store (randomEpoch DAGger) and
+    evaluate_flocking, all on the all-pairs env; the grid kernels' counts
+    over that path (none runs on it); then its checks: the closed loop of
+    the validation split on the card against the CPU, the dense
+    recompute on the card against the host store, a few device-store steps
+    against the host store's first loss; and one step profiled."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_REF
+    T = len(np.arange(0, c["duration"], 0.01))
+    log, trainers = [], []
+
+    gridwin.reset_launch_counts()
+    t0 = time.perf_counter()
+    data = fl.Flocking(nAgents=c["N"], commRadius=2.0, repelDist=1.0,
+                       nTrain=c["nTrain"], nValid=c["nValid"],
+                       nTest=c["nTest"], duration=c["duration"],
+                       samplingTime=0.01, rng=np.random.default_rng(c["seed"]),
+                       device=dev)
+    gen_s = time.perf_counter() - t0
+    model = _ref_model(dev, out_dir, _counting_host_trainer(log, trainers),
+                       "flock_ref")
+    t0 = time.perf_counter()
+    out = model.train(data, c["epochs"], c["batch"], validationInterval=20,
+                      probExpert=c["probExpert"], DAGgerType="randomEpoch",
+                      seed=c["seed"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    costs = model.evaluate(data)
+    eval_s = time.perf_counter() - t0
+    launches = _flock_counts()
+
+    losses, valid = out["lossTrain"], out["costValid"]
+    n_steps = c["epochs"] * c["nTrain"] // c["batch"]
+    require(len(losses) == n_steps and np.isfinite(losses).all(),
+            f"losses {losses}")
+    require(len(valid) == -(-n_steps // 20) and np.isfinite(valid).all(),
+            f"valid {valid}")
+    require(sorted(costs) == ["costBestEnd", "costBestFull", "costLastEnd",
+                              "costLastFull"]
+            and np.isfinite(list(costs.values())).all(), f"costs {costs}")
+    rerolls = [e for e in log if e["what"] == "rollout_policy"]
+    require(len(rerolls) == 1 and rerolls[0]["learners"] > 0,
+            f"epoch 1's DAGger re-roll: {rerolls}")
+    trainer = trainers[0]
+    S = trainer.SAll
+    require(isinstance(S, np.ndarray) and S.shape == (c["nTrain"], T, c["N"],
+                                                       c["N"]),
+            f"dense host store {getattr(S, 'shape', S)}")
+    require(all(v == 0 for v in launches.values()),
+            f"the all-pairs path launched grid kernels: {launches}")
+    steps = [e["seconds"] for e in log if e["what"] == "step"]
+    emit(phase="flock_ref_training", nvidia_smi=card, config="flock_ref_n50",
+         N=c["N"], T=T, n_samples=c["nTrain"] + c["nValid"] + c["nTest"],
+         dims=c["dims"], taps=c["taps"], batch=c["batch"],
+         host_store_gb=_host_gb(trainer.xAll, trainer.yAll, trainer.SAll),
+         dataset_gb=_host_gb(*(getattr(data, f)[s] for f in (
+             "pos", "vel", "accel", "commGraph", "state")
+             for s in ("train", "valid", "test"))),
+         generation_s=gen_s, train_s=train_s, evaluate_s=eval_s,
+         step_s_median=float(np.median(steps)),
+         loss=[float(v) for v in losses], cost_valid=[float(v) for v in valid],
+         expert_cost=data.evaluate(vel=data.getData("vel", "test")),
+         evaluate=costs, rerolls=rerolls,
+         validations=[e for e in log if e["what"] == "validation"],
+         launches=launches, seconds=time.perf_counter() - t_phase)
+
+    # checks beside the path
+    t0 = time.perf_counter()
+    checks = {}
+    net = model.archit
+    ip, iv = data.getData("initPos", "valid"), data.getData("initVel", "valid")
+    got = data.compute_trajectory(ip, iv, c["duration"], net)
+    cpu_env = fl.Flocking.for_rollout(c["N"], 2.0, 1.0, 0.01, device="cpu")
+    cpu_net = _ref_model("cpu", out_dir, training.TrainerFlocking,
+                         "cpu").archit
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    want = cpu_env.compute_trajectory(ip, iv, c["duration"], cpu_net)
+    rows = {}
+    for name, a, b in zip(("pos", "vel", "accel", "states", "graphs"), got,
+                          want):
+        err, rel, agree = compare(torch.as_tensor(a), torch.as_tensor(b),
+                                  rtol=REF_LOOP_RTOL,
+                                  atol_rel=REF_LOOP_ATOL_REL)
+        rows[name] = dict(max_abs_err=err, max_rel_err=rel,
+                          max_abs=float(np.abs(b).max()))
+        require(agree, f"dense closed loop, card vs CPU, {name}: max abs "
+                       f"{err}, rel {rel}")
+    checks["closed_loop_card_vs_cpu"] = dict(
+        B=len(ip), T=T, rtol=REF_LOOP_RTOL,
+        atol=f"{REF_LOOP_ATOL_REL}*max|cpu|", fields=rows,
+        cost_card=data.evaluate(vel=got[1]),
+        cost_cpu=cpu_env.evaluate(vel=want[1]))
+
+    # the first batch's recompute on the card against the host store: equal
+    # to f32 rounding but for the pairs within rounding of a cut (the
+    # graph's d2 <= 4, the expert's d2 < 1), which the f32 recompute may
+    # settle the other way: an agent with such a pair is left out of the
+    # state or label comparison, a graph with a flipped edge out of the
+    # graph comparison, and every flipped edge must lie at the cut
+    idx = np.arange(c["batch"])
+    pos64 = torch.as_tensor(data.getData("pos", "train")[idx], device=dev)
+    x, y, Sd = fl.recompute_supervision(
+        pos64.float(), torch.as_tensor(data.getData("vel", "train")[idx],
+                                       dtype=torch.float32, device=dev),
+        2.0, 1.0, data.accelMax)
+    require(not bool(y[:, -1].any()), "recompute: accel[T-1] not zeroed")
+    host = {f: torch.as_tensor(data.getData(f, "train")[idx], device=dev)
+            for f in ("state", "accel", "commGraph")}
+    d2 = ((pos64[..., :, None] - pos64[..., None, :]) ** 2).sum(2)
+    flip = (host["commGraph"] > 0) != (Sd > 0)
+    off_cut = float((d2[flip] - 4.0).abs().max()) if flip.any() else 0.0
+    require(off_cut < 1e-4, f"recompute: a graph edge flipped {off_cut} "
+                            "from the range cut d2 = 4")
+    near_r = (flip.any(-1) | flip.any(-2))[:, :, None]
+    near_rep = ((d2 - 1.0).abs() < 1e-4).any(-1)[:, :, None]
+    keep = dict(state=~near_r, accel=~near_rep,
+                commGraph=~flip.any((-1, -2))[:, :, None, None])
+    rows = dict(flipped_edges=int(flip.sum()) // 2,
+                graphs_with_a_flip=int(flip.any((-1, -2)).sum()),
+                agents_at_the_repel_cut=int(near_rep.sum()))
+    for name, a in (("state", x), ("accel", y), ("commGraph", Sd)):
+        k = keep[name].expand_as(a)
+        err, rel, agree = compare(a[k], host[name][k], rtol=1e-4,
+                                  atol_rel=1e-4)
+        rows[name] = dict(max_abs_err=err, max_rel_err=rel,
+                          compared_share=float(k.double().mean()))
+        require(agree, f"dense recompute vs host store, {name}: max abs "
+                       f"{err}, rel {rel}")
+    checks["recompute_vs_host_store"] = dict(batch=idx.tolist(), rtol=1e-4,
+                                             atol="1e-4*max|host|",
+                                             fields=rows)
+    y_first = y.cpu().numpy().astype(np.float64)
+    del pos64, d2, flip, host, x, y, Sd
+
+    # a few steps of the device store (the dense recompute) against the
+    # host store from the same weights. Their first losses differ by the
+    # labels of the agents at the repel cut (above), so the first step is
+    # also taken on the host store with the recompute's labels of that
+    # batch, which must give the device store's loss to f32 rounding
+    def trainers(name):
+        return (training.TrainerFlocking(_ref_model(
+            dev, out_dir, training.TrainerFlocking, name), data, 1,
+            c["batch"]))
+    host_tr = trainers("host")
+    dev_tr = training.TrainerFlocking(_ref_model(
+        dev, out_dir, training.TrainerFlocking, "device"), data, 1,
+        c["batch"], deviceStore=True)
+    same_tr = trainers("same_labels")
+    same_tr.yAll = same_tr.yAll.copy()
+    same_tr.yAll[idx] = y_first
+    batches = [np.arange(i * c["batch"], (i + 1) * c["batch"]) % c["nTrain"]
+               for i in range(c["device_steps"])]
+    host_loss = [host_tr.train_batch(b)[0] for b in batches]
+    dev_loss = [dev_tr.train_batch(b)[0] for b in batches]
+    same0 = same_tr.train_batch(batches[0])[0]
+    rel0 = abs(dev_loss[0] - host_loss[0]) / abs(host_loss[0])
+    rel_same = abs(dev_loss[0] - same0) / abs(same0)
+    require(rel_same <= 1e-4 and np.isfinite(dev_loss).all(),
+            f"device store's first loss {dev_loss[0]} vs the host store's on "
+            f"the same labels {same0} (rel {rel_same})")
+    checks["device_store_vs_host_store"] = dict(
+        steps=c["device_steps"], rtol=1e-4,
+        first_loss_rel_err_same_labels=rel_same,
+        first_loss_rel_err_host_labels=rel0, host_loss=host_loss,
+        device_loss=dev_loss, host_loss_same_labels=same0)
+    emit(phase="flock_ref_training_check", checks=checks,
+         seconds=time.perf_counter() - t0)
+
+    idx = np.arange(c["batch"])
+    # the device store's step runs eigvalsh on 4000 50 x 50 matrices, which
+    # torch loops one matrix at a time on the card: timed, not profiled
+    prof = dict(host_store=_step_profile(host_tr, idx, 4),
+                device_store=_step_profile(dev_tr, idx, 2, profiled=False))
+    # the dense recompute's lambda_max on the batch's 4000 graphs:
+    # eigvalsh (what the step runs) against power iteration
+    W = (torch.as_tensor(host_tr.SAll[idx], device=dev) > 0).float()
+    W = W.reshape(-1, c["N"], c["N"])
+
+    def once_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    lam = dict(matrices=W.shape[0],
+               eigvalsh_host_ms=once_ms(lambda: torch.linalg.eigvalsh(W)),
+               power_host_ms=once_ms(lambda: fl.lambda_max_power(W)))
+    emit(phase="flock_ref_profile", nvidia_smi=card,
+         config="flock_ref_n50 step (B = 20, T = 200, N = 50)",
+         upload_mb=(4 * (host_tr.xAll[idx].size + host_tr.yAll[idx].size
+                         + host_tr.SAll[idx].size)) / 1e6, lambda_max=lam,
+         **prof)
+    return launches
+
+
+def _repel_rows(pos, rows, repel):
+    """All-pairs collision sums of the agents `rows` against the whole
+    swarm, as data.flocking.expert_accel sums them (2 * sum_j dp * (inv^2 +
+    inv) over d2 < repel^2): pos (1, 2, N) -> (2, len(rows))."""
+    import torch
+    from graph_neural_networks_torch.data.base import ZERO_TOL
+    dp = pos[0][:, rows, None] - pos[0][:, None, :]          # 2, R, N
+    d2 = (dp ** 2).sum(0)
+    inv = torch.where(d2 > ZERO_TOL, 1.0 / d2, torch.zeros_like(d2))
+    w = (d2 < repel ** 2).to(d2.dtype) * (inv ** 2 + inv)
+    return 2.0 * (dp * w).sum(-1)
+
+
+def phase_flock_largetrain(dev, card, out_dir):
+    """flock_largetrain_n65536 through its entry points: Flocking.large(
+    env_grid=True) (the expert's supervision on the grid kernels),
+    Model.train with TrainerFlocking's ELL host store (randomEpoch DAGger)
+    and evaluate_flocking; the grid kernels' counts from 0 over that path
+    and for its parts; then a learner re-roll and its relabel driven
+    beside the path, the relabel's collision sums against all pairs, the
+    generation against the plain grid versions bit for bit at a reduced T,
+    a step profiled on the host store and the same step on the device
+    store over Flocking.large_device at the same N."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_LARGE
+    T = len(np.arange(0, c["duration"], 0.01))
+    lam = c["lam_iters"]
+    n_samples = c["nTrain"] + c["nValid"] + c["nTest"]
+    log, trainers = [], []
+    kw = dict(commRadius=2.0, repelDist=1.0, samplingTime=0.01,
+              ell_degree=c["D"], env_grid=True, device=dev)
+
+    gridwin.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = fl.Flocking.large(c["N"], nTrain=c["nTrain"], nValid=c["nValid"],
+                             nTest=c["nTest"], duration=c["duration"],
+                             lam_iters=lam,
+                             rng=np.random.default_rng(c["seed"]), **kw)
+    gen_s = time.perf_counter() - t0
+    gen_counts = _flock_counts()
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    model = training.Model(net, training.losses.mse_loss,
+                           {"name": "ADAM", "lr": 5e-4},
+                           _counting_host_trainer(log, trainers),
+                           training.evaluate_flocking, name="flock_large",
+                           saveDir=out_dir)
+    t0 = time.perf_counter()
+    out = model.train(data, c["epochs"], 1, ellDegree=c["D"],
+                      probExpert=c["probExpert"], DAGgerType="randomEpoch",
+                      seed=c["seed"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    costs = model.evaluate(data)
+    eval_s = time.perf_counter() - t0
+    launches = _flock_counts()
+
+    trainer = trainers[0]
+    losses, valid = out["lossTrain"], out["costValid"]
+    require(len(losses) == c["epochs"] * c["nTrain"]
+            and np.isfinite(losses).all(), f"losses {losses}")
+    require(len(valid) > 0 and np.isfinite(valid).all(), f"valid {valid}")
+    require(sorted(costs) == ["costBestEnd", "costBestFull", "costLastEnd",
+                              "costLastFull"]
+            and np.isfinite(list(costs.values())).all(), f"costs {costs}")
+    S = trainer.SAll
+    require(trainer._is_ell(S) and S.val.dtype == np.float32
+            and S.idx.shape == (c["nTrain"], T, c["N"], c["D"]),
+            f"ELL host store {S}")
+    # launch counts: generation (gen_batch 4: one table and 2 + lam window
+    # passes a step for each chunk of samples), each logged part, and
+    # evaluate (2 checkpoints x compute_trajectory at lam_iters 8)
+    n_chunks = -(-n_samples // 4)
+    want_gen = dict(grid_window=n_chunks * T * (2 + lam),
+                    table_build=n_chunks * T, table_transpose=0)
+    require(gen_counts == want_gen, f"generation launches {gen_counts}, "
+                                    f"expected {want_gen}")
+    roll = _rollout_launches(T, lam)
+    relabel = dict(grid_window=1, table_build=1, table_transpose=0)
+    zero = dict(grid_window=0, table_build=0, table_transpose=0)
+    for e in log:
+        if e["what"] == "rollout_policy":
+            want = {k: roll[k] + relabel[k] for k in roll}
+        else:
+            want = dict(step=zero, relabel=relabel, validation=roll)[e["what"]]
+        require(e["launches"] == want, f"{e['what']}: launches "
+                                       f"{e['launches']}, expected {want}")
+    total = {k: gen_counts[k] + sum(e["launches"][k] for e in log
+                                    if e["what"] != "relabel")
+             + 2 * roll[k] for k in launches}
+    require(launches == total, f"path launches {launches}, its parts add "
+                               f"up to {total}")
+    for k in ("table_build", "grid_window"):
+        require(launches[k] > 0, f"{k} never launched on the path")
+    emit(phase="flock_largetrain", nvidia_smi=card,
+         config="flock_largetrain_n65536", N=c["N"], T=T, dims=c["dims"],
+         taps=c["taps"], ell_degree=c["D"], lam_iters=lam,
+         dataset_gb=_host_gb(*(getattr(data, f)[s] for f in (
+             "pos", "vel", "accel", "commGraph", "state")
+             for s in ("train", "valid", "test"))),
+         host_store_gb=_host_gb(trainer.xAll, trainer.yAll, trainer.SAll),
+         generation_s=gen_s, train_s=train_s, evaluate_s=eval_s,
+         loss=[float(v) for v in losses], cost_valid=[float(v) for v in valid],
+         evaluate=costs,
+         rerolls=[e for e in log if e["what"] == "rollout_policy"],
+         step_s=[e["seconds"] for e in log if e["what"] == "step"],
+         launches_per=dict(generation=want_gen, step=zero, reroll=roll,
+                           relabel=relabel, validation=roll,
+                           evaluate_rollout=roll),
+         launches=launches, seconds=time.perf_counter() - t_phase)
+
+    # a learner re-roll and its relabel, beside the path, counted
+    t0 = time.perf_counter()
+    ip, iv = trainer.initPosAll[:1], trainer.initVelAll[:1]
+    before = _flock_counts()
+    pos, vel, _, states, graphs = data.compute_trajectory(
+        ip, iv, c["duration"], net)
+    torch.cuda.synchronize()
+    mid = _flock_counts()
+    y = trainer._expert_accel(pos, vel)
+    after = _flock_counts()
+    reroll_l = {k: mid[k] - before[k] for k in mid}
+    relabel_l = {k: after[k] - mid[k] for k in mid}
+    require(reroll_l == roll and relabel_l == relabel,
+            f"re-roll {reroll_l}, relabel {relabel_l}")
+    require(np.isfinite(y).all() and np.abs(y).max() <= data.accelMax,
+            "relabel out of range")
+    # the relabel's collision sums (zero velocity, no clip) against all
+    # pairs for check_rows agents at a few steps
+    accel_max = data.accelMax
+    data.accelMax = 1e9
+    try:
+        rep = trainer._expert_accel(pos, np.zeros_like(vel))
+    finally:
+        data.accelMax = accel_max
+    rows_t = torch.as_tensor(np.random.default_rng(7).choice(
+        c["N"], c["check_rows"], replace=False), device=dev)
+    errs = {}
+    for t in c["check_steps"]:
+        p_t = torch.as_tensor(pos[:, t], dtype=torch.float32, device=dev)
+        ref = _repel_rows(p_t, rows_t, 1.0)
+        got_t = torch.as_tensor(rep[0, t], dtype=torch.float32,
+                                device=dev)[:, rows_t]
+        err, rel, agree = compare(got_t, ref, rtol=1e-4, atol_rel=1e-5)
+        errs[t] = dict(max_abs_err=err, max_rel_err=rel,
+                       max_abs=float(ref.abs().max()),
+                       nonzero_share=float((ref != 0).double().mean()))
+        require(agree, f"relabel collision sums at t={t} vs all pairs: max "
+                       f"abs {err}, rel {rel}")
+    emit(phase="flock_largetrain_check", reroll_launches=reroll_l,
+         relabel_launches=relabel_l,
+         relabel_vs_all_pairs=dict(rows=c["check_rows"], rtol=1e-4,
+                                   atol="1e-5*max|all-pairs|", steps=errs),
+         seconds=time.perf_counter() - t0)
+    del pos, vel, states, graphs, y, rep
+
+    # Flocking.large's generation on the kernels against the plain
+    # versions, bit for bit, at T = bit_T
+    t0 = time.perf_counter()
+    gen = lambda: fl.Flocking.large(
+        c["N"], nTrain=1, nValid=0, nTest=0, duration=c["bit_T"] * 0.01,
+        lam_iters=lam, rng=np.random.default_rng(c["seed"]), **kw)
+    a = gen()
+    with _plain_gridwin():
+        b = gen()
+    same = {}
+    for f in ("pos", "vel", "accel", "state"):
+        same[f] = bool(np.array_equal(a.getData(f, "train"),
+                                      b.getData(f, "train")))
+    ga, gb = a.getData("commGraph", "train"), b.getData("commGraph", "train")
+    same["idx"] = bool(np.array_equal(ga.idx, gb.idx))
+    same["val"] = bool(np.array_equal(ga.val, gb.val))
+    require(all(same.values()), f"Flocking.large kernels vs plain: {same}")
+    emit(phase="flock_largetrain_bits", T=c["bit_T"], equal=same,
+         seconds=time.perf_counter() - t0)
+    del a, b
+
+    # a step of each store at N = 65536
+    t0 = time.perf_counter()
+    idx = np.arange(1)
+    host = _step_profile(trainer, idx, c["profile_n"])
+    upload_gb = _host_gb(trainer.xAll[idx], trainer.yAll[idx],
+                         trainer._S_index(trainer.SAll, idx))
+    del trainers[:], trainer, data, model
+    torch.cuda.empty_cache()
+    dstore = fl.Flocking.large_device(
+        c["N"], nTrain=c["nTrain"], nValid=c["nValid"], nTest=c["nTest"],
+        duration=c["duration"], lam_iters=c["device_lam_iters"],
+        rng=np.random.default_rng(c["seed"]), **kw)
+    dtrainer = training.TrainerFlocking(
+        training.Model(net, training.losses.mse_loss,
+                       {"name": "ADAM", "lr": 5e-4},
+                       training.TrainerFlocking, training.evaluate_flocking,
+                       name="flock_large_device", saveDir=out_dir),
+        dstore, 1, 1, deviceStore=True, ellDegree=c["D"], coverageCheck=False)
+    device = _step_profile(dtrainer, idx, c["profile_n"])
+    emit(phase="flock_largetrain_profile", nvidia_smi=card,
+         config="flock_largetrain_n65536 step (B = 1, T = 50, N = 65536)",
+         host_store=dict(host, upload_gb=upload_gb),
+         device_store=dict(device, lam_iters=c["device_lam_iters"],
+                           store="Flocking.large_device (pos, vel only)"),
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Node-sharded path (single controller; the shards share the one card)
 # ---------------------------------------------------------------------------
 
@@ -3715,6 +4283,15 @@ def main() -> int:
             del trained
         for k in ("grid_window", "table_build"):
             launches[k] += flock_train_launches[k]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            timed("flock_ref_training", phase_flock_ref_training, dev, card,
+                  out_dir)
+            large_launches = timed("flock_largetrain",
+                                   phase_flock_largetrain, dev, card,
+                                   out_dir)
+        for k in ("grid_window", "table_build"):
+            launches[k] += large_launches[k]
         torch.cuda.empty_cache()
         shard_launches, engines, profiles = timed(
             "shard_serving", phase_shard_serving, np.random.default_rng(11),

@@ -8,6 +8,7 @@ engine, with hand-written Hopper kernels for the block-sparse graph shift
 node-sharded execution over a device mesh (``parallel/``), and the
 flocking controller (``LocalGNN_DB``) deployed and trained on the
 cell-grid swarm environment (``data/flocking.py``, ``ops/gridwin.py``,
-``kernels/csrc/gridwin.cu``). Entry points run on CUDA unless the caller
+``kernels/csrc/gridwin.cu``) and, at the reference scale, on the
+all-pairs one. Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 """

@@ -4,7 +4,8 @@
 Mirrors the reference's ``_data`` / ``_dataForClassification`` contracts
 (dataTools.py:141-341): samples dict with train/valid/test splits,
 getSamples with count/index selection, expandDims, astype, and the
-classification error-rate evaluate. Samples stay numpy on the host; the
+classification error-rate evaluate, and the host helper
+``invert_tensor_ew``. Samples stay numpy on the host; the
 Trainer moves each batch to the device.
 """
 
@@ -13,6 +14,15 @@ from __future__ import annotations
 import numpy as np
 
 ZERO_TOL = 1e-9
+
+
+def invert_tensor_ew(x: np.ndarray) -> np.ndarray:
+    """Elementwise inverse that maps (near-)zeros to zero
+    (reference dataTools.py:119-139)."""
+    out = np.zeros_like(x, dtype=np.float64)
+    mask = np.abs(x) > ZERO_TOL
+    out[mask] = 1.0 / x[mask]
+    return out
 
 
 class Data:

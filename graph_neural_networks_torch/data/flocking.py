@@ -1,33 +1,35 @@
-"""Flocking: a decentralized swarm controller on the cell-grid
-environment, trained by imitation of the centralized expert and deployed
-closed loop.
+"""Flocking: a decentralized swarm controller trained by imitation of the
+centralized expert and deployed closed loop.
 
-The port of the JAX package's ``data/flocking.py`` for its device paths.
+The port of the JAX package's ``data/flocking.py``.
 
-* Deployment: a swarm of N agents rolls forward with a trained
-  delayed-filter policy in the loop (``Flocking.rollout_cost``,
-  ``rollout_traj_device``, ``compute_trajectory(env_grid=...)``), each
-  environment step on the O(N) cell-list grid (:func:`env_step_grid`)
+* The reference-scale dataset (``Flocking(...)``): the expert's
+  trajectories, communication graphs and agent states generated in f64
+  numpy on the host (``compute_optimal_trajectory``,
+  ``compute_communication_graph``, ``compute_states``), served by
+  ``getData``/``getSamples``; ``training.TrainerFlocking`` trains over it
+  from its host store.
+* Closed-loop rollouts (``compute_trajectory``, ``rollout_traj_device``,
+  ``rollout_cost``) through a policy's step interface, on one of two
+  environments: the all-pairs step (:func:`comm_graph`, :func:`states`;
+  the dense (B,T,N,N) graph trajectory, or its top-D ELL form) when the
+  dataset has no grid, or the O(N) cell-list grid (:func:`env_step_grid`)
   whose table and window passes run the kernels of ``ops/gridwin.py``.
-* Training with the device-resident store: ``Flocking.large_device``
-  generates the expert's (pos, vel) trajectories on the device (the grid
-  env plus the expert's repel pass, :func:`expert_accel_grid`'s
-  arithmetic) and keeps only those; each training batch recomputes its
-  states, expert labels and ELL graphs from them
-  (:func:`recompute_supervision_grid`), and ``training.TrainerFlocking``
-  re-rolls learner trajectories for DAGger with ``rollout_traj_device``.
+* Large swarms: ``Flocking.large(env_grid=...)`` generates the expert's
+  supervision on the grid (states, labels and ELL graphs, kept as host
+  numpy); ``Flocking.large_device`` keeps only the expert's (pos, vel) on
+  the device, and each training batch recomputes its states, labels and
+  ELL graphs there (:func:`recompute_supervision_grid`; the dense
+  :func:`recompute_supervision` serves a reference-scale dataset).
 
-f32 device tensors throughout; rollouts are Python loops over steps, and
-the grid's exactness flag ``ok`` stays on the device until a rollout
-ends. The dense all-pairs step (:func:`comm_graph`, :func:`states`,
-:func:`lambda_max_power`, :func:`expert_accel`) is kept as the independent
-reference for one environment step.
+Device tensors are f32; rollouts are Python loops over steps, and the
+grid's exactness flag ``ok`` stays on the device until a rollout ends.
 
-Not ported yet (ROADMAP queue 1): the host-numpy store (the
-``Flocking(...)`` constructor, ``compute_optimal_trajectory``,
-``Flocking.large``; item 7.1b), the unfused step path (policies whose
-registers shift over the emitted ELL graph), the segmented and chunked
-all-pairs rollouts, and ``lam_path="ell"``.
+Not ported yet (ROADMAP queue 1 item 7): the unfused grid step path
+(policies whose registers shift over the emitted ELL graph, 7.2), the
+chunked all-pairs env (``Flocking.large`` without ``env_grid``), the
+windowed re-forward and the segmented rollouts (7.3), and
+``lam_path="ell"`` (7.4).
 """
 
 from __future__ import annotations
@@ -38,13 +40,15 @@ import warnings
 import numpy as np
 import torch
 
-from graph_neural_networks_torch.data.base import ZERO_TOL, Data
+from graph_neural_networks_torch.data.base import (
+    ZERO_TOL, Data, invert_tensor_ew)
 from graph_neural_networks_torch.ops import gridwin
-from graph_neural_networks_torch.ops.ell import EllGso
+from graph_neural_networks_torch.ops.ell import EllGso, ell_topk
 from graph_neural_networks_torch.utils.device import resolve_device
 
-_NOT_PORTED = ("(ROADMAP queue 1 item 7: the flocking left-outs of the "
-               "deployment slice)")
+_NOT_PORTED = ("(ROADMAP queue 1 item 7: 7.2 the unfused step, 7.3 the "
+               "chunked env and the windowed and segmented rollouts, 7.4 "
+               "lam_path='ell')")
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +457,54 @@ def expert_accel_grid(pos: torch.Tensor, vel: torch.Tensor,
 EXPERT_ACCEL_MAX = 100.0
 
 
+def compute_differences(u: np.ndarray):
+    """Pairwise differences u_i - u_j and squared distances, host numpy:
+    u (S, 2, N) or (S, T, 2, N) -> diff (S, [T,] 2, N, N), dist_sq
+    (S, [T,] N, N) (reference dataTools.py:3341-3404)."""
+    squeeze = u.ndim == 3
+    if squeeze:
+        u = u[:, None]
+    diff = u[..., :, None] - u[..., None, :]          # S x T x 2 x N x N
+    dist_sq = np.sum(diff ** 2, axis=-3)              # S x T x N x N
+    if squeeze:
+        return diff[:, 0], dist_sq[:, 0]
+    return diff, dist_sq
+
+
+def expert_accel_host(pos: np.ndarray, vel: np.ndarray, repel_dist: float,
+                      accel_max: float) -> np.ndarray:
+    """The centralized expert's acceleration in f64 numpy on (..., 2, N)
+    positions and velocities: minus the velocity differences' sum plus the
+    collision-avoidance sum over the pairs closer than repel_dist, clipped
+    at accel_max. (..., 2, N)."""
+    diff_pos, dist_sq = compute_differences(pos)
+    diff_vel, _ = compute_differences(vel)
+    repel = (dist_sq < repel_dist ** 2).astype(np.float64)
+    diff_pos = diff_pos * repel[..., None, :, :]
+    inv = invert_tensor_ew(dist_sq)[..., None, :, :]
+    accel = (-np.sum(diff_vel, axis=-1)
+             + 2 * np.sum(diff_pos * (inv ** 2 + inv), axis=-1))
+    return np.clip(accel, -accel_max, accel_max)
+
+
+@torch.no_grad()
+def recompute_supervision(pos: torch.Tensor, vel: torch.Tensor,
+                          comm_radius: float, repel_dist: float,
+                          accel_max: float, lam_method: str = "eig"):
+    """A reference-scale training batch's supervision recomputed on the
+    device from its (pos, vel) trajectories (B,T,2,N) alone, all pairs
+    (JAX ``_jnp_recompute_supervision``): (states (B,T,6,N), expert accel
+    (B,T,2,N) with accel[T-1] zeroed, normalized graphs (B,T,N,N)). Equals
+    the host generation to f32 rounding."""
+    B, T, _, N = pos.shape
+    pf, vf = pos.reshape(B * T, 2, N), vel.reshape(B * T, 2, N)
+    S = comm_graph(pf, comm_radius, lam_method)
+    x = states(pf, vf, S).reshape(B, T, 6, N)
+    y = expert_accel(pf, vf, repel_dist, accel_max).reshape(B, T, 2, N)
+    y[:, T - 1] = 0.0
+    return x, y, S.reshape(B, T, N, N)
+
+
 @torch.no_grad()
 def recompute_supervision_grid(pos: torch.Tensor, vel: torch.Tensor,
                                comm_radius: float, repel_dist: float,
@@ -524,28 +576,46 @@ def _grid_warning(ok, strict: bool) -> None:
 
 
 class Flocking(Data):
-    """The flocking environment (reference dataTools.py:2210-4005), its
-    deployment side: built by :meth:`for_rollout`, rolled forward closed
-    loop on the grid environment, scored by :meth:`evaluate` /
-    :meth:`rollout_cost`."""
+    """The flocking task (reference dataTools.py:2210-4005): the expert-
+    supervised dataset, the closed-loop rollouts of a policy and the
+    velocity-variance cost.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the host-numpy expert-supervised Flocking dataset is not ported "
-            "yet (ROADMAP queue 1 item 7.1b); build the training set on the "
-            "device with Flocking.large_device, or the environment alone "
-            "with Flocking.for_rollout")
+    ``Flocking(...)`` generates the reference-scale dataset on the host in
+    f64 numpy (the expert's trajectories, the normalized dense graphs
+    (n, T, N, N) and the 6-feature states), cast to ``dataType``;
+    :meth:`for_rollout` builds the environment alone, :meth:`large` and
+    :meth:`large_device` the large-swarm training sets. Rollouts run on
+    ``device`` (CUDA unless the caller asks for the CPU).
+    """
 
-    @classmethod
-    def for_rollout(cls, nAgents, commRadius, repelDist, samplingTime,
-                    initGeometry="circular", initVelValue=3.0,
-                    initMinDist=0.1, accelMax=10.0, normalizeGraph=True,
-                    doPrint=False, dataType=np.float64, rng=None,
-                    device="cuda"):
-        """Environment-only construction: initial positions, the closed-loop
-        rollouts and the cost, without expert trajectories. The rollouts run
-        on ``device`` (CUDA unless the caller asks for the CPU)."""
-        self = cls.__new__(cls)
+    def __init__(self, nAgents, commRadius, repelDist, nTrain, nValid, nTest,
+                 duration, samplingTime, initGeometry="circular",
+                 initVelValue=3.0, initMinDist=0.1, accelMax=10.0,
+                 normalizeGraph=True, doPrint=False, dataType=np.float64,
+                 rng=None, device="cuda"):
+        self._init_env(nAgents, commRadius, repelDist, samplingTime,
+                       initGeometry, initVelValue, initMinDist, accelMax,
+                       normalizeGraph, doPrint, dataType, rng, device)
+        self.nTrain, self.nValid, self.nTest = nTrain, nValid, nTest
+        self.duration = float(duration)
+        n_samples = nTrain + nValid + nTest
+        init_pos, init_vel = self.compute_initial_positions(
+            nAgents, n_samples, commRadius, minDist=initMinDist,
+            geometry=initGeometry, xMaxInitVel=initVelValue,
+            yMaxInitVel=initVelValue)
+        pos, vel, accel = self.compute_optimal_trajectory(
+            init_pos, init_vel, self.duration, samplingTime, repelDist,
+            accelMax=accelMax)
+        comm_graph_ = self.compute_communication_graph(pos, commRadius,
+                                                       normalizeGraph)
+        state = self.compute_states(pos, vel, comm_graph_)
+        self._set_splits(init_pos, init_vel, pos, vel, accel, comm_graph_,
+                         state)
+        self.astype(dataType)
+
+    def _init_env(self, nAgents, commRadius, repelDist, samplingTime,
+                  initGeometry, initVelValue, initMinDist, accelMax,
+                  normalizeGraph, doPrint, dataType, rng, device):
         Data.__init__(self)
         self.device = resolve_device(device)
         self.rng = np.random.default_rng() if rng is None else rng
@@ -562,12 +632,145 @@ class Flocking(Data):
         self.normalizeGraph = normalizeGraph
         self.doPrint = doPrint
         self.dataType = dataType
+        # the closed-loop rollouts' defaults: the all-pairs env with dense
+        # graphs and eigvalsh; rollout_ell_degree=D emits top-D ELL graphs,
+        # rollout_lam_method='power' takes lambda_max by power iteration,
+        # rollout_env_grid (with ell_degree) rolls on the cell grid
         self.rollout_ell_degree = None
+        self.rollout_lam_method = "eig"
+        self.rollout_env_chunk = None
         self.rollout_env_grid = None
         self.initPos, self.initVel = {}, {}
         self.pos, self.vel, self.accel = {}, {}, {}
         self.commGraph, self.state = {}, {}
+
+    def _set_splits(self, init_pos, init_vel, pos, vel, accel, graphs,
+                    state):
+        """Split the generated arrays into train/valid/test; graphs a dense
+        array or an EllGso with numpy leaves."""
+        bounds = [0, self.nTrain, self.nTrain + self.nValid,
+                  self.nTrain + self.nValid + self.nTest]
+        for i, name in enumerate(("train", "valid", "test")):
+            sl = slice(bounds[i], bounds[i + 1])
+            self.samples[name]["signals"] = state[sl].copy()
+            self.samples[name]["targets"] = accel[sl].copy()
+            self.initPos[name] = init_pos[sl]
+            self.initVel[name] = init_vel[sl]
+            self.pos[name] = pos[sl]
+            self.vel[name] = vel[sl]
+            self.accel[name] = accel[sl]
+            self.commGraph[name] = (
+                EllGso(graphs.idx[sl].copy(), graphs.val[sl].copy())
+                if isinstance(graphs, EllGso) else graphs[sl])
+            self.state[name] = state[sl]
+
+    @classmethod
+    def for_rollout(cls, nAgents, commRadius, repelDist, samplingTime,
+                    initGeometry="circular", initVelValue=3.0,
+                    initMinDist=0.1, accelMax=10.0, normalizeGraph=True,
+                    doPrint=False, dataType=np.float64, rng=None,
+                    device="cuda"):
+        """Environment-only construction: initial positions, the closed-loop
+        rollouts and the cost, without expert trajectories."""
+        self = cls.__new__(cls)
+        self._init_env(nAgents, commRadius, repelDist, samplingTime,
+                       initGeometry, initVelValue, initMinDist, accelMax,
+                       normalizeGraph, doPrint, dataType, rng, device)
         return self
+
+    @classmethod
+    def large(cls, nAgents, commRadius, repelDist, nTrain, nValid, nTest,
+              duration, samplingTime, ell_degree,
+              lam_iters: int = 8, gen_batch: int = 4, rng=None,
+              env_grid=None, device="cuda", **kw):
+        """The large-swarm training set kept on the host (JAX
+        ``Flocking.large``): the expert's supervision generated on
+        ``device`` by :meth:`generate_trajectories_large` on the cell grid,
+        gen_batch samples at a time, the graphs stored as an EllGso with
+        numpy leaves (n, T, N, D), everything cast to f32. The rollouts of
+        TrainerFlocking and evaluate_flocking then run on the same grid
+        with ell_degree. ``env_grid=None`` (the chunked all-pairs env) is
+        not ported yet."""
+        if env_grid is None:
+            raise NotImplementedError(
+                "Flocking.large without env_grid (the chunked all-pairs env) "
+                "is not ported yet (ROADMAP queue 1 item 7.3); pass "
+                "env_grid=True")
+        self = cls.for_rollout(nAgents, commRadius, repelDist, samplingTime,
+                               rng=rng, device=device, **kw)
+        self.duration = float(duration)
+        self.nTrain, self.nValid, self.nTest = nTrain, nValid, nTest
+        ell_degree = min(ell_degree, nAgents)
+        self.rollout_ell_degree = ell_degree
+        self.rollout_lam_method = "power"
+        self.rollout_env_grid = env_grid
+        n_samples = nTrain + nValid + nTest
+        init_pos, init_vel = self.compute_initial_positions(
+            nAgents, n_samples, commRadius, minDist=self.initMinDist,
+            geometry=self.initGeometry, xMaxInitVel=self.initVelValue,
+            yMaxInitVel=self.initVelValue)
+        outs = [self.generate_trajectories_large(
+            init_pos[lo:lo + gen_batch], init_vel[lo:lo + gen_batch],
+            duration, ell_degree, lam_iters=lam_iters,
+            env_grid=env_grid) for lo in range(0, n_samples, gen_batch)]
+        pos, vel, accel, state = (np.concatenate([o[i] for o in outs], 0)
+                                  for i in range(4))
+        graphs = EllGso(np.concatenate([o[4].idx for o in outs], 0),
+                        np.concatenate([o[4].val for o in outs], 0))
+        del outs
+        self._set_splits(init_pos, init_vel, pos, vel, accel, graphs, state)
+        self.astype(np.float32)
+        return self
+
+    @torch.no_grad()
+    def generate_trajectories_large(self, init_pos, init_vel, duration,
+                                    ell_degree: int, lam_iters: int = 8,
+                                    env_grid=None):
+        """The expert's supervision at large N on the device, on the cell
+        grid (JAX ``generate_trajectories_large`` with env_grid): each step
+        one :func:`env_step_grid` with the expert's repel pass gives the
+        states, the top-D ELL graph and the collision sums of the expert's
+        acceleration (clip EXPERT_ACCEL_MAX), which drives the transition;
+        the lambda eigenvector is carried across steps from the all-ones
+        start at lam_iters passes a step. accel[T-1] is zeroed. Returns host
+        numpy (pos, vel, accel, states (B,T,6,N), EllGso (idx (B,T,N,D),
+        val (B,T,1,N,D)), ok), f32; a RuntimeWarning reports a cell
+        overflow."""
+        if env_grid is None:
+            raise NotImplementedError(
+                "generate_trajectories_large without env_grid (the chunked "
+                "all-pairs env) is not ported yet (ROADMAP queue 1 item 7.3)")
+        gts, gcc, gcf = _parse_env_grid(env_grid)
+        dt = self.samplingTime
+        T = len(np.arange(0, duration, dt))
+        p, u = self._as_device(init_pos), self._as_device(init_vel)
+        B, _, N = p.shape
+        D = min(int(ell_degree), N)
+        pos, vel, accel = (p.new_empty((B, T, 2, N)) for _ in range(3))
+        xs = p.new_empty((B, T, 6, N))
+        gi = torch.empty((B, T, N, D), dtype=torch.int32, device=p.device)
+        gv = p.new_empty((B, T, N, D))
+        v = torch.ones((B, N), dtype=p.dtype, device=p.device) / math.sqrt(N)
+        ok = torch.ones((), dtype=torch.bool, device=p.device)
+        for t in range(T):
+            gi[:, t], gv[:, t], xs[:, t], v, rep, ok_t = env_step_grid(
+                p, u, self.commRadius, D, v, lam_iters=lam_iters,
+                table_size=gts, cell_cap=gcc, cell_factor=gcf,
+                expert_repel=self.repelDist)
+            a = _expert_from_repel(u, rep, EXPERT_ACCEL_MAX)
+            pos[:, t], vel[:, t], accel[:, t] = p, u, a
+            ok = ok & ok_t
+            p, u = a * dt * dt / 2 + u * dt + p, a * dt + u
+        accel[:, T - 1] = 0.0
+        ok = bool(ok)
+        if not ok:
+            warnings.warn("grid cell_cap overflowed during large-swarm "
+                          "expert generation: neighbor sets (and expert "
+                          "collision sums) may be incomplete; raise "
+                          "cell_cap/table_size", RuntimeWarning)
+        host = lambda a: a.cpu().numpy()
+        return (host(pos), host(vel), host(accel), host(xs),
+                EllGso(host(gi), host(gv)[:, :, None]), ok)
 
     @classmethod
     def large_device(cls, nAgents, commRadius, repelDist, nTrain, nValid,
@@ -590,6 +793,7 @@ class Flocking(Data):
         self.duration = float(duration)
         self.nTrain, self.nValid, self.nTest = nTrain, nValid, nTest
         self.rollout_ell_degree = min(ell_degree, nAgents)
+        self.rollout_lam_method = "power"
         self.rollout_env_grid = env_grid
         self.rollout_lam_iters = lam_iters
         gts, gcc, gcf = _parse_env_grid(env_grid)
@@ -733,10 +937,81 @@ class Flocking(Data):
         init_vel = vel_bias + perturb
         return init_pos, init_vel
 
+    # -- the expert (reference dataTools.py:3406-3506) ----------------------
+    def compute_optimal_trajectory(self, initPos, initVel, duration,
+                                   samplingTime, repelDist, accelMax=100.0):
+        """The centralized expert's trajectories from (S, 2, N) initial
+        conditions, f64 numpy: (pos, vel, accel) each (S, T, 2, N). The
+        acceleration is the velocity consensus plus the collision-avoidance
+        sum over the pairs closer than repelDist, clipped at accelMax;
+        accel[:, T-1] stays zero (it drives no transition in the
+        horizon)."""
+        nSamples, _, nAgents = initPos.shape
+        T = len(np.arange(0, duration, samplingTime))
+        pos = np.zeros((nSamples, T, 2, nAgents))
+        vel = np.zeros((nSamples, T, 2, nAgents))
+        accel = np.zeros((nSamples, T, 2, nAgents))
+        pos[:, 0] = initPos
+        vel[:, 0] = initVel
+        for t in range(1, T):
+            accel[:, t - 1] = expert_accel_host(pos[:, t - 1], vel[:, t - 1],
+                                                repelDist, accelMax)
+            vel[:, t] = accel[:, t - 1] * samplingTime + vel[:, t - 1]
+            pos[:, t] = (accel[:, t - 1] * samplingTime ** 2 / 2
+                         + vel[:, t - 1] * samplingTime + pos[:, t - 1])
+        return pos, vel, accel
+
+    # -- communication graph (reference dataTools.py:2816-3020) -------------
+    def compute_communication_graph(self, pos, commRadius, normalizeGraph,
+                                    kernelType="gaussian", weighted=False,
+                                    kernelScale=1.0):
+        """Host f64 graphs of (S, [T,] 2, N) positions -> (S, [T,] N, N):
+        the gaussian kernel cut at commRadius, no self loops, unweighted
+        unless ``weighted``, divided by lambda_max (eigvalsh) when
+        normalizeGraph."""
+        squeeze = pos.ndim == 3
+        if squeeze:
+            pos = pos[:, None]
+        N = pos.shape[-1]
+        _, dist_sq = compute_differences(pos)
+        if kernelType == "gaussian":
+            W = np.exp(-kernelScale * dist_sq)
+        else:
+            W = dist_sq.copy()
+        W[dist_sq > commRadius ** 2] = 0.0
+        idx = np.arange(N)
+        W[:, :, idx, idx] = 0.0
+        if not weighted:
+            W = (W > ZERO_TOL).astype(np.float64)
+        if normalizeGraph:
+            lam = np.max(np.linalg.eigvalsh(W), axis=-1)
+            lam[np.abs(lam) < ZERO_TOL] = 1.0
+            W = W / lam[..., None, None]
+        return W[:, 0] if squeeze else W
+
+    # -- states (reference dataTools.py:2612-2815) --------------------------
+    def compute_states(self, pos, vel, graphMatrix):
+        """Host f64 6-feature agent states (S, [T,] 6, N) on the graph's
+        support: the summed velocity differences and the position
+        differences weighted by 1/d^4 and 1/d^2."""
+        diff_pos, dist_sq = compute_differences(pos)
+        diff_vel, _ = compute_differences(vel)
+        adj = (np.abs(graphMatrix) > ZERO_TOL).astype(
+            np.float64)[..., None, :, :]
+        dist_sq_inv = invert_tensor_ew(dist_sq)[..., None, :, :] * adj
+        diff_pos = diff_pos * adj
+        diff_vel = diff_vel * adj
+        state_vel = np.sum(diff_vel, axis=-1)
+        state_pos_fourth = np.sum(diff_pos * dist_sq_inv ** 2, axis=-1)
+        state_pos_sq = np.sum(diff_pos * dist_sq_inv, axis=-1)
+        return np.concatenate([state_vel, state_pos_fourth, state_pos_sq],
+                              axis=-2)
+
     # -- closed-loop rollout (reference dataTools.py:3166-3340) -------------
     def _chunked_pieces(self, policy, ell_degree, lam_iters, env_grid,
                         return_graphs=True):
-        """init/step closures of the fused-policy grid rollout.
+        """init/step closures of the fused-policy grid rollout (JAX
+        ``_chunked_pieces`` with env_grid, its fused branch).
 
         The policy's tap registers ride the grid env's cell table as
         payload feature blocks, and the env's own window pass returns their
@@ -787,7 +1062,8 @@ class Flocking(Data):
             pstate = policy.rollout_init(B, N)
             sh0 = torch.zeros_like(policy.rollout_payload(pstate)
                                    .reshape(B, N, -1))
-            return (init_pos, init_vel, x0, sh0, pstate, v0, ok), (x0, i0, s0)
+            return ((init_pos, init_vel, x0, sh0, pstate, v0, ok),
+                    (x0, (i0, s0)))
 
         def step_fn(carry):
             pos_t, vel_t, x_t, sh_t, pstate, v, ok = carry
@@ -804,24 +1080,85 @@ class Flocking(Data):
 
         return init_fn, step_fn
 
-    def _rollout_args(self, archit, ell_degree, env_grid, step_mode):
+    def _dense_pieces(self, policy, ell_degree, lam_method):
+        """init/step closures of the all-pairs closed loop (JAX
+        ``_scan_rollout``'s non-grid branch in step mode): each step the
+        policy takes one ``rollout_step`` over the step's graph, then the
+        physics, then the dense graph of the new positions
+        (:func:`comm_graph`, lambda_max by ``lam_method``: 'eig' or
+        'power') and its states. carry = (pos, vel, x_t, graph_t, policy
+        state, ok); ok stays True. The graph is the dense (B,N,N) one, or
+        with ell_degree its top-D ELL form (:func:`ell_topk`), which the
+        policy then shifts over, as in JAX. The windowed re-forward, the
+        JAX trainer's form of this loop, equals it up to float
+        association."""
+        dt = self.samplingTime
+        r = self.commRadius
+        a_max = self.accelMax
+
+        def env(pos, vel):
+            S = comm_graph(pos, r, lam_method)
+            x = states(pos, vel, S)
+            if ell_degree is None:
+                return x, S, S
+            e = ell_topk(S[:, None], min(ell_degree, pos.shape[-1]))
+            return x, e, (e.idx, e.val[:, 0])
+
+        def init_fn(init_pos, init_vel):
+            B, _, N = init_pos.shape
+            x0, g0, out0 = env(init_pos, init_vel)
+            ok = torch.ones((), dtype=torch.bool, device=init_pos.device)
+            return ((init_pos, init_vel, x0, g0, policy.rollout_init(B, N),
+                     ok), (x0, out0))
+
+        def step_fn(carry):
+            pos_t, vel_t, x_t, g_t, pstate, ok = carry
+            pstate, y = policy.rollout_step(pstate, x_t, g_t)
+            a = torch.clamp(y, -a_max, a_max)
+            vel_n = a * dt + vel_t
+            pos_n = a * dt * dt / 2 + vel_t * dt + pos_t
+            x_n, g_n, out_n = env(pos_n, vel_n)
+            return ((pos_n, vel_n, x_n, g_n, pstate, ok),
+                    (pos_n, vel_n, a, x_n, out_n))
+
+        return init_fn, step_fn
+
+    def _pieces(self, policy, ell_degree, env_grid, lam_iters, lam_method,
+                return_graphs=True):
+        """The rollout's init/step closures: the grid loop when env_grid is
+        set, else the all-pairs loop. A step emits (pos, vel, accel, states,
+        graph), the graph a dense (B,N,N) tensor or an ELL (idx, val)
+        pair."""
+        if env_grid is not None:
+            return self._chunked_pieces(policy, ell_degree, lam_iters,
+                                        env_grid, return_graphs)
+        return self._dense_pieces(policy, ell_degree, lam_method)
+
+    def _rollout_args(self, archit, ell_degree, env_grid, step_mode,
+                      lam_method="eig"):
+        """(ell_degree, env_grid, lam_method) with the dataset's rollout
+        defaults, as JAX resolves them."""
         # step_mode keeps the JAX signature: None or True, the step
         # interface; False, the full-history forward, which is not ported
         if step_mode is not None and not step_mode:
             raise NotImplementedError(
                 "step_mode=False (the full-history rollout through "
                 f"archit.forward) is not ported yet {_NOT_PORTED}")
+        if not hasattr(archit, "rollout_step"):
+            raise NotImplementedError(
+                f"{type(archit).__name__} has no step interface "
+                "(rollout_init/rollout_step): the windowed re-forward "
+                f"rollout is not ported yet {_NOT_PORTED}")
         if ell_degree is None:
             ell_degree = self.rollout_ell_degree
         if env_grid is None:
             env_grid = self.rollout_env_grid
-        if (not hasattr(archit, "rollout_step_shifted") or ell_degree is None
-                or env_grid is None):
-            raise NotImplementedError(
-                "only the grid-environment step-mode rollout is ported (pass "
-                "env_grid, ell_degree and a policy with the step interface);"
-                f" the windowed and all-pairs rollouts are not {_NOT_PORTED}")
-        return ell_degree, env_grid
+        if env_grid is not None and ell_degree is None:
+            raise ValueError("env_grid requires ell_degree (the O(N*deg) "
+                             "graph layout)")
+        if lam_method == "eig" and self.rollout_lam_method != "eig":
+            lam_method = self.rollout_lam_method
+        return ell_degree, env_grid, lam_method
 
     def _as_device(self, a) -> torch.Tensor:
         """Host array -> the rollout's f32 device tensor (through f64, as
@@ -831,66 +1168,79 @@ class Flocking(Data):
 
     @torch.no_grad()
     def _rollout(self, init_pos, init_vel, T, policy, ell_degree, lam_iters,
-                 env_grid, return_graphs=True, traj_only=False):
+                 env_grid, return_graphs=True, traj_only=False,
+                 lam_method="eig"):
         """The closed loop over T steps, on device tensors: (pos, vel[,
         accel, states, graphs], ok), each (B, T, ...); accel from step t
-        drives the transition into t+1 and is stored at t."""
-        init_fn, step_fn = self._chunked_pieces(
-            policy, ell_degree, lam_iters, env_grid, return_graphs)
-        carry, (x0, i0, s0) = init_fn(init_pos, init_vel)
+        drives the transition into t+1 and is stored at t. graphs: a dense
+        (B,T,N,N) tensor or an EllGso (idx (B,T,N,D), val (B,T,1,N,D))."""
+        init_fn, step_fn = self._pieces(policy, ell_degree, env_grid,
+                                        lam_iters, lam_method, return_graphs)
+        carry, (x0, g0) = init_fn(init_pos, init_vel)
         B, _, N = init_pos.shape
         pos = init_pos.new_empty((B, T, 2, N))
         vel = init_pos.new_empty((B, T, 2, N))
         pos[:, 0], vel[:, 0] = init_pos, init_vel
+        parts = lambda g: g if isinstance(g, tuple) else (g,)
         if not traj_only:
             accel = init_pos.new_zeros((B, T, 2, N))
             xs = init_pos.new_empty((B, T, 6, N))
-            gi = i0.new_empty((B, T) + tuple(i0.shape[1:]))
-            gv = s0.new_empty((B, T) + tuple(s0.shape[1:]))
-            xs[:, 0], gi[:, 0], gv[:, 0] = x0, i0, s0
+            gs = [a.new_empty((B, T) + tuple(a.shape[1:])) for a in parts(g0)]
+            xs[:, 0] = x0
+            for buf, part in zip(gs, parts(g0)):
+                buf[:, 0] = part
         for t in range(1, T):
-            carry, (p, v, a, x, (i, s)) = step_fn(carry)
+            carry, (p, v, a, x, g) = step_fn(carry)
             pos[:, t], vel[:, t] = p, v
             if not traj_only:
-                accel[:, t - 1], xs[:, t], gi[:, t], gv[:, t] = a, x, i, s
+                accel[:, t - 1], xs[:, t] = a, x
+                for buf, part in zip(gs, parts(g)):
+                    buf[:, t] = part
         ok = carry[-1]
         if traj_only:
             return pos, vel, ok
-        return pos, vel, accel, xs, EllGso(gi, gv[:, :, None]), ok
+        graphs = EllGso(gs[0], gs[1][:, :, None]) if len(gs) == 2 else gs[0]
+        return pos, vel, accel, xs, graphs, ok
 
     def compute_trajectory(self, initPos, initVel, duration, archit,
-                           ell_degree=None, lam_iters: int = 8,
-                           step_mode=None, env_grid=None,
-                           env_grid_strict: bool = False,
+                           ell_degree=None, lam_method: str = "eig",
+                           lam_iters: int = 8, step_mode=None,
+                           env_grid=None, env_grid_strict: bool = False,
                            return_graphs=True):
-        """Roll the swarm forward with `archit` closed loop on the grid
-        environment; returns host float64 (pos, vel, accel, states) of
-        shape (B, T, ., N) and the EllGso graph trajectory (idx int32
-        (B,T,N,D), val (B,T,1,N,D)).
+        """Roll the swarm forward with `archit` closed loop through its step
+        interface; returns host float64 (pos, vel, accel, states) of shape
+        (B, T, ., N) and the graph trajectory: the dense (B,T,N,N) stack
+        (f64), or an EllGso (idx int32 (B,T,N,D), val f64 (B,T,1,N,D)).
 
-        env_grid (True, (table_size, cell_cap) or a 3-tuple with the cell
-        factor) and ell_degree default to the environment's
-        rollout_env_grid / rollout_ell_degree. A RuntimeWarning (a
-        RuntimeError when env_grid_strict) reports a cell overflow or an
-        in-degree above ell_degree. return_graphs False / "auto": zero ELL
-        columns, the same positions. lam_iters: warm-started power
+        env_grid, ell_degree and lam_method default to the dataset's
+        rollout_env_grid / rollout_ell_degree / rollout_lam_method. Without
+        a grid the loop is the all-pairs env (dense graphs, or top-D ELL
+        ones with ell_degree; lambda_max by eigvalsh or, 'power', power
+        iteration). With env_grid (True, (table_size, cell_cap) or a
+        3-tuple with the cell factor) it is the cell grid: a RuntimeWarning
+        (a RuntimeError when env_grid_strict) reports a cell overflow or an
+        in-degree above ell_degree; return_graphs False / "auto": zero ELL
+        columns, the same positions; lam_iters: warm-started power
         iterations a step (0: the zero-pass Rayleigh fold)."""
-        ell_degree, env_grid = self._rollout_args(archit, ell_degree,
-                                                  env_grid, step_mode)
+        ell_degree, env_grid, lam_method = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode, lam_method)
         T = len(np.arange(0, duration, self.samplingTime))
         *out, ok = self._rollout(
             self._as_device(initPos), self._as_device(initVel), T, archit,
-            ell_degree, lam_iters, env_grid, return_graphs=return_graphs)
+            ell_degree, lam_iters, env_grid, return_graphs=return_graphs,
+            lam_method=lam_method)
         _grid_warning(ok, env_grid_strict)
         host = lambda t: t.cpu().numpy()
         pos, vel, accel, xs, g = out
+        g = (EllGso(host(g.idx), host(g.val).astype(np.float64))
+             if isinstance(g, EllGso) else host(g).astype(np.float64))
         return (host(pos).astype(np.float64), host(vel).astype(np.float64),
                 host(accel).astype(np.float64), host(xs).astype(np.float64),
-                EllGso(host(g.idx), host(g.val).astype(np.float64)))
+                g)
 
     def rollout_traj_device(self, initPos, initVel, duration, archit,
-                            ell_degree=None, lam_iters=None,
-                            step_mode=None, env_grid=None,
+                            ell_degree=None, lam_method: str = "eig",
+                            lam_iters=None, step_mode=None, env_grid=None,
                             env_grid_strict: bool = False):
         """The closed-loop rollout's DEVICE (pos, vel), (B,T,2,N) float32:
         nothing else is stacked, and the exactness flag is the one scalar
@@ -898,15 +1248,15 @@ class Flocking(Data):
         defaults to the dataset's ``rollout_lam_iters`` (set by
         ``large_device``, so DAGger re-rolls normalize their graphs as
         generation and the recompute do), else 8."""
-        ell_degree, env_grid = self._rollout_args(archit, ell_degree,
-                                                  env_grid, step_mode)
+        ell_degree, env_grid, lam_method = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode, lam_method)
         if lam_iters is None:
             lam_iters = getattr(self, "rollout_lam_iters", 8)
         T = len(np.arange(0, duration, self.samplingTime))
         pos, vel, ok = self._rollout(
             self._as_device(initPos), self._as_device(initVel), T, archit,
             ell_degree, lam_iters, env_grid, return_graphs="auto",
-            traj_only=True)
+            traj_only=True, lam_method=lam_method)
         _grid_warning(ok, env_grid_strict)
         return pos, vel
 
@@ -918,13 +1268,15 @@ class Flocking(Data):
         """The closed-loop rollout reduced to the flocking cost on the
         device: (cost_full, cost_end), ``evaluate``'s velocity-variance
         cost over the whole trajectory and at the final step, accumulated
-        step by step; no trajectory is kept (O(N) device memory, two
-        scalars and the exactness flag read at the end)."""
-        ell_degree, env_grid = self._rollout_args(archit, ell_degree,
-                                                  env_grid, step_mode)
+        step by step; no trajectory is kept (two scalars and the exactness
+        flag read at the end). The dataset's environment, as
+        compute_trajectory's."""
+        ell_degree, env_grid, lam_method = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode)
         T = len(np.arange(0, duration, self.samplingTime))
-        init_fn, step_fn = self._chunked_pieces(
-            archit, ell_degree, lam_iters, env_grid, return_graphs="auto")
+        init_fn, step_fn = self._pieces(archit, ell_degree, env_grid,
+                                        lam_iters, lam_method,
+                                        return_graphs="auto")
 
         def stepcost(vel):                        # (B,2,N) -> (B,)
             d = vel - vel.mean(dim=-1, keepdim=True)
@@ -959,3 +1311,23 @@ class Flocking(Data):
         diff = vel - avg_vel
         cost_t = np.mean(np.sum(diff ** 2, axis=2), axis=2)  # B x T
         return float(np.mean(np.sum(cost_t, axis=1)))
+
+    def astype(self, dataType):
+        """Cast the host stores and the samples to dataType (an EllGso's
+        val; its idx stays integer)."""
+        for key in ("train", "valid", "test"):
+            for store in (self.initPos, self.initVel, self.pos, self.vel,
+                          self.accel, self.commGraph, self.state):
+                if key not in store:
+                    continue              # env-only construction
+                v = store[key]
+                store[key] = (EllGso(np.asarray(v.idx),
+                                     np.asarray(v.val).astype(dataType))
+                              if isinstance(v, EllGso)
+                              else np.asarray(v).astype(dataType))
+        super().astype(dataType)
+
+    def expandDims(self):
+        pass  # the flocking signals already carry their feature axis
+
+    expand_dims = expandDims

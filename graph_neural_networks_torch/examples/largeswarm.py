@@ -1,23 +1,34 @@
-"""Train the LocalGNN_DB flocking controller on a large swarm through the
-device-resident DAGger store, then deploy it closed loop on another swarm.
+"""Large-swarm transfer: train the LocalGNN_DB flocking controller on one
+swarm, deploy it closed loop on a much bigger one (the port of the JAX
+package's ``examples/largeswarm.py``).
 
-The port of the JAX package's ``examples/largeswarm.py --deviceStore``:
-``Flocking.large_device`` generates the expert's (pos, vel) trajectories
-on the device (grid env + the expert's repel pass), ``TrainerFlocking
-(deviceStore=True)`` recomputes each batch's states, labels and ELL graphs
-there and re-rolls learner trajectories for DAGger, and the evaluation is
-scalars-only: the closed-loop test cost (``rollout_cost``) beside the
-expert's, then a deployment rollout at --deployAgents.
+Three training modes, each with DAGger (randomEpoch, probExpert 0.993):
+
+* standard (the default): ``Flocking(...)`` generates the reference-scale
+  dataset on the host and ``TrainerFlocking`` trains from its host store;
+* ``--largeTrain``: ``Flocking.large(env_grid=True)`` generates the
+  expert's supervision on the cell grid (states, labels and ELL graphs of
+  width --ellDegree, kept as host numpy) and ``TrainerFlocking`` trains
+  from that host store, its re-rolls, relabels and validation on the grid;
+* ``--deviceStore``: ``Flocking.large_device`` keeps only the expert's
+  (pos, vel) on the device and ``TrainerFlocking(deviceStore=True)``
+  recomputes each batch's states, labels and ELL graphs there; its
+  evaluation is scalars-only (``rollout_cost`` beside the expert's cost).
+
+The deployment rolls the trained controller on the cell grid at
+--deployAgents (ELL graphs of width --ellDegree) in every mode, reduced to
+its cost on the device (``rollout_cost``).
 
 Run:  python -m graph_neural_networks_torch.examples.largeswarm
-          [--device cpu] [--quick] [--trainAgents 262144] [--nTrain 4]
-          [--nEpochs 5] [--batch 1] [--trainDuration 0.5] [--ellDegree 32]
+          [--device cpu] [--quick] [--largeTrain | --deviceStore]
+          [--trainAgents N] [--nTrain 4] [--nEpochs 5] [--batch 1]
+          [--trainDuration 0.5] [--ellDegree 32] [--deployAgents 4096]
 
 Without --quick it trains at the JAX driver's full setting (50 agents,
-400 trajectories of 2 s); the record of the JAX package's 262,144-agent
-run is ``--trainAgents 262144 --nTrain 4 --nEpochs 5 --batch 1
---trainDuration 0.5``. Checkpoints go to --saveDir, or to a temporary
-directory removed at the end.
+400 trajectories of 2 s) and deploys at 4096; the record of the JAX
+package's 262,144-agent run is ``--deviceStore --trainAgents 262144
+--nTrain 4 --nEpochs 5 --batch 1 --trainDuration 0.5``. Checkpoints go to
+--saveDir, or to a temporary directory removed at the end.
 """
 
 from __future__ import annotations
@@ -50,6 +61,14 @@ def _args(argv):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--trainDuration", type=float, default=None,
                     help="training-trajectory duration in seconds")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--largeTrain", action="store_true",
+                      help="train on Flocking.large(env_grid=True): the "
+                           "grid expert's supervision with ELL graphs in "
+                           "the host store")
+    mode.add_argument("--deviceStore", action="store_true",
+                      help="train on Flocking.large_device through the "
+                           "device-resident store")
     return ap.parse_args(argv)
 
 
@@ -93,37 +112,61 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    print(f"== train: {n_train_agents} agents (Flocking.large_device, "
-          f"{dev}) ==", flush=True)
+    mode = ("Flocking.large_device" if args.deviceStore
+            else "Flocking.large" if args.largeTrain else "Flocking")
+    print(f"== train: {n_train_agents} agents ({mode}, {dev}) ==",
+          flush=True)
+    rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    data = Flocking.large_device(
-        n_train_agents, commRadius=2.0, repelDist=1.0, nTrain=nTrain,
-        nValid=nValid, nTest=nTest, duration=duration, samplingTime=dt,
-        ell_degree=args.ellDegree,
-        rng=np.random.default_rng(args.seed), env_grid=True, device=dev)
+    if args.deviceStore:
+        data = Flocking.large_device(
+            n_train_agents, commRadius=2.0, repelDist=1.0, nTrain=nTrain,
+            nValid=nValid, nTest=nTest, duration=duration, samplingTime=dt,
+            ell_degree=args.ellDegree, rng=rng, env_grid=True, device=dev)
+    elif args.largeTrain:
+        data = Flocking.large(
+            n_train_agents, commRadius=2.0, repelDist=1.0, nTrain=nTrain,
+            nValid=nValid, nTest=nTest, duration=duration, samplingTime=dt,
+            ell_degree=args.ellDegree, rng=rng, env_grid=True, device=dev)
+    else:
+        data = Flocking(n_train_agents, commRadius=2.0, repelDist=1.0,
+                        nTrain=nTrain, nValid=nValid, nTest=nTest,
+                        duration=duration, samplingTime=dt, rng=rng,
+                        device=dev)
     sync()
     t_gen = time.perf_counter() - t0
     arch = LocalGNN_DB(F, K, True, "tanh", [2], 1, device=dev,
                        generator=torch.Generator().manual_seed(args.seed))
+    train_kw = {}
+    if args.largeTrain or args.deviceStore:
+        train_kw["ellDegree"] = args.ellDegree
+    if args.deviceStore:
+        train_kw["deviceStore"] = True
     with tempfile.TemporaryDirectory(prefix="largeswarm_") as tmp:
         model = T.Model(arch, T.losses.mse_loss, {"name": "ADAM", "lr": 5e-4},
                         T.TrainerFlocking, T.evaluate_flocking,
                         name="LocalGNNxfer", saveDir=args.saveDir or tmp)
         t0 = time.perf_counter()
         out = model.train(data, nEpochs, batch, validationInterval=20,
-                          probExpert=0.993, deviceStore=True,
-                          ellDegree=args.ellDegree, seed=args.seed)
+                          probExpert=0.993, seed=args.seed, **train_kw)
         sync()
         t_train = time.perf_counter() - t0
+        if args.deviceStore:
+            # scalars-only evaluation: the closed-loop test cost (Best
+            # weights, reloaded by the trainer) against the expert's
+            expert = float(evaluate_cost_device(data.getData("vel", "test")))
+            cf, ce = data.rollout_cost(data.getData("initPos", "test"),
+                                       data.getData("initVel", "test"),
+                                       duration, arch,
+                                       lam_iters=args.lamIters)
+        else:
+            expert = data.evaluate(vel=data.getData("vel", "test"))
+            res = model.evaluate(data)
+            cf, ce = res["costBestFull"], res["costBestEnd"]
+            model.load("Best")     # evaluate leaves the Last weights loaded
     print(f"  generation {t_gen:.1f} s, training {t_train:.1f} s "
           f"({t_train / nEpochs:.1f} s/epoch)", flush=True)
-    # scalars-only evaluation: the closed-loop test cost (Best weights,
-    # reloaded by the trainer) against the expert's on the same split
-    expert = float(evaluate_cost_device(data.getData("vel", "test")))
-    cf, ce = data.rollout_cost(data.getData("initPos", "test"),
-                               data.getData("initVel", "test"), duration,
-                               arch, lam_iters=args.lamIters)
-    print(f"  closed-loop test cost {cf:.4f} (end {ce:.5f}) vs grid expert "
+    print(f"  closed-loop test cost {cf:.4f} (end {ce:.5f}) vs expert "
           f"{expert:.4f} ({cf / max(expert, 1e-9):.3f}x)", flush=True)
 
     print(f"== deploy: {n_deploy} agents (ellDegree={args.ellDegree}, "
@@ -135,15 +178,17 @@ def main(argv=None) -> dict:
         n_deploy, 2, env.commRadius, minDist=env.initMinDist,
         geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
     env.rollout_ell_degree = args.ellDegree
+    env.rollout_lam_method = "power"
     env.rollout_env_grid = True
     t0 = time.perf_counter()
+    # scalars-only: nothing O(T*N) leaves the device
     cf_d, ce_d = env.rollout_cost(ip, iv, deploy_T_s, arch,
                                   lam_iters=args.lamIters)
     t_roll = time.perf_counter() - t0
     steps = len(np.arange(0, deploy_T_s, dt))
-    print(f"  {steps}-step closed loop (scalars-only): {t_roll:.2f} s, "
-          f"velocity-variance cost {cf_d:.4f} (end {ce_d:.5f})", flush=True)
-    result = dict(device=str(dev), train_agents=n_train_agents,
+    print(f"  {steps}-step closed loop: {t_roll:.2f} s, velocity-variance "
+          f"cost {cf_d:.4f} (end {ce_d:.5f})", flush=True)
+    result = dict(device=str(dev), mode=mode, train_agents=n_train_agents,
                   loss_first=float(out["lossTrain"][0]),
                   loss_last=float(out["lossTrain"][-1]),
                   best_valid=float(np.min(out["costValid"])),

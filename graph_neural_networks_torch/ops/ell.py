@@ -17,9 +17,8 @@ its in-neighbors) is one row gather and one D-length contraction,
 O(N·D) memory. The JAX package does the gather in XLA, not in a Pallas
 kernel, so the port is plain torch; :class:`EllShiftRows` gives it a
 backward that keeps only idx and val, never the gathered rows.
-
-Not ported: ``ell_topk`` (the in-jit dense-to-ELL conversion of the
-all-pairs rollouts, ROADMAP queue 1 item 7.3).
+:func:`ell_topk` converts the all-pairs closed loop's dense per-step
+graphs on the device.
 """
 
 from __future__ import annotations
@@ -27,8 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["EllGso", "ell_from_dense", "ell_to_dense", "ell_shift",
-           "ell_shift_rows", "EllShiftRows"]
+__all__ = ["EllGso", "ell_from_dense", "ell_topk", "ell_to_dense",
+           "ell_shift", "ell_shift_rows", "EllShiftRows"]
 
 
 class EllGso:
@@ -96,6 +95,20 @@ def ell_from_dense(S, d_max=None) -> EllGso:
     val = np.take_along_axis(St, gather, axis=-1)     # (*L, E, N, D)
     return EllGso(torch.as_tensor(idx), torch.as_tensor(np.ascontiguousarray(
         val)))
+
+
+def ell_topk(S: torch.Tensor, d_max: int) -> EllGso:
+    """Dense-to-ELL conversion on the tensor's device: the d_max largest
+    entries of each column by max-over-E magnitude, equal ones in index
+    order (as lax.top_k, the JAX function's). Exact when d_max >= the max
+    in-degree. S: (*L, E, N, N)."""
+    magt = S.abs().amax(dim=-3).transpose(-1, -2)       # (*L, m, n)
+    idx = torch.sort(magt, dim=-1, descending=True,
+                     stable=True).indices[..., :d_max]  # (*L, N, D)
+    St = S.transpose(-1, -2)                            # (*L, E, m, n)
+    val = torch.gather(St, -1, idx[..., None, :, :].expand(
+        St.shape[:-1] + (d_max,)))
+    return EllGso(idx.to(torch.int32), val)
 
 
 def ell_to_dense(ell: EllGso) -> np.ndarray:

@@ -51,8 +51,9 @@ def evaluate_flocking(model, data, nVideos: int = 0, **kwargs):
     the final step (costBestFull, costBestEnd, costLastFull, costLastEnd).
 
     The rollout is ``data.compute_trajectory`` through the architecture's
-    step interface on the grid environment (its defaults: the dataset's
-    ell_degree and grid, lam_iters 8); the JAX evaluator runs the windowed
+    step interface on the dataset's environment (its defaults: the
+    dataset's grid and ell_degree, lam_iters 8, or the all-pairs env of a
+    reference-scale dataset); the JAX evaluator runs the windowed
     re-forward there, which equals it up to float association.
     """
     if nVideos:

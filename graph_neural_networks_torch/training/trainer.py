@@ -21,10 +21,10 @@ axis in its sharded operators (the ``rows`` of
 over devices other than the model's needs replicas on several cards and a
 gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
 
-``TrainerFlocking`` trains the flocking controller over the
-device-resident DAGger store (``Flocking.large_device``; the grid kernels
-recompute each batch's supervision). Not ported yet: ``TrainerSingleNode``,
-``TrainerFlocking``'s host-numpy store (ROADMAP queue 1 item 7.1b), bf16
+``TrainerFlocking`` trains the flocking controller with DAGger over the
+host-numpy store (``Flocking(...)``, ``Flocking.large``) or the
+device-resident one (``Flocking.large_device``: the grid kernels recompute
+each batch's supervision). Not ported yet: ``TrainerSingleNode``, bf16
 mixed precision (``precision="bf16"``: the kernels take f32 only).
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
@@ -42,6 +42,8 @@ import warnings
 import numpy as np
 import torch
 
+from graph_neural_networks_torch.ops.ell import (
+    EllGso, ell_from_dense, ell_to_dense)
 from graph_neural_networks_torch.utils.misc import append_jsonl
 
 
@@ -279,61 +281,73 @@ class Trainer:
         pass
 
 
-_HOST_STORE = ("the host-numpy trajectory store (no deviceStore, or "
-               "DAGgerType='fixedBatch') is not ported yet (ROADMAP queue 1 "
-               "item 7.1b); train over Flocking.large_device with "
-               "deviceStore=True")
-
-
 class TrainerFlocking(Trainer):
-    """Imitation learning of the expert flocking controller over the
-    device-resident store, with optional DAGger (JAX
-    ``TrainerFlocking(deviceStore=True)``; reference training.py:716-1696).
+    """Imitation learning of the expert flocking controller, with optional
+    DAGger; validation is the closed-loop trajectory cost (JAX
+    ``TrainerFlocking``; reference training.py:716-1696). Two stores:
 
-    The training set lives on the device as (n, T, 2, N) pos/vel only
-    (``Flocking.large_device``). A step recomputes the batch's states,
-    expert labels and ELL graphs from them without grad
-    (``data.flocking.recompute_supervision_grid``: the grid kernels), then
-    runs the full-history forward over the ELL graphs, the loss, the
-    backward and the optimizer step. DAGger ('randomEpoch' or
-    'replaceTimeBatch', with ``probExpert``) re-rolls learner trajectories
-    with ``Flocking.rollout_traj_device`` and writes them into the store;
-    validation is the closed-loop cost of a device rollout. Expert labels
-    are zeroed at t = T-1 (the reference generation convention).
+    * The host store (the default): the dataset's states, expert labels and
+      graphs as numpy, ``xAll``/``yAll``/``SAll`` and their ``Orig``
+      copies; the graphs are the dense (n, T, N, N) stack of
+      ``Flocking(...)`` or the EllGso with numpy leaves of
+      ``Flocking.large``. A step uploads its batch (the dense graphs as ELL
+      ones of width ellDegree when it is given) and runs the full-history
+      forward, the loss, the backward and the optimizer step. DAGger
+      ('randomEpoch', 'replaceTimeBatch' or 'fixedBatch', with
+      ``probExpert``) re-rolls learner trajectories with
+      ``Flocking.compute_trajectory`` through the policy's step interface
+      (the JAX trainer's windowed re-forward equals it up to float
+      association) and relabels them with the expert (:meth:`_expert_accel`,
+      clipped at the dataset's accelMax, its T-1 label kept as JAX keeps
+      it); fixedBatch appends a fresh rollout of the batch's initial
+      conditions to every batch after the first. Re-rolled ELL graphs stay
+      f32 in an ELL store (JAX hands them on in f64; the values are the
+      same f32 ones) and are scattered to dense ones in a dense store.
+    * The device store (``deviceStore=True``; no-DAGger, randomEpoch or
+      replaceTimeBatch): only the (n, T, 2, N) pos/vel live on the device,
+      and a step recomputes the batch's states, labels and graphs there
+      without grad: on the grid kernels with ELL graphs of width ellDegree
+      (``Flocking.large_device``; ``recompute_supervision_grid``), or all
+      pairs with dense ones for a dataset without the grid
+      (``recompute_supervision``). Re-rolls run
+      ``Flocking.rollout_traj_device`` and validation is the device cost
+      of one. Labels are zeroed at t = T-1 (the generation convention).
+      Over the grid, a coverage check at construction recomputes every
+      stored trajectory once and warns on a cell overflow or an in-degree
+      above ellDegree (``coverageCheck=False`` skips it); it reads the
+      in-degree from the window pass, which the JAX check does not: JAX
+      misses an in-degree above ellDegree when no payload rides the table
+      (ROADMAP queue 3).
 
-    A coverage check at construction recomputes every stored trajectory
-    once and warns on a cell overflow or an in-degree above ellDegree
-    (``coverageCheck=False`` skips it). It reads the in-degree from the
-    window pass, which the JAX check does not: JAX misses an in-degree
-    above ellDegree when no payload rides the table (ROADMAP queue 3).
+    The DAGger selections draw from the trainer's numpy rng after the
+    epoch's batch permutation, in JAX's order, so both pick the same
+    learners.
     """
 
     def __init__(self, model, data, nEpochs, batchSize, **kwargs):
         self.probExpert = kwargs.get("probExpert")
         self.doDAGger = self.probExpert is not None
         self.DAGgerType = kwargs.get("DAGgerType", "randomEpoch")
+        if self.doDAGger and self.DAGgerType not in (
+                "randomEpoch", "replaceTimeBatch", "fixedBatch"):
+            raise ValueError(f"unknown DAGgerType {self.DAGgerType!r}")
         self.ellDegree = kwargs.get("ellDegree")
         self.deviceStore = bool(kwargs.get("deviceStore", False))
-        if not self.deviceStore or (self.doDAGger
-                                    and self.DAGgerType == "fixedBatch"):
-            raise NotImplementedError(_HOST_STORE)
-        if self.doDAGger and self.DAGgerType not in ("randomEpoch",
-                                                     "replaceTimeBatch"):
-            raise ValueError(f"unknown DAGgerType {self.DAGgerType!r}")
-        if getattr(data, "rollout_env_grid", None) is None:
-            raise NotImplementedError(
-                "deviceStore over a dataset without the grid env (the dense "
-                "reference-scale recompute) is not ported yet (ROADMAP "
-                "queue 1 item 7.1b); build it with Flocking.large_device")
-        if self.ellDegree is None:
-            raise ValueError("the grid deviceStore needs ellDegree (the "
-                             "recomputed ELL graph width D)")
-        if not hasattr(model.archit, "rollout_step_shifted"):
-            raise ValueError("deviceStore re-rolls and validates through the "
-                             "step interface (rollout_step_shifted)")
+        self.grid = getattr(data, "rollout_env_grid", None)
+        if self.deviceStore:
+            self._check_device_store(model)
         super().__init__(model, data, nEpochs, batchSize, **kwargs)
+        self._step_count = 0
         self.initPosAll = data.getData("initPos", "train")
         self.initVelAll = data.getData("initVel", "train")
+        if not self.deviceStore:
+            # the training trajectories, kept in numpy; DAGger mutates them
+            self.xAll, self.yAll = data.getSamples("train")
+            self.SAll = self._S_copy(data.getData("commGraph", "train"))
+            self.xOrig = self.xAll.copy()
+            self.yOrig = self.yAll.copy()
+            self.SOrig = self._S_copy(self.SAll)
+            return
         self.posAll = torch.as_tensor(data.getData("pos", "train"),
                                       dtype=torch.float32, device=self.device)
         self.velAll = torch.as_tensor(data.getData("vel", "train"),
@@ -342,17 +356,107 @@ class TrainerFlocking(Trainer):
         self.posOrig, self.velOrig = self.posAll, self.velAll
         self.rolloutChunk = int(kwargs.get(
             "rolloutChunk", max(1, min(16, data.nTrain))))
-        if kwargs.get("coverageCheck", True):
+        if self.grid is not None and kwargs.get("coverageCheck", True):
             self._grid_coverage_check()
 
+    def _check_device_store(self, model):
+        """The JAX trainer's conditions on a device store, as ValueErrors
+        with its messages."""
+        if self.doDAGger and self.DAGgerType == "fixedBatch":
+            raise ValueError("deviceStore supports no-DAGger, randomEpoch and "
+                             "replaceTimeBatch (fixedBatch rolls out per "
+                             "batch on host)")
+        if self.grid is not None and self.ellDegree is None:
+            raise ValueError("grid deviceStore needs ellDegree (the "
+                             "recomputed ELL graph width D)")
+        if self.grid is None and self.ellDegree is not None:
+            raise ValueError("deviceStore recomputes dense reference-scale "
+                             "graphs in the train step; ellDegree requires a "
+                             "grid dataset (Flocking.large_device)")
+        step = ("rollout_step" if self.grid is None
+                else "rollout_step_shifted")
+        if not hasattr(model.archit, step):
+            raise ValueError(f"deviceStore re-rolls and validates through the "
+                             f"step interface ({step})")
+
+    # -- graph-trajectory storage (dense numpy or a numpy-leaf EllGso) ------
+    @staticmethod
+    def _is_ell(S) -> bool:
+        return isinstance(S, EllGso)
+
+    @staticmethod
+    def _S_copy(S):
+        if isinstance(S, EllGso):
+            return EllGso(np.copy(np.asarray(S.idx)),
+                          np.copy(np.asarray(S.val)))
+        return S.copy()
+
+    @staticmethod
+    def _S_index(S, idx):
+        if isinstance(S, EllGso):
+            return EllGso(np.asarray(S.idx)[idx], np.asarray(S.val)[idx])
+        return S[idx]
+
+    @staticmethod
+    def _S_setitem(S, idx, value):
+        if isinstance(S, EllGso):
+            S.idx[idx] = value.idx
+            S.val[idx] = value.val
+        else:
+            S[idx] = value
+
+    @staticmethod
+    def _S_concat(a, b):
+        if isinstance(a, EllGso):
+            return EllGso(np.concatenate([a.idx, b.idx], 0),
+                          np.concatenate([a.val, b.val], 0))
+        return np.concatenate([a, b], 0)
+
+    # -- a step ------------------------------------------------------------
+    def _device_S(self, S):
+        """A host batch's graphs as the step takes them: an EllGso on the
+        device, or the dense (B,T,1,N,N) f32 stack, converted to ELL of
+        width ellDegree on the host when it is given."""
+        if not self._is_ell(S):
+            S5 = S[:, :, None] if S.ndim == 4 else S
+            if self.ellDegree is None:
+                return torch.as_tensor(S5, dtype=torch.float32,
+                                       device=self.device)
+            S = ell_from_dense(S5, d_max=self.ellDegree)
+        return EllGso(torch.as_tensor(S.idx, device=self.device),
+                      torch.as_tensor(S.val, dtype=torch.float32,
+                                      device=self.device))
+
+    def _upload(self, x, y, S):
+        """A host batch on the device: f32 (x, y) and its graphs."""
+        as_dev = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                           device=self.device)
+        return as_dev(x), as_dev(y), self._device_S(S)
+
+    def _step_args(self, idx):
+        """The device store's (pos, vel) of the batch, or the host store's
+        batch uploaded."""
+        if self.deviceStore:
+            idxd = torch.as_tensor(np.asarray(idx), device=self.device)
+            return self.posAll[idxd], self.velAll[idxd]
+        return self._upload(self.xAll[idx], self.yAll[idx],
+                            self._S_index(self.SAll, idx))
+
     def _recompute(self, pos, vel):
-        """(x, y, EllGso, ok, largest in-degree): the batch's supervision
-        at the dataset's lambda setting and the expert's clip."""
+        """The device store's batch supervision: (x, y, graphs, ok, largest
+        in-degree); the dense recompute has no grid and reports ok and no
+        in-degree."""
         from graph_neural_networks_torch.data import flocking as fl
         data = self.data
+        if self.grid is None:
+            lam = ("power" if getattr(data, "rollout_lam_method", "eig")
+                   == "power" else "eig")
+            x, y, S = fl.recompute_supervision(
+                pos, vel, data.commRadius, data.repelDist, data.accelMax, lam)
+            return x, y, S[:, :, None], torch.ones((), dtype=torch.bool), None
         return fl.recompute_supervision_grid(
             pos, vel, data.commRadius, data.repelDist, fl.EXPERT_ACCEL_MAX,
-            self.ellDegree, data.rollout_env_grid,
+            self.ellDegree, self.grid,
             lam_iters=getattr(data, "rollout_lam_iters", 1))
 
     def _grid_coverage_check(self):
@@ -375,13 +479,9 @@ class TrainerFlocking(Trainer):
                 "training graphs are truncated inconsistently with the "
                 "dynamics: raise ellDegree / cell_cap", RuntimeWarning)
 
-    def _step_args(self, idx):
-        idxd = torch.as_tensor(np.asarray(idx), device=self.device)
-        return self.posAll[idxd], self.velAll[idxd]
-
     def _learn(self, x, y, S) -> torch.Tensor:
-        """Forward over the recomputed graphs, loss, backward, optimizer
-        step; returns the loss tensor (not waited for)."""
+        """Forward over the batch's graphs, loss, backward, optimizer step;
+        returns the loss tensor (not waited for)."""
         model = self.model
         model.optimizer.zero_grad(set_to_none=True)
         loss = model.loss(model.archit.split_forward(x, S)[0].float(), y)
@@ -392,10 +492,29 @@ class TrainerFlocking(Trainer):
         return loss
 
     def train_batch(self, idx):
-        t0 = time.perf_counter()
-        x, y, S, _, _ = self._recompute(*self._step_args(idx))
+        if self.deviceStore:
+            t0 = time.perf_counter()
+            x, y, S, _, _ = self._recompute(*self._step_args(idx))
+        elif (self.doDAGger and self.DAGgerType == "fixedBatch"
+              and self._step_count > 0):
+            x, y = self.xAll[idx], self.yAll[idx]
+            S = self._S_index(self.SAll, idx)
+            xD, yD, SD = self._fixed_batch_dagger(self.initPosAll[idx],
+                                                  self.initVelAll[idx])
+            t0 = time.perf_counter()
+            x, y, S = self._upload(np.concatenate([x, xD], 0),
+                                   np.concatenate([y, yD], 0),
+                                   self._S_concat(S, SD))
+        else:
+            t0 = time.perf_counter()
+            x, y, S = self._step_args(idx)
         loss = self._learn(x, y, S).item()   # waits for the step
+        self._step_count += 1
         return loss, time.perf_counter() - t0
+
+    def train(self):
+        self._step_count = 0
+        return super().train()
 
     def _on_epoch_start(self, epoch):
         if self.doDAGger and epoch > 0 and self.DAGgerType == "randomEpoch":
@@ -406,13 +525,76 @@ class TrainerFlocking(Trainer):
                 and self.DAGgerType == "replaceTimeBatch":
             self._replace_time_batch_dagger(epoch)
 
+    # -- the expert and the learner's rollouts ------------------------------
+    def _expert_accel(self, pos, vel):
+        """The expert's acceleration along visited (B, T, 2, N) host
+        trajectories, clipped at the dataset's accelMax (reference
+        training.py:1320-1400): on the grid (expert_accel_grid, one window
+        pass at the repel radius on the dataset's cell geometry; a
+        RuntimeWarning reports a cell overflow) when the dataset rolls on
+        it, else all pairs in f64 numpy. Host f64 (B, T, 2, N)."""
+        data = self.data
+        if self.grid is not None:
+            from graph_neural_networks_torch.data.flocking import (
+                _parse_env_grid, expert_accel_grid)
+            gts, gcc, gcf = _parse_env_grid(self.grid)
+            B, T, _, N = pos.shape
+            as_dev = lambda a: torch.as_tensor(
+                np.asarray(a).reshape(B * T, 2, N), dtype=torch.float32,
+                device=self.device)
+            a, ok = expert_accel_grid(as_dev(pos), as_dev(vel),
+                                      data.commRadius, data.repelDist,
+                                      data.accelMax, table_size=gts,
+                                      cell_cap=gcc, factor=gcf)
+            if not bool(ok):
+                warnings.warn("grid cell_cap overflowed during DAGger expert "
+                              "relabeling: raise cell_cap/table_size",
+                              RuntimeWarning)
+            return a.cpu().numpy().astype(np.float64).reshape(B, T, 2, N)
+        if getattr(data, "rollout_env_chunk", None):
+            raise NotImplementedError(
+                "the chunked expert relabel (a dataset with "
+                "rollout_env_chunk) is not ported yet (ROADMAP queue 1 item "
+                "7.3)")
+        from graph_neural_networks_torch.data.flocking import (
+            expert_accel_host)
+        return expert_accel_host(pos, vel, data.repelDist, data.accelMax)
+
+    def _rollout_policy(self, init_pos, init_vel, chunk: int = 16):
+        """The learner's closed-loop rollouts from host initial conditions,
+        chunk samples at a time (the last chunk ragged: eager PyTorch needs
+        no fixed shape, so it is not padded as the JAX trainer's is), each
+        relabeled by the expert: host (states, labels, graphs) for the
+        store."""
+        data = self.data
+        outs = []
+        for lo in range(0, init_pos.shape[0], chunk):
+            pos, vel, _, states, graphs = data.compute_trajectory(
+                init_pos[lo:lo + chunk], init_vel[lo:lo + chunk],
+                data.duration, self.model.archit)
+            if isinstance(graphs, EllGso):
+                graphs = (EllGso(graphs.idx, graphs.val.astype(np.float32))
+                          if self._is_ell(self.SAll)
+                          else ell_to_dense(graphs)[:, :, 0])
+            outs.append((states, self._expert_accel(pos, vel), graphs))
+        states = np.concatenate([o[0] for o in outs], 0)
+        y = np.concatenate([o[1] for o in outs], 0)
+        graphs = outs[0][2]
+        for o in outs[1:]:
+            graphs = self._S_concat(graphs, o[2])
+        return states, y, graphs
+
     # -- DAGger ------------------------------------------------------------
+    def _fixed_batch_dagger(self, init_pos, init_vel):
+        return self._rollout_policy(init_pos, init_vel)
+
     def _device_store_update(self, sel):
         """Re-roll the policy from the initial conditions `sel` (host int
         array) in chunks of at most rolloutChunk samples (a bound on the
         rollout's memory; the last chunk is ragged, as eager PyTorch needs
         no fixed shape) and write the (pos, vel) trajectories into the
-        store. The store is copied first, so the originals stay intact."""
+        device store. The store is copied first, so the originals stay
+        intact."""
         data = self.data
         chunk = self.rolloutChunk
         if self.posAll is self.posOrig:
@@ -433,21 +615,45 @@ class TrainerFlocking(Trainer):
         n = self.initPosAll.shape[0]
         use_expert = self.rng.binomial(1, p, n).astype(bool)
         learner_idx = np.flatnonzero(~use_expert)
-        self.posAll, self.velAll = self.posOrig, self.velOrig
+        if self.deviceStore:
+            self.posAll, self.velAll = self.posOrig, self.velOrig
+            if len(learner_idx):
+                self._device_store_update(learner_idx)
+            return
+        self.xAll = self.xOrig.copy()
+        self.yAll = self.yOrig.copy()
+        self.SAll = self._S_copy(self.SOrig)
         if len(learner_idx):
-            self._device_store_update(learner_idx)
+            xs, ys, Ss = self._rollout_policy(self.initPosAll[learner_idx],
+                                              self.initVelAll[learner_idx])
+            self.xAll[learner_idx] = xs
+            self.yAll[learner_idx] = ys
+            self._S_setitem(self.SAll, learner_idx, Ss)
 
     def _replace_time_batch_dagger(self, epoch, nReplace: int = 10):
         n = self.initPosAll.shape[0]
         sel = self.rng.permutation(n)[:min(nReplace, n)]
-        self._device_store_update(sel)
+        if self.deviceStore:
+            self._device_store_update(sel)
+            return
+        xs, ys, Ss = self._rollout_policy(self.initPosAll[sel],
+                                          self.initVelAll[sel])
+        self.xAll[sel] = xs
+        self.yAll[sel] = ys
+        self._S_setitem(self.SAll, sel, Ss)
 
     # -- validation: closed-loop cost --------------------------------------
     def _valid_cost(self) -> float:
-        from graph_neural_networks_torch.data.flocking import (
-            evaluate_cost_device)
         data = self.data
-        _, vel = data.rollout_traj_device(
-            data.getData("initPos", "valid"), data.getData("initVel", "valid"),
-            data.duration, self.model.archit)
-        return float(evaluate_cost_device(vel))
+        init_pos = data.getData("initPos", "valid")
+        init_vel = data.getData("initVel", "valid")
+        if self.deviceStore:
+            from graph_neural_networks_torch.data.flocking import (
+                evaluate_cost_device)
+            _, vel = data.rollout_traj_device(init_pos, init_vel,
+                                              data.duration, self.model.archit)
+            return float(evaluate_cost_device(vel))
+        _, vel, _, _, _ = data.compute_trajectory(
+            init_pos, init_vel, data.duration, self.model.archit,
+            return_graphs="auto")   # the cost never reads the graphs
+        return float(data.evaluate(vel=vel))

@@ -282,17 +282,21 @@ def test_unported_paths_raise(rollout_pair):
     # payload width 12 > 1.5 * 4: the unfused step path
     with pytest.raises(NotImplementedError, match="unfused"):
         tenv.rollout_cost(ip, iv, 0.05, tnet, ell_degree=4, env_grid=True)
-    with pytest.raises(NotImplementedError, match="grid-environment"):
-        tenv.compute_trajectory(ip, iv, 0.05, tnet, ell_degree=16)
+    # the all-pairs loop is ported (test_torch_flocking_host.py); the grid
+    # without an ELL width is refused
+    with pytest.raises(ValueError, match="env_grid requires ell_degree"):
+        tenv.compute_trajectory(ip, iv, 0.05, tnet, env_grid=True)
     with pytest.raises(NotImplementedError, match="lam_path"):
         tF.env_step_grid(torch.tensor(ip), torch.tensor(iv), 2.0, 8,
                          torch.ones(2, 128), lam_path="ell")
-    with pytest.raises(NotImplementedError, match="for_rollout"):
-        tF.Flocking(128, 2.0, 1.0, 1, 1, 1, 1.0, 0.01)
+    # Flocking(...) is ported; Flocking.large on the chunked env is not
+    with pytest.raises(NotImplementedError, match="7.3"):
+        tF.Flocking.large(128, 2.0, 1.0, 1, 1, 1, 1.0, 0.01, 16,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="step_mode=False"):
         tenv.rollout_cost(ip, iv, 0.05, tnet, ell_degree=16, env_grid=True,
                           step_mode=False)
-    # a policy without the step interface
-    with pytest.raises(NotImplementedError, match="grid-environment"):
+    # a policy without the step interface (the windowed re-forward)
+    with pytest.raises(NotImplementedError, match="no step interface"):
         tenv.rollout_traj_device(ip, iv, 0.05, object(), ell_degree=16,
                                  env_grid=True)

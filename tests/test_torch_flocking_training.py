@@ -325,15 +325,31 @@ def test_coverage_check_warns_where_jax_does_not(stores, tmp_path):
 
 
 def test_host_store_raises_naming_7_1b(stores, tmp_path):
-    _, td = stores
-    _, tm = _models(tmp_path)
-    with pytest.raises(NotImplementedError, match="7.1b"):
-        TT.TrainerFlocking(tm, td, 1, 2, ellDegree=16)
-    with pytest.raises(NotImplementedError, match="7.1b"):
-        TT.TrainerFlocking(tm, td, 1, 2, deviceStore=True, ellDegree=16,
-                           probExpert=0.5, DAGgerType="fixedBatch")
-    with pytest.raises(NotImplementedError, match="7.1b"):
-        tF.Flocking(32, 2.0, 1.0, 1, 1, 1, 1.0, 0.01)
+    """The host store is ported; what still raises: the chunked all-pairs
+    env (Flocking.large without env_grid) and the chunked expert relabel,
+    naming item 7.3, and a device store with fixedBatch, with the JAX
+    trainer's message."""
+    jd, td = stores
+    jm, tm = _models(tmp_path)
+    with pytest.raises(NotImplementedError, match="7.3"):
+        tF.Flocking.large(32, device="cpu", **dict(STORE, env_grid=None))
+    trainer = TT.TrainerFlocking(tm, td, 1, 2, ellDegree=16,
+                                 deviceStore=True, coverageCheck=False)
+    td.rollout_env_grid, td.rollout_env_chunk = None, 8
+    try:
+        with pytest.raises(NotImplementedError, match="7.3"):
+            trainer.grid = None
+            trainer._expert_accel(np.zeros((1, 2, 2, 4)),
+                                  np.zeros((1, 2, 2, 4)))
+    finally:
+        td.rollout_env_grid, td.rollout_env_chunk = True, None
+    msg = "fixedBatch rolls out per batch on host"
+    kw = dict(deviceStore=True, ellDegree=16, probExpert=0.5,
+              DAGgerType="fixedBatch")
+    with pytest.raises(AssertionError, match=msg):
+        JT.TrainerFlocking(jm, jd, 1, 2, **kw)
+    with pytest.raises(ValueError, match=msg):
+        TT.TrainerFlocking(tm, td, 1, 2, **kw)
 
 
 def test_rollout_traj_device_takes_the_dataset_lam_iters(stores):
@@ -351,11 +367,13 @@ def test_rollout_traj_device_takes_the_dataset_lam_iters(stores):
 
 
 def test_largeswarm_driver_trains_on_the_cpu():
-    out = tlarge.main(["--device", "cpu", "--trainAgents", "64",
+    out = tlarge.main(["--device", "cpu", "--deviceStore",
+                       "--trainAgents", "64",
                        "--nTrain", "2", "--nEpochs", "2", "--batch", "1",
                        "--trainDuration", "0.05", "--deployAgents", "64",
                        "--duration", "0.05"])
     assert out["device"] == "cpu" and out["train_agents"] == 64
+    assert out["mode"] == "Flocking.large_device"
     for k in ("loss_first", "loss_last", "best_valid", "cost_small",
               "expert", "cost_big"):
         assert np.isfinite(out[k]), k
