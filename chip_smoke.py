@@ -95,6 +95,23 @@ the node-sharded paths:
   version on the first, an interior and the last shard and a ragged
   partition, and all shards folded against the global bwd_call; times it
   beside its bound, and profiles a sharded step beside the unsharded one.
+* The rest of single-controller parallel/ (mesh (1, 4) of the one card):
+  holds bcsr_matmul on every shard's rectangular column slice of a
+  scattered N=4096 graph (forward 4096 -> 1024 columns, backward on the
+  transposed slice, pad blocks included) against its plain version and
+  times both directions; serves and trains scattered_n4096_sharded (the
+  band_n4096 SelectionGNN in bcsr mode over partition_nodes_bcsr: 32
+  bcsr_matmul a forward, 48 a step) against the unsharded bcsr model;
+  serves band_n4096 over the all-gather shift (ShardedGso(prefer_ring=
+  False), 32 band_matmul a forward) against the ring-sharded model; takes
+  one LocalGNN_DB([6,64], [3]) step over shard_ell of flock_train_n262k's
+  first batch against the unsharded EllGso step; rolls flock_n262k
+  through sharded_swarm_rollout (the fused cost rollout, T = 100, against
+  Flocking.rollout_cost, its ok flag against the unsharded run's and the
+  largest in-degree; the fused rollout with graphs, T = 25, against mesh
+  (1, 1)) and flock_n4096's windowed rollout against mesh (1, 1), with
+  exact table_build and grid_window counts; profiles the sharded forward,
+  step and swarm step beside their unsharded counterparts.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -3854,7 +3871,7 @@ def _step_grads(arch, data, batch, gates, inputs=(0, 1, 2)):
 
 
 def _check_shard_grads(checks, model, got, want,
-                       atol_rel=SHARD_GRAD_ATOL_REL):
+                       atol_rel=SHARD_GRAD_ATOL_REL, against="unsharded band"):
     """Sharded gradients against the unsharded model's; counts those equal
     bit for bit."""
     import torch
@@ -3864,13 +3881,13 @@ def _check_shard_grads(checks, model, got, want,
     for i, (g, r) in enumerate(zip(got, want)):
         max_abs, max_rel, ok = compare(g, r, SHARD_GRAD_RTOL, atol_rel)
         equal += bool(torch.equal(g, r))
-        checks.append(dict(model=model, against="unsharded band", grad=i,
+        checks.append(dict(model=model, against=against, grad=i,
                            max_abs_err=max_abs, max_rel_err=max_rel,
                            max_abs_ref=r.abs().max().item(),
                            atol=f"{atol_rel}*max|unsharded|",
                            bit_equal=bool(torch.equal(g, r)), ok=ok))
-        require(ok, f"{model}: gradient {i} disagrees with the unsharded "
-                    f"band model's: max abs {max_abs}, max rel {max_rel}")
+        require(ok, f"{model}: gradient {i} disagrees with the {against} "
+                    f"model's: max abs {max_abs}, max rel {max_rel}")
     return equal
 
 
@@ -4175,6 +4192,625 @@ def phase_shard_train_timing(part, mc, mr, dev):
     return {"bwd_ext_call": row}
 
 
+# ---------------------------------------------------------------------------
+# The rest of single-controller parallel/: scattered-graph BCSR sharding
+# (kernel 1 on one shard's rectangular column slice), the all-gather shift
+# (kernel 3), the row-sharded ELL GSO and the sharded swarm (kernels 5-6
+# per shard)
+# ---------------------------------------------------------------------------
+
+# scattered_n4096_sharded: band_n4096's SelectionGNN([1,64,64], [5,5]),
+# bcsr mode, batch 32 (experiments/bench_bf16_train.py:51-57), on a
+# scattered N = 4096 graph built as __graft_entry__.py:176-188 builds its
+# dry run's, at the size of experiments/bench_shardmap_tpu.py:122-130:
+# 3 * nb pairs of inner_block x inner_block blocks at 30% fill (inner
+# block 128: 96 pairs), symmetric, eig-normalized. Sharded 4 ways on one
+# card (mesh (1, 4)) with partition_nodes_bcsr, ctx["S"] swapped for the
+# ShardedGso as shard() does with order="none". The unsharded bcsr model
+# is the reference.
+SCATTER_IBS = 128
+# flock_n262k over a (1, 4) mesh of the one card: its costs against
+# Flocking.rollout_cost, its trajectories against mesh (1, 1). The
+# sharded lambda sums the shards' partials (JAX's psum) in another order
+# than one shard, and the swarm then drifts apart over the steps: held to
+# rtol 1e-4 (costs) and rtol 1e-4 with 1e-5 of the largest value
+# (trajectories), as the JAX package's sharded tests hold theirs.
+SWARM_RTOL = 1e-4
+SWARM_ATOL_REL = 1e-5
+
+
+def scattered_graph(rng, N, ibs):
+    """The scattered graph of __graft_entry__.py:176-188 at N nodes."""
+    nbk = N // ibs
+    S = np.zeros((N, N), np.float32)
+    for _ in range(3 * nbk):
+        bi, bj = rng.integers(0, nbk, 2)
+        blk = rng.random((ibs, ibs)) * (rng.random((ibs, ibs)) > .7)
+        S[bi * ibs:(bi + 1) * ibs, bj * ibs:(bj + 1) * ibs] = blk
+        S[bj * ibs:(bj + 1) * ibs, bi * ibs:(bi + 1) * ibs] = blk.T
+    S /= max(np.max(np.abs(np.linalg.eigvalsh(S))), 1e-6)
+    return S
+
+
+def _bcsr_sharded_model(S, part, mesh, dev):
+    """scattered_n4096's model with ctx["S"] a ShardedGso over the BCSR
+    partition (as shard() installs its ring one)."""
+    from graph_neural_networks_torch import parallel as par
+    arch = _build_model(S, "bcsr", dev)
+    arch.ctx["S"] = arch.S = par.ShardedGso(mesh, part)
+    require(not arch.S.uses_ring, "the BCSR partition took the ring shift")
+    return arch
+
+
+def phase_shard_bcsr_kernels(part, rng, dev):
+    """Kernel 1 on the rectangular layouts of scattered_n4096's shards (the
+    BCSR shift's shard-local contraction): forward x (R, 4096) -> (R, 1024)
+    on a shard's blocks and backward g (R, 1024) -> (R, 4096) on its
+    transposed blocks, pad blocks included, at the served rows (2048, 32,
+    17, 1) on every shard, against bcsr_matmul_plain; then both directions
+    timed at R = 2048 on the shard with the most real blocks beside the
+    plain version, one torch.matmul on the dense column slice and the
+    bound of that shard's real blocks."""
+    import torch
+    from graph_neural_networks_torch.ops import spmm
+    results, errs, rows = [], {}, {}
+    bs, ibs, Np = part.block_size, part.inner_bs, part.n_padded
+    S_perm = torch.as_tensor(part.S_perm[0], device=dev)
+
+    def layout(p):
+        on = lambda a: torch.as_tensor(a, device=dev)
+        bl, br, bc = on(part.blocks[p, 0]), on(part.brow[p, 0]), \
+            on(part.bcol[p, 0])
+        blt, brt, bct = on(part.blocks_t[p, 0]), on(part.brow_t[p, 0]), \
+            on(part.bcol_t[p, 0])
+        return (bl, br, bc, spmm.bcsr_col_start(bc, bs, ibs),
+                blt, brt, bct, spmm.bcsr_col_start(bct, Np, ibs))
+
+    def check(case, got, want, rtol=RTOL, atol_rel=ATOL_REL):
+        max_abs, max_rel, ok = compare(got, want, rtol, atol_rel)
+        results.append(dict(kernel="bcsr_matmul", case=case,
+                            max_abs_err=max_abs, max_rel_err=max_rel, ok=ok))
+        if rtol == RTOL:
+            errs["bcsr_matmul"] = max(errs.get("bcsr_matmul", 0.0), max_abs)
+        require(ok, f"bcsr_matmul [{case}] disagrees with its reference: "
+                    f"max abs {max_abs}, max rel {max_rel}")
+
+    x = torch.as_tensor(rng.standard_normal((2048, Np)).astype(np.float32),
+                        device=dev)
+    g = torch.as_tensor(rng.standard_normal((2048, bs)).astype(np.float32),
+                        device=dev)
+    real = [int(part.nnzb[p]) for p in range(part.n_parts)]
+    for p in range(part.n_parts):
+        bl, br, bc, cs, blt, brt, bct, cst = layout(p)
+        pads = bl.shape[0] - real[p], blt.shape[0] - int(
+            (part.blocks_t[p, 0].reshape(blt.shape[0], -1) != 0).any(1).sum())
+        for R in (2048, 32, 17, 1):
+            check(f"shard {p} fwd R={R} {Np}->{bs} nnzb={bl.shape[0]} "
+                  f"({pads[0]} pad)",
+                  spmm.bcsr_matmul(x[:R], bl, br, bc, n_cols=bs,
+                                   block_size=ibs, col_start=cs),
+                  spmm.bcsr_matmul_plain(x[:R], bl, br, bc, n_cols=bs,
+                                         block_size=ibs))
+            check(f"shard {p} bwd R={R} {bs}->{Np} nnzb={blt.shape[0]} "
+                  f"(~{pads[1]} pad)",
+                  spmm.bcsr_matmul(g[:R], blt, brt, bct, n_cols=Np,
+                                   block_size=ibs, col_start=cst),
+                  spmm.bcsr_matmul_plain(g[:R], blt, brt, bct, n_cols=Np,
+                                         block_size=ibs))
+    # all shards' column slices against the dense product (which sums the
+    # zeros of S too: held as serving holds bcsr against dense mode)
+    check("all shards, fwd R=2048 against x @ S (dense)",
+          torch.cat([spmm.bcsr_matmul(x, *layout(p)[:3], n_cols=bs,
+                                      block_size=ibs)
+                     for p in range(part.n_parts)], dim=1), x @ S_perm,
+          SERVE_RTOL, SERVE_ATOL_REL)
+    p = int(np.argmax(real))
+    bl, br, bc, cs, blt, brt, bct, cst = layout(p)
+    S_p = S_perm[:, p * bs:(p + 1) * bs].contiguous()
+    S_pt = S_p.t().contiguous()
+    R, n = 2048, real[p]
+    rows["bcsr_matmul@shard fwd"] = dict(
+        shape=f"R={R} {Np}->{bs} nnzb={bl.shape[0]} ({n} real) shard {p}",
+        ms=time_ms(lambda: spmm.bcsr_matmul(x, bl, br, bc, n_cols=bs,
+                                            block_size=ibs, col_start=cs)),
+        graph_ms=graph_ms(lambda: spmm.bcsr_matmul(
+            x, bl, br, bc, n_cols=bs, block_size=ibs, col_start=cs)),
+        plain_ms=time_ms(lambda: spmm.bcsr_matmul_plain(
+            x, bl, br, bc, n_cols=bs, block_size=ibs)),
+        library_ms=time_ms(lambda: torch.matmul(x, S_p)),
+        library_call="torch.matmul(x, S[:, shard columns] dense), TF32 off",
+        flops=2 * R * n * ibs * ibs,
+        bytes=4 * (R * Np + R * bs + n * (ibs * ibs + 2)))
+    n_t = int((part.blocks_t[p, 0].reshape(blt.shape[0], -1) != 0)
+              .any(1).sum())
+    rows["bcsr_matmul@shard bwd"] = dict(
+        shape=f"R={R} {bs}->{Np} nnzb={blt.shape[0]} ({n_t} real) shard {p}",
+        ms=time_ms(lambda: spmm.bcsr_matmul(g, blt, brt, bct, n_cols=Np,
+                                            block_size=ibs, col_start=cst)),
+        graph_ms=graph_ms(lambda: spmm.bcsr_matmul(
+            g, blt, brt, bct, n_cols=Np, block_size=ibs, col_start=cst)),
+        plain_ms=time_ms(lambda: spmm.bcsr_matmul_plain(
+            g, blt, brt, bct, n_cols=Np, block_size=ibs)),
+        library_ms=time_ms(lambda: torch.matmul(g, S_pt)),
+        library_call="torch.matmul(g, S[:, shard columns]^T dense), TF32 off",
+        flops=2 * R * n_t * ibs * ibs,
+        bytes=4 * (R * bs + R * Np + n_t * (ibs * ibs + 2)))
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+    emit(phase="shard_bcsr_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
+         real_blocks=real, padded_to=int(part.blocks.shape[2]),
+         padded_to_t=int(part.blocks_t.shape[2]), checks=results, rows=rows)
+    return errs, rows
+
+
+def phase_shard_bcsr(S, part, rng, dev, out_dir):
+    """scattered_n4096_sharded (the main path of this phase): served through
+    InferenceEngine with exactly 32 bcsr_matmul a forward (2 layers x 4
+    shifts x 4 shards, on the column slices) against the unsharded bcsr
+    model, then its first-step gradients against that model's and 8 Adam
+    steps through Model.train(mesh=...) with exactly 48 a step (layer 2's
+    backward on the transposed slices) against its losses."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    unsharded = InferenceEngine(_build_model(S, "bcsr", dev), BATCH, dev)
+    eng = InferenceEngine(_bcsr_sharded_model(S, part, mesh, dev), BATCH,
+                          dev)
+    xs = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+          for n in (BATCH, 17, 1)]
+    checks, launches = [], {}
+    label = "scattered_n4096 sharded mesh (1, 4)"
+    _reset_counts()
+    with _cached_structure(label):
+        got = [eng(x) for x in xs]
+    torch.cuda.synchronize()
+    counts = _attention_counts()
+    shifts = 2 * (TAPS - 1) * SHARD_PARTS
+    per_forward = {k: v / len(xs) for k, v in counts.items()}
+    expected = {k: 0 for k in counts}
+    expected["bcsr_matmul"] = shifts
+    require(per_forward == expected, f"{label}: launches per forward "
+                                     f"{per_forward}, expected {expected}")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    for x, y in zip(xs, got):
+        want = unsharded(x)
+        max_abs, max_rel, ok = compare(y, want, SERVE_RTOL, SERVE_ATOL_REL)
+        checks.append(dict(model=label, batch=x.shape[0], output="y",
+                           against="unsharded bcsr", max_abs_err=max_abs,
+                           max_rel_err=max_rel,
+                           bit_equal=bool(torch.equal(y, want)), ok=ok))
+        require(ok and tuple(y.shape) == (x.shape[0], 5),
+                f"{label} batch {x.shape[0]} disagrees with the unsharded "
+                f"bcsr forward: {max_abs}")
+    emit(phase="shard_bcsr", model=label, block=part.block_size,
+         ibs=part.inner_bs, real_blocks=part.nnzb.tolist(),
+         padded_to=int(part.blocks.shape[2]),
+         shard_mib=part.shard_bytes / 2 ** 20, launches=counts,
+         launches_per_forward=per_forward)
+
+    data = _synthetic_data(rng, (TRAIN_STEPS * BATCH, BATCH, BATCH), 1,
+                           N_GRAPH, 5)
+    gates = []
+    ref = _build_model(S, "bcsr", dev)
+    _, want_g, _, _ = _step_grads(ref, data, BATCH, gates)
+    ref_model = _model(ref, "scattered_n4096_unsharded", out_dir)
+    ref_out, _, _ = _train_counts(ref_model, data, BATCH)
+    arch = _bcsr_sharded_model(S, part, mesh, dev)
+    loss, got_g, counts, flips = _step_grads(arch, data, BATCH, gates)
+    step = {k: 0 for k in counts}
+    step["bcsr_matmul"] = shifts + shifts // 2
+    require(counts == step, f"{label}: launches in a step {counts}, "
+                            f"expected {step}")
+    equal = _check_shard_grads(checks, label, got_g, want_g,
+                               SHARD_SHIFT_GRAD_ATOL_REL, "unsharded bcsr")
+    model = _model(arch, "scattered_n4096_sharded", out_dir)
+    expected = {k: TRAIN_STEPS * n for k, n in step.items()}
+    expected["bcsr_matmul"] += shifts          # validation at step 0
+    out, counts, seconds = _train_counts(model, data, BATCH, expected,
+                                         mesh=mesh)
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    ok = bool(np.allclose(out["lossTrain"], ref_out["lossTrain"],
+                          rtol=LOSS_RTOL, atol=0))
+    checks.append(dict(model=label, against="unsharded bcsr",
+                       losses=out["lossTrain"].tolist(),
+                       unsharded_losses=ref_out["lossTrain"].tolist(), ok=ok,
+                       launches=counts, seconds=seconds))
+    require(ok, f"{label}: losses {out['lossTrain']} vs unsharded "
+                f"{ref_out['lossTrain']}")
+    emit(phase="shard_bcsr_training", model=label, batch=BATCH,
+         first_step_loss=loss, grads=len(got_g), grads_bit_equal=equal,
+         relu_gates_flipped=flips, launches_per_step=step, launches=counts,
+         steps=TRAIN_STEPS, seconds=seconds)
+    emit(phase="shard_bcsr_check", rtol=SHARD_GRAD_RTOL,
+         atol=f"{SHARD_SHIFT_GRAD_ATOL_REL}*max|unsharded|",
+         serve_rtol=SERVE_RTOL, loss_rtol=LOSS_RTOL, checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    trained = {"scattered_n4096 bcsr unsharded": (ref_model, data, BATCH),
+               label: (model, data, BATCH)}
+    profiles = [("scattered_n4096 bcsr unsharded", unsharded, xs[0]),
+                (label, eng, xs[0])]
+    return launches, trained, profiles
+
+
+def phase_shard_bcsr_profile(trained, profiles):
+    """A served scattered_n4096 forward and a training step, sharded over
+    mesh (1, 4) beside the unsharded bcsr model's."""
+    for label, eng, x in profiles:
+        _profile_forward(label, eng, x)
+    phase_train_profile(trained, 6, "shard_bcsr_train_profile")
+
+
+def phase_shard_allgather(rng, dev):
+    """band_n4096_allgather (the main path of this phase): band_n4096
+    sharded 4 ways with ShardedGso(prefer_ring=False), each shard gathering
+    the node axis and running the ring's local contraction (band_matmul
+    on its own block, the halo terms as einsums): exactly 32 band_matmul a
+    forward, held against the ring-sharded model's forward; then one
+    step's gradients (48 launches) against the ring's. Then the partition
+    the all-gather shift exists for, one past the ring: band_n4096 closed
+    into a cycle (node 0 ~ node N-1) and partitioned with order "none", so
+    the band is w = 31 inner blocks against nbl = 8 a shard (each shard's
+    square band crops the halo corrections that overhang it); served and
+    stepped with the same exact counts, held against the unsharded bcsr
+    model of the same graph."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    S4 = banded_graph(np.random.default_rng(0), N_GRAPH, 256, 0.05)
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+
+    def build(ring):
+        arch = _build_model(S4, "band", dev).shard(mesh, SHARD_PARTS)
+        if not ring:
+            arch.ctx["S"] = arch.S = par.ShardedGso(mesh, arch.S.partition,
+                                                    prefer_ring=False)
+        require(arch.S.uses_ring == ring, "ShardedGso routing")
+        return arch
+    ring = InferenceEngine(build(True), BATCH, dev)
+    eng = InferenceEngine(build(False), BATCH, dev)
+    xs = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+          for n in (BATCH, 17, 1)]
+    label = "band_n4096 all-gather mesh (1, 4)"
+    _reset_counts()
+    got = [eng(x) for x in xs]
+    torch.cuda.synchronize()
+    counts = _attention_counts()
+    shifts = 2 * (TAPS - 1) * SHARD_PARTS
+    per_forward = {k: v / len(xs) for k, v in counts.items()}
+    expected = {k: 0 for k in counts}
+    expected["band_matmul"] = shifts
+    require(per_forward == expected, f"{label}: launches per forward "
+                                     f"{per_forward}, expected {expected}")
+    checks = []
+    for x, y in zip(xs, got):
+        want = ring(x)
+        max_abs, max_rel, ok = compare(y, want, SERVE_RTOL, SERVE_ATOL_REL)
+        checks.append(dict(model=label, batch=x.shape[0], output="y",
+                           against="ring-sharded", max_abs_err=max_abs,
+                           max_rel_err=max_rel,
+                           bit_equal=bool(torch.equal(y, want)), ok=ok))
+        require(ok, f"{label} batch {x.shape[0]} disagrees with the ring: "
+                    f"{max_abs}")
+    data = _synthetic_data(rng, (BATCH, BATCH, BATCH), 1, N_GRAPH, 5)
+    gates = []
+    _, want_g, _, _ = _step_grads(ring.arch, data, BATCH, gates)
+    loss, got_g, step_counts, flips = _step_grads(eng.arch, data, BATCH,
+                                                  gates)
+    step = {k: 0 for k in step_counts}
+    step["band_matmul"] = shifts + shifts // 2
+    require(step_counts == step, f"{label}: launches in a step "
+                                 f"{step_counts}, expected {step}")
+    equal = _check_shard_grads(checks, label, got_g, want_g,
+                               SHARD_SHIFT_GRAD_ATOL_REL, "ring-sharded")
+    launches = {k: counts[k] + step_counts[k] for k in counts}
+    emit(phase="shard_allgather", model=label, launches=counts,
+         launches_per_forward=per_forward, launches_per_step=step,
+         first_step_loss=loss, grads_bit_equal=equal,
+         relu_gates_flipped=flips, serve_rtol=SERVE_RTOL,
+         grad_rtol=SHARD_GRAD_RTOL,
+         grad_atol=f"{SHARD_SHIFT_GRAD_ATOL_REL}*max|ring|", checks=checks,
+         seconds=time.perf_counter() - t_phase)
+
+    t_phase = time.perf_counter()
+    S_cyc = S4.copy()
+    S_cyc[0, -1] = S_cyc[-1, 0] = S4[S4 > 0].mean()
+    part = par.partition_nodes(S_cyc, SHARD_PARTS, order="none")
+    require(part.w > part.nbl, f"the cycle's partition is a ring: w "
+                               f"{part.w}, nbl {part.nbl}")
+    cyc = _build_model(S_cyc, "bcsr", dev)
+    cyc.ctx["S"] = cyc.S = par.ShardedGso(mesh, part)
+    require(not cyc.S.uses_ring, "the cycle took the ring shift")
+    unsharded = InferenceEngine(_build_model(S_cyc, "bcsr", dev), BATCH, dev)
+    eng = InferenceEngine(cyc, BATCH, dev)
+    label = "band_n4096 closed into a cycle, all-gather mesh (1, 4)"
+    checks = []
+    _reset_counts()
+    got = [eng(x) for x in xs]
+    torch.cuda.synchronize()
+    counts = _attention_counts()
+    per_forward = {k: v / len(xs) for k, v in counts.items()}
+    require(per_forward == expected, f"{label}: launches per forward "
+                                     f"{per_forward}, expected {expected}")
+    for x, y in zip(xs, got):
+        want = unsharded(x)
+        max_abs, max_rel, ok = compare(y, want, SERVE_RTOL, SERVE_ATOL_REL)
+        checks.append(dict(model=label, batch=x.shape[0], output="y",
+                           against="unsharded bcsr", max_abs_err=max_abs,
+                           max_rel_err=max_rel,
+                           bit_equal=bool(torch.equal(y, want)), ok=ok))
+        require(ok and tuple(y.shape) == (x.shape[0], 5),
+                f"{label} batch {x.shape[0]} disagrees with the unsharded "
+                f"bcsr forward: {max_abs}")
+    gates = []
+    _, want_g, _, _ = _step_grads(unsharded.arch, data, BATCH, gates)
+    loss, got_g, step_counts, flips = _step_grads(eng.arch, data, BATCH,
+                                                  gates)
+    require(step_counts == step, f"{label}: launches in a step "
+                                 f"{step_counts}, expected {step}")
+    equal = _check_shard_grads(checks, label, got_g, want_g,
+                               SHARD_SHIFT_GRAD_ATOL_REL, "unsharded bcsr")
+    for k in launches:
+        launches[k] += counts[k] + step_counts[k]
+    emit(phase="shard_allgather_cycle", model=label, w=part.w, nbl=part.nbl,
+         ibs=part.inner_bs, launches=counts,
+         launches_per_forward=per_forward, launches_per_step=step,
+         first_step_loss=loss, grads_bit_equal=equal,
+         relu_gates_flipped=flips, serve_rtol=SERVE_RTOL,
+         grad_rtol=SHARD_GRAD_RTOL,
+         grad_atol=f"{SHARD_SHIFT_GRAD_ATOL_REL}*max|unsharded|",
+         checks=checks, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_shard_db_training(dev, card):
+    """flock_train_n262k_sharded_db (the main path of this phase): the
+    first batch's supervision of Flocking.large_device (N = 262144, T = 50,
+    ell_degree 32, lam_iters 1; recomputed on kernels 5-6 with exact
+    counts), then one LocalGNN_DB([6,64], [3]) step -- forward, MSE,
+    backward, Adam -- over shard_ell of its graphs on mesh (1, 4): no kernel
+    (the ELL shift is torch code), its loss, output and gradients against
+    the same step over the unsharded EllGso; each step's host and device
+    ms, idle share and peak memory."""
+    import copy
+
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_TRAIN
+    T = len(np.arange(0, c["duration"], 0.01))
+    gridwin.reset_launch_counts()
+    data = fl.Flocking.large_device(
+        c["N"], commRadius=2.0, repelDist=1.0, nTrain=1, nValid=0, nTest=0,
+        duration=c["duration"], samplingTime=0.01, ell_degree=c["D"],
+        lam_iters=c["lam_iters"], rng=np.random.default_rng(c["seed"]),
+        env_grid=True, device=dev)
+    x, y, ell, ok, deg = fl.recompute_supervision_grid(
+        data.pos["train"], data.vel["train"], 2.0, 1.0,
+        fl.EXPERT_ACCEL_MAX, c["D"], True, lam_iters=c["lam_iters"])
+    torch.cuda.synchronize()
+    counts = _flock_counts()
+    one = _recompute_launches(T, c["lam_iters"])
+    expected = {k: 2 * n for k, n in one.items()}   # generation + recompute
+    require(counts == expected, f"large_device + recompute launches {counts},"
+                                f" expected {expected}")
+    require(bool(ok) and int(deg) <= c["D"],
+            f"recompute: ok {bool(ok)}, largest in-degree {int(deg)}")
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    sgso = par.shard_ell(ell, mesh)
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1,
+                      device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    nets = {"sharded": (net, sgso), "unsharded": (copy.deepcopy(net), ell)}
+    opts = {k: torch.optim.Adam(m.parameters(), lr=5e-4)
+            for k, (m, _) in nets.items()}
+
+    def step(name):
+        model, S = nets[name]
+        opts[name].zero_grad()
+        out = model(x, S)
+        loss = ((out - y) ** 2).mean()
+        loss.backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opts[name].step()
+        return loss.detach(), out.detach(), grads
+
+    res, rows = {}, {}
+    for name in ("sharded", "unsharded"):
+        _reset_counts()
+        gridwin.reset_launch_counts()
+        res[name], peak = _peak_gb(lambda: step(name))
+        launched = {k: n for k, n in {**_attention_counts(),
+                                      **_flock_counts()}.items() if n}
+        require(not launched, f"{name} step launched {launched}")
+        rows[name] = dict(peak_gb=peak)
+    checks = {}
+    (l_s, o_s, g_s), (l_u, o_u, g_u) = res["sharded"], res["unsharded"]
+    pairs = [("loss", l_s, l_u), ("output", o_s, o_u)] + [
+        (f"grad {n}", a, b) for (n, _), a, b in zip(
+            net.named_parameters(), g_s, g_u)]
+    for name, a, b in pairs:
+        err, rel, agree = compare(a, b, TRAIN_RTOL, TRAIN_ATOL_REL)
+        checks[name] = dict(max_abs_err=err, max_rel_err=rel,
+                            bit_equal=bool(torch.equal(a, b)))
+        require(agree, f"sharded vs unsharded LocalGNN_DB step, {name}: "
+                       f"max abs {err}, rel {rel}")
+    params = dict(max_abs_diff_after_adam=max(
+        (a - b).abs().max().item() for a, b in zip(
+            nets["sharded"][0].parameters(),
+            nets["unsharded"][0].parameters())))
+    for name in ("sharded", "unsharded"):
+        prof = _device_profile(lambda: step(name), 3)
+        rows[name].update(host_ms_per_step=prof["wall_ms"],
+                          profiled_host_ms_per_step=prof["profiled_wall_ms"],
+                          device_ms_per_step=prof["device_ms"],
+                          device_idle_share=prof["device_idle_share"],
+                          top=[dict(name=t["name"], ms_per_step=t["ms"],
+                                    calls_per_step=t["calls"])
+                               for t in prof["top"][:5]])
+    emit(phase="shard_db_training", nvidia_smi=card,
+         config="flock_train_n262k_sharded_db mesh (1, 4)", N=c["N"], T=T,
+         D=c["D"], largest_in_degree=int(deg), launches=counts,
+         rtol=TRAIN_RTOL, atol=f"{TRAIN_ATOL_REL}*max|unsharded|",
+         checks=checks, params=params, steps=rows,
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def phase_shard_swarm(dev, card):
+    """The sharded swarm on the grid kernels (the main path of this
+    phase), mesh (1, 4) of the one card: flock_n262k's fused cost rollout
+    (T = 100, eval-shaped: 1 table_build a step, 4 grid_window a step and
+    4 x 32 cold-start lambda passes) against Flocking.rollout_cost, its ok
+    flag against the unsharded run's and the largest in-degree; its fused
+    rollout with graphs (T = 25, the ELL lambda) and flock_n4096's windowed
+    rollout (2 samples, T = 25) against the same rollouts on mesh (1, 1);
+    exact launch counts, seconds and peak memory each."""
+    import warnings
+
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    meshes = {n: par.make_mesh((1, n), devices=[dev] * n)
+              for n in (SHARD_PARTS, 1)}
+    launches = dict(grid_window=0, table_build=0, table_transpose=0)
+    rows = []
+
+    def run(label, n, roll, pos, vel, T, lam_passes):
+        gridwin.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, peak = _peak_gb(lambda: roll(pos, vel))
+        seconds = time.perf_counter() - t0
+        counts = _flock_counts()
+        expect = dict(grid_window=n * (1 + lam_passes + (T - 1)),
+                      table_build=T, table_transpose=0)
+        require(counts == expect, f"{label}: launches {counts}, expected "
+                                  f"{expect}")
+        if n == SHARD_PARTS:
+            for k, m in counts.items():
+                launches[k] += m
+        rows.append(dict(config=label, T=T, seconds=seconds, peak_gb=peak,
+                         launches=counts))
+        return out
+
+    def close(label, got, want):
+        out = {}
+        for name, a, b in zip(("pos", "vel", "accel", "states"), got, want):
+            err, rel, ok = compare(a, b, SWARM_RTOL, SWARM_ATOL_REL)
+            out[name] = dict(max_abs_err=err, max_rel_err=rel,
+                             bit_equal=bool(torch.equal(a, b)))
+            require(ok, f"{label}: {name} differs from mesh (1, 1): max abs "
+                        f"{err}, rel {rel}")
+        out["graph_idx_equal_share"] = float(
+            (got[4].idx == want[4].idx).double().mean())
+        require(bool(got[-1]) == bool(want[-1]), f"{label}: ok flags differ")
+        return out
+
+    env, ip, iv, net = _flock_setup("flock_n262k", dev)
+    N, D = FLOCK["flock_n262k"]["N"], FLOCK_D
+    T = FLOCK_T_EVAL
+    pos, vel, n_orig = par.pad_swarm(ip, iv, meshes[SHARD_PARTS])
+    kw = dict(comm_radius=env.commRadius, dt=env.samplingTime,
+              accel_max=env.accelMax, d_max=D, n_orig=n_orig, lam_iters=0,
+              env_grid=True)
+    label = "flock_n262k fused cost mesh (1, 4)"
+    cf, ce, deg, ok = run(label, SHARD_PARTS, par.sharded_swarm_rollout(
+        T, net.causal_window, net, mesh=meshes[SHARD_PARTS], step_mode=True,
+        return_cost=True, **kw), pos, vel, T, 32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ucf, uce = env.rollout_cost(ip, iv, T * env.samplingTime, net,
+                                    ell_degree=D, env_grid=True, lam_iters=0)
+    u_ok = not any(issubclass(w.category, RuntimeWarning)
+                   and "grid env" in str(w.message) for w in caught)
+    cf, ce, deg, ok = float(cf), float(ce), int(deg), bool(ok)
+    require(np.isfinite(cf) and np.isfinite(ce), f"{label}: non-finite cost")
+    for what, a, b in (("cost_full", cf, ucf), ("cost_end", ce, uce)):
+        require(abs(a - b) <= SWARM_RTOL * abs(b),
+                f"{label}: {what} {a} vs rollout_cost {b}")
+    require(ok == (u_ok and deg <= D),
+            f"{label}: ok {ok}, unsharded ok {u_ok}, largest in-degree {deg}")
+    rows[-1].update(cost_full=cf, cost_end=ce, rollout_cost_full=ucf,
+                    rollout_cost_end=uce, ok=ok, unsharded_ok=u_ok,
+                    largest_in_degree=deg, d_max=D)
+
+    T = FLOCK_T_TRAIN
+    traj = {n: run(f"flock_n262k fused with graphs mesh (1, {n})", n,
+                   par.sharded_swarm_rollout(
+                       T, net.causal_window, net, mesh=meshes[n],
+                       step_mode=True, **kw), pos, vel, T, 0)
+            for n in (SHARD_PARTS, 1)}
+    got, want = traj[SHARD_PARTS], traj[1]
+    require(tuple(got[4].idx.shape) == (1, T, N, D)
+            and bool(torch.isfinite(got[0]).all()), "262k sharded graphs")
+    rows[-2].update(vs_mesh_1=close("flock_n262k fused with graphs", got,
+                                    want),
+                    ok=bool(got[-1]), largest_in_degree=int(got[-2]))
+    del traj, got, want
+
+    env4, ip4, iv4, net4 = _flock_setup("flock_n4096", dev)
+    pos4, vel4, n4 = par.pad_swarm(ip4, iv4, meshes[SHARD_PARTS])
+    kw4 = dict(kw, n_orig=n4)
+    win = {n: run(f"flock_n4096 windowed mesh (1, {n})", n,
+                  par.sharded_swarm_rollout(
+                      T, net4.causal_window, net4, mesh=meshes[n], **kw4),
+                  pos4, vel4, T, 0)
+           for n in (SHARD_PARTS, 1)}
+    rows[-2].update(vs_mesh_1=close("flock_n4096 windowed",
+                                    win[SHARD_PARTS], win[1]),
+                    ok=bool(win[SHARD_PARTS][-1]))
+    emit(phase="shard_swarm", nvidia_smi=card, rtol=SWARM_RTOL,
+         atol=f"{SWARM_ATOL_REL}*max|mesh (1, 1)|", rows=rows,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, (env, ip, iv, net, pos, vel, kw)
+
+
+def phase_shard_swarm_profile(setup, card, n=10):
+    """Where one flock_n262k eval-shaped step spends its time sharded over
+    mesh (1, 4) (policy, physics, the sharded env step: the table once, the
+    window pass a shard) beside the unsharded step (flock_profile's)."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.parallel import swarm
+    env, ip, iv, net, pos, vel, kw = setup
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[pos.device] * SHARD_PARTS)
+    pieces = {
+        "flock_n262k eval step unsharded": (
+            env._chunked_pieces(net, FLOCK_D, 0, True, return_graphs=False),
+            (env._as_device(ip), env._as_device(iv))),
+        "flock_n262k eval step sharded mesh (1, 4)": (
+            swarm._rollout_pieces(
+                net.causal_window, net, kw["comm_radius"], kw["dt"],
+                kw["accel_max"], kw["d_max"], mesh, "graph", kw["n_orig"],
+                0, True, True, True), (pos, vel)),
+    }
+    for label, ((init_fn, step_fn), args) in pieces.items():
+        with torch.no_grad():
+            carry = [init_fn(*args)[0]]
+
+            def step():
+                carry[0] = step_fn(carry[0])[0]
+
+            prof = _device_profile(step, n)
+        emit(phase="shard_swarm_profile", nvidia_smi=card, config=label,
+             host_ms_per_step=prof["wall_ms"],
+             profiled_host_ms_per_step=prof["profiled_wall_ms"],
+             device_ms_per_step=prof["device_ms"],
+             device_idle_share=prof["device_idle_share"],
+             top=[dict(name=t["name"], ms_per_step=t["ms"],
+                       calls_per_step=t["calls"]) for t in prof["top"]])
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -4213,6 +4849,7 @@ def main() -> int:
               "(graph_neural_networks_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from graph_neural_networks_torch import parallel as par
     from graph_neural_networks_torch.ops import gso as gso_lib
     from graph_neural_networks_torch.parallel import (
         attention as par_attention)
@@ -4318,6 +4955,43 @@ def main() -> int:
                           part, mc, mr, np.random.default_rng(14), dev))
         rows.update(timed("shard_train_timing", phase_shard_train_timing,
                           part, mc, mr, dev))
+        # the rest of single-controller parallel/
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        S_sc = scattered_graph(np.random.default_rng(16), N_GRAPH,
+                               SCATTER_IBS)
+        spart = par.partition_nodes_bcsr(S_sc, SHARD_PARTS,
+                                         inner_block=SCATTER_IBS)
+        emit(phase="scattered_graph", N=N_GRAPH, ibs=SCATTER_IBS,
+             nnz=int(np.count_nonzero(S_sc)), real_blocks=spart.nnzb.tolist(),
+             seconds=time.perf_counter() - t0)
+        bcsr_errs, bcsr_rows = timed("shard_bcsr_kernels",
+                                     phase_shard_bcsr_kernels, spart,
+                                     np.random.default_rng(17), dev)
+        errs["bcsr_matmul"] = max(errs["bcsr_matmul"],
+                                  bcsr_errs["bcsr_matmul"])
+        rows.update(bcsr_rows)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            bcsr_launches, bcsr_trained, bcsr_profiles = timed(
+                "shard_bcsr", phase_shard_bcsr, S_sc, spart,
+                np.random.default_rng(18), dev, out_dir)
+            timed("shard_bcsr_profile", phase_shard_bcsr_profile,
+                  bcsr_trained, bcsr_profiles)
+            del bcsr_trained, bcsr_profiles
+        launches["bcsr_matmul"] += bcsr_launches["bcsr_matmul"]
+        ag_launches = timed("shard_allgather", phase_shard_allgather,
+                            np.random.default_rng(19), dev)
+        launches["band_matmul"] += ag_launches["band_matmul"]
+        torch.cuda.empty_cache()
+        db_launches = timed("shard_db_training", phase_shard_db_training,
+                            dev, card)
+        swarm_launches, swarm_setup = timed("shard_swarm", phase_shard_swarm,
+                                            dev, card)
+        timed("shard_swarm_profile", phase_shard_swarm_profile, swarm_setup,
+              card)
+        del swarm_setup
+        for k in ("grid_window", "table_build"):
+            launches[k] += db_launches[k] + swarm_launches[k]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -28,8 +28,7 @@ grid's exactness flag ``ok`` stays on the device until a rollout ends.
 Not ported yet (ROADMAP queue 1 item 7): the unfused grid step path
 (policies whose registers shift over the emitted ELL graph, 7.2), the
 chunked all-pairs env (``Flocking.large`` without ``env_grid``), the
-windowed re-forward and the segmented rollouts (7.3), and
-``lam_path="ell"`` (7.4).
+windowed re-forward and the segmented rollouts (7.3).
 """
 
 from __future__ import annotations
@@ -43,12 +42,11 @@ import torch
 from graph_neural_networks_torch.data.base import (
     ZERO_TOL, Data, invert_tensor_ew)
 from graph_neural_networks_torch.ops import gridwin
-from graph_neural_networks_torch.ops.ell import EllGso, ell_topk
+from graph_neural_networks_torch.ops.ell import EllGso, ell_shift, ell_topk
 from graph_neural_networks_torch.utils.device import resolve_device
 
 _NOT_PORTED = ("(ROADMAP queue 1 item 7: 7.2 the unfused step, 7.3 the "
-               "chunked env and the windowed and segmented rollouts, 7.4 "
-               "lam_path='ell')")
+               "chunked env and the windowed and segmented rollouts)")
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +220,12 @@ def _grid_build_table(px, py, vx, vy, inv_s, H, Gx, Gy, C, v=None,
 
 
 def _window_operands(px, py, vx, vy, cx, cy, H, Gx, Gy, inv_s=None,
-                     factor: int = 1):
+                     factor: int = 1, lo: int = 0):
     """grid_window's per-agent operands for all B*N agents: own (B*N, 5)
     [px, py, vx, vy, id], slots (B*N, n_win) the table rows (b*H + slot)
-    of the agent's windows, keep (B*N, n_win).
+    of the agent's windows, keep (B*N, n_win). The agents may be the rows
+    lo .. lo + N of a larger swarm whose table this is (one shard's rows,
+    ``parallel.swarm``): their ids are then lo + 0 .. N - 1.
 
     factor 1: the agent's 3x3 cell neighborhood (side-r cells, 9 windows);
     factor >= 2: the 2x2 window based at floor((x - r)/s) of side
@@ -252,16 +252,17 @@ def _window_operands(px, py, vx, vy, cx, cy, H, Gx, Gy, inv_s=None,
     keep = ~((h9[..., :, None] == h9[..., None, :]) & earlier).any(-1)
     b_off = torch.arange(B, dtype=torch.int32, device=dev) * H
     slots = (h9 + b_off[:, None, None]).reshape(B * N, n_win)
-    ids = torch.arange(N, dtype=px.dtype, device=dev).expand(B, N)
+    ids = torch.arange(lo, lo + N, dtype=px.dtype, device=dev).expand(B, N)
     own = torch.stack([px, py, vx, vy, ids], dim=-1).reshape(B * N, 5)
     return own, slots, keep.reshape(B * N, n_win)
 
 
 def _grid_rows(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C, r2, d_max,
                wv_only: bool = False, inv_s=None, factor: int = 1,
-               n_pay: int = 0):
+               n_pay: int = 0, lo: int = 0):
     """The window pass of all B*N agents against their samples' cell
-    tables (B, H, W), in one grid_window launch.
+    tables (B, H, W), in one grid_window launch; lo: the agents are rows
+    lo .. lo + N of the swarm the tables hold (:func:`_window_operands`).
 
     Returns wv (B,N) when wv_only, else (idx (B,N,d_max) int32, val01
     (B,N,d_max), states (B,6,N), wv (B,N), cnt (B,N) the true in-degree,
@@ -270,7 +271,7 @@ def _grid_rows(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C, r2, d_max,
     B, N = px.shape
     H, W = cell_rows.shape[1:]
     own, slots, keep = _window_operands(px, py, vx, vy, cx, cy, H, Gx, Gy,
-                                        inv_s, factor)
+                                        inv_s, factor, lo)
     out = gridwin.grid_window(cell_rows.view(B * H, W), own, slots, keep,
                               C=C, r2=r2, d_max=d_max, wv_only=wv_only,
                               n_pay=n_pay)
@@ -306,8 +307,7 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
                   lam_path: str = "auto", cell_factor: int = 1,
                   payload=None, builder: str = "fused", expert_repel=None,
                   in_degree: bool = False):
-    """One O(N·k) cell-list environment step (JAX ``_jnp_env_step_grid``,
-    its window-lambda path).
+    """One O(N·k) cell-list environment step (JAX ``_jnp_env_step_grid``).
 
     Agents are binned into square cells of side cell_factor*comm_radius
     on a modular grid of ``table_size`` cells; each agent's neighbors lie
@@ -316,11 +316,15 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     (the returned ``ok`` says whether they did); neighbor order within a
     row follows the candidate windows.
 
-    lambda_max: the main window pass folds one power-iteration matvec
-    W @ v_prev (v_prev rides the table's 7th block). lam_iters=0 takes the
-    Rayleigh quotient v_prev'Wv_prev / v_prev'v_prev and advances v one
-    iteration; lam_iters >= 1 runs that many further window passes
-    (``wv_only``), each after rewriting the table's v lanes in place.
+    lambda_max, lam_path 'auto' or 'window': the main window pass folds
+    one power-iteration matvec W @ v_prev (v_prev rides the table's 7th
+    block). lam_iters=0 takes the Rayleigh quotient v_prev'Wv_prev /
+    v_prev'v_prev and advances v one iteration; lam_iters >= 1 runs that
+    many further window passes (``wv_only``), each after rewriting the
+    table's v lanes in place. lam_path 'ell': lam_iters power iterations
+    from v_prev over the emitted ELL graph (:func:`_ell_lambda`;
+    lam_iters=0 keeps v_prev), no payload; the one-shard form of the
+    sharded env's lambda at d_max > 0 (``parallel.swarm``).
 
     expert_repel=repelDist (<= comm_radius, so the windows cover every
     repel-range pair): a SECOND window pass over the same table at r2 =
@@ -340,10 +344,13 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     every in-degree <= d_max (the payload shift is untruncated, the emitted
     graph is not).
     """
-    if lam_path not in ("auto", "window"):
-        raise NotImplementedError(
-            f"lam_path={lam_path!r}: the ELL-matvec power iteration is not "
-            f"ported yet {_NOT_PORTED}")
+    if lam_path not in ("auto", "window", "ell"):
+        raise ValueError(f"unknown lam_path {lam_path!r}: 'auto', 'window' "
+                         "or 'ell'")
+    ell_lam = lam_path == "ell"
+    if ell_lam and payload is not None:
+        raise ValueError("the fused payload shift rides the window-lambda "
+                         "pass (lam_path 'auto'/'window')")
     if expert_repel is not None:
         _check_repel(expert_repel, comm_radius)
     B, _, N = pos.shape
@@ -353,8 +360,8 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     P = 0 if payload is None else int(payload.shape[-1])
     px, py, vx, vy = pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1]
     cell_rows, cx, cy, ok, (order, vpos) = _grid_build_table(
-        px, py, vx, vy, inv_s, H, Gx, Gy, C, v=v_prev, pay=payload,
-        builder=builder)
+        px, py, vx, vy, inv_s, H, Gx, Gy, C, v=None if ell_lam else v_prev,
+        pay=payload, builder=builder)
     rows = lambda **kw: _grid_rows(px, py, vx, vy, cx, cy, cell_rows, Gx,
                                    Gy, C, r2, d_max, inv_s=inv_s,
                                    factor=cell_factor, **kw)
@@ -365,27 +372,18 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     if expert_repel is not None:
         rep = _repel_sums(px, py, vx, vy, cx, cy, cell_rows, Gx, Gy, C,
                           expert_repel, inv_s, cell_factor)
-    flat = cell_rows.view(B, -1)
-
-    def wv_pass(vb):
-        # the next step rebuilds the table, so its v lanes are rewritten
-        # in place
-        flat.scatter_(1, vpos, torch.gather(vb, 1, order))
-        return rows(wv_only=True)
-
-    def nrm(w):
-        return w / torch.clamp_min(
-            torch.linalg.vector_norm(w, dim=-1, keepdim=True), ZERO_TOL)
-
-    v = nrm(wv)
-    if lam_iters == 0:
-        lam = (v_prev * wv).sum(-1) / torch.clamp_min(
-            (v_prev * v_prev).sum(-1), ZERO_TOL)
+    if ell_lam:
+        lam, v = _ell_lambda(v_prev, _ell_matvec(idx, val), lam_iters)
     else:
-        for _ in range(lam_iters - 1):
-            v = nrm(wv_pass(v))
-        lam = (v * wv_pass(v)).sum(-1)
-    lam = torch.where(lam.abs() < ZERO_TOL, torch.ones_like(lam), lam)
+        flat = cell_rows.view(B, -1)
+
+        def matvec(vb):
+            # the next step rebuilds the table, so its v lanes are
+            # rewritten in place
+            flat.scatter_(1, vpos, torch.gather(vb, 1, order))
+            return rows(wv_only=True)
+
+        lam, v = _window_lambda(v_prev, wv, matvec, lam_iters)
     out = (idx, val / lam[:, None, None], st, v)
     if P:
         out = out + (wpay / lam[:, None, None],)
@@ -394,6 +392,57 @@ def env_step_grid(pos, vel, comm_radius, d_max, v_prev, lam_iters: int = 8,
     if in_degree:
         out = out + (cnt.amax(dim=1).to(torch.int32),)
     return out + (ok.all(),)
+
+
+def _normalize(w: torch.Tensor) -> torch.Tensor:
+    """w / max(||w||, ZERO_TOL) along the last axis."""
+    return w / torch.clamp_min(
+        torch.linalg.vector_norm(w, dim=-1, keepdim=True), ZERO_TOL)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def _lam_or_one(lam: torch.Tensor) -> torch.Tensor:
+    """lambda_max with a zero (an edgeless graph) replaced by 1."""
+    return torch.where(lam.abs() < ZERO_TOL, torch.ones_like(lam), lam)
+
+
+def _window_lambda(v_prev, wv, matvec, lam_iters: int, nrm=_normalize,
+                   dot=_dot):
+    """lambda_max by window passes (env_step_grid's 'window' path): wv =
+    W @ v_prev came with the main pass; lam_iters=0 takes the Rayleigh
+    quotient of v_prev and v = nrm(wv); else lam_iters - 1 normalized
+    ``matvec``s from nrm(wv) and lam = v'(matvec v). nrm and dot act on
+    whatever holds v (a (B,N) tensor, or the sharded env's list of
+    blocks). Returns (lam (B,), v)."""
+    v = nrm(wv)
+    if lam_iters == 0:
+        lam = dot(v_prev, wv) / torch.clamp_min(dot(v_prev, v_prev),
+                                                ZERO_TOL)
+    else:
+        for _ in range(lam_iters - 1):
+            v = nrm(matvec(v))
+        lam = dot(v, matvec(v))
+    return _lam_or_one(lam), v
+
+
+def _ell_lambda(v_prev, matvec, lam_iters: int, nrm=_normalize, dot=_dot):
+    """lambda_max by warm-started power iteration (JAX
+    ``_ell_power_lambda``): lam_iters normalized ``matvec``s from v_prev,
+    then lam = v'(matvec v); nrm and dot as in :func:`_window_lambda`.
+    Returns (lam (B,), v)."""
+    v = v_prev
+    for _ in range(lam_iters):
+        v = nrm(matvec(v))
+    return _lam_or_one(dot(v, matvec(v))), v
+
+
+def _ell_matvec(idx, val):
+    """v (B,N) -> W @ v on an ELL graph's (B,No,D) idx/val rows."""
+    ell = EllGso(idx, val[:, None])
+    return lambda v: ell_shift(v[:, None, None, :], ell)[:, 0, 0]
 
 
 # ---------------------------------------------------------------------------

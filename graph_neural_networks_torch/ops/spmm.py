@@ -23,8 +23,9 @@ one to the other. Each kernel launch adds one to the wrapper's
 ``launches`` count.
 
 Gradients go through three ``torch.autograd.Function``s, the JAX package's
-custom VJPs (S is structure, not differentiated): :class:`BandShift` and
-:class:`BcsrShift` shift the cotangent by S^T on the transposed layout
+custom VJPs (S is structure, not differentiated): :class:`BandShift`
+and :class:`BcsrShift` (also on a rectangular S, one shard's column
+slice) shift the cotangent by S^T on the transposed layout
 (``s_band_t``, ``blocks_t``), and :class:`BandRegister` runs the Horner
 chain dx = g_0 + (g_1 + (...) S^T) S^T of K-1 ``band_matmul``s. All
 backward work runs on the same three kernels. The raw wrappers record no
@@ -450,16 +451,20 @@ class BandShift(torch.autograd.Function):
 
 class BcsrShift(torch.autograd.Function):
     """y = x @ S on the BCSR blocks; dx = g @ S^T on the transposed layout
-    (JAX ``spmm.bcsr_shift``). S is square: x (R, n_cols). col_start and
-    col_start_t: the two layouts' cached segment offsets (a Gso's), or
-    None."""
+    (JAX ``spmm.bcsr_shift``). S is n_cols_in x n_cols: x (R, n_cols_in)
+    -> y (R, n_cols); block_row indexes x's block columns, block_col the
+    output's. n_cols_in None means a square S. A rectangular S is one
+    shard's column slice of the global GSO (JAX ``spmm.bcsr_shift_rect``,
+    the contraction of ``parallel.shift.sharded_gshift_bcsr``). col_start
+    and col_start_t: the two layouts' cached segment offsets
+    (:func:`bcsr_col_start`), or None."""
 
     @staticmethod
     def forward(ctx, x, blocks, block_row, block_col, blocks_t, block_row_t,
                 block_col_t, n_cols: int, block_size: int = 128,
-                col_start=None, col_start_t=None):
+                col_start=None, col_start_t=None, n_cols_in=None):
         ctx.layout_t = (blocks_t, block_row_t, block_col_t, col_start_t)
-        ctx.cfg = (n_cols, block_size)
+        ctx.cfg = (n_cols if n_cols_in is None else n_cols_in, block_size)
         return bcsr_matmul(x, blocks, block_row, block_col, n_cols=n_cols,
                            block_size=block_size, col_start=col_start)
 
@@ -467,12 +472,22 @@ class BcsrShift(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 11
-        n_cols, bs = ctx.cfg
+            return (None,) * 12
+        n_cols_in, bs = ctx.cfg
         blocks_t, block_row_t, block_col_t, col_start_t = ctx.layout_t
         dx = bcsr_matmul(g.contiguous(), blocks_t, block_row_t, block_col_t,
-                         n_cols=n_cols, block_size=bs, col_start=col_start_t)
-        return (dx,) + (None,) * 10
+                         n_cols=n_cols_in, block_size=bs,
+                         col_start=col_start_t)
+        return (dx,) + (None,) * 11
+
+
+def bcsr_shift_rect(x, blocks, block_row, block_col, blocks_t, block_row_t,
+                    block_col_t, n_cols_out: int, n_cols_in: int,
+                    block_size: int = 128, col_start=None, col_start_t=None):
+    """:class:`BcsrShift` on a rectangular S (the JAX package's name)."""
+    return BcsrShift.apply(x, blocks, block_row, block_col, blocks_t,
+                           block_row_t, block_col_t, n_cols_out, block_size,
+                           col_start, col_start_t, n_cols_in)
 
 
 class BandRegister(torch.autograd.Function):

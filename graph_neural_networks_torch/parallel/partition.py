@@ -2,8 +2,9 @@
 
 The port's copy of the JAX package's ``parallel/partition.py``
 (``_to_coo_list``, ``GraphPartition``, ``_rcm_order``,
-``partition_nodes``): host numpy/scipy code, the same layouts bit for
-bit. The dense ``E x N x N`` GSO is never materialized:
+``partition_nodes``, ``BcsrPartition``, ``partition_nodes_bcsr``): host
+numpy/scipy code, the same layouts bit for bit. The dense ``E x N x N``
+GSO is never materialized:
 
   1. Order nodes with reverse Cuthill-McKee (bandwidth minimization ->
      halo minimization), or keep their order (``order="none"``).
@@ -16,9 +17,11 @@ bit. The dense ``E x N x N`` GSO is never materialized:
 
 The ring shift and the sharded attention (``parallel.shift``,
 ``parallel.attention``) then need only a halo of ``w * inner_bs``
-boundary nodes from each neighbour shard (``is_ring``: ``w <= nbl``).
-The BCSR partition (``partition_nodes_bcsr``) is not ported yet (ROADMAP
-queue 1 item 10.2).
+boundary nodes from each neighbour shard (``is_ring``: ``w <= nbl``);
+the all-gather shift takes any band. A scattered graph (RCM bandwidth ~
+N, where the band slab degenerates dense) takes the BCSR partition
+(``partition_nodes_bcsr``): each shard keeps the nonzero blocks of its
+column slice of S.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import List
 import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
+
+from graph_neural_networks_torch.ops import spmm
 
 ZERO_TOL = 1e-9
 
@@ -200,3 +205,128 @@ def partition_nodes(S, n_parts: int, order: str = "rcm",
                           block_size=bs, order=perm, inner_bs=ibs, nbl=nbl,
                           w=w, slabs=slabs, S_csr=csrs, needs=needs,
                           bandwidth=bandwidth)
+
+
+@dataclass
+class BcsrPartition:
+    """Node partition for SCATTERED graphs (RCM bandwidth ~ N, where the
+    band slab would degenerate dense): each shard stores only the nonzero
+    (inner_bs x inner_bs) blocks of its column slice of S, plus the
+    transposed layout for gradients. Per-shard memory is O(nnzb/P *
+    inner_bs^2), independent of the graph's bandwidth. Shards are padded to
+    the largest per-shard block count with zero blocks at (brow = 0, bcol =
+    the last block column), which keeps each layout sorted by column and
+    adds exact zeros. Signal exchange is one all-gather of the node axis
+    per shift (scattered columns can read any row).
+    """
+    n_parts: int
+    n_orig: int
+    n_padded: int
+    block_size: int                # nodes per shard (output columns)
+    order: np.ndarray
+    inner_bs: int
+    blocks: np.ndarray             # (P, E, nnzb_max, ibs, ibs) f32
+    brow: np.ndarray               # (P, E, nnzb_max) int32, global blocks
+    bcol: np.ndarray               # (P, E, nnzb_max) int32, LOCAL blocks
+    blocks_t: np.ndarray           # transposed layout (for the backward)
+    brow_t: np.ndarray             # (P, E, nnzbt_max) int32, LOCAL blocks
+    bcol_t: np.ndarray             # (P, E, nnzbt_max) int32, global blocks
+    nnzb: np.ndarray               # (P,) true per-shard block counts
+    S_csr: List[scipy.sparse.csr_matrix] = field(default_factory=list)
+
+    @property
+    def n_edge_features(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def shard_bytes(self) -> int:
+        """Per-shard GSO storage (forward + transposed layouts)."""
+        per = self.blocks[0].nbytes + self.brow[0].nbytes \
+            + self.bcol[0].nbytes
+        pert = self.blocks_t[0].nbytes + self.brow_t[0].nbytes \
+            + self.bcol_t[0].nbytes
+        return per + pert
+
+    S_perm = GraphPartition.S_perm
+    pad_signal = GraphPartition.pad_signal
+    unpad_signal = GraphPartition.unpad_signal
+
+
+def partition_nodes_bcsr(S, n_parts: int, order: str = "none",
+                         inner_block: int = 128) -> BcsrPartition:
+    """Edge-partition a scattered GSO: per-shard BCSR of its column slice.
+    order: 'none' (default: these graphs have no band order worth
+    finding) or 'rcm'."""
+    coos = _to_coo_list(S)
+    E = len(coos)
+    N = coos[0].shape[0]
+    perm = _rcm_order(coos) if order == "rcm" else np.arange(N)
+    inv = np.empty(N, dtype=np.int64)
+    inv[perm] = np.arange(N)
+
+    ibs = min(inner_block, -(-N // n_parts))
+    bs = -(-(-(-N // n_parts)) // ibs) * ibs
+    n_pad = bs * n_parts
+    nb_in = n_pad // ibs
+    nbl = bs // ibs
+
+    # per-(shard, E) BCSR of the (n_pad x bs) column slice
+    per = [[None] * E for _ in range(n_parts)]
+    pert = [[None] * E for _ in range(n_parts)]
+    csrs = []
+    for e in range(E):
+        r = inv[coos[e].row]
+        c = inv[coos[e].col]
+        v = coos[e].data.astype(np.float32)
+        csrs.append(scipy.sparse.csr_matrix((v, (r, c)),
+                                            shape=(n_pad, n_pad)))
+        for p in range(n_parts):
+            sel = (c >= p * bs) & (c < (p + 1) * bs)
+            Sp = np.zeros((n_pad, bs), np.float32)
+            Sp[r[sel], c[sel] - p * bs] = v[sel]
+            # block extraction at inner_bs granularity
+            tiles = Sp.reshape(nb_in, ibs, nbl, ibs).transpose(0, 2, 1, 3)
+            nz = np.abs(tiles).sum(axis=(2, 3)) > ZERO_TOL
+            br, bc = np.nonzero(nz)
+            o = np.lexsort((br, bc))
+            br, bc = br[o], bc[o]
+            if len(br) == 0:
+                br, bc = np.array([0]), np.array([0])
+            blk = tiles[br, bc]
+            per[p][e] = (blk.astype(np.float32), br.astype(np.int32),
+                         bc.astype(np.int32))
+            pert[p][e] = spmm.bcsr_transpose(blk, br, bc)
+
+    def pad_stack(entries, pad_col):
+        """Pad each shard's block list to the largest count with ZERO
+        blocks at (brow = 0, bcol = pad_col). pad_col is >= every real
+        bcol, so the appended pads keep bcsr_matmul's sorted-by-block-
+        column precondition (its segment offsets, found by searchsorted,
+        would otherwise silently compute wrong outputs); the zero data
+        adds exact zeros."""
+        mx = max(len(b) for b, _, _ in entries)
+        B = np.zeros((len(entries), mx, ibs, ibs), np.float32)
+        Rr = np.zeros((len(entries), mx), np.int32)
+        Cc = np.full((len(entries), mx), pad_col, np.int32)
+        for i, (b, rr, cc) in enumerate(entries):
+            if len(cc) and cc[-1] > pad_col:
+                raise ValueError(f"block column {cc[-1]} past the pad "
+                                 f"column {pad_col}")
+            B[i, :len(b)] = b
+            Rr[i, :len(b)] = rr
+            Cc[i, :len(b)] = cc
+        return B, Rr, Cc
+
+    fw = pad_stack([per[p][e] for p in range(n_parts) for e in range(E)],
+                   nbl - 1)
+    tw = pad_stack([pert[p][e] for p in range(n_parts) for e in range(E)],
+                   nb_in - 1)
+    shp = lambda a: a.reshape((n_parts, E) + a.shape[1:])
+    nnzb = np.array([sum(len(per[p][e][0]) for e in range(E))
+                     for p in range(n_parts)])
+    return BcsrPartition(
+        n_parts=n_parts, n_orig=N, n_padded=n_pad, block_size=bs,
+        order=perm, inner_bs=ibs,
+        blocks=shp(fw[0]), brow=shp(fw[1]), bcol=shp(fw[2]),
+        blocks_t=shp(tw[0]), brow_t=shp(tw[1]), bcol_t=shp(tw[2]),
+        nnzb=nnzb, S_csr=csrs)

@@ -2,28 +2,32 @@
 device mesh.
 
 The port of the JAX package's ``parallel/sharded_gso.py``. It wraps a
-GraphPartition and a mesh and exposes the duck-typed surface that
+partition and a mesh and exposes the duck-typed surface that
 ``ops.gso.gshift`` (a ``shift`` method), ``ops.filters`` (a
 ``band_attention`` operator) and the layers (``n``) read, so every filter
-functional runs sharded with a halo exchange.
+functional runs sharded.
 
 Usage:
     part = partition_nodes(S, n_graph_shards)
     sgso = ShardedGso(mesh, part)
     y = filters.lsigf(h, sgso, x_padded)   # x padded via part.pad_signal
 
-Only the ring path is ported: a partition that is not a ring (the
-all-gather shift) or a BCSR partition raises NotImplementedError (ROADMAP
-queue 1 item 10.2).
+Routing: a ``BcsrPartition`` (a scattered graph) takes the BCSR shift; a
+``GraphPartition`` takes the ring halo exchange when it is a ring and
+``prefer_ring`` holds, else the all-gather shift (``uses_ring`` says
+which).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from graph_neural_networks_torch.parallel.mesh import Mesh, normalize_device
-from graph_neural_networks_torch.parallel.partition import GraphPartition
-from graph_neural_networks_torch.parallel.shift import sharded_gshift_ring
+from graph_neural_networks_torch.parallel.partition import (
+    BcsrPartition, GraphPartition)
+from graph_neural_networks_torch.parallel.shift import (
+    sharded_gshift_allgather, sharded_gshift_bcsr, sharded_gshift_ring)
 
 
 class ShardedGso:
@@ -36,21 +40,24 @@ class ShardedGso:
     """
 
     def __init__(self, mesh: Mesh, partition, axis: str = "graph",
-                 data_axis: str | None = None):
-        if not isinstance(partition, GraphPartition):
-            raise NotImplementedError(
-                f"a ShardedGso over a {type(partition).__name__} (the BCSR "
-                "partition) is not ported yet (ROADMAP queue 1 item 10.2)")
-        if not partition.is_ring:
-            raise NotImplementedError(
-                f"the partition is not a ring (w={partition.w} > "
-                f"nbl={partition.nbl}); the all-gather shift is not ported "
-                "yet (ROADMAP queue 1 item 10.2)")
+                 prefer_ring: bool = True, data_axis: str | None = None):
+        if isinstance(partition, BcsrPartition):
+            # scattered graph: per-shard BCSR column slices (the band slab
+            # would degenerate dense at RCM bandwidth ~ N)
+            self.uses_ring = False
+            build = sharded_gshift_bcsr
+        elif isinstance(partition, GraphPartition):
+            self.uses_ring = prefer_ring and partition.is_ring
+            build = (sharded_gshift_ring if self.uses_ring
+                     else sharded_gshift_allgather)
+        else:
+            raise TypeError(f"a ShardedGso takes a GraphPartition or a "
+                            f"BcsrPartition, got {type(partition).__name__}")
         self.mesh = mesh
         self.partition = partition
         self.axis = axis
         self.data_axis = data_axis
-        self._shift = sharded_gshift_ring(mesh, partition, axis, data_axis)
+        self._shift = build(mesh, partition, axis, data_axis)
         self._band_attention = None
 
     # the Gso duck-type surface used by ops.gso.gshift and the layers
@@ -62,6 +69,13 @@ class ShardedGso:
     def n_edge_features(self) -> int:
         return self.partition.n_edge_features
 
+    @property
+    def S(self) -> torch.Tensor:
+        """Dense (E, Np, Np) reconstruction on the home device: small-graph
+        debug only (partition.S_perm refuses above its size guard)."""
+        return torch.as_tensor(self.partition.S_perm, dtype=torch.float32,
+                               device=self.mesh.home)
+
     def shift(self, x):
         """One sharded graph shift on (..., E, G, N_padded); any number
         of leading dims."""
@@ -71,8 +85,18 @@ class ShardedGso:
     def band_attention(self):
         """Lazy sharded band-attention operator for the GAT family
         (parallel.attention.ShardedBandAttention); ops.filters routes
-        graph_attention / gat_lsigf / gat_evgf here."""
+        graph_attention / gat_lsigf / gat_evgf here. Requires a ring
+        partition."""
         if self._band_attention is None:
+            if not (isinstance(self.partition, GraphPartition)
+                    and self.partition.is_ring):
+                raise ValueError(
+                    "sharded attention needs a ring GraphPartition (its "
+                    "halo exchange); this ShardedGso holds a "
+                    f"{type(self.partition).__name__}"
+                    + ("" if isinstance(self.partition, BcsrPartition) else
+                       f" with w={self.partition.w} > "
+                       f"nbl={self.partition.nbl}"))
             from graph_neural_networks_torch.parallel.attention import (
                 ShardedBandAttention)
             self._band_attention = ShardedBandAttention(

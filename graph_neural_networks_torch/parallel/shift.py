@@ -1,29 +1,41 @@
-"""The ring graph shift over a device mesh (``y = x @ S`` node-sharded).
+"""Sharded graph shifts over a device mesh (``y = x @ S`` node-sharded).
 
-The port of the JAX package's ``parallel/shift.py`` ring path
-(``sharded_gshift_ring``). S is stored as sharded band slabs
-(``parallel.partition``), never as a dense ``E x N x N`` array. When the
-ordered graph is banded (``GraphPartition.is_ring``), each shard needs
-only the ``w * inner_bs`` boundary nodes of its two neighbour shards: the
-halo strips are copied to its device (zeros beyond the global ends), and
-the shard contracts its own block and the halos against its local slab.
+The port of the JAX package's ``parallel/shift.py`` (its shard_map paths).
+S is stored sharded (``parallel.partition``), never as a dense ``E x N x
+N`` array:
+
+  * ``sharded_gshift_ring``: the halo exchange. When the ordered graph is
+    banded (``GraphPartition.is_ring``), each shard needs only the ``w *
+    inner_bs`` boundary nodes of its two neighbour shards: the halo strips
+    are copied to its device (zeros beyond the global ends), and the shard
+    contracts its own block and the halos against its local slab.
+  * ``sharded_gshift_allgather``: any band. Each shard gathers the whole
+    node axis, slices its halo-extended window and runs the same local
+    contraction as the ring.
+  * ``sharded_gshift_bcsr``: scattered graphs (a ``BcsrPartition``). Each
+    shard gathers the node axis and contracts it against the BCSR blocks
+    of its column slice of S (``spmm.bcsr_shift_rect``, the ``bcsr_matmul``
+    kernel on a rectangular layout, forward and backward).
 
 Single-controller, as the JAX shard_map: the shards are a loop over the
 mesh's coordinates; inputs and outputs are global tensors on the mesh's
-home device. Two shard-local contractions, as in the JAX package:
+home device. The all-gather is a concatenation of the shards' blocks,
+built once on each distinct device of the mesh (on one card, one
+device-local copy); autograd sums the shards' input gradients through it,
+as JAX's psum-scatter does. The band shifts have two shard-local
+contractions, as in the JAX package:
 
   * on a CUDA mesh: the square local band on ``spmm.BandShift`` (the
     ``band_matmul`` kernel) on the shard's own block, plus the O(w^2)
-    halo corrections as small einsums; a shard boundary that carries no
-    edge skips the exchange. An inner block that is not a multiple of
-    ``spmm.TILE_N`` raises: the kernel never quietly gives way to the
-    einsum on the card,
-  * on the CPU: the windowed block einsum, interior blocks (which read
-    only the own block) apart from the w boundary blocks at each end.
+    halo corrections as small einsums; a ring whose shard boundaries carry
+    no edge skips the exchange. An inner block that is not a multiple of
+    ``spmm.TILE_N`` raises, for the BCSR shift too: a kernel never quietly
+    gives way to its plain version on the card,
+  * on the CPU: the windowed block einsum (the ring splits off the
+    interior blocks, which read only the own block).
 
-Both are differentiable by autograd (``BandShift`` is an autograd
-Function). ``sharded_gshift_allgather``, ``sharded_gshift_bcsr`` and
-``make_dp_train_step`` are not ported yet (ROADMAP queue 1 item 10.2).
+All are differentiable by autograd. ``make_dp_train_step`` (a GSPMD
+data-parallel step) is not ported (ROADMAP queue 1 item 10.2b).
 
 Signals follow the gshift convention: x (..., E, G, N_padded), node axis
 last, ordered and padded by the partition; any number of leading dims.
@@ -38,7 +50,8 @@ import torch
 
 from graph_neural_networks_torch.ops import spmm
 from graph_neural_networks_torch.parallel.mesh import Mesh, halo_strips
-from graph_neural_networks_torch.parallel.partition import GraphPartition
+from graph_neural_networks_torch.parallel.partition import (
+    BcsrPartition, GraphPartition)
 
 
 def _sq_slabs(part: GraphPartition):
@@ -59,7 +72,9 @@ def _sq_slabs(part: GraphPartition):
         block rb into output block nbl-w+j_rel
         (= slab[nbl-w+j_rel, 2w-j_rel+rb], rb <= j_rel).
 
-    Requires nbl >= w (the ring).
+    Any w: past the ring (w > nbl, the all-gather shift) the halo terms of
+    the output blocks that do not exist are left out (lo rows j >= nbl,
+    hi rows with nbl-w+j_rel < 0).
     """
     Pn, E, nbl, W, ibs, _ = part.slabs.shape
     w = part.w
@@ -96,7 +111,10 @@ def _kernel_local_contract(x_blk, from_left, from_right, s_sq, s_sq_t, lo,
     local band on the UNEXTENDED block + the boundary-correction einsums
     on the halos. x_blk: (L, E, G, nbl*ibs); from_left/from_right:
     (L, E, G, w*ibs), or None when the shard boundary carries no edge (lo
-    and hi are zero: the corrections are skipped)."""
+    and hi are zero: the corrections are skipped). For w > nbl the w
+    correction blocks of each side overhang the shard: the negative pad
+    crops them to its nbl blocks (the first nbl of the left ones, the last
+    nbl of the right ones)."""
     L, E, G, n_loc = x_blk.shape
     y = torch.stack([
         spmm.BandShift.apply(x_blk[:, e].reshape(L * G, n_loc), s_sq[e],
@@ -141,18 +159,78 @@ def _window_local_contract(x_blk, from_left, from_right, slab, w, ibs, nbl):
                       _band_contract(x_hi, slab[:, nbl - w:])], dim=-1)
 
 
-def _uses_band_kernel(mesh: Mesh, part: GraphPartition) -> bool:
-    """The JAX ``use_pallas`` rule in the port's terms: the band_matmul
+def _uses_kernel(mesh: Mesh, part, kernel: str) -> bool:
+    """The JAX ``use_pallas`` rule in the port's terms: the shard-local
     kernel on a CUDA mesh, which raises on an inner block the kernel
-    cannot take (``nbl >= w`` holds on the ring)."""
+    cannot take."""
     if mesh.home.type != "cuda":
         return False
     if part.inner_bs % spmm.TILE_N:
         raise ValueError(
-            f"the band_matmul kernel needs the partition's inner block a "
+            f"the {kernel} kernel needs the partition's inner block a "
             f"multiple of TILE_N={spmm.TILE_N}, got inner_bs="
             f"{part.inner_bs}; shard into fewer parts")
     return True
+
+
+def _uses_band_kernel(mesh: Mesh, part: GraphPartition) -> bool:
+    return _uses_kernel(mesh, part, "band_matmul")
+
+
+def _check_axis(mesh: Mesh, axis: str, part) -> None:
+    if mesh.shape[axis] != part.n_parts:
+        raise ValueError(f"mesh axis {axis!r} has {mesh.shape[axis]} "
+                         f"devices for {part.n_parts} graph shards")
+
+
+def _per_shard(grid, arrays) -> dict:
+    """{(device, p): shard p's slice of each array, on that device}, built
+    once on every device that runs shard p."""
+    out = {}
+    for devs in grid:
+        for p, dev in enumerate(devs):
+            if (dev, p) not in out:
+                out[dev, p] = tuple(torch.as_tensor(a[p], device=dev)
+                                    for a in arrays)
+    return out
+
+
+def _all_gather(blks, devs) -> dict:
+    """{device: the whole (L, E, G, N_padded) signal}: the shards' blocks
+    concatenated once on each distinct device of the row."""
+    return {dev: torch.cat([b.to(dev) for b in blks], dim=-1)
+            for dev in dict.fromkeys(devs)}
+
+
+def _shard_loop(grid, bs: int, prepare, local):
+    """shift(x) on global (..., E, G, N_padded) tensors from a shard-local
+    step: the leading dims flatten into L, which the data rows of `grid`
+    split when they divide it (else the first data row takes all of it, as
+    the JAX ShardedGso falls back to its graph-only shift). For each data
+    row, ``prepare(blks, devs)`` exchanges what the shards need (halo
+    strips, the all-gather) and ``local(p, dev, blk, exchanged)`` maps
+    shard p's (L_d, E, G, bs) block to its (L_d, E, G, bs) output."""
+
+    def shift4(x):
+        L = x.shape[0]
+        rows = grid if L % len(grid) == 0 else grid[:1]
+        Ld = L // len(rows)
+        ys = []
+        for d, devs in enumerate(rows):
+            blks = [x[d * Ld:(d + 1) * Ld, ..., p * bs:(p + 1) * bs]
+                    .to(dev).contiguous() for p, dev in enumerate(devs)]
+            exchanged = prepare(blks, devs)
+            y = [local(p, dev, blks[p], exchanged)
+                 for p, dev in enumerate(devs)]
+            ys.append(torch.cat([t.to(x.device) for t in y], dim=-1))
+        return torch.cat(ys) if len(ys) > 1 else ys[0]
+
+    def shift(x):
+        lead = x.shape[:-3]
+        y = shift4(x.reshape((-1,) + tuple(x.shape[-3:])))
+        return y.reshape(tuple(lead) + tuple(y.shape[-3:]))
+
+    return shift
 
 
 def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
@@ -168,11 +246,9 @@ def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
     if not part.is_ring:
         raise ValueError(
             f"band half-width w={part.w} inner blocks exceeds the shard "
-            f"width (nbl={part.nbl}); the all-gather shift is not ported "
-            "yet (ROADMAP queue 1 item 10.2)")
-    if mesh.shape[axis] != part.n_parts:
-        raise ValueError(f"mesh axis {axis!r} has {mesh.shape[axis]} "
-                         f"devices for {part.n_parts} graph shards")
+            f"width (nbl={part.nbl}); use sharded_gshift_allgather or a "
+            "locality order")
+    _check_axis(mesh, axis, part)
     w, nbl, ibs, halo = part.w, part.nbl, part.inner_bs, part.halo
     bs = part.block_size
     grid = mesh.grid(axis, data_axis)
@@ -182,43 +258,94 @@ def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
         # no cross-shard edge anywhere (always at n_parts=1): the halo
         # exchange and the corrections are zero, skip both
         has_boundary = bool(sq[2].any() or sq[3].any())
-        per_shard = sq
+        slabs = _per_shard(grid, sq)
     else:
         has_boundary = True
-        per_shard = (part.slabs,)
-    # each shard's slabs on every device that runs that shard, built once
-    slabs = {}
-    for devs in grid:
-        for p, dev in enumerate(devs):
-            if (dev, p) not in slabs:
-                slabs[dev, p] = tuple(torch.as_tensor(t[p], device=dev)
-                                      for t in per_shard)
+        slabs = _per_shard(grid, (part.slabs,))
+    exchange = bool(halo) and has_boundary
 
-    def local(x_blk, halos, s):
+    def prepare(blks, _):
+        return (halo_strips(blks, halo) if exchange
+                else [(None, None)] * len(blks))
+
+    def local(p, dev, blk, halos):
+        s = slabs[dev, p]
         if use_kernel:
-            return _kernel_local_contract(x_blk, *halos, *s, w, ibs, nbl)
+            return _kernel_local_contract(blk, *halos[p], *s, w, ibs, nbl)
         if halo == 0:
-            return _band_contract(x_blk, s[0])
-        return _window_local_contract(x_blk, *halos, s[0], w, ibs, nbl)
+            return _band_contract(blk, s[0])
+        return _window_local_contract(blk, *halos[p], s[0], w, ibs, nbl)
 
-    def shift4(x):
-        L = x.shape[0]
-        rows = grid if L % len(grid) == 0 else grid[:1]
-        Ld = L // len(rows)
-        ys = []
-        for d, devs in enumerate(rows):
-            blks = [x[d * Ld:(d + 1) * Ld, ..., p * bs:(p + 1) * bs]
-                    .to(dev).contiguous() for p, dev in enumerate(devs)]
-            halos = (halo_strips(blks, halo) if halo and has_boundary
-                     else [(None, None)] * len(blks))
-            y = [local(b, h, slabs[dev, p])
-                 for p, (dev, b, h) in enumerate(zip(devs, blks, halos))]
-            ys.append(torch.cat([t.to(x.device) for t in y], dim=-1))
-        return torch.cat(ys) if len(ys) > 1 else ys[0]
+    return _shard_loop(grid, part.block_size, prepare, local)
 
-    def shift(x):
-        lead = x.shape[:-3]
-        y = shift4(x.reshape((-1,) + tuple(x.shape[-3:])))
-        return y.reshape(tuple(lead) + tuple(y.shape[-3:]))
 
-    return shift
+def sharded_gshift_allgather(mesh: Mesh, part: GraphPartition,
+                             axis: str = "graph",
+                             data_axis: Optional[str] = None) -> Callable:
+    """All-gather shift: each shard gathers the node axis, slices its
+    halo-extended window (zeros beyond the global ends) and contracts it
+    against its local band slab, as the ring does. Exact for any
+    bandwidth (w may exceed nbl); the slabs stay sharded. data_axis as for
+    :func:`sharded_gshift_ring`."""
+    _check_axis(mesh, axis, part)
+    w, nbl, ibs, halo = part.w, part.nbl, part.inner_bs, part.halo
+    bs = part.block_size
+    grid = mesh.grid(axis, data_axis)
+    use_kernel = _uses_band_kernel(mesh, part)
+    slabs = _per_shard(grid, _sq_slabs(part) if use_kernel
+                       else (part.slabs,))
+
+    def local(p, dev, _, full):
+        xp = torch.nn.functional.pad(full[dev], (halo, halo))
+        x_ext = xp[..., p * bs:p * bs + bs + 2 * halo]
+        s = slabs[dev, p]
+        if use_kernel:
+            return _kernel_local_contract(
+                x_ext[..., halo:halo + bs].contiguous(), x_ext[..., :halo],
+                x_ext[..., halo + bs:], *s, w, ibs, nbl)
+        return _band_contract(x_ext, s[0])
+
+    return _shard_loop(grid, bs, _all_gather, local)
+
+
+def sharded_gshift_bcsr(mesh: Mesh, part: BcsrPartition,
+                        axis: str = "graph",
+                        data_axis: Optional[str] = None) -> Callable:
+    """Sharded shift for SCATTERED graphs (a ``BcsrPartition``): each shard
+    gathers the node axis and contracts it against the BCSR blocks of its
+    column slice of S, one ``spmm.bcsr_shift_rect`` an edge feature
+    (per-shard GSO memory O(nnzb/P * ibs^2), whatever the bandwidth). On a
+    CUDA mesh that is the bcsr_matmul kernel on the rectangular layout,
+    forward and backward, with each layout's segment offsets computed here
+    once; on the CPU its plain version. data_axis as for
+    :func:`sharded_gshift_ring`."""
+    if not isinstance(part, BcsrPartition):
+        raise TypeError(f"sharded_gshift_bcsr takes a BcsrPartition, got "
+                        f"{type(part).__name__}")
+    _check_axis(mesh, axis, part)
+    bs, ibs, Np = part.block_size, part.inner_bs, part.n_padded
+    grid = mesh.grid(axis, data_axis)
+    _uses_kernel(mesh, part, "bcsr_matmul")
+    cs = np.stack([[spmm.bcsr_col_start(part.bcol[p, e], bs, ibs)
+                    for e in range(part.n_edge_features)]
+                   for p in range(part.n_parts)])
+    cs_t = np.stack([[spmm.bcsr_col_start(part.bcol_t[p, e], Np, ibs)
+                      for e in range(part.n_edge_features)]
+                     for p in range(part.n_parts)])
+    layouts = _per_shard(grid, (part.blocks, part.brow, part.bcol, cs,
+                                part.blocks_t, part.brow_t, part.bcol_t,
+                                cs_t))
+
+    def local(p, dev, _, full):
+        blocks, brow, bcol, c, blocks_t, brow_t, bcol_t, c_t = \
+            layouts[dev, p]
+        x_full = full[dev]
+        L, E, G, _ = x_full.shape
+        return torch.stack([
+            spmm.bcsr_shift_rect(
+                x_full[:, e].reshape(L * G, Np), blocks[e], brow[e],
+                bcol[e], blocks_t[e], brow_t[e], bcol_t[e], bs, Np, ibs,
+                c[e], c_t[e]).reshape(L, G, bs)
+            for e in range(E)], dim=1)
+
+    return _shard_loop(grid, bs, _all_gather, local)

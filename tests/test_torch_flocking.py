@@ -286,9 +286,15 @@ def test_unported_paths_raise(rollout_pair):
     # without an ELL width is refused
     with pytest.raises(ValueError, match="env_grid requires ell_degree"):
         tenv.compute_trajectory(ip, iv, 0.05, tnet, env_grid=True)
-    with pytest.raises(NotImplementedError, match="lam_path"):
+    # lam_path="ell" is ported (test_torch_sharded_swarm.py); it takes no
+    # payload, and an unknown path is refused
+    with pytest.raises(ValueError, match="window-lambda"):
         tF.env_step_grid(torch.tensor(ip), torch.tensor(iv), 2.0, 8,
-                         torch.ones(2, 128), lam_path="ell")
+                         torch.ones(2, 128), lam_path="ell",
+                         payload=torch.zeros(2, 128, 3))
+    with pytest.raises(ValueError, match="unknown lam_path"):
+        tF.env_step_grid(torch.tensor(ip), torch.tensor(iv), 2.0, 8,
+                         torch.ones(2, 128), lam_path="eig")
     # Flocking(...) is ported; Flocking.large on the chunked env is not
     with pytest.raises(NotImplementedError, match="7.3"):
         tF.Flocking.large(128, 2.0, 1.0, 1, 1, 1, 1.0, 0.01, 16,

@@ -209,15 +209,27 @@ def test_sharded_gso_lsigf_matches_jax(meshes):
 
 
 def test_sharded_gso_refuses_what_is_not_ported():
+    """What a ShardedGso still refuses, now that the all-gather and BCSR
+    shifts are ported (tests/test_torch_sharded_bcsr.py): attention over a
+    partition that is not a ring (as in JAX), a BCSR inner block the CUDA
+    kernel cannot tile, a partition of an unknown type."""
     mesh = tpar.make_mesh((1, 8), devices=CPU8)
     N = 64
     ring = np.roll(np.eye(N), 1, axis=1)
     ring = ring + ring.T                     # a cycle: node 0 ~ node 63
     part = tpar.partition_nodes(ring, 8, order="none")
     assert not part.is_ring
-    with pytest.raises(NotImplementedError, match="queue 1 item 10.2"):
-        tpar.ShardedGso(mesh, part)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10.2"):
+    sg_cycle = tpar.ShardedGso(mesh, part)
+    assert not sg_cycle.uses_ring
+    with pytest.raises(ValueError, match="needs a ring GraphPartition"):
+        sg_cycle.band_attention
+    bcsr = tpar.partition_nodes_bcsr(ring, 8, inner_block=16)
+    with pytest.raises(ValueError, match="needs a ring GraphPartition"):
+        tpar.ShardedGso(mesh, bcsr).band_attention
+    cuda = tpar.make_mesh((1, 8), devices=[torch.device("cuda", 0)] * 8)
+    with pytest.raises(ValueError, match="bcsr_matmul kernel needs"):
+        tpar.ShardedGso(cuda, bcsr)
+    with pytest.raises(TypeError, match="GraphPartition or a BcsrPartition"):
         tpar.ShardedGso(mesh, object())
     sg = tpar.ShardedGso(mesh, tpar.partition_nodes(_band_graph(), 8))
     assert sg.to("cpu") is sg
