@@ -112,6 +112,22 @@ the node-sharded paths:
   (1, 1)) and flock_n4096's windowed rollout against mesh (1, 1), with
   exact table_build and grid_window counts; profiles the sharded forward,
   step and swarm step beside their unsharded counterparts.
+* The static-GSO recurrent family (grnn_band_n4096: GraphRecurrentNN and
+  its time- and node-gated forms at examples/epidemic.py's full widths,
+  H = 12, K = 5, T = 8, batch 100, on band_n4096's graph): holds kernels
+  1-3 at the recurrence's shapes (the register at R = 800 and 1200,
+  band_matmul at R = 9600 and its backward at 1200 and 9600, bcsr_matmul
+  both ways, a shard's own block) against their plain versions and times
+  them; serves it in band and bcsr mode against dense mode on one z0
+  (every step's error) and through InferenceEngine, with exact launch
+  counts; trains it through Model.train (f1 loss, Adam 5e-4, 4 steps) and
+  evaluate against dense mode (first-step gradients, losses, launches a
+  step, peak memory), profiles a step of each; shards it over mesh (1, 4)
+  (ungated and node-gated) against the unsharded band model, serving and
+  training, with exact band_matmul counts. Then every architecture of the
+  static filter families (spectral, node-variant, edge-variant dense and
+  edge, ARMA, aggregation) and the edge-gated GRNN at N = 128 on the card
+  against the CPU, forward and gradients.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -4811,6 +4827,637 @@ def phase_shard_swarm_profile(setup, card, n=10):
                        calls_per_step=t["calls"]) for t in prof["top"]])
 
 
+# ---------------------------------------------------------------------------
+# The static-GSO recurrent family and the static filter families
+# ---------------------------------------------------------------------------
+
+# grnn_band_n4096: examples/epidemic.py:46-47, 64-72 in full mode,
+# GraphRecurrentNN(1, 2, 12, [5, 5], True, "tanh", "relu", "relu", [2], S)
+# and GatedGraphRecurrentNN(..., gateType=...): seqLen 8, batch 100, Adam
+# at lr 5e-4, f1_score_loss; on band_n4096's graph (banded_graph, N = 4096,
+# bandwidth 256, density 0.05, seed 0, normalized by its largest
+# |eigenvalue| as the example normalizes its own). Seeded sequences shaped
+# as the Epidemics dataset's stand in for it: states in {0, 1, 2}, infected
+# indicators. The edge gate's gates are (B*T, N, N) by definition (53 GB
+# here): static_families runs it at N = 128.
+GRNN_T = 8
+GRNN_BATCH = 100
+GRNN_H = 12
+GRNN_K = 5
+GRNN_LR = 5e-4
+GRNN_STEPS = 4
+GRNN_REQUESTS = (100, 37, 1)
+GRNN_GATES = (None, "time", "node")
+GRNN_SHARD_GATES = (None, "node")
+STATIC_N = 128
+STATIC_RTOL = 1e-4
+STATIC_ATOL_REL = 1e-4
+
+
+def _gate_name(gate):
+    return "GRNN" if gate is None else f"GatedGRNN-{gate}"
+
+
+def _grnn(S, mode, dev, gate=None):
+    """grnn_band_n4096's model in gsoMode `mode`; the weights drawn from
+    one seed, so every mode holds the same ones."""
+    import torch
+    from graph_neural_networks_torch.models import architectures as archs
+    args = (1, 2, GRNN_H, [GRNN_K, GRNN_K], True, "tanh", "relu", "relu",
+            [2], S)
+    kw = dict(gsoMode=mode, device=dev,
+              generator=torch.Generator().manual_seed(0))
+    if gate is None:
+        return archs.GraphRecurrentNN(*args, **kw)
+    return archs.GatedGraphRecurrentNN(*args, gateType=gate, **kw)
+
+
+def _grnn_launches(mode, gate, step, shards=0):
+    """SpMM launches of one grnn_band_n4096 forward (step=False) or the
+    backward a training step adds to it (step=True), from the code: each
+    hidden state (the main one and, gated, the two gate GRNNs) runs one
+    lsigf over the inputs (B*T*F rows) and one a recurrence step (B*H
+    rows); the output filter, and the node gate's two GraphFilter(H -> 1)
+    heads, run on B*T*H rows. An lsigf shifts K-1 times: on band, one
+    band_shift_register up to spmm.REGISTER_MAX_ROWS rows, else K-1 chained
+    band_matmul; on bcsr K-1 bcsr_matmul; sharded (shards > 0) K-1 ring
+    shifts of one band_matmul a shard. Backward: the input's gradient of
+    every shift whose input needs one (not the data's, not z0's: the
+    recurrence's steps 2..T and the layers on z), one band_matmul (or
+    bcsr_matmul) a shift, on the register too."""
+    from graph_neural_networks_torch.ops import spmm
+    B, T, H, K = GRNN_BATCH, GRNN_T, GRNN_H, GRNN_K
+    states = 1 if gate is None else 3
+    calls = [(B * T, states, False), (B * H, states, False),
+             (B * H, states * (T - 1), True),
+             (B * T * H, 1 + (2 if gate == "node" else 0), True)]
+    c = {"band_shift_register": 0, "band_matmul": 0, "bcsr_matmul": 0}
+    for rows, n, grad in calls:
+        shifts = n * (K - 1)
+        if step and not grad:
+            continue
+        if shards:
+            c["band_matmul"] += shifts * shards
+        elif mode == "bcsr":
+            c["bcsr_matmul"] += shifts
+        elif step:
+            c["band_matmul"] += shifts
+        elif rows <= spmm.REGISTER_MAX_ROWS:
+            c["band_shift_register"] += n
+        else:
+            c["band_matmul"] += shifts
+    return c
+
+
+def _expect(*parts, scale=(1,)):
+    """All the counted wrappers at 0, plus sum(scale[i] * parts[i])."""
+    counts = {k: 0 for k in _attention_counts()}
+    for part, n in zip(parts, scale):
+        for k, v in part.items():
+            counts[k] += n * v
+    return counts
+
+
+def _sequence_data(rng, sizes, N):
+    """Seeded train/valid/test sequences shaped as Epidemics': x (n, T, 1,
+    N) states in {0, 1, 2}, y (n, T, N) infected indicators; evaluate is
+    Epidemics.evaluate, 1 - F1 on the infected class of the argmax."""
+    from graph_neural_networks_torch.data import Data
+
+    class Sequences(Data):
+        def evaluate(self, yHat, y, tol=1e-9):
+            yHat = np.asarray(yHat)
+            C, N_ = yHat.shape[-2], yHat.shape[-1]
+            pred = np.argmax(yHat.reshape(-1, C, N_), axis=1).astype(float)
+            y = np.asarray(y).reshape(-1, N_).astype(float)
+            tp = np.sum(y * pred, axis=1)
+            fp = np.sum((1 - y) * pred, axis=1)
+            fn = np.sum(y * (1 - pred), axis=1)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                p = tp / (tp + fp)
+                r = tp / (tp + fn)
+            p = np.where(np.isnan(p), np.where(tp < tol, 1.0, 0.0), p)
+            p = np.where((tp + fp == 0) & (tp >= tol), 0.0, p)
+            r = np.where(np.isnan(r), np.where(tp < tol, 1.0, 0.0), r)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                f1 = 2 * p * r / (p + r)
+            return float(1 - np.mean(np.where(np.isnan(f1), 0.0, f1)))
+
+    data = Sequences()
+    data.nTrain, data.nValid, data.nTest = sizes
+    for split, n in zip(("train", "valid", "test"), sizes):
+        data.samples[split]["signals"] = rng.integers(
+            0, 3, (n, GRNN_T, 1, N)).astype(np.float32)
+        data.samples[split]["targets"] = rng.integers(
+            0, 2, (n, GRNN_T, N)).astype(np.float32)
+    return data
+
+
+def _z0(dev, seed=1):
+    """A (GRNN_BATCH, H, N_GRAPH) z0 drawn from its own seed."""
+    import torch
+    return torch.randn((GRNN_BATCH, GRNN_H, N_GRAPH), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def _per_step_err(y, want):
+    """Max abs error at each of the T steps of (B, T, ., N) outputs."""
+    return [(y[:, t].double() - want[:, t].double()).abs().max().item()
+            for t in range(y.shape[1])]
+
+
+def phase_grnn_kernels(graph, rng, dev):
+    """Kernels 1-3 at the recurrent family's shapes against their plain
+    versions (forward and the backward's transposed layouts), and their
+    times beside the plain version, the library call and the bound."""
+    import torch
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    from graph_neural_networks_torch.ops import spmm
+    S_band, S_bcsr = graph["band"], graph["bcsr"]
+    N, bs, w, K = N_GRAPH, 128, S_band.band_w, GRNN_K
+    sb, sbt, Sd = S_band.s_band[0], S_band.s_band_t[0], S_band.S[0]
+    fwd = (S_bcsr.blocks[0], S_bcsr.block_row, S_bcsr.block_col,
+           S_bcsr.col_start)
+    bwd = (S_bcsr.blocks_t[0], S_bcsr.block_row_t, S_bcsr.block_col_t,
+           S_bcsr.col_start_t)
+    nnzb = fwd[0].shape[0]
+    win = _window_blocks(N // bs, w)
+    r_x = GRNN_BATCH * GRNN_T          # the inputs' register (F = 1)
+    r_z = GRNN_BATCH * GRNN_H          # a recurrence step's register
+    r_o = r_x * GRNN_H                 # the output filter's shifts
+    # the ring shift's own block of a shard (n_cols = 1024, w = 1)
+    Ns = N // SHARD_PARTS
+    gs = gso_lib.as_gso(_band_case(np.random.default_rng(2), Ns, bs, 1),
+                        "band", device=dev)
+    wins = _window_blocks(Ns // bs, 1)
+    results, errs, rows = [], {}, {}
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def check(name, case, got, want):
+        max_abs, max_rel, ok = compare(got, want)
+        results.append(dict(kernel=name, case=case, max_abs_err=max_abs,
+                            max_rel_err=max_rel, ok=ok))
+        errs[name] = max(errs.get(name, 0.0), max_abs)
+        require(ok, f"{name} [{case}] disagrees with its plain version: "
+                    f"max abs {max_abs}, max rel {max_rel}")
+
+    def time_row(key, shape, kernel, plain, library, library_call, flops,
+                 nbytes):
+        row = dict(shape=shape, ms=time_ms(kernel), graph_ms=graph_ms(kernel),
+                   plain_ms=time_ms(plain, reps=5, inner=2),
+                   library_ms=time_ms(library, reps=5, inner=2),
+                   library_call=library_call, flops=flops, bytes=nbytes)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
+        rows[key] = row
+
+    lib = "torch.matmul(x, S_dense), TF32 off"
+    for R in (r_x, r_z):
+        x = rand(R, N)
+        check("band_shift_register", f"R={R} N={N} w={w} K={K}",
+              spmm.band_shift_register(x, sb, n_taps=K, n_cols=N, w=w),
+              spmm.band_shift_register_plain(x, sb, n_taps=K, n_cols=N, w=w))
+        out = torch.empty(K, R, N, device=dev)
+
+        def chained(x=x, out=out):
+            out[0].copy_(x)
+            for k in range(1, K):
+                torch.matmul(out[k - 1], Sd, out=out[k])
+        time_row(f"band_shift_register@R={R}", f"R={R} N={N} w={w} K={K}",
+                 lambda x=x: spmm.band_shift_register(x, sb, n_taps=K,
+                                                      n_cols=N, w=w),
+                 lambda x=x: spmm.band_shift_register_plain(
+                     x, sb, n_taps=K, n_cols=N, w=w),
+                 chained, f"{K - 1} chained torch.matmul(z, S_dense), TF32 "
+                 "off", (K - 1) * 2 * R * win * bs * bs,
+                 4 * (R * N + K * R * N + sb.numel()))
+    for R, slab, way in ((r_o, sb, "forward"), (r_z, sbt, "backward"),
+                         (r_o, sbt, "backward")):
+        x = rand(R, N)
+        S_lib = Sd if way == "forward" else Sd.T.contiguous()
+        check("band_matmul", f"R={R} N={N} w={w} {way}",
+              spmm.band_matmul(x, slab, n_cols=N, w=w),
+              spmm.band_matmul_plain(x, slab, n_cols=N, w=w))
+        time_row(f"band_matmul@R={R} {way}", f"R={R} N={N} w={w} {way}",
+                 lambda x=x, s=slab: spmm.band_matmul(x, s, n_cols=N, w=w),
+                 lambda x=x, s=slab: spmm.band_matmul_plain(x, s, n_cols=N,
+                                                            w=w),
+                 lambda x=x, S=S_lib: torch.matmul(x, S), lib,
+                 2 * R * win * bs * bs, 4 * (2 * R * N + win * bs * bs))
+    for R in (r_z, r_o):
+        x = rand(R, Ns)
+        sbs, Sds = gs.s_band[0], gs.S[0]
+        check("band_matmul", f"R={R} N={Ns} w=1 (a shard's own block)",
+              spmm.band_matmul(x, sbs, n_cols=Ns, w=1),
+              spmm.band_matmul_plain(x, sbs, n_cols=Ns, w=1))
+        time_row(f"band_matmul@R={R} n_cols={Ns}", f"R={R} N={Ns} w=1",
+                 lambda x=x: spmm.band_matmul(x, sbs, n_cols=Ns, w=1),
+                 lambda x=x: spmm.band_matmul_plain(x, sbs, n_cols=Ns, w=1),
+                 lambda x=x: torch.matmul(x, Sds), lib,
+                 2 * R * wins * bs * bs, 4 * (2 * R * Ns + wins * bs * bs))
+    for R, lay, way in ((r_x, fwd, "forward"), (r_z, fwd, "forward"),
+                        (r_o, fwd, "forward"), (r_z, bwd, "backward"),
+                        (r_o, bwd, "backward")):
+        x = rand(R, N)
+        bl, br, bc, cs = lay
+        S_lib = Sd if way == "forward" else Sd.T.contiguous()
+        check("bcsr_matmul", f"R={R} N={N} nnzb={nnzb} {way}",
+              spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
+              spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N))
+        time_row(f"bcsr_matmul@R={R} {way}", f"R={R} N={N} nnzb={nnzb} "
+                 f"{way}",
+                 lambda x=x, l=lay: spmm.bcsr_matmul(
+                     x, l[0], l[1], l[2], n_cols=N, col_start=l[3]),
+                 lambda x=x, l=lay: spmm.bcsr_matmul_plain(
+                     x, l[0], l[1], l[2], n_cols=N),
+                 lambda x=x, S=S_lib: torch.matmul(x, S), lib,
+                 2 * R * nnzb * bs * bs,
+                 4 * (2 * R * N + bl.numel() + 2 * nnzb))
+    emit(phase="grnn_kernels", rtol=RTOL, atol=f"{ATOL_REL}*max|plain|",
+         checks=results)
+    emit(phase="grnn_timing", rows=rows,
+         peaks=dict(hbm_tb_s=HBM_BYTES_PER_S / 1e12,
+                    fp32_tflops=FP32_FLOPS_PER_S / 1e12))
+    return errs, rows
+
+
+def phase_grnn_serving(S_np, rng, dev):
+    """grnn_band_n4096 (ungated, time and node gates) in band and bcsr mode
+    against dense mode, the same weights: split_forward on an explicit z0
+    (both outputs, the error at each step), then requests through
+    InferenceEngine (z0 from the forward's default generator, seeded 0 in
+    every mode); exact launch counts; a generator-drawn z0's forward."""
+    import torch
+    from graph_neural_networks_torch.serving import InferenceEngine
+    launches = {k: 0 for k in _attention_counts()}
+    checks, engines = [], {}
+    B, N = GRNN_BATCH, N_GRAPH
+    x = rng.integers(0, 3, (B, GRNN_T, 1, N)).astype(np.float32)
+    requests = [rng.integers(0, 3, (n, GRNN_T, 1, N)).astype(np.float32)
+                for n in GRNN_REQUESTS]
+    z0 = _z0(dev)
+    for gate in GRNN_GATES:
+        name = _gate_name(gate)
+        dense = _grnn(S_np, "dense", dev, gate)
+        dense_eng = InferenceEngine(dense, B, dev)
+        with torch.inference_mode():
+            want = dense.split_forward(x, z0=z0)
+        want_req = [dense_eng(r) for r in requests]
+        for mode in ("band", "bcsr"):
+            arch = _grnn(S_np, mode, dev, gate)
+            require(all(torch.equal(p, q) for p, q in
+                        zip(arch.parameters(), dense.parameters())),
+                    f"{name} {mode}: weights differ from dense")
+            fwd = _expect(_grnn_launches(mode, gate, False))
+            _reset_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                got = arch.split_forward(x, z0=z0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _attention_counts()
+            require(counts == fwd, f"{name} {mode}: launches {counts}, "
+                                   f"expected {fwd}")
+            for out, g, wnt in (("y", got[0], want[0]),
+                                ("y_output_layer", got[1], want[1])):
+                require(tuple(g.shape) == (B, GRNN_T, 2, N),
+                        f"{name} {mode}: {out} {tuple(g.shape)}")
+                max_abs, max_rel, ok = compare(g, wnt, SERVE_RTOL,
+                                               SERVE_ATOL_REL)
+                checks.append(dict(model=name, mode=mode, output=out,
+                                   batch=B, against="dense",
+                                   max_abs_err=max_abs, max_rel_err=max_rel,
+                                   per_step_max_abs_err=_per_step_err(g, wnt),
+                                   ok=ok))
+                require(ok, f"{name} {mode} {out} disagrees with dense: "
+                            f"{max_abs} (per step "
+                            f"{_per_step_err(g, wnt)})")
+            eng = InferenceEngine(arch, B, dev)
+            _reset_counts()
+            answers = [eng(r) for r in requests]
+            counts = _attention_counts()
+            require(counts == _expect(fwd, scale=(len(requests),)),
+                    f"{name} {mode} requests: launches {counts}")
+            for r, y, yd in zip(requests, answers, want_req):
+                require(tuple(y.shape) == (r.shape[0], GRNN_T, 2, N),
+                        f"{name} {mode}: answer {tuple(y.shape)}")
+                max_abs, max_rel, ok = compare(y, yd, SERVE_RTOL,
+                                               SERVE_ATOL_REL)
+                checks.append(dict(model=name, mode=mode, output="request",
+                                   batch=r.shape[0], against="dense",
+                                   max_abs_err=max_abs, max_rel_err=max_rel,
+                                   ok=ok))
+                require(ok, f"{name} {mode} request {r.shape[0]} disagrees "
+                            f"with dense: {max_abs}")
+            for k, v in counts.items():
+                launches[k] += v + fwd[k]
+            with torch.inference_mode():
+                drawn = arch.apply(x, generator=torch.Generator(
+                    device=dev).manual_seed(5))
+            require(tuple(drawn.shape) == (B, GRNN_T, 2, N)
+                    and bool(torch.isfinite(drawn).all()),
+                    f"{name} {mode}: a generator-drawn z0's forward")
+            emit(phase="grnn_serving", model=name, mode=mode, batch=B,
+                 T=GRNN_T, seconds=seconds, launches_per_forward={
+                     k: v for k, v in fwd.items() if v},
+                 requests=list(GRNN_REQUESTS))
+            if gate is None:
+                engines[mode] = eng
+        engines.setdefault("dense", dense_eng)
+        del dense
+    emit(phase="grnn_serving_check", rtol=SERVE_RTOL,
+         atol=f"{SERVE_ATOL_REL}*max|dense|", checks=checks)
+    for mode in ("band", "bcsr", "dense"):
+        _profile_forward(f"grnn_band_n4096 {mode}", engines[mode],
+                         requests[0], n=5)
+    return launches
+
+
+def _grnn_model(arch, name, out_dir):
+    from graph_neural_networks_torch import training
+    return training.Model(arch, training.losses.f1_score_loss,
+                          {"name": "ADAM", "lr": GRNN_LR}, training.Trainer,
+                          training.evaluate, name=name, saveDir=out_dir)
+
+
+def _grnn_grads(arch, data, z0):
+    """The f1 loss and parameter gradients on the Trainer's first batch,
+    z0 given."""
+    import torch
+    from graph_neural_networks_torch.training import losses
+    idx = np.random.default_rng(0).permutation(data.nTrain)[:GRNN_BATCH]
+    x, y = data.getSamples("train", idx)
+    loss = losses.f1_score_loss(arch.split_forward(x, z0=z0)[0],
+                                torch.as_tensor(y, device=arch.device))
+    return loss.item(), torch.autograd.grad(loss, list(arch.parameters()))
+
+
+def _grnn_train(model, data, fwd, step):
+    """Model.train for GRNN_STEPS steps (validation at step 0), the counts
+    set to 0 just before and read just after, held to fwd and step (per
+    step and validation forward); evaluate; the losses."""
+    import torch
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _cached_structure(model.name):
+        out = model.train(data, nEpochs=1, batchSize=GRNN_BATCH,
+                          validationInterval=GRNN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _attention_counts()
+    n_val = len(out["costValid"])
+    expected = _expect(fwd, step, scale=(GRNN_STEPS + n_val, GRNN_STEPS))
+    losses = out["lossTrain"]
+    require(len(losses) == GRNN_STEPS and bool(np.isfinite(losses).all()),
+            f"{model.name}: losses {losses}")
+    require(n_val == 1 and counts == expected,
+            f"{model.name}: {n_val} validations, launches {counts}, "
+            f"expected {expected}")
+    result = model.evaluate(data, doSaveVars=False)
+    require(all(r is not None and 0 <= r <= 1 for r in result.values()),
+            f"{model.name}: evaluate {result}")
+    return out, counts, seconds, result
+
+
+def phase_grnn_training(S_np, rng, dev, out_dir):
+    """grnn_band_n4096 (ungated, time and node gates) trained in band and
+    bcsr mode through Model.train (f1 loss, Adam 5e-4, batch 100) and
+    evaluate against dense mode with the same weights: the first step's
+    gradients on the same z0, the losses of GRNN_STEPS steps (the
+    Trainer's generator draws the same z0 sequence in every mode), exact
+    launch counts, a step's peak memory."""
+    import torch
+    checks, trained = [], {}
+    launches = {k: 0 for k in _attention_counts()}
+    data = _sequence_data(rng, (GRNN_STEPS * GRNN_BATCH, GRNN_BATCH,
+                                GRNN_BATCH), N_GRAPH)
+    z0 = _z0(dev)
+    for gate in GRNN_GATES:
+        name = _gate_name(gate)
+        dense = _grnn(S_np, "dense", dev, gate)
+        _, want = _grnn_grads(dense, data, z0)
+        ref = _grnn_model(dense, f"{name}_dense", out_dir).train(
+            data, nEpochs=1, batchSize=GRNN_BATCH,
+            validationInterval=GRNN_STEPS)
+        del dense
+        for mode in ("band", "bcsr"):
+            arch = _grnn(S_np, mode, dev, gate)
+            loss0, got = _grnn_grads(arch, data, z0)
+            _check_grads(checks, f"{name} {mode}", "dense", got, want)
+            fwd = _grnn_launches(mode, gate, False)
+            step = _grnn_launches(mode, gate, True)
+            model = _grnn_model(arch, f"{name}_{mode}", out_dir)
+            out, counts, seconds, result = _grnn_train(model, data, fwd,
+                                                       step)
+            ok = bool(np.allclose(out["lossTrain"], ref["lossTrain"],
+                                  rtol=LOSS_RTOL, atol=0))
+            checks.append(dict(model=f"{name} {mode}", against="dense",
+                               losses=out["lossTrain"].tolist(),
+                               dense_losses=ref["lossTrain"].tolist(),
+                               ok=ok))
+            require(ok, f"{name} {mode}: losses {out['lossTrain']} vs "
+                        f"dense {ref['lossTrain']}")
+            trainer = model.trainer(model, data, 1, GRNN_BATCH)
+            _, peak = _peak_gb(lambda: trainer.train_batch(
+                np.arange(GRNN_BATCH)))
+            emit(phase="grnn_training", model=name, mode=mode,
+                 steps=GRNN_STEPS, batch=GRNN_BATCH, T=GRNN_T,
+                 first_step_loss=loss0, losses=out["lossTrain"].tolist(),
+                 cost_valid=out["costValid"].tolist(), evaluate=result,
+                 seconds=seconds,
+                 step_ms=(np.asarray(out["timeTrain"]) * 1e3).tolist(),
+                 launches=counts, launches_per_step={
+                     k: v + step[k] for k, v in fwd.items() if v + step[k]},
+                 step_peak_gb=peak)
+            for k, v in counts.items():
+                launches[k] += v
+            trained[f"grnn_band_n4096 {name} {mode}"] = (model, data,
+                                                         GRNN_BATCH)
+    emit(phase="grnn_training_check", rtol=TRAIN_RTOL,
+         atol=f"{TRAIN_ATOL_REL}*max|dense|", loss_rtol=LOSS_RTOL,
+         checks=checks)
+    return launches, trained
+
+
+def phase_grnn_sharded(S_np, rng, dev, out_dir):
+    """grnn_band_n4096 (ungated and node-gated) .shard()ed over mesh (1, 4)
+    of the card (the ring shift: one band_matmul a shard a shift) against
+    the unsharded band model: a forward on an explicit z0, the first
+    step's gradients, GRNN_STEPS steps of loss through Model.train, exact
+    band_matmul counts; the ungated model's sharded step and forward
+    profiled beside the unsharded ones."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    checks = []
+    launches = {k: 0 for k in _attention_counts()}
+    data = _sequence_data(rng, (GRNN_STEPS * GRNN_BATCH, GRNN_BATCH,
+                                GRNN_BATCH), N_GRAPH)
+    x = data.samples["test"]["signals"]
+    z0 = _z0(dev, seed=2)
+    for gate in GRNN_SHARD_GATES:
+        name = _gate_name(gate)
+        unsharded = _grnn(S_np, "band", dev, gate)
+        sharded = _grnn(S_np, "band", dev, gate).shard(mesh, SHARD_PARTS)
+        part = sharded.S.partition
+        require(sharded.S.uses_ring and part.n_padded == N_GRAPH,
+                f"{name}: partition w={part.w}, n_padded={part.n_padded}")
+        fwd = _grnn_launches("band", gate, False, shards=SHARD_PARTS)
+        step = _grnn_launches("band", gate, True, shards=SHARD_PARTS)
+        with torch.inference_mode():
+            want = unsharded.split_forward(x, z0=z0)
+            _reset_counts()
+            got = sharded.split_forward(x, z0=z0)
+            torch.cuda.synchronize()
+            counts = _attention_counts()
+        require(counts == _expect(fwd), f"{name} sharded: launches "
+                                        f"{counts}, expected {fwd}")
+        for out, g, wnt in (("y", got[0], want[0]),
+                            ("y_output_layer", got[1], want[1])):
+            max_abs, max_rel, ok = compare(g, wnt, SERVE_RTOL,
+                                           SERVE_ATOL_REL)
+            checks.append(dict(model=f"{name} sharded", output=out,
+                               against="unsharded band", max_abs_err=max_abs,
+                               max_rel_err=max_rel,
+                               per_step_max_abs_err=_per_step_err(g, wnt),
+                               ok=ok))
+            require(ok, f"{name} sharded {out} disagrees with the unsharded "
+                        f"band model: {max_abs}")
+        _, g_want = _grnn_grads(unsharded, data, z0)
+        _, g_got = _grnn_grads(sharded, data, z0)
+        _check_grads(checks, f"{name} sharded", "unsharded band", g_got,
+                     g_want)
+        ref = _grnn_model(unsharded, f"{name}_unsharded", out_dir).train(
+            data, nEpochs=1, batchSize=GRNN_BATCH,
+            validationInterval=GRNN_STEPS)
+        model = _grnn_model(sharded, f"{name}_sharded", out_dir)
+        out, counts, seconds, result = _grnn_train(model, data, fwd, step)
+        ok = bool(np.allclose(out["lossTrain"], ref["lossTrain"],
+                              rtol=LOSS_RTOL, atol=0))
+        checks.append(dict(model=f"{name} sharded", against="unsharded band",
+                           losses=out["lossTrain"].tolist(),
+                           unsharded_losses=ref["lossTrain"].tolist(),
+                           ok=ok))
+        require(ok, f"{name} sharded: losses {out['lossTrain']} vs "
+                    f"unsharded {ref['lossTrain']}")
+        for k, v in counts.items():
+            launches[k] += v
+        emit(phase="grnn_sharded", model=name, mesh=[1, SHARD_PARTS],
+             ibs=part.inner_bs, nbl=part.nbl, w=part.w, seconds=seconds,
+             launches=counts, launches_per_forward=fwd["band_matmul"],
+             launches_per_step=fwd["band_matmul"] + step["band_matmul"],
+             evaluate=result)
+        if gate is not None:
+            continue
+        for label, arch in (("unsharded", unsharded), ("sharded", sharded)):
+            trainer = model.trainer(_grnn_model(arch, name, out_dir), data,
+                                    1, GRNN_BATCH)
+            it = iter([np.arange(GRNN_BATCH)] * 20)
+            step_prof = _device_profile(lambda: trainer.train_batch(
+                next(it)), 3)
+
+            def forward(arch=arch):
+                with torch.inference_mode():
+                    arch.apply(x, z0=z0)
+            fwd_prof = _device_profile(forward, 3)
+            for what, prof in (("step", step_prof), ("forward", fwd_prof)):
+                emit(phase="grnn_shard_profile", model=f"{name} {label}",
+                     of=what, host_ms=prof["wall_ms"],
+                     profiled_host_ms=prof["profiled_wall_ms"],
+                     device_ms=prof["device_ms"],
+                     device_idle_share=prof["device_idle_share"],
+                     top=[dict(name=t["name"], ms=t["ms"], calls=t["calls"])
+                          for t in prof["top"]])
+    emit(phase="grnn_sharded_check", rtol=SERVE_RTOL,
+         atol=f"{SERVE_ATOL_REL}*max|reference|", loss_rtol=LOSS_RTOL,
+         checks=checks)
+    return launches
+
+
+def _static_models(S, N):
+    """Every architecture of the static filter families at N nodes, and the
+    edge-gated GRNN: (name, build(device), input features, recurrent?)."""
+    import torch
+    from graph_neural_networks_torch.models import architectures as archs
+
+    def gen():
+        return dict(generator=torch.Generator().manual_seed(0))
+    sel = ([N, N], "NoPool", [1, 1])
+    return [
+        ("SpectralGNN M<N", lambda d: archs.SpectralGNN(
+            [2, 8, 8], [12, 12], True, "relu", [N // 2, N // 4],
+            "MaxPoolLocal", [2, 2], [5], S, device=d, **gen()), 2, False),
+        ("NodeVariantGNN", lambda d: archs.NodeVariantGNN(
+            [2, 8, 8], [3, 3], [8, N], True, "relu", *sel, [5], S,
+            device=d, **gen()), 2, False),
+        ("EdgeVariantGNN dense", lambda d: archs.EdgeVariantGNN(
+            [2, 4, 4], [3, 2], [N, 16], True, "relu", *sel, [5], S,
+            device=d, **gen()), 2, False),
+        ("EdgeVariantGNN edge", lambda d: archs.EdgeVariantGNN(
+            [2, 8, 8], [3, 3], [N, 16], True, "relu", *sel, [5], S,
+            evMode="edge", device=d, **gen()), 2, False),
+        ("LocalEdgeNet edge", lambda d: archs.LocalEdgeNet(
+            [2, 8], [3], [N], True, "tanh", [N], "NoPool", [1], [3], S,
+            evMode="edge", device=d, **gen()), 2, False),
+        ("ARMAfilterGNN", lambda d: archs.ARMAfilterGNN(
+            [2, 8, 8], [2, 2], [3, 3], True, "relu", *sel, [5], S,
+            device=d, **gen()), 2, False),
+        ("LocalARMA", lambda d: archs.LocalARMA(
+            [2, 8], [2], [3], True, "tanh", [N], "NoPool", [1], [3], S,
+            tMax=3, device=d, **gen()), 2, False),
+        ("AggregationGNN", lambda d: archs.AggregationGNN(
+            [2, 8, 8], [3, 3], True, "relu", "NoPool", [2, 1], [5], S,
+            maxN=24, nNodes=4, dimLayersAggMLP=[5], device=d, **gen()), 2,
+         False),
+        ("MultiNodeAggregationGNN", lambda d: archs.MultiNodeAggregationGNN(
+            [4, 3], [16, 8], [[2, 4], [4, 4], [3]], [[3], [3]], True,
+            "relu", "NoPool", [[1], [1]], [5], S, device=d, **gen()), 2,
+         False),
+        ("GatedGRNN-edge", lambda d: archs.GatedGraphRecurrentNN(
+            1, 2, GRNN_H, [GRNN_K, GRNN_K], True, "tanh", "relu", "relu",
+            [2], S, gateType="edge", device=d, **gen()), 1, True),
+    ]
+
+
+def phase_static_families(rng, dev):
+    """Each architecture of the static filter families, and the edge-gated
+    GRNN (dense (B*T, N, N) gates), at N = STATIC_N on the card against the
+    same model, same weights, on the CPU: the output and the gradient of
+    every parameter of mean(y^2)."""
+    import torch
+    N = STATIC_N
+    S = banded_graph(np.random.default_rng(20), N, 32, 0.2)
+    checks = []
+    for name, build, F0, recurrent in _static_models(S, N):
+        shape = (4, 4, F0, N) if recurrent else (4, F0, N)
+        x = rng.standard_normal(shape).astype(np.float32)
+        z0 = rng.standard_normal((4, GRNN_H, N)).astype(np.float32)
+        outs = {}
+        for where in ("cpu", dev):
+            arch = build(where)
+            y = arch.apply(x, z0=z0) if recurrent else arch.apply(x)
+            grads = torch.autograd.grad(torch.mean(y ** 2),
+                                        list(arch.parameters()))
+            outs[str(where)] = (y.detach().cpu(), [g.cpu() for g in grads])
+        (y_c, g_c), (y_g, g_g) = outs["cpu"], outs[str(dev)]
+        for what, got, want in [("y", y_g, y_c)] + [
+                (f"grad {i}", g, w) for i, (g, w) in enumerate(zip(g_g,
+                                                                   g_c))]:
+            max_abs, max_rel, ok = compare(got, want, STATIC_RTOL,
+                                           STATIC_ATOL_REL)
+            checks.append(dict(model=name, what=what, max_abs_err=max_abs,
+                               max_rel_err=max_rel, ok=ok))
+            require(ok, f"{name} {what} on the card disagrees with the CPU: "
+                        f"{max_abs}")
+        emit(phase="static_families", model=name, N=N,
+             params=sum(int(g.numel()) for g in g_c),
+             output=list(y_g.shape))
+    emit(phase="static_families_check", rtol=STATIC_RTOL,
+         atol=f"{STATIC_ATOL_REL}*max|cpu|", checks=checks)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -4992,6 +5639,32 @@ def main() -> int:
         del swarm_setup
         for k in ("grid_window", "table_build"):
             launches[k] += db_launches[k] + swarm_launches[k]
+        # the static-GSO recurrent family and the static filter families
+        torch.cuda.empty_cache()
+        grnn_errs, grnn_rows = timed("grnn_kernels", phase_grnn_kernels,
+                                     graph, np.random.default_rng(21), dev)
+        for k, v in grnn_errs.items():
+            errs[k] = max(errs[k], v)
+        rows.update(grnn_rows)
+        grnn_launches = [timed("grnn_serving", phase_grnn_serving, S_np,
+                               np.random.default_rng(22), dev)]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            tr_launches, trained = timed(
+                "grnn_training", phase_grnn_training, S_np,
+                np.random.default_rng(23), dev, out_dir)
+            grnn_launches.append(tr_launches)
+            timed("grnn_train_profile", phase_train_profile, trained, 3,
+                  "grnn_train_profile")
+            del trained
+            torch.cuda.empty_cache()
+            grnn_launches.append(timed(
+                "grnn_sharded", phase_grnn_sharded, S_np,
+                np.random.default_rng(24), dev, out_dir))
+        for part_launches in grnn_launches:
+            for k in ("band_shift_register", "band_matmul", "bcsr_matmul"):
+                launches[k] += part_launches[k]
+        timed("static_families", phase_static_families,
+              np.random.default_rng(25), dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,10 @@
-"""Architectures: SelectionGNN, LocalGNN and the attention family
+"""Architectures: SelectionGNN, LocalGNN, the static filter families
+(SpectralGNN, NodeVariantGNN, EdgeVariantGNN, LocalEdgeNet,
+ARMAfilterGNN, LocalARMA) and the attention family
 (GraphAttentionNetwork, GraphConvolutionAttentionNetwork,
-EdgeVariantAttention) on the shared convolutional core.
+EdgeVariantAttention) on the shared convolutional core; the aggregation
+GNNs (AggregationGNN, MultiNodeAggregationGNN); and the static-GSO
+recurrent family (GraphRecurrentNN, GatedGraphRecurrentNN).
 
 The port of the JAX package's ``models/architectures.py`` for the ported
 slices.
@@ -13,7 +17,7 @@ add ``device`` and ``generator``: parameters are drawn on the CPU from the
 generator (a fresh ``torch.Generator`` seeded 0 when none is given) and
 then moved to the device.
 
-Signals x: (B, F0, N).
+Signals x: (B, F0, N); (B, T, F0, N) for the recurrent family.
 """
 
 from __future__ import annotations
@@ -31,12 +35,18 @@ from graph_neural_networks_torch.ops import gso as gso_lib
 from graph_neural_networks_torch.utils import graph as gt
 from graph_neural_networks_torch.utils.device import resolve_device
 
-__all__ = ["SelectionGNN", "LocalGNN", "GraphAttentionNetwork",
-           "GraphConvolutionAttentionNetwork", "EdgeVariantAttention",
-           "resolve_activation", "TorchDense", "MLP"]
+__all__ = ["SelectionGNN", "LocalGNN", "SpectralGNN", "NodeVariantGNN",
+           "EdgeVariantGNN", "LocalEdgeNet", "ARMAfilterGNN", "LocalARMA",
+           "AggregationGNN", "MultiNodeAggregationGNN",
+           "GraphAttentionNetwork", "GraphConvolutionAttentionNetwork",
+           "EdgeVariantAttention", "GraphRecurrentNN",
+           "GatedGraphRecurrentNN", "resolve_activation", "TorchDense",
+           "MLP"]
 
 ATTENTION_KINDS = ("gat", "gcat", "ev_attention")
 ATTENTION_MODES = ("dense", "band")
+STATIC_KINDS = ("graph_filter", "spectral", "node_variant", "edge_variant",
+                "arma")
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -109,15 +119,19 @@ class MLP(nn.Module):
             y = layer(y)
         return y
 
-    def flax_names(self, scope: str) -> dict:
+    def flax_names(self, scope) -> dict:
         """flax leaf path -> (torch parameter, transpose?) of the stack the
-        JAX model holds as `scope`/TorchDense_<i>. A flax dense kernel is
-        (fan_in, out); the torch weight is (out, fan_in)."""
+        JAX model holds as `scope`/TorchDense_<i> (`scope` a name or a
+        path tuple). A flax dense kernel is (fan_in, out); the torch weight
+        is (out, fan_in)."""
+        scope = scope if isinstance(scope, tuple) else (scope,)
         names = {}
         for i, layer in enumerate(self.layers):
-            names[(scope, f"TorchDense_{i}", "kernel")] = (layer.weight, True)
+            names[scope + (f"TorchDense_{i}", "kernel")] = (layer.weight,
+                                                           True)
             if layer.bias is not None:
-                names[(scope, f"TorchDense_{i}", "bias")] = (layer.bias, False)
+                names[scope + (f"TorchDense_{i}", "bias")] = (layer.bias,
+                                                             False)
         return names
 
 
@@ -139,15 +153,20 @@ def _as_tuple(x):
 # ---------------------------------------------------------------------------
 
 class _ConvCore(nn.Module):
-    """Stack of graph-filter layers plus readout. Ported kinds: graph_filter
-    and the attention filters (gat, gcat, ev_attention), pointwise
+    """Stack of graph-filter layers plus readout. Ported kinds: graph_filter,
+    the static families (spectral, node_variant, edge_variant, arma) and
+    the attention filters (gat, gcat, ev_attention), pointwise
     activations, no_pool/max_local pooling, mlp/per_node readout; the
     others of the JAX core raise NotImplementedError.
 
-    taps: K per layer (heads for gat); taps2: heads per layer for gcat and
-    ev_attention. Attention layers grow the features by concatenating
-    their heads on inner layers (g_in = F[l] * heads[l-1]), average them on
-    the last, and apply the nonlinearity themselves.
+    taps: K per layer (heads for gat; M spectral coefficients for
+    spectral); taps2: the second per-layer int (node taps M for
+    node_variant, selected nodes M for edge_variant, denominator taps P
+    for arma, heads for gcat and ev_attention). edge_counts: the support's
+    nnz per layer for edge_variant's edge-list parameterization (None:
+    dense). Attention layers grow the features by concatenating their
+    heads on inner layers (g_in = F[l] * heads[l-1]), average them on the
+    last, and apply the nonlinearity themselves.
     """
 
     def __init__(self, *, filter_kind: str, dims: tuple, taps: tuple,
@@ -155,9 +174,10 @@ class _ConvCore(nn.Module):
                  act_kind: str = "pointwise", pool_kind: str = "max_local",
                  readout_dims: tuple = (), readout_kind: str = "mlp",
                  use_bias: bool = True, edge_features: int = 1,
+                 t_max: int = 5, edge_counts: Optional[tuple] = None,
                  generator: torch.Generator, device):
         super().__init__()
-        if filter_kind not in ("graph_filter",) + ATTENTION_KINDS:
+        if filter_kind not in STATIC_KINDS + ATTENTION_KINDS:
             raise NotImplementedError(
                 f"filter kind {filter_kind!r} is not ported yet")
         if act_kind != "pointwise":
@@ -173,6 +193,8 @@ class _ConvCore(nn.Module):
         self.dims, self.taps, self.taps2 = dims, taps, taps2
         self.n_nodes = n_nodes
         self.sigma = sigma
+        self.t_max = t_max
+        self.edge_counts = edge_counts
         self.pool_kind, self.readout_kind = pool_kind, readout_kind
         self.filters = nn.ModuleList(
             self._make_filter(l, use_bias, edge_features, generator, device)
@@ -187,6 +209,20 @@ class _ConvCore(nn.Module):
         made = dict(generator=generator, device=device)
         if kind == "graph_filter":
             return gll.GraphFilter(F[l], F[l + 1], K[l], E, use_bias, **made)
+        if kind == "spectral":
+            return gll.SpectralGF(F[l], F[l + 1], K[l], E, use_bias, **made)
+        if kind == "node_variant":
+            return gll.NodeVariantGF(F[l], F[l + 1], K[l], self.taps2[l], E,
+                                     use_bias, **made)
+        if kind == "edge_variant":
+            n_edges = (None if self.edge_counts is None
+                       else self.edge_counts[l])
+            return gll.EdgeVariantGF(F[l], F[l + 1], K[l], self.taps2[l],
+                                     self.n_nodes[0], E, use_bias, n_edges,
+                                     **made)
+        if kind == "arma":
+            return gll.GraphFilterARMA(F[l], F[l + 1], self.taps2[l], K[l], E,
+                                       use_bias, self.t_max, **made)
         heads = K if kind == "gat" else self.taps2
         g_in = F[l] if l == 0 else F[l] * heads[l - 1]
         concat = l < len(K) - 1
@@ -206,14 +242,25 @@ class _ConvCore(nn.Module):
             return x
         return gll.MaxPoolLocal(n_in, n_out, 0)(x, ctx["pool_nbh"][l])
 
+    def _filter(self, l: int, x, ctx):
+        layer, kind, S = self.filters[l], self.filter_kind, ctx["S"]
+        if kind == "spectral":
+            spline = ctx["spline"][l] if ctx.get("spline") else None
+            return layer(x, ctx["V"], ctx["VH"], spline)
+        if kind == "node_variant":
+            return layer(x, S, ctx["copy_nodes"][l])
+        if kind == "edge_variant":
+            return layer(x, S, ctx["ev_identity"], ctx["ev_pattern"][l])
+        return layer(x, S)
+
     def forward(self, x: torch.Tensor, ctx: dict):
         # node reordering by gather map: map[j] = source node of slot j, or
         # -1 for a fake (zero) node
         idx = ctx["order_map"]
         x = torch.where(idx >= 0, x[:, :, idx.clamp(min=0)], 0.0)
-        for l, graph_filter in enumerate(self.filters):
-            x = graph_filter(x, ctx["S"])
-            if self.filter_kind == "graph_filter":
+        for l in range(len(self.filters)):
+            x = self._filter(l, x, ctx)
+            if self.filter_kind not in ATTENTION_KINDS:
                 x = self.sigma(x)   # attention layers apply it inside
             x = self._pool(l, x, ctx)
         y_gfl = x
@@ -262,8 +309,56 @@ class _ArchBase:
         dev = resolve_device(device)
         self.ctx = {k: _ctx_to(v, dev) for k, v in self.ctx.items()}
         self.core.to(dev)
-        self.S = self.ctx["S"]
+        self.S = self.ctx.get("S")
         self.device = dev
+        return self
+
+    def shard(self, mesh, n_parts: int, order: str = "none",
+              data_axis: Optional[str] = None) -> "_ArchBase":
+        """Run this architecture's graph shifts and attention node-sharded
+        over `mesh`'s 'graph' axis: ctx['S'] becomes a parallel.ShardedGso
+        backed by a sparse band-slab partition of the ordered GSO (never a
+        dense N x N on the device), and the model moves to the mesh's home
+        device, where its inputs and outputs live. In place; returns self.
+
+        order: 'none' keeps this architecture's own node ordering (exact
+        parity with the unsharded forward; a halo ring only if that
+        ordering is already banded). 'rcm' composes a locality-preserving
+        reorder into the model's input gather map, allowed only for an
+        architecture with one (not the GRNNs) and with identity pooling:
+        selection pooling is position-semantic in the reference
+        (graphML.py:2003-2019), so reordering would change it.
+        data_axis: also shard the batch over this mesh axis (hybrid data x
+        graph parallelism).
+        """
+        if order != "none":
+            if "order_map" not in self.ctx:
+                raise ValueError(
+                    "order='rcm' needs an input gather map (use "
+                    "order='none' for architectures without one, e.g. "
+                    "GRNNs)")
+            if getattr(self.core, "pool_kind", "no_pool") != "no_pool" and \
+                    any(t is not None for t in self.ctx.get("pool_nbh", ())):
+                raise ValueError("order='rcm' requires identity pooling "
+                                 "(position-semantic selection pooling "
+                                 "forbids reordering)")
+        from graph_neural_networks_torch.parallel import (ShardedGso,
+                                                          partition_nodes)
+        part = partition_nodes(self._S_sparse, n_parts, order=order)
+        self.to(mesh.home)
+        if order != "none":
+            # compose the partition order into the input gather map and
+            # extend it with fake (-1 -> zero) nodes for the padding
+            old_map = self.ctx["order_map"].cpu().numpy()
+            new_map = old_map[part.order]
+            pad = part.n_padded - len(new_map)
+            if pad:
+                new_map = np.concatenate(
+                    [new_map, np.full(pad, -1, new_map.dtype)])
+            self.ctx = dict(self.ctx, order_map=torch.as_tensor(
+                new_map, dtype=torch.long, device=self.device))
+            self.order = [self.order[i] for i in part.order]
+        self.ctx["S"] = self.S = ShardedGso(mesh, part, data_axis=data_axis)
         return self
 
     # -- forward contracts -------------------------------------------------
@@ -317,8 +412,9 @@ def _pool_tables(S_np, N_list, alpha, L, device):
 
 class _SelectionBase(_ArchBase):
     """Shared build of the Selection-GNN-shaped architectures: ordering,
-    GSO layout, pooling tables, core. The attention family builds its GSO
-    in ``attentionMode`` ('dense', or 'band' for the flash kernels)."""
+    GSO layout, pooling tables, the family's own structure tables
+    (:meth:`_extra_ctx`), core. The attention family builds its GSO in
+    ``attentionMode`` ('dense', or 'band' for the flash kernels)."""
 
     readout_kind = "mlp"
     filter_kind = "graph_filter"
@@ -326,7 +422,7 @@ class _SelectionBase(_ArchBase):
     def __init__(self, dims, taps, bias, nonlinearity, nSelectedNodes,
                  poolingFunction, poolingSize, readout_dims, GSO, order,
                  gsoMode, device, generator, taps2=(),
-                 attentionMode="dense"):
+                 attentionMode="dense", t_max=5):
         GSO = _normalize_gso(GSO)
         if len(dims) != len(taps) + 1:
             raise ValueError(f"{len(dims)} signal dims for {len(taps)} layers")
@@ -343,7 +439,7 @@ class _SelectionBase(_ArchBase):
                          dims=_as_tuple(dims), taps=_as_tuple(taps),
                          taps2=_as_tuple(taps2),
                          readout=_as_tuple(readout_dims),
-                         pool=_resolve_pool(poolingFunction))
+                         pool=_resolve_pool(poolingFunction), t_max=t_max)
         self.E = GSO.shape[0]
         self.order_name = order
         self.gso_mode = (attentionMode if self.filter_kind in ATTENTION_KINDS
@@ -352,6 +448,11 @@ class _SelectionBase(_ArchBase):
         self._generator = (torch.Generator().manual_seed(0)
                            if generator is None else generator)
         self._build(GSO, nSelectedNodes, poolingSize)
+
+    def _extra_ctx(self, S_np: np.ndarray, N_list: list) -> dict:
+        """Subclass hook: the ctx entries the filter family derives from the
+        ordered (E, N, N) GSO."""
+        return {}
 
     def _build(self, GSO, nSelectedNodes, poolingSize):
         cfg = self._cfg
@@ -373,14 +474,20 @@ class _SelectionBase(_ArchBase):
             "pool_nbh": (_pool_tables(S_np, N_list, alpha, L, self.device)
                          if pool_kind == "max_local" else (None,) * L),
         }
+        self.ctx.update(self._extra_ctx(S_np, N_list))
         if self.core is None:
+            patterns = self.ctx.get("ev_pattern")
+            edge_counts = (tuple(p[0].shape[0] for p in patterns)
+                           if patterns and isinstance(patterns[0], tuple)
+                           else None)
             self.core = _ConvCore(
                 filter_kind=self.filter_kind, dims=cfg["dims"],
                 taps=cfg["taps"], taps2=cfg["taps2"],
                 n_nodes=tuple(N_list), sigma=cfg["sigma"],
                 pool_kind=pool_kind, readout_dims=cfg["readout"],
                 readout_kind=self.readout_kind, use_bias=cfg["bias"],
-                edge_features=self.E, generator=self._generator,
+                edge_features=self.E, t_max=cfg["t_max"],
+                edge_counts=edge_counts, generator=self._generator,
                 device=self.device)
         else:
             self.core.n_nodes = tuple(N_list)
@@ -398,47 +505,6 @@ class _SelectionBase(_ArchBase):
         self._build(GSO, nSelectedNodes, poolingSize)
 
     change_gso = changeGSO
-
-    def shard(self, mesh, n_parts: int, order: str = "none",
-              data_axis: Optional[str] = None) -> "_SelectionBase":
-        """Run this architecture's graph shifts and attention node-sharded
-        over `mesh`'s 'graph' axis: ctx['S'] becomes a parallel.ShardedGso
-        backed by a sparse band-slab partition of the ordered GSO (never a
-        dense N x N on the device), and the model moves to the mesh's home
-        device, where its inputs and outputs live. In place; returns self.
-
-        order: 'none' keeps this architecture's own node ordering (exact
-        parity with the unsharded forward; a halo ring only if that
-        ordering is already banded). 'rcm' composes a locality-preserving
-        reorder into the model's input gather map, allowed only with
-        identity pooling: selection pooling is position-semantic in the
-        reference (graphML.py:2003-2019), so reordering would change it.
-        data_axis: also shard the batch over this mesh axis (hybrid data x
-        graph parallelism).
-        """
-        if order != "none" and self.core.pool_kind != "no_pool" and any(
-                t is not None for t in self.ctx["pool_nbh"]):
-            raise ValueError("order='rcm' requires identity pooling "
-                             "(position-semantic selection pooling forbids "
-                             "reordering)")
-        from graph_neural_networks_torch.parallel import (ShardedGso,
-                                                          partition_nodes)
-        part = partition_nodes(self._S_sparse, n_parts, order=order)
-        self.to(mesh.home)
-        if order != "none":
-            # compose the partition order into the input gather map and
-            # extend it with fake (-1 -> zero) nodes for the padding
-            old_map = self.ctx["order_map"].cpu().numpy()
-            new_map = old_map[part.order]
-            pad = part.n_padded - len(new_map)
-            if pad:
-                new_map = np.concatenate(
-                    [new_map, np.full(pad, -1, new_map.dtype)])
-            self.ctx = dict(self.ctx, order_map=torch.as_tensor(
-                new_map, dtype=torch.long, device=self.device))
-            self.order = [self.order[i] for i in part.order]
-        self.ctx["S"] = self.S = ShardedGso(mesh, part, data_axis=data_axis)
-        return self
 
 
 # ---------------------------------------------------------------------------
@@ -478,6 +544,160 @@ class LocalGNN(_SelectionBase):
         super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
                          nSelectedNodes, poolingFunction, poolingSize,
                          dimReadout, GSO, order, "dense", device, generator)
+
+
+class SpectralGNN(_SelectionBase):
+    """Selection GNN with spectral filters: M coefficients a layer, on
+    the GSO's eigenbasis (``np.linalg.eig``, real parts), through a cubic
+    B-spline kernel over the eigenvalues when M < N. Reference:
+    architectures.py:1185-1484. Like the JAX SpectralGNN it takes no
+    gsoMode: the eigenbasis is dense.
+    """
+
+    filter_kind = "spectral"
+
+    def __init__(self, dimNodeSignals, nCoeff, bias, nonlinearity,
+                 nSelectedNodes, poolingFunction, poolingSize, dimLayersMLP,
+                 GSO, order=None, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nCoeff, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator)
+
+    def _extra_ctx(self, S_np, N_list):
+        E, N, _ = S_np.shape
+        V = np.zeros((E, N, N))
+        VH = np.zeros((E, N, N))
+        lam = np.zeros((E, N))
+        for e in range(E):
+            w, v = np.linalg.eig(S_np[e])
+            lam[e], V[e] = w.real, v.real
+            VH[e] = V[e].conj().T
+        splines = tuple(
+            None if M == N else torch.as_tensor(
+                np.stack([gt.spline_basis(M, lam[e]) for e in range(E)]),
+                dtype=torch.float32, device=self.device)
+            for M in self._cfg["taps"])
+
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        return {"V": f32(V), "VH": f32(VH), "spline": splines}
+
+
+class NodeVariantGNN(_SelectionBase):
+    """Selection GNN with hybrid node-variant filters (nShiftTaps K,
+    nNodeTaps M a layer). Reference: architectures.py:1485-1720."""
+
+    filter_kind = "node_variant"
+
+    def __init__(self, dimNodeSignals, nShiftTaps, nNodeTaps, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nShiftTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         taps2=nNodeTaps)
+
+    def _extra_ctx(self, S_np, N_list):
+        return {"copy_nodes": tuple(
+            torch.as_tensor(gt.nv_copy_nodes(S_np, M), dtype=torch.long,
+                            device=self.device)
+            for M in self._cfg["taps2"])}
+
+
+class _EdgeVariantMixin:
+    """The edge-variant filters' masks. evMode 'dense': (E, N, N) masks and
+    (F,E,K,G,N,N) weights; 'edge': the support's union over E as (row,
+    col) lists with a per-edge-feature `valid` mask, weights on the
+    edges."""
+
+    filter_kind = "edge_variant"
+
+    def _check_ev_mode(self, evMode):
+        if evMode not in ("dense", "edge"):
+            raise ValueError(f"unknown evMode {evMode!r}; 'dense' or "
+                             "'edge'")
+        self.ev_mode = evMode
+
+    def _extra_ctx(self, S_np, N_list):
+        dev = self.device
+        patterns, idents = [], None
+        for M in self._cfg["taps2"]:
+            ide, pat = gt.ev_sparsity_pattern(S_np, M)
+            if self.ev_mode == "edge":
+                row, col = np.nonzero(pat.sum(0) > 0)
+                patterns.append((
+                    torch.as_tensor(row, dtype=torch.long, device=dev),
+                    torch.as_tensor(col, dtype=torch.long, device=dev),
+                    torch.as_tensor(pat[:, row, col], dtype=torch.float32,
+                                    device=dev)))
+                if idents is None:
+                    idents = np.einsum("enn->en", ide)
+            else:
+                patterns.append(torch.as_tensor(pat, dtype=torch.float32,
+                                                device=dev))
+                if idents is None:
+                    idents = ide
+        return {"ev_identity": torch.as_tensor(idents, dtype=torch.float32,
+                                               device=dev),
+                "ev_pattern": tuple(patterns)}
+
+
+class EdgeVariantGNN(_EdgeVariantMixin, _SelectionBase):
+    """Selection GNN with (hybrid) edge-variant filters (nShiftTaps K,
+    nFilterNodes M a layer). Reference: architectures.py:1721-1956."""
+
+    def __init__(self, dimNodeSignals, nShiftTaps, nFilterNodes, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, evMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        self._check_ev_mode(evMode)
+        super().__init__(dimNodeSignals, nShiftTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         taps2=nFilterNodes)
+
+
+class LocalEdgeNet(_EdgeVariantMixin, _SelectionBase):
+    """Edge-variant filters and a per-node readout. Reference:
+    architectures.py:1957-2242."""
+
+    readout_kind = "per_node"
+
+    def __init__(self, dimNodeSignals, nShiftTaps, nFilterNodes, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimReadout, GSO, order=None, evMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        self._check_ev_mode(evMode)
+        super().__init__(dimNodeSignals, nShiftTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimReadout, GSO, order, "dense", device, generator,
+                         taps2=nFilterNodes)
+
+
+class ARMAfilterGNN(_SelectionBase):
+    """Selection GNN with ARMA filters (nDenominatorTaps P, nResidueTaps K
+    a layer; tMax Jacobi iterations). Reference: architectures.py:
+    2243-2555."""
+
+    filter_kind = "arma"
+
+    def __init__(self, dimNodeSignals, nDenominatorTaps, nResidueTaps, bias,
+                 nonlinearity, nSelectedNodes, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, tMax=5, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dimNodeSignals, nResidueTaps, bias, nonlinearity,
+                         nSelectedNodes, poolingFunction, poolingSize,
+                         dimLayersMLP, GSO, order, "dense", device, generator,
+                         taps2=nDenominatorTaps, t_max=tMax)
+
+
+class LocalARMA(ARMAfilterGNN):
+    """ARMA filters and a per-node readout. Reference:
+    architectures.py:2556-2919."""
+
+    readout_kind = "per_node"
 
 
 class GraphAttentionNetwork(_SelectionBase):
@@ -533,3 +753,397 @@ class EdgeVariantAttention(_SelectionBase):
                          nSelectedNodes, poolingFunction, poolingSize,
                          dimLayersMLP, GSO, order, "dense", device, generator,
                          taps2=nAttentionHeads, attentionMode=attentionMode)
+
+
+# ---------------------------------------------------------------------------
+# Aggregation GNNs
+# ---------------------------------------------------------------------------
+
+class _Conv1d(nn.Module):
+    """flax ``nn.Conv`` of one spatial axis with VALID padding, in torch's
+    layout: weight (out, in, k) (the flax kernel (k, in, out) permuted),
+    bias (out,); flax's init there, U(-1/sqrt(k*in), 1/sqrt(k*in)) (a
+    variance scaling of 1/3, fan-in, uniform) and a zero bias. Both
+    compute the cross-correlation."""
+
+    FLAX_KERNEL_PERM = (2, 1, 0)
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 use_bias: bool = True, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        bound = 1.0 / math.sqrt(kernel * in_channels)
+        self.weight = gll.uniform_parameter((out_channels, in_channels,
+                                             kernel), bound, generator,
+                                            device)
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if use_bias else None)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return nn.functional.conv1d(z, self.weight, self.bias)
+
+
+class _AggCore(nn.Module):
+    """Aggregation-sequence CNN: z = x SN, then a Conv1d stack, the MLP
+    and the aggregation MLP. Reference: architectures.py:3172-3218.
+    flax names: Conv_<l>, MLP_0, MLP_1."""
+
+    def __init__(self, *, dims: tuple, taps: tuple, n_seq: tuple,
+                 alpha: tuple, sigma: Callable, mlp_dims: tuple,
+                 agg_mlp_dims: tuple, n_nodes: int, use_bias: bool,
+                 edge_features: int, generator: torch.Generator, device):
+        super().__init__()
+        E = edge_features
+        made = dict(generator=generator, device=device)
+        self.dims, self.alpha, self.sigma = dims, alpha, sigma
+        self.n_nodes, self.E = n_nodes, E
+        self.convs = nn.ModuleList(
+            _Conv1d(dims[l] * E, dims[l + 1] * E, taps[l], use_bias, **made)
+            for l in range(len(taps)))
+        self.mlp = MLP(dims[-1] * n_seq[-1] * E, mlp_dims, sigma, use_bias,
+                       **made)
+        self.agg = (n_nodes == 1 or len(agg_mlp_dims) > 0)
+        mlp_out = mlp_dims[-1] if mlp_dims else dims[-1] * n_seq[-1] * E
+        self.agg_mlp = MLP(mlp_out * n_nodes, agg_mlp_dims, sigma, use_bias,
+                           **made)
+
+    def forward(self, x: torch.Tensor, ctx: dict):
+        B = x.shape[0]
+        x = x[:, :, ctx["order_map"]]
+        SN = ctx["SN"]                                 # nNodes x E x N x maxN
+        n_nodes, E, _, maxN = SN.shape
+        z = torch.einsum("bfn,pens->bpefs", x, SN)     # B x nNodes x E x F x maxN
+        z = z.reshape(B * n_nodes, E * self.dims[0], maxN)
+        for l, conv in enumerate(self.convs):
+            z = self.sigma(conv(z))
+            a = self.alpha[l]
+            if a > 1:
+                keep = (z.shape[-1] // a) * a
+                z = z[..., :keep].reshape(z.shape[0], z.shape[1],
+                                          keep // a, a).amax(dim=-1)
+        y = self.mlp(z.reshape(B * n_nodes, -1))
+        y = y.reshape(B, n_nodes, -1).transpose(1, 2)  # B x dim x nNodes
+        if self.agg:
+            y = self.agg_mlp(y.transpose(1, 2).reshape(B, -1))
+        return y, y
+
+    def flax_names(self, scope: tuple = ()) -> dict:
+        names = {}
+        for l, conv in enumerate(self.convs):
+            names[scope + (f"Conv_{l}", "kernel")] = (
+                conv.weight, _Conv1d.FLAX_KERNEL_PERM)
+            if conv.bias is not None:
+                names[scope + (f"Conv_{l}", "bias")] = (conv.bias, False)
+        names.update(self.mlp.flax_names(scope + ("MLP_0",)))
+        if self.agg:
+            names.update(self.agg_mlp.flax_names(scope + ("MLP_1",)))
+        return names
+
+
+class AggregationGNN(_ArchBase):
+    """Aggregation GNN: per selected node the aggregation sequence [x_i,
+    (Sx)_i, (S^2 x)_i, ...] of maxN shifts (a dense (nNodes, E, N, maxN)
+    table built on the host), then a regular CNN on it. Reference:
+    architectures.py:2920-3229."""
+
+    def __init__(self, dimFeatures, nFilterTaps, bias, nonlinearity,
+                 poolingFunction, poolingSize, dimLayersMLP, GSO, order=None,
+                 maxN=None, nNodes=1, dimLayersAggMLP=(), *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        GSO = _normalize_gso(GSO)
+        self.device = resolve_device(device)
+        generator = (torch.Generator().manual_seed(0) if generator is None
+                     else generator)
+        sigma = resolve_activation(nonlinearity)
+        S_np, self.order = gt.permutation_by_name(order)(GSO)
+        E, N, _ = S_np.shape
+        L = len(nFilterTaps)
+        self.maxN = N if maxN is None else min(maxN, N)
+        # sequence-length bookkeeping through valid conv + pooling
+        n_seq = [self.maxN]
+        for l in range(L):
+            out_conv = n_seq[l] - (nFilterTaps[l] - 1)
+            n_seq.append(int((out_conv - (poolingSize[l] - 1) - 1)
+                             / poolingSize[l] + 1))
+        # SN: [delta_i, S delta_i, ...] per selected node
+        delta = np.zeros((E, N, nNodes))
+        for n in range(nNodes):
+            delta[:, n, n] = 1.0
+        SN = [delta.copy()]
+        for _ in range(1, self.maxN):
+            delta = S_np @ delta
+            SN.append(delta.copy())
+        SN = np.stack(SN, axis=1).transpose(3, 0, 2, 1)  # nNodes x E x N x maxN
+        self.ctx = {
+            "SN": torch.as_tensor(SN, dtype=torch.float32, device=self.device),
+            "order_map": torch.as_tensor(np.asarray(self.order),
+                                         dtype=torch.long, device=self.device),
+        }
+        self.S = None
+        self.N = n_seq
+        self.core = _AggCore(
+            dims=_as_tuple(dimFeatures), taps=_as_tuple(nFilterTaps),
+            n_seq=tuple(n_seq), alpha=_as_tuple(poolingSize), sigma=sigma,
+            mlp_dims=_as_tuple(dimLayersMLP),
+            agg_mlp_dims=_as_tuple(dimLayersAggMLP), n_nodes=nNodes,
+            use_bias=bias, edge_features=E, generator=generator,
+            device=self.device)
+
+
+class MultiNodeAggregationGNN:
+    """Outer layers of per-node AggregationGNNs with rotated node orders.
+    Reference: architectures.py:3230-3574. The JAX parameter tree is
+    ``{"inner": [[tree of inner[r][p]]], "mlp": tree of the MLP}``; its
+    ``flax_names`` maps that tree."""
+
+    def __init__(self, nSelectedNodes, nShifts, dimFeatures, nFilterTaps,
+                 bias, nonlinearity, poolingFunction, poolingSize,
+                 dimLayersMLP, GSO, order=None, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        GSO = _normalize_gso(GSO)
+        self.device = resolve_device(device)
+        generator = (torch.Generator().manual_seed(0) if generator is None
+                     else generator)
+        sigma = resolve_activation(nonlinearity)
+        S_np, self.order = gt.permutation_by_name(order)(GSO)
+        self.N_nodes = N = S_np.shape[1]
+        self.P = list(nSelectedNodes)
+        self.R = len(self.P)
+        inner_orders = [list(range(N))]
+        for p in range(1, max(self.P)):
+            inner_orders.append([p] + [n for n in range(N) if n != p])
+        self.inner_orders = inner_orders
+        self.inner = []                                # [r][p] AggregationGNN
+        for r in range(self.R):
+            row = []
+            for p in range(self.P[r]):
+                io = inner_orders[p]
+                sub_S = S_np[:, io, :][:, :, io]
+                row.append(AggregationGNN(
+                    dimFeatures[r], nFilterTaps[r], bias, sigma,
+                    poolingFunction, poolingSize[r], [dimFeatures[r + 1][0]],
+                    sub_S, order=None, maxN=nShifts[r], device=self.device,
+                    generator=generator))
+            self.inner.append(row)
+        self._mlp = MLP(dimFeatures[-1][-1] * self.P[-1],
+                        _as_tuple(dimLayersMLP), sigma, bias,
+                        generator=generator, device=self.device)
+        # one module over every parameter (the Model's checkpoints)
+        self.core = nn.ModuleList([a.core for row in self.inner for a in row]
+                                  + [self._mlp])
+        self._order_t = torch.as_tensor(np.asarray(self.order),
+                                        dtype=torch.long, device=self.device)
+        self._inner_t = [torch.as_tensor(np.asarray(io), dtype=torch.long,
+                                         device=self.device)
+                         for io in inner_orders]
+
+    def parameters(self):
+        return self.core.parameters()
+
+    def flax_names(self) -> dict:
+        names = {}
+        for r, row in enumerate(self.inner):
+            for p, arch in enumerate(row):
+                names.update(arch.core.flax_names(("inner", r, p, "params")))
+        names.update(self._mlp.flax_names(("mlp", "params")))
+        return names
+
+    def to(self, device) -> "MultiNodeAggregationGNN":
+        dev = resolve_device(device)
+        for row in self.inner:
+            for arch in row:
+                arch.to(dev)
+        self._mlp.to(dev)
+        self._order_t = self._order_t.to(dev)
+        self._inner_t = [t.to(dev) for t in self._inner_t]
+        self.device = dev
+        return self
+
+    def apply(self, x):
+        x = torch.as_tensor(x, device=self.device).to(torch.float32)
+        B = x.shape[0]
+        x = x[:, :, self._order_t]
+        N = self.N_nodes
+        for r in range(self.R):
+            outs = [self.inner[r][p].apply(x[:, :, self._inner_t[p]])
+                    for p in range(self.P[r])]
+            y = torch.stack(outs, dim=2)               # B x F x P[r]
+            if r < self.R - 1:
+                x = (nn.functional.pad(y, (0, N - y.shape[2]))
+                     if y.shape[2] < N else y)
+        return self._mlp(y.reshape(B, -1))             # flatten F-major
+
+    def split_forward(self, x):
+        y = self.apply(x)
+        return y, y
+
+    def __call__(self, x):
+        return self.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent architectures (static GSO)
+# ---------------------------------------------------------------------------
+
+_HIDDEN_STATES = {"plain": gll.HiddenState,
+                  "time": gll.TimeGatedHiddenState,
+                  "node": gll.NodeGatedHiddenState,
+                  "edge": gll.EdgeGatedHiddenState}
+
+
+class _GRNNCore(nn.Module):
+    """hiddenState -> outputState GraphFilter -> rho -> per-node readout.
+    Reference: architectures.py:4357-4662 (splitForward at :4533-4570).
+    flax names: hiddenState, outputState, Readout."""
+
+    def __init__(self, *, hidden_kind: str, dim_in: int, dim_out: int,
+                 dim_hidden: int, taps: tuple, sigma_hidden: Callable,
+                 rho_output: Callable, sigma_readout: Callable,
+                 readout_dims: tuple, use_bias: bool, edge_features: int,
+                 n_nodes: int, generator: torch.Generator, device):
+        super().__init__()
+        made = dict(generator=generator, device=device)
+        extra = {"n_nodes": n_nodes} if hidden_kind == "time" else {}
+        self.hiddenState = _HIDDEN_STATES[hidden_kind](
+            dim_in, dim_hidden, taps[0], nonlinearity=sigma_hidden,
+            edge_features=edge_features, use_bias=use_bias, **extra, **made)
+        self.outputState = gll.GraphFilter(dim_hidden, dim_out, taps[1],
+                                           edge_features, use_bias, **made)
+        self.Readout = MLP(dim_out, readout_dims, sigma_readout, use_bias,
+                           **made)
+        self.rho_output = rho_output
+        self.dim_hidden, self.dim_out = dim_hidden, dim_out
+
+    def forward(self, x: torch.Tensor, z0: torch.Tensor, ctx: dict):
+        B, T, F, N = x.shape
+        S = ctx["S"]
+        z, _ = self.hiddenState(x, z0, S)
+        y = self.outputState(z.reshape(B * T, self.dim_hidden, N), S)
+        y = self.rho_output(y).reshape(B, T, self.dim_out, N)
+        y_out = y
+        y = self.Readout(y.transpose(2, 3)).transpose(2, 3)
+        return y, y_out
+
+    def flax_names(self) -> dict:
+        names = self.hiddenState.flax_names(("hiddenState",))
+        names.update(self.outputState.flax_names(("outputState",)))
+        names.update(self.Readout.flax_names("Readout"))
+        return names
+
+
+def _make_gso(GSO: np.ndarray, mode: str, device):
+    if mode == "edge":
+        raise NotImplementedError(
+            "gsoMode='edge' (the COO EdgeList of ops/attention_sparse.py) "
+            "is not ported yet (ROADMAP queue 1 item 8)")
+    return gso_lib.as_gso(GSO, mode=mode, device=device)
+
+
+class GraphRecurrentNN(_ArchBase):
+    """GRNN: z_t = sigma(A(S)x_t + B(S)z_{t-1}), a graph-filter output
+    layer, a per-node readout. Reference: architectures.py:4357-4662.
+
+    gsoMode: 'dense', 'band' or 'bcsr' (every step's shifts on the CUDA
+    SpMM kernels on a CUDA device); 'edge' is not ported yet (item 8).
+    x: (B, T, F, N) -> (B, T, dimReadout[-1], N).
+
+    z0 ~ N(0, 1) of shape (B, H, N) is drawn at every forward, as in JAX,
+    from `generator` (a torch.Generator on the model's device), or from a
+    fresh generator seeded 0 (JAX's ``PRNGKey(0)`` default) when none is
+    given; or passed as `z0`. ``Trainer`` passes its own generator, which
+    advances every step.
+    """
+
+    hidden_kind = "plain"
+
+    def __init__(self, dimInputSignals, dimOutputSignals, dimHiddenSignals,
+                 nFilterTaps, bias, nonlinearityHidden, nonlinearityOutput,
+                 nonlinearityReadout, dimReadout, GSO, gsoMode="dense", *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        GSO = _normalize_gso(GSO)
+        self.device = resolve_device(device)
+        generator = (torch.Generator().manual_seed(0) if generator is None
+                     else generator)
+        self.order = list(range(GSO.shape[1]))
+        self.H = dimHiddenSignals
+        self.gso_mode = gsoMode
+        self.ctx = {"S": _make_gso(GSO, gsoMode, self.device)}
+        self._S_sparse = [scipy.sparse.csr_matrix(m) for m in GSO]
+        self.S = self.ctx["S"]
+        self.core = _GRNNCore(
+            hidden_kind=self.hidden_kind, dim_in=dimInputSignals,
+            dim_out=dimOutputSignals, dim_hidden=dimHiddenSignals,
+            taps=_as_tuple(nFilterTaps),
+            sigma_hidden=resolve_activation(nonlinearityHidden),
+            rho_output=resolve_activation(nonlinearityOutput),
+            sigma_readout=resolve_activation(nonlinearityReadout),
+            readout_dims=_as_tuple(dimReadout), use_bias=bias,
+            edge_features=GSO.shape[0], n_nodes=GSO.shape[1],
+            generator=generator, device=self.device)
+
+    def split_forward(self, x, generator: Optional[torch.Generator] = None,
+                      z0=None):
+        """(readout output, output-layer output), both (B, T, ., N)."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.dtype != torch.float32:
+            x = x.to(torch.float32)
+        B, T, F0, N = x.shape
+        if z0 is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            z0 = torch.randn((B, self.H, N), generator=generator,
+                             device=self.device)
+        else:
+            z0 = torch.as_tensor(z0, dtype=torch.float32, device=self.device)
+        return self.core(x, z0, self.ctx)
+
+    def apply(self, x, generator: Optional[torch.Generator] = None, z0=None):
+        return self.split_forward(x, generator=generator, z0=z0)[0]
+
+    def __call__(self, x, generator: Optional[torch.Generator] = None,
+                 z0=None):
+        return self.apply(x, generator=generator, z0=z0)
+
+    def single_node_forward(self, x, nodes,
+                            generator: Optional[torch.Generator] = None):
+        """Output at specific (original-id) nodes, one per batch element:
+        (B, T, dim)."""
+        y = self.apply(x, generator=generator)         # B x T x dim x N
+        B = y.shape[0]
+        if isinstance(nodes, int):
+            nodes = [nodes] * B
+        order = list(self.order)
+        perm_nodes = torch.as_tensor([order.index(int(n)) for n in nodes],
+                                     device=y.device)
+        return y[torch.arange(B, device=y.device), :, :, perm_nodes]
+
+    def changeGSO(self, GSO):
+        """A new GSO (same N for the time gate's heads), same parameters."""
+        GSO = _normalize_gso(GSO)
+        self._S_sparse = [scipy.sparse.csr_matrix(m) for m in GSO]
+        self.ctx = {"S": _make_gso(GSO, self.gso_mode, self.device)}
+        self.S = self.ctx["S"]
+
+    change_gso = changeGSO
+
+
+class GatedGraphRecurrentNN(GraphRecurrentNN):
+    """Gated GRNN with time, node or edge gates (gateType). Reference:
+    architectures.py:4663-4984. The edge gate densifies the GSO: its
+    gates are (B, T, 1, N, N)."""
+
+    def __init__(self, dimInputSignals, dimOutputSignals, dimHiddenSignals,
+                 nFilterTaps, bias, nonlinearityHidden, nonlinearityOutput,
+                 nonlinearityReadout, dimReadout, GSO, gateType="time",
+                 gsoMode="dense", *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        if gateType not in ("time", "node", "edge"):
+            raise ValueError(f"unknown gateType {gateType!r}; one of "
+                             "'time', 'node', 'edge'")
+        self.hidden_kind = gateType
+        super().__init__(dimInputSignals, dimOutputSignals, dimHiddenSignals,
+                         nFilterTaps, bias, nonlinearityHidden,
+                         nonlinearityOutput, nonlinearityReadout, dimReadout,
+                         GSO, gsoMode=gsoMode, device=device,
+                         generator=generator)
+

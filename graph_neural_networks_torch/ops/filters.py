@@ -8,6 +8,13 @@ Time-varying: x : (B, T, G, N) with S a dense (B, T, E, N, N) stack or an
 ``ops.ell.EllGso`` (``lsigf_db``, the delayed filters of the flocking
 controllers).
 
+The static filter families (spectral, node-variant, edge-variant, ARMA)
+use the column-vector convention of the JAX package where it does
+(``(Phi v)[n] = sum_m Phi[n,m] v[m]``). The static-GSO recurrence
+:func:`gated_grnn` runs its ungated, time- and node-gated steps through
+:func:`lsigf`, so on a band or bcsr Gso and on a ``parallel.ShardedGso``
+every step runs the graph-shift kernels.
+
 The attention family (GAT, GCAT, attention EVGF) runs in dense mode as
 ``torch.einsum`` over the materialized (B, P, E, N, N) coefficients, on a
 band-mode Gso through the flash kernels of ``ops.attention_flash``
@@ -46,6 +53,203 @@ def lsigf(h: torch.Tensor, gso, x: torch.Tensor,
     z = gso_lib.gshift_register(gso, xe, K)              # B x E x K x G x N
     y = torch.einsum("bekgn,fekg->bfn", z, h)
     return y if b is None else y + b
+
+
+def spectral_gf(h: torch.Tensor, V: torch.Tensor, VH: torch.Tensor,
+                x: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Spectral-form LSI filter: y_f = sum_{e,g} V_e diag(h_{feg}) V_e^H x_g.
+
+    Reference: graphML.py:178-291. h: (F,E,G,N), V/VH: (E,N,N),
+    x: (B,G,N) -> y: (B,F,N).
+    """
+    VHx = torch.einsum("enm,bgm->begn", VH, x)
+    y = torch.einsum("emn,fegn,begn->bfm", V, h, VHx)
+    return y if b is None else y + b
+
+
+def nvgf(h: torch.Tensor, gso, x: torch.Tensor,
+         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Node-variant graph filter: per-node taps.
+
+    y_f = sum_{e,k,g} diag(h_k^{efg}) (x_g S_e^k). Reference:
+    graphML.py:293-387. h: (F,E,K,G,N), x: (B,G,N) -> y: (B,F,N).
+    """
+    F, E, K, G, N = h.shape
+    B = x.shape[0]
+    xe = x[:, None].expand(B, E, G, N)
+    z = gso_lib.gshift_register(gso, xe, K)              # B x E x K x G x N
+    y = torch.einsum("bekgn,fekgn->bfn", z, h)
+    return y if b is None else y + b
+
+
+def evgf(Phi: torch.Tensor, x: torch.Tensor,
+         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Edge-variant graph filter: cumulative products of per-edge matrices.
+
+    y_f = sum_{e,k,g} Phi^{(k)}...Phi^{(0)} x_g with Phi: (F,E,K,G,N,N)
+    (graph-sparsity-masked by the layer). Reference: graphML.py:389-488.
+    """
+    K = Phi.shape[2]
+    v = torch.einsum("fegnm,bgm->bfegn", Phi[:, :, 0], x)
+    acc = v
+    for k in range(1, K):
+        v = torch.einsum("fegnm,bfegm->bfegn", Phi[:, :, k], v)
+        acc = acc + v
+    y = acc.sum(dim=(2, 3))
+    return y if b is None else y + b
+
+
+def evgf_edges(w0: torch.Tensor, wk: Optional[torch.Tensor],
+               row: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Edge-variant filter with its weights on the support edges (O(nnz)
+    parameters in place of the masked dense (F,E,K,G,N,N) ones).
+
+    w0: (F,E,G,N) diagonal taps; wk: (F,E,K-1,G,nnz) per-edge taps on the
+    (row, col) support, or None when K == 1; the tap on edge (row i, col
+    j) sends v[j] into output i. x: (B,G,N) -> y: (B,F,N). The JAX
+    ``segment_sum`` is an ``index_add_`` over the edges' rows.
+    """
+    v = w0[None] * x[:, None, None]                       # B,F,E,G,N
+    acc = v
+    if wk is not None:
+        row = row.long()
+        col = col.long()
+        for k in range(wk.shape[2]):
+            msg = wk[None, :, :, k] * v[..., col]         # B,F,E,G,nnz
+            v = torch.zeros_like(v).index_add_(-1, row, msg)
+            acc = acc + v
+    y = acc.sum(dim=(2, 3))
+    return y if b is None else y + b
+
+
+def jarma(psi: torch.Tensor, varphi: torch.Tensor, phi: torch.Tensor, gso,
+          x: torch.Tensor, b: Optional[torch.Tensor] = None,
+          t_max: int = 5) -> torch.Tensor:
+    """ARMA rational graph filter via Jacobi iterations.
+
+    Reference: graphML.py:490-638. psi/varphi: (F,E,P,G), phi: (F,E,K,G),
+    x: (B,G,N) -> y: (B,F,N). Splits S into its diagonal and off-diagonal,
+    inverts the diagonal Sbar = Diag(S) - psi*I in closed form, then runs
+    t_max Jacobi iterations for the rational part plus an LSIGF residue.
+    M = Sbar^{-1} Stilde is never materialized: applying it is one shared
+    (E,N,N) contraction and a diagonal scaling.
+    """
+    S = _dense(gso, x)
+    F, E, P, G = psi.shape
+    B, _, N = x.shape
+    diag_s = torch.diagonal(S, dim1=1, dim2=2)            # E x N
+    Stilde = S - torch.diag_embed(diag_s)
+    sbar_inv = 1.0 / (diag_s[None, :, None, None, :]
+                      - psi[..., None])                   # F x E x P x G x N
+    sbar_inv_x = torch.einsum("fepgn,bgn->bfepgn", sbar_inv, x)
+
+    def apply_M(v):
+        sv = torch.einsum("enm,bfepgm->bfepgn", Stilde, v)
+        return sbar_inv[None] * sv
+
+    # H1: sum_tau (-1)^tau varphi M^tau (Sbar^{-1} x)
+    v = sbar_inv_x
+    h1 = torch.einsum("fepg,bfepgn->bpfn", varphi, v)
+    sign = -1.0
+    for _ in range(1, t_max + 1):
+        v = apply_M(v)
+        h1 = h1 + sign * torch.einsum("fepg,bfepgn->bpfn", varphi, v)
+        sign = -sign
+    # H2: (-1)^{t_max+1} M^{t_max+1} x
+    y = x[:, None, None, None].expand(B, F, E, P, G, N)
+    for _ in range(t_max + 1):
+        y = apply_M(y)
+    h2_sign = -1.0 if t_max % 2 == 0 else 1.0
+    h2 = h2_sign * y.sum(dim=(2, 4)).permute(0, 2, 1, 3)  # B,P,F,N
+    # H3: plain LSIGF residue
+    h3 = lsigf(phi, gso, x)
+    u = (h1 + h2).sum(dim=1) + h3
+    return u if b is None else u + b
+
+
+# ---------------------------------------------------------------------------
+# Static-GSO recurrence (GRNN)
+# ---------------------------------------------------------------------------
+
+def _lsigf_batched_gso(h: torch.Tensor, Sb: torch.Tensor, x: torch.Tensor,
+                       b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LSIGF where every batch row has its own (gated) dense GSO.
+
+    h: (F,E,K,G), Sb: (R,E,N,N), x: (R,G,N) -> (R,F,N): a batched
+    product in place of the reference's BT x BT matmul and diagonal trick
+    (graphML.py:1425-1431).
+    """
+    F, E, K, G = h.shape
+    R, _, N = x.shape
+    xe = x[:, None].expand(R, E, G, N)
+    zs = [xe]
+    for _ in range(1, K):
+        xe = torch.einsum("regn,renm->regm", xe, Sb)
+        zs.append(xe)
+    z = torch.stack(zs, dim=2)                             # R x E x K x G x N
+    y = torch.einsum("rekgn,fekg->rfn", z, h)
+    return y if b is None else y + b
+
+
+def gated_grnn(a: torch.Tensor, b_taps: torch.Tensor, gso, x: torch.Tensor,
+               z0: torch.Tensor, sigma,
+               q_hat: Optional[torch.Tensor] = None,
+               q_check: Optional[torch.Tensor] = None,
+               x_bias: Optional[torch.Tensor] = None,
+               z_bias: Optional[torch.Tensor] = None,
+               edge_gated: bool = False) -> torch.Tensor:
+    """Static-GSO gated GRNN: z_t = sigma(qhat*(A(S)x_t) + qcheck*(B(S)z_{t-1})).
+
+    Gate shapes select the mode (reference graphML.py:1292-1527):
+      None            -> ungated,
+      (B,T,1,1)       -> time gate (scalar per (b,t)),
+      (B,T,1,N)       -> node gate,
+      (B,T,1,N,N)     -> edge gate (gates the GSO itself inside the filter).
+    a: (H,E,K,F), b_taps: (H,E,K,H), x: (B,T,F,N), z0: (B,H,N) -> z:
+    (B,T,H,N).
+
+    The input-to-hidden filter runs once over all (b, t) (B*T*F register
+    rows); the recurrence is a Python loop over T that autograd
+    differentiates (the JAX ``lax.scan``). The ungated, time- and
+    node-gated steps go through :func:`lsigf`, so they run the band/bcsr
+    kernels or a ShardedGso's sharded shift; only the edge gate, which
+    modulates the GSO's entries, needs the dense (E,N,N) array.
+    """
+    if edge_gated:
+        raise NotImplementedError(
+            "gated_grnn(edge_gated=True), the per-edge gates over an "
+            "EdgeList of ops/attention_sparse.py, is not ported yet "
+            "(ROADMAP queue 1 item 8)")
+    H, E, K, F = a.shape
+    B, T, _, N = x.shape
+    xb = None if x_bias is None else x_bias.reshape(1, H, 1)
+    zb = None if z_bias is None else z_bias.reshape(1, H, 1)
+    edge_hat = q_hat is not None and q_hat.dim() == 5
+    edge_check = q_check is not None and q_check.dim() == 5
+    S = _dense(gso, x) if (edge_hat or edge_check) else None
+
+    xr = x.reshape(B * T, F, N)
+    if not edge_hat:
+        Ax = lsigf(a, gso, xr, b=xb).reshape(B, T, H, N)
+        if q_hat is not None:
+            Ax = q_hat * Ax
+    else:
+        Sb = q_hat.reshape(B * T, 1, N, N) * S[None]       # BT x E x N x N
+        Ax = _lsigf_batched_gso(a, Sb, xr, b=xb).reshape(B, T, H, N)
+
+    z, zs = z0, []
+    for t in range(T):
+        if not edge_check:
+            Bz = lsigf(b_taps, gso, z, b=zb)
+            if q_check is not None:
+                Bz = q_check[:, t] * Bz
+        else:
+            Bz = _lsigf_batched_gso(b_taps, q_check[:, t] * S[None], z,
+                                    b=zb)
+        z = sigma(Ax[:, t] + Bz)
+        zs.append(z)
+    return torch.stack(zs, dim=1)
 
 
 # ---------------------------------------------------------------------------

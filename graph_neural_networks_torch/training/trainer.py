@@ -8,7 +8,11 @@ validation every ``validationInterval`` steps under ``torch.no_grad()``,
 Best checkpoints on validation, early stopping, resume from Last, a JSONL
 metrics file, and a staircase learning-rate decay. A step is eager
 PyTorch: forward, loss, ``backward`` (through the kernels' autograd
-Functions on a band/bcsr GSO), optimizer step.
+Functions on a band/bcsr GSO), optimizer step. A stochastic forward (a
+``split_forward`` that takes ``generator``: the GRNNs' z0) draws from the
+trainer's ``torch.Generator``, seeded from ``seed`` on the model's device
+and advancing every step, as the JAX Trainer splits its key a step;
+validation draws from a fresh generator seeded 0, as JAX's PRNGKey(0).
 
 ``mesh=`` (a ``parallel.Mesh``) and ``meshAxis=`` follow the JAX
 Trainer's data-parallel semantics: the batch split over the mesh's data
@@ -34,6 +38,7 @@ overhead.
 
 from __future__ import annotations
 
+import inspect
 import os
 import pickle
 import time
@@ -61,6 +66,15 @@ def _batch_bounds(n_train: int, batch_size) -> list:
     else:
         sizes = list(batch_size)
     return [0] + [int(b) for b in np.cumsum(sizes)]
+
+
+def _takes_generator(fn) -> bool:
+    """True for a stochastic forward (a GRNN's, which draws z0) that takes
+    a ``generator``."""
+    try:
+        return "generator" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 def staircase_decay(rate: float, period_steps: int):
@@ -104,6 +118,13 @@ class Trainer:
         if self.precision not in (None, "f32"):
             raise ValueError(f"unknown precision {self.precision!r}")
         self.rng = np.random.default_rng(kwargs.get("seed", 0))
+        # stochastic forwards (a GRNN's z0 ~ N(0, 1) each call) draw from
+        # the trainer's generator, which advances every step; validation
+        # draws from a fresh one seeded 0, as the JAX Trainer's PRNGKey(0)
+        self.generator = (
+            torch.Generator(device=self.device).manual_seed(
+                kwargs.get("seed", 0))
+            if _takes_generator(model.archit.split_forward) else None)
 
     def _check_mesh(self):
         """Accept a parallel.Mesh all of whose devices are the model's
@@ -131,7 +152,9 @@ class Trainer:
                 "ported yet (ROADMAP queue 1 item 10.2b)")
 
     # -- one step ----------------------------------------------------------
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if generator is not None:
+            return self.model.archit.split_forward(x, generator=generator)[0]
         return self.model.archit.split_forward(x)[0]
 
     def _to_device(self, x, y):
@@ -149,7 +172,7 @@ class Trainer:
         model = self.model
         t0 = time.perf_counter()
         model.optimizer.zero_grad(set_to_none=True)
-        loss = model.loss(self._forward(x).float(), y)
+        loss = model.loss(self._forward(x, self.generator).float(), y)
         loss.backward()
         model.optimizer.step()
         if model.scheduler is not None:

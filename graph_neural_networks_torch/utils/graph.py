@@ -2,8 +2,10 @@
 
 The port's own copy of the pieces of the JAX package's
 ``utils/graph.py`` that the ported slices use: node orderings (Identity,
-Degree, RCM), K-hop neighborhood tables for selection pooling, and for the
-source-localization task the SBM generator, the ``Graph`` container, the
+Degree, RCM), K-hop neighborhood tables for selection pooling, the
+structure tables of the static filter families (node-variant tap copies,
+edge-variant sparsity masks, the spectral filters' B-spline basis), and
+for the source-localization task the SBM generator, the ``Graph`` container, the
 GFT, matrix powers and source-node selection. Like there, everything here
 runs once at build time on the host.
 """
@@ -19,7 +21,8 @@ ZERO_TOL = 1e-9
 __all__ = ["adjacency_to_laplacian", "compute_gft", "matrix_powers",
            "compute_neighborhood", "compute_source_nodes", "is_connected",
            "create_graph", "Graph", "perm_identity", "perm_degree",
-           "perm_rcm", "permutation_by_name"]
+           "perm_rcm", "permutation_by_name", "compute_nonzero_rows",
+           "nv_copy_nodes", "ev_sparsity_pattern", "spline_basis"]
 
 
 def adjacency_to_laplacian(W: np.ndarray) -> np.ndarray:
@@ -268,3 +271,98 @@ def permutation_by_name(name):
             raise NotImplementedError(
                 f"node ordering {name!r} is not ported to PyTorch yet")
     raise ValueError(f"unknown node ordering: {name!r}")
+
+
+def compute_nonzero_rows(S: np.ndarray, n_rows=None):
+    """Per-row nonzero column indices for the first `n_rows` rows."""
+    n_rows = S.shape[0] if n_rows is None else n_rows
+    return [np.flatnonzero(np.abs(S[i]) > ZERO_TOL) for i in range(n_rows)]
+
+
+# ---------------------------------------------------------------------------
+# Per-layer structure tables of the static filter families
+# ---------------------------------------------------------------------------
+
+def nv_copy_nodes(S, M: int) -> np.ndarray:
+    """Tap-copy map for the hybrid node-variant filter.
+
+    The first M nodes (in the importance order baked into S) own independent
+    taps; every other node copies the tap of its nearest selected node by
+    hop distance, ties broken by smallest index (reference semantics of
+    NodeVariantGF.addGSO, graphML.py:2403-2468). Returns int array (N,)
+    with values < M.
+    """
+    S = np.asarray(S)
+    N = S.shape[-1]
+    if M >= N:
+        return np.arange(N, dtype=np.int64)
+    copy_nodes = np.arange(N, dtype=np.int64)
+    pending = list(range(M, N))
+    K = 1
+    while pending:
+        nb = compute_neighborhood(S, K, nb=M, output_type="list")
+        still = []
+        for n in pending:
+            if len(nb[n]) > 0:
+                copy_nodes[n] = int(min(nb[n]))
+            else:
+                still.append(n)
+        pending = still
+        K += 1
+        if K > N + 1:
+            raise ValueError("graph has nodes unreachable from the first M")
+    return copy_nodes
+
+
+def ev_sparsity_pattern(S, M=None):
+    """Sparsity masks for the (hybrid) edge-variant filter.
+
+    Returns (identity_mask, shift_mask), both (E, N, N): shift_mask is the
+    (|S|+I > 0) support ANDed with the hybrid mask that keeps full
+    edge-variant freedom only among/into the first M nodes; identity_mask is
+    the (hybrid-masked) identity used at k=0 (reference
+    EdgeVariantGF.addGSO, graphML.py:2608-2668).
+    """
+    S = np.asarray(S)
+    if S.ndim == 2:
+        S = S[None]
+    E, N, _ = S.shape
+    M = N if M is None else int(M)
+    eye = np.broadcast_to(np.eye(N), (E, N, N)).copy()
+    pattern = ((np.abs(S) + eye) > ZERO_TOL).astype(np.float64)
+    if M < N:
+        hybrid = np.ones((N, N))
+        hybrid[M:, M:] = 0.0
+        pattern = pattern * hybrid[None]
+        eye = eye * hybrid[None]
+    return eye, pattern
+
+
+def spline_basis(K: int, x, degree: int = 3) -> np.ndarray:
+    """Cox-de Boor B-spline basis with K control points evaluated at x
+    (or at `x` evenly spaced points if x is scalar): (len(x), K)."""
+    if np.isscalar(x):
+        x = np.linspace(0, 1, int(x))
+    x = np.asarray(x, dtype=np.float64)
+    knots = np.concatenate([
+        np.full(degree, x.min()),
+        np.linspace(x.min(), x.max(), K - degree + 1),
+        np.full(degree, x.max()),
+    ])
+
+    def basis_fn(k, d):
+        if d == 0:
+            return ((x - knots[k] >= 0) & (x - knots[k + 1] < 0)).astype(float)
+        out = 0.0
+        den1 = knots[k + d] - knots[k]
+        if den1 > 0:
+            out = (x - knots[k]) / den1 * basis_fn(k, d - 1)
+        den2 = knots[k + d + 1] - knots[k + 1]
+        if den2 > 0:
+            out = out - (x - knots[k + d + 1]) / den2 * basis_fn(k + 1, d - 1)
+        return out
+
+    B = np.column_stack([basis_fn(k, degree) for k in range(K)])
+    # the half-open Cox-de Boor intervals leave the right endpoint uncovered
+    B[np.isclose(x, x.max()), -1] = 1.0
+    return B

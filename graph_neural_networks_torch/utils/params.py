@@ -9,8 +9,10 @@ import torch
 
 
 def _flatten(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else tree.items())
+    for k, v in items:
+        if isinstance(v, (Mapping, list, tuple)):
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
@@ -26,12 +28,19 @@ def load_flax_params(arch, params) -> None:
     weight), ``GraphFilterAttentional_<l>`` (mixer, weight, filterWeight,
     bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias); a
     LocalGNN_DB's are ``GraphFilterDB_<l>`` (weight, bias) and
-    ``Readout/TorchDense_<i>``. Each model maps the leaves to its own
-    parameters (``arch.flax_names()``). Raises KeyError if a leaf on either
-    side is left unmatched, ValueError on a shape mismatch.
+    ``Readout/TorchDense_<i>``; a GRNN's ``hiddenState``, ``outputState``
+    and ``Readout``. A tree without a top-level 'params' (a
+    MultiNodeAggregationGNN's ``{'inner': [[...]], 'mlp': ...}``) is
+    taken whole, its lists keyed by position. Each model maps the leaves
+    to its own parameters (``arch.flax_names()``: path -> (parameter,
+    transpose), transpose False, True for a 2-D transpose, or an axis
+    permutation such as a flax Conv kernel's (2, 1, 0)). Raises KeyError
+    if a leaf on either side is left unmatched, ValueError on a shape
+    mismatch.
     """
     names = arch.flax_names()
-    leaves = dict(_flatten(params["params"]))
+    tree = params["params"] if "params" in params else params
+    leaves = dict(_flatten(tree))
     extra = sorted(set(leaves) - set(names))
     missing = sorted(set(names) - set(leaves))
     if extra or missing:
@@ -40,7 +49,9 @@ def load_flax_params(arch, params) -> None:
     with torch.no_grad():
         for path, (p, transpose) in names.items():
             v = np.asarray(leaves[path], dtype=np.float32)
-            if transpose:
+            if isinstance(transpose, tuple):
+                v = np.transpose(v, transpose)
+            elif transpose:
                 v = v.T
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"{'/'.join(path)}: flax {v.shape} vs "
