@@ -1806,16 +1806,16 @@ def phase_training(eng, S_np, rng, dev, out_dir):
     return launches, trained
 
 
-def _device_profile(fn, n):
+def _device_profile(fn, n, warmup=3):
     """Host ms per call of `fn` (no profiler, synchronized), device ms per
     call and the top device kernels from torch.profiler over `n` calls,
     and the device's idle share of those profiled calls' host time (the
     same window: the unprofiled calls' time can be shorter than the
-    device time of the profiled ones)."""
+    device time of the profiled ones); `warmup` calls first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2416,14 +2416,15 @@ def phase_flock_profile(setup, card, n=10):
             carry[0] = step_fn(carry[0])[0]
 
         prof = _device_profile(step, n)
-    emit(phase="flock_profile", nvidia_smi=card,
-         config="flock_n262k eval step",
-         host_ms_per_step=prof["wall_ms"],
-         profiled_host_ms_per_step=prof["profiled_wall_ms"],
-         device_ms_per_step=prof["device_ms"],
-         device_idle_share=prof["device_idle_share"],
-         top=[dict(name=t["name"], ms_per_step=t["ms"],
-                   calls_per_step=t["calls"]) for t in prof["top"]])
+    row = dict(config="flock_n262k eval step",
+               host_ms_per_step=prof["wall_ms"],
+               profiled_host_ms_per_step=prof["profiled_wall_ms"],
+               device_ms_per_step=prof["device_ms"],
+               device_idle_share=prof["device_idle_share"],
+               top=[dict(name=t["name"], ms_per_step=t["ms"],
+                         calls_per_step=t["calls"]) for t in prof["top"]])
+    emit(phase="flock_profile", nvidia_smi=card, **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3176,7 +3177,7 @@ def phase_flock_ref_training(dev, card, out_dir):
          upload_mb=(4 * (host_tr.xAll[idx].size + host_tr.yAll[idx].size
                          + host_tr.SAll[idx].size)) / 1e6, lambda_max=lam,
          **prof)
-    return launches
+    return launches, data
 
 
 def _repel_rows(pos, rows, repel):
@@ -5458,6 +5459,546 @@ def phase_static_families(rng, dev):
          atol=f"{STATIC_ATOL_REL}*max|cpu|", checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# The time-varying recurrent and aggregation controllers (GRNN_DB, AggGNN_DB)
+# ---------------------------------------------------------------------------
+
+# flock_grnn_n262k and flock_agg_n262k: flock_n262k's swarm (bench.py:
+# 284-318: N = 262144, one sample, default_rng(0), env_grid=True,
+# ell_degree 32, lam_iters 0) under the two other controllers of JAX
+# examples/flocking.py:77-90 at their full widths: GraphRecurrentNN_DB(6,
+# 2, 64, [3, 3], True, "tanh", "identity", "identity", [2], 1), whose
+# payload (Ka-1)(F+H) + (Kb-1)H = 268 > 1.5 * 32 columns takes the unfused
+# step (its registers shift over the emitted d_max = 32 graph), and
+# AggregationGNN_DB([6, 32], [2], True, "tanh", "MaxPoolLocal", [2], [2],
+# 1, nExchanges=4), whose 24 columns ride the cell table (the fused step).
+# Random weights from a torch seed. The step-mode check runs at
+# flock_n4096's swarm (2 samples) over T = 25.
+DB_MODELS = {
+    "flock_grnn_n262k": dict(kind="grnn", H=64, wseed=7, fused=False),
+    "flock_agg_n262k": dict(kind="agg", dims=[6, 32], wseed=8, fused=True),
+}
+DB_T_CHECK = 25
+DB_PAY = 24          # the AggGNN's payload: nExchanges 4 x 6 features
+
+
+def _db_policy(name, dev):
+    import torch
+    from graph_neural_networks_torch.models.architectures_time import (
+        AggregationGNN_DB, GraphRecurrentNN_DB)
+    c = DB_MODELS[name]
+    gen = torch.Generator().manual_seed(c["wseed"])
+    if c["kind"] == "grnn":
+        return GraphRecurrentNN_DB(6, 2, c["H"], [3, 3], True, "tanh",
+                                   "identity", "identity", [2], 1,
+                                   device=dev, generator=gen)
+    return AggregationGNN_DB(c["dims"], [2], True, "tanh", "MaxPoolLocal",
+                             [2], [2], 1, nExchanges=4, device=dev,
+                             generator=gen)
+
+
+def _window_row(args, out, shape, *, C, d_max, n_pay, r2=4.0):
+    """grid_window's timing row on `args` (its output `out`): CUDA events,
+    a CUDA graph's device time, the plain version, and the bound by the
+    bytes this run's windows reach."""
+    from graph_neural_networks_torch.ops import gridwin
+    kw = dict(C=C, r2=r2, d_max=d_max, n_pay=n_pay)
+    row = dict(
+        shape=shape, ms=time_ms(lambda: gridwin.grid_window(*args, **kw)),
+        graph_ms=graph_ms(lambda: gridwin.grid_window(*args, **kw)),
+        plain_ms=time_ms(lambda: gridwin.grid_window_plain(*args, **kw),
+                         reps=5, inner=2),
+        library_ms=None,
+        **_window_work(*args, out, C=C, n_feat=7 + n_pay, d_max=d_max))
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+    return row
+
+
+def phase_db_kernels(dev):
+    """Kernels 5-6 at the controllers' shapes on flock_n262k's swarm, each
+    against its plain version bit for bit and timed beside its bound: the
+    fused AggGNN step's table (F = 7 + 24 = 31, W = 1024) and window pass
+    (n_pay = 24, at d_max 0 and 32), and the unfused GRNN step's window
+    pass (d_max = 32, no payload)."""
+    import torch
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    results, errs, rows = [], {}, {}
+    _, ip, iv, _ = _flock_setup("flock_n262k", dev)
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    N = pos.shape[-1]
+    C, F = 32, 7 + DB_PAY
+    g = torch.Generator(device="cpu").manual_seed(7)
+    v = torch.rand(1, N, generator=g).to(dev)
+    pay = torch.randn(1, N, DB_PAY, generator=g).to(dev)
+    W_agg = gridwin.table_width(F, C)
+    require(F * C <= W_agg == 1024, f"AggGNN table: {F} x {C} lanes in "
+                                    f"{W_agg}")
+
+    def check_window(case, args, **kw):
+        got = gridwin.grid_window(*args, **kw)
+        want = gridwin.grid_window_plain(*args, **kw)
+        same = bool(torch.equal(got, want))
+        max_abs = (got - want).abs().max().item()
+        results.append(dict(kernel="grid_window", case=case, equal=same,
+                            max_abs_err=max_abs))
+        errs["grid_window"] = max(errs.get("grid_window", 0.0), max_abs)
+        require(same, f"grid_window [{case}] differs from its plain version "
+                      f"(max abs {max_abs})")
+        return got
+
+    tables = {b: _grid_inputs(pos, vel, 2, C, v=v, pay=pay, builder=b)
+              for b in ("scatter", "fused")}
+    require(tables["fused"][-1], "262k AggGNN table overflowed")
+    same = bool(torch.equal(tables["fused"][0], tables["scatter"][0]))
+    results.append(dict(kernel="table_build", case="262k F=31 fused build "
+                        "== scatter build", equal=same))
+    require(same, "262k AggGNN fused table differs from the scatter table")
+    table, own, slots, keep, _, W, _ = tables["fused"]
+    require(W == W_agg, f"table width {W}")
+    R, n_win = slots.shape
+    require(n_win * C <= gridwin.MAX_CANDIDATES,
+            f"{n_win} x {C} candidates above {gridwin.MAX_CANDIDATES}")
+    args = (table, own, slots, keep)
+    out_e = check_window("262k AggGNN eval: d_max=0 n_pay=24", args, C=C,
+                         r2=4.0, d_max=0, n_pay=DB_PAY)
+    out_t = check_window("262k AggGNN graphs: d_max=32 n_pay=24", args, C=C,
+                         r2=4.0, d_max=32, n_pay=DB_PAY)
+    rows["grid_window@agg"] = _window_row(
+        args, out_e, f"R={R} n_win={n_win} C={C} W={W} d_max=0 "
+        f"n_pay={DB_PAY}", C=C, d_max=0, n_pay=DB_PAY)
+    rows["grid_window@agg_graphs"] = _window_row(
+        args, out_t, f"R={R} n_win={n_win} C={C} W={W} d_max=32 "
+        f"n_pay={DB_PAY}", C=C, d_max=32, n_pay=DB_PAY)
+    del tables, table, args
+    # the AggGNN table from sorted rows: table_build at F = 31
+    starts, Hh = _cell_starts(pos)
+    fs = torch.randn(1, N, F, generator=g).to(dev)
+    got = gridwin.table_build(fs, starts, C=C)
+    same = bool(torch.equal(got, gridwin.table_build_plain(fs, starts, C=C)))
+    results.append(dict(kernel="table_build", case="262k F=31", equal=same))
+    errs["table_build"] = 0.0 if same else float("nan")
+    require(same, "table_build [262k F=31] differs from its plain version")
+    row = dict(shape=f"N={N} F={F} H={Hh} C={C} W={got.shape[-1]}",
+               ms=time_ms(lambda: gridwin.table_build(fs, starts, C=C)),
+               graph_ms=graph_ms(lambda: gridwin.table_build(fs, starts,
+                                                             C=C)),
+               plain_ms=time_ms(lambda: gridwin.table_build_plain(
+                   fs, starts, C=C), reps=5, inner=2),
+               library_ms=None,
+               bytes=4 * (N * F + (Hh + 1) + Hh * got.shape[-1]), flops=0)
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+    rows["table_build@agg"] = row
+    del got, fs
+    # the unfused GRNN step: the table carries no payload (W = 256) and the
+    # window pass emits the d_max = 32 graph the policy shifts over
+    ua = _grid_inputs(pos, vel, 2, C, v=v)
+    require(ua[-1], "262k table overflowed")
+    args = ua[:4]
+    out_u = check_window("262k GRNN unfused step: d_max=32 n_pay=0", args,
+                         C=C, r2=4.0, d_max=32, n_pay=0)
+    require(int(out_u[:, 2 * 32 + 7].max()) <= 32,
+            "an in-degree above d_max at flock_n262k's swarm")
+    rows["grid_window@unfused"] = _window_row(
+        args, out_u, f"R={R} n_win={n_win} C={C} W={ua[5]} d_max=32 "
+        "n_pay=0", C=C, d_max=32, n_pay=0)
+    emit(phase="db_kernels", checks=results, timing=rows,
+         seconds=time.perf_counter() - t_phase)
+    return errs, rows
+
+
+def phase_db_serving(dev, card):
+    """flock_grnn_n262k (unfused) and flock_agg_n262k (fused) through
+    Flocking.for_rollout's entry points on the kernels: rollout_cost (T =
+    100) and rollout_traj_device (T = 25; the unfused step emits its graph
+    every step), each against the same rollout with the plain versions
+    substituted, bit for bit, with exact launch counts and peak memory;
+    then step mode against split_forward over the emitted ELL history at
+    flock_n4096's swarm."""
+    import torch
+    from graph_neural_networks_torch.ops import gridwin
+    from graph_neural_networks_torch.ops.ell import EllGso
+    t_phase = time.perf_counter()
+    kw = dict(ell_degree=FLOCK_D, env_grid=True, lam_iters=0,
+              env_grid_strict=True)
+    launches = dict(grid_window=0, table_build=0, table_transpose=0)
+
+    def expect(T):
+        # as flock_n262k's: a table a step, the first step's pass and 32
+        # cold-start lambda passes, then one pass a step (the unfused
+        # step's graph comes out of the same pass)
+        return dict(grid_window=33 + (T - 1), table_build=T,
+                    table_transpose=0)
+
+    def run(label, fn, T, N):
+        gridwin.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts = _flock_counts()
+        require(counts == expect(T), f"{label}: launches {counts}, expected "
+                                     f"{expect(T)}")
+        for k, n in counts.items():
+            launches[k] += n
+        with _plain_gridwin():
+            t0 = time.perf_counter()
+            plain = fn()
+            torch.cuda.synchronize()
+            plain_seconds = time.perf_counter() - t0
+        return out, plain, dict(
+            config=label, T=T, seconds=seconds, plain_seconds=plain_seconds,
+            agent_steps_per_s=N * (T - 1) / seconds, peak_gb_above_base=peak,
+            launches=counts)
+
+    env, ip, iv, _ = _flock_setup("flock_n262k", dev)
+    N = FLOCK["flock_n262k"]["N"]
+    dt = env.samplingTime
+    rows, setups = [], {}
+    for name, c in DB_MODELS.items():
+        net = _db_policy(name, dev)
+        fused = net.payload_width <= 1.5 * FLOCK_D
+        require(fused == c["fused"], f"{name}: payload {net.payload_width} "
+                                     f"fused {fused}")
+        (cf, ce), (pcf, pce), row = run(
+            f"{name} rollout_cost", lambda: env.rollout_cost(
+                ip, iv, FLOCK_T_EVAL * dt, net, **kw), FLOCK_T_EVAL, N)
+        require(np.isfinite(cf) and np.isfinite(ce), f"{name}: cost")
+        require((cf, ce) == (pcf, pce), f"{name} cost {cf}, {ce} vs plain "
+                                        f"{pcf}, {pce}")
+        rows.append(dict(row, payload_width=net.payload_width, fused=fused,
+                         parameters=net.parameter_count(), cost_full=cf,
+                         cost_end=ce, plain_cost_full=pcf,
+                         plain_cost_end=pce))
+        (pos, vel), (ppos, pvel), row = run(
+            f"{name} rollout_traj_device", lambda: env.rollout_traj_device(
+                ip, iv, DB_T_CHECK * dt, net, **kw), DB_T_CHECK, N)
+        require(tuple(pos.shape) == (1, DB_T_CHECK, 2, N)
+                and bool(torch.isfinite(pos).all()), f"{name}: trajectory")
+        rows.append(dict(row, vs_plain=_rollout_compare(
+            f"{name} traj", (pos, vel), (ppos, pvel))))
+        setups[name] = (env, ip, iv, net)
+        del pos, vel, ppos, pvel
+        torch.cuda.empty_cache()
+
+    # step mode is exact: the rollout's accelerations against the clipped
+    # split_forward over the states and ELL graphs the rollout emitted
+    env4, ip4, iv4, _ = _flock_setup("flock_n4096", dev)
+    exact = {}
+    for name in DB_MODELS:
+        net = setups[name][3]
+        _, _, accel, xs, g = env4.compute_trajectory(
+            ip4, iv4, DB_T_CHECK * dt, net, return_graphs=True, **kw)
+        as_t = lambda a, dt_=torch.float32: torch.as_tensor(
+            a, device=dev).to(dt_)
+        S = EllGso(as_t(g.idx, torch.int32), as_t(g.val))
+        deg = int((g.val > 0).sum(-1).max())
+        require(deg <= FLOCK_D, f"{name} 4096: in-degree {deg}")
+        with torch.no_grad():
+            y = net.split_forward(as_t(xs), S)[0]
+        a_max = env4.accelMax
+        got = torch.clamp(y, -a_max, a_max)[:, :-1]
+        want = as_t(accel)[:, :-1]
+        err, rel, agree = compare(got, want)
+        exact[name] = dict(B=xs.shape[0], N=xs.shape[-1], T=DB_T_CHECK,
+                           max_in_degree=deg, max_abs_err=err,
+                           max_rel_err=rel, rtol=RTOL,
+                           atol=f"{ATOL_REL}*max|step|")
+        require(agree, f"{name}: step mode vs split_forward at 4096: max abs "
+                       f"{err}, rel {rel}")
+    emit(phase="db_serving", nvidia_smi=card, rows=rows,
+         step_mode_exact=exact, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches, setups, rows
+
+
+def phase_db_profile(setups, serving_rows, local, card, n=10):
+    """Where a step of each controller's flock_n262k rollout (rollout_cost's
+    step: policy, physics, the grid env step) spends its time, beside
+    LocalGNN_DB's step (`flock_profile` of this run); for the unfused GRNN,
+    the share of its step that the ELL register gather (EllShiftRows'
+    forward at the step's shape, CUDA events) takes."""
+    import torch
+    from graph_neural_networks_torch.ops import filters
+    from graph_neural_networks_torch.ops.ell import EllGso
+    out = {}
+    for name, (env, ip, iv, net) in setups.items():
+        init_fn, step_fn = env._chunked_pieces(net, FLOCK_D, 0, True,
+                                               return_graphs="auto")
+        with torch.no_grad():
+            carry = [init_fn(env._as_device(ip), env._as_device(iv))[0]]
+
+            def step():
+                carry[0] = step_fn(carry[0])[0]
+
+            _, peak = _peak_gb(step)
+            prof = _device_profile(step, n)
+            row = dict(host_ms_per_step=prof["wall_ms"],
+                       profiled_host_ms_per_step=prof["profiled_wall_ms"],
+                       device_ms_per_step=prof["device_ms"],
+                       device_idle_share=prof["device_idle_share"],
+                       step_peak_gb_above_base=peak,
+                       rollout_s_100_steps=next(
+                           r["seconds"] for r in serving_rows
+                           if r["config"] == f"{name} rollout_cost"),
+                       top=[dict(name=t["name"], ms_per_step=t["ms"],
+                                 calls_per_step=t["calls"])
+                            for t in prof["top"]])
+            if not DB_MODELS[name]["fused"]:
+                _, _, _, i_t, s_t, pstate, _, _ = carry[0]
+                pay = net.rollout_payload(pstate)
+                S_t = EllGso(i_t, s_t[:, None])
+                gather_ms = time_ms(lambda: filters.step_shift_rows(pay,
+                                                                    S_t),
+                                    reps=10, inner=2)
+                row.update(
+                    ell_gather=dict(
+                        rows=int(i_t.numel()), width=int(pay.shape[-1]),
+                        gathered_gb=i_t.numel() * pay.shape[-1] * 4 / 1e9,
+                        ms=gather_ms),
+                    ell_gather_share_of_step_device_ms=(
+                        gather_ms / prof["device_ms"]
+                        if isinstance(prof["device_ms"], float)
+                        else "not measured"))
+            del carry
+        out[name] = row
+        torch.cuda.empty_cache()
+    emit(phase="db_profile", nvidia_smi=card, steps=out,
+         local_gnn_db_step=local)
+
+
+def _db_train_net(dev):
+    """flock_train_n262k's training of the GRNN at the reference width:
+    GraphRecurrentNN_DB(6, 2, 64, [3, 3], ...) as JAX examples/flocking.py
+    builds GraphRNN."""
+    import torch
+    from graph_neural_networks_torch.models.architectures_time import (
+        GraphRecurrentNN_DB)
+    return GraphRecurrentNN_DB(6, 2, 64, [3, 3], True, "tanh", "identity",
+                               "identity", [2], 1, device=dev,
+                               generator=torch.Generator().manual_seed(9))
+
+
+def phase_db_training(data, dev, card, out_dir):
+    """GraphRecurrentNN_DB (H = 64) trained on flock_train_n262k's device
+    store (Flocking.large_device of `flock_training`, reused) through
+    Model.train with TrainerFlocking(deviceStore=True, ellDegree=32) and
+    randomEpoch DAGger, flock_train_n262k's cut: each step recomputes its
+    supervision on kernels 5-6 and differentiates _grnn_db_ell_rows; the
+    re-rolls and validations run the unfused grid rollout. First the
+    first step's loss and gradients against the same step on the plain
+    versions; exact launch counts; then a step profiled."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_TRAIN
+    T = len(np.arange(0, c["duration"], 0.01))
+    lam = c["lam_iters"]
+    net = _db_train_net(dev)
+    require(net.payload_width > 1.5 * c["D"], "the GRNN would fuse")
+
+    # the first step on the kernels and on the plain versions: the
+    # recompute bit for bit, then the loss and every gradient (one z0)
+    probe = training.TrainerFlocking(
+        training.Model(net, training.losses.mse_loss,
+                       {"name": "ADAM", "lr": 5e-4},
+                       training.TrainerFlocking, training.evaluate_flocking,
+                       name="db_probe", saveDir=out_dir),
+        data, 1, 1, deviceStore=True, ellDegree=c["D"], coverageCheck=False)
+    first = np.random.default_rng(c["seed"]).permutation(c["nTrain"])[:1]
+    pos, vel = probe._step_args(first)
+    z0 = torch.randn((1, net.H, pos.shape[-1]), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    params = list(net.parameters())
+
+    def loss_grads(batch):
+        x, y, S = batch[:3]
+        loss = ((net.split_forward(x, S, z0=z0)[0] - y) ** 2).mean()
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    bk = probe._recompute(pos, vel)
+    with _plain_gridwin():
+        bp = probe._recompute(pos, vel)
+    same = {k: bool(torch.equal(a, b)) for k, a, b in (
+        ("states", bk[0], bp[0]), ("labels", bk[1], bp[1]),
+        ("idx", bk[2].idx, bp[2].idx), ("val", bk[2].val, bp[2].val))}
+    require(all(same.values()), f"GRNN first batch recompute: {same}")
+    (lk, gk), step_peak = _peak_gb(lambda: loss_grads(bk))
+    lp, gp = loss_grads(bp)
+    del bp
+    checks = dict(recompute_equal=same, loss=float(lk),
+                  loss_plain=float(lp), learn_peak_gb_above_base=step_peak)
+    rows = {}
+    for (pname, _), a, b in zip(net.named_parameters(), gk, gp):
+        err, rel, agree = compare(a, b, rtol=1e-4, atol_rel=1e-5)
+        rows[pname] = dict(max_abs_err=err, max_rel_err=rel)
+        require(agree, f"GRNN first-step gradient {pname}: kernels vs plain "
+                       f"max abs {err}, rel {rel}")
+    require(np.isfinite(float(lk))
+            and abs(float(lk) - float(lp)) <= 1e-6 * abs(float(lp)),
+            f"GRNN first-step loss {float(lk)} vs plain {float(lp)}")
+    checks["grads"] = rows
+    del bk, gk, gp, probe
+    torch.cuda.empty_cache()
+
+    # the path: Model.train from the store, then evaluate_flocking
+    log = []
+    net = _db_train_net(dev)
+    model = training.Model(net, training.losses.mse_loss,
+                           {"name": "ADAM", "lr": 5e-4},
+                           _counting_trainer(log), training.evaluate_flocking,
+                           name="db_train", saveDir=out_dir)
+    gridwin.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.train(data, c["epochs"], 1, deviceStore=True,
+                      ellDegree=c["D"], probExpert=c["probExpert"],
+                      DAGgerType="randomEpoch",
+                      validationInterval=c["valid_every"], seed=c["seed"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    costs = model.evaluate(data)
+    eval_s = time.perf_counter() - t0
+    launches = _flock_counts()
+    losses, valid = out["lossTrain"], out["costValid"]
+    require(len(losses) == c["epochs"] * c["nTrain"]
+            and np.isfinite(losses).all(), f"GRNN losses {losses}")
+    require(len(valid) > 0 and np.isfinite(valid).all(), f"valid {valid}")
+    require(np.isfinite(list(costs.values())).all() and len(costs) == 4,
+            f"costs {costs}")
+    rerolls = [e for e in log if e["what"] == "reroll"]
+    require(rerolls and all(e["store_changed"] for e in rerolls),
+            f"GRNN learner re-rolls {rerolls}")
+    recompute = _recompute_launches(T, lam)
+    expect = {"step": recompute, "reroll": _rollout_launches(T, lam),
+              "validation": _rollout_launches(T, lam),
+              "coverage check": {k: n * c["nTrain"]
+                                 for k, n in recompute.items()}}
+    for e in log:
+        want = expect[e["what"]]
+        require(e["launches"] == want, f"GRNN {e['what']}: launches "
+                                       f"{e['launches']}, expected {want}")
+    ev = _rollout_launches(T, 8)
+    total = {k: sum(e["launches"][k] for e in log) + 2 * ev[k]
+             for k in launches}
+    require(launches == total, f"GRNN path launches {launches}, its parts "
+                               f"add up to {total}")
+    emit(phase="db_training", nvidia_smi=card,
+         config="flock_train_n262k, GraphRecurrentNN_DB H = 64",
+         N=c["N"], T=T, ell_degree=c["D"], payload_width=net.payload_width,
+         parameters=net.parameter_count(), train_s=train_s,
+         evaluate_s=eval_s, loss=[float(v) for v in losses],
+         cost_valid=[float(v) for v in valid], evaluate=costs,
+         rerolls=rerolls, launches_per=dict(
+             step=recompute, reroll=expect["reroll"],
+             validation=expect["validation"], evaluate_rollout=ev),
+         launches=launches, first_step=checks,
+         seconds=time.perf_counter() - t_phase)
+
+    # one step (the path above warmed it up): its peak memory, then one
+    # step timed and one profiled
+    trainer = training.TrainerFlocking(model, data, 1, 1, deviceStore=True,
+                                       ellDegree=c["D"], coverageCheck=False)
+    idx = np.arange(1)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    _, peak_gb = _peak_gb(lambda: trainer.train_batch(idx))
+    p = _device_profile(lambda: trainer.train_batch(idx), 1, warmup=0)
+    emit(phase="db_train_profile", nvidia_smi=card,
+         config="flock_train_n262k GRNN step (B = 1, T = 50, H = 64)",
+         peak_gb_above_base=peak_gb, base_allocated_gb=base_gb,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         host_ms=p["wall_ms"], profiled_host_ms=p["profiled_wall_ms"],
+         device_ms=p["device_ms"], device_idle_share=p["device_idle_share"],
+         top=[dict(name=t["name"], ms=t["ms"], calls=t["calls"])
+              for t in p["top"]])
+    return launches
+
+
+def phase_db_ref_training(data, dev, card, out_dir):
+    """The reference experiment's other two controllers (JAX
+    examples/flocking.py:83, 86 at full width: AggGNN [6, 32] with
+    nExchanges 4, GraphRNN with H = 64) trained from flock_ref_n50's host
+    store (`flock_ref_training`'s Flocking(50, ...), reused) for one epoch
+    of batch 20, then evaluated: all pairs, so no grid kernel runs, and
+    every validation and test rollout is the dense closed loop
+    (Flocking._dense_pieces)."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = FLOCK_REF
+    dense_calls = []
+    pieces = data._dense_pieces
+
+    def counting_pieces(*a, **k):
+        dense_calls.append(1)
+        return pieces(*a, **k)
+
+    rows = {}
+    data._dense_pieces = counting_pieces
+    try:
+        for name, build in (
+                ("AggGNN", lambda gen: _db_agg_ref(dev, gen)),
+                ("GraphRNN", lambda gen: _db_train_net(dev))):
+            net = build(torch.Generator().manual_seed(10))
+            model = training.Model(net, training.losses.mse_loss,
+                                   {"name": "ADAM", "lr": c["lr"]},
+                                   training.TrainerFlocking,
+                                   training.evaluate_flocking, name=name,
+                                   saveDir=out_dir)
+            gridwin.reset_launch_counts()
+            del dense_calls[:]
+            t0 = time.perf_counter()
+            out = model.train(data, 1, c["batch"], validationInterval=10,
+                              probExpert=c["probExpert"],
+                              DAGgerType="randomEpoch", seed=c["seed"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            n_valid = len(out["costValid"])
+            costs = model.evaluate(data)
+            launches = _flock_counts()
+            losses = out["lossTrain"]
+            require(len(losses) == c["nTrain"] // c["batch"]
+                    and np.isfinite(losses).all(), f"{name} losses {losses}")
+            require(n_valid > 0 and np.isfinite(out["costValid"]).all(),
+                    f"{name} validation {out['costValid']}")
+            require(np.isfinite(list(costs.values())).all(),
+                    f"{name} costs {costs}")
+            require(len(dense_calls) == n_valid + 2,
+                    f"{name}: {len(dense_calls)} dense closed loops for "
+                    f"{n_valid} validations and 2 test rollouts")
+            require(all(v == 0 for v in launches.values()),
+                    f"{name}: the all-pairs path launched grid kernels: "
+                    f"{launches}")
+            rows[name] = dict(parameters=net.parameter_count(),
+                              train_s=train_s, loss=[float(v) for v in losses],
+                              cost_valid=[float(v) for v in out["costValid"]],
+                              evaluate=costs,
+                              dense_closed_loops=len(dense_calls),
+                              launches=launches)
+    finally:
+        del data._dense_pieces
+    emit(phase="db_ref_training", nvidia_smi=card, config="flock_ref_n50",
+         epochs=1, batch=c["batch"], models=rows,
+         seconds=time.perf_counter() - t_phase)
+
+
+def _db_agg_ref(dev, gen):
+    from graph_neural_networks_torch.models.architectures_time import (
+        AggregationGNN_DB)
+    return AggregationGNN_DB([6, 32], [2], True, "tanh", "MaxPoolLocal",
+                             [2], [2], 1, nExchanges=4, device=dev,
+                             generator=gen)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -5551,8 +6092,21 @@ def main() -> int:
         for k in serve_launches:
             launches[k] = env_launches[k] + serve_launches[k]
         rows.update(timed("flock_timing", phase_flock_timing, dev, card))
-        timed("flock_profile", phase_flock_profile, setup, card)
+        local_profile = timed("flock_profile", phase_flock_profile, setup,
+                              card)
         del setup
+        # the time-varying recurrent and aggregation controllers on the
+        # grid: the unfused (GRNN) and fused (AggGNN) steps at 262,144
+        db_errs, db_rows = timed("db_kernels", phase_db_kernels, dev)
+        for k, v in db_errs.items():
+            errs[k] = max(errs[k], v)
+        rows.update(db_rows)
+        db_serve_launches, db_setups, db_serving_rows = timed(
+            "db_serving", phase_db_serving, dev, card)
+        timed("db_profile", phase_db_profile, db_setups, db_serving_rows,
+              local_profile, card)
+        del db_setups
+        torch.cuda.empty_cache()
         train_errs, train_rows = timed(
             "flock_train_kernels", phase_flock_train_kernels,
             np.random.default_rng(15), dev)
@@ -5564,13 +6118,22 @@ def main() -> int:
                 "flock_training", phase_flock_training, dev, card, out_dir)
             timed("flock_train_profile", phase_flock_train_profile, trained,
                   card)
+            store = trained[1]
             del trained
+            torch.cuda.empty_cache()
+            db_train_launches = timed("db_training", phase_db_training,
+                                      store, dev, card, out_dir)
+            del store
         for k in ("grid_window", "table_build"):
-            launches[k] += flock_train_launches[k]
+            launches[k] += (flock_train_launches[k] + db_serve_launches[k]
+                            + db_train_launches[k])
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-            timed("flock_ref_training", phase_flock_ref_training, dev, card,
-                  out_dir)
+            _, ref_data = timed("flock_ref_training",
+                                phase_flock_ref_training, dev, card, out_dir)
+            timed("db_ref_training", phase_db_ref_training, ref_data, dev,
+                  card, out_dir)
+            del ref_data
             large_launches = timed("flock_largetrain",
                                    phase_flock_largetrain, dev, card,
                                    out_dir)

@@ -25,10 +25,14 @@ The port of the JAX package's ``data/flocking.py``.
 Device tensors are f32; rollouts are Python loops over steps, and the
 grid's exactness flag ``ok`` stays on the device until a rollout ends.
 
-Not ported yet (ROADMAP queue 1 item 7): the unfused grid step path
-(policies whose registers shift over the emitted ELL graph, 7.2), the
-chunked all-pairs env (``Flocking.large`` without ``env_grid``), the
-windowed re-forward and the segmented rollouts (7.3).
+A grid rollout runs fused (the policy's registers ride the cell table as
+payload and the window pass shifts them) or unfused (the policy shifts
+its registers over the ELL graph the step emitted); the rule is JAX's:
+fused when the payload is at most 1.5 ell_degree columns wide.
+
+Not ported yet (ROADMAP queue 1 item 7.3): the chunked all-pairs env
+(``Flocking.large`` without ``env_grid``), the windowed re-forward and the
+segmented rollouts.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from graph_neural_networks_torch.ops import gridwin
 from graph_neural_networks_torch.ops.ell import EllGso, ell_shift, ell_topk
 from graph_neural_networks_torch.utils.device import resolve_device
 
-_NOT_PORTED = ("(ROADMAP queue 1 item 7: 7.2 the unfused step, 7.3 the "
-               "chunked env and the windowed and segmented rollouts)")
+_NOT_PORTED = ("(ROADMAP queue 1 item 7.3: the chunked env and the "
+               "windowed and segmented rollouts)")
 
 
 # ---------------------------------------------------------------------------
@@ -616,9 +620,9 @@ def _grid_warning(ok, strict: bool) -> None:
     if bool(ok):
         return
     msg = ("grid env: a hash cell overflowed cell_cap during the rollout "
-           "(raise cell_cap/table_size), or — fused-policy rollouts — some "
-           "agent's in-degree exceeded d_max (raise ell_degree): neighbor "
-           "sets / emitted graphs may be incomplete")
+           "(raise cell_cap/table_size), or some agent's in-degree exceeded "
+           "d_max (raise ell_degree): neighbor sets / emitted graphs, and "
+           "an unfused policy's shifts over them, may be incomplete")
     if strict:
         raise RuntimeError(msg)
     warnings.warn(msg, RuntimeWarning)
@@ -1059,22 +1063,29 @@ class Flocking(Data):
     # -- closed-loop rollout (reference dataTools.py:3166-3340) -------------
     def _chunked_pieces(self, policy, ell_degree, lam_iters, env_grid,
                         return_graphs=True):
-        """init/step closures of the fused-policy grid rollout (JAX
-        ``_chunked_pieces`` with env_grid, its fused branch).
+        """init/step closures of the grid rollout in step mode (JAX
+        ``_chunked_pieces`` with env_grid), fused or unfused.
 
-        The policy's tap registers ride the grid env's cell table as
-        payload feature blocks, and the env's own window pass returns their
-        graph shift, so a step shifts no register over the emitted graph.
-        carry = (pos, vel, x_t, shifted registers, policy state, lambda
-        eigenvector, ok). Fused when the policy has the payload interface,
-        one edge feature and payload_width <= 1.5 * ell_degree; any other
-        policy needs the unfused step path, not ported yet.
+        Fused, when the policy has the payload interface, one edge feature
+        and 0 < payload_width <= 1.5 * ell_degree: its registers ride the
+        grid env's cell table as payload feature blocks and the env's own
+        window pass returns their graph shift, so a step shifts no
+        register over the emitted graph. carry = (pos, vel, x_t, shifted
+        registers, policy state, lambda eigenvector, ok).
+
+        Unfused, any other policy with ``rollout_step`` (a GRNN's wide
+        registers, E > 1): each step the policy shifts its registers over
+        the step's emitted ELL graph (``EllGso.db_shift_rows``), then the
+        physics, then the env step emits the next graph. carry = (pos,
+        vel, x_t, idx_t, val_t, policy state, lambda eigenvector, ok); ok
+        also flags an in-degree above the emitted width, since the policy
+        shifts over that truncation.
 
         return_graphs: True emits the first-d_max ELL graph of every step
-        (d_max = min(ell_degree, N)); False (or "auto", which is False for
-        a fused rollout) emits zero columns and skips the selection.
-        Positions are the same either way: the register shifts sum the
-        untruncated neighbor mask.
+        (d_max = min(ell_degree, N)); False emits zero columns and skips
+        the selection, which only the fused rollout can do (its shifts sum
+        the untruncated neighbor mask, so positions are the same either
+        way); "auto" is False exactly when the rollout is fused.
         """
         dt = self.samplingTime
         r = self.commRadius
@@ -1085,20 +1096,26 @@ class Flocking(Data):
                  and hasattr(policy, "rollout_payload")
                  and getattr(policy, "E", None) == 1
                  and 0 < pw <= 1.5 * ell_degree)
-        if not fused:
-            raise NotImplementedError(
-                f"{type(policy).__name__} (payload width {pw}, ell_degree "
-                f"{ell_degree}) takes the unfused step path, whose register "
-                f"shift over the ELL graph is not ported yet {_NOT_PORTED}")
         if return_graphs == "auto":
-            return_graphs = False
+            return_graphs = not fused
+        if not (return_graphs or fused):
+            raise ValueError(
+                "return_graphs=False requires the fused-policy grid rollout: "
+                f"{type(policy).__name__} (payload width {pw}, ell_degree "
+                f"{ell_degree}) shifts its registers over the emitted ELL "
+                "graph each step")
 
         def env_step(pos, vel, v, iters, payload=None):
             N = pos.shape[-1]
             D = min(ell_degree, N) if return_graphs else 0
-            return env_step_grid(pos, vel, r, D, v, lam_iters=iters,
-                                 table_size=gts, cell_cap=gcc,
-                                 cell_factor=gcf, payload=payload)
+            out = env_step_grid(pos, vel, r, D, v, lam_iters=iters,
+                                table_size=gts, cell_cap=gcc,
+                                cell_factor=gcf, payload=payload,
+                                in_degree=not fused)
+            if fused:
+                return out
+            *out, deg, ok = out
+            return (*out, ok & (deg.amax() <= D))
 
         def init_fn(init_pos, init_vel):
             B, _, N = init_pos.shape
@@ -1107,27 +1124,41 @@ class Flocking(Data):
             # cold start: converge the eigenvector
             i0, s0, x0, v0, ok = env_step(init_pos, init_vel, v0,
                                           max(lam_iters, 32))
-            # zero registers shift to zero: no payload pass needed
             pstate = policy.rollout_init(B, N)
+            if not fused:
+                return ((init_pos, init_vel, x0, i0, s0, pstate, v0, ok),
+                        (x0, (i0, s0)))
+            # zero registers shift to zero: no payload pass needed
             sh0 = torch.zeros_like(policy.rollout_payload(pstate)
                                    .reshape(B, N, -1))
             return ((init_pos, init_vel, x0, sh0, pstate, v0, ok),
                     (x0, (i0, s0)))
 
-        def step_fn(carry):
+        def physics(pos_t, vel_t, y):
+            a = torch.clamp(y, -a_max, a_max)
+            return a, a * dt * dt / 2 + vel_t * dt + pos_t, a * dt + vel_t
+
+        def step_fused(carry):
             pos_t, vel_t, x_t, sh_t, pstate, v, ok = carry
             B, _, N = pos_t.shape
             pstate, y = policy.rollout_step_shifted(pstate, x_t, sh_t)
-            a = torch.clamp(y, -a_max, a_max)
-            vel_n = a * dt + vel_t
-            pos_n = a * dt * dt / 2 + vel_t * dt + pos_t
+            a, pos_n, vel_n = physics(pos_t, vel_t, y)
             pay = policy.rollout_payload(pstate).reshape(B, N, -1)
             i_n, s_n, x_n, v, sh_n, ok_n = env_step(pos_n, vel_n, v,
                                                     lam_iters, payload=pay)
             return ((pos_n, vel_n, x_n, sh_n, pstate, v, ok & ok_n),
                     (pos_n, vel_n, a, x_n, (i_n, s_n)))
 
-        return init_fn, step_fn
+        def step_unfused(carry):
+            pos_t, vel_t, x_t, i_t, s_t, pstate, v, ok = carry
+            pstate, y = policy.rollout_step(pstate, x_t,
+                                            EllGso(i_t, s_t[:, None]))
+            a, pos_n, vel_n = physics(pos_t, vel_t, y)
+            i_n, s_n, x_n, v, ok_n = env_step(pos_n, vel_n, v, lam_iters)
+            return ((pos_n, vel_n, x_n, i_n, s_n, pstate, v, ok & ok_n),
+                    (pos_n, vel_n, a, x_n, (i_n, s_n)))
+
+        return init_fn, step_fused if fused else step_unfused
 
     def _dense_pieces(self, policy, ell_degree, lam_method):
         """init/step closures of the all-pairs closed loop (JAX

@@ -15,11 +15,12 @@ Run:  python -m graph_neural_networks_torch.examples.flocking
           [--quick] [--device cpu] [--nAgents N] [--ellDegree D]
           [--deviceStore]
 
-The linear local filter (LocalFlt) and the Local GNN (LocalGNN) are
-trained; the Aggregation GNN and the Graph RNN are not ported yet
-(ROADMAP queue 1 item 6) and print one line each. --quick keeps the JAX
-example's choice of models (LocalGNN, GraphRNN). Checkpoints go to
---saveDir, or to a temporary directory removed at the end.
+The four controllers of the JAX example are trained: the linear local
+filter (LocalFlt), the Local GNN (LocalGNN), the Aggregation GNN (AggGNN,
+F = [6, 32], nExchanges 4) and the Graph RNN (GraphRNN, H = 64); --quick
+keeps the JAX example's choice of models (LocalGNN, GraphRNN) at its
+narrower widths. Checkpoints go to --saveDir, or to a temporary directory
+removed at the end.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ import time
 
 import numpy as np
 import torch
-
-NOT_PORTED = "not ported yet (ROADMAP item 6)"
 
 
 def _args(argv):
@@ -58,7 +57,7 @@ def main(argv=None) -> dict:
     from graph_neural_networks_torch import training as T
     from graph_neural_networks_torch.data.flocking import Flocking
     from graph_neural_networks_torch.models.architectures_time import (
-        LocalGNN_DB)
+        AggregationGNN_DB, GraphRecurrentNN_DB, LocalGNN_DB)
     from graph_neural_networks_torch.utils.device import resolve_device
 
     args = _args(argv)
@@ -66,11 +65,11 @@ def main(argv=None) -> dict:
     if args.quick:
         nAgents, duration, dt = 12, 1.0, 0.1
         nTrain, nValid, nTest, nEpochs, batch = 40, 8, 8, 4, 10
-        F, K = [6, 16], [3]
+        F, K, H = [6, 16], [3], 16
     else:
         nAgents, duration, dt = 50, 2.0, 0.01
         nTrain, nValid, nTest, nEpochs, batch = 400, 20, 20, 30, 20
-        F, K = [6, 64], [3]
+        F, K, H = [6, 64], [3], 64
     if args.nAgents is not None:
         nAgents = args.nAgents
     print(f"== Flocking: {nAgents} agents, duration {duration}s ({dev}) ==",
@@ -97,8 +96,13 @@ def main(argv=None) -> dict:
                                          generator=gen)),
         ("LocalGNN", lambda: LocalGNN_DB(F, K, True, "tanh", [2], 1,
                                          device=dev, generator=gen)),
-        ("AggGNN", None),
-        ("GraphRNN", None),
+        ("AggGNN", lambda: AggregationGNN_DB(
+            [6, 16] if args.quick else [6, 32], [2], True, "tanh",
+            "MaxPoolLocal", [2], [2], 1, nExchanges=4, device=dev,
+            generator=gen)),
+        ("GraphRNN", lambda: GraphRecurrentNN_DB(
+            6, 2, H, [K[0], K[0]], True, "tanh", "identity", "identity",
+            [2], 1, device=dev, generator=gen)),
     ]
     if args.quick:
         models = [m for m in models if m[0] in ("LocalGNN", "GraphRNN")]
@@ -106,9 +110,6 @@ def main(argv=None) -> dict:
     results = {}
     with tempfile.TemporaryDirectory(prefix="flocking_") as tmp:
         for name, build in models:
-            if build is None:
-                print(f"{name}: {NOT_PORTED}", flush=True)
-                continue
             model = T.Model(build(), T.losses.mse_loss,
                             {"name": "ADAM", "lr": 5e-4}, T.TrainerFlocking,
                             T.evaluate_flocking, name=name,

@@ -6,7 +6,7 @@ Conventions (as in the JAX package's ``ops/filters.py``):
 
 Time-varying: x : (B, T, G, N) with S a dense (B, T, E, N, N) stack or an
 ``ops.ell.EllGso`` (``lsigf_db``, the delayed filters of the flocking
-controllers).
+controllers; ``grnn_db``, the recurrence of their GRNN).
 
 The static filter families (spectral, node-variant, edge-variant, ARMA)
 use the column-vector convention of the JAX package where it does
@@ -360,6 +360,88 @@ def lsigf_db(h: torch.Tensor, S, x: torch.Tensor,
     z = torch.stack(zs, dim=2)                        # B x T x K x E x G x N
     y = torch.einsum("btkegn,fekg->btfn", z, h)
     return y if b is None else y + b
+
+
+def _grnn_db_ell_rows(a: torch.Tensor, b_taps: torch.Tensor, S,
+                      x: torch.Tensor, z0: torch.Tensor, sigma,
+                      x_bias: Optional[torch.Tensor] = None,
+                      z_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ELL grnn_db with the hidden-state register node-major (B,N,E,K,H)
+    for the whole loop: each step's register shift is one
+    ``EllGso.db_shift_rows`` (``ell.EllShiftRows``, whose backward keeps
+    idx and val only), and the layout transposes once, at the output.
+    Returns (B,T,H,N)."""
+    H, E, K, F = a.shape
+    B, T, _, N = x.shape
+    Axr = _lsigf_db_ell_rows(a, S, x, x_bias)          # B x T x N x H
+    zb = None if z_bias is None else z_bias.reshape(-1)
+
+    def apply_b(reg):
+        # Bz[b,n,h] = sum_{e,k,j} b[h,e,k,j] reg[b,n,e,k,j]
+        out = torch.einsum("hekj,bnekj->bnh", b_taps, reg)
+        return out if zb is None else out + zb
+
+    def delayed(z):
+        return z[:, :, None, None].expand(B, N, E, 1, H)
+
+    # t = 0: the register holds [z_{-1} = z0, 0, ..., 0]
+    z = z0.transpose(-1, -2)                           # B x N x H
+    reg = torch.cat([delayed(z), z.new_zeros((B, N, E, K - 1, H))], dim=-2)
+    z = sigma(Axr[:, 0] + apply_b(reg))
+    zs = [z]
+    for t in range(1, T):
+        # delay the register: drop the oldest, shift the rest by S(t),
+        # prepend z_{t-1}
+        if K > 1:
+            shifted = S.time_step(t).db_shift_rows(
+                reg[..., : K - 1, :].reshape(B, N, E, (K - 1) * H))
+            reg = torch.cat([delayed(z),
+                             shifted.reshape(B, N, E, K - 1, H)], dim=-2)
+        else:
+            reg = delayed(z)
+        z = sigma(Axr[:, t] + apply_b(reg))
+        zs.append(z)
+    return torch.stack(zs, dim=1).transpose(-1, -2)    # B x T x H x N
+
+
+def grnn_db(a: torch.Tensor, b_taps: torch.Tensor, S, x: torch.Tensor,
+            z0: torch.Tensor, sigma,
+            x_bias: Optional[torch.Tensor] = None,
+            z_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hidden-state sequence z_t = sigma(A(S)x_t + B(S;t)z_{t-1}) on a
+    time-varying batch GSO, keeping a K-deep register of delayed hidden
+    states (reference graphML.py:1096-1290; the JAX ``lax.scan``, here a
+    Python loop over T that autograd differentiates).
+
+    a: (H,E,K,F), b_taps: (H,E,K,H), x: (B,T,F,N), z0: (B,H,N); S: dense
+    (B,T,E,N,N) or an ell.EllGso with leading axes (B,T). x_bias, z_bias:
+    (H,1) or None. Returns z (B,T,H,N).
+    """
+    if isinstance(S, ell_lib.EllGso):
+        return _grnn_db_ell_rows(a, b_taps, S, x, z0, sigma, x_bias, z_bias)
+    H, E, K, F = a.shape
+    B, T, _, N = x.shape
+    Ax = lsigf_db(a, S, x, b=x_bias)                   # B x T x H x N
+
+    def apply_b(reg):
+        # Bz[b,h,n] = sum_{e,k,j} b[h,e,k,j] reg[b,k,e,j,n]
+        out = torch.einsum("hekj,bkejn->bhn", b_taps, reg)
+        return out if z_bias is None else out + z_bias.reshape(1, H, 1)
+
+    def delayed(z):
+        return z[:, None, None].expand(B, 1, E, H, N)
+
+    # t = 0: the register holds [z_{-1} = z0, 0, ..., 0]
+    reg = torch.cat([delayed(z0), z0.new_zeros((B, K - 1, E, H, N))], dim=1)
+    z = sigma(Ax[:, 0] + apply_b(reg))
+    zs = [z]
+    for t in range(1, T):
+        shifted = torch.einsum("bkejn,benm->bkejm", reg[:, : K - 1],
+                               S[:, t])
+        reg = torch.cat([delayed(z), shifted], dim=1)
+        z = sigma(Ax[:, t] + apply_b(reg))
+        zs.append(z)
+    return torch.stack(zs, dim=1)
 
 
 # ---------------------------------------------------------------------------

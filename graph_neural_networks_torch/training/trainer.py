@@ -344,7 +344,10 @@ class TrainerFlocking(Trainer):
 
     The DAGger selections draw from the trainer's numpy rng after the
     epoch's batch permutation, in JAX's order, so both pick the same
-    learners.
+    learners. A stochastic forward (the GRNN's z0) draws from the
+    trainer's generator, as ``Trainer``'s; the closed-loop rollouts of
+    re-rolls and validation draw their z0 from a generator seeded 0, as
+    JAX's from PRNGKey(0).
     """
 
     def __init__(self, model, data, nEpochs, batchSize, **kwargs):
@@ -396,11 +399,11 @@ class TrainerFlocking(Trainer):
             raise ValueError("deviceStore recomputes dense reference-scale "
                              "graphs in the train step; ellDegree requires a "
                              "grid dataset (Flocking.large_device)")
-        step = ("rollout_step" if self.grid is None
-                else "rollout_step_shifted")
-        if not hasattr(model.archit, step):
-            raise ValueError(f"deviceStore re-rolls and validates through the "
-                             f"step interface ({step})")
+        # every rollout can step through rollout_step: the grid fuses only
+        # a policy that also has rollout_step_shifted
+        if not hasattr(model.archit, "rollout_step"):
+            raise ValueError("deviceStore re-rolls and validates through the "
+                             "step interface (rollout_step)")
 
     # -- graph-trajectory storage (dense numpy or a numpy-leaf EllGso) ------
     @staticmethod
@@ -507,7 +510,9 @@ class TrainerFlocking(Trainer):
         returns the loss tensor (not waited for)."""
         model = self.model
         model.optimizer.zero_grad(set_to_none=True)
-        loss = model.loss(model.archit.split_forward(x, S)[0].float(), y)
+        kw = {} if self.generator is None else {"generator": self.generator}
+        loss = model.loss(model.archit.split_forward(x, S, **kw)[0].float(),
+                          y)
         loss.backward()
         model.optimizer.step()
         if model.scheduler is not None:

@@ -29,7 +29,10 @@ def load_flax_params(arch, params) -> None:
     bias) and ``EdgeVariantAttentional_<l>`` (mixer, weight, bias); a
     LocalGNN_DB's are ``GraphFilterDB_<l>`` (weight, bias) and
     ``Readout/TorchDense_<i>``; a GRNN's ``hiddenState``, ``outputState``
-    and ``Readout``. A tree without a top-level 'params' (a
+    and ``Readout`` (GraphRecurrentNN_DB's: ``hiddenState/{aWeights,
+    bWeights, xBias, zBias}``, ``outputState/{weight, bias}``); an
+    aggregation GNN's ``Conv_<l>`` (kernel, bias; AggregationGNN_DB's
+    readout ``Readout``). A tree without a top-level 'params' (a
     MultiNodeAggregationGNN's ``{'inner': [[...]], 'mlp': ...}``) is
     taken whole, its lists keyed by position. Each model maps the leaves
     to its own parameters (``arch.flax_names()``: path -> (parameter,

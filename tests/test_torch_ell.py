@@ -22,6 +22,17 @@ from graph_neural_networks_tpu.models import architectures_time as jarcht
 from graph_neural_networks_tpu.ops import ell as jell
 from graph_neural_networks_tpu.ops import filters as jfilt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

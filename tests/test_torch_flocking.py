@@ -24,6 +24,16 @@ from graph_neural_networks_tpu.data import flocking as jF
 from graph_neural_networks_tpu.models import architectures_time as jarcht
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=1e-5, atol_rel=1e-6, axis=None):
     """|got - want| <= rtol |want| + atol_rel max|want| (per slice along
     `axis` when given, e.g. per state channel)."""
@@ -279,9 +289,12 @@ def test_compute_trajectory_matches_jax(rollout_pair, return_graphs):
 
 def test_unported_paths_raise(rollout_pair):
     _, tenv, ip, iv, _, _, tnet = rollout_pair
-    # payload width 12 > 1.5 * 4: the unfused step path
-    with pytest.raises(NotImplementedError, match="unfused"):
-        tenv.rollout_cost(ip, iv, 0.05, tnet, ell_degree=4, env_grid=True)
+    # payload width 12 > 1.5 * 4: the unfused step path is ported
+    # (test_torch_db_family.py); it shifts over the emitted graph, so it
+    # refuses to emit none
+    with pytest.raises(ValueError, match="requires the fused"):
+        tenv.compute_trajectory(ip, iv, 0.05, tnet, ell_degree=4,
+                                env_grid=True, return_graphs=False)
     # the all-pairs loop is ported (test_torch_flocking_host.py); the grid
     # without an ELL width is refused
     with pytest.raises(ValueError, match="env_grid requires ell_degree"):

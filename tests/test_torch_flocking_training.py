@@ -1,8 +1,9 @@
 """PyTorch port, the flocking training slice: the expert's repel pass, the
 grid and all-pairs experts, the training-batch recompute,
 Flocking.large_device, TrainerFlocking over the device-resident store
-(with and without DAGger), evaluate_flocking and the largeswarm driver,
-held against the JAX package on the CPU with the same inputs and weights.
+and evaluate_flocking, held against the JAX package on the CPU with the
+same inputs and weights. DAGger over that store, the re-rolls' lam_iters
+and the largeswarm example are in tests/test_torch_flocking_dagger.py.
 
 The JAX grid path runs on its XLA window path and, where a test covers
 the kernel, on the Pallas kernel in interpret mode. Tolerance: rtol =
@@ -21,7 +22,6 @@ from flax.core import unfreeze
 
 from graph_neural_networks_torch import training as TT
 from graph_neural_networks_torch.data import flocking as tF
-from graph_neural_networks_torch.examples import largeswarm as tlarge
 from graph_neural_networks_torch.models import architectures_time as tarcht
 from graph_neural_networks_torch.ops import ell as tell
 from graph_neural_networks_torch.utils.params import load_flax_params
@@ -29,6 +29,17 @@ from graph_neural_networks_tpu import training as JT
 from graph_neural_networks_tpu.data import flocking as jF
 from graph_neural_networks_tpu.models import architectures_time as jarcht
 from graph_neural_networks_tpu.ops import ell as jell
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # the training store: 32 agents at the flocking radii, T = 5
@@ -262,48 +273,6 @@ def test_evaluate_flocking_matches_jax(trained):
         np.testing.assert_allclose(got[k], want[k], **TOL)
 
 
-def _recording(cls, log, changed=None):
-    """cls logging each DAGger selection; with `changed`, also whether the
-    update changed the store's rows (the port's tensors)."""
-    class Recording(cls):
-        def _device_store_update(self, sel):
-            log.append(np.asarray(sel).copy())
-            super()._device_store_update(sel)
-            if changed is not None:
-                t = torch.as_tensor(np.asarray(sel))
-                changed.append(bool((self.posAll[t] != self.posOrig[t])
-                                    .any()))
-    return Recording
-
-
-@pytest.mark.parametrize("dagger,prob,epochs", [("randomEpoch", 0.5, 3),
-                                                ("replaceTimeBatch", 0.9, 2)])
-def test_dagger_matches_jax_selection(stores, tmp_path, dagger, prob,
-                                      epochs):
-    """DAGger over the device store: the learner index sets (drawn from the
-    trainer's numpy rng after its batch permutations) equal the JAX
-    trainer's, the store mutates where learners were re-rolled and the
-    originals stay, and losses and validation costs are finite."""
-    jd, _ = stores
-    td = _port_store(jd, 40)
-    jm, tm = _models(tmp_path)
-    jlog, tlog, changed = [], [], []
-    kw = dict(validationInterval=2, probExpert=prob, DAGgerType=dagger,
-              deviceStore=True, ellDegree=16, seed=6, rolloutChunk=4)
-    jtr = _recording(JT.TrainerFlocking, jlog)(jm, jd, epochs, 3, **kw)
-    ttr = _recording(TT.TrainerFlocking, tlog, changed)(tm, td, epochs, 3,
-                                                        **kw)
-    jtr.train()
-    out = ttr.train()
-    assert len(tlog) == len(jlog) > 0
-    for a, b in zip(tlog, jlog):
-        np.testing.assert_array_equal(a, b)
-    assert all(changed)
-    assert np.isfinite(out["lossTrain"]).all()
-    assert np.isfinite(out["costValid"]).all()
-    assert torch.equal(ttr.posOrig, td.pos["train"])
-
-
 def test_coverage_check_warns_where_jax_does_not(stores, tmp_path):
     """In-degrees above ellDegree with no payload on the table: the port's
     coverage check reads the window pass's count and warns; the JAX check
@@ -350,30 +319,3 @@ def test_host_store_raises_naming_7_1b(stores, tmp_path):
         JT.TrainerFlocking(jm, jd, 1, 2, **kw)
     with pytest.raises(ValueError, match=msg):
         TT.TrainerFlocking(tm, td, 1, 2, **kw)
-
-
-def test_rollout_traj_device_takes_the_dataset_lam_iters(stores):
-    """Re-rolls normalize their graphs as generation did: lam_iters
-    defaults to the dataset's rollout_lam_iters."""
-    _, td = stores
-    net = tarcht.LocalGNN_DB([6, 8], [2], True, "tanh", [2], 1,
-                             device="cpu",
-                             generator=torch.Generator().manual_seed(1))
-    ip, iv = td.getData("initPos", "valid"), td.getData("initVel", "valid")
-    got = td.rollout_traj_device(ip, iv, 0.5, net)
-    want = td.rollout_traj_device(ip, iv, 0.5, net, lam_iters=1)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-
-
-def test_largeswarm_driver_trains_on_the_cpu():
-    out = tlarge.main(["--device", "cpu", "--deviceStore",
-                       "--trainAgents", "64",
-                       "--nTrain", "2", "--nEpochs", "2", "--batch", "1",
-                       "--trainDuration", "0.05", "--deployAgents", "64",
-                       "--duration", "0.05"])
-    assert out["device"] == "cpu" and out["train_agents"] == 64
-    assert out["mode"] == "Flocking.large_device"
-    for k in ("loss_first", "loss_last", "best_valid", "cost_small",
-              "expert", "cost_big"):
-        assert np.isfinite(out[k]), k

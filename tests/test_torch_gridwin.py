@@ -19,6 +19,17 @@ from graph_neural_networks_torch.ops import gridwin as tgw
 from graph_neural_networks_tpu.data import flocking as jF
 from graph_neural_networks_tpu.ops import gridwin as jgw
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R_RADIUS = 2.0
 
 

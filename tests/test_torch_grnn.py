@@ -30,6 +30,17 @@ from graph_neural_networks_tpu.models import layers as jlayers
 from graph_neural_networks_tpu.ops import filters as jfilters
 from graph_neural_networks_tpu.ops import gso as jgso
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 CPU8 = [torch.device("cpu")] * 8
 GATES = [None, "time", "node", "edge"]

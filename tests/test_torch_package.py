@@ -14,6 +14,17 @@ from graph_neural_networks_torch.models import architectures as tarch
 from graph_neural_networks_torch.models import architectures_time as tarcht
 from graph_neural_networks_torch.ops import gso as tgso
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """

@@ -33,6 +33,17 @@ from graph_neural_networks_tpu.models import architectures as jarch
 from graph_neural_networks_tpu.ops import attention_flash as jaf
 from graph_neural_networks_tpu.parallel import attention as jsha
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 SLOPE = 0.2
 

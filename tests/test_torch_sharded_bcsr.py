@@ -28,6 +28,17 @@ from graph_neural_networks_tpu.ops import spmm as jspmm
 from tests.test_torch_parallel import (  # noqa: F401 (fixtures)
     _band_graph, _scrambled, local_path, meshes)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 MESHES = [((1, 8), None), ((1, 8), "data"), ((2, 4), None),
           ((2, 4), "data")]

@@ -14,6 +14,17 @@ import torch
 from graph_neural_networks_torch.ops import spmm as tspmm
 from graph_neural_networks_tpu.ops import spmm as jspmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on one machine: one intra-op thread
+    keeps the many small torch ops here from oversubscribing its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
