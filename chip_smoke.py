@@ -143,6 +143,22 @@ the node-sharded paths:
   SelectionGNN under the EDS and SpectralProxies orderings at the
   examples' widths (N = 100), on the card against the CPU, served and
   trained 4 steps.
+* The chunked all-pairs env, the windowed re-forward, the segmented
+  rollouts and the host loop (no kernel of the library; kernels 5-6 run
+  as the grid references, counted): rolls flock_n4096_chunked
+  (examples/largeswarm.py --no-envGrid: 2 samples, T = 100, env_chunk
+  512) in step mode, through the windowed re-forward and in host
+  segments of 8 steps, against the grid rollout from the same state (one
+  step's neighbour sets, states and values at t = 0, the first 10 steps)
+  and the all-pairs dense loop, with a step's profile; flock_n65536_
+  chunked's rollout_cost (env_chunk 8192) beside the grid's; generates
+  flock_largetrain_n4096_chunked with Flocking.large(env_grid=None)
+  against the grid generation, holds the chunked relabel against the f64
+  expert and trains it 2 epochs; rolls flock_n4096_chunked over mesh
+  (1, 4) on the all-pairs sharded env (windowed, fused, cost, and a
+  GraphRecurrentNN_DB as the windowed policy) against one card; and runs
+  a callable policy's host loop (full horizon and windowed) and the open
+  loop on flock_ref_n50's env.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -2818,7 +2834,7 @@ def phase_flock_training(dev, card, out_dir):
     return launches, (model, data)
 
 
-def phase_flock_train_profile(trained, card, n=2):
+def phase_flock_train_profile(trained, card, n=1):
     """Where one flock_train_n262k training step spends its time: the whole
     step, its recompute (no grad: the grid kernels) and its learning half
     (full-history forward over the ELL graphs, loss, backward, Adam), each
@@ -2887,7 +2903,7 @@ REF_LOOP_ATOL_REL = 1e-3
 # (at 262144 the host store alone would be ~20 GB of numpy).
 FLOCK_LARGE = dict(N=65536, nTrain=4, nValid=1, nTest=1, duration=0.5, D=32,
                    lam_iters=8, dims=[6, 64], taps=[3], epochs=3,
-                   probExpert=0.993, seed=0, wseed=5, bit_T=8, profile_n=3,
+                   probExpert=0.993, seed=0, wseed=5, bit_T=8, profile_n=1,
                    device_lam_iters=1, check_rows=4096, check_steps=(0, 25, 49))
 
 
@@ -6654,6 +6670,528 @@ def phase_left_outs(rng, dev, out_dir):
          seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# The chunked all-pairs env, the windowed re-forward, the segmented rollouts
+# and the host loop
+# ---------------------------------------------------------------------------
+
+# flock_n4096_chunked: examples/largeswarm.py --no-envGrid's deployment:
+# flock_n4096's swarm (2 samples, default_rng(1)) and policy
+# (LocalGNN_DB([6,64], [3]), random weights), T = 100, ell_degree 32,
+# env_chunk 512 (n_deploy // 8), lam_iters 0. flock_n65536_chunked: the
+# same policy at N = 65536, env_chunk 8192 (Flocking.large's N // 8), one
+# sample, T = 25, rollout_cost only (a dense all-pairs step cannot run
+# there: one (N, N) f32 matrix is 17.2 GB). flock_largetrain_n4096_chunked:
+# examples/largeswarm.py --largeTrain --no-envGrid --trainAgents 4096
+# --nTrain 4 --batch 1 --trainDuration 0.5: Flocking.large(env_grid=None)
+# (env_chunk 512, lam_iters 8, T = 50, 6 samples), TrainerFlocking
+# (ellDegree 32), 2 epochs.
+CHUNK = dict(D=32, chunk=512, lam_iters=0, T=FLOCK_T_EVAL, w=3, seg=8,
+             T_close=10, T_dense=10, dense_lam_iters=64, big_N=65536,
+             big_chunk=8192, big_T=25, shard_chunk=128, shard_T=25,
+             profile_n=5)
+CHUNK_TRAIN = dict(N=4096, nTrain=4, nValid=1, nTest=1, duration=0.5, D=32,
+                   lam_iters=8, epochs=2, probExpert=0.993, seed=0, wseed=6,
+                   relabel_steps=(0, 12, 24, 36, 49))
+CHUNK_HOST = dict(N=50, B=20, seed=0, T=100, w=3, wseed=7)
+CHUNK_RTOL = 1e-4          # a rollout against another form of it
+CHUNK_STEP_ATOL_REL = 1e-5  # one env step against another
+CHUNK_GRID_TOL = 2e-4      # chunked against grid rollouts (JAX test_ell.py)
+
+
+def _max_dev(a, b):
+    """Largest |a - b| of two host or device arrays."""
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _rollouts_close(label, got, want, rtol=CHUNK_RTOL, atol=CHUNK_RTOL,
+                    fields=("pos", "vel")):
+    """got/want: (pos, vel, ...) host arrays; |got - want| <= atol + rtol
+    |want| on each field named. Returns the deviations."""
+    out = {}
+    for name, a, b in zip(fields, got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        ok = bool(np.isfinite(a).all()
+                  and (np.abs(a - b) <= atol + rtol * np.abs(b)).all())
+        out[name] = dict(max_abs_err=_max_dev(a, b), ok=ok)
+        require(ok, f"{label}: {name} {out[name]}")
+    return out
+
+
+def _dense_rows(idx, val, N):
+    """(B, N, N) dense matrices of (B, N, D) ELL rows, whatever the slot
+    order."""
+    import torch
+    B = idx.shape[0]
+    S = torch.zeros((B, N, N), dtype=torch.float32, device=idx.device)
+    return S.scatter_add_(2, idx.long(), val.float())
+
+
+def _dense_sets(idx, val, N):
+    """The neighbour sets of (B, N, D) ELL rows as (B, N, N) 0/1
+    matrices."""
+    return _dense_rows(idx, (val > 0).float(), N)
+
+
+def _state_check(label, got, want, axis=1):
+    """|got - want| <= CHUNK_STEP_ATOL_REL * the channel's largest value."""
+    import torch
+    got, want = got.double(), want.double()
+    dims = tuple(i for i in range(want.dim()) if i != axis)
+    scale = want.abs().amax(dim=dims, keepdim=True)
+    err = (got - want).abs()
+    ok = bool((err <= CHUNK_STEP_ATOL_REL * scale).all()
+              and torch.isfinite(got).all())
+    out = dict(max_abs_err=err.max().item(),
+               max_err_over_channel_max=(err / scale.clamp_min(1e-30))
+               .max().item(), ok=ok)
+    require(ok, f"{label}: {out}")
+    return out
+
+
+def _timed_rollout(fn):
+    """(fn(), seconds, peak GB above the start), synchronized."""
+    import torch
+    t0 = time.perf_counter()
+    out, peak = _peak_gb(fn)
+    return out, time.perf_counter() - t0, peak
+
+
+def phase_chunked_serving(dev, card):
+    """flock_n4096_chunked through Flocking.compute_trajectory on the
+    chunked all-pairs env: (a) step mode, (b) the windowed re-forward at
+    w = causal_window (3) against (a), (c) seg=8 bit-equal to (a), (d) the
+    grid rollout (kernels 5-6, counted) from the same state, one env step
+    at t = 0 against the chunked step (neighbour sets, states, values) and
+    the first 10 steps' positions, and the windowed re-forward on the grid
+    against the grid's step mode, (e) the all-pairs dense loop (ell_topk,
+    lambda by 64-pass power iteration) against the chunked env at
+    lam_iters 64 over 10 steps; a step's host and device ms, idle share
+    and peak memory. No kernel runs on the chunked path."""
+    import torch
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = CHUNK
+    env, ip, iv, net = _flock_setup("flock_n4096", dev)
+    N, B = ip.shape[-1], ip.shape[0]
+    dt = env.samplingTime
+    dur = c["T"] * dt
+    kw = dict(ell_degree=c["D"], env_chunk=c["chunk"],
+              lam_iters=c["lam_iters"])
+    rows = {}
+    gridwin.reset_launch_counts()
+    a, a_s, a_peak = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net, **kw))
+    b, b_s, b_peak = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net, step_mode=False,
+                                       history_window=c["w"], **kw))
+    s, s_s, s_peak = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net, seg=c["seg"], **kw))
+    chunk_counts = _flock_counts()
+    require(not any(chunk_counts.values()),
+            f"the chunked env launched grid kernels: {chunk_counts}")
+    require(a[4].idx.shape == (B, c["T"], N, c["D"]), "chunked graphs")
+    rows["a_step_mode"] = dict(seconds=a_s, peak_gb=a_peak,
+                               ms_per_step=a_s / (c["T"] - 1) * 1e3,
+                               cost=env.evaluate(vel=a[1]),
+                               max_in_degree=int((a[4].val > 0).sum(-1)
+                                                 .max()))
+    rows["b_windowed"] = dict(seconds=b_s, peak_gb=b_peak, w=c["w"],
+                              vs_a=_rollouts_close("windowed vs step", b, a),
+                              cost=env.evaluate(vel=b[1]))
+    same = {f: bool(np.array_equal(x, y)) for f, x, y in zip(
+        ("pos", "vel", "accel", "states"), s[:4], a[:4])}
+    same["idx"] = bool(np.array_equal(s[4].idx, a[4].idx))
+    same["val"] = bool(np.array_equal(s[4].val, a[4].val))
+    require(all(same.values()), f"seg={c['seg']} differs: {same}")
+    rows["c_segmented"] = dict(seconds=s_s, peak_gb=s_peak, seg=c["seg"],
+                               equal_to_a=same)
+
+    # (d) the grid from the same state: one step at t = 0, then rollouts
+    pos = torch.as_tensor(ip, dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(iv, dtype=torch.float32, device=dev)
+    v0 = torch.ones((B, N), device=dev) / np.sqrt(N)
+    gridwin.reset_launch_counts()
+    gi, gs, gx, _, deg, ok = fl.env_step_grid(
+        pos, vel, 2.0, c["D"], v0, lam_iters=0, cell_cap=32, cell_factor=2,
+        in_degree=True)
+    step_counts = _flock_counts()
+    D = max(c["D"], int(deg.max()))
+    if D > c["D"]:                      # the sets compare untruncated
+        gi, gs, gx, _, ok = fl.env_step_grid(
+            pos, vel, 2.0, D, v0, lam_iters=0, cell_cap=32, cell_factor=2)
+        step_counts = _flock_counts()
+    require(bool(ok), "grid step at t = 0: cell overflow")
+    ci, cs, cx, _ = fl.env_step_chunked(pos, vel, 2.0, D, c["chunk"], v0,
+                                        lam_iters=0)
+    Sg, Sc = _dense_sets(gi, gs, N), _dense_sets(ci, cs, N)
+    require(bool(torch.equal(Sg, Sc)), "grid and chunked neighbour sets "
+                                       "differ at t = 0")
+    step_check = dict(
+        d_max=D, largest_in_degree=int(deg.max()),
+        edges=int(Sc.sum().item()), neighbour_sets_equal=True,
+        states=_state_check("t = 0 states, grid vs chunked", gx, cx),
+        values=_state_check("t = 0 values, grid vs chunked",
+                            _dense_rows(gi, gs, N), _dense_rows(ci, cs, N),
+                            axis=0),
+        launches=step_counts)
+    del Sg, Sc
+    gkw = dict(ell_degree=c["D"], env_grid=True, lam_iters=c["lam_iters"])
+    gridwin.reset_launch_counts()
+    g, g_s, _ = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net, **gkw))
+    g_counts = _flock_counts()
+    want = dict(grid_window=33 + (c["T"] - 1), table_build=c["T"],
+                table_transpose=0)
+    require(g_counts == want, f"grid rollout launches {g_counts}, expected "
+                              f"{want}")
+    gridwin.reset_launch_counts()
+    gw, gw_s, _ = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net, step_mode=False,
+                                       history_window=c["w"], **gkw))
+    gw_counts = _flock_counts()
+    require(gw_counts == want, f"grid windowed launches {gw_counts}, "
+                               f"expected {want}")
+    first = c["T_close"]
+    close10 = _rollouts_close(
+        f"chunked vs grid, first {first} steps",
+        (a[0][:, :first], a[1][:, :first]), (g[0][:, :first],
+                                             g[1][:, :first]),
+        rtol=CHUNK_GRID_TOL, atol=CHUNK_GRID_TOL)
+    rows["d_grid"] = dict(
+        seconds=g_s, t0_step=step_check, first_steps=first,
+        first_steps_vs_chunked=close10,
+        max_dev_all_steps=dict(pos=_max_dev(a[0], g[0]),
+                               vel=_max_dev(a[1], g[1])),
+        cost_full=dict(chunked=env.evaluate(vel=a[1]),
+                       grid=env.evaluate(vel=g[1])),
+        cost_end=dict(chunked=env.evaluate(vel=a[1][:, -1:]),
+                      grid=env.evaluate(vel=g[1][:, -1:])),
+        launches=g_counts,
+        windowed=dict(seconds=gw_s, launches=gw_counts,
+                      vs_grid_step=_rollouts_close("grid windowed vs step",
+                                                   gw, g)))
+    launches = {k: step_counts[k] + g_counts[k] + gw_counts[k]
+                for k in g_counts}
+
+    # (e) the all-pairs dense loop, lambda by 64-pass power iteration
+    dur_e = c["T_dense"] * dt
+    e_dense, e_s, e_peak = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur_e, net, ell_degree=c["D"],
+                                       lam_method="power"))
+    e_chunk = env.compute_trajectory(ip, iv, dur_e, net, ell_degree=c["D"],
+                                     env_chunk=c["chunk"],
+                                     lam_iters=c["dense_lam_iters"])
+    rows["e_dense"] = dict(seconds=e_s, peak_gb=e_peak, T=c["T_dense"],
+                           lam_iters=c["dense_lam_iters"],
+                           vs_chunked=_rollouts_close("dense vs chunked",
+                                                      e_chunk, e_dense))
+
+    # a chunked step's profile (step mode, as (a))
+    init_fn, step_fn = env._pieces(net, c["D"], None, c["lam_iters"],
+                                   "power", env_chunk=c["chunk"])
+    with torch.no_grad():
+        carry = [init_fn(env._as_device(ip), env._as_device(iv))[0]]
+
+        def step():
+            carry[0] = step_fn(carry[0])[0]
+
+        _, step_peak = _peak_gb(step)
+        prof = _device_profile(step, c["profile_n"], warmup=2)
+    rows["profile"] = dict(
+        host_ms_per_step=prof["wall_ms"],
+        profiled_host_ms_per_step=prof["profiled_wall_ms"],
+        device_ms_per_step=prof["device_ms"],
+        device_idle_share=prof["device_idle_share"], step_peak_gb=step_peak,
+        top=[dict(name=t["name"], ms_per_step=t["ms"],
+                  calls_per_step=t["calls"]) for t in prof["top"]])
+    emit(phase="chunked_serving", nvidia_smi=card,
+         config="flock_n4096_chunked", N=N, B=B, T=c["T"], d_max=c["D"],
+         env_chunk=c["chunk"], lam_iters=c["lam_iters"], rows=rows,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches, net
+
+
+def phase_chunked_big(net, dev, card):
+    """flock_n65536_chunked: rollout_cost on the chunked env (chunk 8192)
+    beside the grid's rollout_cost of the same state (kernels 5-6,
+    counted); both costs, ms a step and the peak memory."""
+    import torch
+    from graph_neural_networks_torch.data.flocking import Flocking
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = CHUNK
+    N = c["big_N"]
+    env = Flocking.for_rollout(N, commRadius=2.0, repelDist=1.0,
+                               samplingTime=0.01, device=dev,
+                               rng=np.random.default_rng(1))
+    ip, iv = env.compute_initial_positions(
+        N, 1, env.commRadius, minDist=env.initMinDist, geometry="circular",
+        xMaxInitVel=3.0, yMaxInitVel=3.0)
+    dur = c["big_T"] * env.samplingTime
+    torch.cuda.empty_cache()
+    gridwin.reset_launch_counts()
+    (cf, ce), ch_s, ch_peak = _timed_rollout(lambda: env.rollout_cost(
+        ip, iv, dur, net, ell_degree=c["D"], env_chunk=c["big_chunk"],
+        lam_iters=c["lam_iters"]))
+    require(not any(_flock_counts().values()),
+            "the chunked env launched grid kernels")
+    torch.cuda.empty_cache()
+    (gcf, gce), g_s, g_peak = _timed_rollout(lambda: env.rollout_cost(
+        ip, iv, dur, net, ell_degree=c["D"], env_grid=True,
+        lam_iters=c["lam_iters"], env_grid_strict=True))
+    counts = _flock_counts()
+    want = dict(grid_window=33 + (c["big_T"] - 1), table_build=c["big_T"],
+                table_transpose=0)
+    require(counts == want, f"grid cost launches {counts}, expected {want}")
+    require(np.isfinite([cf, ce, gcf, gce]).all(), "non-finite cost")
+    rel = abs(cf - gcf) / abs(gcf)
+    require(rel <= 1e-3, f"chunked cost {cf} vs grid {gcf}: {rel}")
+    emit(phase="chunked_big", nvidia_smi=card, config="flock_n65536_chunked",
+         N=N, B=1, T=c["big_T"], env_chunk=c["big_chunk"], d_max=c["D"],
+         cost_full=dict(chunked=cf, grid=gcf, rel_diff=rel),
+         cost_end=dict(chunked=ce, grid=gce),
+         chunked=dict(seconds=ch_s, ms_per_step=ch_s / c["big_T"] * 1e3,
+                      peak_gb=ch_peak,
+                      dense_step_matrix_gb=4 * N * N / 1e9),
+         grid=dict(seconds=g_s, ms_per_step=g_s / c["big_T"] * 1e3,
+                   peak_gb=g_peak, launches=counts),
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def phase_chunked_training(dev, card, out_dir):
+    """flock_largetrain_n4096_chunked: Flocking.large(env_grid=None) held
+    against Flocking.large(env_grid=True) from the same initial conditions
+    (t = 0: neighbour sets, states and labels; the deviation over T), the
+    chunked relabel against the f64 host expert, then Model.train with
+    TrainerFlocking's ELL host store on the chunked env (finite losses and
+    validation) and a step's profile."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.data import flocking as fl
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = CHUNK_TRAIN
+    kw = dict(commRadius=2.0, repelDist=1.0, nTrain=c["nTrain"],
+              nValid=c["nValid"], nTest=c["nTest"], duration=c["duration"],
+              samplingTime=0.01, ell_degree=c["D"], lam_iters=c["lam_iters"],
+              device=dev)
+    gridwin.reset_launch_counts()
+    data, gen_s, gen_peak = _timed_rollout(lambda: fl.Flocking.large(
+        c["N"], rng=np.random.default_rng(c["seed"]), **kw))
+    require(not any(_flock_counts().values()),
+            "the chunked generation launched grid kernels")
+    require(data.rollout_env_chunk == c["N"] // 8
+            and data.rollout_env_grid is None, "chunked rollout defaults")
+    gridwin.reset_launch_counts()
+    grid, grid_s, _ = _timed_rollout(lambda: fl.Flocking.large(
+        c["N"], rng=np.random.default_rng(c["seed"]), env_grid=True, **kw))
+    gen_counts = _flock_counts()
+    T = len(np.arange(0, c["duration"], 0.01))
+    n_chunks = -(-(c["nTrain"] + c["nValid"] + c["nTest"]) // 4)
+    want = dict(grid_window=n_chunks * T * (2 + c["lam_iters"]),
+                table_build=n_chunks * T, table_transpose=0)
+    require(gen_counts == want, f"grid generation launches {gen_counts}, "
+                                f"expected {want}")
+    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    check, over_T = {}, {}
+    for split in ("train", "valid", "test"):
+        ga = data.getData("commGraph", split)
+        gb = grid.getData("commGraph", split)
+        for b in range(ga.idx.shape[0]):
+            same = torch.equal(
+                _dense_sets(as_t(ga.idx[b, :1]), as_t(ga.val[b, :1, 0]),
+                            c["N"]),
+                _dense_sets(as_t(gb.idx[b, :1]), as_t(gb.val[b, :1, 0]),
+                            c["N"]))
+            require(same, f"{split}[{b}]: t = 0 neighbour sets differ")
+        for f, axis in (("state", 1), ("accel", 1)):
+            a0 = as_t(data.getData(f, split)[:, 0])
+            b0 = as_t(grid.getData(f, split)[:, 0])
+            check[f"{split}_{f}_t0"] = _state_check(
+                f"{split} {f} at t = 0, chunked vs grid", a0, b0, axis=axis)
+        for f in ("pos", "vel", "state", "accel"):
+            over_T[f"{split}_{f}"] = _max_dev(data.getData(f, split),
+                                              grid.getData(f, split))
+    del grid
+    net = LocalGNN_DB([6, 64], [3], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    model = training.Model(net, training.losses.mse_loss,
+                           {"name": "ADAM", "lr": 5e-4},
+                           training.TrainerFlocking,
+                           training.evaluate_flocking, name="chunk_large",
+                           saveDir=out_dir)
+    trainer = training.TrainerFlocking(model, data, c["epochs"], 1,
+                                       ellDegree=c["D"])
+    # the chunked relabel of one stored trajectory against the f64 expert
+    pos = data.getData("pos", "train")[:1].astype(np.float64)
+    vel = data.getData("vel", "train")[:1].astype(np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = trainer._expert_accel(pos, vel)
+    torch.cuda.synchronize()
+    relabel_s = time.perf_counter() - t0
+    rel = {}
+    for t in c["relabel_steps"]:
+        ref = fl.expert_accel_host(pos[:, t], vel[:, t], data.repelDist,
+                                   data.accelMax)
+        err, r, agree = compare(torch.as_tensor(y[:, t]),
+                                torch.as_tensor(ref), rtol=1e-4,
+                                atol_rel=1e-4)
+        rel[t] = dict(max_abs_err=err, max_rel_err=r,
+                      unclipped_share=float((np.abs(ref)
+                                             < data.accelMax).mean()))
+        require(agree, f"chunked relabel at t={t} vs the f64 expert: {err}")
+    gridwin.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.train(data, c["epochs"], 1, ellDegree=c["D"],
+                      probExpert=c["probExpert"], DAGgerType="randomEpoch",
+                      seed=c["seed"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    costs = model.evaluate(data)
+    train_counts = _flock_counts()
+    require(not any(train_counts.values()),
+            f"chunked training launched grid kernels: {train_counts}")
+    losses, valid = out["lossTrain"], out["costValid"]
+    require(len(losses) == c["epochs"] * c["nTrain"]
+            and np.isfinite(losses).all(), f"losses {losses}")
+    require(len(valid) > 0 and np.isfinite(valid).all(), f"valid {valid}")
+    require(np.isfinite(list(costs.values())).all(), f"costs {costs}")
+    trainer = training.TrainerFlocking(model, data, 1, 1, ellDegree=c["D"])
+    prof = _step_profile(trainer, np.arange(1), 3)
+    emit(phase="chunked_training", nvidia_smi=card,
+         config="flock_largetrain_n4096_chunked", N=c["N"], T=T,
+         env_chunk=data.rollout_env_chunk, generation_s=gen_s,
+         generation_peak_gb=gen_peak, grid_generation_s=grid_s,
+         grid_launches=gen_counts, t0_checks=check, max_dev_over_T=over_T,
+         relabel=dict(seconds=relabel_s, rtol=1e-4,
+                      atol="1e-4*max|f64 expert|", steps=rel),
+         train_s=train_s, loss=[float(v) for v in losses],
+         cost_valid=[float(v) for v in valid], evaluate=costs,
+         step=prof, seconds=time.perf_counter() - t_phase)
+    return gen_counts
+
+
+def phase_chunked_sharded(net, dev, card):
+    """flock_n4096_chunked's swarm over mesh (1, 4) of the one card on the
+    all-pairs sharded env (env_chunk 128 rows a sub-chunk): the windowed,
+    fused step-mode (the payload by masked product) and cost rollouts of
+    the LocalGNN_DB policy and a GraphRecurrentNN_DB (flock_grnn_n262k's
+    widths) as a windowed policy at w = 3, each against the one-card
+    chunked rollout of the same policy; no kernel runs."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.models.architectures_time import (
+        GraphRecurrentNN_DB)
+    from graph_neural_networks_torch.ops import gridwin
+    t_phase = time.perf_counter()
+    c = CHUNK
+    env, ip, iv, _ = _flock_setup("flock_n4096", dev)
+    T = c["shard_T"]
+    dur = T * env.samplingTime
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    pos, vel, n_orig = par.pad_swarm(ip, iv, mesh)
+    grnn = GraphRecurrentNN_DB(6, 2, 64, [3, 3], True, "tanh", "identity",
+                               "identity", [2], 1, device=dev,
+                               generator=torch.Generator().manual_seed(3))
+    one_kw = dict(ell_degree=c["D"], env_chunk=c["chunk"],
+                  lam_iters=c["lam_iters"])
+    roll = lambda policy, **k: par.sharded_swarm_rollout(
+        T, c["w"], policy, env.commRadius, env.samplingTime, env.accelMax,
+        c["D"], mesh, n_orig=n_orig, lam_iters=c["lam_iters"],
+        env_chunk=c["shard_chunk"], **k)(pos, vel)
+    cases = {
+        "windowed": (lambda: roll(net), lambda: env.compute_trajectory(
+            ip, iv, dur, net, step_mode=False, history_window=c["w"],
+            **one_kw)),
+        "fused": (lambda: roll(net, step_mode=True),
+                  lambda: env.compute_trajectory(ip, iv, dur, net,
+                                                 **one_kw)),
+        "cost": (lambda: roll(net, step_mode=True, return_cost=True),
+                 lambda: env.rollout_cost(ip, iv, dur, net, **one_kw)),
+        "grnn_windowed": (lambda: roll(grnn), lambda: env.compute_trajectory(
+            ip, iv, dur, grnn, step_mode=False, history_window=c["w"],
+            **one_kw)),
+    }
+    rows = {}
+    gridwin.reset_launch_counts()
+    for name, (sharded, one) in cases.items():
+        got, s_s, s_peak = _timed_rollout(sharded)
+        want, o_s, _ = _timed_rollout(one)
+        require(bool(got[-1]), f"{name}: ok False on the all-pairs env")
+        if name == "cost":
+            cf, ce = float(got[0]), float(got[1])
+            rel = [abs(cf - want[0]) / abs(want[0]),
+                   abs(ce - want[1]) / abs(want[1])]
+            require(max(rel) <= CHUNK_RTOL, f"cost {cf}, {ce} vs one card "
+                                             f"{want}: {rel}")
+            vs = dict(cost=[cf, ce], one_card=list(want), rel_diff=rel)
+        else:
+            vs = _rollouts_close(f"sharded {name} vs one card",
+                                 (got[0].cpu().numpy(), got[1].cpu().numpy()),
+                                 want)
+        rows[name] = dict(seconds=s_s, one_card_seconds=o_s,
+                          ms_per_step=s_s / (T - 1) * 1e3, peak_gb=s_peak,
+                          largest_in_degree=int(got[-2]), vs_one_card=vs)
+    counts = _flock_counts()
+    require(not any(counts.values()),
+            f"the all-pairs sharded env launched grid kernels: {counts}")
+    emit(phase="chunked_sharded", nvidia_smi=card,
+         config="flock_n4096_chunked over mesh (1, 4)", T=T,
+         env_chunk=c["shard_chunk"], rows=rows, rtol=CHUNK_RTOL,
+         atol=CHUNK_RTOL, seconds=time.perf_counter() - t_phase)
+
+
+def phase_chunked_host_loop(dev, card):
+    """The host loop on flock_ref_n50's env (N = 50, 20 samples, 1 s): a
+    plain callable policy (LocalGNN_DB([6,64], [3]) behind a lambda, no
+    step interface) over the full horizon and over history_window 3,
+    against the module's step-mode dense rollout on the card; and the
+    open loop replaying the f64 expert's accelerations, which gives back
+    the expert's trajectory."""
+    import torch
+    from graph_neural_networks_torch.data.flocking import Flocking
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    t_phase = time.perf_counter()
+    c = CHUNK_HOST
+    env = Flocking.for_rollout(c["N"], commRadius=2.0, repelDist=1.0,
+                               samplingTime=0.01, device=dev,
+                               rng=np.random.default_rng(c["seed"]))
+    ip, iv = env.compute_initial_positions(
+        c["N"], c["B"], env.commRadius, minDist=env.initMinDist,
+        geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
+    net = LocalGNN_DB([6, 64], [3], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    dur = c["T"] * env.samplingTime
+    ref, ref_s, _ = _timed_rollout(
+        lambda: env.compute_trajectory(ip, iv, dur, net))
+    policy = lambda x, S: net(x, S)
+    rows = {}
+    for name, window in (("full_horizon", None), ("windowed", c["w"])):
+        got, s, _ = _timed_rollout(lambda: env.compute_trajectory(
+            ip, iv, dur, policy, history_window=window))
+        require(got[4].shape == (c["B"], c["T"], c["N"], c["N"]),
+                f"{name}: host graphs {got[4].shape}")
+        rows[name] = dict(seconds=s, vs_step_mode=_rollouts_close(
+            f"host loop {name} vs step mode", got, ref))
+    pos, vel, acc = env.compute_optimal_trajectory(ip, iv, dur, 0.01, 1.0)
+    op = env.compute_trajectory(ip, iv, dur, accel=acc)
+    replay = dict(pos=bool(np.array_equal(op[0], pos)),
+                  vel=bool(np.array_equal(op[1], vel)),
+                  no_states=op[3] is None and op[4] is None)
+    require(all(replay.values()), f"open loop replay: {replay}")
+    emit(phase="chunked_host_loop", nvidia_smi=card, config="flock_ref_n50",
+         B=c["B"], T=c["T"], step_mode_seconds=ref_s, rows=rows,
+         open_loop=replay, seconds=time.perf_counter() - t_phase)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -6871,7 +7409,7 @@ def main() -> int:
                 "grnn_training", phase_grnn_training, S_np,
                 np.random.default_rng(23), dev, out_dir)
             grnn_launches.append(tr_launches)
-            timed("grnn_train_profile", phase_train_profile, trained, 3,
+            timed("grnn_train_profile", phase_train_profile, trained, 2,
                   "grnn_train_profile")
             del trained
             torch.cuda.empty_cache()
@@ -6897,6 +7435,22 @@ def main() -> int:
             for k, v in part_launches.items():
                 if v:
                     launches[k] += v
+        # the chunked all-pairs env, the windowed re-forward, the segmented
+        # rollouts and the host loop; kernels 5-6 as the grid references
+        torch.cuda.empty_cache()
+        chunk_launches, chunk_net = timed("chunked_serving",
+                                          phase_chunked_serving, dev, card)
+        big_launches = timed("chunked_big", phase_chunked_big, chunk_net,
+                             dev, card)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            ctrain_launches = timed("chunked_training",
+                                    phase_chunked_training, dev, card,
+                                    out_dir)
+        timed("chunked_sharded", phase_chunked_sharded, chunk_net, dev, card)
+        timed("chunked_host_loop", phase_chunked_host_loop, dev, card)
+        for part_launches in (chunk_launches, big_launches, ctrain_launches):
+            for k in ("grid_window", "table_build"):
+                launches[k] += part_launches[k]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

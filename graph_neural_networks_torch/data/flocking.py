@@ -10,13 +10,14 @@ The port of the JAX package's ``data/flocking.py``.
   ``getData``/``getSamples``; ``training.TrainerFlocking`` trains over it
   from its host store.
 * Closed-loop rollouts (``compute_trajectory``, ``rollout_traj_device``,
-  ``rollout_cost``) through a policy's step interface, on one of two
-  environments: the all-pairs step (:func:`comm_graph`, :func:`states`;
-  the dense (B,T,N,N) graph trajectory, or its top-D ELL form) when the
-  dataset has no grid, or the O(N) cell-list grid (:func:`env_step_grid`)
+  ``rollout_cost``) on one of three environments: the all-pairs step
+  (:func:`comm_graph`, :func:`states`; the dense (B,T,N,N) graph
+  trajectory, or its top-D ELL form), the chunked all-pairs step
+  (``env_chunk``), or the O(N) cell-list grid (:func:`env_step_grid`)
   whose table and window passes run the kernels of ``ops/gridwin.py``.
-* Large swarms: ``Flocking.large(env_grid=...)`` generates the expert's
-  supervision on the grid (states, labels and ELL graphs, kept as host
+* Large swarms: ``Flocking.large`` generates the expert's supervision on
+  the grid (``env_grid``) or on the chunked all-pairs env (states, labels
+  and ELL graphs, kept as host
   numpy); ``Flocking.large_device`` keeps only the expert's (pos, vel) on
   the device, and each training batch recomputes its states, labels and
   ELL graphs there (:func:`recompute_supervision_grid`; the dense
@@ -30,9 +31,15 @@ payload and the window pass shifts them) or unfused (the policy shifts
 its registers over the ELL graph the step emitted); the rule is JAX's:
 fused when the payload is at most 1.5 ell_degree columns wide.
 
-Not ported yet (ROADMAP queue 1 item 7.3): the chunked all-pairs env
-(``Flocking.large`` without ``env_grid``), the windowed re-forward and the
-segmented rollouts.
+The chunked all-pairs env (:func:`env_step_chunked`,
+:func:`expert_accel_chunked`: row chunks against the whole swarm, O(B·
+chunk·N) memory, plain torch as JAX's is XLA) serves ``Flocking.large``
+without ``env_grid`` and the rollouts with ``env_chunk``. Besides the
+step interface, a rollout runs the windowed re-forward (``step_mode=
+False`` or a policy without ``rollout_step``: the full-history forward
+over the last w steps) on any env, the grid and chunked ones also in host
+segments (``seg=``); ``compute_trajectory`` also replays an open-loop
+acceleration sequence and runs the host loop of a plain callable policy.
 """
 
 from __future__ import annotations
@@ -48,10 +55,6 @@ from graph_neural_networks_torch.data.base import (
 from graph_neural_networks_torch.ops import gridwin
 from graph_neural_networks_torch.ops.ell import EllGso, ell_shift, ell_topk
 from graph_neural_networks_torch.utils.device import resolve_device
-
-_NOT_PORTED = ("(ROADMAP queue 1 item 7.3: the chunked env and the "
-               "windowed and segmented rollouts)")
-
 
 # ---------------------------------------------------------------------------
 # Dense all-pairs step: the reference for one environment step
@@ -105,6 +108,171 @@ def states(pos: torch.Tensor, vel: torch.Tensor,
     diff_vel = diff_vel * adj
     return torch.cat([diff_vel.sum(-1), (diff_pos * inv ** 2).sum(-1),
                       (diff_pos * inv).sum(-1)], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Chunked all-pairs environment step: O(B·chunk·N) memory
+# ---------------------------------------------------------------------------
+
+def _fit_chunk(n: int, chunk: int) -> int:
+    """Largest divisor of n that is <= chunk (the chunked env and expert
+    require the row chunk to divide N exactly)."""
+    chunk = max(min(int(chunk), n), 1)
+    while n % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _topk_blocked(scores: torch.Tensor, k: int, block: int):
+    """Exact top-k along the last axis in two stages (JAX
+    ``_topk_blocked``): each block's top k, then the top k of the nb·k
+    candidates; any global top-k element is in its own block's top k
+    (k <= block). Stable sorts put equal scores in index order, as
+    ``lax.top_k`` does (``torch.topk`` fixes no order among ties). On no
+    env path: the general-scores utility beside :func:`_env_topk`.
+    Requires N % block == 0. Returns (values, indices int64)."""
+    *L, N = scores.shape
+    nb = N // block
+    s = scores.reshape(*L, nb, block)
+    v1, i1 = torch.sort(s, dim=-1, descending=True, stable=True)
+    v1, i1 = v1[..., :k], i1[..., :k]                 # (*L, nb, k)
+    offs = torch.arange(nb, device=scores.device)[:, None] * block
+    gidx = (i1 + offs).reshape(*L, nb * k)
+    v2, i2 = torch.sort(v1.reshape(*L, nb * k), dim=-1, descending=True,
+                        stable=True)
+    return v2[..., :k], torch.gather(gidx, -1, i2[..., :k])
+
+
+def _env_topk(m: torch.Tensor, d_max: int):
+    """The first d_max set bits of each row of a binary mask (bool or
+    {0, 1}), as (val, idx): the ``lax.top_k`` contract on {0, 1} (JAX
+    ``_env_topk``): idx int32 ascending, val 1 or 0 (the mask's float
+    dtype; f32 for a bool mask), and idx = 0 where val = 0.
+
+    JAX forms a (..., N, d_max) candidate tensor that XLA fuses into its
+    min-reduce; eager torch would hold it in memory. Here r = the running
+    count of set bits and idx_d = the first position where r >= d + 1,
+    which is the (d+1)-th set bit since r rises by one at each set bit
+    and is otherwise flat; a row with fewer bits gets N there, which marks
+    the slot empty. One (..., N) int32 workspace."""
+    dtype = m.dtype if m.is_floating_point() else torch.float32
+    m = m if m.dtype == torch.bool else m > 0
+    N = m.shape[-1]
+    r = torch.cumsum(m, dim=-1, dtype=torch.int32)
+    want = torch.arange(1, d_max + 1, dtype=torch.int32, device=m.device)
+    want = want.expand(*m.shape[:-1], d_max).contiguous()
+    idx = torch.searchsorted(r, want, out_int32=True)
+    valid = idx < N
+    return valid.to(dtype), torch.where(valid, idx, 0)
+
+
+def _chunk_env_rows(pos, vel, lo: int, hi: int, r2: float, d_max: int,
+                    payload=None):
+    """Rows lo .. hi of the all-pairs env against the whole swarm (pos/vel
+    (B,2,N)): the in-range, no-self-loop binary mask (d2 <= r2, exp(-d2) >
+    ZERO_TOL), its first d_max columns (idx (B,c,D) int32, val01 (B,c,D)),
+    the 6 state features (B,6,c), the rows' true in-degree cnt (B,c) and,
+    given a payload (B,N,P), the masked product M @ payload (B,c,P).
+
+    Only (B, c, N) workspaces are held, never a (B, 2, c, N) product: the
+    position sums are dot products of the x and y offsets with inv and
+    inv^2 (``torch.einsum`` contracts them without forming the products),
+    and the velocity sum is v_i·deg_i - (M v)_i, one (c, N) @ (N, 2)
+    product. Each workspace is freed once its last use is done."""
+    B, _, N = pos.shape
+    pr, vr = pos[:, :, lo:hi], vel[:, :, lo:hi]
+    dx = pr[:, 0, :, None] - pos[:, 0, None, :]          # B, c, N
+    dy = pr[:, 1, :, None] - pos[:, 1, None, :]
+    d2 = dx * dx
+    d2 += dy * dy
+    m = d2 <= r2
+    e = torch.neg(d2)
+    m &= e.exp_() > ZERO_TOL
+    del e
+    m.diagonal(offset=lo, dim1=1, dim2=2).fill_(False)  # no self loops
+    val01, idx = _env_topk(m, d_max)
+    cnt = m.sum(dim=-1)
+    mf = m.to(pos.dtype)
+    sv = (vr.transpose(1, 2) * cnt[..., None].to(pos.dtype)
+          - torch.bmm(mf, vel.transpose(1, 2)))           # B, c, 2
+    wpay = None if payload is None else torch.bmm(mf, payload.to(pos.dtype))
+    del mf
+    inv = torch.reciprocal(d2)
+    inv.masked_fill_(~(d2 > ZERO_TOL), 0.0)
+    del d2
+    inv.masked_fill_(~m, 0.0)
+    del m
+    s2 = [torch.einsum("bcn,bcn->bc", dd, inv) for dd in (dx, dy)]
+    inv.square_()
+    s4 = [torch.einsum("bcn,bcn->bc", dd, inv) for dd in (dx, dy)]
+    del inv, dx, dy
+    st = torch.stack([sv[..., 0], sv[..., 1], s4[0], s4[1], s2[0], s2[1]],
+                     dim=1)
+    return idx, val01, st, cnt, wpay
+
+
+def env_step_chunked(pos, vel, comm_radius, d_max, chunk, v_prev,
+                     lam_iters: int = 8):
+    """One O(N·deg)-memory environment step (JAX
+    ``_jnp_env_step_chunked``): the ELL communication graph (the first
+    d_max binary in-neighbors of each agent, in ascending index order,
+    lambda_max-normalized) and the 6 state features, computed in row
+    chunks of ``chunk`` agents (:func:`_chunk_env_rows`): no (N, N) matrix
+    is formed (at N = 65536 one is 17.2 GB), only (B, chunk, N)
+    workspaces.
+
+    Equal to the dense step whenever d_max covers the largest in-degree.
+    lambda_max is the ELL matvec's, by power iteration warm-started from
+    v_prev (lam_iters iterations), so with d_max below an in-degree it is
+    the truncated graph's, as in JAX. pos/vel (B,2,N), v_prev (B,N);
+    requires N % chunk == 0. Returns (idx (B,N,D) int32, val_norm (B,N,D),
+    states (B,6,N), v (B,N))."""
+    B, _, N = pos.shape
+    if N % chunk:
+        raise ValueError(f"chunk {chunk} does not divide N = {N} "
+                         "(_fit_chunk)")
+    r2 = comm_radius ** 2
+    idx = torch.empty((B, N, d_max), dtype=torch.int32, device=pos.device)
+    val = pos.new_empty((B, N, d_max))
+    st = pos.new_empty((B, 6, N))
+    for lo in range(0, N, chunk):
+        idx[:, lo:lo + chunk], val[:, lo:lo + chunk], st[..., lo:lo + chunk], \
+            *_ = _chunk_env_rows(pos, vel, lo, lo + chunk, r2, d_max)
+    lam, v = _ell_lambda(v_prev, _ell_matvec(idx, val), lam_iters)
+    return idx, val / lam[:, None, None], st, v
+
+
+def expert_accel_chunked(pos, vel, repel_dist, accel_max, chunk: int):
+    """The centralized expert's acceleration in O(B·chunk·N) memory (JAX
+    ``_jnp_expert_accel_chunked``): the velocity consensus is a global
+    O(N) reduction, and the collision sum over the pairs with d2 <
+    repel_dist^2 is taken in row chunks, each a dot product of the x and
+    y offsets with the weights m·(inv^2 + inv), no (B,2,chunk,N) product
+    formed. Requires N % chunk == 0. (B,2,N) -> (B,2,N)."""
+    B, _, N = pos.shape
+    if N % chunk:
+        raise ValueError(f"chunk {chunk} does not divide N = {N} "
+                         "(_fit_chunk)")
+    r2 = repel_dist ** 2
+    rep = pos.new_empty((B, 2, N))
+    for lo in range(0, N, chunk):
+        pr = pos[:, :, lo:lo + chunk]
+        dx = pr[:, 0, :, None] - pos[:, 0, None, :]      # B, c, N
+        dy = pr[:, 1, :, None] - pos[:, 1, None, :]
+        d2 = dx * dx
+        d2 += dy * dy
+        inv = torch.reciprocal(d2)
+        inv.masked_fill_(~(d2 > ZERO_TOL), 0.0)
+        w = inv * inv
+        w += inv                                      # inv^2 + inv
+        del inv
+        w.masked_fill_(~(d2 < r2), 0.0)
+        del d2
+        for k, dd in enumerate((dx, dy)):
+            rep[:, k, lo:lo + chunk] = 2.0 * torch.einsum("bcn,bcn->bc",
+                                                          dd, w)
+        del dx, dy, w
+    return _expert_from_repel(vel, rep, accel_max)
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +783,24 @@ def evaluate_cost_device(vel: torch.Tensor) -> torch.Tensor:
     return c_t.sum(1).mean()
 
 
+def _windows(parts, w: int):
+    """Zero history windows (B, w, ...) of step 0's tensors (B, ...), each
+    with step 0 in the last slot: the windowed re-forward's start."""
+    out = []
+    for a in parts:
+        h = a.new_zeros((a.shape[0], w) + tuple(a.shape[1:]))
+        h[:, -1] = a
+        out.append(h)
+    return tuple(out)
+
+
+def _roll_windows(hists, news):
+    """Each (B, w, ...) window shifted one step back, the new step's
+    (B, ...) tensor in its last slot."""
+    return tuple(torch.cat([h[:, 1:], n[:, None]], dim=1)
+                 for h, n in zip(hists, news))
+
+
 def _grid_warning(ok, strict: bool) -> None:
     """Surface the grid's exactness flag (one device read)."""
     if bool(ok):
@@ -733,30 +919,32 @@ class Flocking(Data):
 
     @classmethod
     def large(cls, nAgents, commRadius, repelDist, nTrain, nValid, nTest,
-              duration, samplingTime, ell_degree,
+              duration, samplingTime, ell_degree, env_chunk=None,
               lam_iters: int = 8, gen_batch: int = 4, rng=None,
               env_grid=None, device="cuda", **kw):
         """The large-swarm training set kept on the host (JAX
         ``Flocking.large``): the expert's supervision generated on
-        ``device`` by :meth:`generate_trajectories_large` on the cell grid,
-        gen_batch samples at a time, the graphs stored as an EllGso with
-        numpy leaves (n, T, N, D), everything cast to f32. The rollouts of
-        TrainerFlocking and evaluate_flocking then run on the same grid
-        with ell_degree. ``env_grid=None`` (the chunked all-pairs env) is
-        not ported yet."""
-        if env_grid is None:
-            raise NotImplementedError(
-                "Flocking.large without env_grid (the chunked all-pairs env) "
-                "is not ported yet (ROADMAP queue 1 item 7.3); pass "
-                "env_grid=True")
+        ``device`` by :meth:`generate_trajectories_large`, gen_batch
+        samples at a time, the graphs stored as an EllGso with numpy
+        leaves (n, T, N, D), everything cast to f32. Without env_grid it is
+        the chunked all-pairs env and expert (:func:`env_step_chunked`,
+        :func:`expert_accel_chunked`; row chunk env_chunk, by default N //
+        8, fitted to divide N), with env_grid the cell grid. The rollouts
+        of TrainerFlocking and evaluate_flocking then run on the same env
+        with ell_degree: ``rollout_env_chunk`` is set either way, as in
+        JAX, and the grid, where given, takes precedence."""
         self = cls.for_rollout(nAgents, commRadius, repelDist, samplingTime,
                                rng=rng, device=device, **kw)
         self.duration = float(duration)
         self.nTrain, self.nValid, self.nTest = nTrain, nValid, nTest
         ell_degree = min(ell_degree, nAgents)
+        env_chunk = _fit_chunk(nAgents, nAgents // 8 if env_chunk is None
+                               else env_chunk)
         self.rollout_ell_degree = ell_degree
         self.rollout_lam_method = "power"
-        self.rollout_env_grid = env_grid
+        self.rollout_env_chunk = env_chunk
+        if env_grid is not None:
+            self.rollout_env_grid = env_grid
         n_samples = nTrain + nValid + nTest
         init_pos, init_vel = self.compute_initial_positions(
             nAgents, n_samples, commRadius, minDist=self.initMinDist,
@@ -764,7 +952,7 @@ class Flocking(Data):
             yMaxInitVel=self.initVelValue)
         outs = [self.generate_trajectories_large(
             init_pos[lo:lo + gen_batch], init_vel[lo:lo + gen_batch],
-            duration, ell_degree, lam_iters=lam_iters,
+            duration, ell_degree, env_chunk, lam_iters=lam_iters,
             env_grid=env_grid) for lo in range(0, n_samples, gen_batch)]
         pos, vel, accel, state = (np.concatenate([o[i] for o in outs], 0)
                                   for i in range(4))
@@ -777,28 +965,29 @@ class Flocking(Data):
 
     @torch.no_grad()
     def generate_trajectories_large(self, init_pos, init_vel, duration,
-                                    ell_degree: int, lam_iters: int = 8,
-                                    env_grid=None):
-        """The expert's supervision at large N on the device, on the cell
-        grid (JAX ``generate_trajectories_large`` with env_grid): each step
-        one :func:`env_step_grid` with the expert's repel pass gives the
-        states, the top-D ELL graph and the collision sums of the expert's
-        acceleration (clip EXPERT_ACCEL_MAX), which drives the transition;
-        the lambda eigenvector is carried across steps from the all-ones
-        start at lam_iters passes a step. accel[T-1] is zeroed. Returns host
-        numpy (pos, vel, accel, states (B,T,6,N), EllGso (idx (B,T,N,D),
-        val (B,T,1,N,D)), ok), f32; a RuntimeWarning reports a cell
-        overflow."""
-        if env_grid is None:
-            raise NotImplementedError(
-                "generate_trajectories_large without env_grid (the chunked "
-                "all-pairs env) is not ported yet (ROADMAP queue 1 item 7.3)")
-        gts, gcc, gcf = _parse_env_grid(env_grid)
+                                    ell_degree: int, env_chunk,
+                                    lam_iters: int = 8, env_grid=None):
+        """The expert's supervision at large N on the device (JAX
+        ``generate_trajectories_large``). Each step gives the states, the
+        top-D ELL graph and the expert's acceleration (clip
+        EXPERT_ACCEL_MAX), which drives the transition: without env_grid
+        :func:`env_step_chunked` and :func:`expert_accel_chunked` in row
+        chunks of env_chunk (which must divide N) at D = ell_degree; with
+        env_grid one :func:`env_step_grid` with the expert's repel pass at
+        D = min(ell_degree, N). The lambda eigenvector is carried across
+        steps from the all-ones start at lam_iters passes a step.
+        accel[T-1] is zeroed. Returns host numpy (pos, vel, accel, states
+        (B,T,6,N), EllGso (idx (B,T,N,D), val (B,T,1,N,D))), f32, and with
+        env_grid also the grid's exactness flag ok (a RuntimeWarning reports
+        a cell overflow)."""
+        use_grid = env_grid is not None
+        if use_grid:
+            gts, gcc, gcf = _parse_env_grid(env_grid)
         dt = self.samplingTime
         T = len(np.arange(0, duration, dt))
         p, u = self._as_device(init_pos), self._as_device(init_vel)
         B, _, N = p.shape
-        D = min(int(ell_degree), N)
+        D = min(int(ell_degree), N) if use_grid else int(ell_degree)
         pos, vel, accel = (p.new_empty((B, T, 2, N)) for _ in range(3))
         xs = p.new_empty((B, T, 6, N))
         gi = torch.empty((B, T, N, D), dtype=torch.int32, device=p.device)
@@ -806,24 +995,34 @@ class Flocking(Data):
         v = torch.ones((B, N), dtype=p.dtype, device=p.device) / math.sqrt(N)
         ok = torch.ones((), dtype=torch.bool, device=p.device)
         for t in range(T):
-            gi[:, t], gv[:, t], xs[:, t], v, rep, ok_t = env_step_grid(
-                p, u, self.commRadius, D, v, lam_iters=lam_iters,
-                table_size=gts, cell_cap=gcc, cell_factor=gcf,
-                expert_repel=self.repelDist)
-            a = _expert_from_repel(u, rep, EXPERT_ACCEL_MAX)
+            if use_grid:
+                gi[:, t], gv[:, t], xs[:, t], v, rep, ok_t = env_step_grid(
+                    p, u, self.commRadius, D, v, lam_iters=lam_iters,
+                    table_size=gts, cell_cap=gcc, cell_factor=gcf,
+                    expert_repel=self.repelDist)
+                a = _expert_from_repel(u, rep, EXPERT_ACCEL_MAX)
+                ok = ok & ok_t
+            else:
+                gi[:, t], gv[:, t], xs[:, t], v = env_step_chunked(
+                    p, u, self.commRadius, D, env_chunk, v,
+                    lam_iters=lam_iters)
+                a = expert_accel_chunked(p, u, self.repelDist,
+                                         EXPERT_ACCEL_MAX, env_chunk)
             pos[:, t], vel[:, t], accel[:, t] = p, u, a
-            ok = ok & ok_t
             p, u = a * dt * dt / 2 + u * dt + p, a * dt + u
         accel[:, T - 1] = 0.0
+        host = lambda a: a.cpu().numpy()
+        out = (host(pos), host(vel), host(accel), host(xs),
+               EllGso(host(gi), host(gv)[:, :, None]))
+        if not use_grid:
+            return out
         ok = bool(ok)
         if not ok:
             warnings.warn("grid cell_cap overflowed during large-swarm "
                           "expert generation: neighbor sets (and expert "
                           "collision sums) may be incomplete; raise "
                           "cell_cap/table_size", RuntimeWarning)
-        host = lambda a: a.cpu().numpy()
-        return (host(pos), host(vel), host(accel), host(xs),
-                EllGso(host(gi), host(gv)[:, :, None]), ok)
+        return out + (ok,)
 
     @classmethod
     def large_device(cls, nAgents, commRadius, repelDist, nTrain, nValid,
@@ -1062,24 +1261,35 @@ class Flocking(Data):
 
     # -- closed-loop rollout (reference dataTools.py:3166-3340) -------------
     def _chunked_pieces(self, policy, ell_degree, lam_iters, env_grid,
-                        return_graphs=True):
-        """init/step closures of the grid rollout in step mode (JAX
-        ``_chunked_pieces`` with env_grid), fused or unfused.
+                        return_graphs=True, env_chunk=None, w=None):
+        """init/step closures of the O(N·deg) rollout (JAX
+        ``_chunked_pieces``): on the cell grid when env_grid is set, else
+        on the chunked all-pairs env (:func:`env_step_chunked`, row chunks
+        of env_chunk fitted to divide N; its ok stays True). The carry ends
+        with the lambda eigenvector and ok.
 
-        Fused, when the policy has the payload interface, one edge feature
-        and 0 < payload_width <= 1.5 * ell_degree: its registers ride the
-        grid env's cell table as payload feature blocks and the env's own
-        window pass returns their graph shift, so a step shifts no
-        register over the emitted graph. carry = (pos, vel, x_t, shifted
-        registers, policy state, lambda eigenvector, ok).
+        Step mode (w None), fused on the grid only, when the policy has the
+        payload interface, one edge feature and 0 < payload_width <= 1.5 *
+        ell_degree: its registers ride the grid env's cell table as payload
+        feature blocks and the env's own window pass returns their graph
+        shift, so a step shifts no register over the emitted graph. carry =
+        (pos, vel, x_t, shifted registers, policy state, v, ok).
 
-        Unfused, any other policy with ``rollout_step`` (a GRNN's wide
-        registers, E > 1): each step the policy shifts its registers over
-        the step's emitted ELL graph (``EllGso.db_shift_rows``), then the
-        physics, then the env step emits the next graph. carry = (pos,
-        vel, x_t, idx_t, val_t, policy state, lambda eigenvector, ok); ok
-        also flags an in-degree above the emitted width, since the policy
-        shifts over that truncation.
+        Step mode unfused, any other policy with ``rollout_step`` (a GRNN's
+        wide registers, E > 1, or any policy on the chunked env): each step
+        the policy shifts its registers over the step's emitted ELL graph
+        (``EllGso.db_shift_rows``), then the physics, then the env step
+        emits the next graph. carry = (pos, vel, x_t, idx_t, val_t, policy
+        state, v, ok); on the grid ok also flags an in-degree above the
+        emitted width, since the policy shifts over that truncation.
+
+        Windowed (w an int; JAX's step_mode=False): each step the policy's
+        full-history forward ``policy(x_hist (B,w,6,N), EllGso(idx (B,w,N,
+        D), val (B,w,1,N,D)))`` over the last w steps, whose last tap drives
+        the physics. The history starts zero-padded: step 0 in the last
+        slot, zero states and the all-zero graph (idx 0, val 0) before it,
+        which a causal policy ignores. carry = (pos, vel, x window, idx
+        window, val window, v, ok).
 
         return_graphs: True emits the first-d_max ELL graph of every step
         (d_max = min(ell_degree, N)); False emits zero columns and skips
@@ -1090,9 +1300,12 @@ class Flocking(Data):
         dt = self.samplingTime
         r = self.commRadius
         a_max = self.accelMax
-        gts, gcc, gcf = _parse_env_grid(env_grid)
+        use_grid = env_grid is not None
+        if use_grid:
+            gts, gcc, gcf = _parse_env_grid(env_grid)
         pw = getattr(policy, "payload_width", 0)
-        fused = (hasattr(policy, "rollout_step_shifted")
+        fused = (w is None and use_grid
+                 and hasattr(policy, "rollout_step_shifted")
                  and hasattr(policy, "rollout_payload")
                  and getattr(policy, "E", None) == 1
                  and 0 < pw <= 1.5 * ell_degree)
@@ -1108,6 +1321,12 @@ class Flocking(Data):
         def env_step(pos, vel, v, iters, payload=None):
             N = pos.shape[-1]
             D = min(ell_degree, N) if return_graphs else 0
+            if not use_grid:
+                out = env_step_chunked(pos, vel, r, D,
+                                       _fit_chunk(N, env_chunk), v,
+                                       lam_iters=iters)
+                return (*out, torch.ones((), dtype=torch.bool,
+                                         device=pos.device))
             out = env_step_grid(pos, vel, r, D, v, lam_iters=iters,
                                 table_size=gts, cell_cap=gcc,
                                 cell_factor=gcf, payload=payload,
@@ -1124,6 +1343,10 @@ class Flocking(Data):
             # cold start: converge the eigenvector
             i0, s0, x0, v0, ok = env_step(init_pos, init_vel, v0,
                                           max(lam_iters, 32))
+            if w is not None:
+                xw, iw, vw = _windows((x0, i0, s0[:, None]), w)
+                return ((init_pos, init_vel, xw, iw, vw, v0, ok),
+                        (x0, (i0, s0)))
             pstate = policy.rollout_init(B, N)
             if not fused:
                 return ((init_pos, init_vel, x0, i0, s0, pstate, v0, ok),
@@ -1158,87 +1381,130 @@ class Flocking(Data):
             return ((pos_n, vel_n, x_n, i_n, s_n, pstate, v, ok & ok_n),
                     (pos_n, vel_n, a, x_n, (i_n, s_n)))
 
+        def step_windowed(carry):
+            pos_t, vel_t, xw, iw, vw, v, ok = carry
+            y = policy(xw, EllGso(iw, vw))
+            a, pos_n, vel_n = physics(pos_t, vel_t, y[:, -1])
+            i_n, s_n, x_n, v, ok_n = env_step(pos_n, vel_n, v, lam_iters)
+            xw, iw, vw = _roll_windows((xw, iw, vw),
+                                       (x_n, i_n, s_n[:, None]))
+            return ((pos_n, vel_n, xw, iw, vw, v, ok & ok_n),
+                    (pos_n, vel_n, a, x_n, (i_n, s_n)))
+
+        if w is not None:
+            return init_fn, step_windowed
         return init_fn, step_fused if fused else step_unfused
 
-    def _dense_pieces(self, policy, ell_degree, lam_method):
+    def _dense_pieces(self, policy, ell_degree, lam_method, w=None):
         """init/step closures of the all-pairs closed loop (JAX
-        ``_scan_rollout``'s non-grid branch in step mode): each step the
-        policy takes one ``rollout_step`` over the step's graph, then the
-        physics, then the dense graph of the new positions
-        (:func:`comm_graph`, lambda_max by ``lam_method``: 'eig' or
-        'power') and its states. carry = (pos, vel, x_t, graph_t, policy
-        state, ok); ok stays True. The graph is the dense (B,N,N) one, or
-        with ell_degree its top-D ELL form (:func:`ell_topk`), which the
-        policy then shifts over, as in JAX. The windowed re-forward, the
-        JAX trainer's form of this loop, equals it up to float
-        association."""
+        ``_scan_rollout``'s non-chunked branch): each step the policy acts
+        on the step's graph, then the physics, then the dense graph of the
+        new positions (:func:`comm_graph`, lambda_max by ``lam_method``:
+        'eig' or 'power') and its states. The graph is the dense (B,N,N)
+        one, or with ell_degree its top-D ELL form (:func:`ell_topk`), as
+        in JAX. Step mode (w None): one ``rollout_step``; carry = (pos, vel,
+        x_t, graph_t, policy state, ok). Windowed (w an int): the policy's
+        full-history forward over the last w steps' states and graphs,
+        zero-padded at the start as in :meth:`_chunked_pieces`, its last
+        tap driving the physics; carry = (pos, vel, x window, graph window
+        (dense (B,w,N,N), or ELL idx (B,w,N,D) and val (B,w,1,N,D)), ok).
+        ok stays True. The two modes agree up to float association."""
         dt = self.samplingTime
         r = self.commRadius
         a_max = self.accelMax
 
         def env(pos, vel):
+            """(states, what the policy takes, the graph the step emits,
+            the graph's window entries)."""
             S = comm_graph(pos, r, lam_method)
             x = states(pos, vel, S)
             if ell_degree is None:
-                return x, S, S
+                return x, S, S, (S,)
             e = ell_topk(S[:, None], min(ell_degree, pos.shape[-1]))
-            return x, e, (e.idx, e.val[:, 0])
+            return x, e, (e.idx, e.val[:, 0]), (e.idx, e.val)
+
+        def hist(parts):
+            return parts[0] if ell_degree is None else EllGso(*parts)
 
         def init_fn(init_pos, init_vel):
             B, _, N = init_pos.shape
-            x0, g0, out0 = env(init_pos, init_vel)
+            x0, g0, out0, parts = env(init_pos, init_vel)
             ok = torch.ones((), dtype=torch.bool, device=init_pos.device)
+            if w is not None:
+                xw, *gw = _windows((x0,) + parts, w)
+                return (init_pos, init_vel, xw, tuple(gw), ok), (x0, out0)
             return ((init_pos, init_vel, x0, g0, policy.rollout_init(B, N),
                      ok), (x0, out0))
+
+        def advance(pos_t, vel_t, y):
+            a = torch.clamp(y, -a_max, a_max)
+            vel_n = a * dt + vel_t
+            pos_n = a * dt * dt / 2 + vel_t * dt + pos_t
+            return a, pos_n, vel_n
 
         def step_fn(carry):
             pos_t, vel_t, x_t, g_t, pstate, ok = carry
             pstate, y = policy.rollout_step(pstate, x_t, g_t)
-            a = torch.clamp(y, -a_max, a_max)
-            vel_n = a * dt + vel_t
-            pos_n = a * dt * dt / 2 + vel_t * dt + pos_t
-            x_n, g_n, out_n = env(pos_n, vel_n)
+            a, pos_n, vel_n = advance(pos_t, vel_t, y)
+            x_n, g_n, out_n, _ = env(pos_n, vel_n)
             return ((pos_n, vel_n, x_n, g_n, pstate, ok),
                     (pos_n, vel_n, a, x_n, out_n))
 
-        return init_fn, step_fn
+        def step_windowed(carry):
+            pos_t, vel_t, xw, gw, ok = carry
+            y = policy(xw, hist(gw))
+            a, pos_n, vel_n = advance(pos_t, vel_t, y[:, -1])
+            x_n, _, out_n, parts = env(pos_n, vel_n)
+            xw, *gw = _roll_windows((xw,) + gw, (x_n,) + parts)
+            return ((pos_n, vel_n, xw, tuple(gw), ok),
+                    (pos_n, vel_n, a, x_n, out_n))
+
+        return init_fn, step_fn if w is None else step_windowed
 
     def _pieces(self, policy, ell_degree, env_grid, lam_iters, lam_method,
-                return_graphs=True):
-        """The rollout's init/step closures: the grid loop when env_grid is
-        set, else the all-pairs loop. A step emits (pos, vel, accel, states,
-        graph), the graph a dense (B,N,N) tensor or an ELL (idx, val)
-        pair."""
-        if env_grid is not None:
+                return_graphs=True, env_chunk=None, w=None):
+        """The rollout's init/step closures: the O(N·deg) loop on the grid
+        or the chunked all-pairs env when env_grid or env_chunk is set,
+        else the all-pairs loop; step mode, or the windowed re-forward over
+        w steps. A step emits (pos, vel, accel, states, graph), the graph a
+        dense (B,N,N) tensor or an ELL (idx, val) pair."""
+        if env_grid is not None or env_chunk is not None:
             return self._chunked_pieces(policy, ell_degree, lam_iters,
-                                        env_grid, return_graphs)
-        return self._dense_pieces(policy, ell_degree, lam_method)
+                                        env_grid, return_graphs,
+                                        env_chunk=env_chunk, w=w)
+        return self._dense_pieces(policy, ell_degree, lam_method, w=w)
 
     def _rollout_args(self, archit, ell_degree, env_grid, step_mode,
-                      lam_method="eig"):
-        """(ell_degree, env_grid, lam_method) with the dataset's rollout
-        defaults, as JAX resolves them."""
-        # step_mode keeps the JAX signature: None or True, the step
-        # interface; False, the full-history forward, which is not ported
-        if step_mode is not None and not step_mode:
-            raise NotImplementedError(
-                "step_mode=False (the full-history rollout through "
-                f"archit.forward) is not ported yet {_NOT_PORTED}")
-        if not hasattr(archit, "rollout_step"):
-            raise NotImplementedError(
-                f"{type(archit).__name__} has no step interface "
-                "(rollout_init/rollout_step): the windowed re-forward "
-                f"rollout is not ported yet {_NOT_PORTED}")
+                      lam_method="eig", env_chunk=None, history_window=None):
+        """(ell_degree, env_grid, env_chunk, lam_method, w) with the
+        dataset's rollout defaults, as JAX resolves them. w is None in step
+        mode (step_mode None or True and a policy with ``rollout_step``),
+        else the windowed re-forward's history_window, which it needs."""
+        if (step_mode is None or step_mode) and hasattr(archit,
+                                                         "rollout_step"):
+            w = None
+        elif history_window is None:
+            raise ValueError(
+                f"{type(archit).__name__} rolls out through the windowed "
+                "re-forward (step_mode=False, or no step interface "
+                "rollout_init/rollout_step), which needs history_window")
+        else:
+            w = int(history_window)
         if ell_degree is None:
             ell_degree = self.rollout_ell_degree
         if env_grid is None:
             env_grid = self.rollout_env_grid
+        if env_chunk is None:
+            env_chunk = self.rollout_env_chunk
         if env_grid is not None and ell_degree is None:
             raise ValueError("env_grid requires ell_degree (the O(N*deg) "
                              "graph layout)")
+        if env_chunk is not None and ell_degree is None:
+            raise ValueError("env_chunk requires ell_degree (the O(N*deg) "
+                             "graph layout)")
         if lam_method == "eig" and self.rollout_lam_method != "eig":
             lam_method = self.rollout_lam_method
-        return ell_degree, env_grid, lam_method
+        return ell_degree, env_grid, env_chunk, lam_method, w
 
     def _as_device(self, a) -> torch.Tensor:
         """Host array -> the rollout's f32 device tensor (through f64, as
@@ -1247,15 +1513,13 @@ class Flocking(Data):
                                device=self.device).to(torch.float32)
 
     @torch.no_grad()
-    def _rollout(self, init_pos, init_vel, T, policy, ell_degree, lam_iters,
-                 env_grid, return_graphs=True, traj_only=False,
-                 lam_method="eig"):
-        """The closed loop over T steps, on device tensors: (pos, vel[,
-        accel, states, graphs], ok), each (B, T, ...); accel from step t
-        drives the transition into t+1 and is stored at t. graphs: a dense
-        (B,T,N,N) tensor or an EllGso (idx (B,T,N,D), val (B,T,1,N,D))."""
-        init_fn, step_fn = self._pieces(policy, ell_degree, env_grid,
-                                        lam_iters, lam_method, return_graphs)
+    def _rollout(self, init_pos, init_vel, T, pieces, traj_only=False):
+        """The closed loop over T steps of ``pieces`` (init/step closures),
+        on device tensors: (pos, vel[, accel, states, graphs], ok), each
+        (B, T, ...); accel from step t drives the transition into t+1 and
+        is stored at t. graphs: a dense (B,T,N,N) tensor or an EllGso (idx
+        (B,T,N,D), val (B,T,1,N,D))."""
+        init_fn, step_fn = pieces
         carry, (x0, g0) = init_fn(init_pos, init_vel)
         B, _, N = init_pos.shape
         pos = init_pos.new_empty((B, T, 2, N))
@@ -1282,33 +1546,173 @@ class Flocking(Data):
         graphs = EllGso(gs[0], gs[1][:, :, None]) if len(gs) == 2 else gs[0]
         return pos, vel, accel, xs, graphs, ok
 
-    def compute_trajectory(self, initPos, initVel, duration, archit,
-                           ell_degree=None, lam_method: str = "eig",
-                           lam_iters: int = 8, step_mode=None,
+    @torch.no_grad()
+    def _rollout_segmented(self, init_pos, init_vel, T, pieces, seg: int):
+        """The same closed loop in host segments (JAX
+        ``_scan_rollout_segmented``): the carry stays on the device, and
+        after each run of at most seg steps that segment's (pos, vel,
+        accel, states, ELL graphs) are pulled to the host, so the device
+        holds O(seg·N·D) of trajectory, not O(T·N·D). The same closures as
+        :meth:`_rollout`, so the same numbers. Returns host numpy (pos,
+        vel, accel, states, EllGso) and ok; T = 1 gives the init-only
+        trajectory."""
+        init_fn, step_fn = pieces
+        carry, (x0, (i0, s0)) = init_fn(init_pos, init_vel)
+        host = lambda t: t.cpu().numpy()
+        cols = [[host(a)[:, None]] for a in (init_pos, init_vel, x0, i0, s0)]
+        acc = []
+        left = T - 1
+        while left > 0:
+            n = min(seg, left)
+            outs = []
+            for _ in range(n):
+                carry, (p, v, a, x, (i, s)) = step_fn(carry)
+                outs.append((p, v, x, i, s, a))
+            for k in range(6):
+                got = host(torch.stack([o[k] for o in outs], dim=1))
+                (acc if k == 5 else cols[k]).append(got)
+            left -= n
+        pos, vel, xs, gi, gv = (np.concatenate(c, axis=1) for c in cols)
+        acc.append(np.zeros_like(pos[:, :1]))
+        graphs = EllGso(gi, gv[:, :, None])
+        return (pos, vel, np.concatenate(acc, axis=1), xs, graphs), carry[-1]
+
+    def _open_loop(self, initPos, initVel, accel, T):
+        """Replay a given acceleration sequence (B,T,2,N), host f64 (JAX
+        ``compute_trajectory(accel=...)``): (pos, vel, accel, None,
+        None)."""
+        dt = self.samplingTime
+        accel = np.asarray(accel, np.float64)
+        B, _, N = np.shape(initPos)
+        pos = np.zeros((B, T, 2, N))
+        vel = np.zeros((B, T, 2, N))
+        pos[:, 0], vel[:, 0] = initPos, initVel
+        for t in range(1, T):
+            vel[:, t] = accel[:, t - 1] * dt + vel[:, t - 1]
+            pos[:, t] = (accel[:, t - 1] * dt ** 2 / 2 + vel[:, t - 1] * dt
+                         + pos[:, t - 1])
+        return pos, vel, accel, None, None
+
+    @torch.no_grad()
+    def _host_loop(self, initPos, initVel, T, archit, history_window):
+        """The host closed loop (JAX ``compute_trajectory``'s loop for a
+        policy without params): host f64 dense graphs
+        (``compute_communication_graph``, eigvalsh) and states each step;
+        the policy ``archit(x_hist, S_hist) -> (B, w, 2, N)`` sees the
+        full zero-padded horizon (its output at t-1 drives the physics) or,
+        with history_window, the last w steps left-padded with zeros (its
+        last tap drives it), handed over as f32 tensors on the dataset's
+        device. Returns host f64 (pos, vel, accel, states, dense graphs)."""
+        dt = self.samplingTime
+        initPos = np.asarray(initPos, np.float64)
+        B, _, N = initPos.shape
+        pos = np.zeros((B, T, 2, N))
+        vel = np.zeros((B, T, 2, N))
+        pos[:, 0], vel[:, 0] = initPos, initVel
+        accel = np.zeros((B, T, 2, N))
+        xs = np.zeros((B, T, 6, N))
+        gs = np.zeros((B, T, N, N))
+
+        def observe(t):
+            gs[:, t] = self.compute_communication_graph(
+                pos[:, t], self.commRadius, True)
+            xs[:, t] = self.compute_states(pos[:, t:t + 1], vel[:, t:t + 1],
+                                           gs[:, t:t + 1])[:, 0]
+
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                         device=self.device)
+        observe(0)
+        for t in range(1, T):
+            if history_window is None:
+                y = archit(as_t(xs), as_t(gs))[:, t - 1]
+            else:
+                lo = max(t - int(history_window), 0)
+                pad = int(history_window) - (t - lo)
+                padded = lambda a: np.concatenate(
+                    [np.zeros((B, pad) + a.shape[2:]), a[:, lo:t]], axis=1)
+                y = archit(as_t(padded(xs)), as_t(padded(gs)))[:, -1]
+            y = np.asarray(torch.as_tensor(y).cpu(), np.float64)
+            accel[:, t - 1] = np.clip(y, -self.accelMax, self.accelMax)
+            vel[:, t] = accel[:, t - 1] * dt + vel[:, t - 1]
+            pos[:, t] = (accel[:, t - 1] * dt ** 2 / 2 + vel[:, t - 1] * dt
+                         + pos[:, t - 1])
+            observe(t)
+        return pos, vel, accel, xs, gs
+
+    def compute_trajectory(self, initPos, initVel, duration, archit=None,
+                           accel=None, params=None, rng=None, doPrint=None,
+                           history_window=None, jit=True, ell_degree=None,
+                           lam_method: str = "eig", env_chunk=None,
+                           lam_iters: int = 8, seg=None, step_mode=None,
                            env_grid=None, env_grid_strict: bool = False,
                            return_graphs=True):
-        """Roll the swarm forward with `archit` closed loop through its step
-        interface; returns host float64 (pos, vel, accel, states) of shape
-        (B, T, ., N) and the graph trajectory: the dense (B,T,N,N) stack
-        (f64), or an EllGso (idx int32 (B,T,N,D), val f64 (B,T,1,N,D)).
+        """Roll the swarm forward (JAX ``compute_trajectory``); returns host
+        float64 (pos, vel, accel, states) of shape (B, T, ., N) and the
+        graph trajectory: the dense (B,T,N,N) stack (f64), or an EllGso
+        (idx int32 (B,T,N,D), val f64 (B,T,1,N,D)).
 
-        env_grid, ell_degree and lam_method default to the dataset's
-        rollout_env_grid / rollout_ell_degree / rollout_lam_method. Without
-        a grid the loop is the all-pairs env (dense graphs, or top-D ELL
-        ones with ell_degree; lambda_max by eigvalsh or, 'power', power
-        iteration). With env_grid (True, (table_size, cell_cap) or a
-        3-tuple with the cell factor) it is the cell grid: a RuntimeWarning
-        (a RuntimeError when env_grid_strict) reports a cell overflow or an
-        in-degree above ell_degree; return_graphs False / "auto": zero ELL
-        columns, the same positions; lam_iters: warm-started power
-        iterations a step (0: the zero-pass Rayleigh fold)."""
-        ell_degree, env_grid, lam_method = self._rollout_args(
-            archit, ell_degree, env_grid, step_mode, lam_method)
+        ``accel`` (B,T,2,N): the open loop, replaying it (states and graphs
+        None). Else ``archit`` closes the loop. An ``nn.Module`` with the
+        step interface (step_mode None or True) runs it on the device, one
+        ``rollout_step`` a step; with step_mode=False, or without that
+        interface, a module runs the windowed re-forward over the last
+        ``history_window`` steps on the device. Every other case (a plain
+        callable, jit=False, or no history_window for a module without the
+        step interface) takes the host loop over the full horizon or the
+        window (:meth:`_host_loop`). Parameters live in the module: params,
+        rng and doPrint are taken for the JAX signature and not used.
+
+        The device loop's env: env_grid, env_chunk, ell_degree and
+        lam_method default to the dataset's rollout_env_grid /
+        rollout_env_chunk / rollout_ell_degree / rollout_lam_method.
+        With env_grid (True, (table_size, cell_cap) or a 3-tuple with the
+        cell factor) it is the cell grid: a RuntimeWarning (a RuntimeError
+        when env_grid_strict) reports a cell overflow or an in-degree above
+        ell_degree; return_graphs False / "auto": zero ELL columns, the
+        same positions (the fused rollout only). Else with env_chunk the
+        chunked all-pairs env (:func:`env_step_chunked`), else the
+        all-pairs env (dense graphs, or top-D ELL ones with ell_degree;
+        lambda_max by eigvalsh or, 'power', power iteration). lam_iters:
+        warm-started power iterations a step on the grid and the chunked
+        env (0 on the grid: the zero-pass Rayleigh fold). seg: the grid or
+        chunked rollout in host segments of at most seg steps
+        (:meth:`_rollout_segmented`), the same numbers."""
+        if archit is None and accel is None:
+            raise ValueError("compute_trajectory needs archit or accel")
         T = len(np.arange(0, duration, self.samplingTime))
-        *out, ok = self._rollout(
-            self._as_device(initPos), self._as_device(initVel), T, archit,
-            ell_degree, lam_iters, env_grid, return_graphs=return_graphs,
-            lam_method=lam_method)
+        if accel is not None:
+            return self._open_loop(initPos, initVel, accel, T)
+        step = ((step_mode is None or step_mode)
+                and hasattr(archit, "rollout_step"))
+        if not (jit and isinstance(archit, torch.nn.Module)
+                and (step or history_window is not None)):
+            return self._host_loop(initPos, initVel, T, archit,
+                                   history_window)
+        ell_degree, env_grid, env_chunk, lam_method, w = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode, lam_method, env_chunk,
+            history_window)
+        init_pos, init_vel = self._as_device(initPos), self._as_device(initVel)
+        if seg is not None:
+            if env_grid is None and env_chunk is None:
+                raise ValueError("seg= requires env_chunk or env_grid (the "
+                                 "O(N*deg) env is what the segmented rollout "
+                                 "segments)")
+            if not return_graphs:
+                raise ValueError("return_graphs=False is monolithic only "
+                                 "(each segment's host pull includes its "
+                                 "graphs)")
+            pieces = self._pieces(archit, ell_degree, env_grid, lam_iters,
+                                  lam_method, env_chunk=env_chunk, w=w)
+            out, ok = self._rollout_segmented(init_pos, init_vel, T, pieces,
+                                              int(seg))
+            _grid_warning(ok, env_grid_strict)
+            pos, vel, acc, xs, g = out
+            return (pos.astype(np.float64), vel.astype(np.float64),
+                    acc.astype(np.float64), xs.astype(np.float64),
+                    EllGso(g.idx, g.val.astype(np.float64)))
+        pieces = self._pieces(archit, ell_degree, env_grid, lam_iters,
+                              lam_method, return_graphs, env_chunk, w)
+        *out, ok = self._rollout(init_pos, init_vel, T, pieces)
         _grid_warning(ok, env_grid_strict)
         host = lambda t: t.cpu().numpy()
         pos, vel, accel, xs, g = out
@@ -1318,45 +1722,58 @@ class Flocking(Data):
                 host(accel).astype(np.float64), host(xs).astype(np.float64),
                 g)
 
+    computeTrajectory = compute_trajectory
+
     def rollout_traj_device(self, initPos, initVel, duration, archit,
+                            params=None, history_window=None,
                             ell_degree=None, lam_method: str = "eig",
-                            lam_iters=None, step_mode=None, env_grid=None,
-                            env_grid_strict: bool = False):
+                            env_chunk=None, lam_iters=None, step_mode=None,
+                            env_grid=None, env_grid_strict: bool = False):
         """The closed-loop rollout's DEVICE (pos, vel), (B,T,2,N) float32:
         nothing else is stacked, and the exactness flag is the one scalar
-        read. The same step closures as compute_trajectory. lam_iters
-        defaults to the dataset's ``rollout_lam_iters`` (set by
+        read. The same step closures as compute_trajectory's device loop
+        (step mode, or the windowed re-forward over history_window).
+        lam_iters defaults to the dataset's ``rollout_lam_iters`` (set by
         ``large_device``, so DAGger re-rolls normalize their graphs as
-        generation and the recompute do), else 8."""
-        ell_degree, env_grid, lam_method = self._rollout_args(
-            archit, ell_degree, env_grid, step_mode, lam_method)
+        generation and the recompute do), else 8; params is taken for the
+        JAX signature."""
+        ell_degree, env_grid, env_chunk, lam_method, w = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode, lam_method, env_chunk,
+            history_window)
         if lam_iters is None:
             lam_iters = getattr(self, "rollout_lam_iters", 8)
         T = len(np.arange(0, duration, self.samplingTime))
+        pieces = self._pieces(archit, ell_degree, env_grid, lam_iters,
+                              lam_method, "auto", env_chunk, w)
         pos, vel, ok = self._rollout(
-            self._as_device(initPos), self._as_device(initVel), T, archit,
-            ell_degree, lam_iters, env_grid, return_graphs="auto",
-            traj_only=True, lam_method=lam_method)
+            self._as_device(initPos), self._as_device(initVel), T, pieces,
+            traj_only=True)
         _grid_warning(ok, env_grid_strict)
         return pos, vel
 
     # -- cost (reference dataTools.py:3082-3164) ----------------------------
     @torch.no_grad()
-    def rollout_cost(self, initPos, initVel, duration, archit,
-                     ell_degree=None, env_grid=None, lam_iters: int = 8,
-                     step_mode=None, env_grid_strict: bool = False):
+    def rollout_cost(self, initPos, initVel, duration, archit, params=None,
+                     history_window=None, ell_degree=None, env_chunk=None,
+                     env_grid=None, lam_iters: int = 8, step_mode=None,
+                     env_grid_strict: bool = False):
         """The closed-loop rollout reduced to the flocking cost on the
         device: (cost_full, cost_end), ``evaluate``'s velocity-variance
         cost over the whole trajectory and at the final step, accumulated
         step by step; no trajectory is kept (two scalars and the exactness
         flag read at the end). The dataset's environment, as
-        compute_trajectory's."""
-        ell_degree, env_grid, lam_method = self._rollout_args(
-            archit, ell_degree, env_grid, step_mode)
+        compute_trajectory's; the windowed re-forward's window defaults to
+        the policy's causal_window (JAX); params is taken for the JAX
+        signature."""
+        if history_window is None:
+            history_window = getattr(archit, "causal_window", None) or None
+        ell_degree, env_grid, env_chunk, lam_method, w = self._rollout_args(
+            archit, ell_degree, env_grid, step_mode, "eig", env_chunk,
+            history_window)
         T = len(np.arange(0, duration, self.samplingTime))
         init_fn, step_fn = self._pieces(archit, ell_degree, env_grid,
-                                        lam_iters, lam_method,
-                                        return_graphs="auto")
+                                        lam_iters, lam_method, "auto",
+                                        env_chunk, w)
 
         def stepcost(vel):                        # (B,2,N) -> (B,)
             d = vel - vel.mean(dim=-1, keepdim=True)

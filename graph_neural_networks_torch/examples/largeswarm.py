@@ -6,21 +6,26 @@ Three training modes, each with DAGger (randomEpoch, probExpert 0.993):
 
 * standard (the default): ``Flocking(...)`` generates the reference-scale
   dataset on the host and ``TrainerFlocking`` trains from its host store;
-* ``--largeTrain``: ``Flocking.large(env_grid=True)`` generates the
-  expert's supervision on the cell grid (states, labels and ELL graphs of
-  width --ellDegree, kept as host numpy) and ``TrainerFlocking`` trains
-  from that host store, its re-rolls, relabels and validation on the grid;
+* ``--largeTrain``: ``Flocking.large`` generates the expert's supervision
+  on the cell grid, or with ``--no-envGrid`` on the chunked all-pairs env
+  (states, labels and ELL graphs of width --ellDegree, kept as host numpy),
+  and ``TrainerFlocking`` trains from that host store, its re-rolls,
+  relabels and validation on the same env;
 * ``--deviceStore``: ``Flocking.large_device`` keeps only the expert's
   (pos, vel) on the device and ``TrainerFlocking(deviceStore=True)``
   recomputes each batch's states, labels and ELL graphs there; its
   evaluation is scalars-only (``rollout_cost`` beside the expert's cost).
 
-The deployment rolls the trained controller on the cell grid at
---deployAgents (ELL graphs of width --ellDegree) in every mode, reduced to
-its cost on the device (``rollout_cost``).
+The deployment rolls the trained controller at --deployAgents (ELL graphs
+of width --ellDegree) in every mode, reduced to its cost on the device
+(``rollout_cost``): on the cell grid (``--envGrid``, the default), or with
+``--no-envGrid`` on the chunked all-pairs env in row chunks of
+``--envChunk`` agents (default deployAgents // 8; --largeTrain generates
+on it at its own default, trainAgents // 8).
 
 Run:  python -m graph_neural_networks_torch.examples.largeswarm
           [--device cpu] [--quick] [--largeTrain | --deviceStore]
+          [--no-envGrid] [--envChunk C]
           [--trainAgents N] [--nTrain 4] [--nEpochs 5] [--batch 1]
           [--trainDuration 0.5] [--ellDegree 32] [--deployAgents 4096]
 
@@ -51,6 +56,14 @@ def _args(argv):
     ap.add_argument("--trainAgents", type=int, default=None)
     ap.add_argument("--deployAgents", type=int, default=None)
     ap.add_argument("--ellDegree", type=int, default=32)
+    ap.add_argument("--envGrid", action="store_true", default=True,
+                    help="the O(N*k) cell-list grid env (the default)")
+    ap.add_argument("--no-envGrid", dest="envGrid", action="store_false",
+                    help="the chunked all-pairs env instead")
+    ap.add_argument("--envChunk", type=int, default=None,
+                    help="row chunk of the chunked env's deployment step "
+                         "(default: deployAgents // 8 without the grid; 0 "
+                         "disables)")
     ap.add_argument("--lamIters", type=int, default=0,
                     help="lambda passes a deployment step (0: the Rayleigh "
                          "fold of the main window pass)")
@@ -63,9 +76,9 @@ def _args(argv):
                     help="training-trajectory duration in seconds")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--largeTrain", action="store_true",
-                      help="train on Flocking.large(env_grid=True): the "
-                           "grid expert's supervision with ELL graphs in "
-                           "the host store")
+                      help="train on Flocking.large: the expert's "
+                           "supervision on the grid (or the chunked env) "
+                           "with ELL graphs in the host store")
     mode.add_argument("--deviceStore", action="store_true",
                       help="train on Flocking.large_device through the "
                            "device-resident store")
@@ -107,6 +120,14 @@ def main(argv=None) -> dict:
         batch = args.batch
     if args.trainDuration is not None:
         duration = args.trainDuration
+    if args.deviceStore and not args.envGrid:
+        raise SystemExit("--deviceStore requires the grid env")
+    env_grid = True if args.envGrid else None
+    env_chunk = args.envChunk
+    if env_chunk is None and not args.envGrid:
+        env_chunk = max(n_deploy // 8, 1)
+    if env_chunk == 0:
+        env_chunk = None
 
     def sync():
         if dev.type == "cuda":
@@ -127,7 +148,8 @@ def main(argv=None) -> dict:
         data = Flocking.large(
             n_train_agents, commRadius=2.0, repelDist=1.0, nTrain=nTrain,
             nValid=nValid, nTest=nTest, duration=duration, samplingTime=dt,
-            ell_degree=args.ellDegree, rng=rng, env_grid=True, device=dev)
+            ell_degree=args.ellDegree, rng=rng, env_grid=env_grid,
+            device=dev)
     else:
         data = Flocking(n_train_agents, commRadius=2.0, repelDist=1.0,
                         nTrain=nTrain, nValid=nValid, nTest=nTest,
@@ -169,8 +191,10 @@ def main(argv=None) -> dict:
     print(f"  closed-loop test cost {cf:.4f} (end {ce:.5f}) vs expert "
           f"{expert:.4f} ({cf / max(expert, 1e-9):.3f}x)", flush=True)
 
+    where = ("cell-list grid env" if env_grid
+             else f"chunked env, envChunk={env_chunk}")
     print(f"== deploy: {n_deploy} agents (ellDegree={args.ellDegree}, "
-          f"cell-list grid env) ==", flush=True)
+          f"{where}) ==", flush=True)
     env = Flocking.for_rollout(n_deploy, commRadius=2.0, repelDist=1.0,
                                samplingTime=dt, device=dev,
                                rng=np.random.default_rng(args.seed + 1))
@@ -179,7 +203,8 @@ def main(argv=None) -> dict:
         geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
     env.rollout_ell_degree = args.ellDegree
     env.rollout_lam_method = "power"
-    env.rollout_env_grid = True
+    env.rollout_env_grid = env_grid
+    env.rollout_env_chunk = env_chunk
     t0 = time.perf_counter()
     # scalars-only: nothing O(T*N) leaves the device
     cf_d, ce_d = env.rollout_cost(ip, iv, deploy_T_s, arch,
@@ -188,7 +213,8 @@ def main(argv=None) -> dict:
     steps = len(np.arange(0, deploy_T_s, dt))
     print(f"  {steps}-step closed loop: {t_roll:.2f} s, velocity-variance "
           f"cost {cf_d:.4f} (end {ce_d:.5f})", flush=True)
-    result = dict(device=str(dev), mode=mode, train_agents=n_train_agents,
+    result = dict(device=str(dev), mode=mode, env_grid=env_grid is not None,
+                  env_chunk=env_chunk, train_agents=n_train_agents,
                   loss_first=float(out["lossTrain"][0]),
                   loss_last=float(out["lossTrain"][-1]),
                   best_valid=float(np.min(out["costValid"])),

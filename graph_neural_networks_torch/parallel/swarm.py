@@ -1,9 +1,19 @@
 """Node-sharded large-swarm environment: closed-loop flocking across a
 device mesh.
 
-The port of the JAX package's ``parallel/swarm.py``, grid mode (the
-cell-list environment of ``data.flocking.env_step_grid``). Each shard
-owns a block of agents. Per step:
+The port of the JAX package's ``parallel/swarm.py``, in its two modes: the
+cell-list grid (``data.flocking.env_step_grid``) and the all-pairs env
+(``data.flocking.env_step_chunked``). Each shard owns a block of agents.
+
+All-pairs mode (``env_grid=None``): the swarm is all-gathered once on each
+distinct device, and each shard computes its OWN rows against it, in
+sub-chunks of ``env_chunk`` rows (``_chunk_env_rows``, the one-card
+chunked env's row pass: the first d_max set bits by ``_env_topk``, the
+states, and a payload's shift as the masked product M @ payload);
+lambda_max comes from the mesh-wide ELL power iteration below. ``ok`` is
+always True.
+
+Grid mode, per step:
 
   * the swarm's positions and velocities (and the policy's registers, as
     payload) are all-gathered, and the cell table is built from the whole
@@ -28,10 +38,6 @@ flocking cost (``return_cost``). Single-controller: one process drives
 every shard, the tensors are global ones on the mesh's home device, and
 each shard's slice runs on its device.
 
-The all-pairs sharded env (JAX's ``env_grid=None``, ``_env_topk`` with
-``env_chunk``) is not ported (ROADMAP queue 1 item 7.3), as the
-single-chip chunked env is not.
-
 One divergence from the JAX package (ROADMAP queue 3): in cost mode the
 fused rollout runs the env eval-shaped (d_max = 0, no selection), and JAX
 then drops its in-degree check; the port keeps the window pass's count
@@ -53,10 +59,6 @@ from graph_neural_networks_torch.parallel.db import ShardedEllGso
 from graph_neural_networks_torch.parallel.mesh import Mesh
 
 __all__ = ["sharded_env_step", "sharded_swarm_rollout", "pad_swarm"]
-
-_ALL_PAIRS = ("the all-pairs sharded env (env_grid=None) is not ported "
-              "yet (ROADMAP queue 1 item 7.3); pass env_grid")
-
 
 def pad_swarm(pos, vel, mesh: Mesh, axis: str = "graph",
               spacing: float = 1e3):
@@ -81,29 +83,33 @@ def pad_swarm(pos, vel, mesh: Mesh, axis: str = "graph",
 
 def sharded_env_step(pos, vel, comm_radius, d_max, mesh: Mesh,
                      axis: str = "graph", v_prev=None, lam_iters: int = 8,
-                     env_grid=None, payload=None):
+                     env_chunk=None, env_grid=None, payload=None):
     """One env step on node-sharded (B,2,N_pad) pos/vel (global tensors on
     the mesh's home device, N_pad a multiple of the mesh axis size:
     :func:`pad_swarm`). Returns (idx (B,N_pad,D) int32 with global ids,
     val_norm (B,N_pad,D), states (B,6,N_pad), v (B,N_pad)[, shifted
     (B,N_pad,Pw)], deg (B,), ok), each shard's rows computed on its
-    device and gathered on the home device. Equal to ``env_step_grid``'s
-    step up to float association when d_max covers the largest in-degree:
-    the window lambda at d_max = 0, the ELL lambda (lam_path 'ell') at
-    d_max > 0.
+    device and gathered on the home device.
 
-    env_grid: True or (table_size, cell_cap[, cell_factor]), as for the
-    single-chip grid env; None (the all-pairs env) raises. payload
-    (B,N_pad,Pw): its NORMALIZED graph shift (W/lambda) @ payload comes
-    back as ``shifted`` (the fused policy's register shift). d_max = 0:
-    eval-shaped (zero-width idx/val, no selection, the window lambda with
-    v_prev on the tables: lam_iters = 0 is the Rayleigh fold, each further
-    iteration one window pass a shard). deg: each sample's largest true
-    in-degree, int32, before any d_max cut. ``ok`` (a 0-d bool
-    tensor) is False iff a cell overflowed cell_cap, or, with a payload and
-    d_max > 0, an in-degree exceeded d_max."""
-    if env_grid is None:
-        raise NotImplementedError(_ALL_PAIRS)
+    env_grid None: the all-pairs env, each shard's rows against the
+    gathered swarm in sub-chunks of env_chunk rows (fitted to divide a
+    shard's rows; None: the whole shard at once); equal to
+    ``env_step_chunked``'s step up to float association, lambda by the ELL
+    power iteration, ok always True. env_grid: True or (table_size,
+    cell_cap[, cell_factor]), as for the single-chip grid env, which
+    env_chunk does not sub-chunk (JAX's rule); equal to
+    ``env_step_grid``'s step up to float association when d_max covers
+    the largest in-degree: the window lambda at d_max = 0, the ELL lambda
+    (lam_path 'ell') at d_max > 0. payload (B,N_pad,Pw): its NORMALIZED
+    graph shift (W/lambda) @ payload comes back as ``shifted`` (the fused
+    policy's register shift; in all-pairs mode the masked product of the
+    untruncated mask). d_max = 0 on the grid: eval-shaped (zero-width
+    idx/val, no selection, the window lambda with v_prev on the tables:
+    lam_iters = 0 is the Rayleigh fold, each further iteration one window
+    pass a shard). deg: each sample's largest true in-degree, int32,
+    before any d_max cut. ``ok`` (a 0-d bool tensor) is False iff a cell
+    overflowed cell_cap, or, with a payload and d_max > 0 on the grid, an
+    in-degree exceeded d_max."""
     B, _, N = pos.shape
     home = pos.device
     devs = mesh.grid(axis)[0]
@@ -111,42 +117,66 @@ def sharded_env_step(pos, vel, comm_radius, d_max, mesh: Mesh,
         raise ValueError(f"{N} agents do not split into {len(devs)} "
                          "shards; pad the swarm with pad_swarm")
     Np = N // len(devs)
-    gts, gcc, gcf = F._parse_env_grid(env_grid)
-    H, Gx, Gy, C = F._grid_geometry(N, gts, gcc, gcf)
     r2 = comm_radius ** 2
-    inv_s = 1.0 / (gcf * comm_radius)
     n_pay = 0 if payload is None else int(payload.shape[-1])
-    win_lam = d_max == 0
+    win_lam = env_grid is not None and d_max == 0
     if v_prev is None:
         v_prev = pos.new_ones((B, N)) / math.sqrt(N)
+    uniq = list(dict.fromkeys(devs))
 
-    # the all-gather and the cell table, once on each distinct device
-    tables = {}
-    for dev in dict.fromkeys(devs):
-        p_, u_ = pos.to(dev), vel.to(dev)
-        table, cx, cy, ok, (order, vpos) = F._grid_build_table(
-            p_[:, 0], p_[:, 1], u_[:, 0], u_[:, 1], inv_s, H, Gx, Gy, C,
-            v=v_prev.to(dev) if win_lam else None,
-            pay=payload.to(dev) if n_pay else None)
-        tables[dev] = dict(pos=p_, vel=u_, table=table, cx=cx, cy=cy, ok=ok,
-                           order=order, vpos=vpos)
+    if env_grid is None:
+        # the all-gather, once on each distinct device
+        gathered = {dev: (pos.to(dev), vel.to(dev),
+                          payload.to(dev) if n_pay else None)
+                    for dev in uniq}
+        chunk = Np if env_chunk is None else F._fit_chunk(Np, env_chunk)
 
-    def rows(p, dev, **kw):
-        """The window pass of shard p's own rows on its device's table."""
-        t = tables[dev]
-        sl = slice(p * Np, (p + 1) * Np)
-        return F._grid_rows(t["pos"][:, 0, sl], t["pos"][:, 1, sl],
-                            t["vel"][:, 0, sl], t["vel"][:, 1, sl],
-                            t["cx"][:, sl], t["cy"][:, sl], t["table"], Gx,
-                            Gy, C, r2, d_max, inv_s=inv_s, factor=gcf,
-                            lo=p * Np, **kw)
+        def shard_rows(p, dev):
+            """Shard p's own rows against the gathered swarm, in
+            sub-chunks: (idx, val01, states, cnt, shifted payload)."""
+            p_, u_, pay_ = gathered[dev]
+            parts = [F._chunk_env_rows(p_, u_, lo, lo + chunk, r2, d_max,
+                                       payload=pay_)
+                     for lo in range(p * Np, (p + 1) * Np, chunk)]
+            cat = lambda k, dim: torch.cat([t[k] for t in parts], dim)
+            return (cat(0, 1), cat(1, 1), cat(2, -1), cat(3, 1),
+                    cat(4, 1) if n_pay else None)
 
-    main = [rows(p, dev, n_pay=n_pay) for p, dev in enumerate(devs)]
-    idx, val, st, wv, cnt, wpay = (list(t) for t in zip(*main))
-    oks = [t["ok"].all() for t in tables.values()]
-    if n_pay and d_max > 0:
-        oks += [c.amax() <= d_max for c in cnt]
-    ok = torch.stack([o.to(home) for o in oks]).all()
+        main = [shard_rows(p, dev) for p, dev in enumerate(devs)]
+        idx, val, st, cnt, wpay = (list(t) for t in zip(*main))
+        ok = torch.ones((), dtype=torch.bool, device=home)
+    else:
+        gts, gcc, gcf = F._parse_env_grid(env_grid)
+        H, Gx, Gy, C = F._grid_geometry(N, gts, gcc, gcf)
+        inv_s = 1.0 / (gcf * comm_radius)
+        # the all-gather and the cell table, once on each distinct device
+        tables = {}
+        for dev in uniq:
+            p_, u_ = pos.to(dev), vel.to(dev)
+            table, cx, cy, ok, (order, vpos) = F._grid_build_table(
+                p_[:, 0], p_[:, 1], u_[:, 0], u_[:, 1], inv_s, H, Gx, Gy, C,
+                v=v_prev.to(dev) if win_lam else None,
+                pay=payload.to(dev) if n_pay else None)
+            tables[dev] = dict(pos=p_, vel=u_, table=table, cx=cx, cy=cy,
+                               ok=ok, order=order, vpos=vpos)
+
+        def rows(p, dev, **kw):
+            """The window pass of shard p's own rows on its device's
+            table."""
+            t = tables[dev]
+            sl = slice(p * Np, (p + 1) * Np)
+            return F._grid_rows(t["pos"][:, 0, sl], t["pos"][:, 1, sl],
+                                t["vel"][:, 0, sl], t["vel"][:, 1, sl],
+                                t["cx"][:, sl], t["cy"][:, sl], t["table"],
+                                Gx, Gy, C, r2, d_max, inv_s=inv_s,
+                                factor=gcf, lo=p * Np, **kw)
+
+        main = [rows(p, dev, n_pay=n_pay) for p, dev in enumerate(devs)]
+        idx, val, st, wv, cnt, wpay = (list(t) for t in zip(*main))
+        oks = [t["ok"].all() for t in tables.values()]
+        if n_pay and d_max > 0:
+            oks += [c.amax() <= d_max for c in cnt]
+        ok = torch.stack([o.to(home) for o in oks]).all()
 
     def psum(parts):
         """The shards' (B,) partials summed on the home device."""
@@ -165,7 +195,7 @@ def sharded_env_step(pos, vel, comm_radius, d_max, mesh: Mesh,
     def gather(vbs):
         """The all-gather of v's blocks, once a device."""
         return {dev: torch.cat([v.to(dev) for v in vbs], dim=1)
-                for dev in tables}
+                for dev in uniq}
 
     v0 = [v_prev[:, p * Np:(p + 1) * Np].to(dev)
           for p, dev in enumerate(devs)]
@@ -201,7 +231,7 @@ def sharded_env_step(pos, vel, comm_radius, d_max, mesh: Mesh,
 
 def _rollout_pieces(w, policy, comm_radius, dt, accel_max, d_max,
                     mesh: Mesh, axis, n_orig, lam_iters, env_grid,
-                    step_mode, return_cost):
+                    step_mode, return_cost, env_chunk=None):
     """init/step closures of the sharded closed loop (as
     ``Flocking._chunked_pieces`` for one chip). carry = (pos, vel, x_t,
     history: (policy state, shifted registers) in step mode, (x, idx, val)
@@ -213,13 +243,16 @@ def _rollout_pieces(w, policy, comm_radius, dt, accel_max, d_max,
                           and getattr(policy, "payload_width", 0) > 0):
         raise ValueError("step_mode needs a payload-capable DB architecture "
                          "(rollout_step_shifted, rollout_payload, E == 1)")
-    # the fused cost rollout never reads a graph: the env runs eval-shaped
-    d_env = 0 if (return_cost and step_mode) else d_max
+    # the fused cost rollout on the grid never reads a graph: the env runs
+    # eval-shaped
+    d_env = (0 if (return_cost and step_mode and env_grid is not None)
+             else d_max)
 
     def env(pos, vel, v, iters, payload=None):
         *out, deg, ok = sharded_env_step(
             pos, vel, comm_radius, d_env, mesh, axis, v_prev=v,
-            lam_iters=iters, env_grid=env_grid, payload=payload)
+            lam_iters=iters, env_chunk=env_chunk, env_grid=env_grid,
+            payload=payload)
         deg = deg.amax()
         if payload is not None and d_env == 0:
             # the fused shift sums every neighbour; a graph cut at d_max
@@ -282,14 +315,15 @@ def _rollout_pieces(w, policy, comm_radius, dt, accel_max, d_max,
 def sharded_swarm_rollout(T: int, w: int, policy, comm_radius: float,
                           dt: float, accel_max: float, d_max: int,
                           mesh: Mesh, axis: str = "graph", n_orig=None,
-                          lam_iters: int = 8, env_grid=None,
+                          lam_iters: int = 8, env_chunk=None, env_grid=None,
                           step_mode: bool = False,
                           return_cost: bool = False):
-    """A closed-loop rollout over the mesh (JAX ``sharded_swarm_rollout``,
-    grid mode): ``rollout(pos_pad, vel_pad)`` on :func:`pad_swarm`'s
-    tensors, run under ``torch.no_grad()``. Pad agents' accelerations are
-    zeroed (pads never move), so the first n_orig agents follow the
-    unpadded rollout.
+    """A closed-loop rollout over the mesh (JAX ``sharded_swarm_rollout``)
+    on the grid (env_grid) or the all-pairs env (env_grid None, each
+    shard's rows in sub-chunks of env_chunk): ``rollout(pos_pad,
+    vel_pad)`` on :func:`pad_swarm`'s tensors, run under
+    ``torch.no_grad()``. Pad agents' accelerations are zeroed (pads never
+    move), so the first n_orig agents follow the unpadded rollout.
 
     policy: with step_mode=False, the windowed policy ``policy(x_hist
     (B,w,6,N_pad), S_hist) -> (B,w,2,N_pad)`` over the last w steps'
@@ -304,16 +338,14 @@ def sharded_swarm_rollout(T: int, w: int, policy, comm_radius: float,
     home device; accel[:, T-1] is zero. return_cost=True: (cost_full,
     cost_end, deg, ok) 0-d tensors, the flocking cost over the
     trajectory and at its end (pad agents masked out) accumulated step by
-    step, nothing O(T·N) kept. The fused cost rollout runs the env
-    eval-shaped (d_max = 0: no selection, the window lambda) and flags ok
-    False when an in-degree exceeds d_max, where the fused shift (which
-    sums every neighbour) and a graph cut at d_max differ (module
+    step, nothing O(T·N) kept. The fused cost rollout on the grid runs
+    the env eval-shaped (d_max = 0: no selection, the window lambda) and
+    flags ok False when an in-degree exceeds d_max, where the fused shift
+    (which sums every neighbour) and a graph cut at d_max differ (module
     docstring). deg: the largest true in-degree seen (0-d int32)."""
-    if env_grid is None:
-        raise NotImplementedError(_ALL_PAIRS)
     init_fn, step_fn = _rollout_pieces(
         w, policy, comm_radius, dt, accel_max, d_max, mesh, axis, n_orig,
-        lam_iters, env_grid, step_mode, return_cost)
+        lam_iters, env_grid, step_mode, return_cost, env_chunk)
 
     @torch.no_grad()
     def rollout(init_pos, init_vel):

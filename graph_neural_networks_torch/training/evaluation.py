@@ -50,11 +50,13 @@ def evaluate_flocking(model, data, nVideos: int = 0, **kwargs):
     the test initial conditions: the cost over the whole trajectory and at
     the final step (costBestFull, costBestEnd, costLastFull, costLastEnd).
 
-    The rollout is ``data.compute_trajectory`` through the architecture's
-    step interface on the dataset's environment (its defaults: the
-    dataset's grid and ell_degree, lam_iters 8, or the all-pairs env of a
-    reference-scale dataset); the JAX evaluator runs the windowed
-    re-forward there, which equals it up to float association.
+    The rollout is ``data.compute_trajectory`` on the dataset's
+    environment (its defaults: the dataset's grid or chunked env and
+    ell_degree, lam_iters 8, or the all-pairs env of a reference-scale
+    dataset) with history_window the architecture's causal window, as the
+    JAX evaluator passes it: an architecture with the step interface rolls
+    through it, which the JAX evaluator's windowed re-forward equals up to
+    float association.
     """
     if nVideos:
         raise NotImplementedError("evaluate_flocking(nVideos=...): "
@@ -65,6 +67,7 @@ def evaluate_flocking(model, data, nVideos: int = 0, **kwargs):
     def run(m):
         _, vel, _, _, _ = data.compute_trajectory(
             init_pos, init_vel, data.duration, m.archit,
+            history_window=getattr(m.archit, "causal_window", None),
             return_graphs="auto")   # the cost never reads the graphs
         return {"full": float(data.evaluate(vel=vel)),
                 "end": float(data.evaluate(vel=vel[:, -1:]))}

@@ -318,8 +318,9 @@ class TrainerFlocking(Trainer):
       forward, the loss, the backward and the optimizer step. DAGger
       ('randomEpoch', 'replaceTimeBatch' or 'fixedBatch', with
       ``probExpert``) re-rolls learner trajectories with
-      ``Flocking.compute_trajectory`` through the policy's step interface
-      (the JAX trainer's windowed re-forward equals it up to float
+      ``Flocking.compute_trajectory`` (history_window the policy's causal
+      window, as in JAX; a policy with the step interface rolls through it,
+      which the JAX trainer's windowed re-forward equals up to float
       association) and relabels them with the expert (:meth:`_expert_accel`,
       clipped at the dataset's accelMax, its T-1 label kept as JAX keeps
       it); fixedBatch appends a fresh rollout of the batch's initial
@@ -399,11 +400,14 @@ class TrainerFlocking(Trainer):
             raise ValueError("deviceStore recomputes dense reference-scale "
                              "graphs in the train step; ellDegree requires a "
                              "grid dataset (Flocking.large_device)")
-        # every rollout can step through rollout_step: the grid fuses only
-        # a policy that also has rollout_step_shifted
-        if not hasattr(model.archit, "rollout_step"):
+        # re-rolls and validation run the step interface, or the windowed
+        # re-forward over the policy's causal window (JAX's condition on
+        # rollout_traj_device)
+        if not (hasattr(model.archit, "rollout_step")
+                or getattr(model.archit, "causal_window", None)):
             raise ValueError("deviceStore re-rolls and validates through the "
-                             "step interface (rollout_step)")
+                             "step interface (rollout_step) or the windowed "
+                             "re-forward (causal_window)")
 
     # -- graph-trajectory storage (dense numpy or a numpy-leaf EllGso) ------
     @staticmethod
@@ -560,7 +564,11 @@ class TrainerFlocking(Trainer):
         training.py:1320-1400): on the grid (expert_accel_grid, one window
         pass at the repel radius on the dataset's cell geometry; a
         RuntimeWarning reports a cell overflow) when the dataset rolls on
-        it, else all pairs in f64 numpy. Host f64 (B, T, 2, N)."""
+        it; else, with a chunked env (``rollout_env_chunk``, set by
+        Flocking.large), by expert_accel_chunked in f32 on the device, a
+        few of the B·T steps at a time so that a call's (steps, chunk, N)
+        workspace stays near 2^27 elements; else all pairs in f64 numpy.
+        Host f64 (B, T, 2, N)."""
         data = self.data
         if self.grid is not None:
             from graph_neural_networks_torch.data.flocking import (
@@ -579,14 +587,33 @@ class TrainerFlocking(Trainer):
                               "relabeling: raise cell_cap/table_size",
                               RuntimeWarning)
             return a.cpu().numpy().astype(np.float64).reshape(B, T, 2, N)
-        if getattr(data, "rollout_env_chunk", None):
-            raise NotImplementedError(
-                "the chunked expert relabel (a dataset with "
-                "rollout_env_chunk) is not ported yet (ROADMAP queue 1 item "
-                "7.3)")
+        chunk = getattr(data, "rollout_env_chunk", None)
+        if chunk:
+            from graph_neural_networks_torch.data.flocking import (
+                _fit_chunk, expert_accel_chunked)
+            B, T, _, N = pos.shape
+            chunk = _fit_chunk(N, chunk)
+            flat = lambda a: np.asarray(a).reshape(B * T, 2, N)
+            p, v = flat(pos), flat(vel)
+            step = max(1, (1 << 27) // (chunk * N))
+            a = np.concatenate([expert_accel_chunked(
+                torch.as_tensor(p[lo:lo + step], dtype=torch.float32,
+                                device=self.device),
+                torch.as_tensor(v[lo:lo + step], dtype=torch.float32,
+                                device=self.device),
+                data.repelDist, data.accelMax, chunk).cpu().numpy()
+                for lo in range(0, B * T, step)])
+            return a.astype(np.float64).reshape(B, T, 2, N)
         from graph_neural_networks_torch.data.flocking import (
             expert_accel_host)
         return expert_accel_host(pos, vel, data.repelDist, data.accelMax)
+
+    def _window(self):
+        """The policy's causal window, the history_window the JAX trainer
+        hands every re-roll and validation rollout (None for the GRNN). A
+        policy with the step interface rolls through it and ignores the
+        window."""
+        return getattr(self.model.archit, "causal_window", None)
 
     def _rollout_policy(self, init_pos, init_vel, chunk: int = 16):
         """The learner's closed-loop rollouts from host initial conditions,
@@ -599,7 +626,8 @@ class TrainerFlocking(Trainer):
         for lo in range(0, init_pos.shape[0], chunk):
             pos, vel, _, states, graphs = data.compute_trajectory(
                 init_pos[lo:lo + chunk], init_vel[lo:lo + chunk],
-                data.duration, self.model.archit)
+                data.duration, self.model.archit,
+                history_window=self._window())
             if isinstance(graphs, EllGso):
                 graphs = (EllGso(graphs.idx, graphs.val.astype(np.float32))
                           if self._is_ell(self.SAll)
@@ -632,7 +660,7 @@ class TrainerFlocking(Trainer):
             sub = np.asarray(sel[lo:lo + chunk])
             pos, vel = data.rollout_traj_device(
                 self.initPosAll[sub], self.initVelAll[sub], data.duration,
-                self.model.archit)
+                self.model.archit, history_window=self._window())
             tgt = torch.as_tensor(sub, device=self.device)
             self.posAll[tgt] = pos
             self.velAll[tgt] = vel
@@ -678,10 +706,12 @@ class TrainerFlocking(Trainer):
         if self.deviceStore:
             from graph_neural_networks_torch.data.flocking import (
                 evaluate_cost_device)
-            _, vel = data.rollout_traj_device(init_pos, init_vel,
-                                              data.duration, self.model.archit)
+            _, vel = data.rollout_traj_device(
+                init_pos, init_vel, data.duration, self.model.archit,
+                history_window=self._window())
             return float(evaluate_cost_device(vel))
         _, vel, _, _, _ = data.compute_trajectory(
             init_pos, init_vel, data.duration, self.model.archit,
+            history_window=self._window(),
             return_graphs="auto")   # the cost never reads the graphs
         return float(data.evaluate(vel=vel))

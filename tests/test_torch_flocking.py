@@ -288,7 +288,7 @@ def test_compute_trajectory_matches_jax(rollout_pair, return_graphs):
 
 
 def test_unported_paths_raise(rollout_pair):
-    _, tenv, ip, iv, _, _, tnet = rollout_pair
+    jenv, tenv, ip, iv, jnet, params, tnet = rollout_pair
     # payload width 12 > 1.5 * 4: the unfused step path is ported
     # (test_torch_db_family.py); it shifts over the emitted graph, so it
     # refuses to emit none
@@ -308,14 +308,42 @@ def test_unported_paths_raise(rollout_pair):
     with pytest.raises(ValueError, match="unknown lam_path"):
         tF.env_step_grid(torch.tensor(ip), torch.tensor(iv), 2.0, 8,
                          torch.ones(2, 128), lam_path="eig")
-    # Flocking(...) is ported; Flocking.large on the chunked env is not
-    with pytest.raises(NotImplementedError, match="7.3"):
-        tF.Flocking.large(128, 2.0, 1.0, 1, 1, 1, 1.0, 0.01, 16,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="step_mode=False"):
-        tenv.rollout_cost(ip, iv, 0.05, tnet, ell_degree=16, env_grid=True,
-                          step_mode=False)
-    # a policy without the step interface (the windowed re-forward)
-    with pytest.raises(NotImplementedError, match="no step interface"):
-        tenv.rollout_traj_device(ip, iv, 0.05, object(), ell_degree=16,
-                                 env_grid=True)
+    # the paths that once raised naming item 7.3, now against JAX (the
+    # chunked env and the other rollouts: tests/test_torch_chunked_env.py,
+    # tests/test_torch_rollout_modes.py). Flocking.large without env_grid:
+    args = (128, 2.0, 1.0, 1, 0, 0, 0.03, 0.01, 16)
+    td = tF.Flocking.large(*args, rng=np.random.default_rng(2),
+                           device="cpu")
+    jd = jF.Flocking.large(*args, rng=np.random.default_rng(2))
+    assert td.rollout_env_chunk == jd.rollout_env_chunk == 16
+    np.testing.assert_array_equal(td.getData("commGraph", "train").idx,
+                                  np.asarray(jd.getData("commGraph",
+                                                        "train").idx))
+    _close(td.getData("state", "train"), jd.getData("state", "train"),
+           rtol=1e-4, atol_rel=1e-4, axis=2)
+    # step_mode=False: the windowed re-forward on the grid
+    kw = dict(ell_degree=16, env_grid=True, lam_iters=0, step_mode=False)
+    cf = tenv.rollout_cost(ip, iv, 0.05, tnet, **kw)
+    jcf = jenv.rollout_cost(ip, iv, 0.05, jnet, params, **kw)
+    np.testing.assert_allclose(cf, [float(c) for c in jcf], rtol=1e-5)
+    # a policy without the step interface: the windowed re-forward
+    class Windowed(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x, S):
+            return self.net(x, S)
+
+    pos, _ = tenv.rollout_traj_device(ip, iv, 0.05, Windowed(tnet),
+                                      history_window=3, ell_degree=16,
+                                      env_grid=True)
+    jpos, _ = jenv.rollout_traj_device(
+        ip, iv, 0.05, lambda p, x, S: jnet.apply(p, x, S), params,
+        history_window=3, ell_degree=16, env_grid=True)
+    np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), rtol=1e-5,
+                               atol=1e-5)
+    # ... which needs a window
+    with pytest.raises(ValueError, match="needs history_window"):
+        tenv.rollout_traj_device(ip, iv, 0.05, Windowed(tnet),
+                                 ell_degree=16, env_grid=True)

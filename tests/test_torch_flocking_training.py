@@ -294,22 +294,38 @@ def test_coverage_check_warns_where_jax_does_not(stores, tmp_path):
 
 
 def test_host_store_raises_naming_7_1b(stores, tmp_path):
-    """The host store is ported; what still raises: the chunked all-pairs
-    env (Flocking.large without env_grid) and the chunked expert relabel,
-    naming item 7.3, and a device store with fixedBatch, with the JAX
-    trainer's message."""
+    """The host store is ported (the name is kept from when it raised), and
+    so are the two paths that raised here naming item 7.3, now against
+    JAX: the chunked all-pairs env (Flocking.large without env_grid) and
+    the chunked expert relabel (a dataset with rollout_env_chunk and no
+    grid). What still raises: a device store with fixedBatch, with the
+    JAX trainer's message."""
     jd, td = stores
     jm, tm = _models(tmp_path)
-    with pytest.raises(NotImplementedError, match="7.3"):
-        tF.Flocking.large(32, device="cpu", **dict(STORE, env_grid=None))
+    kw = dict(STORE, env_grid=None, nTrain=1, nValid=0, nTest=0)
+    got = tF.Flocking.large(32, device="cpu", rng=np.random.default_rng(3),
+                            **kw)
+    want = jF.Flocking.large(32, rng=np.random.default_rng(3), **kw)
+    np.testing.assert_array_equal(got.getData("commGraph", "train").idx,
+                                  np.asarray(want.getData("commGraph",
+                                                          "train").idx))
+    np.testing.assert_allclose(got.getData("accel", "train"),
+                               want.getData("accel", "train"), rtol=1e-4,
+                               atol=1e-4)
     trainer = TT.TrainerFlocking(tm, td, 1, 2, ellDegree=16,
                                  deviceStore=True, coverageCheck=False)
     td.rollout_env_grid, td.rollout_env_chunk = None, 8
     try:
-        with pytest.raises(NotImplementedError, match="7.3"):
-            trainer.grid = None
-            trainer._expert_accel(np.zeros((1, 2, 2, 4)),
-                                  np.zeros((1, 2, 2, 4)))
+        trainer.grid = None
+        rng = np.random.default_rng(5)
+        pos = rng.normal(size=(1, 2, 2, 16)) * 2
+        vel = rng.normal(size=(1, 2, 2, 16))
+        a = trainer._expert_accel(pos, vel)
+        np.testing.assert_allclose(
+            a, np.asarray(jF._jnp_expert_accel_chunked(
+                jnp.asarray(pos.reshape(2, 2, 16), jnp.float32),
+                jnp.asarray(vel.reshape(2, 2, 16), jnp.float32), td.repelDist,
+                td.accelMax, 8)).reshape(a.shape), rtol=1e-4, atol=1e-4)
     finally:
         td.rollout_env_grid, td.rollout_env_chunk = True, None
     msg = "fixedBatch rolls out per batch on host"

@@ -1,5 +1,5 @@
 """PyTorch port, parallel/swarm.py's closed-loop sharded rollouts (fused,
-cost and windowed) and what its sharded env refuses, held against the
+cost and windowed) on the grid and what its sharded env refuses, held against the
 JAX package on the CPU with the same inputs and weights (moved from
 tests/test_torch_sharded_swarm.py, whose helpers they use).
 
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from graph_neural_networks_torch import parallel as tpar
+from graph_neural_networks_torch.data import flocking as tF
 from graph_neural_networks_tpu import parallel as jpar
 from graph_neural_networks_tpu.data import flocking as jF
 
@@ -140,16 +141,32 @@ def test_cost_mode_flags_an_in_degree_above_d_max(meshes):
 
 
 def test_sharded_all_pairs_mode_raises_naming_7_3(meshes):
+    """The all-pairs mode raised here naming item 7.3 (the name is kept):
+    now the sharded step and rollout against the one-card chunked env
+    (against JAX: tests/test_torch_sharded_all_pairs.py), env_chunk not
+    sub-chunking a grid shard (JAX's rule); what still raises: a step-mode
+    policy without the payload interface and an unpadded swarm."""
     tmesh, _ = meshes[(2, 4)]
     env, ip, iv, _, _, tnet = _rollout_setup(12)
     tp, tv, _ = tpar.pad_swarm(ip, iv, tmesh)
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        tpar.sharded_env_step(tp, tv, 6.0, 12, tmesh)
-    with pytest.raises(TypeError, match="env_chunk"):
-        tpar.sharded_env_step(tp, tv, 6.0, 12, tmesh, env_grid=GRID,
-                              env_chunk=2)
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        tpar.sharded_swarm_rollout(4, 2, tnet, 6.0, 0.125, 10.0, 12, tmesh)
+    got = tpar.sharded_env_step(tp, tv, 6.0, 12, tmesh, lam_iters=16)
+    one = tF.env_step_chunked(tp, tv, 6.0, 12, 4,
+                              torch.full((2, 12), 12 ** -0.5), lam_iters=16)
+    assert bool(got[-1])
+    np.testing.assert_array_equal(got[0].numpy(), one[0].numpy())
+    for a, b in zip(got[1:4], one[1:4]):
+        _close(a.numpy(), b.numpy(), rtol=1e-5)
+    grid = [tpar.sharded_env_step(tp, tv, 6.0, 12, tmesh, env_grid=GRID,
+                                  env_chunk=c) for c in (None, 2)]
+    for a, b in zip(*grid):
+        assert torch.equal(a, b)
+    roll = tpar.sharded_swarm_rollout(4, 2, tnet, 6.0, 0.125, 10.0, 12,
+                                      tmesh, lam_iters=16)(tp, tv)
+    tenv = tF.Flocking.for_rollout(12, 6.0, 1.0, 0.125, device="cpu")
+    ref = tenv.rollout_traj_device(ip, iv, 0.5, tnet, history_window=2,
+                                   ell_degree=12, env_chunk=4, lam_iters=16,
+                                   step_mode=False)
+    np.testing.assert_allclose(roll[0].numpy(), ref[0].numpy(), **TOL)
     with pytest.raises(ValueError, match="payload-capable"):
         tpar.sharded_swarm_rollout(4, 2, lambda x, S: x, 6.0, 0.125, 10.0,
                                    12, tmesh, env_grid=GRID, step_mode=True)
