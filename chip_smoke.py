@@ -159,6 +159,20 @@ the node-sharded paths:
   GraphRecurrentNN_DB as the windowed policy) against one card; and runs
   a callable policy's host loop (full horizon and windowed) and the open
   loop on flock_ref_n50's env.
+* The tasks: movielens_n1186 (MovieLens' synthetic fallback at ML-100k's
+  943 users x 1682 movies, the graph of the most-rated kept movie, N =
+  1186) trains examples/movielens.py's three models at full width
+  (SelectionGNN on Trainer/evaluate, the one- and two-layer LocalGNN on
+  TrainerSingleNode/evaluate_single_node; batch 5, one epoch) in bcsr mode
+  (kernel 1) against dense mode from the same weights: first-step
+  gradients, losses, the evaluators' costs, exact bcsr_matmul counts a
+  forward, a step, a validation and an evaluation, a step's profile, and
+  kernel 1 at the graph's shapes (R = 5 and 320) against its plain
+  version, timed beside its bound and x @ S_dense. Then each of the seven
+  task drivers (graph_neural_networks_torch/examples: movielens,
+  epidemic, sourceloc, authorship, twentynews, variants, transfer) runs
+  main() at full width with --epochs 1 on the synthetic fallbacks, its
+  first model's first step on the card against the CPU.
 
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
@@ -7192,6 +7206,326 @@ def phase_chunked_host_loop(dev, card):
          open_loop=replay, seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# The tasks: the single-node path (movielens_n1186) and the seven drivers
+# ---------------------------------------------------------------------------
+
+# movielens_n1186: examples/movielens.py's models at full width (F = [1, 64,
+# 32], K = [5, 5], smooth-L1, Adam 5e-3, batch 5) on MovieLens' synthetic
+# fallback at ML-100k's shape (943 users x 1682 movies, default_rng(0),
+# kNN 10, ratios 0.9 / 0.1). Its target is the most-rated movie that the
+# graph keeps (movies ranked by rating count, stable): movie 701, 38th (the
+# graph drops movies of in-degree 0, the example's node 50 among them); the
+# kept graph has N = 1186 (10 x 10 BCSR blocks of 128) and 132 / 15 / 16
+# samples. Checking the rank on the card would take 37 constructions of
+# ~0.8 s of host time; tests/test_torch_single_node.py applies the same
+# rule at a small size.
+ML_CELL = dict(users=943, movies=1682, label=701, kNN=10, seed=0, batch=5,
+               lr=5e-3, valid_every=10, F=[1, 64, 32], K=[5, 5])
+ML_RTOL = 1e-4
+ML_ATOL_REL = 1e-4
+DRIVERS = ("movielens", "epidemic", "sourceloc", "authorship", "twentynews",
+           "variants", "transfer")
+DRIVER_RTOL = 1e-4
+DRIVER_ATOL_REL = 1e-4
+
+
+ML_MODELS = (("SelGNN", 2, "Trainer", "evaluate"),
+             ("LocalGNN1Ly", 1, "TrainerSingleNode", "evaluate_single_node"),
+             ("LocalGNN2Ly", 2, "TrainerSingleNode", "evaluate_single_node"))
+
+
+def _ml_arch(S, name, layers, mode, dev):
+    """One of movielens_n1186's models in `mode`, the weights of torch
+    seed 0 (the same in every mode)."""
+    import torch
+    from graph_neural_networks_torch.models import architectures as archs
+    N, F, K = S.shape[0], ML_CELL["F"][:layers + 1], ML_CELL["K"][:layers]
+    cls = archs.SelectionGNN if name == "SelGNN" else archs.LocalGNN
+    return cls(F, K, True, "relu", [N] * layers, "NoPool", [1] * layers,
+               [1], S, order="Degree", gsoMode=mode, device=dev,
+               generator=torch.Generator().manual_seed(0))
+
+
+def _ml_launches(arch, step):
+    """bcsr_matmul launches of a forward (step=False) or a training step:
+    K-1 shifts a layer, and a step adds the backward shifts of every layer
+    but the first (its input needs no gradient)."""
+    taps = arch._cfg["taps"]
+    return sum(k - 1 for k in taps) + (
+        sum(k - 1 for k in taps[1:]) if step else 0)
+
+
+def _ml_model(arch, name, trainer, evaluator, out_dir):
+    from graph_neural_networks_torch import training as T
+    loss = T.losses.adapt_extra_dimension_loss(T.losses.smooth_l1_loss)
+    return T.Model(arch, loss, {"name": "ADAM", "lr": ML_CELL["lr"]},
+                   trainer, evaluator, name=name, saveDir=out_dir)
+
+
+def _ml_first_step(model, data):
+    """The loss and the parameter gradients of the model's trainer's first
+    step (the first batch of its seed-0 permutation), and the SpMM
+    launches of that step."""
+    trainer = model.trainer(model, data, 1, ML_CELL["batch"])
+    idx = np.random.default_rng(0).permutation(data.nTrain)[
+        :ML_CELL["batch"]]
+    _reset_counts()
+    loss, _ = trainer.train_batch(idx)
+    counts = _attention_counts()
+    return loss, [p.grad.detach().clone() for p in model.archit.parameters()
+                  ], counts
+
+
+def phase_single_node(dev, out_dir):
+    """movielens_n1186: its three models in dense and bcsr mode from the
+    same weights; first-step gradients, one epoch of Model.train (with
+    TrainerSingleNode for the Local GNNs) and the evaluators' costs, bcsr
+    against dense, with exact bcsr_matmul counts a step, a validation and
+    an evaluation; a step's profile of each mode; then kernel 1 at the
+    graph's shapes (R = B·F = 5 and 320) against its plain version, timed
+    beside its bound and x @ S_dense."""
+    import torch
+    from graph_neural_networks_torch import data as D
+    from graph_neural_networks_torch import training as T
+    from graph_neural_networks_torch.ops import spmm
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = D.MovieLens("movie", ML_CELL["label"], 0.9, 0.1,
+                       kNN=ML_CELL["kNN"], nSynthUsers=ML_CELL["users"],
+                       nSynthMovies=ML_CELL["movies"],
+                       rng=np.random.default_rng(ML_CELL["seed"]))
+    data.expandDims()
+    W = data.getGraph()
+    S = W / np.max(np.abs(np.linalg.eigvalsh(W)))
+    N = S.shape[0]
+    host_s = time.perf_counter() - t0
+    emit(phase="movielens_graph", N=N, nnz=int(np.count_nonzero(W)),
+         label=ML_CELL["label"], label_position=data.labelID[0],
+         samples=[data.nTrain, data.nValid, data.nTest],
+         host_seconds=host_s)
+    checks, launches, trained = [], 0, {}
+    steps = -(-data.nTrain // ML_CELL["batch"])
+    validations = len(range(0, steps, ML_CELL["valid_every"]))
+    for name, layers, tr, ev in ML_MODELS:
+        tr, ev = getattr(T, tr), getattr(T, ev)
+        dense, bcsr = (_ml_arch(S, name, layers, m, dev)
+                       for m in ("dense", "bcsr"))
+        require(all(torch.equal(p, q) for p, q in
+                    zip(dense.parameters(), bcsr.parameters())),
+                f"{name}: bcsr weights differ from dense")
+        require(bcsr.S.mode == "bcsr" and bcsr.S.blocks.shape[1] ==
+                bcsr.S.block_row.shape[0], f"{name}: not a BCSR Gso")
+        fwd, step = _ml_launches(bcsr, False), _ml_launches(bcsr, True)
+        # a forward's launches, then the first step's gradients
+        _reset_counts()
+        with torch.no_grad():
+            bcsr.apply(data.getSamples("test")[0])
+        require(_attention_counts()["bcsr_matmul"] == fwd,
+                f"{name}: {_attention_counts()} launches a forward, "
+                f"expected {fwd} bcsr_matmul")
+        first = {}
+        for mode, arch in (("dense", dense), ("bcsr", bcsr)):
+            model = _ml_model(arch, f"{name}_first_{mode}", tr, ev, out_dir)
+            first[mode] = _ml_first_step(model, data)
+        require(first["bcsr"][2]["bcsr_matmul"] == step and not any(
+            first["dense"][2].values()), f"{name}: first-step launches "
+            f"{first['bcsr'][2]} (bcsr), {first['dense'][2]} (dense), "
+            f"expected {step} bcsr_matmul")
+        _check_grads(checks, f"{name} bcsr", "dense", first["bcsr"][1],
+                     first["dense"][1])
+        # one epoch through Model.train and the evaluator, fresh weights
+        outs = {}
+        for mode in ("dense", "bcsr"):
+            arch = _ml_arch(S, name, layers, mode, dev)
+            model = _ml_model(arch, f"{name}_{mode}", tr, ev, out_dir)
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = model.train(data, nEpochs=1, batchSize=ML_CELL["batch"],
+                              validationInterval=ML_CELL["valid_every"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            train_counts = _attention_counts()
+            _reset_counts()
+            result = model.evaluate(data, doSaveVars=False)
+            eval_counts = _attention_counts()
+            outs[mode] = (out, result, secs, train_counts, eval_counts)
+            trained[f"{name} {mode}"] = model
+        (d_out, d_res, d_s, d_tc, _), (b_out, b_res, b_s, b_tc, b_ec) = (
+            outs["dense"], outs["bcsr"])
+        want_train = steps * step + validations * fwd
+        require(b_tc["bcsr_matmul"] == want_train and not any(d_tc.values()),
+                f"{name}: training launches {b_tc}, expected "
+                f"{want_train} bcsr_matmul ({steps} steps x {step} + "
+                f"{validations} validations x {fwd})")
+        require(b_ec["bcsr_matmul"] == 2 * fwd,
+                f"{name}: evaluation launches {b_ec}, expected {2 * fwd}")
+        launches += b_tc["bcsr_matmul"] + b_ec["bcsr_matmul"] + fwd + step
+        require(len(b_out["lossTrain"]) == steps and bool(
+            np.isfinite(b_out["lossTrain"]).all()),
+            f"{name}: losses {b_out['lossTrain']}")
+        ok = bool(np.allclose(b_out["lossTrain"], d_out["lossTrain"],
+                              rtol=ML_RTOL, atol=0))
+        costs_ok = all(r is not None and np.isfinite(r) for r in
+                       list(b_res.values()) + list(d_res.values())) and all(
+            np.isclose(b_res[k], d_res[k], rtol=ML_RTOL, atol=0)
+            for k in ("costBest", "costLast"))
+        checks.append(dict(model=f"{name} bcsr", against="dense",
+                           losses=b_out["lossTrain"].tolist(),
+                           dense_losses=d_out["lossTrain"].tolist(),
+                           max_rel_loss=float(np.max(np.abs(
+                               b_out["lossTrain"] - d_out["lossTrain"])
+                               / np.abs(d_out["lossTrain"]))),
+                           evaluate=b_res, dense_evaluate=d_res, ok=ok,
+                           costs_ok=costs_ok))
+        require(ok, f"{name}: bcsr losses {b_out['lossTrain']} vs dense "
+                    f"{d_out['lossTrain']}")
+        require(costs_ok, f"{name}: bcsr costs {b_res} vs dense {d_res}")
+        emit(phase="single_node", model=name, trainer=tr.__name__,
+             evaluator=ev.__name__, params=bcsr.parameter_count(),
+             steps=steps, validations=validations,
+             bcsr_matmul_per_forward=fwd, bcsr_matmul_per_step=step,
+             train_launches=b_tc["bcsr_matmul"],
+             evaluate_launches=b_ec["bcsr_matmul"], seconds_bcsr=b_s,
+             seconds_dense=d_s, evaluate=b_res, dense_evaluate=d_res)
+    emit(phase="single_node_check", rtol=ML_RTOL,
+         atol=f"{ML_ATOL_REL}*max|dense|", checks=checks)
+
+    # a step's profile, each mode (the two-layer Local GNN)
+    for mode in ("bcsr", "dense"):
+        model = trained[f"LocalGNN2Ly {mode}"]
+        trainer = model.trainer(model, data, 1, ML_CELL["batch"])
+        bs = ML_CELL["batch"]
+        it = iter([np.arange(i * bs, (i + 1) * bs) % data.nTrain
+                   for i in range(40)])
+        prof = _device_profile(lambda: trainer.train_batch(next(it)), 6)
+        emit(phase="single_node_profile", model="LocalGNN2Ly", mode=mode,
+             batch=bs, host_ms_per_step=prof["wall_ms"],
+             profiled_host_ms_per_step=prof["profiled_wall_ms"],
+             device_ms_per_step=prof["device_ms"],
+             device_idle_share=prof["device_idle_share"],
+             top=[dict(name=t["name"], ms_per_step=t["ms"],
+                       calls_per_step=t["calls"]) for t in prof["top"]])
+
+    # kernel 1 at the graph's shapes: layer 1's rows (B = 5, F = 1) and
+    # layer 2's (F = 64), forward and layer 2's backward on blocks_t
+    g = trained["LocalGNN2Ly bcsr"].archit.S
+    bl, br, bc, cs = g.blocks[0], g.block_row, g.block_col, g.col_start
+    bt, rt, ct, cst = (g.blocks_t[0], g.block_row_t, g.block_col_t,
+                       g.col_start_t)
+    nnzb, bsz = bl.shape[0], g.block_size
+    Sd = g.S[0]
+    rng = np.random.default_rng(30)
+    errs, rows, results = {}, {}, []
+    for R in (ML_CELL["batch"], ML_CELL["batch"] * ML_CELL["F"][1]):
+        x = torch.as_tensor(rng.standard_normal((R, N)).astype(np.float32),
+                            device=dev)
+        for layout, (b_, r_, c_, s_) in (("blocks", (bl, br, bc, cs)),
+                                         ("blocks_t", (bt, rt, ct, cst))):
+            max_abs, max_rel, ok = compare(
+                spmm.bcsr_matmul(x, b_, r_, c_, n_cols=N, col_start=s_),
+                spmm.bcsr_matmul_plain(x, b_, r_, c_, n_cols=N))
+            results.append(dict(kernel="bcsr_matmul", case=f"R={R} N={N} "
+                                f"nnzb={nnzb} {layout}", max_abs_err=max_abs,
+                                max_rel_err=max_rel, ok=ok))
+            errs["bcsr_matmul"] = max(errs.get("bcsr_matmul", 0.0), max_abs)
+            require(ok, f"bcsr_matmul at R={R} N={N} {layout} disagrees "
+                        f"with its plain version: {max_abs}")
+        row = dict(
+            shape=f"R={R} N={N} nnzb={nnzb}",
+            ms=time_ms(lambda: spmm.bcsr_matmul(x, bl, br, bc, n_cols=N,
+                                                col_start=cs)),
+            graph_ms=graph_ms(lambda: spmm.bcsr_matmul(
+                x, bl, br, bc, n_cols=N, col_start=cs)),
+            plain_ms=time_ms(lambda: spmm.bcsr_matmul_plain(
+                x, bl, br, bc, n_cols=N)),
+            library_ms=time_ms(lambda: torch.matmul(x, Sd)),
+            library_call="torch.matmul(x, S_dense), TF32 off",
+            flops=2 * R * nnzb * bsz * bsz,
+            bytes=4 * (2 * R * N + bl.numel() + 2 * nnzb))
+        row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+        rows[f"bcsr_matmul@movielens R={R}"] = row
+    emit(phase="single_node_kernels", checks=results, rtol=RTOL,
+         atol=f"{ATOL_REL}*max|plain|")
+    emit(phase="single_node_timing", rows=rows,
+         seconds=time.perf_counter() - t_phase)
+    return errs, rows, {"bcsr_matmul": launches}
+
+
+def _driver_first_step(spec, task, device, out_dir):
+    """The loss and parameter gradients of the first step of `spec`'s
+    trainer on `device`, the first batch of its seed-0 permutation; a GRNN
+    takes a z0 drawn on the CPU (a CUDA generator draws another)."""
+    import torch
+    from graph_neural_networks_torch import training as T
+    arch = spec.build(device)
+    if hasattr(arch, "H"):
+        z0 = torch.randn((task.batch, arch.H, arch.S.N),
+                         generator=torch.Generator().manual_seed(1))
+        forward = arch.split_forward
+        arch.split_forward = lambda x, generator=None: forward(x, z0=z0)
+    model = T.Model(arch, spec.loss, {"name": "ADAM", "lr": spec.lr},
+                    spec.trainer, spec.evaluator, name=spec.name,
+                    saveDir=out_dir)
+    trainer = spec.trainer(model, task.data, task.nEpochs, task.batch,
+                           **spec.train_kw)
+    idx = np.random.default_rng(0).permutation(task.data.nTrain)[:task.batch]
+    loss, _ = trainer.train_batch(idx)
+    return loss, [p.grad.detach().cpu() for p in arch.parameters()]
+
+
+def _finite_costs(result):
+    vals = [v for r in result.values()
+            for v in (r.values() if isinstance(r, dict) else [r])]
+    return bool(vals) and all(v is not None and np.isfinite(v) for v in vals)
+
+
+def phase_task_drivers(dev, out_dir):
+    """Each of the seven task drivers' main() at its full widths on the
+    card with --epochs 1, on the datasets' synthetic fallbacks (dense mode,
+    as the JAX drivers: no kernel of the library), its seconds and results,
+    every cost finite; and each driver's first model's first step on the
+    card against the same model on the CPU (loss and every gradient)."""
+    import importlib
+    import io
+
+    import torch
+    checks = []
+    for name in DRIVERS:
+        mod = importlib.import_module(
+            f"graph_neural_networks_torch.examples.{name}")
+        sub = os.path.join(out_dir, name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            task = mod.setup(mod._args(["--epochs", "1"]))
+            spec = task.models[0]
+            steps = {where: _driver_first_step(spec, task, where, sub)
+                     for where in ("cpu", dev)}
+        (l_c, g_c), (l_g, g_g) = steps["cpu"], steps[dev]
+        _check_outputs(
+            checks, f"{name} {spec.name}", "cpu",
+            [("loss", torch.tensor([l_g]), torch.tensor([l_c]))]
+            + [(f"grad {i}", g, w) for i, (g, w) in enumerate(zip(g_g, g_c))],
+            DRIVER_RTOL, DRIVER_ATOL_REL)
+        _reset_all_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        argv = ["--epochs", "1", "--device", str(dev)]
+        with contextlib.redirect_stdout(log):
+            result = mod.main(argv + ["--saveDir", sub])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(_finite_costs(result), f"{name}: costs {result}")
+        require(not any(_all_counts().values()),
+                f"{name}: the dense driver launched kernels: {_all_counts()}")
+        emit(phase="task_driver", driver=name, argv=argv,
+             models=[s.name for s in task.models], seconds=secs,
+             result=result, first_model=spec.name, first_loss_card=l_g,
+             first_loss_cpu=l_c, log_tail=log.getvalue().splitlines()[-3:])
+        del task
+    emit(phase="task_drivers_check", rtol=DRIVER_RTOL,
+         atol=f"{DRIVER_ATOL_REL}*max|cpu|", checks=checks)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -7451,6 +7785,16 @@ def main() -> int:
         for part_launches in (chunk_launches, big_launches, ctrain_launches):
             for k in ("grid_window", "table_build"):
                 launches[k] += part_launches[k]
+        # the tasks: TrainerSingleNode on movielens_n1186 in bcsr mode
+        # (kernel 1) and the seven task drivers (dense, no kernel)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            ml_errs, ml_rows, ml_launches = timed(
+                "single_node", phase_single_node, dev, out_dir)
+            timed("task_drivers", phase_task_drivers, dev, out_dir)
+        errs["bcsr_matmul"] = max(errs["bcsr_matmul"],
+                                  ml_errs["bcsr_matmul"])
+        launches["bcsr_matmul"] += ml_launches["bcsr_matmul"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7482,6 +7826,12 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+        if name == "bcsr_matmul":
+            # the single-node path's shapes (movielens_n1186)
+            summary[-1]["other_shapes"] = [
+                {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for k_, r in ml_rows.items()]
     print(card, flush=True)
     emit(kernels=summary)
     emit(ok=True, device=dict(platform="gpu",

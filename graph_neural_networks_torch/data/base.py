@@ -4,8 +4,8 @@
 Mirrors the reference's ``_data`` / ``_dataForClassification`` contracts
 (dataTools.py:141-341): samples dict with train/valid/test splits,
 getSamples with count/index selection, expandDims, astype, and the
-classification error-rate evaluate, and the host helper
-``invert_tensor_ew``. Samples stay numpy on the host; the
+classification error-rate evaluate, and the host helpers
+``normalize_data``, ``change_data_type`` and ``invert_tensor_ew``. Samples stay numpy on the host; the
 Trainer moves each batch to the device.
 """
 
@@ -14,6 +14,25 @@ from __future__ import annotations
 import numpy as np
 
 ZERO_TOL = 1e-9
+
+
+def normalize_data(x: np.ndarray, ax: int) -> np.ndarray:
+    """Standardize (zero mean, unit variance) along axis `ax`
+    (reference dataTools.py:52-77)."""
+    x = np.asarray(x, dtype=np.float64)
+    mean = x.mean(axis=ax, keepdims=True)
+    std = x.std(axis=ax, keepdims=True)
+    std[std < ZERO_TOL] = 1.0
+    return (x - mean) / std
+
+
+def change_data_type(x, dtype):
+    """A numpy array of `dtype` (None stays None). The reference's
+    dataTools.py:79-117 also bridged torch tensors; here samples stay numpy
+    on the host and the trainers move each batch to the device."""
+    if x is None:
+        return None
+    return np.asarray(x).astype(dtype)
 
 
 def invert_tensor_ew(x: np.ndarray) -> np.ndarray:

@@ -53,7 +53,8 @@ import torch
 from graph_neural_networks_torch.data.base import (
     ZERO_TOL, Data, invert_tensor_ew)
 from graph_neural_networks_torch.ops import gridwin
-from graph_neural_networks_torch.ops.ell import EllGso, ell_shift, ell_topk
+from graph_neural_networks_torch.ops.ell import (EllGso, ell_from_dense,
+                                                 ell_shift, ell_topk)
 from graph_neural_networks_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -1124,6 +1125,21 @@ class Flocking(Data):
 
     get_data = getData
 
+    def comm_graph_ell(self, samplesType, d_max=None) -> EllGso:
+        """A split's stored communication-graph trajectories as an
+        ``ops.ell.EllGso`` (the O(N·deg) padded in-neighbour layout,
+        ``ell_from_dense`` of the dense (B, T, N, N) stack, on the CPU),
+        which every DB architecture takes in place of the dense stack. A
+        store that already holds ELL graphs (``Flocking.large``) returns
+        them as they are."""
+        S = self.getData("commGraph", samplesType)
+        if isinstance(S, EllGso):
+            if d_max is not None and d_max != S.idx.shape[-1]:
+                raise ValueError(f"the store's ELL graphs have width "
+                                 f"{S.idx.shape[-1]}, not {d_max}")
+            return S
+        return ell_from_dense(np.asarray(S)[:, :, None], d_max=d_max)
+
     # -- initial conditions (reference dataTools.py:3508-3700) --------------
     def compute_initial_positions(self, nAgents, nSamples, commRadius,
                                   minDist=0.1, geometry="rectangular",
@@ -1828,3 +1844,49 @@ class Flocking(Data):
         pass  # the flocking signals already carry their feature axis
 
     expand_dims = expandDims
+
+    def saveVideo(self, saveDir, pos, *args, **kwargs):
+        """Snapshots of the first trajectory of `pos` ((B,) T x 2 x N) as
+        PNG frames (about 25) in `saveDir`, encoded to
+        ``trajectory.mp4`` when ffmpeg is on the PATH (reference
+        dataTools.py:3701 shells out to it the same way). Returns the
+        paths written, or None without matplotlib (imported here only)."""
+        import os
+        import shutil
+        import subprocess
+        os.makedirs(saveDir, exist_ok=True)
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return None
+        pos = (pos.detach().cpu().numpy() if isinstance(pos, torch.Tensor)
+               else np.asarray(pos))
+        if pos.ndim == 3:
+            pos = pos[None]
+        sample = pos[0]                               # T x 2 x N
+        step = max(len(sample) // 25, 1)
+        paths = []
+        for i, t in enumerate(range(0, len(sample), step)):
+            fig, ax = plt.subplots(figsize=(4, 4))
+            ax.scatter(sample[t, 0], sample[t, 1], s=8)
+            ax.set_title(f"t = {t}")
+            p = os.path.join(saveDir, f"frame{i:03d}.png")
+            fig.savefig(p)
+            plt.close(fig)
+            paths.append(p)
+        if shutil.which("ffmpeg"):
+            video = os.path.join(saveDir, "trajectory.mp4")
+            try:
+                subprocess.run(
+                    ["ffmpeg", "-y", "-framerate", "8", "-i",
+                     os.path.join(saveDir, "frame%03d.png"),
+                     "-pix_fmt", "yuv420p", video],
+                    check=True, capture_output=True, timeout=120)
+                paths.append(video)
+            except (OSError, subprocess.SubprocessError):
+                pass   # the frames stand without the video
+        return paths
+
+    save_video = saveVideo

@@ -675,17 +675,22 @@ class LocalActivationGNN(_SelectionBase):
 
 class LocalGNN(_SelectionBase):
     """Selection GNN with a per-node linear readout (+ single_node_forward).
-    Like the JAX LocalGNN it takes no gsoMode: its shifts are dense."""
+
+    gsoMode (keyword only): 'dense' (the default, as the JAX LocalGNN,
+    which passes its base's default), 'band' or 'bcsr' (the CUDA SpMM
+    kernels on a CUDA device) or 'edge'. The JAX base class
+    (``_SelectionVariant``) takes the same modes.
+    """
 
     readout_kind = "per_node"
 
     def __init__(self, dimNodeSignals, nFilterTaps, bias, nonlinearity,
                  nSelectedNodes, poolingFunction, poolingSize, dimReadout,
-                 GSO, order=None, *, device="cuda",
+                 GSO, order=None, *, gsoMode="dense", device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__(dimNodeSignals, nFilterTaps, bias, nonlinearity,
                          nSelectedNodes, poolingFunction, poolingSize,
-                         dimReadout, GSO, order, "dense", device, generator)
+                         dimReadout, GSO, order, gsoMode, device, generator)
 
 
 class SpectralGNN(_SelectionBase):

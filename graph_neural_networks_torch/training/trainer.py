@@ -28,8 +28,8 @@ gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
 ``TrainerFlocking`` trains the flocking controller with DAGger over the
 host-numpy store (``Flocking(...)``, ``Flocking.large``) or the
 device-resident one (``Flocking.large_device``: the grid kernels recompute
-each batch's supervision). Not ported yet: ``TrainerSingleNode``, bf16
-mixed precision (``precision="bf16"``: the kernels take f32 only).
+each batch's supervision). ``TrainerSingleNode`` trains on the output at
+each sample's target node (MovieLens). Not ported yet: bf16 mixed precision (``precision="bf16"``: the kernels take f32 only).
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
 dispatches each step eagerly, and CUDA graphs would be the tool for that
@@ -169,10 +169,14 @@ class Trainer:
 
     def train_batch(self, idx):
         x, y = self._to_device(*self.data.getSamples("train", idx))
+        return self._optimize(lambda: self._forward(x, self.generator), y)
+
+    def _optimize(self, forward, y):
+        """One optimizer step on loss(forward(), y); (loss, seconds)."""
         model = self.model
         t0 = time.perf_counter()
         model.optimizer.zero_grad(set_to_none=True)
-        loss = model.loss(self._forward(x, self.generator).float(), y)
+        loss = model.loss(forward().float(), y)
         loss.backward()
         model.optimizer.step()
         if model.scheduler is not None:
@@ -302,6 +306,39 @@ class Trainer:
 
     def _on_batch_start(self, epoch, batch, idx):
         pass
+
+
+class TrainerSingleNode(Trainer):
+    """The loss at each sample's target node (JAX ``TrainerSingleNode``;
+    reference training.py:580-714): the forward is the architecture's full
+    output (B, dim, N) in its node order, of which a step keeps, for each
+    sample, the column of its target node, found by the original id that
+    ``data.getLabelID(split, idx)`` gives at its position in
+    ``archit.order`` (the permutation that ``single_node_forward`` uses).
+    Validation takes the validation split's ids. Any gsoMode of the
+    architecture: the shifts are the forward's."""
+
+    def _node_positions(self, ids) -> torch.Tensor:
+        order = list(self.model.archit.order)
+        return torch.as_tensor([order.index(int(n)) for n in ids],
+                               device=self.device)
+
+    def _at_nodes(self, x, pos, generator=None) -> torch.Tensor:
+        y = self._forward(x, generator)
+        return y[torch.arange(y.shape[0], device=y.device), :, pos]
+
+    def train_batch(self, idx):
+        x, y = self._to_device(*self.data.getSamples("train", idx))
+        pos = self._node_positions(self.data.getLabelID("train", idx))
+        return self._optimize(lambda: self._at_nodes(x, pos, self.generator),
+                              y)
+
+    def _valid_cost(self) -> float:
+        x, y = self.data.getSamples("valid")
+        pos = self._node_positions(self.data.getLabelID("valid"))
+        with torch.no_grad():
+            yHat = self._at_nodes(self._to_device(x, y)[0], pos)
+        return float(self.data.evaluate(yHat.cpu().numpy(), y))
 
 
 class TrainerFlocking(Trainer):

@@ -22,13 +22,64 @@ import scipy.spatial.distance as _spdist
 
 ZERO_TOL = 1e-9
 
-__all__ = ["adjacency_to_laplacian", "compute_gft", "matrix_powers",
-           "compute_neighborhood", "compute_source_nodes", "is_connected",
+__all__ = ["adjacency_to_laplacian", "normalize_adjacency",
+           "normalize_laplacian", "compute_gft", "matrix_powers",
+           "compute_neighborhood", "compute_source_nodes",
+           "spectral_clustering", "is_connected",
            "create_graph", "Graph", "perm_identity", "perm_degree",
            "perm_spectral_proxies", "perm_eds", "perm_rcm",
            "permutation_by_name", "compute_nonzero_rows", "nv_copy_nodes",
            "ev_sparsity_pattern", "spline_basis", "compute_coarsening_perm",
-           "coarsen", "pad_coarsened_data"]
+           "coarsen", "pad_coarsened_data", "sparsify_graph",
+           "edge_fail_sampling", "plot_graph", "print_graph"]
+
+
+# ---------------------------------------------------------------------------
+# Rendering (reference graphTools.py:52-201); matplotlib is imported here
+# only, so that nothing on an import path needs it
+# ---------------------------------------------------------------------------
+
+def _pyplot():
+    import matplotlib
+    matplotlib.use("Agg")
+    # no LaTeX in a headless environment (the reference turns usetex on)
+    matplotlib.rcParams["text.usetex"] = False
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def plot_graph(A, pos=None, fig_size=5, node_size=100, save_to=None):
+    """Render a graph with matplotlib: positions from the 2nd and 3rd
+    Laplacian eigenvectors unless `pos` is given. Returns the figure (and
+    saves a PNG when save_to is set)."""
+    plt = _pyplot()
+    A = np.asarray(A)
+    if pos is None:
+        L = adjacency_to_laplacian((np.abs(A) + np.abs(A.T)) / 2)
+        _, V = np.linalg.eigh(L)
+        pos = V[:, 1:3]
+    fig, ax = plt.subplots(figsize=(fig_size, fig_size))
+    ii, jj = np.nonzero(np.triu(np.abs(A) + np.abs(A.T)))
+    for i, j in zip(ii, jj):
+        ax.plot([pos[i, 0], pos[j, 0]], [pos[i, 1], pos[j, 1]],
+                color="0.7", lw=0.5, zorder=1)
+    ax.scatter(pos[:, 0], pos[:, 1], s=node_size, zorder=2)
+    ax.set_axis_off()
+    if save_to:
+        fig.savefig(save_to, bbox_inches="tight")
+    return fig
+
+
+def print_graph(A, save_to=None):
+    """Render the adjacency matrix as an image (spy plot)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(4, 4))
+    ax.imshow(np.abs(np.asarray(A)) > ZERO_TOL, cmap="Greys",
+              interpolation="nearest")
+    ax.set_xlabel("node"), ax.set_ylabel("node")
+    if save_to:
+        fig.savefig(save_to, bbox_inches="tight")
+    return fig
 
 
 def adjacency_to_laplacian(W: np.ndarray) -> np.ndarray:
@@ -36,6 +87,22 @@ def adjacency_to_laplacian(W: np.ndarray) -> np.ndarray:
     if W.shape[0] != W.shape[1]:
         raise ValueError(f"W must be square, got {W.shape}")
     return np.diag(W.sum(axis=1)) - W
+
+
+def normalize_adjacency(W: np.ndarray) -> np.ndarray:
+    """Symmetric degree normalization D^{-1/2} W D^{-1/2}."""
+    if W.shape[0] != W.shape[1]:
+        raise ValueError(f"W must be square, got {W.shape}")
+    d_isqrt = 1.0 / np.sqrt(W.sum(axis=1))
+    return W * d_isqrt[:, None] * d_isqrt[None, :]
+
+
+def normalize_laplacian(L: np.ndarray) -> np.ndarray:
+    """Symmetric normalized Laplacian D^{-1/2} L D^{-1/2} (diag(L) = degrees)."""
+    if L.shape[0] != L.shape[1]:
+        raise ValueError(f"L must be square, got {L.shape}")
+    d_isqrt = 1.0 / np.sqrt(np.diag(L))
+    return L * d_isqrt[:, None] * d_isqrt[None, :]
 
 
 def compute_gft(S: np.ndarray, order: str = "no"):
@@ -126,16 +193,80 @@ def compute_neighborhood(S, K: int, n_rows=None, nb=None, output_type="list"):
     return out
 
 
+def _discretize(vectors, rs, max_svd_restarts=30, n_iter_max=20):
+    """The partition matrix closest to a spectral embedding (Yu and Shi,
+    "Multiclass spectral clustering", 2003): scikit-learn's
+    ``cluster.discretize``, the same draws from the RandomState `rs`."""
+    eps = np.finfo(float).eps
+    n_samples, n_components = vectors.shape
+    vectors = vectors.copy()
+    norm_ones = np.sqrt(n_samples)
+    for i in range(n_components):
+        vectors[:, i] = vectors[:, i] / np.linalg.norm(vectors[:, i]) * \
+            norm_ones
+        if vectors[0, i] != 0:
+            vectors[:, i] = -1 * vectors[:, i] * np.sign(vectors[0, i])
+    vectors = vectors / np.sqrt((vectors ** 2).sum(axis=1))[:, None]
+    for _ in range(max_svd_restarts):
+        rotation = np.zeros((n_components, n_components))
+        rotation[:, 0] = vectors[rs.randint(n_samples), :].T
+        c = np.zeros(n_samples)
+        for j in range(1, n_components):
+            c += np.abs(np.dot(vectors, rotation[:, j - 1]))
+            rotation[:, j] = vectors[c.argmin(), :].T
+        last_objective_value = 0.0
+        n_iter = 0
+        while True:
+            n_iter += 1
+            labels = np.dot(vectors, rotation).argmax(axis=1)
+            discrete = scipy.sparse.csc_array(
+                (np.ones(len(labels)), (np.arange(n_samples), labels)),
+                shape=(n_samples, n_components))
+            try:
+                U, S, Vh = np.linalg.svd(discrete.T @ vectors)
+            except np.linalg.LinAlgError:
+                break                         # a new random rotation
+            ncut_value = 2.0 * (n_samples - S.sum())
+            if (abs(ncut_value - last_objective_value) < eps
+                    or n_iter > n_iter_max):
+                return labels
+            last_objective_value = ncut_value
+            rotation = np.dot(Vh.T, U.T)
+    raise np.linalg.LinAlgError("SVD did not converge")
+
+
+def spectral_clustering(A: np.ndarray, C: int, seed=0) -> np.ndarray:
+    """Labels of C communities of the affinity A: scikit-learn's
+    ``SpectralClustering(n_clusters=C, affinity="precomputed",
+    assign_labels="discretize", random_state=seed)`` (as of scikit-learn
+    1.9; the JAX package calls it) in numpy and scipy, drawing from the same
+    RandomState: the normalized Laplacian's C smallest eigenvectors by
+    shift-invert ARPACK (``eigsh``, sigma -1e-5, from a uniform start
+    vector), scaled by D^-1/2 and sign-fixed, then ``_discretize``."""
+    from scipy.sparse.csgraph import laplacian as csgraph_laplacian
+    from scipy.sparse.linalg import eigsh
+    rs = np.random.RandomState(seed)
+    A = np.asarray(A, dtype=np.float64)
+    if not np.allclose(A, A.T, atol=1e-10):
+        A = 0.5 * (A + A.T)
+    N = A.shape[0]
+    L, dd = csgraph_laplacian(A, normed=True, return_diag=True)
+    L.flat[::N + 1] = 1.0
+    v0 = rs.uniform(-1, 1, N)
+    _, V = eigsh(L, k=C, sigma=-1e-5, which="LM", tol=0, v0=v0)
+    emb = V.T[:C] / dd
+    rows = np.argmax(np.abs(emb), axis=1)
+    emb *= np.sign(emb[np.arange(C), rows])[:, None]
+    return _discretize(emb.T, rs)
+
+
 def compute_source_nodes(A: np.ndarray, C: int, seed=0):
-    """Spectral-cluster A into C communities; return the max-degree node of
-    each community (the class labels of the source-localization task).
-    Needs scikit-learn."""
-    from sklearn.cluster import SpectralClustering
+    """Spectral-cluster A into C communities (:func:`spectral_clustering`,
+    the JAX package's scikit-learn clustering without scikit-learn);
+    return the max-degree node of each community (the class labels of the
+    source-localization task)."""
     degree = A.sum(axis=0)
-    labels = SpectralClustering(
-        n_clusters=C, affinity="precomputed", assign_labels="discretize",
-        random_state=seed,
-    ).fit(A).labels_
+    labels = spectral_clustering(A, C, seed)
     sources = []
     for c in range(C):
         members = np.flatnonzero(labels == c)
@@ -148,6 +279,54 @@ def is_connected(W: np.ndarray) -> bool:
     Wb = scipy.sparse.csr_matrix((np.abs(W) + np.abs(W.T)) > ZERO_TOL)
     n_comp, _ = scipy.sparse.csgraph.connected_components(Wb, directed=False)
     return n_comp == 1
+
+
+def sparsify_graph(W: np.ndarray, kind: str, p):
+    """Sparsify by 'threshold' (drop |w| < p, halving p until connected) or
+    'NN' (keep p largest incoming edges per row, incrementing p until
+    connected; re-symmetrized by averaging if the input was undirected)."""
+    N = W.shape[0]
+    if W.shape[1] != N or kind not in ("threshold", "NN"):
+        raise ValueError(f"sparsify_graph: {W.shape}, {kind!r}")
+    connected = is_connected(W)
+    undirected = np.allclose(W, W.T, atol=ZERO_TOL)
+    if kind == "threshold":
+        def apply(thr):
+            Wn = W.copy()
+            Wn[np.abs(Wn) < thr] = 0.0
+            return Wn
+        Wnew = apply(p)
+        while connected and not is_connected(Wnew):
+            p = p / 2.0
+            Wnew = apply(p)
+    else:
+        Wsorted = np.sort(W, axis=1)
+
+        def apply(k):
+            kth = Wsorted[:, -k].reshape(N, 1)
+            return W * (W >= kth).astype(W.dtype)
+        Wnew = apply(p)
+        while connected and not is_connected(Wnew):
+            p += 1
+            Wnew = apply(p)
+        if undirected:
+            Wnew = 0.5 * (Wnew + Wnew.T)
+    return Wnew
+
+
+def edge_fail_sampling(W, p, rng=None):
+    """Delete each edge iid with probability p (robustness experiments;
+    an undirected graph stays undirected: its upper triangle is drawn)."""
+    if not 0 <= p <= 1:
+        raise ValueError(f"p must lie in [0, 1], got {p}")
+    rng = np.random.default_rng() if rng is None else rng
+    undirected = np.allclose(W, W.T, atol=ZERO_TOL)
+    mask = (rng.random(W.shape) > p).astype(W.dtype)
+    W = mask * W
+    if undirected:
+        W = np.triu(W)
+        W = W + W.T
+    return W
 
 
 def _create_sbm(N, n_communities, prob_intra, prob_inter, rng):
@@ -287,7 +466,8 @@ class Graph:
 
     Attributes: N, M (edges), W (weighted adjacency), A (binary), D (degree
     matrix), L (Laplacian if undirected & no self-loops), S (GSO; defaults to
-    W), undirected, self_loops.
+    W), E/V (the GFT of S: None until compute_gft or set_gso computes it),
+    undirected, self_loops.
     """
 
     def __init__(self, graph_type: str, N: int, options: dict, rng=None):
@@ -304,6 +484,26 @@ class Graph:
         self.L = (adjacency_to_laplacian(self.W)
                   if self.undirected and not self.self_loops else None)
         self.S = self.W
+        self.E = None
+        self.V = None
+
+    def compute_gft(self):
+        """E, V = the GFT of S in total-variation order."""
+        if self.S is not None:
+            self.E, self.V = compute_gft(self.S, order="totalVariation")
+
+    def set_gso(self, S, gft: str = "no"):
+        """Replace the GSO; gft other than 'no' also computes its GFT in
+        that order ('increasing' or 'totalVariation'), 'no' clears it."""
+        if not S.shape[0] == S.shape[1] == self.N:
+            raise ValueError(f"S {S.shape} is not {self.N} x {self.N}")
+        if gft not in ("no", "increasing", "totalVariation"):
+            raise ValueError(f"unknown GFT order {gft!r}")
+        self.S = S
+        if gft == "no":
+            self.E, self.V = None, None
+        else:
+            self.E, self.V = compute_gft(self.S, order=gft)
 
 
 def _as_batched(S):
