@@ -184,6 +184,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -347,12 +348,15 @@ def phase_build():
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 26, f"{len(attrs)} kernels in the library's "
-            "tables, not 26 (12 kernels; band_register_kernel in 4 "
+    require(len(attrs) == 42, f"{len(attrs)} kernels in the library's "
+            "tables, not 42 (12 kernels; band_register_kernel in 4 "
             "instances; bcsr_matmul_kernel and its 3 narrow-tile "
             "instances on 2 block layouts, BCSR and band, 8; "
             "attn_apply_kernel in 6, attn_stats_kernel and attn_bwd_kernel "
-            "in 2 each, table_transpose_kernel in 2)")
+            "in 2 each, table_transpose_kernel in 2; and the bf16-io "
+            "instances: the 8 mainloop and 4 register ones, "
+            "attn_stats_kernel<false> and the 3 attn_apply_kernel<false, "
+            "G>, 16)")
 
 
 def _band_case(rng, N, bs, w_target):
@@ -7526,6 +7530,583 @@ def phase_task_drivers(dev, out_dir):
          atol=f"{DRIVER_ATOL_REL}*max|cpu|", checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# Item 2: bf16 serving on the bf16 instances of kernels 1-3 and 7-8, (x, S)
+# requests for the DB family, export_model/load_exported, introspection
+# ---------------------------------------------------------------------------
+
+# H100 SXM data-sheet dense bf16 tensor-core peak: the bf16 instances'
+# operation bound (they run f32 FMAs on the CUDA cores, so far from it)
+BF16_FLOPS_PER_S = 989e12
+# A bf16 instance against its bf16 plain version: 2 ulps of the larger
+# magnitude for one rounding of an f32 accumulator (kernels 1, 3, 8), the
+# ulp taken at no less than BF16_ULP_FLOOR of the output's largest
+# magnitude (below it, f32 sums in another order can straddle more than a
+# bf16 rounding boundary); the register's tap k within k + 1 ulps of the
+# tap's largest magnitude; the f32 stats (kernel 7) within 1e-5 relative.
+BF16_ULPS = 2
+BF16_ULP_FLOOR = 1e-3
+BF16_STATS_RTOL = 1e-5
+# Served outputs: band and bcsr against dense, both bf16; every bf16
+# engine against its f32 engine; of the largest |y|.
+BF16_SERVE_TOL = 1e-2
+BF16_VS_F32_TOL = 5e-2
+BF16_KERNELS = ("bcsr_matmul", "band_shift_register", "band_matmul",
+                "stats_call", "apply_call")
+# flock_n262k's LocalGNN_DB served as engine(x, EllGso): 4 trajectories of
+# T = 10 from a kernel 5/6 rollout, ragged requests
+DB_REQ = dict(B=4, T=10, requests=(4, 3, 1))
+HOST_US_CALLS = 2000
+
+
+def _ulps_of(got, want, floor_share=BF16_ULP_FLOOR, scale=None):
+    """Largest |got - want| in bf16 ulps (8 significant bits) of the larger
+    magnitude (or of `scale`), taken at no less than floor_share of
+    max|want|."""
+    import torch
+    got, want = got.double(), want.double()
+    if scale is None:
+        scale = torch.maximum(got.abs(), want.abs()).clamp_min(
+            floor_share * want.abs().max().item())
+    else:
+        scale = torch.full_like(want, scale)
+    ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def _bf16_bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _op_calls():
+    """The kernels' op calls by (name, dtype name) since the last clear."""
+    from graph_neural_networks_torch import kernels
+    return {f"{name}:{str(dt).split('.')[-1]}": n
+            for (name, dt), n in kernels.OP_CALLS.items() if n}
+
+
+def _host_us(fn, calls=HOST_US_CALLS):
+    """Host microseconds a call of a launching wrapper, from the host clock
+    over `calls` back-to-back calls (the card runs ahead of the host at
+    these shapes; synchronized once at the end)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_bf16_kernels(graph, S_np, gat_gso, dev):
+    """Each bf16 instance against its bf16 plain version at band_n4096's
+    shapes (R = 32 and 2048, K = 5; a ragged N = 4001 at R = 17) and
+    gat_band_n16384's (Q = 16, F = 32, w = 2), synchronized after each;
+    then each timed by CUDA events and graph_ms beside the f32 instance,
+    with its bound and x_bf16 @ S_dense_bf16; and a wrapper's host us a
+    call at R = 32 without and with the op registration."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    from graph_neural_networks_torch.ops import spmm
+    bf = torch.bfloat16
+    rng = torch.Generator(device=dev).manual_seed(31)
+    N, bs, w = N_GRAPH, 128, graph["band"].band_w
+    nb = N // bs
+    gb, gc = (graph[m].to(dtype=bf) for m in ("band", "bcsr"))
+    sb, sb32 = gb.s_band[0], graph["band"].s_band[0]
+    bl, br, bc, cs = gc.blocks[0], gc.block_row, gc.block_col, gc.col_start
+    bl32 = graph["bcsr"].blocks[0]
+    Sd = gb.S[0]
+    nnzb, win = bl.shape[0], _window_blocks(nb, w)
+    checks, errs, rows = [], {k: 0.0 for k in BF16_KERNELS}, {}
+
+    def check(name, shape, got, want, ulps=None, **kw):
+        torch.cuda.synchronize()
+        require(got.dtype == want.dtype, f"{name} {shape}: {got.dtype}")
+        err = (got.double() - want.double()).abs().max().item()
+        errs[name] = max(errs[name], err)
+        if ulps is None:
+            rel = ((got.double() - want.double()).abs()
+                   / want.double().abs().clamp_min(1e-30)).max().item()
+            ok = rel <= BF16_STATS_RTOL
+            checks.append(dict(kernel=name, shape=shape, max_abs_err=err,
+                               max_rel_err=rel, ok=ok))
+        else:
+            got_ulps = _ulps_of(got, want, **kw)
+            ok = got_ulps <= ulps
+            checks.append(dict(kernel=name, shape=shape, max_abs_err=err,
+                               max_ulps=got_ulps, allowed_ulps=ulps, ok=ok))
+        require(ok, f"bf16 {name} {shape} disagrees with its plain version: "
+                    f"{checks[-1]}")
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=rng).to(bf)
+
+    # the graph shift at the served rows, and a ragged N (4001: the
+    # element-wise staging) at R = 17
+    n_rag = N - 95
+    for R in (BATCH, 2048, 17):
+        n_in = N if R != 17 else n_rag
+        x = randn(R, n_in)
+        check("bcsr_matmul", f"R={R} N={n_in}",
+              spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
+              spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N), BF16_ULPS)
+        check("band_matmul", f"R={R} N={n_in}",
+              spmm.band_matmul(x, sb, n_cols=N, w=w),
+              spmm.band_matmul_plain(x, sb, n_cols=N, w=w), BF16_ULPS)
+    g_rag = gso_lib.as_gso(S_np[:n_rag, :n_rag], "band", device=dev).to(
+        dtype=bf)
+    for R, n, s_band, ww in ((BATCH, N, sb, w), (2048, N, sb, w),
+                             (17, n_rag, g_rag.s_band[0], g_rag.band_w)):
+        x = randn(R, n)
+        got = spmm.band_shift_register(x, s_band, n_taps=TAPS, n_cols=n,
+                                       w=ww)
+        want = spmm.band_shift_register_plain(x, s_band, n_taps=TAPS,
+                                              n_cols=n, w=ww)
+        require(torch.equal(got[0], x), "bf16 register: tap 0 is not x")
+        for k in range(1, TAPS):
+            check("band_shift_register", f"R={R} N={n} tap {k}", got[k],
+                  want[k], k + 1, scale=want[k].abs().max().item())
+    del g_rag
+
+    # attention at the served shape, on the f32 model's band structure cast
+    # to bf16 (cast from its cache, not rebuilt)
+    gat_b = gat_gso.to(dtype=bf)
+    aux, aux32 = af.band_auxes(gat_b)[0], af.band_auxes(gat_gso)[0]
+    ibs, wa = gat_gso.block_size, gat_gso.band_w
+    Np = gat_gso.s_band.shape[1] * ibs
+    Q, F = 2 * GAT_BATCH, GAT_DIMS[1]
+    a1, a2, v = randn(Q, Np), randn(Q, Np), randn(Q, F, Np)
+    mx, sm = af.stats_call(a1, a2, aux.mask_row, w=wa, ibs=ibs)
+    pmx, psm = af.stats_plain(a1, a2, aux.mask_row, w=wa, ibs=ibs)
+    check("stats_call", f"Q={Q} N={Np} w={wa} rowmax", mx, pmx)
+    check("stats_call", f"Q={Q} N={Np} w={wa} rowsum", sm, psm)
+    y = af.apply_call(a1, a2, v, mx, sm, aux.slab_col, aux.mask_col, w=wa,
+                      ibs=ibs, lists=aux.lists)
+    check("apply_call", f"Q={Q} F={F} N={Np} w={wa}", y, af.apply_plain(
+        a1, a2, v, mx, sm, aux.slab_col, aux.mask_col, w=wa, ibs=ibs),
+        BF16_ULPS)
+    emit(phase="bf16_kernels", ulp_floor_share=BF16_ULP_FLOOR,
+         stats_rtol=BF16_STATS_RTOL, checks=checks)
+
+    # timing: bf16 and f32 instances on the same values
+    def row(name, shape, fn, fn32, plain, library, library_call, nbytes,
+            flops):
+        r = dict(shape=shape, ms=time_ms(fn), graph_ms=graph_ms(fn),
+                 f32_ms=time_ms(fn32), f32_graph_ms=graph_ms(fn32),
+                 plain_ms=time_ms(plain, reps=5, inner=2),
+                 library_ms=None if library is None else time_ms(library),
+                 library_call=library_call, bytes=nbytes, flops=flops)
+        r["bound_ms"], r["bound_by"] = _bf16_bound(nbytes, flops)
+        rows[name] = r
+
+    for R in (2048, BATCH):
+        x = randn(R, N)
+        x32 = x.float()
+        row(f"bcsr_matmul@R={R}", f"R={R} N={N} nnzb={nnzb}",
+            lambda: spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
+            lambda: spmm.bcsr_matmul(x32, bl32, br, bc, n_cols=N,
+                                     col_start=cs),
+            lambda: spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N),
+            lambda: torch.matmul(x, Sd), "torch.matmul(x_bf16, S_dense_bf16)",
+            2 * (2 * R * N + bl.numel()) + 4 * nnzb, 2 * R * nnzb * bs * bs)
+        row(f"band_matmul@R={R}", f"R={R} N={N} w={w}",
+            lambda: spmm.band_matmul(x, sb, n_cols=N, w=w),
+            lambda: spmm.band_matmul(x32, sb32, n_cols=N, w=w),
+            lambda: spmm.band_matmul_plain(x, sb, n_cols=N, w=w),
+            lambda: torch.matmul(x, Sd), "torch.matmul(x_bf16, S_dense_bf16)",
+            2 * (2 * R * N + win * bs * bs), 2 * R * win * bs * bs)
+        out = torch.empty(TAPS, R, N, device=dev, dtype=bf)
+
+        def chained(x=x, out=out):
+            out[0].copy_(x)
+            for k in range(1, TAPS):
+                torch.matmul(out[k - 1], Sd, out=out[k])
+
+        row(f"band_shift_register@R={R}", f"R={R} N={N} w={w} K={TAPS}",
+            lambda: spmm.band_shift_register(x, sb, n_taps=TAPS, n_cols=N,
+                                             w=w),
+            lambda: spmm.band_shift_register(x32, sb32, n_taps=TAPS,
+                                             n_cols=N, w=w),
+            lambda: spmm.band_shift_register_plain(x, sb, n_taps=TAPS,
+                                                   n_cols=N, w=w),
+            chained, f"{TAPS - 1} chained torch.matmul(z_bf16, S_dense_bf16)",
+            2 * ((1 + TAPS) * R * N + win * bs * bs),
+            (TAPS - 1) * 2 * R * win * bs * bs)
+    f32 = dict(a1=a1.float(), a2=a2.float(), v=v.float())
+    mx32, sm32 = af.stats_call(f32["a1"], f32["a2"], aux32.mask_row, w=wa,
+                               ibs=ibs)
+    support = int(aux32.mask_row.sum().item())
+    twin = _window_blocks(Np // ibs, wa) * ibs * ibs
+    row("stats_call", f"Q={Q} N={Np} w={wa}",
+        lambda: af.stats_call(a1, a2, aux.mask_row, w=wa, ibs=ibs),
+        lambda: af.stats_call(f32["a1"], f32["a2"], aux32.mask_row, w=wa,
+                              ibs=ibs),
+        lambda: af.stats_plain(a1, a2, aux.mask_row, w=wa, ibs=ibs),
+        None, None, 2 * (2 * Q * Np + twin) + 4 * 2 * Q * Np,
+        5 * Q * support)
+    row("apply_call", f"Q={Q} F={F} N={Np} w={wa} with S",
+        lambda: af.apply_call(a1, a2, v, mx, sm, aux.slab_col, aux.mask_col,
+                              w=wa, ibs=ibs, lists=aux.lists),
+        lambda: af.apply_call(f32["a1"], f32["a2"], f32["v"], mx32, sm32,
+                              aux32.slab_col, aux32.mask_col, w=wa, ibs=ibs,
+                              lists=aux32.lists),
+        lambda: af.apply_plain(a1, a2, v, mx, sm, aux.slab_col, aux.mask_col,
+                               w=wa, ibs=ibs),
+        None, None,
+        2 * (2 * Q * Np + 2 * Q * F * Np + twin) + 4 * 2 * Q * Np
+        + aux.sup_entries.numel() * 2 + aux.sup_offs.numel() * 4,
+        (2 * F + 7) * Q * support)
+
+    # the wrapper's host us a call at R = 32: the CUDA implementation
+    # called directly (the wrapper before the op registration: the same
+    # checks and launch), through the registered op (torch.library.Library
+    # define/impl, what the wrappers call), and through a
+    # torch.library.custom_op of the same implementation
+    x = randn(BATCH, N)
+    probe = torch.library.custom_op(
+        "gnt_probe::band_matmul", spmm._band_matmul_cuda, mutates_args=(),
+        schema="(Tensor x, Tensor s_band, int n_cols, int w, int block_size)"
+               " -> Tensor")
+    host = {"float32": {}, "bfloat16": {}}
+    # in turns (f32, bf16, bf16, f32), each form twice a dtype
+    for dt in (torch.float32, bf, bf, torch.float32):
+        xd, sbd = x.to(dt), (sb32 if dt == torch.float32 else sb)
+        tag = str(dt).split(".")[-1]
+        for form, fn in (
+                ("direct_impl", lambda: spmm._band_matmul_cuda(
+                    xd, sbd, N, w, 128)),
+                ("library_op", lambda: spmm.band_matmul(
+                    xd, sbd, n_cols=N, w=w)),
+                ("custom_op", lambda: probe(xd, sbd, N, w, 128))):
+            host[tag].setdefault(form, []).append(_host_us(fn))
+    emit(phase="bf16_timing", peaks=dict(
+        hbm_tb_s=HBM_BYTES_PER_S / 1e12,
+        bf16_dense_tflops=BF16_FLOPS_PER_S / 1e12), rows=rows,
+        host_us_per_call_band_matmul_R32=host)
+    return errs, rows
+
+
+def _bf16_engines(build, batch, dev):
+    """{dtype tag: engine} of one model (f32 engine on the model, the bf16
+    engine on its bf16 copy)."""
+    import torch
+    from graph_neural_networks_torch.serving import InferenceEngine
+    arch = build()
+    return {"f32": InferenceEngine(arch, batch, dev),
+            "bf16": InferenceEngine(arch, batch, dev, dtype=torch.bfloat16)}
+
+
+def _serve_counted(eng, requests):
+    """Answers to `requests`, the kernels' launches and op calls counted
+    from 0 just before and read just after."""
+    import torch
+    from graph_neural_networks_torch import kernels
+    _reset_counts()
+    kernels.OP_CALLS.clear()
+    answers = [eng(x) for x in requests]
+    torch.cuda.synchronize()
+    return answers, _attention_counts(), _op_calls()
+
+
+def phase_bf16_serving(S_np, gat_arch, rng, dev):
+    """band_n4096 (band, bcsr, dense; band also at batch 64, whose second
+    layer's 4096 rows take the chained band_matmul) and gat_band_n16384
+    (band; dense mode one sample at a time) served in bf16 with REQUESTS /
+    GAT_REQUESTS: the launches a forward equal the f32 engines', every one
+    a bf16 instance; band and bcsr against bf16 dense, every bf16 engine
+    against its f32 engine; host and device ms of a forward beside f32's.
+    The main path of the bf16 kernels. Returns their launches and the
+    engines."""
+    import torch
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    requests = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+                for n in REQUESTS]
+    engines = {m: _bf16_engines(lambda m=m: _build_model(S_np, m, dev), BATCH,
+                                dev) for m in ("dense", "band", "bcsr")}
+    checks, served, profiles = [], {}, []
+    bf16_launches = {k: 0 for k in BF16_KERNELS}
+
+    def vs(label, got, want, tol):
+        for i, (g, wnt) in enumerate(zip(got, want)):
+            scale = wnt.abs().max().item()
+            err = (g - wnt).abs().max().item()
+            ok = bool(torch.isfinite(g).all()) and err <= tol * scale
+            checks.append(dict(check=label, request=i, max_abs_err=err,
+                               max_abs_ref=scale, share=err / scale,
+                               allowed_share=tol, ok=ok))
+            require(ok, f"bf16 serving: {label} request {i}: {err} > "
+                        f"{tol} * {scale}")
+
+    def serve(label, engs, reqs, n_req):
+        out = {}
+        for tag in ("f32", "bf16"):
+            answers, counts, calls = _serve_counted(engs[tag], reqs)
+            per_forward = {k: v / n_req for k, v in counts.items() if v}
+            out[tag] = dict(answers=answers, per_forward=per_forward,
+                            calls=calls)
+        f, b = out["f32"], out["bf16"]
+        require(f["per_forward"] == b["per_forward"],
+                f"{label}: bf16 launches a forward {b['per_forward']}, f32 "
+                f"{f['per_forward']}")
+        require(all(k.endswith(":bfloat16") for k in b["calls"]),
+                f"{label}: a bf16 forward called {b['calls']}")
+        for k, n in b["calls"].items():
+            bf16_launches[k.split(":")[0]] += n
+        vs(f"{label} bf16 vs f32", b["answers"], f["answers"],
+           BF16_VS_F32_TOL)
+        emit(phase="bf16_serving", model=label,
+             launches_per_forward=b["per_forward"], op_calls=b["calls"],
+             f32_op_calls=f["calls"])
+        served[label] = out
+        for tag in ("f32", "bf16"):
+            prof = _device_profile(lambda: engs[tag](reqs[0]), 5)
+            profiles.append(dict(model=label, dtype=tag,
+                                 host_ms=prof["wall_ms"],
+                                 device_ms=prof["device_ms"],
+                                 device_idle_share=prof["device_idle_share"],
+                                 top=prof["top"][:4]))
+        return out
+
+    for mode in ("dense", "band", "bcsr"):
+        serve(f"band_n4096 {mode}", engines[mode], requests, len(REQUESTS))
+    dense_b = served["band_n4096 dense"]["bf16"]["answers"]
+    for mode in ("band", "bcsr"):
+        vs(f"band_n4096 {mode} bf16 vs dense bf16",
+           served[f"band_n4096 {mode}"]["bf16"]["answers"], dense_b,
+           BF16_SERVE_TOL)
+    wide = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+            for n in (2 * BATCH, BATCH + 1)]
+    wide_engines = _bf16_engines(lambda: _build_model(S_np, "band", dev),
+                                 2 * BATCH, dev)
+    serve(f"band_n4096 band B={2 * BATCH}", wide_engines, wide, len(wide))
+    gat_reqs = [rng.standard_normal((n, GAT_DIMS[0], GAT_N)).astype(
+        np.float32) for n in GAT_REQUESTS]
+    gat = {"f32": InferenceEngine(gat_arch, GAT_BATCH, dev),
+           "bf16": InferenceEngine(gat_arch, GAT_BATCH, dev,
+                                   dtype=torch.bfloat16)}
+    out = serve("gat_band_n16384 band", gat, gat_reqs, len(GAT_REQUESTS))
+    # dense-mode GAT at N = 16384 in bf16, one sample a forward (a batch of
+    # 8 would hold ~9 GB a score tensor), with the band model's weights (it
+    # was trained in phase_training)
+    S_gat = gat_arch.S.S[0].cpu().numpy().astype(np.float64)
+    dense_arch = _build_gat("GraphAttentionNetwork", S_gat, "dense", dev)
+    with torch.no_grad():
+        for p, q in zip(dense_arch.parameters(), gat_arch.parameters()):
+            p.copy_(q)
+    dense = InferenceEngine(dense_arch, 1, dev, dtype=torch.bfloat16)
+    require(torch.equal(dense.arch.S.S, gat_arch.S.S),
+            "gat_band_n16384: dense and band GSOs differ")
+    x0 = gat_reqs[0]
+    want = torch.cat([dense(x0[i:i + 1]) for i in range(x0.shape[0])])
+    vs("gat_band_n16384 band bf16 vs dense bf16 (first request)",
+       [out["bf16"]["answers"][0]], [want], BF16_SERVE_TOL)
+    del dense, want
+    torch.cuda.empty_cache()
+    emit(phase="bf16_serving_check", checks=checks, profiles=profiles,
+         seconds=time.perf_counter() - t_phase)
+    served_engines = {f"band_n4096 {m} {tag}": e
+                      for m, engs in engines.items()
+                      for tag, e in engs.items()}
+    served_engines.update({f"gat_band_n16384 band {tag}": e
+                           for tag, e in gat.items()})
+    return bf16_launches, served_engines
+
+
+def phase_multi_arg_serving(dev, card):
+    """flock_n262k's LocalGNN_DB([6,32],[4]) served as engine(x, EllGso):
+    4 trajectories x T = 10 rolled on the grid kernels (their ELL graphs,
+    D = 32), requests of 4, 3 and 1; bit-equal to arch.apply on the padded
+    batch in f32; in bf16 within BF16_VS_F32_TOL of arch.apply in f32 on
+    the request, graph and weights rounded to bf16 (the numbers the bf16
+    engine is given), its distance to the unrounded f32 answer printed
+    beside it."""
+    import torch
+    from graph_neural_networks_torch.ops.ell import EllGso
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    env, _, _, net = _flock_setup("flock_n262k", dev)
+    c = FLOCK["flock_n262k"]
+    B, T = DB_REQ["B"], DB_REQ["T"]
+    ip, iv = env.compute_initial_positions(
+        c["N"], B, env.commRadius, minDist=env.initMinDist,
+        geometry="circular", xMaxInitVel=3.0, yMaxInitVel=3.0)
+    t0 = time.perf_counter()
+    _, _, _, states, graphs = env.compute_trajectory(
+        ip, iv, T * env.samplingTime, net, return_graphs=True,
+        ell_degree=FLOCK_D, env_grid=True, lam_iters=0, env_grid_strict=True)
+    t_roll = time.perf_counter() - t0
+    x = torch.as_tensor(states, dtype=torch.float32, device=dev)
+    S = EllGso(torch.as_tensor(graphs.idx, device=dev),
+               torch.as_tensor(graphs.val, dtype=torch.float32, device=dev))
+    require(tuple(x.shape) == (B, T, 6, c["N"]) and tuple(S.idx.shape) == (
+        B, T, c["N"], FLOCK_D), f"DB request {tuple(x.shape)}")
+    del states, graphs
+    with torch.inference_mode():
+        want = net.apply(x, S)
+        # f32 on the numbers the bf16 engine is given: the request, graph
+        # and weights rounded to bf16 (the rounding of the raw states alone
+        # moves the answer: features up to ~1e2-1e4, 1/r^4 of close pairs)
+        rounded = copy.deepcopy(net)
+        for p in rounded.parameters():
+            p.copy_(p.bfloat16().float())
+        want_rounded = rounded.apply(x.bfloat16().float(), EllGso(
+            S.idx, S.val.bfloat16().float()))
+        del rounded
+    engines = {"f32": InferenceEngine(net, B, dev),
+               "bf16": InferenceEngine(net, B, dev, dtype=torch.bfloat16)}
+    rows = []
+    for tag, eng in engines.items():
+        for n in DB_REQ["requests"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eng(x[:n], EllGso(S.idx[:n], S.val[:n]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            err = (got - want[:n]).abs().max().item()
+            scale = want[:n].abs().max().item()
+            row = dict(dtype=tag, n=n, host_ms=ms, max_abs_err=err,
+                       max_abs_ref=scale,
+                       bit_equal=bool(torch.equal(got, want[:n])))
+            if tag == "f32":
+                ok = row["bit_equal"]
+            else:
+                ref = want_rounded[:n]
+                row.update(
+                    rounded_inputs_vs_f32=(ref - want[:n]).abs().max().item(),
+                    max_abs_err_vs_rounded_inputs=(got - ref).abs().max()
+                    .item(), max_abs_ref_rounded=ref.abs().max().item())
+                ok = bool(torch.isfinite(got).all()) and row[
+                    "max_abs_err_vs_rounded_inputs"] <= (
+                        BF16_VS_F32_TOL * row["max_abs_ref_rounded"])
+            rows.append(dict(row, ok=ok))
+            require(ok, f"flock_n262k (x, EllGso) {tag} n={n}: {rows[-1]}")
+    emit(phase="multi_arg_serving", model="flock_n262k LocalGNN_DB([6,32],"
+         "[4])", B=B, T=T, N=c["N"], D=FLOCK_D, edges=int((S.val > 0).sum()),
+         rollout_seconds=t_roll, rows=rows, nvidia_smi=card,
+         seconds=time.perf_counter() - t_phase)
+    return engines["f32"], (x[:1], EllGso(S.idx[:1], S.val[:1]))
+
+
+_EXPORT_RELOAD = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from graph_neural_networks_torch.ops import attention_flash as af
+from graph_neural_networks_torch.ops import spmm
+from graph_neural_networks_torch.serving import load_exported
+cases = torch.load(sys.argv[2], weights_only=False)
+out, counts = {}, {}
+for key, (path, args) in cases.items():
+    t0 = time.perf_counter()
+    fn = load_exported(path)
+    fn(*args)   # warm-up
+    spmm.reset_launch_counts()
+    af.reset_launch_counts()
+    out[key] = fn(*args).cpu()   # synchronizes
+    counts[key] = {f.__name__: f.launches for f in spmm.KERNEL_WRAPPERS
+                   + af.KERNEL_WRAPPERS if f.launches}
+    counts[key]["seconds"] = time.perf_counter() - t0
+assert not any(m.startswith("graph_neural_networks_torch.models")
+               for m in sys.modules), "the model code was imported"
+torch.save(out, sys.argv[3])
+print(json.dumps(counts))
+"""
+
+
+def phase_export(S_np, gat_arch, rng, dev):
+    """export_model on the card for band_n4096 (band and bcsr, f32 and bf16)
+    and gat_band_n16384 (bf16); each reloaded in a fresh process (which
+    imports no model code) and answering one request bit-equal to the
+    engine, with the engine's launch counts."""
+    import torch
+    from graph_neural_networks_torch.serving import (InferenceEngine,
+                                                     export_model)
+    t_phase = time.perf_counter()
+    x = rng.standard_normal((BATCH, 1, N_GRAPH)).astype(np.float32)
+    xg = rng.standard_normal((GAT_BATCH, GAT_DIMS[0], GAT_N)).astype(
+        np.float32)
+    cases = [("band_n4096 band", lambda: _build_model(S_np, "band", dev),
+              BATCH, x, ("f32", "bf16")),
+             ("band_n4096 bcsr", lambda: _build_model(S_np, "bcsr", dev),
+              BATCH, x, ("f32", "bf16")),
+             ("gat_band_n16384 band", lambda: gat_arch, GAT_BATCH, xg,
+              ("bf16",))]
+    rows, want, want_counts, saved = [], {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        for label, build, batch, xr, tags in cases:
+            arch = build()
+            for tag in tags:
+                dtype = torch.bfloat16 if tag == "bf16" else None
+                key = f"{label} {tag}"
+                path = os.path.join(tmp, key.replace(" ", "_") + ".pt2")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                blob = export_model(arch, (xr,), path=path, dtype=dtype,
+                                    device=dev)
+                seconds = time.perf_counter() - t0
+                eng = InferenceEngine(arch, batch, dev, dtype=dtype)
+                eng(xr)   # warm-up (a GAT builds no band structure: cached)
+                _reset_counts()
+                want[key] = eng(xr).cpu()
+                torch.cuda.synchronize()
+                want_counts[key] = {k: v for k, v in
+                                    _attention_counts().items() if v}
+                rows.append(dict(model=key, export_seconds=seconds,
+                                 bytes=len(blob)))
+                saved[key] = (path, (xr,))
+        inputs = os.path.join(tmp, "inputs.pt")
+        outputs = os.path.join(tmp, "outputs.pt")
+        torch.save(saved, inputs)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", _EXPORT_RELOAD, HERE,
+                              inputs, outputs], capture_output=True,
+                             text=True, timeout=600)
+        reload_seconds = time.perf_counter() - t0
+        require(run.returncode == 0,
+                f"export reload failed: {run.stderr[-3000:]}")
+        got_counts = json.loads(run.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs, weights_only=False)
+    for r in rows:
+        key = r["model"]
+        counts = dict(got_counts[key])
+        r["reload_seconds"] = counts.pop("seconds")
+        r.update(launches=counts, engine_launches=want_counts[key],
+                 bit_equal=bool(torch.equal(got[key], want[key])),
+                 max_abs_err=(got[key] - want[key]).abs().max().item())
+        require(r["bit_equal"], f"export {key}: the reloaded program "
+                                f"differs from the engine: {r}")
+        require(counts == want_counts[key],
+                f"export {key}: reloaded launches {counts}, engine "
+                f"{want_counts[key]}")
+    emit(phase="export", rows=rows, reload_process_seconds=reload_seconds,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_introspection(engines):
+    """flops_per_sample, cost_analysis and memory_analysis of each served
+    engine (one padded batch of its last request's shapes)."""
+    rows = []
+    for label, eng in engines.items():
+        m = eng.memory_analysis()
+        rows.append(dict(model=label, batch=eng.batch_size,
+                         dtype=str(eng.dtype), cost=eng.cost_analysis(),
+                         flops_per_sample=eng.flops_per_sample(),
+                         memory=dict(
+                             argument_size_in_bytes=m.argument_size_in_bytes,
+                             output_size_in_bytes=m.output_size_in_bytes,
+                             temp_size_in_bytes=m.temp_size_in_bytes)))
+    emit(phase="introspection", rows=rows)
+
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -7795,11 +8376,27 @@ def main() -> int:
         errs["bcsr_matmul"] = max(errs["bcsr_matmul"],
                                   ml_errs["bcsr_matmul"])
         launches["bcsr_matmul"] += ml_launches["bcsr_matmul"]
+        # item 2: bf16 serving on the bf16 instances of kernels 1-3 and
+        # 7-8, (x, S) requests, export and reload, introspection
+        torch.cuda.empty_cache()
+        bf16_errs, bf16_rows = timed("bf16_kernels", phase_bf16_kernels,
+                                     graph, S_np, gso, dev)
+        bf16_launches, served = timed("bf16_serving", phase_bf16_serving,
+                                      S_np, eng.arch,
+                                      np.random.default_rng(32), dev)
+        db_engine, _ = timed("multi_arg_serving", phase_multi_arg_serving,
+                             dev, card)
+        served["flock_n262k LocalGNN_DB (x, EllGso) f32"] = db_engine
+        timed("export", phase_export, S_np, eng.arch,
+              np.random.default_rng(33), dev)
+        timed("introspection", phase_introspection, served)
+        del served, db_engine
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    for name, n in launches.items():
+    for name, n in list(launches.items()) + [
+            (f"{k}_bf16", v) for k, v in bf16_launches.items()]:
         if n == 0:
             print(f"chip_smoke: FAILED: {name} never launched on the main "
                   "path", file=sys.stderr)
@@ -7832,6 +8429,22 @@ def main() -> int:
                 {k: r[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
                 for k_, r in ml_rows.items()]
+    # the bf16-io instances of kernels 1-3 and 7-8 (bf16_serving's launches)
+    bf16_keys = dict(bcsr_matmul="bcsr_matmul@R=2048",
+                     band_matmul="band_matmul@R=2048",
+                     band_shift_register=f"band_shift_register@R={BATCH}")
+    for name in BF16_KERNELS:
+        row = bf16_rows[bf16_keys.get(name, name)]
+        summary.append(dict(
+            name=f"{name}_bf16", route="cuda",
+            source="graph_neural_networks_torch/kernels/csrc/"
+                   f"{sources.get(name, 'spmm.cu')}",
+            replaces=REPLACES[name], launches=bf16_launches[name],
+            max_abs_err=bf16_errs[name], ms=row["ms"], kernel_ms=row["ms"],
+            graph_ms=row["graph_ms"], f32_ms=row["f32_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["shape"]))
     print(card, flush=True)
     emit(kernels=summary)
     emit(ok=True, device=dict(platform="gpu",

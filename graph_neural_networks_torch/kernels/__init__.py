@@ -11,6 +11,7 @@ a CPU-only machine imports the package without a compiler.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -31,7 +32,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each export in csrc/ but the kernel tables; all return
 # cudaError_t, but gnt_attn_bwd_smem_bytes a byte count and
-# gnt_attn_apply_group a row count.
+# gnt_attn_apply_group a row count. An entry ending in _bf16 is the bf16-io
+# instance of the entry without it, with the same arguments.
 _SIGNATURES = {
     # x, s_band, y, R, N, n_cols, nb, w, bs, stream
     "gnt_band_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -74,6 +76,18 @@ _SIGNATURES = {
     # mm, out, H, L, F, C, W, stream
     "gnt_table_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
+_SIGNATURES.update({
+    f"{name}_bf16": _SIGNATURES[name]
+    for name in ("gnt_band_matmul", "gnt_bcsr_matmul", "gnt_band_register",
+                 "gnt_attn_stats", "gnt_attn_apply")})
+
+# The io types a kernel has an instance for (its launcher's name suffix).
+IO_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+# Calls of the registered ops (ops.spmm, ops.attention_flash: the kernels
+# with a bf16 instance), by (op name, io dtype), on the CPU and on CUDA
+# alike: what shows that a path ran in the dtype it was asked for.
+OP_CALLS: collections.Counter = collections.Counter()
 # Each source's table of its kernels: gnt_<source>_kernel(i, &name) gives
 # kernel i's address and name, or null past the last.
 _KERNEL_TABLES = ("gnt_spmm_kernel", "gnt_attention_kernel",
@@ -217,6 +231,31 @@ def on_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> bool:
         raise NotImplementedError(
             f"{name}: the raw kernel wrapper records no gradient; {how}")
     return True
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The library's launcher `name` (gnt_...) for io dtype `dtype`;
+    raises for a dtype no instance takes."""
+    if dtype not in IO_DTYPES:
+        raise TypeError(f"{name}: no kernel instance takes {dtype}; the io "
+                        f"dtypes are {list(IO_DTYPES)}")
+    return getattr(library(), name + IO_DTYPES[dtype])
+
+
+def io_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """x's dtype, the io dtype of a kernel with f32 and bf16 instances;
+    raises for any other."""
+    if x.dtype not in IO_DTYPES:
+        raise TypeError(f"{name}: the kernel takes f32 or bf16, got "
+                        f"{x.dtype}")
+    return x.dtype
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a call records a gradient: the wrappers of the ops (which
+    have no autograd formula) then run the plain version directly on the
+    CPU; on CUDA :func:`on_cuda` has raised already."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_inputs(name: str, **tensors) -> None:

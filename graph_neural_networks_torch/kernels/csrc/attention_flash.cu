@@ -1,5 +1,14 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
+// The global stats and apply kernels also have a bf16-io instance
+// (template parameter T = __nv_bfloat16): a1, a2, the mask, v and the slab
+// are read in bf16 and converted to f32 where they are loaded or staged
+// (the JAX kernels' .astype(float32), ops/attention_flash.py:95-99 and
+// :118-133); every score, exp, sum and product stays f32; the stats are
+// written in f32, apply's y in bf16, rounded once (:138). The bf16 staging
+// is a plain 8-byte load stored converted, not a cp.async (which copies
+// bytes and cannot widen).
+//
 // Three kernels, the counterparts of six Pallas calls of the JAX package
 // (graph_neural_networks_tpu/ops/attention_flash.py); apply in instances
 // for G = 4, 2, 1 (attn_apply_kernel<kExt, G>):
@@ -151,6 +160,7 @@
 // Every launcher has a plain C interface and returns the cudaError_t of the
 // launch; the Python wrappers raise if it is not cudaSuccess.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -272,6 +282,70 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// The io types of the stats and apply kernels: f32, or bf16 converted to
+// f32 when read and rounded (to nearest even) when written.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// The low and high bf16 of a 32-bit word as floats, and two floats rounded
+// to bf16 as one word (a at the lower address): whole-register moves, so
+// nothing goes through local memory.
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16)));
+}
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+// 4 consecutive bf16 (8 bytes, 8-byte aligned), read-only, as floats
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// 4 consecutive elements of the io type at p from 4 floats (16-byte
+// aligned for f32, 8-byte for bf16)
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(a, b), bf16_pair(c, d));
+}
+
+// Stage 4 consecutive elements at src as floats at dst (16-byte aligned
+// shared memory); z: 4 zeros, nothing read, when !valid. f32: a 16-byte
+// cp.async, landed at the next cp_wait; bf16: an 8-byte load, converted
+// and stored at once. stage1: one element (f32: a 4-byte cp.async).
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void stage4(float* dst, const bf16* src) {
+  *reinterpret_cast<float4*>(dst) = ldg4(src);
+}
+__device__ __forceinline__ void stage4z(float* dst, const float* src,
+                                        bool valid) {
+  cp_async16z(dst, src, valid);
+}
+__device__ __forceinline__ void stage4z(float* dst, const bf16* src,
+                                        bool valid) {
+  *reinterpret_cast<float4*>(dst) =
+      valid ? ldg4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void stage1(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void stage1(float* dst, const bf16* src) {
+  *dst = __bfloat162float(__ldg(src));
+}
+
 // rowmax and rowsum of one row for NQ signal rows, from the row's support
 // list ent[0 .. n) (window positions k * ibs + c, ascending) and the rows'
 // a1 windows staged at a1s + j * WI. Lane l takes the entries l, l + 32,
@@ -330,11 +404,12 @@ __device__ __forceinline__ void stats_rows(const float* a1s, int WI,
 // window block k; the global instance leaves out the blocks past the
 // matrix, whose mask is 0), so they give a row the same bits.
 // Dynamic shared memory: qb * W * ibs floats of a1, then 8 lists of
-// W * ibs int16 (stats_plan).
-template <bool kExt>
+// W * ibs int16 (stats_plan). T: the io type of a1, a2 and the mask (the
+// stats are f32 either way; the staged a1 window is f32).
+template <bool kExt, class T = float>
 __global__ void __launch_bounds__(kStatsThreads)
-attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
-                  const float* __restrict__ mask_row,
+attn_stats_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
+                  const T* __restrict__ mask_row,
                   float* __restrict__ rowmax, float* __restrict__ rowsum,
                   int Q, int Np, int nb, int w, int ibs, float slope, int rw,
                   int qb, int vec) {
@@ -355,16 +430,16 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
 
   // a1[q0 + qq, window blocks k0 .. k1) -> a1s[qq * WI + k * ibs + c]
   const int span = (k1 - k0) * ibs;
-  const float* a1w = a1 + (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
+  const T* a1w = a1 + (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
   if (vec) {
     for (int e = 4 * tid; e < nq * span; e += 4 * kStatsThreads) {
       const int qq = e / span, c = e % span;
-      cp_async16(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
+      stage4(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
     }
   } else {
     for (int e = tid; e < nq * span; e += kStatsThreads) {
       const int qq = e / span, c = e % span;
-      cp_async4(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
+      stage1(a1s + qq * WI + k0 * ibs + c, a1w + (int64_t)qq * a1_len + c);
     }
   }
   cp_commit();
@@ -374,12 +449,13 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
     const int row = row0 + warp * rw + r, p = row % ibs;
     int n = 0;
     for (int k = k0; k < k1; ++k) {
-      const float* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
+      const T* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
       for (int c0 = 0; c0 < ibs; c0 += 128) {  // ibs % 32 == 0
         float m[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          m[u] = c0 + 32 * u < ibs ? __ldg(src + c0 + 32 * u + lane) : 0.f;
+          m[u] = c0 + 32 * u < ibs ? to_f32(__ldg(src + c0 + 32 * u + lane))
+                                   : 0.f;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const unsigned b = __ballot_sync(0xffffffffu, m[u] != 0.f);
@@ -406,7 +482,7 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
         float a2v[kStatsQV], mx[kStatsQV], sm[kStatsQV];
 #pragma unroll
         for (int j = 0; j < kStatsQV; ++j)
-          a2v[j] = a2[(int64_t)(q0 + qq + j) * Np + row];
+          a2v[j] = to_f32(a2[(int64_t)(q0 + qq + j) * Np + row]);
         stats_rows<kStatsQV>(a1s + qq * WI, WI, ent, n, lane, a2v, slope, mx,
                              sm);
         if (lane == 0)
@@ -417,7 +493,7 @@ attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
           }
       }
       for (; qq < nq; ++qq) {
-        const float a2v[1] = {a2[(int64_t)(q0 + qq) * Np + row]};
+        const float a2v[1] = {to_f32(a2[(int64_t)(q0 + qq) * Np + row])};
         float mx[1], sm[1];
         stats_rows<1>(a1s + qq * WI, WI, ent, n, lane, a2v, slope, mx, sm);
         if (lane == 0) {
@@ -468,16 +544,17 @@ __device__ __forceinline__ float alpha(float a2, float a1, float m,
 // Two barriers a chunk. Grid (Np / kCT) * ceil(Q / G) blocks, the G-row
 // groups of one column tile adjacent (they read the same lists and slab
 // tiles); dynamic shared memory apply_smem_bytes(G, W, ibs). v,
-// sup_entries, slab_col and y 16-byte aligned.
-template <bool kExt, int G>
+// sup_entries, slab_col and y 16-byte aligned. T: the io type of a1, a2,
+// v, the slab and y (the stats are f32; the staged tiles are f32).
+template <bool kExt, int G, class T = float>
 __global__ void __launch_bounds__(kApplyThreads, 2)
-attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
-                  const float* __restrict__ v,
+attn_apply_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
+                  const T* __restrict__ v,
                   const float* __restrict__ rowmax,
                   const float* __restrict__ rowsum,
-                  const float* __restrict__ slab_col,
+                  const T* __restrict__ slab_col,
                   const int16_t* __restrict__ sup_entries,
-                  const int* __restrict__ sup_offs, float* __restrict__ y,
+                  const int* __restrict__ sup_offs, T* __restrict__ y,
                   int Q, int F, int Np, int nb, int w, int ibs, int with_s,
                   float slope) {
   constexpr int FP = kApplyRows / G;  // features a pass
@@ -526,7 +603,7 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
 #pragma unroll 1
       for (int e = tid; e < kAP * kCT / 4; e += kApplyThreads) {
         const int p = e / (kCT / 4), c = 4 * (e % (kCT / 4));
-        cp_async16(ss + p * kCT + c, slab_col + mt + (int64_t)p * ibs + c);
+        stage4(ss + p * kCT + c, slab_col + mt + (int64_t)p * ibs + c);
       }
     }
     float* vs = smem + L.vs + b * kApplyRows * kLDV;
@@ -535,9 +612,9 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
       const int row = e / (kAP / 4), p = 4 * (e % (kAP / 4));
       const int s = row / FP, f = f0 + row % FP;
       const bool ok = s < nq && f < F;
-      cp_async16z(vs + row * kLDV + p,
-                  ok ? v + ((int64_t)(q0 + s) * F + f) * rows_len + r0 + p : v,
-                  ok);
+      stage4z(vs + row * kLDV + p,
+              ok ? v + ((int64_t)(q0 + s) * F + f) * rows_len + r0 + p : v,
+              ok);
     }
   };
   // a2, rowmax and 1 / rowsum of chunk ci's rows: one row a thread of the
@@ -549,7 +626,7 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
     if (has_row) {
       const int64_t r =
           (int64_t)(q0 + tid / kAP) * rows_len + row_of(ci) + tid % kAP;
-      ra2 = a2[r];
+      ra2 = to_f32(a2[r]);
       rmx = rowmax[r];
       rsm = rowsum[r];
     }
@@ -564,8 +641,9 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   };
 
   for (int e = tid; e < G * kCT; e += kApplyThreads)
-    a1s[e] = e / kCT < nq ? a1[(int64_t)(q0 + e / kCT) * Np + c0 + e % kCT]
-                          : 0.f;
+    a1s[e] = e / kCT < nq
+                 ? to_f32(a1[(int64_t)(q0 + e / kCT) * Np + c0 + e % kCT])
+                 : 0.f;
   {  // the 4-row groups' entry offsets of the block's chunks
     const int64_t first =
         (((int64_t)j * (ibs / kCT) + lc0 / kCT) * W + k0) * cpb;
@@ -654,9 +732,8 @@ attn_apply_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
       for (int i = 0; i < kAF; ++i) {
         const int f = f0 + fg + NFG * i;
         if (f < F)
-          *reinterpret_cast<float4*>(y + ((int64_t)(q0 + slot) * F + f) * Np +
-                                     c0 + 4 * cg) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          store4(y + ((int64_t)(q0 + slot) * F + f) * Np + c0 + 4 * cg,
+                 acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
     }
   }
@@ -1082,7 +1159,7 @@ struct StatsPlan {
   size_t smem;
 };
 
-template <bool kExt>
+template <bool kExt, class T>
 cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   const size_t lists = sizeof(int16_t) * kStatsWarps * W * ibs;
   const size_t per_q = sizeof(float) * W * ibs;
@@ -1096,15 +1173,15 @@ cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   plan->qb = qb;
   plan->smem = sizeof(float) * (size_t)qb * W * ibs + lists;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_stats_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)plan->smem);
+      attn_stats_kernel<kExt, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan->smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, attn_stats_kernel<kExt>, kStatsThreads, plan->smem);
+      &per_sm, attn_stats_kernel<kExt, T>, kStatsThreads, plan->smem);
   if (err != cudaSuccess) return err;
   plan->rw = 4;
   while (plan->rw > 1 && (long long)Np / (kStatsWarps * plan->rw) * n_qg *
@@ -1114,9 +1191,9 @@ cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   return cudaSuccess;
 }
 
-template <bool kExt>
-cudaError_t launch_stats(const float* a1, const float* a2,
-                         const float* mask_row, float* rowmax, float* rowsum,
+template <bool kExt, class T>
+cudaError_t launch_stats(const T* a1, const T* a2, const T* mask_row,
+                         float* rowmax, float* rowsum,
                          int Q, int Np, int nb, int w, int ibs, float slope,
                          cudaStream_t stream) {
   // ibs % 32 == 0: a block's 8 rw rows lie in one row block
@@ -1124,16 +1201,17 @@ cudaError_t launch_stats(const float* a1, const float* a2,
       (kExt && w > nb))
     return cudaErrorInvalidValue;
   StatsPlan plan;
-  const cudaError_t err = stats_plan<kExt>(Q, Np, 2 * w + 1, ibs, &plan);
+  const cudaError_t err =
+      stats_plan<kExt, T>(Q, Np, 2 * w + 1, ibs, &plan);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)Np / (kStatsWarps * plan.rw) *
                            ((Q + plan.qb - 1) / plan.qb);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const int vec = reinterpret_cast<uintptr_t>(a1) % 16 == 0;
-  attn_stats_kernel<kExt><<<(unsigned)blocks, kStatsThreads, plan.smem,
-                            stream>>>(a1, a2, mask_row, rowmax, rowsum, Q, Np,
-                                      nb, w, ibs, slope, plan.rw, plan.qb,
-                                      vec);
+  attn_stats_kernel<kExt, T><<<(unsigned)blocks, kStatsThreads, plan.smem,
+                               stream>>>(a1, a2, mask_row, rowmax, rowsum,
+                                         Q, Np, nb, w, ibs, slope, plan.rw,
+                                         plan.qb, vec);
   return cudaGetLastError();
 }
 
@@ -1160,26 +1238,30 @@ int apply_group(int Q, int F, int Np) {
   return G;
 }
 
+template <class T>
 struct ApplyArgs {
-  const float *a1, *a2, *v, *rowmax, *rowsum, *slab_col;
+  const T *a1, *a2, *v;
+  const float *rowmax, *rowsum;
+  const T* slab_col;
   const int16_t* sup_entries;
   const int* sup_offs;
-  float* y;
+  T* y;
   int Q, F, Np, nb, w, ibs, with_s;
   float slope;
 };
 
-template <bool kExt, int G>
-cudaError_t launch_apply_g(const ApplyArgs& A, cudaStream_t stream) {
+template <bool kExt, int G, class T>
+cudaError_t launch_apply_g(const ApplyArgs<T>& A, cudaStream_t stream) {
   const long long blocks = (long long)(A.Np / kCT) * ((A.Q + G - 1) / G);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const size_t smem = apply_smem_bytes(G, 2 * A.w + 1, A.ibs);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_kernel<kExt, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_apply_kernel<kExt, G, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attn_apply_kernel<kExt, G><<<(unsigned)blocks, kApplyThreads, smem, stream>>>(
+  attn_apply_kernel<kExt, G, T><<<(unsigned)blocks, kApplyThreads, smem,
+                                  stream>>>(
       A.a1, A.a2, A.v, A.rowmax, A.rowsum, A.slab_col, A.sup_entries,
       A.sup_offs, A.y, A.Q, A.F, A.Np, A.nb, A.w, A.ibs, A.with_s, A.slope);
   return cudaGetLastError();
@@ -1187,8 +1269,8 @@ cudaError_t launch_apply_g(const ApplyArgs& A, cudaStream_t stream) {
 
 // sup_entries, sup_offs: the entry lists of the support
 // (ops/attention_flash.py:support_lists).
-template <bool kExt>
-cudaError_t launch_apply(const ApplyArgs& A, cudaStream_t stream) {
+template <bool kExt, class T>
+cudaError_t launch_apply(const ApplyArgs<T>& A, cudaStream_t stream) {
   if (A.Q <= 0 || A.F <= 0 || A.ibs % kCT != 0 || A.ibs % kAP != 0 ||
       A.Np != A.nb * A.ibs || A.w < 0 || (kExt && A.w > A.nb) ||
       A.sup_entries == nullptr || A.sup_offs == nullptr)
@@ -1200,9 +1282,9 @@ cudaError_t launch_apply(const ApplyArgs& A, cudaStream_t stream) {
   if (A.with_s && reinterpret_cast<uintptr_t>(A.slab_col) % 16 != 0)
     return cudaErrorMisalignedAddress;
   switch (apply_group(A.Q, A.F, A.Np)) {
-    case 4: return launch_apply_g<kExt, 4>(A, stream);
-    case 2: return launch_apply_g<kExt, 2>(A, stream);
-    case 1: return launch_apply_g<kExt, 1>(A, stream);
+    case 4: return launch_apply_g<kExt, 4, T>(A, stream);
+    case 2: return launch_apply_g<kExt, 2, T>(A, stream);
+    case 1: return launch_apply_g<kExt, 1, T>(A, stream);
     default: return cudaErrorInvalidDevice;  // the SM count was not read
   }
 }
@@ -1223,6 +1305,14 @@ const NamedKernel kKernels[] = {
     {"attn_apply_kernel<true, 1>", (const void*)attn_apply_kernel<true, 1>},
     {"attn_bwd_kernel<false>", (const void*)attn_bwd_kernel<false>},
     {"attn_bwd_kernel<true>", (const void*)attn_bwd_kernel<true>},
+    {"attn_stats_kernel<false, bf16>",
+     (const void*)attn_stats_kernel<false, bf16>},
+    {"attn_apply_kernel<false, 4, bf16>",
+     (const void*)attn_apply_kernel<false, 4, bf16>},
+    {"attn_apply_kernel<false, 2, bf16>",
+     (const void*)attn_apply_kernel<false, 2, bf16>},
+    {"attn_apply_kernel<false, 1, bf16>",
+     (const void*)attn_apply_kernel<false, 1, bf16>},
 };
 
 }  // namespace
@@ -1233,6 +1323,15 @@ cudaError_t gnt_attn_stats(const float* a1, const float* a2,
                            const float* mask_row, float* rowmax,
                            float* rowsum, int Q, int Np, int nb, int w,
                            int ibs, float slope, cudaStream_t stream) {
+  return launch_stats<false>(a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w,
+                             ibs, slope, stream);
+}
+
+// bf16 a1, a2 and mask_row; f32 rowmax and rowsum.
+cudaError_t gnt_attn_stats_bf16(const bf16* a1, const bf16* a2,
+                                const bf16* mask_row, float* rowmax,
+                                float* rowsum, int Q, int Np, int nb, int w,
+                                int ibs, float slope, cudaStream_t stream) {
   return launch_stats<false>(a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w,
                              ibs, slope, stream);
 }
@@ -1255,10 +1354,24 @@ cudaError_t gnt_attn_apply(const float* a1, const float* a2, const float* v,
                            const int* sup_offs, float* y, int Q, int F,
                            int Np, int nb, int w, int ibs, int with_s,
                            float slope, cudaStream_t stream) {
-  return launch_apply<false>({a1, a2, v, rowmax, rowsum, slab_col,
-                              sup_entries, sup_offs, y, Q, F, Np, nb, w, ibs,
-                              with_s, slope},
-                             stream);
+  return launch_apply<false, float>({a1, a2, v, rowmax, rowsum, slab_col,
+                                     sup_entries, sup_offs, y, Q, F, Np, nb,
+                                     w, ibs, with_s, slope},
+                                    stream);
+}
+
+// bf16 a1, a2, v, slab_col and y; f32 rowmax and rowsum.
+cudaError_t gnt_attn_apply_bf16(const bf16* a1, const bf16* a2, const bf16* v,
+                                const float* rowmax, const float* rowsum,
+                                const bf16* slab_col,
+                                const int16_t* sup_entries,
+                                const int* sup_offs, bf16* y, int Q, int F,
+                                int Np, int nb, int w, int ibs, int with_s,
+                                float slope, cudaStream_t stream) {
+  return launch_apply<false, bf16>({a1, a2, v, rowmax, rowsum, slab_col,
+                                    sup_entries, sup_offs, y, Q, F, Np, nb, w,
+                                    ibs, with_s, slope},
+                                   stream);
 }
 
 // a1 (Q, Np) the shard's own columns; a2_ext, mx_ext, sm_ext
@@ -1271,10 +1384,10 @@ cudaError_t gnt_attn_apply_ext(const float* a1, const float* a2_ext,
                                const int* sup_offs, float* y, int Q, int F,
                                int Np, int nb, int w, int ibs, int with_s,
                                float slope, cudaStream_t stream) {
-  return launch_apply<true>({a1, a2_ext, v_ext, mx_ext, sm_ext, slab_col,
-                             sup_entries, sup_offs, y, Q, F, Np, nb, w, ibs,
-                             with_s, slope},
-                            stream);
+  return launch_apply<true, float>({a1, a2_ext, v_ext, mx_ext, sm_ext,
+                                    slab_col, sup_entries, sup_offs, y, Q, F,
+                                    Np, nb, w, ibs, with_s, slope},
+                                   stream);
 }
 
 // Kernel i of this file and its name, or null past the last.

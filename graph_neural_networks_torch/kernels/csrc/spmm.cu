@@ -1,5 +1,19 @@
 // Hopper (sm_90a) kernels for the graph shift y = x @ S, in true FP32.
 //
+// Each kernel has an instance for f32 io and one for bf16 io (template
+// parameter T, float or __nv_bfloat16): the bf16 instance reads bf16 x and
+// S, converts each element to f32 as it stages it into shared memory (the
+// tiles in shared memory and every FMA stay f32; a product of two bf16
+// values is exact in f32), and rounds to bf16 once, where it writes y (the
+// JAX kernels' f32 accumulator, ops/spmm.py:144 and :617). The register
+// kernel writes every tap in the io type before the next tap reads it, as
+// the JAX kernel's io-dtype zbuf does (ops/spmm.py:423-425). The bf16
+// staging is a plain load through L2 (8 bytes for 4 elements, 2 for one)
+// stored converted, not a cp.async: cp.async copies bytes and cannot
+// widen. So the bf16 instances do not overlap the next stage's loads with
+// the current stage's FMAs; a tensor-core mainloop for them is a later
+// redesign.
+//
 // Three kernels, each the counterpart of one Pallas kernel of the JAX
 // package (graph_neural_networks_tpu/ops/spmm.py); band_matmul and
 // bcsr_matmul run one mainloop on two block layouts:
@@ -56,9 +70,11 @@
 // launch; the Python wrappers raise if it is not cudaSuccess.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -117,39 +133,109 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// The io types: f32, or bf16 converted to f32 when staged and rounded
+// (round to nearest even) when written.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// The low and high bf16 of a 32-bit word as floats, and two floats rounded
+// to bf16 as one word (a at the lower address): whole-register moves, so
+// nothing goes through local memory.
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16)));
+}
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 4 consecutive bf16 (8 bytes, 8-byte aligned) read through L2, as floats
+__device__ __forceinline__ float4 load4_cg(const bf16* p) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// 4 consecutive elements of the io type at p from 4 floats (16-byte
+// aligned for f32, 8-byte for bf16)
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(a, b), bf16_pair(c, d));
+}
+
+// Stage 4 consecutive elements at src (or 4 zeros, nothing read, when
+// !valid) as floats at dst (16-byte aligned shared memory). f32: one
+// 16-byte cp.async, landed at the next cp_async_wait; bf16: an 8-byte load
+// through L2, converted and stored at once.
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void stage4(float* dst, const bf16* src,
+                                       bool valid) {
+  *reinterpret_cast<float4*>(dst) =
+      valid ? load4_cg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Stage one element likewise (f32: a 4-byte cp.async).
+__device__ __forceinline__ void stage1(float* dst, const float* src,
+                                       bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void stage1(float* dst, const bf16* src,
+                                       bool valid) {
+  *dst = valid ? __bfloat162float(__ldcg(src)) : 0.f;
+}
+
 // Stage rows [r0, r0 + BM) x columns [xc, xc + KD) of x (R, N) into As
 // (BM rows of lda floats); rows past R and columns past N read as zero.
-// vec: 16-byte copies (N % 4 == 0, x 16-byte aligned), else 4-byte ones.
-template <int BM, int KD, int NT>
+// vec: 4 elements a copy (N % 4 == 0, x 16-byte aligned), else one.
+template <int BM, int KD, int NT, class T>
 __device__ __forceinline__ void stage_x(float* As, int lda,
-                                        const float* __restrict__ x, int R,
+                                        const T* __restrict__ x, int R,
                                         int N, int r0, int xc, bool vec) {
   if (vec) {
     for (int e = threadIdx.x; e < BM * KD / 4; e += NT) {
       const int r = e / (KD / 4), c = 4 * (e % (KD / 4));
       const bool ok = r0 + r < R && xc + c < N;
-      cp_async16(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
-                 ok);
+      stage4(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
+             ok);
     }
   } else {
     for (int e = threadIdx.x; e < BM * KD; e += NT) {
       const int r = e / KD, c = e % KD;
       const bool ok = r0 + r < R && xc + c < N;
-      cp_async4(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
-                ok);
+      stage1(As + r * lda + c, ok ? x + (int64_t)(r0 + r) * N + xc + c : x,
+             ok);
     }
   }
 }
 
 // Stage rows [kd, kd + KD) x columns [lc, lc + BN) of one (bs, bs) block
-// of S into Bs (KD rows of BN floats), 16-byte copies.
-template <int KD, int BN, int NT>
-__device__ __forceinline__ void stage_s(float* Bs,
-                                        const float* __restrict__ blk, int bs,
-                                        int kd, int lc) {
+// of S into Bs (KD rows of BN floats), 4 elements a copy.
+template <int KD, int BN, int NT, class T>
+__device__ __forceinline__ void stage_s(float* Bs, const T* __restrict__ blk,
+                                        int bs, int kd, int lc) {
   for (int e = threadIdx.x; e < KD * BN / 4; e += NT) {
     const int r = e / (BN / 4), c = 4 * (e % (BN / 4));
-    cp_async16(Bs + r * BN + c, blk + (int64_t)(kd + r) * bs + lc + c, true);
+    stage4(Bs + r * BN + c, blk + (int64_t)(kd + r) * bs + lc + c, true);
   }
 }
 
@@ -222,42 +308,48 @@ size_t bcsr_smem_bytes(int BM) {
 //    block t of column j is the slab's rows t bs .. (t+1) bs of j, x block
 //    column j + t - w; the segment is the t that keep that inside the
 //    matrix, max(0, w - j) .. min(2w+1, nb + w - j), computed, not read.
+// T: the io type of the blocks (that of x and y).
+template <class T>
 struct BcsrBlocks {
-  const float* blocks;
+  using io = T;
+  const T* blocks;
   const int* block_row;
   const int* col_start;
   int bs;
   __device__ int first(int j) const { return col_start[j]; }
   __device__ int count(int j) const { return col_start[j + 1] - col_start[j]; }
-  __host__ __device__ const float* block(int, int kb) const {
+  __host__ __device__ const T* block(int, int kb) const {
     return blocks + (int64_t)kb * bs * bs;
   }
   __device__ int x_block(int, int kb) const { return block_row[kb]; }
 };
 
+template <class T>
 struct BandBlocks {
-  const float* s_band;
+  using io = T;
+  const T* s_band;
   int nb, w, bs;
   __device__ int first(int j) const { return max(0, w - j); }
   __device__ int count(int j) const {
     return max(0, min(2 * w + 1, nb + w - j) - first(j));
   }
-  __host__ __device__ const float* block(int j, int t) const {
+  __host__ __device__ const T* block(int j, int t) const {
     return s_band + ((int64_t)j * (2 * w + 1) + t) * bs * bs;
   }
   __device__ int x_block(int j, int t) const { return j + t - w; }
 };
 
 // y (R, n_cols) = x (R, N) @ S over the blocks of each output block column
-// (Blocks: BcsrBlocks or BandBlocks). An empty segment writes zeros. x may
+// (Blocks: BcsrBlocks<T> or BandBlocks<T>, T the io type of x, S and y).
+// An empty segment writes zeros. x may
 // sit on its own block grid (N != n_cols); its columns past N read as
 // zero. vec_x: x rows staged by 16-byte copies (N % 4 == 0, x aligned);
 // vec_y: 16-byte stores (n_cols % 4 == 0, y aligned).
 // Grid (n_cols / 64, R / 128), dynamic shared memory bcsr_smem_bytes(128).
-template <class Blocks>
+template <class Blocks, class T = typename Blocks::io>
 __global__ void __launch_bounds__(kCsrThreads, 2)
-bcsr_matmul_kernel(const float* __restrict__ x, const Blocks blk,
-                   float* __restrict__ y, int R, int N, int n_cols, int bs,
+bcsr_matmul_kernel(const T* __restrict__ x, const Blocks blk,
+                   T* __restrict__ y, int R, int N, int n_cols, int bs,
                    int vec_x, int vec_y) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * kCsrBN;
@@ -298,14 +390,13 @@ bcsr_matmul_kernel(const float* __restrict__ x, const Blocks blk,
   for (int i = 0; i < 8; ++i) {
     const int gr = r0 + ty + 16 * i;
     if (gr >= R) continue;
-    float* d = y + (int64_t)gr * n_cols + gc;
+    T* d = y + (int64_t)gr * n_cols + gc;
     if (vec_y && gc + 4 <= n_cols) {
-      *reinterpret_cast<float4*>(d) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      store4(d, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     } else {
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        if (gc + t < n_cols) d[t] = acc[i][t];
+        if (gc + t < n_cols) d[t] = from_f32<T>(acc[i][t]);
     }
   }
 }
@@ -314,10 +405,13 @@ bcsr_matmul_kernel(const float* __restrict__ x, const Blocks blk,
 // tiles, so that few rows still make n_cols / 16 blocks (256 at N = 4096),
 // and each S block streams once, in 64-byte rows of 16 columns. Grid
 // (n_cols / 16, R / BM), dynamic shared memory bcsr_smem_bytes(BM).
-template <int BM, class Blocks>
-__global__ void __launch_bounds__(kCsrThreads)
-bcsr_narrow_kernel(const float* __restrict__ x, const Blocks blk,
-                   float* __restrict__ y, int R, int N, int n_cols, int bs,
+// At least 2 blocks an SM (at most 128 registers a thread): what the f32
+// instances use; without it the bf16 instance at BM = 64 was given 64
+// registers and spilled.
+template <int BM, class Blocks, class T = typename Blocks::io>
+__global__ void __launch_bounds__(kCsrThreads, 2)
+bcsr_narrow_kernel(const T* __restrict__ x, const Blocks blk,
+                   T* __restrict__ y, int R, int N, int n_cols, int bs,
                    int vec_x) {
   constexpr int kRG = BM / 4;                       // row groups
   constexpr int kGroups = kCsrThreads / (kRG * 4);  // k-groups
@@ -371,7 +465,7 @@ bcsr_narrow_kernel(const float* __restrict__ x, const Blocks blk,
     float sum = red[e];
     for (int g = 1; g < kGroups; ++g) sum += red[g * BM * kNarBN + e];
     if (r0 + r < R && c0 + c < n_cols)
-      y[(int64_t)(r0 + r) * n_cols + c0 + c] = sum;
+      y[(int64_t)(r0 + r) * n_cols + c0 + c] = from_f32<T>(sum);
   }
 }
 
@@ -388,27 +482,28 @@ size_t register_smem_bytes(int w, int bs, int TM, int KD) {
 
 // Stage rows [r0, r0 + BM) x columns [c0, c0 + KD) of the tap z (R, N)
 // into As (BM, KD + kAPad); rows past R and columns past N read as zero.
-// kVec: 16-byte cp.async (N % 4 == 0, aligned pointers), else element-wise
-// ld.global.cg. z is a tap other blocks wrote in this launch: both forms
-// read it from L2, never from a stale L1 line.
-template <int BM, int KD, bool kVec>
+// kVec: 4 elements a copy (16-byte cp.async for f32; N % 4 == 0, aligned
+// pointers), else element-wise ld.global.cg. z is a tap other blocks wrote
+// in this launch: every form reads it from L2, never from a stale L1 line.
+template <int BM, int KD, bool kVec, class T>
 __device__ __forceinline__ void stage_slice(float* As,
-                                            const float* __restrict__ z,
+                                            const T* __restrict__ z,
                                             int R, int N, int r0, int c0) {
   constexpr int lda = KD + kAPad;
   if (kVec) {
     for (int e = threadIdx.x; e < BM * KD / 4; e += kRegThreads) {
       const int r = e / (KD / 4), c = (e % (KD / 4)) * 4;
       const bool valid = r0 + r < R && c0 + c < N;
-      cp_async16(As + r * lda + c,
-                 valid ? z + (int64_t)(r0 + r) * N + c0 + c : z, valid);
+      stage4(As + r * lda + c,
+             valid ? z + (int64_t)(r0 + r) * N + c0 + c : z, valid);
     }
   } else {
     for (int e = threadIdx.x; e < BM * KD; e += kRegThreads) {
       const int r = e / KD, c = e % KD;
-      As[r * lda + c] = r0 + r < R && c0 + c < N
-                            ? __ldcg(z + (int64_t)(r0 + r) * N + c0 + c)
-                            : 0.f;
+      As[r * lda + c] =
+          r0 + r < R && c0 + c < N
+              ? to_f32(__ldcg(z + (int64_t)(r0 + r) * N + c0 + c))
+              : 0.f;
     }
   }
 }
@@ -429,12 +524,13 @@ __device__ __forceinline__ void stage_slice(float* As,
 // accumulates a TM x 4 register tile over it in window order. Tap k reads
 // tap k-1, which every block wrote: one grid-wide barrier between taps
 // (K-2 in all), so the launch must be cooperative. Window blocks off the
-// matrix are skipped. Tap 0 is a copy of x.
-template <int TM, int KD, bool kVec>
+// matrix are skipped. Tap 0 is a copy of x. With bf16 io (T) the slab
+// panel and the staged slices are converted to f32 in shared memory, and
+// each tap is written in bf16: the next tap reads the rounded values.
+template <int TM, int KD, bool kVec, class T>
 __global__ void __launch_bounds__(kRegThreads)
-band_register_kernel(const float* __restrict__ x,
-                     const float* __restrict__ s_band, float* out, int R,
-                     int N, int nb, int w, int bs, int K) {
+band_register_kernel(const T* __restrict__ x, const T* __restrict__ s_band,
+                     T* out, int R, int N, int nb, int w, int bs, int K) {
   constexpr int BM = kRegRowThreads * TM;
   constexpr int lda = KD + kAPad;
   extern __shared__ __align__(16) float smem[];
@@ -449,8 +545,10 @@ band_register_kernel(const float* __restrict__ x,
   // tap 0 is x itself
   const int64_t stride = (int64_t)gridDim.x * kRegThreads;
   if (kVec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
+    // 4 elements a copy: 16 bytes of f32, 8 of bf16
+    using V4 = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
+    const V4* x4 = reinterpret_cast<const V4*>(x);
+    V4* o4 = reinterpret_cast<V4*>(out);
     for (int64_t e = (int64_t)blockIdx.x * kRegThreads + tid; e < plane / 4;
          e += stride)
       o4[e] = x4[e];
@@ -468,8 +566,8 @@ band_register_kernel(const float* __restrict__ x,
   int loaded = -1;  // the panel whose slab columns sit in Sp
   for (int k = 1; k < K; ++k) {
     if (k >= 2) cg::this_grid().sync();  // tap k-1 complete everywhere
-    const float* src = k == 1 ? x : out + (k - 1) * plane;
-    float* dst = out + k * plane;
+    const T* src = k == 1 ? x : out + (k - 1) * plane;
+    T* dst = out + k * plane;
     for (int64_t n = 0; n < i1 - i0; ++n) {
       const int64_t it = k % 2 ? i0 + n : i1 - 1 - n;
       const int p = (int)(it / n_rt);
@@ -479,17 +577,17 @@ band_register_kernel(const float* __restrict__ x,
       const int t_lo = max(0, w - j), t_hi = min(W - 1, nb - 1 - j + w);
       if (p != loaded) {
         // the panel's slab rows; joins the first slice's group
-        const float* sj = s_band + (int64_t)j * W * bs * bs + lc;
+        const T* sj = s_band + (int64_t)j * W * bs * bs + lc;
         const int rows = (t_hi - t_lo + 1) * bs;
         for (int e = tid; e < rows * (kPanel / 4); e += kRegThreads) {
           const int r = t_lo * bs + e / (kPanel / 4);
           const int c = (e % (kPanel / 4)) * 4;
           if (kVec) {
-            cp_async16(Sp + r * kPanel + c, sj + (int64_t)r * bs + c, true);
+            stage4(Sp + r * kPanel + c, sj + (int64_t)r * bs + c, true);
           } else {
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              Sp[r * kPanel + c + q] = sj[(int64_t)r * bs + c + q];
+              Sp[r * kPanel + c + q] = to_f32(sj[(int64_t)r * bs + c + q]);
           }
         }
         loaded = p;
@@ -499,13 +597,13 @@ band_register_kernel(const float* __restrict__ x,
       const int n_slices = (t_hi - t_lo + 1) * per_block;
       const int xc0 = (j + t_lo - w) * bs;  // x column of slice 0
       float acc[TM][kTN] = {};
-      stage_slice<BM, KD, kVec>(As, src, R, N, r0, xc0);
+      stage_slice<BM, KD, kVec, T>(As, src, R, N, r0, xc0);
       cp_async_commit();
       for (int sl = 0; sl < n_slices; ++sl) {
         float* A = As + (sl & 1) * BM * lda;
         if (sl + 1 < n_slices)
-          stage_slice<BM, KD, kVec>(As + ((sl + 1) & 1) * BM * lda, src, R,
-                                    N, r0, xc0 + (sl + 1) * KD);
+          stage_slice<BM, KD, kVec, T>(As + ((sl + 1) & 1) * BM * lda, src,
+                                       R, N, r0, xc0 + (sl + 1) * KD);
         cp_async_commit();
         cp_async_wait<1>();
         __syncthreads();
@@ -543,14 +641,13 @@ band_register_kernel(const float* __restrict__ x,
       for (int i = 0; i < TM; ++i) {
         const int gr = r0 + ty + i * kRegRowThreads;
         if (gr >= R) continue;
-        float* y = dst + (int64_t)gr * N + gc;
+        T* y = dst + (int64_t)gr * N + gc;
         if (kVec && gc + kTN <= N) {
-          *reinterpret_cast<float4*>(y) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          store4(y, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         } else {
 #pragma unroll
           for (int q = 0; q < kTN; ++q)
-            if (gc + q < N) y[q] = acc[i][q];
+            if (gc + q < N) y[q] = from_f32<T>(acc[i][q]);
         }
       }
     }
@@ -564,10 +661,9 @@ bool aligned16(const void* p) {
 // The wide tile above kNarMaxRows rows, else the narrow one of the fewest
 // rows (16, 32 or 64) that holds R: a dispatch on the shape. The blocks
 // (S) are staged by 16-byte copies, so they must be 16-byte aligned.
-template <class Blocks>
-cudaError_t launch_mainloop(const float* x, const Blocks& blk, float* y,
-                            int R, int N, int n_cols, int bs,
-                            cudaStream_t stream) {
+template <class Blocks, class T = typename Blocks::io>
+cudaError_t launch_mainloop(const T* x, const Blocks& blk, T* y, int R,
+                            int N, int n_cols, int bs, cudaStream_t stream) {
   if (bs % kNarKD != 0 || R <= 0 || n_cols <= 0 || N < 0)
     return cudaErrorInvalidValue;
   if (!aligned16(blk.block(0, 0))) return cudaErrorMisalignedAddress;
@@ -599,35 +695,99 @@ cudaError_t launch_mainloop(const float* x, const Blocks& blk, float* y,
   return cudaGetLastError();
 }
 
-template <int TM, int KD>
+template <int TM, int KD, class T>
 const void* register_kernel(bool vec) {
-  return vec ? (const void*)band_register_kernel<TM, KD, true>
-             : (const void*)band_register_kernel<TM, KD, false>;
+  return vec ? (const void*)band_register_kernel<TM, KD, true, T>
+             : (const void*)band_register_kernel<TM, KD, false, T>;
 }
 
-// The file's kernels by name (gnt_spmm_kernel).
+// The file's kernels by name (gnt_spmm_kernel); the f32 instances keep
+// their names, the bf16 ones end in ", bf16>".
 struct NamedKernel {
   const char* name;
   const void* fn;
 };
-#define GNT_REGISTER(TM, KD, V)                                 \
-  {"band_register_kernel<" #TM ", " #KD ", " #V ">",            \
-   (const void*)band_register_kernel<TM, KD, V>}
-#define GNT_MAINLOOP(B)                                                  \
-  {"bcsr_matmul_kernel<" #B ">", (const void*)bcsr_matmul_kernel<B>},    \
-  {"bcsr_narrow_kernel<16, " #B ">", (const void*)bcsr_narrow_kernel<16, B>}, \
-  {"bcsr_narrow_kernel<32, " #B ">", (const void*)bcsr_narrow_kernel<32, B>}, \
-  {"bcsr_narrow_kernel<64, " #B ">", (const void*)bcsr_narrow_kernel<64, B>}
+#define GNT_REGISTER(TM, KD, V, T, SUFFIX)                      \
+  {"band_register_kernel<" #TM ", " #KD ", " #V SUFFIX ">",     \
+   (const void*)band_register_kernel<TM, KD, V, T>}
+#define GNT_MAINLOOP(B, T, SUFFIX)                                         \
+  {"bcsr_matmul_kernel<" #B SUFFIX ">",                                    \
+   (const void*)bcsr_matmul_kernel<B<T>>},                                 \
+  {"bcsr_narrow_kernel<16, " #B SUFFIX ">",                                \
+   (const void*)bcsr_narrow_kernel<16, B<T>>},                             \
+  {"bcsr_narrow_kernel<32, " #B SUFFIX ">",                                \
+   (const void*)bcsr_narrow_kernel<32, B<T>>},                             \
+  {"bcsr_narrow_kernel<64, " #B SUFFIX ">",                                \
+   (const void*)bcsr_narrow_kernel<64, B<T>>}
 const NamedKernel kKernels[] = {
-    GNT_MAINLOOP(BcsrBlocks),
-    GNT_MAINLOOP(BandBlocks),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, true),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, false),
-    GNT_REGISTER(kWideTM, kWideKD, true),
-    GNT_REGISTER(kWideTM, kWideKD, false),
+    GNT_MAINLOOP(BcsrBlocks, float, ""),
+    GNT_MAINLOOP(BandBlocks, float, ""),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, true, float, ""),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, false, float, ""),
+    GNT_REGISTER(kWideTM, kWideKD, true, float, ""),
+    GNT_REGISTER(kWideTM, kWideKD, false, float, ""),
+    GNT_MAINLOOP(BcsrBlocks, bf16, ", bf16"),
+    GNT_MAINLOOP(BandBlocks, bf16, ", bf16"),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, true, bf16, ", bf16"),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, false, bf16, ", bf16"),
+    GNT_REGISTER(kWideTM, kWideKD, true, bf16, ", bf16"),
+    GNT_REGISTER(kWideTM, kWideKD, false, bf16, ", bf16"),
 };
 #undef GNT_REGISTER
 #undef GNT_MAINLOOP
+
+template <class T>
+cudaError_t launch_band_matmul(const T* x, const T* s_band, T* y, int R,
+                               int N, int n_cols, int nb, int w, int bs,
+                               cudaStream_t stream) {
+  if (w < 0 || nb != cdiv(n_cols, bs)) return cudaErrorInvalidValue;
+  return launch_mainloop(x, BandBlocks<T>{s_band, nb, w, bs}, y, R, N,
+                         n_cols, bs, stream);
+}
+
+// A cooperative launch of as many blocks as there are items, at most as
+// many as the card holds at once (the occupancy query, after the shared
+// memory opt-in); refused launches are returned, never worked around.
+template <class T>
+cudaError_t launch_register(const T* x, const T* s_band, T* out, int R,
+                            int N, int nb, int w, int bs, int K,
+                            cudaStream_t stream) {
+  if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1 || w < 0)
+    return cudaErrorInvalidValue;
+  // the wide tile (whose slices are the larger) must fit whatever R is, so
+  // that whether a layout runs never depends on R; ops/spmm.py:
+  // register_fits is the same rule
+  if (register_smem_bytes(w, bs, kWideTM, kWideKD) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const bool vec = N % 4 == 0 && aligned16(x) && aligned16(s_band) &&
+                   aligned16(out);
+  const bool wide = R > kRegWideRows;
+  const int BM = kRegRowThreads * (wide ? kWideTM : kNarrowTM);
+  const size_t smem = wide ? register_smem_bytes(w, bs, kWideTM, kWideKD)
+                           : register_smem_bytes(w, bs, kNarrowTM, kNarrowKD);
+  const void* fn = wide ? register_kernel<kWideTM, kWideKD, T>(vec)
+                        : register_kernel<kNarrowTM, kNarrowKD, T>(vec);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      kRegThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t items = (int64_t)cdiv(N, kPanel) * cdiv(R, BM);
+  const int grid = (int)(items < (int64_t)per_sm * sms
+                             ? items : (int64_t)per_sm * sms);
+  void* args[] = {(void*)&x, (void*)&s_band, (void*)&out, (void*)&R,
+                  (void*)&N, (void*)&nb, (void*)&w, (void*)&bs, (void*)&K};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kRegThreads), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -660,13 +820,23 @@ cudaError_t gnt_kernel_attributes(const void* fn, int* out) {
   return cudaSuccess;
 }
 
-// y = x @ S on the BCSR blocks.
+// y = x @ S on the BCSR blocks; the _bf16 entries take bf16 x, S and y.
 cudaError_t gnt_bcsr_matmul(const float* x, const float* blocks,
                             const int* block_row, const int* col_start,
                             float* y, int R, int N, int n_cols, int bs,
                             cudaStream_t stream) {
-  return launch_mainloop(x, BcsrBlocks{blocks, block_row, col_start, bs}, y,
-                         R, N, n_cols, bs, stream);
+  return launch_mainloop(
+      x, BcsrBlocks<float>{blocks, block_row, col_start, bs}, y, R, N,
+      n_cols, bs, stream);
+}
+
+cudaError_t gnt_bcsr_matmul_bf16(const bf16* x, const bf16* blocks,
+                                 const int* block_row, const int* col_start,
+                                 bf16* y, int R, int N, int n_cols, int bs,
+                                 cudaStream_t stream) {
+  return launch_mainloop(
+      x, BcsrBlocks<bf16>{blocks, block_row, col_start, bs}, y, R, N,
+      n_cols, bs, stream);
 }
 
 // y = x @ S on the band slab s_band (nb, (2w+1) bs, bs), nb = n_cols / bs
@@ -674,52 +844,26 @@ cudaError_t gnt_bcsr_matmul(const float* x, const float* blocks,
 cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,
                             int R, int N, int n_cols, int nb, int w, int bs,
                             cudaStream_t stream) {
-  if (w < 0 || nb != cdiv(n_cols, bs)) return cudaErrorInvalidValue;
-  return launch_mainloop(x, BandBlocks{s_band, nb, w, bs}, y, R, N, n_cols,
-                         bs, stream);
+  return launch_band_matmul(x, s_band, y, R, N, n_cols, nb, w, bs, stream);
 }
 
-// A cooperative launch of as many blocks as there are items, at most as
-// many as the card holds at once (the occupancy query, after the shared
-// memory opt-in); refused launches are returned, never worked around.
+cudaError_t gnt_band_matmul_bf16(const bf16* x, const bf16* s_band, bf16* y,
+                                 int R, int N, int n_cols, int nb, int w,
+                                 int bs, cudaStream_t stream) {
+  return launch_band_matmul(x, s_band, y, R, N, n_cols, nb, w, bs, stream);
+}
+
+// out (K, R, N) = [x, x S, ..., x S^(K-1)] in one cooperative launch.
 cudaError_t gnt_band_register(const float* x, const float* s_band,
                               float* out, int R, int N, int nb, int w, int bs,
                               int K, cudaStream_t stream) {
-  if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1 || w < 0)
-    return cudaErrorInvalidValue;
-  // the wide tile (whose slices are the larger) must fit whatever R is, so
-  // that whether a layout runs never depends on R; ops/spmm.py:
-  // register_fits is the same rule
-  if (register_smem_bytes(w, bs, kWideTM, kWideKD) > kMaxSmem)
-    return cudaErrorInvalidValue;
-  const bool vec = N % 4 == 0 && aligned16(x) && aligned16(s_band) &&
-                   aligned16(out);
-  const bool wide = R > kRegWideRows;
-  const int BM = kRegRowThreads * (wide ? kWideTM : kNarrowTM);
-  const size_t smem = wide ? register_smem_bytes(w, bs, kWideTM, kWideKD)
-                           : register_smem_bytes(w, bs, kNarrowTM, kNarrowKD);
-  const void* fn = wide ? register_kernel<kWideTM, kWideKD>(vec)
-                        : register_kernel<kNarrowTM, kNarrowKD>(vec);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                      kRegThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int64_t items = (int64_t)cdiv(N, kPanel) * cdiv(R, BM);
-  const int grid = (int)(items < (int64_t)per_sm * sms
-                             ? items : (int64_t)per_sm * sms);
-  void* args[] = {(void*)&x, (void*)&s_band, (void*)&out, (void*)&R,
-                  (void*)&N, (void*)&nb, (void*)&w, (void*)&bs, (void*)&K};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kRegThreads), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_register(x, s_band, out, R, N, nb, w, bs, K, stream);
+}
+
+cudaError_t gnt_band_register_bf16(const bf16* x, const bf16* s_band,
+                                   bf16* out, int R, int N, int nb, int w,
+                                   int bs, int K, cudaStream_t stream) {
+  return launch_register(x, s_band, out, R, N, nb, w, bs, K, stream);
 }
 
 }  // extern "C"

@@ -37,6 +37,15 @@ count. The raw wrappers record no gradient: on CUDA, with grad enabled and
 an input that requires grad, they raise NotImplementedError; the entry
 points differentiate through :class:`FlashApply`.
 
+stats and apply (kernels 7-8) also take bf16 operands (the stats stay
+f32; apply's y is bf16) and go through ``torch.library`` ops,
+``torch.ops.gnt.attn_stats`` and ``attn_apply``: a CPU implementation (the
+plain version), a CUDA one (the kernel), a fake one (shapes, for
+``torch.export`` and ``FlopCounterMode``) and a flop formula; each call
+adds one to ``kernels.OP_CALLS[name, dtype]``; on the CPU a call that needs
+a gradient runs the plain version directly. The backward and the ext
+kernels take f32 only (bf16 training and bf16 sharding are later items).
+
 The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
 once per band-mode ``Gso`` by :func:`band_auxes`, on the Gso's device, and
@@ -48,10 +57,12 @@ walk on CUDA.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.flop_counter import register_flop_formula
 
 from graph_neural_networks_torch import kernels
 
@@ -237,7 +248,10 @@ def stats_plain(a1x: torch.Tensor, a2x: torch.Tensor,
     row's masked scores over its column window. a1x, a2x (Q, Np);
     mask_row (nb, W, ibs, ibs). A row without support has every score
     -1e12 (window blocks off the matrix included, as the JAX kernel's
-    clamped zero-mask tiles): rowmax -1e12, rowsum W*ibs."""
+    clamped zero-mask tiles): rowmax -1e12, rowsum W*ibs. bf16 operands
+    are upcast: the stats are f32 either way."""
+    a1x, a2x, mask_row = (t.float() if t.dtype == torch.bfloat16 else t
+                          for t in (a1x, a2x, mask_row))
     Q, Np = a1x.shape
     nb = Np // ibs
     a1w = _win(a1x.reshape(Q, nb, ibs), w)                # Q, nb, W, ibs
@@ -255,7 +269,12 @@ def apply_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                 slope: float = 0.2) -> torch.Tensor:
     """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha re-derived from
     (a1x, a2x, rowmax, rowsum) as exp(score - rowmax) * (1 / rowsum) * m;
-    v (Q, F, Np), the rest (Q, Np) and (nb, W, ibs, ibs)."""
+    v (Q, F, Np), the rest (Q, Np) and (nb, W, ibs, ibs). bf16 v (a1x,
+    a2x, slab_col, mask_col too): computed in f32, y rounded to bf16 once."""
+    if v.dtype == torch.bfloat16:
+        return apply_plain(*(t.float() for t in (
+            a1x, a2x, v, rowmax, rowsum, slab_col, mask_col)), w=w, ibs=ibs,
+            with_s=with_s, slope=slope).to(v.dtype)
     Q, F, Np = v.shape
     nb = Np // ibs
 
@@ -368,37 +387,26 @@ def _check_tile(name: str, ibs: int) -> None:
 def stats_call(a1x: torch.Tensor, a2x: torch.Tensor, mask_row: torch.Tensor,
                *, w: int, ibs: int, slope: float = 0.2):
     """Row softmax stats of the masked band scores: (rowmax, rowsum), each
-    (Q, Np), from a1x, a2x (Q, Np) and mask_row (nb, W, ibs, ibs).
+    (Q, Np) in f32, from a1x, a2x (Q, Np) and mask_row (nb, W, ibs, ibs),
+    all three f32 or all bf16.
 
     CUDA kernel: ``attn_stats_kernel<false>`` in
-    kernels/csrc/attention_flash.cu (the scores on each row's support,
-    compacted from mask_row on the card), replacing the Pallas kernel of
-    the JAX package's ``ops/attention_flash.py:_stats_call``. The window
-    (2w+1)*ibs must fit the kernel's int16 positions and shared memory
-    (it raises past ~11,600 columns).
+    kernels/csrc/attention_flash.cu (``<false, bf16>`` in bf16; the scores
+    on each row's support, compacted from mask_row on the card), replacing
+    the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_stats_call``. The window (2w+1)*ibs must fit
+    the kernel's int16 positions and shared memory (it raises past ~11,600
+    columns).
     """
     Q, Np = a1x.shape
     if tuple(a2x.shape) != (Q, Np):
         raise ValueError(f"stats_call: a1x {tuple(a1x.shape)} vs a2x "
                          f"{tuple(a2x.shape)}")
-    nb = _check_band("stats_call", Np, w, ibs, mask_row=mask_row)
-    if not kernels.on_cuda("stats_call", a1x, a2x, mask_row):
+    _check_band("stats_call", Np, w, ibs, mask_row=mask_row)
+    if not kernels.on_cuda("stats_call", a1x, a2x, mask_row) and \
+            kernels.needs_grad(a1x, a2x):
         return stats_plain(a1x, a2x, mask_row, w=w, ibs=ibs, slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("stats_call", a1x=(a1x, f32), a2x=(a2x, f32),
-                         mask_row=(mask_row, f32))
-    _check_tile("stats_call", ibs)
-    rowmax = torch.empty((Q, Np), dtype=f32, device=a1x.device)
-    rowsum = torch.empty((Q, Np), dtype=f32, device=a1x.device)
-    if Q == 0:
-        return rowmax, rowsum
-    err = kernels.library().gnt_attn_stats(
-        a1x.data_ptr(), a2x.data_ptr(), mask_row.data_ptr(),
-        rowmax.data_ptr(), rowsum.data_ptr(), Q, Np, nb, w, ibs, slope,
-        kernels.stream())
-    kernels.check(err, "stats_call")
-    stats_call.launches += 1
-    return rowmax, rowsum
+    return _ATTN_STATS(a1x, a2x, mask_row, w, ibs, slope)
 
 
 stats_call.launches = 0
@@ -409,7 +417,7 @@ def _lists_ptrs(name: str, lists: Optional[SupportLists],
     """The apply launchers' sup_entries, sup_offs: the pointers of
     mask_col's entry lists, built once with the band structure; raises if
     they are missing or do not fit mask_col."""
-    if lists is None:
+    if lists is None or any(t is None for t in lists):
         raise ValueError(f"{name}: the kernel reads the support's entry "
                          "lists: pass lists=support_lists(mask_col), built "
                          "once with the band structure (BandAux.lists)")
@@ -431,11 +439,14 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                ibs: int, with_s: bool = True, slope: float = 0.2,
                lists: Optional[SupportLists] = None) -> torch.Tensor:
     """y (Q, F, Np) = v @ (alpha (* S)) on the band, alpha recomputed tile
-    by tile from a1x, a2x and the stats of :func:`stats_call`. lists:
-    mask_col's :func:`support_lists`, on whose entries the kernel runs the
-    scores; required on CUDA (BandAux.lists), unused by the plain version.
+    by tile from a1x, a2x and the stats of :func:`stats_call`; y in v's
+    dtype (a1x, a2x, v, slab_col and mask_col all f32 or all bf16, the
+    stats f32). lists: mask_col's :func:`support_lists`, on whose entries
+    the kernel runs the scores; required on CUDA (BandAux.lists), unused by
+    the plain version.
 
-    CUDA kernel: ``attn_apply_kernel`` in kernels/csrc/attention_flash.cu,
+    CUDA kernel: ``attn_apply_kernel<false, G>`` in
+    kernels/csrc/attention_flash.cu (``<false, G, bf16>`` in bf16),
     replacing the Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_apply_call``.
     """
@@ -445,31 +456,133 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (Q, Np):
             raise ValueError(f"apply_call: {arg} {tuple(t.shape)} does not "
                              f"fit v {tuple(v.shape)}")
-    nb = _check_band("apply_call", Np, w, ibs, slab_col=slab_col,
-                     mask_col=mask_col)
+    _check_band("apply_call", Np, w, ibs, slab_col=slab_col,
+                mask_col=mask_col)
     operands = (a1x, a2x, v, rowmax, rowsum, slab_col, mask_col)
-    if not kernels.on_cuda("apply_call", *operands):
+    if not kernels.on_cuda("apply_call", *operands) and kernels.needs_grad(
+            a1x, a2x, v):
         return apply_plain(*operands, w=w, ibs=ibs, with_s=with_s,
                            slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("apply_call", a1x=(a1x, f32), a2x=(a2x, f32),
-                         v=(v, f32), rowmax=(rowmax, f32),
-                         rowsum=(rowsum, f32), slab_col=(slab_col, f32),
-                         mask_col=(mask_col, f32))
-    _check_tile("apply_call", ibs)
-    sup = _lists_ptrs("apply_call", lists, mask_col)
-    y = torch.empty((Q, F, Np), dtype=f32, device=v.device)
-    if Q == 0 or F == 0:
-        return y
-    err = kernels.library().gnt_attn_apply(
-        *(t.data_ptr() for t in operands[:6]), *sup, y.data_ptr(), Q, F, Np,
-        nb, w, ibs, int(with_s), slope, kernels.stream())
-    kernels.check(err, "apply_call")
-    apply_call.launches += 1
-    return y
+    entries, offsets = (None, None) if lists is None else lists
+    return _ATTN_APPLY(*operands, entries, offsets, w, ibs, with_s, slope)
 
 
 apply_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The ops of stats and apply (torch.library): CPU = the plain version,
+# CUDA = the kernel (either io dtype)
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("gnt", "FRAGMENT")
+_LIB.define("attn_stats(Tensor a1x, Tensor a2x, Tensor mask_row, int w, "
+            "int ibs, float slope) -> (Tensor, Tensor)")
+_LIB.define("attn_apply(Tensor a1x, Tensor a2x, Tensor v, Tensor rowmax, "
+            "Tensor rowsum, Tensor slab_col, Tensor mask_col, "
+            "Tensor? sup_entries, Tensor? sup_offs, int w, int ibs, "
+            "bool with_s, float slope) -> Tensor")
+
+
+def _attn_stats_cpu(a1x, a2x, mask_row, w, ibs, slope):
+    kernels.OP_CALLS["stats_call", a1x.dtype] += 1
+    return stats_plain(a1x, a2x, mask_row, w=w, ibs=ibs, slope=slope)
+
+
+def _attn_stats_cuda(a1x, a2x, mask_row, w, ibs, slope):
+    dt = kernels.io_dtype("stats_call", a1x)
+    kernels.check_inputs("stats_call", a1x=(a1x, dt), a2x=(a2x, dt),
+                         mask_row=(mask_row, dt))
+    _check_tile("stats_call", ibs)
+    Q, Np = a1x.shape
+    f32 = torch.float32
+    rowmax = torch.empty((Q, Np), dtype=f32, device=a1x.device)
+    rowsum = torch.empty((Q, Np), dtype=f32, device=a1x.device)
+    if Q == 0:
+        return rowmax, rowsum
+    err = kernels.entry("gnt_attn_stats", dt)(
+        a1x.data_ptr(), a2x.data_ptr(), mask_row.data_ptr(),
+        rowmax.data_ptr(), rowsum.data_ptr(), Q, Np, Np // ibs, w, ibs, slope,
+        kernels.stream())
+    kernels.check(err, "stats_call")
+    stats_call.launches += 1
+    kernels.OP_CALLS["stats_call", dt] += 1
+    return rowmax, rowsum
+
+
+def _attn_apply_cpu(a1x, a2x, v, rowmax, rowsum, slab_col, mask_col,
+                    sup_entries, sup_offs, w, ibs, with_s, slope):
+    kernels.OP_CALLS["apply_call", v.dtype] += 1
+    return apply_plain(a1x, a2x, v, rowmax, rowsum, slab_col, mask_col, w=w,
+                       ibs=ibs, with_s=with_s, slope=slope)
+
+
+def _attn_apply_cuda(a1x, a2x, v, rowmax, rowsum, slab_col, mask_col,
+                     sup_entries, sup_offs, w, ibs, with_s, slope):
+    dt, f32 = kernels.io_dtype("apply_call", v), torch.float32
+    kernels.check_inputs("apply_call", a1x=(a1x, dt), a2x=(a2x, dt),
+                         v=(v, dt), rowmax=(rowmax, f32),
+                         rowsum=(rowsum, f32), slab_col=(slab_col, dt),
+                         mask_col=(mask_col, dt))
+    _check_tile("apply_call", ibs)
+    sup = _lists_ptrs("apply_call", SupportLists(sup_entries, sup_offs),
+                      mask_col)
+    Q, F, Np = v.shape
+    y = torch.empty((Q, F, Np), dtype=dt, device=v.device)
+    if Q == 0 or F == 0:
+        return y
+    err = kernels.entry("gnt_attn_apply", dt)(
+        a1x.data_ptr(), a2x.data_ptr(), v.data_ptr(), rowmax.data_ptr(),
+        rowsum.data_ptr(), slab_col.data_ptr(), *sup, y.data_ptr(), Q, F,
+        Np, Np // ibs, w, ibs, int(with_s), slope, kernels.stream())
+    kernels.check(err, "apply_call")
+    apply_call.launches += 1
+    kernels.OP_CALLS["apply_call", dt] += 1
+    return y
+
+
+_LIB.impl("attn_stats", _attn_stats_cpu, "CPU")
+_LIB.impl("attn_stats", _attn_stats_cuda, "CUDA")
+_LIB.impl("attn_apply", _attn_apply_cpu, "CPU")
+_LIB.impl("attn_apply", _attn_apply_cuda, "CUDA")
+
+
+@torch.library.register_fake("gnt::attn_stats", lib=_LIB)
+def _(a1x, a2x, mask_row, w, ibs, slope):
+    return (a1x.new_empty(a1x.shape, dtype=torch.float32),
+            a1x.new_empty(a1x.shape, dtype=torch.float32))
+
+
+@torch.library.register_fake("gnt::attn_apply", lib=_LIB)
+def _(a1x, a2x, v, rowmax, rowsum, slab_col, mask_col, sup_entries,
+      sup_offs, w, ibs, with_s, slope):
+    return torch.empty_like(v)
+
+
+# Flop counts over every score of the window tiles, Q * nb * W * ibs^2 (the
+# function the JAX kernels compute tile by tile; the CUDA kernels run the
+# scores on the support only, so they do fewer): stats 5 a score (the
+# pre-activation add, the LeakyReLU multiply, the max, the subtraction and
+# the sum's add; the exp is a transcendental, not counted), apply 2F + 6 a
+# score (the pre-activation add and LeakyReLU multiply, the subtraction,
+# the reciprocal's and the mask's multiplies, the slab's multiply, and a
+# multiply-add for each of the F features).
+@register_flop_formula(torch.ops.gnt.attn_stats)
+def _(a1x_shape, a2x_shape, mask_row_shape, *args, out_shape=None,
+      **kwargs) -> int:
+    return 5 * a1x_shape[0] * math.prod(mask_row_shape)
+
+
+@register_flop_formula(torch.ops.gnt.attn_apply)
+def _(a1x_shape, a2x_shape, v_shape, rowmax_shape, rowsum_shape,
+      slab_col_shape, *args, out_shape=None, **kwargs) -> int:
+    Q, F, _ = v_shape
+    return (2 * F + 6) * Q * math.prod(slab_col_shape)
+
+
+_ATTN_STATS = torch.ops.gnt.attn_stats.default
+_ATTN_APPLY = torch.ops.gnt.attn_apply.default
+
 
 
 # A block's shared memory on the card (attn_bwd_kernel's layout is

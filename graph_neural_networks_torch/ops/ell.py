@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 __all__ = ["EllGso", "ell_from_dense", "ell_topk", "ell_to_dense",
            "ell_shift", "ell_shift_rows", "EllShiftRows"]
@@ -73,6 +74,18 @@ class EllGso:
     def __repr__(self):
         return (f"EllGso(lead={tuple(self.idx.shape[:-2])}, N={self.n}, "
                 f"D={self.d}, E={self.n_edge_features})")
+
+
+# A pytree node (the JAX package registers it with jax.tree_util): padding,
+# casting and torch.export see its two leaves, idx and val.
+_pytree.register_pytree_node(
+    EllGso,
+    lambda e: ([e.idx, e.val], None),
+    lambda leaves, _: EllGso(*leaves),
+    serialized_type_name="graph_neural_networks_torch.ops.ell.EllGso",
+    flatten_with_keys_fn=lambda e: ([(_pytree.GetAttrKey("idx"), e.idx),
+                                     (_pytree.GetAttrKey("val"), e.val)],
+                                    None))
 
 
 def ell_from_dense(S, d_max=None) -> EllGso:
@@ -138,7 +151,8 @@ class EllShiftRows(torch.autograd.Function):
     (No*D, E*G) rows of every call would otherwise stay alive until the
     backward (20 GB over 50 steps of a 262,144-agent batch). The backward
     adds grad_y x val into the source rows with one ``index_add_``. The
-    table is data, not a parameter: val gets no gradient.
+    table is data, not a parameter: val gets no gradient. val may be f32 or
+    bf16; it is taken in x's dtype (a bf16 engine serves both in bf16).
     """
 
     @staticmethod

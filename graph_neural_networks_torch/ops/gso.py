@@ -72,20 +72,41 @@ class Gso:
     def E(self) -> int:
         return self.n_edge_features
 
-    def to(self, device) -> "Gso":
-        """A copy with every tensor on `device`; self when they all are
-        there already (so what is cached on it, such as the attention
-        band structure, is kept)."""
-        dev = torch.device(device)
-        tensors = [getattr(self, f.name) for f in dataclasses.fields(self)]
-        if all(t.device.type == dev.type
-               and dev.index in (None, t.device.index)
-               for t in tensors if isinstance(t, torch.Tensor)):
+    def to(self, device=None, dtype=None) -> "Gso":
+        """A copy with every tensor on `device` and the float ones (S, the
+        band slabs, the BCSR blocks) in `dtype` (the int32 structure kept);
+        self when nothing changes, so what is cached on it (the attention
+        band structure of ``attention_flash.band_auxes``) is kept. A copy
+        in another dtype on the same device casts that cache too, and
+        rebuilds nothing; a copy on another device drops it (its first
+        use builds it there)."""
+        dev = None if device is None else torch.device(device)
+        tensors = [t for t in (getattr(self, f.name)
+                               for f in dataclasses.fields(self))
+                   if isinstance(t, torch.Tensor)]
+        moves = dev is not None and not all(
+            t.device.type == dev.type and dev.index in (None, t.device.index)
+            for t in tensors)
+        casts = dtype is not None and any(
+            t.is_floating_point() and t.dtype != dtype for t in tensors)
+        if not (moves or casts):
             return self
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+
+        def conv(t):
+            if moves:
+                t = t.to(dev)
+            if casts and t.is_floating_point():
+                t = t.to(dtype)
+            return t
+
+        out = dataclasses.replace(self, **{
+            f.name: conv(getattr(self, f.name))
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+        auxes = getattr(self, "_band_auxes", None)
+        if auxes is not None and not moves:
+            out._band_auxes = [type(aux)(*map(conv, aux)) for aux in auxes]
+        return out
 
 
 def _normalize_dense(S) -> np.ndarray:
@@ -225,11 +246,12 @@ def gshift_register(gso, x: torch.Tensor, K: int) -> torch.Tensor:
     """The K-tap shift register [x, xS, ..., xS^{K-1}] stacked on a new
     axis: (B, E, G, N) -> (B, E, K, G, N).
 
-    On the band layout with f32 signals and at most
-    ``spmm.REGISTER_MAX_ROWS`` rows (B*G) it runs the fused
-    :func:`spmm.band_shift_register`, one launch per edge feature for all
-    K taps, when the kernel takes the block size and bandwidth
-    (``spmm.register_fits``).
+    On the band layout with f32 or bf16 signals (the slab in the same
+    dtype) and at most ``spmm.REGISTER_MAX_ROWS`` rows (B*G) it runs the
+    fused :func:`spmm.band_shift_register`, one launch per edge feature for
+    all K taps, when the kernel takes the block size and bandwidth
+    (``spmm.register_fits``). (The JAX package chains bf16 signals, a speed
+    rule of its TPU; both compute each tap rounded to bf16.)
     Everywhere else (an EdgeList too, as in the JAX package) it chains
     K-1 :func:`gshift` calls.
     """
@@ -238,7 +260,7 @@ def gshift_register(gso, x: torch.Tensor, K: int) -> torch.Tensor:
     rows = x.shape[0] * x.shape[2] if x.ndim == 4 else 0
     fused = (
         isinstance(gso, Gso) and gso.mode == "band"
-        and x.dtype == torch.float32 and x.ndim == 4
+        and x.dtype in (torch.float32, torch.bfloat16) and x.ndim == 4
         and gso.s_band.dtype == x.dtype
         and rows <= spmm.REGISTER_MAX_ROWS
         and spmm.register_fits(gso.block_size, gso.band_w)

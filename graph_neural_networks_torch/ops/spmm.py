@@ -17,10 +17,22 @@ Kernels (``kernels/csrc/spmm.cu``), each behind a wrapper of the same name:
   * :func:`band_shift_register` -- [x, xS, ..., xS^{K-1}] in one launch.
   * :func:`bcsr_matmul` -- y = x @ S on the BCSR blocks.
 
-A wrapper runs its ``*_plain`` version when x lies on the CPU, and
-launches its kernel when x lies on a CUDA device; it never falls back from
-one to the other. Each kernel launch adds one to the wrapper's
-``launches`` count.
+Each kernel has an f32 and a bf16 io instance: x and S in one of the two
+dtypes, y in the same, the products accumulated in f32 (the JAX kernels'
+f32 accumulator). The plain versions take bf16 too: they compute in f32 and
+round y (each tap of the register) to bf16, where the JAX kernels round.
+
+Each wrapper calls a ``torch.library`` op of the ``gnt`` namespace
+(``torch.ops.gnt.band_matmul``, ``band_shift_register``, ``bcsr_matmul``)
+with a CPU implementation (the plain version), a CUDA one (the kernel
+launch) and a fake one (the output's shape, for ``torch.export`` and
+``FlopCounterMode``), and a flop formula (``register_flop_formula``). So a
+wrapper runs its ``*_plain`` version when x lies on the CPU, and launches
+its kernel when x lies on a CUDA device; it never falls back from one to
+the other. Each kernel launch adds one to the wrapper's ``launches``
+count, and each call of an op one to ``kernels.OP_CALLS[name, dtype]``.
+On the CPU a call that needs a gradient runs the plain version directly
+(the op records none).
 
 Gradients go through three ``torch.autograd.Function``s, the JAX package's
 custom VJPs (S is structure, not differentiated): :class:`BandShift`
@@ -35,10 +47,12 @@ raise NotImplementedError naming the Function to call.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from graph_neural_networks_torch import kernels
 
@@ -200,9 +214,19 @@ def register_fits(block_size: int, w: int) -> bool:
 # Plain PyTorch versions (CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand upcast to f32 (the plain versions compute in f32);
+    f32 (and f64) as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def band_matmul_plain(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
                       w: int, block_size: int = 128) -> torch.Tensor:
-    """y = x @ S for S in the band layout: x (R, N) -> y (R, n_cols)."""
+    """y = x @ S for S in the band layout: x (R, N) -> y (R, n_cols).
+    bf16 x and s_band: computed in f32, y rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return band_matmul_plain(_f32(x), _f32(s_band), n_cols=n_cols, w=w,
+                                 block_size=block_size).to(x.dtype)
     R, N = x.shape
     bs = block_size
     nb = _cdiv(n_cols, bs)
@@ -225,7 +249,8 @@ def band_shift_register_plain(x: torch.Tensor, s_band: torch.Tensor, *,
                               n_taps: int, n_cols: int, w: int,
                               block_size: int = 128) -> torch.Tensor:
     """(R, N) -> (K, R, N) = [x, xS, ..., xS^{K-1}] for S in the band
-    layout."""
+    layout; in bf16 each tap is rounded before the next reads it (the JAX
+    kernel's io-dtype buffer)."""
     zs = [x]
     for _ in range(1, n_taps):
         zs.append(band_matmul_plain(zs[-1], s_band, n_cols=n_cols, w=w,
@@ -238,7 +263,12 @@ def bcsr_matmul_plain(x: torch.Tensor, blocks: torch.Tensor,
                       n_cols: int, block_size: int = 128) -> torch.Tensor:
     """y = x @ S for S in the BCSR layout: gather x's block columns by
     block_row, one product per block, add into output block columns by
-    block_col. x (R, N) sits on its own block grid; y is (R, n_cols)."""
+    block_col. x (R, N) sits on its own block grid; y is (R, n_cols).
+    bf16 x and blocks: computed in f32, y rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return bcsr_matmul_plain(_f32(x), _f32(blocks), block_row, block_col,
+                                 n_cols=n_cols,
+                                 block_size=block_size).to(x.dtype)
     R, N = x.shape
     bs = block_size
     nb_in, nb_out = _cdiv(N, bs), _cdiv(n_cols, bs)
@@ -251,26 +281,177 @@ def bcsr_matmul_plain(x: torch.Tensor, blocks: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers
+# The ops (torch.library): CPU = the plain version, CUDA = the kernel
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(name: str, block_size: int, **tensors) -> None:
-    kernels.check_inputs(name, **tensors)
+_LIB = torch.library.Library("gnt", "FRAGMENT")
+_LIB.define("band_matmul(Tensor x, Tensor s_band, int n_cols, int w, "
+            "int block_size) -> Tensor")
+_LIB.define("band_shift_register(Tensor x, Tensor s_band, int n_taps, "
+            "int n_cols, int w, int block_size) -> Tensor")
+_LIB.define("bcsr_matmul(Tensor x, Tensor blocks, Tensor block_row, "
+            "Tensor block_col, Tensor? col_start, int n_cols, "
+            "int block_size) -> Tensor")
+
+
+def _check_kernel_inputs(name: str, block_size: int, x: torch.Tensor,
+                         **tensors) -> torch.dtype:
+    """The io dtype (x's: f32 or bf16); raises unless every float operand
+    has it, the structure is int32, every tensor is contiguous and the
+    block size tiles."""
+    dt = kernels.io_dtype(name, x)
+    kernels.check_inputs(name, x=(x, dt), **{
+        arg: (t, dt if t.is_floating_point() else torch.int32)
+        for arg, t in tensors.items()})
     if block_size % TILE_N:
         raise ValueError(f"{name}: the CUDA kernel needs block_size a "
                          f"multiple of {TILE_N}, got {block_size}")
+    return dt
 
+
+def _band_matmul_cpu(x, s_band, n_cols, w, block_size):
+    kernels.OP_CALLS["band_matmul", x.dtype] += 1
+    return band_matmul_plain(x, s_band, n_cols=n_cols, w=w,
+                             block_size=block_size)
+
+
+def _band_matmul_cuda(x, s_band, n_cols, w, block_size):
+    dt = _check_kernel_inputs("band_matmul", block_size, x, s_band=s_band)
+    R, N = x.shape
+    y = torch.empty((R, n_cols), dtype=dt, device=x.device)
+    if R == 0:
+        return y
+    err = kernels.entry("gnt_band_matmul", dt)(
+        x.data_ptr(), s_band.data_ptr(), y.data_ptr(), R, N, n_cols,
+        _cdiv(n_cols, block_size), w, block_size, kernels.stream())
+    kernels.check(err, "band_matmul")
+    band_matmul.launches += 1
+    kernels.OP_CALLS["band_matmul", dt] += 1
+    return y
+
+
+def _band_shift_register_cpu(x, s_band, n_taps, n_cols, w, block_size):
+    kernels.OP_CALLS["band_shift_register", x.dtype] += 1
+    return band_shift_register_plain(x, s_band, n_taps=n_taps, n_cols=n_cols,
+                                     w=w, block_size=block_size)
+
+
+def _band_shift_register_cuda(x, s_band, n_taps, n_cols, w, block_size):
+    dt = _check_kernel_inputs("band_shift_register", block_size, x,
+                              s_band=s_band)
+    if not register_fits(block_size, w):
+        raise ValueError(f"band_shift_register: the slab panel of w={w}, "
+                         f"bs={block_size} does not fit a block's shared "
+                         f"memory ({register_smem_bytes(block_size, w)} > "
+                         f"{SMEM_PER_BLOCK} bytes); chain band_matmul "
+                         "instead")
+    R, N = x.shape
+    out = torch.empty((n_taps, R, N), dtype=dt, device=x.device)
+    if R == 0:
+        return out
+    err = kernels.entry("gnt_band_register", dt)(
+        x.data_ptr(), s_band.data_ptr(), out.data_ptr(), R, N,
+        _cdiv(n_cols, block_size), w, block_size, n_taps, kernels.stream())
+    kernels.check(err, "band_shift_register")
+    band_shift_register.launches += 1
+    kernels.OP_CALLS["band_shift_register", dt] += 1
+    return out
+
+
+def _bcsr_matmul_cpu(x, blocks, block_row, block_col, col_start, n_cols,
+                     block_size):
+    kernels.OP_CALLS["bcsr_matmul", x.dtype] += 1
+    return bcsr_matmul_plain(x, blocks, block_row, block_col, n_cols=n_cols,
+                             block_size=block_size)
+
+
+def _bcsr_matmul_cuda(x, blocks, block_row, block_col, col_start, n_cols,
+                      block_size):
+    dt = _check_kernel_inputs("bcsr_matmul", block_size, x, blocks=blocks,
+                              block_row=block_row, block_col=block_col)
+    if col_start is None:
+        col_start = bcsr_col_start(block_col, n_cols, block_size)
+    kernels.check_inputs("bcsr_matmul", col_start=(col_start, torch.int32))
+    R, N = x.shape
+    y = torch.empty((R, n_cols), dtype=dt, device=x.device)
+    if R == 0:
+        return y
+    err = kernels.entry("gnt_bcsr_matmul", dt)(
+        x.data_ptr(), blocks.data_ptr(), block_row.data_ptr(),
+        col_start.data_ptr(), y.data_ptr(), R, N, n_cols, block_size,
+        kernels.stream())
+    kernels.check(err, "bcsr_matmul")
+    bcsr_matmul.launches += 1
+    kernels.OP_CALLS["bcsr_matmul", dt] += 1
+    return y
+
+
+for _name, _cpu, _cuda in (
+        ("band_matmul", _band_matmul_cpu, _band_matmul_cuda),
+        ("band_shift_register", _band_shift_register_cpu,
+         _band_shift_register_cuda),
+        ("bcsr_matmul", _bcsr_matmul_cpu, _bcsr_matmul_cuda)):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+
+
+@torch.library.register_fake("gnt::band_matmul", lib=_LIB)
+def _(x, s_band, n_cols, w, block_size):
+    return x.new_empty((x.shape[0], n_cols))
+
+
+@torch.library.register_fake("gnt::band_shift_register", lib=_LIB)
+def _(x, s_band, n_taps, n_cols, w, block_size):
+    return x.new_empty((n_taps,) + tuple(x.shape))
+
+
+@torch.library.register_fake("gnt::bcsr_matmul", lib=_LIB)
+def _(x, blocks, block_row, block_col, col_start, n_cols, block_size):
+    return x.new_empty((x.shape[0], n_cols))
+
+
+# Flop counts: the JAX kernels' pl.CostEstimate (ops/spmm.py:203-206 for
+# bcsr_matmul, :668-671 for band_matmul) on the rows the port computes (it
+# pads none): 2 flops for each entry of each stored block a row meets (the
+# band slab's off-matrix blocks included, as there); the register K-1
+# band_matmuls.
+@register_flop_formula(torch.ops.gnt.band_matmul)
+def _(x_shape, s_band_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * math.prod(s_band_shape)
+
+
+@register_flop_formula(torch.ops.gnt.band_shift_register)
+def _(x_shape, s_band_shape, n_taps, *args, out_shape=None, **kwargs) -> int:
+    return (n_taps - 1) * 2 * x_shape[0] * math.prod(s_band_shape)
+
+
+@register_flop_formula(torch.ops.gnt.bcsr_matmul)
+def _(x_shape, blocks_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * math.prod(blocks_shape)
+
+
+_BAND_MATMUL = torch.ops.gnt.band_matmul.default
+_BAND_SHIFT_REGISTER = torch.ops.gnt.band_shift_register.default
+_BCSR_MATMUL = torch.ops.gnt.bcsr_matmul.default
+
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
 
 def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
                 w: int, block_size: int = 128) -> torch.Tensor:
     """y = x @ S for block-banded S: x (R, N), s_band (nb, (2w+1)*bs, bs)
-    with nb = ceil(n_cols / bs) -> y (R, n_cols). x's columns past N count
-    as zero (N <= nb*bs).
+    with nb = ceil(n_cols / bs) -> y (R, n_cols), in x's dtype (f32 or
+    bf16; s_band in the same). x's columns past N count as zero (N <=
+    nb*bs).
 
     CUDA kernel: ``bcsr_matmul_kernel<BandBlocks>`` (above 64 rows) or
-    ``bcsr_narrow_kernel<BM, BandBlocks>`` in kernels/csrc/spmm.cu, the
-    BCSR mainloop on the band slab's blocks, replacing the Pallas kernel of
-    the JAX package's ``ops/spmm.py:band_matmul``.
+    ``bcsr_narrow_kernel<BM, BandBlocks>`` in kernels/csrc/spmm.cu (their
+    ``, bf16>`` instances in bf16), the BCSR mainloop on the band slab's
+    blocks, replacing the Pallas kernel of the JAX package's
+    ``ops/spmm.py:band_matmul``.
     """
     R, N = x.shape
     bs = block_size
@@ -280,19 +461,10 @@ def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
                          f"not fit n_cols={n_cols}, w={w}, bs={bs}")
     if N > nb * bs:
         raise ValueError(f"band_matmul: x has {N} columns, S only {nb * bs}")
-    if not kernels.on_cuda("band_matmul", x, s_band):
+    if not kernels.on_cuda("band_matmul", x, s_band) and kernels.needs_grad(
+            x, s_band):
         return band_matmul_plain(x, s_band, n_cols=n_cols, w=w, block_size=bs)
-    _check_kernel_inputs("band_matmul", bs, x=(x, torch.float32),
-                         s_band=(s_band, torch.float32))
-    y = torch.empty((R, n_cols), dtype=torch.float32, device=x.device)
-    if R == 0:
-        return y
-    err = kernels.library().gnt_band_matmul(
-        x.data_ptr(), s_band.data_ptr(), y.data_ptr(), R, N, n_cols, nb, w,
-        bs, kernels.stream())
-    kernels.check(err, "band_matmul")
-    band_matmul.launches += 1
-    return y
+    return _BAND_MATMUL(x, s_band, n_cols, w, bs)
 
 
 band_matmul.launches = 0
@@ -302,11 +474,12 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
                         n_taps: int, n_cols: int, w: int,
                         block_size: int = 128) -> torch.Tensor:
     """All K taps in one launch: x (R, N) -> (K, R, N) = [x, xS, ...,
-    xS^{K-1}], S in the band layout with n_cols == N.
+    xS^{K-1}] in x's dtype (f32 or bf16, each bf16 tap rounded before the
+    next reads it), S in the band layout with n_cols == N.
 
-    CUDA kernel: ``band_register_kernel`` in kernels/csrc/spmm.cu,
-    replacing the Pallas kernel of the JAX package's
-    ``ops/spmm.py:band_shift_register``.
+    CUDA kernel: ``band_register_kernel`` in kernels/csrc/spmm.cu (its
+    ``, bf16>`` instances in bf16), replacing the Pallas kernel of the JAX
+    package's ``ops/spmm.py:band_shift_register``.
     """
     R, N = x.shape
     bs = block_size
@@ -320,25 +493,11 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
         raise ValueError(f"band_shift_register: s_band "
                          f"{tuple(s_band.shape)} does not fit n_cols="
                          f"{n_cols}, w={w}, bs={bs}")
-    if not kernels.on_cuda("band_shift_register", x, s_band):
+    if not kernels.on_cuda("band_shift_register", x, s_band) and \
+            kernels.needs_grad(x, s_band):
         return band_shift_register_plain(x, s_band, n_taps=n_taps,
                                          n_cols=n_cols, w=w, block_size=bs)
-    _check_kernel_inputs("band_shift_register", bs, x=(x, torch.float32),
-                         s_band=(s_band, torch.float32))
-    if not register_fits(bs, w):
-        raise ValueError(f"band_shift_register: the slab panel of w={w}, "
-                         f"bs={bs} does not fit a block's shared memory "
-                         f"({register_smem_bytes(bs, w)} > {SMEM_PER_BLOCK} "
-                         "bytes); chain band_matmul instead")
-    out = torch.empty((n_taps, R, N), dtype=torch.float32, device=x.device)
-    if R == 0:
-        return out
-    err = kernels.library().gnt_band_register(
-        x.data_ptr(), s_band.data_ptr(), out.data_ptr(), R, N, nb, w, bs,
-        n_taps, kernels.stream())
-    kernels.check(err, "band_shift_register")
-    band_shift_register.launches += 1
-    return out
+    return _BAND_SHIFT_REGISTER(x, s_band, n_taps, n_cols, w, bs)
 
 
 band_shift_register.launches = 0
@@ -366,14 +525,16 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
                 col_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ S with S in the BCSR layout: x (R, N), blocks (nnzb, bs,
     bs), block_row/block_col (nnzb,) int32 sorted by column -> y (R,
-    n_cols). n_cols may differ from N: block_row indexes x's block
-    columns, block_col the output's. Empty output columns are zero.
-    col_start: the layout's segment offsets (:func:`bcsr_col_start`), as a
-    Gso caches them; without it the CUDA path computes them on the card.
+    n_cols), in x's dtype (f32 or bf16; blocks in the same). n_cols may
+    differ from N: block_row indexes x's block columns, block_col the
+    output's. Empty output columns are zero. col_start: the layout's
+    segment offsets (:func:`bcsr_col_start`), as a Gso caches them;
+    without it the CUDA path computes them on the card.
 
     CUDA kernel: ``bcsr_matmul_kernel`` (and ``bcsr_narrow_kernel`` at
-    most 64 rows) in kernels/csrc/spmm.cu, replacing the Pallas kernel of
-    the JAX package's ``ops/spmm.py:bcsr_matmul``.
+    most 64 rows) in kernels/csrc/spmm.cu (their ``, bf16>`` instances in
+    bf16), replacing the Pallas kernel of the JAX package's
+    ``ops/spmm.py:bcsr_matmul``.
     """
     R, N = x.shape
     bs = block_size
@@ -390,26 +551,11 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
                          f"does not fit n_cols={n_cols}, bs={bs}")
     cached = () if col_start is None else (col_start,)
     if not kernels.on_cuda("bcsr_matmul", x, blocks, block_row, block_col,
-                           *cached):
+                           *cached) and kernels.needs_grad(x, blocks):
         return bcsr_matmul_plain(x, blocks, block_row, block_col,
                                  n_cols=n_cols, block_size=bs)
-    _check_kernel_inputs("bcsr_matmul", bs, x=(x, torch.float32),
-                         blocks=(blocks, torch.float32),
-                         block_row=(block_row, torch.int32),
-                         block_col=(block_col, torch.int32))
-    if col_start is None:
-        col_start = bcsr_col_start(block_col, n_cols, bs)
-    kernels.check_inputs("bcsr_matmul", col_start=(col_start, torch.int32))
-    y = torch.empty((R, n_cols), dtype=torch.float32, device=x.device)
-    if R == 0:
-        return y
-    err = kernels.library().gnt_bcsr_matmul(
-        x.data_ptr(), blocks.data_ptr(), block_row.data_ptr(),
-        col_start.data_ptr(), y.data_ptr(), R, N, n_cols, bs,
-        kernels.stream())
-    kernels.check(err, "bcsr_matmul")
-    bcsr_matmul.launches += 1
-    return y
+    return _BCSR_MATMUL(x, blocks, block_row, block_col, col_start, n_cols,
+                        bs)
 
 
 bcsr_matmul.launches = 0

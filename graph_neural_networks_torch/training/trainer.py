@@ -29,7 +29,9 @@ gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
 host-numpy store (``Flocking(...)``, ``Flocking.large``) or the
 device-resident one (``Flocking.large_device``: the grid kernels recompute
 each batch's supervision). ``TrainerSingleNode`` trains on the output at
-each sample's target node (MovieLens). Not ported yet: bf16 mixed precision (``precision="bf16"``: the kernels take f32 only).
+each sample's target node (MovieLens). Not ported yet: bf16 mixed
+precision (``precision="bf16"``): it waits for the backward kernels in bf16
+(ROADMAP item 1); the forward kernels of serving take bf16.
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
 dispatches each step eagerly, and CUDA graphs would be the tool for that
@@ -113,8 +115,10 @@ class Trainer:
         self.precision = kwargs.get("precision")
         if self.precision == "bf16":
             raise NotImplementedError(
-                "Trainer(precision='bf16'): bf16 training is not ported "
-                "(ROADMAP queue 1, bf16 training); the kernels take f32")
+                "Trainer(precision='bf16'): bf16 training waits for ROADMAP "
+                "item 1's backward kernels in bf16 (kernel 9 and the "
+                "shifts on the transposed layouts); bf16 serving is "
+                "InferenceEngine(dtype=torch.bfloat16)")
         if self.precision not in (None, "f32"):
             raise ValueError(f"unknown precision {self.precision!r}")
         self.rng = np.random.default_rng(kwargs.get("seed", 0))

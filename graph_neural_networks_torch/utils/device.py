@@ -13,7 +13,9 @@ def resolve_device(device="cuda") -> torch.device:
     CUDA this also turns TF32 off for matmuls and cuDNN, because the port
     is held to the JAX package's true-f32 numbers (its ``Gso.precision``
     defaults to 'highest'): the lsigf contraction and the MLP readout go
-    through ``torch.matmul``.
+    through ``torch.matmul``. It also turns off cuBLAS's reduced-precision
+    reductions of bf16 products, so a bf16 GEMM accumulates in f32 as the
+    JAX package's bf16 dots do.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -23,6 +25,8 @@ def resolve_device(device="cuda") -> torch.device:
                 "to run the plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -40,6 +40,11 @@ def load_flax_params(arch, params) -> None:
     permutation such as a flax Conv kernel's (2, 1, 0)). Raises KeyError
     if a leaf on either side is left unmatched, ValueError on a shape
     mismatch.
+
+    The weights arrive in f32 (a JAX tree of bf16 leaves too). bf16
+    serving needs no transplant of its own: ``serving.InferenceEngine(...,
+    dtype=torch.bfloat16)`` casts a copy of the model after the transplant,
+    as the JAX engine casts its params (``serving._cast_floats``).
     """
     names = arch.flax_names()
     tree = params["params"] if "params" in params else params
