@@ -341,22 +341,28 @@ def phase_build():
     kernels.library()
     emit(phase="build", seconds=secs, sources=list(kernels.SOURCES))
     # every kernel's registers and local (spill) bytes, as the runtime
-    # loaded them
+    # loaded them; the graph-shift kernels' dynamic shared memory a block
+    # on band_n4096's layout (kernels.SMEM_LAYOUT)
     attrs = kernels.attributes()
     emit(phase="kernel_attributes", source="cudaFuncGetAttributes",
          kernels=attrs)
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 42, f"{len(attrs)} kernels in the library's "
-            "tables, not 42 (12 kernels; band_register_kernel in 4 "
+    require(len(attrs) == 46, f"{len(attrs)} kernels in the library's "
+            "tables, not 46 (12 kernels; band_register_kernel in 4 "
             "instances; bcsr_matmul_kernel and its 3 narrow-tile "
             "instances on 2 block layouts, BCSR and band, 8; "
             "attn_apply_kernel in 6, attn_stats_kernel and attn_bwd_kernel "
             "in 2 each, table_transpose_kernel in 2; and the bf16-io "
-            "instances: the 8 mainloop and 4 register ones, "
+            "instances: bcsr_mma_kernel in 5 tiles on 2 block layouts, 10, "
+            "band_register_mma_kernel in 3 tiles x 2 stagings, 6, "
             "attn_stats_kernel<false> and the 3 attn_apply_kernel<false, "
-            "G>, 16)")
+            "G>, 20)")
+    for name, a in attrs.items():
+        if name.endswith(", bf16>") and "attn" not in name:
+            require(a["dynamic_shared_bytes"] > 0,
+                    f"{name}: no dynamic shared memory reported")
 
 
 def _band_case(rng, N, bs, w_target):
@@ -667,15 +673,16 @@ SWEEP_ROWS = (1, 8, 32, 64, 128, 256, 512, 1024, 2048)
 def _register_sweep(sb, Sd, N, w, dev):
     """band_shift_register against its two alternatives, K-1 chained
     band_matmul (what gso.gshift_register runs above REGISTER_MAX_ROWS)
-    and K-1 chained torch.matmul(z, S_dense), at each swept row count;
-    `register_wins_up_to` is the largest row count up to which the
-    register beats the chained band_matmul at every swept count."""
+    and K-1 chained torch.matmul(z, S_dense), at each swept row count, in
+    the slab's dtype (f32 or bf16); `register_wins_up_to` is the largest
+    row count up to which the register beats the chained band_matmul at
+    every swept count."""
     import torch
     from graph_neural_networks_torch.ops import spmm
     rows = []
     for R in SWEEP_ROWS:
-        x = torch.randn(R, N, device=dev)
-        out = torch.empty(TAPS, R, N, device=dev)
+        x = torch.randn(R, N, device=dev).to(sb.dtype)
+        out = torch.empty(TAPS, R, N, device=dev, dtype=sb.dtype)
 
         def chained_band():
             z = x
@@ -698,7 +705,8 @@ def _register_sweep(sb, Sd, N, w, dev):
         if row["register_ms"] >= row["chained_band_matmul_ms"]:
             break
         wins = row["R"]
-    return dict(N=N, w=w, K=TAPS, rows=rows, register_wins_up_to=wins,
+    return dict(N=N, w=w, K=TAPS, dtype=str(sb.dtype).split(".")[-1],
+                rows=rows, register_wins_up_to=wins,
                 REGISTER_MAX_ROWS=spmm.REGISTER_MAX_ROWS)
 
 
@@ -7536,7 +7544,8 @@ def phase_task_drivers(dev, out_dir):
 # ---------------------------------------------------------------------------
 
 # H100 SXM data-sheet dense bf16 tensor-core peak: the bf16 instances'
-# operation bound (they run f32 FMAs on the CUDA cores, so far from it)
+# operation bound (kernels 1-3 run their products on tensor cores by
+# mma.sync; 7-8 on the CUDA cores)
 BF16_FLOPS_PER_S = 989e12
 # A bf16 instance against its bf16 plain version: 2 ulps of the larger
 # magnitude for one rounding of an f32 accumulator (kernels 1, 3, 8), the
@@ -7605,11 +7614,14 @@ def _host_us(fn, calls=HOST_US_CALLS):
 
 def phase_bf16_kernels(graph, S_np, gat_gso, dev):
     """Each bf16 instance against its bf16 plain version at band_n4096's
-    shapes (R = 32 and 2048, K = 5; a ragged N = 4001 at R = 17) and
-    gat_band_n16384's (Q = 16, F = 32, w = 2), synchronized after each;
-    then each timed by CUDA events and graph_ms beside the f32 instance,
-    with its bound and x_bf16 @ S_dense_bf16; and a wrapper's host us a
-    call at R = 32 without and with the op registration."""
+    shapes (R = 32 and 2048, K = 5) and at the edges of the tensor-core
+    tiles (R = 1, 16, 17, 64, 65, 129; N = 4004 and the ragged 4001; an
+    empty BCSR segment; the register at K = 2 and on each of its panels),
+    and at gat_band_n16384's (Q = 16, F = 32, w = 2), synchronized after
+    each; then each timed by CUDA events and graph_ms beside the f32
+    instance, with its bound and x_bf16 @ S_dense_bf16; the bf16
+    register_sweep; and a wrapper's host us a call at R = 32 without and
+    with the op registration."""
     import torch
     from graph_neural_networks_torch.ops import attention_flash as af
     from graph_neural_networks_torch.ops import gso as gso_lib
@@ -7648,32 +7660,60 @@ def phase_bf16_kernels(graph, S_np, gat_gso, dev):
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=rng).to(bf)
 
-    # the graph shift at the served rows, and a ragged N (4001: the
-    # element-wise staging) at R = 17
-    n_rag = N - 95
-    for R in (BATCH, 2048, 17):
-        n_in = N if R != 17 else n_rag
-        x = randn(R, n_in)
-        check("bcsr_matmul", f"R={R} N={n_in}",
-              spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
-              spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N), BF16_ULPS)
-        check("band_matmul", f"R={R} N={n_in}",
-              spmm.band_matmul(x, sb, n_cols=N, w=w),
-              spmm.band_matmul_plain(x, sb, n_cols=N, w=w), BF16_ULPS)
-    g_rag = gso_lib.as_gso(S_np[:n_rag, :n_rag], "band", device=dev).to(
-        dtype=bf)
-    for R, n, s_band, ww in ((BATCH, N, sb, w), (2048, N, sb, w),
-                             (17, n_rag, g_rag.s_band[0], g_rag.band_w)):
+    # the graph shift at the served rows and on each side of the tensor-core
+    # tiles' row limits (m16 tiles: 16, 32, 64 rows narrow, 128 wide), at N
+    # = 4096 (16-byte staging), 4004 (N % 8 == 4: element-wise staging) and
+    # the ragged 4001
+    n_rag, n_8b = N - 95, N - 92
+    for R in (1, 16, 17, BATCH, 64, 65, 129, 2048):
+        for n_in in (N, n_8b, n_rag) if R in (17, 65, 2048) else (N,):
+            x = randn(R, n_in)
+            check("bcsr_matmul", f"R={R} N={n_in}",
+                  spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
+                  spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N), BF16_ULPS)
+            check("band_matmul", f"R={R} N={n_in}",
+                  spmm.band_matmul(x, sb, n_cols=N, w=w),
+                  spmm.band_matmul_plain(x, sb, n_cols=N, w=w), BF16_ULPS)
+    # an empty BCSR segment: block column 5 dropped from the layout
+    keep = bc != 5
+    bl5, br5, bc5 = (bl[keep].contiguous(), br[keep].contiguous(),
+                     bc[keep].contiguous())
+    for R in (BATCH, 2048):
+        x = randn(R, N)
+        y = spmm.bcsr_matmul(x, bl5, br5, bc5, n_cols=N)
+        torch.cuda.synchronize()
+        require(bool((y[:, 5 * bs:6 * bs] == 0).all()),
+                f"bf16 bcsr_matmul R={R}: the empty block column not zero")
+        check("bcsr_matmul", f"R={R} N={N} empty column 5", y,
+              spmm.bcsr_matmul_plain(x, bl5, br5, bc5, n_cols=N), BF16_ULPS)
+    del bl5, br5, bc5
+
+    # the register: the served rows, each side of its row limits (32-row
+    # narrow items up to 64 rows, 128-row wide ones above), K = 2 and 5;
+    # ragged N (4001, and 4004: element-wise staging); and its wide panels:
+    # 64 columns at w = 1 (above), 2 and 3, 32 at w = 5 (the fallback; the
+    # f32 kernel's widest band)
+    np_rng = np.random.default_rng(34)
+    cases = [(R, N, sb, w, K) for R in (1, 16, 17, BATCH, 64, 65, 129, 2048)
+             for K in ((2, TAPS) if R in (BATCH, 2048) else (TAPS,))]
+    for n in (n_rag, n_8b):
+        g = gso_lib.as_gso(S_np[:n, :n], "band", device=dev).to(dtype=bf)
+        cases += [(R, n, g.s_band[0], g.band_w, TAPS) for R in (17, 65)]
+    for we in (2, 3, 5):
+        g = gso_lib.as_gso(_band_case(np_rng, N, bs, we), "band",
+                           device=dev).to(dtype=bf)
+        require(g.band_w == we, f"band case has w={g.band_w}, not {we}")
+        cases += [(R, N, g.s_band[0], we, TAPS) for R in (BATCH, 256)]
+    for R, n, s_band, ww, K in cases:
         x = randn(R, n)
-        got = spmm.band_shift_register(x, s_band, n_taps=TAPS, n_cols=n,
-                                       w=ww)
-        want = spmm.band_shift_register_plain(x, s_band, n_taps=TAPS,
-                                              n_cols=n, w=ww)
+        got = spmm.band_shift_register(x, s_band, n_taps=K, n_cols=n, w=ww)
+        want = spmm.band_shift_register_plain(x, s_band, n_taps=K, n_cols=n,
+                                              w=ww)
         require(torch.equal(got[0], x), "bf16 register: tap 0 is not x")
-        for k in range(1, TAPS):
-            check("band_shift_register", f"R={R} N={n} tap {k}", got[k],
-                  want[k], k + 1, scale=want[k].abs().max().item())
-    del g_rag
+        for k in range(1, K):
+            check("band_shift_register", f"R={R} N={n} w={ww} K={K} tap {k}",
+                  got[k], want[k], k + 1, scale=want[k].abs().max().item())
+    del cases, g
 
     # attention at the served shape, on the f32 model's band structure cast
     # to bf16 (cast from its cache, not rebuilt)
@@ -7763,6 +7803,11 @@ def phase_bf16_kernels(graph, S_np, gat_gso, dev):
         2 * (2 * Q * Np + 2 * Q * F * Np + twin) + 4 * 2 * Q * Np
         + aux.sup_entries.numel() * 2 + aux.sup_offs.numel() * 4,
         (2 * F + 7) * Q * support)
+
+    # the bf16 register against the bf16 chained band_matmul and chained
+    # torch.matmul at SWEEP_ROWS: measured, it moves no dispatch
+    # (REGISTER_MAX_ROWS is the f32 sweep's)
+    emit(phase="register_sweep_bf16", **_register_sweep(sb, Sd, N, w, dev))
 
     # the wrapper's host us a call at R = 32: the CUDA implementation
     # called directly (the wrapper before the op registration: the same

@@ -1,0 +1,49 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's bf16 phases alone, on one CUDA card.
+
+    python3 experiments/torch_bf16_phases.py
+
+Runs phase_device and phase_build, then phase_bf16_serving (band_n4096 in
+band, bcsr and dense mode and gat_band_n16384 served in bf16 beside f32,
+each forward profiled) and phase_bf16_kernels, early in a process: in the
+full chip_smoke.py they run last, where torch.profiler keeps only part of
+the kernel events. gat_band_n16384 is the untrained band model (its band
+structure built by one f32 request); its weights do not change the times.
+Prints chip_smoke.py's JSON lines.
+"""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from graph_neural_networks_torch.ops import gso as gso_lib  # noqa: E402
+from graph_neural_networks_torch.serving import InferenceEngine  # noqa: E402
+from graph_neural_networks_torch.utils.device import resolve_device  # noqa: E402
+
+
+def main() -> int:
+    dev = resolve_device("cuda")
+    cs.phase_device()
+    cs.timed("build", cs.phase_build)
+    S_np = cs.banded_graph(np.random.default_rng(0), cs.N_GRAPH, 256, 0.05)
+    graph = {m: gso_lib.as_gso(S_np, m, device=dev) for m in ("band", "bcsr")}
+    S, _ = cs.make_graph(cs.GAT_N, 0.01, 256, seed=1)
+    arch = cs._build_gat("GraphAttentionNetwork", S, "band", dev)
+    InferenceEngine(arch, cs.GAT_BATCH, dev)(
+        np.random.default_rng(4).standard_normal(
+            (1, cs.GAT_DIMS[0], cs.GAT_N)).astype(np.float32))
+    torch.cuda.synchronize()
+    cs.timed("bf16_serving", cs.phase_bf16_serving, S_np, arch,
+             np.random.default_rng(32), dev)
+    cs.timed("bf16_kernels", cs.phase_bf16_kernels, graph, S_np, arch.S, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

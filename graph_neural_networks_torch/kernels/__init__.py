@@ -31,8 +31,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each export in csrc/ but the kernel tables; all return
-# cudaError_t, but gnt_attn_bwd_smem_bytes a byte count and
-# gnt_attn_apply_group a row count. An entry ending in _bf16 is the bf16-io
+# cudaError_t, but gnt_attn_bwd_smem_bytes and gnt_spmm_smem_bytes a byte
+# count and gnt_attn_apply_group a row count. An entry ending in _bf16 is the bf16-io
 # instance of the entry without it, with the same arguments.
 _SIGNATURES = {
     # x, s_band, y, R, N, n_cols, nb, w, bs, stream
@@ -71,6 +71,9 @@ _SIGNATURES = {
     "gnt_attn_apply_group": (_I, _I, _I),
     # kernel (from a table below), out (4 ints): cudaFuncGetAttributes
     "gnt_kernel_attributes": (_P, _P),
+    # i (of gnt_spmm_kernel's table), w, bs: that kernel's dynamic shared
+    # memory a block on such a layout, in bytes
+    "gnt_spmm_smem_bytes": (_I, _I, _I),
     # fs, starts, out, B, H, N, F, C, W, stream
     "gnt_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # mm, out, H, L, F, C, W, stream
@@ -182,10 +185,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# The layout (band w, block size) at which attributes() reports the
+# graph-shift kernels' dynamic shared memory: band_n4096's.
+SMEM_LAYOUT = (1, 128)
+
+
 def attributes() -> dict:
     """cudaFuncGetAttributes of every kernel of the library, by kernel
     name: its registers a thread, local (spill) bytes, static shared bytes
-    and most threads a block."""
+    and most threads a block; for the graph-shift kernels (spmm.cu) also
+    the dynamic shared bytes a block takes on a band of SMEM_LAYOUT."""
     lib = library()
     found = {}
     for table in _KERNEL_TABLES:
@@ -198,6 +207,9 @@ def attributes() -> dict:
             found[kernel] = dict(registers=out[0], local_bytes=out[1],
                                  static_shared_bytes=out[2],
                                  max_threads=out[3])
+            if table == "gnt_spmm_kernel":
+                found[kernel]["dynamic_shared_bytes"] = \
+                    lib.gnt_spmm_smem_bytes(i, *SMEM_LAYOUT)
             i += 1
     return found
 

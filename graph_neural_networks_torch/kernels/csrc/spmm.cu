@@ -1,40 +1,50 @@
-// Hopper (sm_90a) kernels for the graph shift y = x @ S, in true FP32.
-//
-// Each kernel has an instance for f32 io and one for bf16 io (template
-// parameter T, float or __nv_bfloat16): the bf16 instance reads bf16 x and
-// S, converts each element to f32 as it stages it into shared memory (the
-// tiles in shared memory and every FMA stay f32; a product of two bf16
-// values is exact in f32), and rounds to bf16 once, where it writes y (the
-// JAX kernels' f32 accumulator, ops/spmm.py:144 and :617). The register
-// kernel writes every tap in the io type before the next tap reads it, as
-// the JAX kernel's io-dtype zbuf does (ops/spmm.py:423-425). The bf16
-// staging is a plain load through L2 (8 bytes for 4 elements, 2 for one)
-// stored converted, not a cp.async: cp.async copies bytes and cannot
-// widen. So the bf16 instances do not overlap the next stage's loads with
-// the current stage's FMAs; a tensor-core mainloop for them is a later
-// redesign.
+// Hopper (sm_90a) kernels for the graph shift y = x @ S: an f32 and a bf16
+// instance of each.
 //
 // Three kernels, each the counterpart of one Pallas kernel of the JAX
 // package (graph_neural_networks_tpu/ops/spmm.py); band_matmul and
 // bcsr_matmul run one mainloop on two block layouts:
 //
-//   bcsr_matmul_kernel<BandBlocks>, bcsr_narrow_kernel<., BandBlocks>
+//   f32:  bcsr_matmul_kernel<BandBlocks>, bcsr_narrow_kernel<., BandBlocks>
+//   bf16: bcsr_mma_kernel<., BandBlocks<bf16>>
 //                         <- spmm.py:band_matmul (_make_band_kernel)
-//   bcsr_matmul_kernel<BcsrBlocks>, bcsr_narrow_kernel<., BcsrBlocks>
+//   f32:  bcsr_matmul_kernel<BcsrBlocks>, bcsr_narrow_kernel<., BcsrBlocks>
+//   bf16: bcsr_mma_kernel<., BcsrBlocks<bf16>>
 //                         <- spmm.py:bcsr_matmul (_make_bcsr_kernel)
-//   band_register_kernel  <- spmm.py:band_shift_register (_make_fused_kernel)
+//   f32:  band_register_kernel; bf16: band_register_mma_kernel
+//                         <- spmm.py:band_shift_register (_make_fused_kernel)
 //
-// What bounds them on an H100: the JAX default for f32 signals is true f32
-// (Precision.HIGHEST), so the products run as FP32 FMAs on the CUDA cores,
-// not on TF32 tensor cores (no wgmma: it needs TF32 or lower, which would
-// change the numbers the JAX reference produces). A band shift of an
-// (R, N) signal executes 2 R N (2w+1) bs flops against
-// 4 (2 R N + nb (2w+1) bs^2) bytes; at the serving shapes (R = 32 .. 2048,
-// bs = 128, w = 1) that is 12 .. 90 flops a byte, above the ~20 flop/byte
-// ridge of FP32 FMA (67 TFLOP/s over 3.35 TB/s) for the large R, so the
-// big shifts are bound by FP32 operations. The register at few rows
-// (R = 32) does 0.4 GFLOP in four dependent taps: it is bound by latency
-// and by how many SMs it keeps busy.
+// The f32 instances: the JAX default for f32 signals is true f32
+// (Precision.HIGHEST), so their products run as FP32 FMAs on the CUDA
+// cores, not on TF32 tensor cores (which would change the numbers the JAX
+// reference produces). A band shift of an (R, N) signal executes
+// 2 R N (2w+1) bs flops against 4 (2 R N + nb (2w+1) bs^2) bytes; at the
+// serving shapes (R = 32 .. 2048, bs = 128, w = 1) that is 12 .. 90 flops a
+// byte, above the ~20 flop/byte ridge of FP32 FMA (67 TFLOP/s over
+// 3.35 TB/s) for the large R, so the big f32 shifts are bound by FP32
+// operations. The register at few rows (R = 32) does 0.4 GFLOP in four
+// dependent taps: it is bound by latency and by how many SMs it keeps busy.
+//
+// The bf16 instances read bf16 x and S, accumulate in f32 and round y (each
+// tap of the register) to bf16 once, where the JAX kernels round
+// (ops/spmm.py:144 and :617; the register's io-dtype zbuf, :423-425). A
+// product of two bf16 values is exact in f32, so a tensor-core product with
+// an f32 accumulator computes the same function as f32 FMAs, its sums in
+// another order. Half the bytes of f32 and 989 TFLOP/s of bf16 products
+// put the ridge at ~295 flops a byte: the bf16 shift at R = 2048 (N = 4096,
+// w = 1) moves 36.7 MB against 6.4 GFLOP, so it is bound by bytes
+// (0.011 ms), but only on tensor cores: at the FP32 FMA rate its products
+// alone take 0.094 ms. So the bf16 instances keep bf16 in shared memory,
+// staged by 16-byte cp.async in a ring of stages (copies overlap the
+// products), and run the products as mma.sync.m16n8k16 (bf16 in, f32
+// accumulators): A fragments from x's row-major tile by ldmatrix, B
+// fragments from S's row-major (k, n) block by ldmatrix.trans. Every staged
+// row is padded by 16 bytes to an odd number of 16-byte units, so the 8 rows
+// an ldmatrix reads fall on distinct banks. mma.sync runs at a fraction of
+// the wgmma rate: on an H100 (chip_smoke.py's bf16_timing) the mainloop at
+// R = 2048 (N = 4096, w = 1) takes 0.038 ms, 3.5x its byte bound and half
+// the bf16 cuBLAS product's time, its products at ~170 TFLOP/s; wgmma and
+// TMA are untried.
 //
 // band_matmul and bcsr_matmul: y = x @ S over the blocks of each output
 // block column. The band slab is a BCSR in disguise: column j's segment
@@ -42,10 +52,10 @@
 // s_band[j, t bs : (t+1) bs], x block column j + t - w (BandBlocks); the
 // BCSR segment is col_start[j] .. col_start[j+1], built once with the
 // layout (BcsrBlocks). At R = 2048 rows (N = 4096, w = 1: 94 blocks) either
-// does 6.3 GFLOP against 8.4 MB of blocks and 67 MB of x and y: bound by
-// FP32 operations (0.094 ms); at R = 32 by the bytes of the blocks it
+// does 6.3 GFLOP against 8.4 MB of blocks and 67 MB of x and y in f32: bound
+// by FP32 operations (0.094 ms); at R = 32 by the bytes of the blocks it
 // must stream (6.2 MB, 2 us), and in practice by how many SMs the few
-// rows keep busy. Two tiles, picked by R:
+// rows keep busy. The f32 instances, two tiles picked by R:
 //  * above 64 rows, 128 x 64 outputs a block, 256 threads, an 8 x 4
 //    register tile a thread (4 + 8 16-byte shared loads for 128 FMAs: x
 //    read 4 k at a time along its rows, no transpose), 64-deep K-steps
@@ -58,13 +68,36 @@
 //    end: deterministic, and each S block streams once.
 // x rows go by 16-byte copies when N % 4 == 0, else by 4-byte ones (zero
 // filled past R and N either way), so the wrappers never copy x into a
-// padded buffer; the blocks by 16-byte copies.
+// padded buffer; the blocks by 16-byte copies. The bf16 instance
+// (bcsr_mma_kernel) keeps the two tile shapes on tensor cores:
+//  * above 64 rows, 128 x 128 outputs a block (one whole block column of
+//    S when bs % 128 == 0, so each x window is read from L2 once for every
+//    128 output columns, not every 64), 8 warps of 64 x 32, 3 stages of
+//    64-deep K-steps (35 KB each), 2 blocks an SM; 128 x 64 (4 stages)
+//    when bs is an odd multiple of 64 or the 128-column tiles would leave
+//    SMs idle (see launch_mma);
+//  * at most 64 rows, BM x 16 (BM = 16, 32, 64: the m16 tile of mma.sync
+//    holds R = 16, 32, 64 exactly), 4 warps, each one k16 slice of every
+//    64-deep step, 4 stages; the warps' partial tiles added in warp order.
+// x rows go by 16-byte copies (8 bf16) when N % 8 == 0 and x is 16-byte
+// aligned, else element by element; past R and N they read as zero.
 //
-// band_register_kernel: one cooperative launch of persistent blocks. Each
-// block owns a 32-column panel of the output, keeps that panel's
+// band_register_kernel (f32): one cooperative launch of persistent blocks.
+// Each block owns a 32-column panel of the output, keeps that panel's
 // (2w+1) bs rows of the band slab resident in shared memory for all K-1
 // taps, stages the previous tap's window with cp.async (double buffered),
 // and a grid-wide barrier orders the taps (see the kernel).
+// band_register_mma_kernel (bf16): the same launch, taps and resident
+// panel, the panel in bf16 and 64 columns wide above 64 rows where it fits
+// (two blocks an SM at w = 1, bs = 128), else 32; the previous tap's
+// slices staged by 16-byte cp.async in a ring that runs ahead across the
+// block's items, and the products on tensor cores as above. At many rows
+// a tap takes about what one block-mainloop call takes (R = 2048, N =
+// 4096, w = 1 on an H100: 4 taps 0.17-0.18 ms, one mainloop call 0.038):
+// both run their products at ~150-170 TFLOP/s, the mma.sync rate these
+// tiles reach with a barrier every 64-deep step. Its fallback panel (32
+// columns, 2 stages) takes less shared memory than the f32 kernel's, so it
+// runs every layout the f32 kernel runs.
 //
 // Every launcher has a plain C interface and returns the cudaError_t of the
 // launch; the Python wrappers raise if it is not cudaSuccess.
@@ -74,7 +107,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -106,7 +138,7 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // band_matmul and bcsr_matmul: one pipelined mainloop on two block layouts
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   // src-size 0 fills the 16 bytes with zeros and reads nothing
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -133,22 +165,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// The io types: f32, or bf16 converted to f32 when staged and rounded
-// (round to nearest even) when written.
+// The io type of the f32 instances below (T = float), and bf16 for the
+// bf16 instances (the tensor-core section).
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// The low and high bf16 of a 32-bit word as floats, and two floats rounded
-// to bf16 as one word (a at the lower address): whole-register moves, so
-// nothing goes through local memory.
-__device__ __forceinline__ float bf16_lo(unsigned u) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu)));
-}
-__device__ __forceinline__ float bf16_hi(unsigned u) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16)));
-}
+// two floats rounded (to nearest even) to bf16 as one word, a at the lower
+// address
 __device__ __forceinline__ unsigned bf16_pair(float a, float b) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
@@ -158,50 +182,25 @@ template <class T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
-// 4 consecutive bf16 (8 bytes, 8-byte aligned) read through L2, as floats
-__device__ __forceinline__ float4 load4_cg(const bf16* p) {
-  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
-}
-
-// 4 consecutive elements of the io type at p from 4 floats (16-byte
-// aligned for f32, 8-byte for bf16)
+// 4 consecutive floats at p (16-byte aligned)
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
-__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(a, b), bf16_pair(c, d));
-}
 
-// Stage 4 consecutive elements at src (or 4 zeros, nothing read, when
-// !valid) as floats at dst (16-byte aligned shared memory). f32: one
-// 16-byte cp.async, landed at the next cp_async_wait; bf16: an 8-byte load
-// through L2, converted and stored at once.
+// Stage 4 consecutive floats at src (or 4 zeros, nothing read, when
+// !valid) at dst (16-byte aligned shared memory): one 16-byte cp.async,
+// landed at the next cp_async_wait.
 __device__ __forceinline__ void stage4(float* dst, const float* src,
                                        bool valid) {
   cp_async16(dst, src, valid);
 }
-__device__ __forceinline__ void stage4(float* dst, const bf16* src,
-                                       bool valid) {
-  *reinterpret_cast<float4*>(dst) =
-      valid ? load4_cg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-}
 
-// Stage one element likewise (f32: a 4-byte cp.async).
+// Stage one float likewise (a 4-byte cp.async).
 __device__ __forceinline__ void stage1(float* dst, const float* src,
                                        bool valid) {
   cp_async4(dst, src, valid);
-}
-__device__ __forceinline__ void stage1(float* dst, const bf16* src,
-                                       bool valid) {
-  *dst = valid ? __bfloat162float(__ldcg(src)) : 0.f;
 }
 
 // Stage rows [r0, r0 + BM) x columns [xc, xc + KD) of x (R, N) into As
@@ -308,7 +307,8 @@ size_t bcsr_smem_bytes(int BM) {
 //    block t of column j is the slab's rows t bs .. (t+1) bs of j, x block
 //    column j + t - w; the segment is the t that keep that inside the
 //    matrix, max(0, w - j) .. min(2w+1, nb + w - j), computed, not read.
-// T: the io type of the blocks (that of x and y).
+// T: the io type of the blocks (that of x and y): float for
+// bcsr_matmul_kernel and bcsr_narrow_kernel, bf16 for bcsr_mma_kernel.
 template <class T>
 struct BcsrBlocks {
   using io = T;
@@ -405,9 +405,7 @@ bcsr_matmul_kernel(const T* __restrict__ x, const Blocks blk,
 // tiles, so that few rows still make n_cols / 16 blocks (256 at N = 4096),
 // and each S block streams once, in 64-byte rows of 16 columns. Grid
 // (n_cols / 16, R / BM), dynamic shared memory bcsr_smem_bytes(BM).
-// At least 2 blocks an SM (at most 128 registers a thread): what the f32
-// instances use; without it the bf16 instance at BM = 64 was given 64
-// registers and spilled.
+// At least 2 blocks an SM (at most 128 registers a thread).
 template <int BM, class Blocks, class T = typename Blocks::io>
 __global__ void __launch_bounds__(kCsrThreads, 2)
 bcsr_narrow_kernel(const T* __restrict__ x, const Blocks blk,
@@ -524,9 +522,7 @@ __device__ __forceinline__ void stage_slice(float* As,
 // accumulates a TM x 4 register tile over it in window order. Tap k reads
 // tap k-1, which every block wrote: one grid-wide barrier between taps
 // (K-2 in all), so the launch must be cooperative. Window blocks off the
-// matrix are skipped. Tap 0 is a copy of x. With bf16 io (T) the slab
-// panel and the staged slices are converted to f32 in shared memory, and
-// each tap is written in bf16: the next tap reads the rounded values.
+// matrix are skipped. Tap 0 is a copy of x.
 template <int TM, int KD, bool kVec, class T>
 __global__ void __launch_bounds__(kRegThreads)
 band_register_kernel(const T* __restrict__ x, const T* __restrict__ s_band,
@@ -545,10 +541,9 @@ band_register_kernel(const T* __restrict__ x, const T* __restrict__ s_band,
   // tap 0 is x itself
   const int64_t stride = (int64_t)gridDim.x * kRegThreads;
   if (kVec) {
-    // 4 elements a copy: 16 bytes of f32, 8 of bf16
-    using V4 = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
-    const V4* x4 = reinterpret_cast<const V4*>(x);
-    V4* o4 = reinterpret_cast<V4*>(out);
+    // 4 elements a copy
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
     for (int64_t e = (int64_t)blockIdx.x * kRegThreads + tid; e < plane / 4;
          e += stride)
       o4[e] = x4[e];
@@ -654,6 +649,435 @@ band_register_kernel(const T* __restrict__ x, const T* __restrict__ s_band,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances: the same three functions on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaKD = 64;   // a K-step's depth (bs % 64 == 0)
+constexpr int kMmaPad = 8;   // bf16 after each staged row: row strides of an
+                             // odd number of 16-byte units, so the 8 rows
+                             // of an ldmatrix fall on distinct banks
+constexpr int kMmaLDA = kMmaKD + kMmaPad;  // a staged x row, in bf16
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; register i holds matrix i, each lane two
+// elements of a row (.trans: of a column).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16,
+// column-major): each bf16 product exact, summed in f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's products over one k16 slice: acc[mi][ni], the 16 x 8 output
+// tile at rows 16 mi and columns 8 ni of the warp's tile, += A (16 rows x
+// k16; As at the warp's first row and the slice's first column, row stride
+// kMmaLDA) times B (k16 x 8 columns; Bs at the slice's first row and the
+// warp's first column, row stride LDB). A by ldmatrix (lanes 0-15 rows 0-15
+// at k 0, lanes 16-31 at k 8: the a0..a3 of mma.m16n8k16), B by
+// ldmatrix.trans of the row-major (k, n) tile (lanes 0-15 k 0-15 at n 0,
+// lanes 16-31 at n 8: b0, b1 of two n8 tiles).
+template <int MT, int NT8, int LDB>
+__device__ __forceinline__ void mma_k16(float (&acc)[MT][NT8][4],
+                                        const bf16* As, const bf16* Bs,
+                                        int lane) {
+  const int lr = lane % 16, lk = (lane / 16) * 8;
+  unsigned a[MT][4], b[NT8 / 2][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+    ldsm_x4(a[mi], As + (mi * 16 + lr) * kMmaLDA + lk);
+#pragma unroll
+  for (int nj = 0; nj < NT8 / 2; ++nj)
+    ldsm_x4_trans(b[nj], Bs + lr * LDB + nj * 16 + lk);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT8; ++ni)
+      mma_bf16(acc[mi][ni], a[mi], b[ni / 2][2 * (ni % 2)],
+               b[ni / 2][2 * (ni % 2) + 1]);
+}
+
+// Stage rows [r0, r0 + BM) x columns [xc, xc + 64) of x (R, N), bf16, into
+// As (row stride kMmaLDA); rows past R and columns past N read as zero.
+// vec: 8 elements a 16-byte cp.async.cg (N % 8 == 0, x 16-byte aligned),
+// else one element a load through L2. The register's taps are written by
+// other blocks of the launch: every form reads them from L2, never from a
+// stale L1 line.
+template <int BM, int NT>
+__device__ __forceinline__ void stage_x_mma(bf16* As, const bf16* __restrict__ x,
+                                            int R, int N, int r0, int xc,
+                                            bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < BM * (kMmaKD / 8); e += NT) {
+      const int r = e / (kMmaKD / 8), c = 8 * (e % (kMmaKD / 8));
+      const bool ok = r0 + r < R && xc + c < N;
+      cp_async16(As + r * kMmaLDA + c,
+                 ok ? x + (int64_t)(r0 + r) * N + xc + c : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * kMmaKD; e += NT) {
+      const int r = e / kMmaKD, c = e % kMmaKD;
+      As[r * kMmaLDA + c] =
+          r0 + r < R && xc + c < N
+              ? __ldcg(x + (int64_t)(r0 + r) * N + xc + c)
+              : __ushort_as_bfloat16((unsigned short)0);
+    }
+  }
+}
+
+// Stage rows [kd, kd + 64) x columns [lc, lc + BN) of one (bs, bs) bf16
+// block of S into Bs (row stride BN + kMmaPad), 8 elements a copy.
+template <int BN, int NT>
+__device__ __forceinline__ void stage_s_mma(bf16* Bs,
+                                            const bf16* __restrict__ blk,
+                                            int bs, int kd, int lc) {
+  for (int e = threadIdx.x; e < kMmaKD * (BN / 8); e += NT) {
+    const int r = e / (BN / 8), c = 8 * (e % (BN / 8));
+    cp_async16(Bs + r * (BN + kMmaPad) + c,
+               blk + (int64_t)(kd + r) * bs + lc + c, true);
+  }
+}
+
+// y[row, col], y[row, col + 1] (col even, row < rows of y) rounded from f32
+// to bf16: one 4-byte store (pair: ld even, y 4-byte aligned), else each
+// of the two that lies inside [0, ld).
+__device__ __forceinline__ void store_pair(bf16* y, int64_t ld, int row,
+                                           int col, float a, float b,
+                                           bool pair) {
+  bf16* d = y + row * ld + col;
+  if (pair) {
+    if (col < ld) *reinterpret_cast<unsigned*>(d) = bf16_pair(a, b);
+  } else {
+    if (col < ld) d[0] = __float2bfloat16_rn(a);
+    if (col + 1 < ld) d[1] = __float2bfloat16_rn(b);
+  }
+}
+
+// One tile of the bf16 block mainloop: BM x BN outputs a block, warps WM x
+// WN over the tile and WK over the four k16 slices of each 64-deep K-step
+// (WK > 1: the warps' partial tiles added in warp order at the end), a
+// ring of STAGES K-steps.
+template <int BM, int BN, int WM, int WN, int WK, int STAGES, int MIN_BLOCKS>
+struct MmaTile {
+  static constexpr int kBM = BM, kBN = BN, kWM = WM, kWN = WN, kWK = WK;
+  static constexpr int kStages = STAGES, kMinBlocks = MIN_BLOCKS;
+  static constexpr int kThreads = 32 * WM * WN * WK;
+  static constexpr int kLDB = BN + kMmaPad;
+  static constexpr int kStage = BM * kMmaLDA + kMmaKD * kLDB;  // bf16
+  static constexpr int kMT = BM / WM / 16, kNT8 = BN / WN / 8;
+  static constexpr size_t kRing = sizeof(bf16) * (size_t)STAGES * kStage;
+  static constexpr size_t kRed = WK > 1 ? sizeof(float) * (size_t)WK * BM * BN
+                                        : 0;
+  static constexpr size_t kSmem = kRing > kRed ? kRing : kRed;
+};
+// above kNarMaxRows rows: a whole 128-column block column of S (bs % 128
+// == 0) or 64 columns (launch_mma picks); at most kNarMaxRows rows,
+// BM x 16
+using MmaWide = MmaTile<128, 128, 2, 4, 1, 3, 2>;
+using MmaWide64 = MmaTile<128, 64, 4, 2, 1, 4, 2>;
+template <int BM>
+using MmaNarrow = MmaTile<BM, 16, 1, 1, 4, 4, 1>;
+
+// y (R, n_cols) = x (R, N) @ S in bf16 over the blocks of each output block
+// column (Blocks: BcsrBlocks<bf16> or BandBlocks<bf16>), f32 accumulators,
+// y rounded once. An empty segment writes zeros; x's columns past N read
+// as zero. vec_x: x staged by 16-byte copies (N % 8 == 0, x aligned);
+// vec_y: 4-byte stores of two outputs (n_cols even, y 4-byte aligned).
+// Grid (n_cols / BN, R / BM), dynamic shared memory Tile::kSmem.
+template <class Tile, class Blocks>
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
+bcsr_mma_kernel(const bf16* __restrict__ x, const Blocks blk,
+                bf16* __restrict__ y, int R, int N, int n_cols, int bs,
+                int vec_x, int vec_y) {
+  constexpr int BM = Tile::kBM, BN = Tile::kBN, WK = Tile::kWK;
+  constexpr int NT = Tile::kThreads, STAGES = Tile::kStages;
+  constexpr int MT = Tile::kMT, NT8 = Tile::kNT8, LDB = Tile::kLDB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int c0 = blockIdx.x * BN;
+  const int r0 = blockIdx.y * BM;
+  const int j = c0 / bs, lc = c0 % bs;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wk = warp / (Tile::kWM * Tile::kWN);
+  const int wm = warp / Tile::kWN % Tile::kWM, wn = warp % Tile::kWN;
+  const int seg0 = blk.first(j);
+  const int per_block = bs / kMmaKD;
+  const int n_steps = blk.count(j) * per_block;
+  // K-step s: block seg0 + s / per_block, depth (s % per_block) * 64
+  auto stage = [&](int s) {
+    bf16* As = smem + (s % STAGES) * Tile::kStage;
+    const int kb = seg0 + s / per_block, kd = (s % per_block) * kMmaKD;
+    stage_x_mma<BM, NT>(As, x, R, N, r0, blk.x_block(j, kb) * bs + kd,
+                        vec_x);
+    stage_s_mma<BN, NT>(As + BM * kMmaLDA, blk.block(j, kb), bs, kd, lc);
+  };
+  float acc[MT][NT8][4] = {};
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    // step s has landed for every thread, and every thread is done with
+    // step s - 1, whose buffer the next stage refills
+    __syncthreads();
+    if (s + STAGES - 1 < n_steps) stage(s + STAGES - 1);
+    cp_async_commit();
+    const bf16* As = smem + (s % STAGES) * Tile::kStage;
+#pragma unroll
+    for (int q = 0; q < kMmaKD / 16 / WK; ++q) {
+      const int kk = 16 * (wk + q * WK);
+      mma_k16<MT, NT8, LDB>(acc, As + wm * MT * 16 * kMmaLDA + kk,
+                            As + BM * kMmaLDA + kk * LDB + wn * NT8 * 8,
+                            lane);
+    }
+  }
+  const int g = lane / 4, t = lane % 4;
+  if constexpr (WK == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT8; ++ni) {
+        const int row = r0 + (wm * MT + mi) * 16 + g;
+        const int col = c0 + (wn * NT8 + ni) * 8 + 2 * t;
+        if (row < R)
+          store_pair(y, n_cols, row, col, acc[mi][ni][0], acc[mi][ni][1],
+                     vec_y);
+        if (row + 8 < R)
+          store_pair(y, n_cols, row + 8, col, acc[mi][ni][2], acc[mi][ni][3],
+                     vec_y);
+      }
+  } else {
+    // the warps' partial tiles, added in warp order
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the stages
+    float* red = reinterpret_cast<float*>(smem_raw);  // [wk][row][column]
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT8; ++ni) {
+        float* d = red + (wk * BM + (wm * MT + mi) * 16 + g) * BN +
+                   (wn * NT8 + ni) * 8 + 2 * t;
+        d[0] = acc[mi][ni][0];
+        d[1] = acc[mi][ni][1];
+        d[8 * BN] = acc[mi][ni][2];
+        d[8 * BN + 1] = acc[mi][ni][3];
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < BM * BN; e += NT) {
+      const int r = e / BN, c = e % BN;
+      float sum = red[e];
+#pragma unroll
+      for (int q = 1; q < WK; ++q) sum += red[q * BM * BN + e];
+      if (r0 + r < R && c0 + c < n_cols)
+        y[(int64_t)(r0 + r) * n_cols + c0 + c] = __float2bfloat16_rn(sum);
+    }
+  }
+}
+
+// The bf16 register's tiles: BM-row items under a PW-column slab panel,
+// warps WM x WN over the item, a ring of STAGES 64-deep slices of the
+// previous tap.
+template <int BM, int PW, int WM, int WN, int STAGES>
+struct RegTile {
+  static constexpr int kBM = BM, kPW = PW, kWM = WM, kWN = WN;
+  static constexpr int kStages = STAGES;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kLDP = PW + kMmaPad;
+  static constexpr int kMT = BM / WM / 16, kNT8 = PW / WN / 8;
+  // shared memory: the (2w+1) bs x PW panel and the ring
+  static size_t smem(int w, int bs) {
+    return sizeof(bf16) * ((size_t)(2 * w + 1) * bs * kLDP +
+                           (size_t)STAGES * BM * kMmaLDA);
+  }
+};
+// at most kRegWideRows rows: 32-row items under 32-column panels, so that
+// few rows still spread over many blocks; above, 128-row items under a
+// 64-column panel where it fits, else a 32-column one (the fallback: it
+// fits wherever the f32 kernel's wide tile fits). A 128-column panel reads
+// each window of the previous tap from L2 half as often, but holds one
+// block an SM: on an H100 it ran 6% slower at R = 2048 and 29% at R = 256
+// than the 64-column one at two blocks an SM (a 16-warp block 7% and 37%;
+// experiments/torch_bf16_tiles.py).
+using RegNarrow = RegTile<32, 32, 2, 2, 4>;
+using RegWide = RegTile<128, 64, 4, 2, 3>;
+using RegWide32 = RegTile<128, 32, 4, 2, 2>;
+
+// out (K, R, N) = [x, x S, ..., x S^(K-1)] in bf16 in one launch: the work
+// of band_register_kernel (items, runs, the resident panel, the grid
+// barrier between taps, the walk that alternates direction) on tensor
+// cores. Each tap is written in bf16 before the next reads it (the JAX
+// kernel's io-dtype zbuf). The block's slices of a tap are one stream, in
+// item order, staged STAGES - 1 ahead of their use, so the ring runs on
+// across the block's items; a new panel is loaded when the stream's user
+// reaches its first item (after the barrier that ends the last use of the
+// old one). kVec: N % 8 == 0 and 16-byte aligned pointers (16-byte copies
+// of x, the panel and the slices; 4-byte stores of two outputs), else
+// element-wise.
+template <class Tile, bool kVec>
+__global__ void __launch_bounds__(Tile::kThreads, 1)
+band_register_mma_kernel(const bf16* __restrict__ x,
+                         const bf16* __restrict__ s_band, bf16* out, int R,
+                         int N, int nb, int w, int bs, int K) {
+  constexpr int BM = Tile::kBM, PW = Tile::kPW, NT = Tile::kThreads;
+  constexpr int LDP = Tile::kLDP, MT = Tile::kMT, NT8 = Tile::kNT8;
+  constexpr int STAGES = Tile::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = 2 * w + 1;
+  bf16* Sp = reinterpret_cast<bf16*>(smem_raw);   // (W bs, LDP)
+  bf16* ring = Sp + (size_t)W * bs * LDP;         // STAGES x (BM, kMmaLDA)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / Tile::kWN, wn = warp % Tile::kWN;
+  const int64_t plane = (int64_t)R * N;
+
+  // tap 0 is x itself
+  const int64_t stride = (int64_t)gridDim.x * NT;
+  if (kVec) {
+    // 8 elements a copy
+    const uint4* x8 = reinterpret_cast<const uint4*>(x);
+    uint4* o8 = reinterpret_cast<uint4*>(out);
+    for (int64_t e = (int64_t)blockIdx.x * NT + tid; e < plane / 8;
+         e += stride)
+      o8[e] = x8[e];
+  } else {
+    for (int64_t e = (int64_t)blockIdx.x * NT + tid; e < plane; e += stride)
+      out[e] = x[e];
+  }
+
+  const int n_rt = cdiv(R, BM);
+  const int64_t items = (int64_t)cdiv(N, PW) * n_rt;
+  const int64_t i0 = items * blockIdx.x / gridDim.x;
+  const int64_t i1 = items * (blockIdx.x + 1) / gridDim.x;
+  const int64_t n_items = i1 - i0;
+  const int per_block = bs / kMmaKD;  // slices of one window block
+  int loaded = -1;  // the panel whose slab columns sit in Sp
+  for (int k = 1; k < K; ++k) {
+    if (k >= 2) cg::this_grid().sync();  // tap k-1 complete everywhere
+    const bf16* src = k == 1 ? x : out + (k - 1) * plane;
+    bf16* dst = out + k * plane;
+    // item n of the run: rows r0.., panel p (block column j), window blocks
+    // t_lo .. t_hi inside the matrix
+    auto at = [&](int64_t n, int& p, int& r0, int& j, int& t_lo,
+                  int& t_hi) {
+      const int64_t it = k % 2 ? i0 + n : i1 - 1 - n;
+      p = (int)(it / n_rt);
+      r0 = (int)(it % n_rt) * BM;
+      j = p * PW / bs;
+      t_lo = max(0, w - j);
+      t_hi = min(W - 1, nb - 1 - j + w);
+    };
+    // the stream's next slice to stage: slice psl of item pn, whose rows
+    // start at pr0 and whose x columns at pxc; pns slices in that item
+    int64_t pn = 0;
+    int psl = 0, pr0 = 0, pxc = 0, pns = 0, slot = 0;
+    auto fetch = [&]() {
+      if (pn < n_items) {
+        int p, j, t_lo, t_hi;
+        at(pn, p, pr0, j, t_lo, t_hi);
+        pxc = (j + t_lo - w) * bs;
+        pns = (t_hi - t_lo + 1) * per_block;
+      }
+    };
+    auto issue = [&]() {
+      if (pn < n_items) {
+        stage_x_mma<BM, NT>(ring + (slot % STAGES) * BM * kMmaLDA, src, R, N,
+                            pr0, pxc + psl * kMmaKD, kVec);
+        if (++psl == pns) {
+          psl = 0;
+          ++pn;
+          fetch();
+        }
+      }
+      ++slot;
+      cp_async_commit();
+    };
+    fetch();
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue();
+    int use = 0;  // the ring slot of the slice in use
+    for (int64_t n = 0; n < n_items; ++n) {
+      int p, r0, j, t_lo, t_hi;
+      at(n, p, r0, j, t_lo, t_hi);
+      const int n_slices = (t_hi - t_lo + 1) * per_block;
+      float acc[MT][NT8][4] = {};
+      for (int sl = 0; sl < n_slices; ++sl, ++use) {
+        cp_async_wait<STAGES - 2>();
+        // slice `use` has landed for every thread, and every thread is done
+        // with slice use - 1 (whose slot the next issue refills) and with
+        // the panel
+        __syncthreads();
+        issue();
+        if (p != loaded) {
+          // the panel's slab rows (only at sl == 0)
+          const int lc = p * PW % bs;
+          const bf16* sj = s_band + (int64_t)j * W * bs * bs + lc;
+          const int rows = (t_hi - t_lo + 1) * bs;
+          if (kVec) {
+            for (int e = tid; e < rows * (PW / 8); e += NT) {
+              const int r = t_lo * bs + e / (PW / 8), c = 8 * (e % (PW / 8));
+              cp_async16(Sp + r * LDP + c, sj + (int64_t)r * bs + c, true);
+            }
+          } else {
+            for (int e = tid; e < rows * PW; e += NT) {
+              const int r = t_lo * bs + e / PW, c = e % PW;
+              Sp[r * LDP + c] = sj[(int64_t)r * bs + c];
+            }
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          loaded = p;
+        }
+        const bf16* A =
+            ring + (use % STAGES) * BM * kMmaLDA + wm * MT * 16 * kMmaLDA;
+        const bf16* B =
+            Sp + (t_lo * bs + sl * kMmaKD) * LDP + wn * NT8 * 8;
+#pragma unroll
+        for (int kk = 0; kk < kMmaKD; kk += 16)
+          mma_k16<MT, NT8, LDP>(acc, A + kk, B + kk * LDP, lane);
+      }
+      const int g = lane / 4, t = lane % 4;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT8; ++ni) {
+          const int row = r0 + (wm * MT + mi) * 16 + g;
+          const int col = p * PW + (wn * NT8 + ni) * 8 + 2 * t;
+          if (row < R)
+            store_pair(dst, N, row, col, acc[mi][ni][0], acc[mi][ni][1],
+                       kVec);
+          if (row + 8 < R)
+            store_pair(dst, N, row + 8, col, acc[mi][ni][2], acc[mi][ni][3],
+                       kVec);
+        }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -701,56 +1125,76 @@ const void* register_kernel(bool vec) {
              : (const void*)band_register_kernel<TM, KD, false, T>;
 }
 
-// The file's kernels by name (gnt_spmm_kernel); the f32 instances keep
-// their names, the bf16 ones end in ", bf16>".
+// The file's kernels by name (gnt_spmm_kernel): the f32 instances, then
+// the bf16 ones (each name ends in ", bf16>"); each with the dynamic shared
+// memory a block of it takes on a layout of bandwidth w and block size bs
+// (gnt_spmm_smem_bytes).
 struct NamedKernel {
   const char* name;
   const void* fn;
+  size_t (*smem)(int w, int bs);
 };
-#define GNT_REGISTER(TM, KD, V, T, SUFFIX)                      \
-  {"band_register_kernel<" #TM ", " #KD ", " #V SUFFIX ">",     \
-   (const void*)band_register_kernel<TM, KD, V, T>}
-#define GNT_MAINLOOP(B, T, SUFFIX)                                         \
-  {"bcsr_matmul_kernel<" #B SUFFIX ">",                                    \
-   (const void*)bcsr_matmul_kernel<B<T>>},                                 \
-  {"bcsr_narrow_kernel<16, " #B SUFFIX ">",                                \
-   (const void*)bcsr_narrow_kernel<16, B<T>>},                             \
-  {"bcsr_narrow_kernel<32, " #B SUFFIX ">",                                \
-   (const void*)bcsr_narrow_kernel<32, B<T>>},                             \
-  {"bcsr_narrow_kernel<64, " #B SUFFIX ">",                                \
-   (const void*)bcsr_narrow_kernel<64, B<T>>}
+#define GNT_REGISTER(TM, KD, V)                                          \
+  {"band_register_kernel<" #TM ", " #KD ", " #V ">",                     \
+   (const void*)band_register_kernel<TM, KD, V, float>,                  \
+   [](int w, int bs) { return register_smem_bytes(w, bs, TM, KD); }}
+#define GNT_NARROW(BM, B)                                                \
+  {"bcsr_narrow_kernel<" #BM ", " #B ">",                                \
+   (const void*)bcsr_narrow_kernel<BM, B<float>>,                        \
+   [](int, int) { return bcsr_smem_bytes(BM); }}
+#define GNT_MAINLOOP(B)                                                  \
+  {"bcsr_matmul_kernel<" #B ">", (const void*)bcsr_matmul_kernel<B<float>>, \
+   [](int, int) { return bcsr_smem_bytes(kCsrBM); }},                    \
+  GNT_NARROW(16, B), GNT_NARROW(32, B), GNT_NARROW(64, B)
+#define GNT_MMA(TILE, NAME, B)                                           \
+  {"bcsr_mma_kernel<" NAME ", " #B ", bf16>",                            \
+   (const void*)bcsr_mma_kernel<TILE, B<bf16>>,                          \
+   [](int, int) { return TILE::kSmem; }}
+#define GNT_MMA_ALL(B)                                                   \
+  GNT_MMA(MmaWide, "128 x 128", B), GNT_MMA(MmaWide64, "128 x 64", B),   \
+  GNT_MMA(MmaNarrow<16>, "16 x 16", B),                                  \
+  GNT_MMA(MmaNarrow<32>, "32 x 16", B),                                  \
+  GNT_MMA(MmaNarrow<64>, "64 x 16", B)
+#define GNT_REGISTER_MMA(TILE, NAME, V)                                  \
+  {"band_register_mma_kernel<" NAME ", " #V ", bf16>",                   \
+   (const void*)band_register_mma_kernel<TILE, V>,                       \
+   [](int w, int bs) { return TILE::smem(w, bs); }}
 const NamedKernel kKernels[] = {
-    GNT_MAINLOOP(BcsrBlocks, float, ""),
-    GNT_MAINLOOP(BandBlocks, float, ""),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, true, float, ""),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, false, float, ""),
-    GNT_REGISTER(kWideTM, kWideKD, true, float, ""),
-    GNT_REGISTER(kWideTM, kWideKD, false, float, ""),
-    GNT_MAINLOOP(BcsrBlocks, bf16, ", bf16"),
-    GNT_MAINLOOP(BandBlocks, bf16, ", bf16"),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, true, bf16, ", bf16"),
-    GNT_REGISTER(kNarrowTM, kNarrowKD, false, bf16, ", bf16"),
-    GNT_REGISTER(kWideTM, kWideKD, true, bf16, ", bf16"),
-    GNT_REGISTER(kWideTM, kWideKD, false, bf16, ", bf16"),
+    GNT_MAINLOOP(BcsrBlocks),
+    GNT_MAINLOOP(BandBlocks),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, true),
+    GNT_REGISTER(kNarrowTM, kNarrowKD, false),
+    GNT_REGISTER(kWideTM, kWideKD, true),
+    GNT_REGISTER(kWideTM, kWideKD, false),
+    GNT_MMA_ALL(BcsrBlocks),
+    GNT_MMA_ALL(BandBlocks),
+    GNT_REGISTER_MMA(RegNarrow, "32 x 32", true),
+    GNT_REGISTER_MMA(RegNarrow, "32 x 32", false),
+    GNT_REGISTER_MMA(RegWide, "128 x 64", true),
+    GNT_REGISTER_MMA(RegWide, "128 x 64", false),
+    GNT_REGISTER_MMA(RegWide32, "128 x 32", true),
+    GNT_REGISTER_MMA(RegWide32, "128 x 32", false),
 };
+#undef GNT_NARROW
 #undef GNT_REGISTER
+#undef GNT_MMA_ALL
+#undef GNT_MMA
+#undef GNT_REGISTER_MMA
 #undef GNT_MAINLOOP
 
-template <class T>
-cudaError_t launch_band_matmul(const T* x, const T* s_band, T* y, int R,
-                               int N, int n_cols, int nb, int w, int bs,
-                               cudaStream_t stream) {
+cudaError_t launch_band_matmul(const float* x, const float* s_band, float* y,
+                               int R, int N, int n_cols, int nb, int w,
+                               int bs, cudaStream_t stream) {
   if (w < 0 || nb != cdiv(n_cols, bs)) return cudaErrorInvalidValue;
-  return launch_mainloop(x, BandBlocks<T>{s_band, nb, w, bs}, y, R, N,
+  return launch_mainloop(x, BandBlocks<float>{s_band, nb, w, bs}, y, R, N,
                          n_cols, bs, stream);
 }
 
 // A cooperative launch of as many blocks as there are items, at most as
 // many as the card holds at once (the occupancy query, after the shared
 // memory opt-in); refused launches are returned, never worked around.
-template <class T>
-cudaError_t launch_register(const T* x, const T* s_band, T* out, int R,
-                            int N, int nb, int w, int bs, int K,
+cudaError_t launch_register(const float* x, const float* s_band, float* out,
+                            int R, int N, int nb, int w, int bs, int K,
                             cudaStream_t stream) {
   if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1 || w < 0)
     return cudaErrorInvalidValue;
@@ -765,8 +1209,8 @@ cudaError_t launch_register(const T* x, const T* s_band, T* out, int R,
   const int BM = kRegRowThreads * (wide ? kWideTM : kNarrowTM);
   const size_t smem = wide ? register_smem_bytes(w, bs, kWideTM, kWideKD)
                            : register_smem_bytes(w, bs, kNarrowTM, kNarrowKD);
-  const void* fn = wide ? register_kernel<kWideTM, kWideKD, T>(vec)
-                        : register_kernel<kNarrowTM, kNarrowKD, T>(vec);
+  const void* fn = wide ? register_kernel<kWideTM, kWideKD, float>(vec)
+                        : register_kernel<kNarrowTM, kNarrowKD, float>(vec);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -789,6 +1233,117 @@ cudaError_t launch_register(const T* x, const T* s_band, T* out, int R,
   return cudaGetLastError();
 }
 
+// The bf16 mainloop: the wide tile above kNarMaxRows rows, else the narrow
+// one of the fewest rows (16, 32 or 64) that holds R. The wide tile is 128
+// columns (one whole block column of S: each x window is read from L2 once
+// for every 128 output columns) when bs % 128 == 0 and that makes at least
+// one block for every two SMs, else 64 columns, twice the blocks: on an
+// H100 at N = 4096 the 128-column tile took 19% less time at R = 2048 and
+// 25% more at R = 256, where its 64 blocks left half the SMs idle
+// (experiments/torch_bf16_tiles.py). It takes
+// every shape the f32 launcher takes and refuses the same ones with the
+// same errors; x goes by 16-byte copies when N % 8 == 0 and x is aligned,
+// else element by element.
+template <class Tile, class Blocks>
+cudaError_t run_mma(const bf16* x, const Blocks& blk, bf16* y, int R, int N,
+                    int n_cols, int bs, int vec_x, int vec_y,
+                    cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)bcsr_mma_kernel<Tile, Blocks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(n_cols, Tile::kBN), cdiv(R, Tile::kBM));
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  bcsr_mma_kernel<Tile, Blocks><<<grid, Tile::kThreads, Tile::kSmem,
+                                  stream>>>(x, blk, y, R, N, n_cols, bs,
+                                            vec_x, vec_y);
+  return cudaGetLastError();
+}
+
+template <class Blocks>
+cudaError_t launch_mma(const bf16* x, const Blocks& blk, bf16* y, int R,
+                       int N, int n_cols, int bs, cudaStream_t stream) {
+  if (bs % kMmaKD != 0 || R <= 0 || n_cols <= 0 || N < 0)
+    return cudaErrorInvalidValue;
+  if (!aligned16(blk.block(0, 0))) return cudaErrorMisalignedAddress;
+  const int vec_x = N % 8 == 0 && aligned16(x);
+  const int vec_y = n_cols % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 4 == 0;
+  if (R > kNarMaxRows) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks128 =
+        (int64_t)cdiv(n_cols, MmaWide::kBN) * cdiv(R, MmaWide::kBM);
+    return bs % MmaWide::kBN == 0 && 2 * blocks128 >= sms
+               ? run_mma<MmaWide>(x, blk, y, R, N, n_cols, bs, vec_x, vec_y,
+                                  stream)
+               : run_mma<MmaWide64>(x, blk, y, R, N, n_cols, bs, vec_x,
+                                    vec_y, stream);
+  }
+  if (R > 32)
+    return run_mma<MmaNarrow<64>>(x, blk, y, R, N, n_cols, bs, vec_x, vec_y,
+                                  stream);
+  if (R > 16)
+    return run_mma<MmaNarrow<32>>(x, blk, y, R, N, n_cols, bs, vec_x, vec_y,
+                                  stream);
+  return run_mma<MmaNarrow<16>>(x, blk, y, R, N, n_cols, bs, vec_x, vec_y,
+                                stream);
+}
+
+// The bf16 register: a cooperative launch as the f32 one, of the tile the
+// row count and the panel's fit pick. The fallback tile must fit whatever
+// R is (ops/spmm.py: register_fits for bf16 is the same rule); it fits
+// every layout the f32 kernel takes.
+template <class Tile>
+cudaError_t run_register_mma(const bf16* x, const bf16* s_band, bf16* out,
+                             int R, int N, int nb, int w, int bs, int K,
+                             bool vec, cudaStream_t stream) {
+  const size_t smem = Tile::smem(w, bs);
+  const void* fn = vec ? (const void*)band_register_mma_kernel<Tile, true>
+                       : (const void*)band_register_mma_kernel<Tile, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                      Tile::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t items =
+      (int64_t)cdiv(N, Tile::kPW) * cdiv(R, Tile::kBM);
+  const int grid = (int)(items < (int64_t)per_sm * sms
+                             ? items : (int64_t)per_sm * sms);
+  void* args[] = {(void*)&x, (void*)&s_band, (void*)&out, (void*)&R,
+                  (void*)&N, (void*)&nb, (void*)&w, (void*)&bs, (void*)&K};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(Tile::kThreads),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_register(const bf16* x, const bf16* s_band, bf16* out,
+                            int R, int N, int nb, int w, int bs, int K,
+                            cudaStream_t stream) {
+  if (bs % kBN != 0 || R <= 0 || N <= 0 || K < 1 || w < 0)
+    return cudaErrorInvalidValue;
+  if (RegWide32::smem(w, bs) > kMaxSmem) return cudaErrorInvalidValue;
+  const bool vec = N % 8 == 0 && aligned16(x) && aligned16(s_band) &&
+                   aligned16(out);
+  if (R <= kRegWideRows)
+    return run_register_mma<RegNarrow>(x, s_band, out, R, N, nb, w, bs, K,
+                                       vec, stream);
+  if (RegWide::smem(w, bs) <= kMaxSmem)
+    return run_register_mma<RegWide>(x, s_band, out, R, N, nb, w, bs, K, vec,
+                                     stream);
+  return run_register_mma<RegWide32>(x, s_band, out, R, N, nb, w, bs, K, vec,
+                                     stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -804,6 +1359,13 @@ const void* gnt_spmm_kernel(int i, const char** name) {
     return nullptr;
   *name = kKernels[i].name;
   return kKernels[i].fn;
+}
+
+// The dynamic shared memory of kernel i of gnt_spmm_kernel's table a block
+// takes on a layout of bandwidth w and block size bs, or -1 past the last.
+int gnt_spmm_smem_bytes(int i, int w, int bs) {
+  if (i < 0 || i >= (int)(sizeof(kKernels) / sizeof(kKernels[0]))) return -1;
+  return (int)kKernels[i].smem(w, bs);
 }
 
 // numRegs, localSizeBytes, sharedSizeBytes and maxThreadsPerBlock of a
@@ -834,9 +1396,8 @@ cudaError_t gnt_bcsr_matmul_bf16(const bf16* x, const bf16* blocks,
                                  const int* block_row, const int* col_start,
                                  bf16* y, int R, int N, int n_cols, int bs,
                                  cudaStream_t stream) {
-  return launch_mainloop(
-      x, BcsrBlocks<bf16>{blocks, block_row, col_start, bs}, y, R, N,
-      n_cols, bs, stream);
+  return launch_mma(x, BcsrBlocks<bf16>{blocks, block_row, col_start, bs},
+                    y, R, N, n_cols, bs, stream);
 }
 
 // y = x @ S on the band slab s_band (nb, (2w+1) bs, bs), nb = n_cols / bs
@@ -850,7 +1411,9 @@ cudaError_t gnt_band_matmul(const float* x, const float* s_band, float* y,
 cudaError_t gnt_band_matmul_bf16(const bf16* x, const bf16* s_band, bf16* y,
                                  int R, int N, int n_cols, int nb, int w,
                                  int bs, cudaStream_t stream) {
-  return launch_band_matmul(x, s_band, y, R, N, n_cols, nb, w, bs, stream);
+  if (w < 0 || nb != cdiv(n_cols, bs)) return cudaErrorInvalidValue;
+  return launch_mma(x, BandBlocks<bf16>{s_band, nb, w, bs}, y, R, N, n_cols,
+                    bs, stream);
 }
 
 // out (K, R, N) = [x, x S, ..., x S^(K-1)] in one cooperative launch.

@@ -19,8 +19,15 @@ Kernels (``kernels/csrc/spmm.cu``), each behind a wrapper of the same name:
 
 Each kernel has an f32 and a bf16 io instance: x and S in one of the two
 dtypes, y in the same, the products accumulated in f32 (the JAX kernels'
-f32 accumulator). The plain versions take bf16 too: they compute in f32 and
-round y (each tap of the register) to bf16, where the JAX kernels round.
+f32 accumulator). The f32 instances run true-f32 FMAs (the JAX default
+precision): the large f32 shifts are bound by FP32 operations. The bf16
+instances keep bf16 in shared memory, staged by 16-byte ``cp.async``, and
+run the products on tensor cores (``mma.sync`` m16n8k16, bf16 in, f32
+accumulators): a bf16 product is exact in f32, so they compute the same
+function, their f32 sums in another order; on tensor cores the bf16 shifts
+are bound by bytes. The plain versions take bf16 too: they compute in f32
+and round y (each tap of the register) to bf16, where the JAX kernels
+round.
 
 Each wrapper calls a ``torch.library`` op of the ``gnt`` namespace
 (``torch.ops.gnt.band_matmul``, ``band_shift_register``, ``bcsr_matmul``)
@@ -78,9 +85,13 @@ REGISTER_MAX_ROWS = 2048
 # kept in shared memory, and two staged slices of the previous tap, at most
 # 128 rows x (32 + 4) floats (kPanel, kWideTM, kWideKD in
 # kernels/csrc/spmm.cu); the shared memory one block may use on the H100
-# (227 KB).
+# (227 KB). The bf16 kernel's fallback tile (RegWide32): a 32-column panel
+# in bf16 whose rows are padded by 8 to 40 elements, and two staged slices
+# of 128 rows x (64 + 8) bf16.
 REGISTER_PANEL = 32
 REGISTER_SLICE_FLOATS = 128 * (32 + 4)
+REGISTER_BF16_PANEL_ROW = 32 + 8
+REGISTER_BF16_SLICE = 128 * (64 + 8)
 SMEM_PER_BLOCK = 232448
 
 
@@ -187,27 +198,39 @@ def auto_row_tile(n_rows: int) -> int:
     return 256
 
 
-def register_smem_bytes(block_size: int, w: int) -> int:
-    """Shared memory of one band_shift_register block on CUDA at its
-    larger tile: the (2w+1)*bs x 32 slab panel it keeps for all taps and
-    two staged (128, 32 + 4) slices (``register_smem_bytes`` in spmm.cu)."""
-    return 4 * ((2 * w + 1) * block_size * REGISTER_PANEL
-                + 2 * REGISTER_SLICE_FLOATS)
+def register_smem_bytes(block_size: int, w: int,
+                        dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one band_shift_register block on CUDA at the tile
+    that must fit. f32: the larger tile, the (2w+1)*bs x 32 slab panel it
+    keeps for all taps and two staged (128, 32 + 4) slices
+    (``register_smem_bytes`` in spmm.cu). bf16: the fallback tile,
+    (2w+1)*bs panel rows of 32 + 8 bf16 and two staged (128, 64 + 8) bf16
+    slices (``RegWide32::smem``); the kernel takes a wider panel where one
+    fits."""
+    rows = (2 * w + 1) * block_size
+    if dtype == torch.bfloat16:
+        return 2 * (rows * REGISTER_BF16_PANEL_ROW + 2 * REGISTER_BF16_SLICE)
+    return 4 * (rows * REGISTER_PANEL + 2 * REGISTER_SLICE_FLOATS)
 
 
-def register_fits(block_size: int, w: int) -> bool:
-    """Whether band_shift_register's CUDA kernel takes this layout.
+def register_fits(block_size: int, w: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """Whether band_shift_register's CUDA kernel for ``dtype`` takes this
+    layout.
 
     The JAX kernel keeps a whole row stripe resident in VMEM, so it tests
-    the stripe's size. The CUDA kernel keeps a 32-column panel of the slab
-    resident in a block's shared memory for all K-1 taps, so it tests that
-    panel (with the staged slices) against the 227 KB a block may use: at
+    the stripe's size. The CUDA kernel keeps a panel of the slab resident
+    in a block's shared memory for all K-1 taps, so it tests that panel
+    (with the staged slices) against the 227 KB a block may use: in f32 at
     block_size 128 it takes w <= 5, at 64 w <= 11, whatever the row count.
-    Its column tiles must also not straddle a band block (block_size %
-    TILE_N == 0).
+    The bf16 kernel's fallback panel is smaller, so it takes a superset
+    (w <= 9 at 128, w <= 18 at 64). Its column tiles must also not straddle
+    a band block (block_size % TILE_N == 0). ``gso.gshift_register`` fuses
+    by the f32 rule in either dtype, so a bf16 model fuses where the f32
+    one does.
     """
     return (block_size % TILE_N == 0
-            and register_smem_bytes(block_size, w) <= SMEM_PER_BLOCK)
+            and register_smem_bytes(block_size, w, dtype) <= SMEM_PER_BLOCK)
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +362,11 @@ def _band_shift_register_cpu(x, s_band, n_taps, n_cols, w, block_size):
 def _band_shift_register_cuda(x, s_band, n_taps, n_cols, w, block_size):
     dt = _check_kernel_inputs("band_shift_register", block_size, x,
                               s_band=s_band)
-    if not register_fits(block_size, w):
+    if not register_fits(block_size, w, dt):
         raise ValueError(f"band_shift_register: the slab panel of w={w}, "
                          f"bs={block_size} does not fit a block's shared "
-                         f"memory ({register_smem_bytes(block_size, w)} > "
-                         f"{SMEM_PER_BLOCK} bytes); chain band_matmul "
+                         f"memory ({register_smem_bytes(block_size, w, dt)} "
+                         f"> {SMEM_PER_BLOCK} bytes); chain band_matmul "
                          "instead")
     R, N = x.shape
     out = torch.empty((n_taps, R, N), dtype=dt, device=x.device)
@@ -447,11 +470,16 @@ def band_matmul(x: torch.Tensor, s_band: torch.Tensor, *, n_cols: int,
     bf16; s_band in the same). x's columns past N count as zero (N <=
     nb*bs).
 
-    CUDA kernel: ``bcsr_matmul_kernel<BandBlocks>`` (above 64 rows) or
-    ``bcsr_narrow_kernel<BM, BandBlocks>`` in kernels/csrc/spmm.cu (their
-    ``, bf16>`` instances in bf16), the BCSR mainloop on the band slab's
-    blocks, replacing the Pallas kernel of the JAX package's
-    ``ops/spmm.py:band_matmul``.
+    CUDA kernel: the BCSR mainloop on the band slab's blocks, replacing
+    the Pallas kernel of the JAX package's ``ops/spmm.py:band_matmul``. In
+    f32 ``bcsr_matmul_kernel<BandBlocks>`` (above 64 rows) or
+    ``bcsr_narrow_kernel<BM, BandBlocks>`` in kernels/csrc/spmm.cu: FP32
+    FMAs, bound by FP32 operations at many rows. In bf16
+    ``bcsr_mma_kernel<., BandBlocks, bf16>``: bf16 tiles staged by
+    ``cp.async`` into a ring of stages, products on tensor cores
+    (``mma.sync``, f32 accumulators), 128 x 128 output tiles above 64 rows
+    (one x window read from L2 per block column of S; 128 x 64 where those
+    would leave SMs idle), BM x 16 at most 64 rows; bound by bytes.
     """
     R, N = x.shape
     bs = block_size
@@ -477,9 +505,17 @@ def band_shift_register(x: torch.Tensor, s_band: torch.Tensor, *,
     xS^{K-1}] in x's dtype (f32 or bf16, each bf16 tap rounded before the
     next reads it), S in the band layout with n_cols == N.
 
-    CUDA kernel: ``band_register_kernel`` in kernels/csrc/spmm.cu (its
-    ``, bf16>`` instances in bf16), replacing the Pallas kernel of the JAX
-    package's ``ops/spmm.py:band_shift_register``.
+    CUDA kernel: one cooperative launch, a grid barrier between taps, a
+    slab panel resident in each block's shared memory for all taps,
+    replacing the Pallas kernel of the JAX package's
+    ``ops/spmm.py:band_shift_register``. In f32 ``band_register_kernel``
+    in kernels/csrc/spmm.cu (FP32 FMAs on a 32-column panel). In bf16
+    ``band_register_mma_kernel``: the panel in bf16 (64 columns above 64
+    rows where it fits, else 32), the previous tap's slices staged by
+    16-byte
+    ``cp.async`` from L2 in a ring that runs across a block's items, the
+    products on tensor cores (``mma.sync``, f32 accumulators); bound by
+    the L2 reads of the previous taps and the K-2 grid barriers.
     """
     R, N = x.shape
     bs = block_size
@@ -531,10 +567,11 @@ def bcsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
     segment offsets (:func:`bcsr_col_start`), as a Gso caches them;
     without it the CUDA path computes them on the card.
 
-    CUDA kernel: ``bcsr_matmul_kernel`` (and ``bcsr_narrow_kernel`` at
-    most 64 rows) in kernels/csrc/spmm.cu (their ``, bf16>`` instances in
-    bf16), replacing the Pallas kernel of the JAX package's
-    ``ops/spmm.py:bcsr_matmul``.
+    CUDA kernel, replacing the Pallas kernel of the JAX package's
+    ``ops/spmm.py:bcsr_matmul``: in f32 ``bcsr_matmul_kernel`` (and
+    ``bcsr_narrow_kernel`` at most 64 rows) in kernels/csrc/spmm.cu, FP32
+    FMAs; in bf16 ``bcsr_mma_kernel<., BcsrBlocks, bf16>``, the tensor-core
+    mainloop :func:`band_matmul` describes.
     """
     R, N = x.shape
     bs = block_size
