@@ -185,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import subprocess
@@ -349,16 +350,16 @@ def phase_build():
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 46, f"{len(attrs)} kernels in the library's "
-            "tables, not 46 (12 kernels; band_register_kernel in 4 "
+    require(len(attrs) == 50, f"{len(attrs)} kernels in the library's "
+            "tables, not 50 (12 kernels; band_register_kernel in 4 "
             "instances; bcsr_matmul_kernel and its 3 narrow-tile "
             "instances on 2 block layouts, BCSR and band, 8; "
             "attn_apply_kernel in 6, attn_stats_kernel and attn_bwd_kernel "
             "in 2 each, table_transpose_kernel in 2; and the bf16-io "
             "instances: bcsr_mma_kernel in 5 tiles on 2 block layouts, 10, "
             "band_register_mma_kernel in 3 tiles x 2 stagings, 6, "
-            "attn_stats_kernel<false> and the 3 attn_apply_kernel<false, "
-            "G>, 20)")
+            "attn_stats_kernel<false>, the 3 attn_apply_kernel<false, G> "
+            "and attn_bwd_mma_kernel in 4 feature widths, 24)")
     for name, a in attrs.items():
         if name.endswith(", bf16>") and "attn" not in name:
             require(a["dynamic_shared_bytes"] > 0,
@@ -8152,6 +8153,422 @@ def phase_introspection(engines):
 
 
 
+# ---------------------------------------------------------------------------
+# Item 1: bf16 mixed-precision training (Trainer(precision="bf16")) on the
+# bf16 instances of kernels 1-3 and 7-8 and on kernel 9b
+# ---------------------------------------------------------------------------
+
+# kernel 9b (attn_bwd_mma_kernel) against its bf16 plain version: dv within
+# BF16_ULPS bf16 ulps of the larger value, the ulp taken at no less than
+# BF16_ULP_FLOOR of max|dv| (one rounding of an f32 sum taken in another
+# order, the coefficient carried as two bf16 parts); da2 and the folded da1
+# (f32) within BF16_BWD_REL of their largest magnitude
+BF16_BWD_REL = 1e-3
+# a bf16 training step on the kernels against the same bf16 step on the
+# kernels' plain versions (on the card, from the same masters and batch):
+# first-step gradients within BF16_TRAIN_GRAD_TOL of each leaf's largest
+# |g|; against the f32 step: the losses within BF16_TRAIN_LOSS (the JAX
+# package's own bf16 bound, tests/test_training.py:
+# test_bf16_mixed_precision_training). The first-step gradients' distance
+# from f32's is reported, not held to BF16_TRAIN_GRAD_TOL: bf16 rounding
+# alone moves them further (the JAX package's own bf16 gradients of
+# band_n4096's SelectionGNN at N = 1024 lie 5-14% of max|g| from its f32
+# ones, experiments/bf16_grad_noise.py)
+BF16_TRAIN_GRAD_TOL = 5e-2
+BF16_TRAIN_LOSS = dict(rtol=0.05, atol=0.02)
+BF16_TRAIN_STEPS = 3
+# flock_train_n262k in bf16: 2 steps (cut from its 3 epochs of 4 steps)
+BF16_FLOCK_STEPS = 2
+
+
+def _bf16_aux(aux):
+    """A BandAux with its float fields in bf16 (its entry lists kept)."""
+    import torch
+    return type(aux)(*(t.to(torch.bfloat16) if t.is_floating_point() else t
+                       for t in aux))
+
+
+def _rel_err(got, want):
+    """max|got - want| over max|want|."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_bf16_train_kernels(gso, dev):
+    """Kernel 9b (bwd_call on bf16 operands: attn_bwd_mma_kernel) against
+    its bf16 plain version at gat_band_n16384's shape (Q = 16, F = 32,
+    w = 2, with S, on the served model's band structure cast to bf16) and
+    at edge shapes: F = 8, 24, 32, 40, 64; w = 1, 2, 3; without S; a
+    window tile and a sub-tile without support; ragged N; ibs = 64 and 192
+    (half and partial row tiles); each synchronized. Then the served shape
+    timed by CUDA events and graph_ms beside the f32 instance on the same
+    values, with its plain version and its bound."""
+    import torch
+    from graph_neural_networks_torch import kernels
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    rng = np.random.default_rng(36)
+    checks, errs = [], {"bwd_call": 0.0}
+
+    def case(label, g, Q, F, with_s, aux=None, served=False):
+        ibs, w = g.block_size, g.band_w
+        Np = g.s_band.shape[1] * ibs
+        aux = _bf16_aux(af.band_auxes(g)[0]) if aux is None else aux
+        a1, a2, v = (t.to(bf) for t in _attn_operands(rng, dev, Q, F, g.n,
+                                                      Np))
+        ct = _attn_operands(rng, dev, Q, F, g.n, Np)[2].to(bf)
+        mx, sm = af.stats_plain(a1, a2, aux.mask_row, w=w, ibs=ibs)
+        args = (a1, a2, v, mx, sm, aux.slab_col, aux.mask_row, ct)
+        kernels.OP_CALLS.clear()
+        got = af.bwd_call(*args, w=w, ibs=ibs, with_s=with_s)
+        torch.cuda.synchronize()
+        require(kernels.OP_CALLS["bwd_call", bf] == 1 and got[2].dtype == bf
+                and got[0].dtype == got[1].dtype == torch.float32,
+                f"bf16 bwd_call [{label}]: dtypes {[t.dtype for t in got]}")
+        want = af.bwd_plain(*args, w=w, ibs=ibs, with_s=with_s)
+        fold = [af.fold_window_partials(t[1], w) for t in (got, want)]
+        empty, total = _empty_subchunks(g)
+        row = dict(case=label, Q=Q, F=F, N=g.n, w=w, ibs=ibs, with_s=with_s,
+                   sub_chunks_skipped=f"{empty} of {total}",
+                   da2_rel=_rel_err(got[0], want[0]),
+                   da1_rel=_rel_err(*fold),
+                   dv_ulps=_ulps_of(got[2], want[2]),
+                   max_abs_err=max((t - p).abs().max().item() for t, p in
+                                   zip(got, want)))
+        row["ok"] = (all(bool(torch.isfinite(t.float()).all()) for t in got)
+                     and row["da2_rel"] <= BF16_BWD_REL
+                     and row["da1_rel"] <= BF16_BWD_REL
+                     and row["dv_ulps"] <= BF16_ULPS)
+        checks.append(row)
+        require(row["ok"], f"bf16 bwd_call [{label}] disagrees with its "
+                           f"plain version: {row}")
+        if served:
+            errs["bwd_call"] = max(errs["bwd_call"], row["max_abs_err"])
+        return args
+
+    Q, F, w = GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1], gso.band_w
+    served = _bf16_aux(af.band_auxes(gso.to(dtype=bf))[0])
+    args = case(f"served Q={Q} F={F} N={GAT_N} w={w}", gso, Q, F, True,
+                served, served=True)
+    case(f"served without S, F=8", gso, Q, 8, False, served)
+    case(f"GCAT shape without S, F=64", gso, Q, 64, False, served)
+    for label, S, ibs, Qe, Fe in (
+            ("N=2048 w=1 F=24", _attn_case(rng, 2048, 1), 128, 4, 24),
+            ("holes N=2048 w=2 F=32", _attn_holes_case(rng), 128, 3, 32),
+            ("ragged N=4000 w=1 F=32", _attn_case(rng, 4000, 1), 128, 16,
+             32),
+            ("N=1000 w=3 ibs=64 F=40", _attn_case(rng, 1000, 3, bs=64), 64,
+             2, 40),
+            ("N=2000 w=1 ibs=192 F=32", _attn_case(rng, 2000, 1, bs=192),
+             192, 4, 32)):
+        g = gso_lib.as_gso(S, "band", block_size=ibs, device=dev)
+        for ws in (True, False):
+            case(f"{label} Q={Qe}", g, Qe, Fe, ws)
+    require(_empty_subchunks(gso_lib.as_gso(
+        _attn_holes_case(np.random.default_rng(1)), "band", device=dev))[0]
+        > 0, "the holes graph has no sub-chunk to skip")
+    # the shared memory the bf16 launcher asks for, and F past the kernel
+    smem = {Fs: kernels.entry("gnt_attn_bwd_smem_bytes", bf)(Fs, 2 * w + 1,
+                                                              128)
+            for Fs in (8, 32, 64)}
+    require(all(0 < n <= af._BLOCK_SMEM_BYTES for n in smem.values()),
+            f"attn_bwd_mma_kernel shared memory {smem}")
+    try:
+        af._check_bwd_smem("bwd_call", w, gso.block_size, 65, bf)
+        raise SmokeFailure("the bf16 backward took F = 65")
+    except ValueError:
+        pass
+
+    # timing at the served shape: the bf16 and f32 instances on the same
+    # values
+    aux32 = af.band_auxes(gso)[0]
+    a1, a2, v, mx, sm, _, _, ct = args
+    args32 = (a1.float(), a2.float(), v.float(), mx, sm, aux32.slab_col,
+              aux32.mask_row, ct.float())
+    ibs = gso.block_size
+    nb = gso.s_band.shape[1]
+    Np, W = nb * ibs, 2 * w + 1
+    tile = nb * W * ibs * ibs
+    support = Q * int(aux32.mask_row.sum().item())
+    # bf16 g, v, dv, a1, a2, mask_row and slab_col; f32 rowmax, rowsum,
+    # da2 and the da1 partials; each read or written once
+    nbytes = 2 * (3 * Q * F * Np + 2 * Q * Np + 2 * tile) + 4 * (
+        3 * Q * Np + Q * nb * W * ibs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = support / SFU_EXP_PER_S * 1e3
+    t_mma = 4 * F * support / BF16_FLOPS_PER_S * 1e3
+    bound = max(t_bytes, t_exp, t_mma)
+    kw = dict(w=w, ibs=ibs)
+    row = dict(
+        shape=f"Q={Q} F={F} N={GAT_N} w={w} ibs={ibs} with_s",
+        ms=time_ms(lambda: af.bwd_call(*args, **kw)),
+        graph_ms=graph_ms(lambda: af.bwd_call(*args, **kw)),
+        f32_ms=time_ms(lambda: af.bwd_call(*args32, **kw)),
+        f32_graph_ms=graph_ms(lambda: af.bwd_call(*args32, **kw)),
+        plain_ms=time_ms(lambda: af.bwd_plain(*args, **kw), reps=5,
+                         inner=2),
+        library_ms=None, bytes=nbytes, support_scores=support,
+        bound_ms=bound, bound_by="bytes" if bound == t_bytes
+        else "operations", bytes_ms=t_bytes, exp_ms=t_exp,
+        products_ms=t_mma)
+    emit(phase="bf16_train_kernels", dv_ulps_allowed=BF16_ULPS,
+         ulp_floor_share=BF16_ULP_FLOOR, f32_rel_allowed=BF16_BWD_REL,
+         checks=checks, smem_bytes=smem, timing=row,
+         library="none: no single PyTorch call computes the function",
+         seconds=time.perf_counter() - t_phase)
+    return errs, {"bwd_call": row}
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Within the block the SpMM and attention wrappers (kernels 1-3, 7-9)
+    run their plain versions, on the card too: the reference a path on the
+    kernels is held to. The wrappers' counts do not move."""
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.ops import spmm
+
+    def plain(fn):
+        def call(*args, **kw):
+            kw.pop("lists", None)
+            kw.pop("col_start", None)
+            return fn(*args, **kw)
+        return call
+    subs = [(spmm, "band_matmul", spmm.band_matmul_plain),
+            (spmm, "band_shift_register", spmm.band_shift_register_plain),
+            (spmm, "bcsr_matmul", spmm.bcsr_matmul_plain),
+            (af, "stats_call", af.stats_plain),
+            (af, "apply_call", af.apply_plain),
+            (af, "bwd_call", af.bwd_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in subs]
+    for mod, name, fn in subs:
+        setattr(mod, name, plain(fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _twin(arch):
+    """A second architecture on the same masters: its own copy of the
+    parameters, the context (GSO, band structure) shared."""
+    twin = copy.copy(arch)
+    twin.core = copy.deepcopy(arch.core)
+    return twin
+
+
+def _bf16_vs_f32(label, archs, data, batch, model_fn, steps, expected=None,
+                 profile=None, **trainer_kw):
+    """`steps` Trainer steps of one model in f32 and in bf16
+    (precision='bf16') from the same masters (archs: f32, bf16 and, when a
+    third is given, bf16 on the plain versions for the first step) on the
+    same batches: the first step's gradients on the masters (the bf16
+    ones against the plain versions' and beside f32's), the losses, the
+    launches of the steps (counts from 0 just before, read just after:
+    equal in both, `expected` a step when given) and the op calls by dtype
+    (every one of the bf16 steps a bf16 instance, of the f32 steps an f32
+    one), each step's host ms; then `profile`(trainer) device ms per step.
+    Returns the check row and the bf16 launches."""
+    import torch
+    from graph_neural_networks_torch import kernels
+    runs = {}
+    if len(archs) == 3:
+        model = model_fn(archs[2], f"{label}_bf16_plain")
+        trainer = model.trainer(model, data, 1, batch, precision="bf16",
+                                **trainer_kw)
+        with _plain_kernels():
+            trainer.train_batch(np.arange(batch) % data.nTrain)
+        torch.cuda.synchronize()
+        plain_grads = [p.grad.detach().double().clone()
+                       for p in model.archit.parameters()]
+        del model, trainer
+    for tag, arch in zip(("f32", "bf16"), archs):
+        model = model_fn(arch, f"{label}_{tag}")
+        kw = dict(trainer_kw, **({"precision": "bf16"} if tag == "bf16"
+                                 else {}))
+        trainer = model.trainer(model, data, 1, batch, **kw)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        kernels.OP_CALLS.clear()
+        losses, host_ms, grads = [], [], None
+        for s in range(steps):
+            idx = np.arange(s * batch, (s + 1) * batch) % data.nTrain
+            loss, secs = trainer.train_batch(idx)
+            losses.append(loss)
+            host_ms.append(secs * 1e3)
+            if grads is None:
+                grads = [p.grad.detach().double().clone()
+                         for p in model.archit.parameters()]
+        torch.cuda.synchronize()
+        runs[tag] = dict(losses=losses, host_ms=host_ms, grads=grads,
+                         counts=_all_counts(), calls=_op_calls(),
+                         trainer=trainer, model=model)
+    f, b = runs["f32"], runs["bf16"]
+
+    def shares(got, want):   # each leaf's max|got - want| / max|want|
+        return [(g - w_).abs().max().item() / max(w_.abs().max().item(),
+                                                  1e-30)
+                for g, w_ in zip(got, want)]
+    vs_f32 = shares(b["grads"], f["grads"])
+    vs_plain = (shares(b["grads"], plain_grads) if len(archs) == 3
+                else None)
+    per_step = {k: n / steps for k, n in b["counts"].items() if n}
+    row = dict(model=label, steps=steps, batch=batch,
+               losses_bf16=b["losses"], losses_f32=f["losses"],
+               first_step_grad_shares_vs_bf16_plain=vs_plain,
+               grad_share_allowed=BF16_TRAIN_GRAD_TOL,
+               first_step_grad_shares_vs_f32=vs_f32,
+               launches_per_step=per_step, op_calls_bf16=b["calls"],
+               op_calls_f32=f["calls"], host_ms_bf16=b["host_ms"],
+               host_ms_f32=f["host_ms"])
+    require(all(p.dtype == torch.float32
+                for p in b["model"].archit.parameters()),
+            f"{label}: the bf16 run's masters are not f32")
+    require(b["counts"] == f["counts"],
+            f"{label}: bf16 launches {b['counts']}, f32 {f['counts']}")
+    if expected is not None:
+        want = {k: n * steps for k, n in expected.items() if n}
+        require({k: n for k, n in b["counts"].items() if n} == want,
+                f"{label}: launches {b['counts']}, expected {want}")
+    require(all(k.endswith(":bfloat16") for k in b["calls"])
+            and all(k.endswith(":float32") for k in f["calls"]),
+            f"{label}: op calls bf16 {b['calls']}, f32 {f['calls']}")
+    require(vs_plain is None or max(vs_plain) <= BF16_TRAIN_GRAD_TOL,
+            f"{label}: bf16 first-step gradients {vs_plain} of max|g| from "
+            "the plain versions'")
+    require(bool(np.isfinite(b["losses"]).all()) and np.allclose(
+        b["losses"], f["losses"], **BF16_TRAIN_LOSS),
+        f"{label}: bf16 losses {b['losses']}, f32 {f['losses']}")
+    if profile is not None:
+        for tag in ("f32", "bf16"):
+            prof = profile(runs[tag]["trainer"])
+            row[f"profile_{tag}"] = dict(
+                host_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                device_idle_share=prof["device_idle_share"],
+                top=prof["top"][:5])
+    return row, b["calls"]
+
+
+def _step_profile_fn(batch, n=3):
+    """A trainer's device ms a step: _device_profile over n steps."""
+    def profile(trainer):
+        nt = trainer.data.nTrain
+        it = itertools.cycle([np.arange(i * batch, (i + 1) * batch) % nt
+                              for i in range(n + 1)])
+        return _device_profile(lambda: trainer.train_batch(next(it)), n,
+                               warmup=1)
+    return profile
+
+
+def phase_bf16_training(gat_arch, S_np, rng, dev, out_dir):
+    """Trainer(precision='bf16') against f32 training from the same masters
+    and batches, and its first step against the bf16 step on the plain
+    versions: band_n4096 in band and bcsr mode, gat_band_n16384 (the
+    served model's weights) and movielens_n1186's LocalGNN2Ly in bcsr mode
+    (TrainerSingleNode): see _bf16_vs_f32. A bf16 step launches what an f32
+    step launches, every launch a bf16 instance (kernel 9b included).
+    Returns the bf16 launches by kernel."""
+    from graph_neural_networks_torch import data as D
+    from graph_neural_networks_torch import training as T
+    t_phase = time.perf_counter()
+    rows, launches = [], {}
+
+    def add(calls):
+        for k, n in calls.items():
+            name = k.split(":")[0]
+            launches[name] = launches.get(name, 0) + n
+
+    data = _synthetic_data(rng, (BF16_TRAIN_STEPS * BATCH, BATCH, BATCH), 1,
+                           N_GRAPH, 5)
+    band_step = _band_launches(step=True)
+    for mode, expected in (
+            ("band", {k: n for k, n in band_step.items() if n}),
+            ("bcsr", {"bcsr_matmul": 12})):
+        arch = _build_model(S_np, mode, dev)
+        row, calls = _bf16_vs_f32(
+            f"band_n4096 {mode}", (arch, _twin(arch), _twin(arch)), data,
+            BATCH,
+            lambda a, name: _model(a, name, out_dir), BF16_TRAIN_STEPS,
+            expected, _step_profile_fn(BATCH))
+        rows.append(row)
+        add(calls)
+    data = _synthetic_data(rng, (BF16_TRAIN_STEPS * GAT_BATCH, GAT_BATCH,
+                                 GAT_BATCH), GAT_DIMS[0], GAT_N, 4)
+    row, calls = _bf16_vs_f32(
+        "gat_band_n16384", (gat_arch, _twin(gat_arch), _twin(gat_arch)),
+        data, GAT_BATCH,
+        lambda a, name: _model(a, name, out_dir), BF16_TRAIN_STEPS,
+        dict(stats_call=2, apply_call=2, bwd_call=2),
+        _step_profile_fn(GAT_BATCH))
+    rows.append(row)
+    add(calls)
+    ml = D.MovieLens("movie", ML_CELL["label"], 0.9, 0.1,
+                     kNN=ML_CELL["kNN"], nSynthUsers=ML_CELL["users"],
+                     nSynthMovies=ML_CELL["movies"],
+                     rng=np.random.default_rng(ML_CELL["seed"]))
+    ml.expandDims()
+    W = ml.getGraph()
+    S = W / np.max(np.abs(np.linalg.eigvalsh(W)))
+    arch = _ml_arch(S, "LocalGNN2Ly", 2, "bcsr", dev)
+    row, calls = _bf16_vs_f32(
+        "movielens_n1186 LocalGNN2Ly bcsr", (arch, _twin(arch),
+                                             _twin(arch)), ml,
+        ML_CELL["batch"], lambda a, name: _ml_model(
+            a, name, T.TrainerSingleNode, T.evaluate_single_node, out_dir),
+        BF16_TRAIN_STEPS, {"bcsr_matmul": _ml_launches(arch, step=True)},
+        _step_profile_fn(ML_CELL["batch"]))
+    rows.append(row)
+    add(calls)
+    emit(phase="bf16_training", grad_share_allowed=BF16_TRAIN_GRAD_TOL,
+         loss_tolerance=BF16_TRAIN_LOSS, checks=rows,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_bf16_flock_training(data, dev, card, out_dir):
+    """flock_train_n262k's LocalGNN_DB([6,64],[3]) on the device store the
+    f32 phase built: BF16_FLOCK_STEPS TrainerFlocking steps in bf16
+    against f32 from the same masters (each step recomputes its
+    supervision in f32 on kernels 5-6, then learns: in bf16 x and the ELL
+    graphs' val, idx kept); the grid kernels' launches equal; the learning
+    half's host and device ms in each precision. Its learning half runs no
+    kernel, so there is no plain-version reference for its gradients."""
+    import torch
+    from graph_neural_networks_torch import training
+    from graph_neural_networks_torch.models.architectures_time import (
+        LocalGNN_DB)
+    t_phase = time.perf_counter()
+    c = FLOCK_TRAIN
+    net = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1, device=dev,
+                      generator=torch.Generator().manual_seed(c["wseed"]))
+    twin = LocalGNN_DB(c["dims"], c["taps"], True, "tanh", [2], 1,
+                       device=dev,
+                       generator=torch.Generator().manual_seed(c["wseed"]))
+
+    def model_fn(arch, name):
+        return training.Model(arch, training.losses.mse_loss,
+                              {"name": "ADAM", "lr": 5e-4},
+                              training.TrainerFlocking,
+                              training.evaluate_flocking, name=name,
+                              saveDir=out_dir)
+
+    def learn_profile(trainer):
+        x, y, S, _, _ = trainer._recompute(*trainer._step_args([0]))
+        return _device_profile(lambda: trainer._learn(x, y, S), 1, warmup=1)
+    T = len(np.arange(0, c["duration"], 0.01))
+    row, _ = _bf16_vs_f32(
+        "flock_train_n262k", (net, twin), data, 1, model_fn,
+        BF16_FLOCK_STEPS, _recompute_launches(T, c["lam_iters"]),
+        learn_profile, deviceStore=True, ellDegree=c["D"],
+        coverageCheck=False, seed=c["seed"])
+    emit(phase="bf16_flock_training", nvidia_smi=card,
+         grad_share_allowed=BF16_TRAIN_GRAD_TOL,
+         loss_tolerance=BF16_TRAIN_LOSS, check=row,
+         seconds=time.perf_counter() - t_phase)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -8276,6 +8693,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             db_train_launches = timed("db_training", phase_db_training,
                                       store, dev, card, out_dir)
+            timed("bf16_flock_training", phase_bf16_flock_training, store,
+                  dev, card, out_dir)
             del store
         for k in ("grid_window", "table_build"):
             launches[k] += (flock_train_launches[k] + db_serve_launches[k]
@@ -8436,6 +8855,18 @@ def main() -> int:
               np.random.default_rng(33), dev)
         timed("introspection", phase_introspection, served)
         del served, db_engine
+        # item 1: bf16 mixed-precision training on kernel 9b and the bf16
+        # instances of kernels 1-3 and 7-8
+        torch.cuda.empty_cache()
+        bwd16_errs, bwd16_rows = timed(
+            "bf16_train_kernels", phase_bf16_train_kernels, gso, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            bf16_train_launches = timed(
+                "bf16_training", phase_bf16_training, eng.arch, S_np,
+                np.random.default_rng(37), dev, out_dir)
+        for k in BF16_KERNELS:
+            bf16_launches[k] += bf16_train_launches.get(k, 0)
+        bf16_launches["bwd_call"] = bf16_train_launches.get("bwd_call", 0)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8490,6 +8921,18 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+    # kernel 9b: bf16_training's launches (bf16 training of
+    # gat_band_n16384)
+    row = bwd16_rows["bwd_call"]
+    summary.append(dict(
+        name="bwd_call_bf16", route="cuda",
+        source="graph_neural_networks_torch/kernels/csrc/attention_flash.cu",
+        replaces=REPLACES["bwd_call"], launches=bf16_launches["bwd_call"],
+        max_abs_err=bwd16_errs["bwd_call"], ms=row["ms"], kernel_ms=row["ms"],
+        graph_ms=row["graph_ms"], f32_ms=row["f32_ms"],
+        f32_graph_ms=row["f32_graph_ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"], shape=row["shape"]))
     print(card, flush=True)
     emit(kernels=summary)
     emit(ok=True, device=dict(platform="gpu",

@@ -5,15 +5,19 @@
 
 Runs phase_device and phase_build, then phase_bf16_serving (band_n4096 in
 band, bcsr and dense mode and gat_band_n16384 served in bf16 beside f32,
-each forward profiled) and phase_bf16_kernels, early in a process: in the
-full chip_smoke.py they run last, where torch.profiler keeps only part of
-the kernel events. gat_band_n16384 is the untrained band model (its band
-structure built by one f32 request); its weights do not change the times.
-Prints chip_smoke.py's JSON lines.
+each forward profiled), phase_bf16_kernels, phase_bf16_train_kernels
+(kernel 9b) and phase_bf16_training (band_n4096 band and bcsr,
+gat_band_n16384 and movielens_n1186 trained in bf16 beside f32, each
+step profiled), early in a process: in the full chip_smoke.py they run
+last, where torch.profiler keeps only part of the kernel events.
+gat_band_n16384 is the untrained band model (its band structure built by
+one f32 request); its weights do not change the times. Prints
+chip_smoke.py's JSON lines.
 """
 
 import os
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -42,6 +46,10 @@ def main() -> int:
     cs.timed("bf16_serving", cs.phase_bf16_serving, S_np, arch,
              np.random.default_rng(32), dev)
     cs.timed("bf16_kernels", cs.phase_bf16_kernels, graph, S_np, arch.S, dev)
+    cs.timed("bf16_train_kernels", cs.phase_bf16_train_kernels, arch.S, dev)
+    with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as out_dir:
+        cs.timed("bf16_training", cs.phase_bf16_training, arch, S_np,
+                 np.random.default_rng(37), dev, out_dir)
     return 0
 
 

@@ -82,14 +82,16 @@ _SIGNATURES = {
 _SIGNATURES.update({
     f"{name}_bf16": _SIGNATURES[name]
     for name in ("gnt_band_matmul", "gnt_bcsr_matmul", "gnt_band_register",
-                 "gnt_attn_stats", "gnt_attn_apply")})
+                 "gnt_attn_stats", "gnt_attn_apply", "gnt_attn_bwd",
+                 "gnt_attn_bwd_smem_bytes")})
 
 # The io types a kernel has an instance for (its launcher's name suffix).
 IO_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 # Calls of the registered ops (ops.spmm, ops.attention_flash: the kernels
-# with a bf16 instance), by (op name, io dtype), on the CPU and on CUDA
-# alike: what shows that a path ran in the dtype it was asked for.
+# with a bf16 instance) and of bwd_call (kernel 9, which has one too), by
+# (name, io dtype), on the CPU and on CUDA alike: what shows that a path
+# ran in the dtype it was asked for.
 OP_CALLS: collections.Counter = collections.Counter()
 # Each source's table of its kernels: gnt_<source>_kernel(i, &name) gives
 # kernel i's address and name, or null past the last.
@@ -188,13 +190,18 @@ def library() -> ctypes.CDLL:
 # The layout (band w, block size) at which attributes() reports the
 # graph-shift kernels' dynamic shared memory: band_n4096's.
 SMEM_LAYOUT = (1, 128)
+# The layout (F, W, ibs) at which it reports the flash backward kernels':
+# gat_band_n16384's (F = 32, w = 2); an attn_bwd_mma_kernel instance of NF
+# k16 feature steps at F = 16 NF, the widest it takes.
+ATTN_SMEM_LAYOUT = (32, 5, 128)
 
 
 def attributes() -> dict:
     """cudaFuncGetAttributes of every kernel of the library, by kernel
     name: its registers a thread, local (spill) bytes, static shared bytes
     and most threads a block; for the graph-shift kernels (spmm.cu) also
-    the dynamic shared bytes a block takes on a band of SMEM_LAYOUT."""
+    the dynamic shared bytes a block takes on a band of SMEM_LAYOUT, and
+    for the flash backward kernels at ATTN_SMEM_LAYOUT."""
     lib = library()
     found = {}
     for table in _KERNEL_TABLES:
@@ -210,6 +217,14 @@ def attributes() -> dict:
             if table == "gnt_spmm_kernel":
                 found[kernel]["dynamic_shared_bytes"] = \
                     lib.gnt_spmm_smem_bytes(i, *SMEM_LAYOUT)
+            elif kernel.startswith("attn_bwd_kernel"):
+                found[kernel]["dynamic_shared_bytes"] = \
+                    lib.gnt_attn_bwd_smem_bytes(*ATTN_SMEM_LAYOUT)
+            elif kernel.startswith("attn_bwd_mma_kernel"):
+                nf = int(kernel.split(",")[1])
+                found[kernel]["dynamic_shared_bytes"] = \
+                    lib.gnt_attn_bwd_smem_bytes_bf16(16 * nf,
+                                                     *ATTN_SMEM_LAYOUT[1:])
             i += 1
     return found
 

@@ -9,13 +9,29 @@
 // is a plain 8-byte load stored converted, not a cp.async (which copies
 // bytes and cannot widen).
 //
-// Three kernels, the counterparts of six Pallas calls of the JAX package
+// The global backward has a bf16 kernel of its own, attn_bwd_mma_kernel
+// (bf16 training; the JAX _make_bwd_kernel on bf16 operands, :142-197):
+// bf16 stays bf16 in shared memory (mask, slab, g, a1 and v staged by
+// 16-byte cp.async, chunks in two stages) and both products run on tensor
+// cores, mma.sync.m16n8k16 with f32 accumulators. v^T g takes bf16 from
+// memory, so it is JAX's f32 dot up to the order of the sum; the dv
+// product's coefficient alpha (* S) is f32, computed in registers in the A
+// fragment's layout and split into bf16 hi + lo, two mma into one
+// accumulator (2^-16 of the coefficient, where one bf16 rounding would be
+// 2^-9). Every score, exp and sum stays f32; da2 and the da1 partials are
+// written in f32, dv in bf16, rounded once (:285). Each warp owns 16 rows,
+// so dv^T and da2 stay in its registers; only the da1 column sums cross
+// warps, in warp order, without atomics (see attn_bwd_mma_kernel).
+//
+// Four kernels, the counterparts of six Pallas calls of the JAX package
 // (graph_neural_networks_tpu/ops/attention_flash.py); apply in instances
-// for G = 4, 2, 1 (attn_apply_kernel<kExt, G>):
+// for G = 4, 2, 1 (attn_apply_kernel<kExt, G>), the bf16 backward for
+// F <= 16 NF, NF = 1 .. 4:
 //
 //   attn_stats_kernel<false> <- attention_flash.py:_stats_call
 //   attn_apply_kernel<false> <- attention_flash.py:_apply_call
 //   attn_bwd_kernel<false>   <- attention_flash.py:_bwd_call
+//   attn_bwd_mma_kernel<false, NF> (bf16) <- attention_flash.py:_bwd_call
 //   attn_stats_kernel<true>  <- attention_flash.py:_stats_ext_call
 //   attn_apply_kernel<true>  <- attention_flash.py:_apply_ext_call
 //   attn_bwd_kernel<true>    <- attention_flash.py:_bwd_ext_call
@@ -1147,6 +1163,529 @@ cudaError_t launch_bwd(const float* g, const float* a1, const float* a2,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// attn_bwd_mma_kernel: kernel 9 in bf16, on tensor cores
+// ---------------------------------------------------------------------------
+
+// The bf16 backward keeps bf16 in shared memory: a window chunk's mask,
+// slab, g and a1 (16-byte cp.async, two stages), the tile's v. Its two
+// products run as mma.sync.m16n8k16 (bf16 in, f32 accumulators). Each of
+// the 8 warps owns 16 rows of the 128-row tile, so dv^T (16 rows x F) and
+// the rows' da2 stay in the warp's registers over the whole window, and
+// only the da1 column sums cross warps.
+constexpr int kMmaPad = 8;             // bf16 after each staged row: row
+                                       // strides of an odd number of
+                                       // 16-byte units, so the 8 rows of an
+                                       // ldmatrix fall on distinct banks
+constexpr int kLDC = kBC + kMmaPad;    // a staged chunk row (mask, slab, g)
+constexpr int kLDR = kBR + kMmaPad;    // a staged v or dv row
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdMmaMaxNF = 4;        // F <= 64: dv^T in registers
+
+// Dynamic shared memory of attn_bwd_mma_kernel, offsets in bytes.
+struct BwdMmaLayout {
+  int FP;    // F rounded up to the k16 step of v^T g
+  int nch;   // chunks of a window at most
+  size_t vs, dvo, stage, stage_bytes, red, da1, live, list, bytes;
+};
+
+__host__ __device__ inline BwdMmaLayout bwd_mma_layout(int F, int W,
+                                                       int ibs) {
+  BwdMmaLayout L;
+  L.FP = (F + 15) / 16 * 16;
+  L.nch = W * (ibs / kBC);
+  L.vs = 0;                                        // v of the tile, [f][r]
+  L.dvo = L.vs + 2 * (size_t)L.FP * kLDR;          // dv of the tile, [f][r]
+  L.stage = L.dvo + 2 * (size_t)L.FP * kLDR;       // 2 chunk stages:
+  L.stage_bytes = 2 * (2 * (size_t)kBR * kLDC      //   mask and slab [r][c]
+                       + (size_t)L.FP * kLDC       //   g [f][c]
+                       + kBC);                     //   a1
+  L.red = L.stage + 2 * L.stage_bytes;             // 2 x the warps' da1
+  L.da1 = L.red + sizeof(float) * 2 * kBwdWarps * kBC;  // column sums
+  L.live = L.da1 + sizeof(float) * (size_t)W * ibs;     // da1 partials
+  L.list = L.live + sizeof(int) * (size_t)L.nch;   // warps with support
+  L.bytes = L.list + sizeof(int) * ((size_t)L.nch + 1);
+  return L;
+}
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; register i holds matrix i, each lane two
+// elements of a row (.trans: of a column).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16,
+// column-major): each bf16 product exact, summed in f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values as the bf16 pairs hi and lo with hi + lo within 2^-16 of
+// their magnitude (a before b in each word): the coefficient of the dv
+// product, split so that two bf16 products carry its f32 value.
+__device__ __forceinline__ void split_pair(float a, float b, unsigned& hi,
+                                           unsigned& lo) {
+  const bf16 ha = __float2bfloat16_rn(a), hb = __float2bfloat16_rn(b);
+  hi = (unsigned)__bfloat16_as_ushort(ha) |
+       ((unsigned)__bfloat16_as_ushort(hb) << 16);
+  lo = bf16_pair(__fsub_rn(a, __bfloat162float(ha)),
+                 __fsub_rn(b, __bfloat162float(hb)));
+}
+
+__device__ __forceinline__ unsigned ld_pair(const bf16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// attn_bwd_kernel's function on bf16 g, a1, a2, v, slab_col and mask_row
+// (f32 rowmax, rowsum; f32 da2 and da1p; dv in bf16, rounded once), every
+// score, exp and sum in f32, as the JAX kernel computes it on bf16
+// operands (_make_bwd_kernel's .astype(float32)). The same grid, window
+// chunks, two passes, skipped chunks, row reciprocals and da1 partials as
+// attn_bwd_kernel; the products on tensor cores. Warp wp owns rows
+// 16 wp .. 16 wp + 15 of a 128-row tile (rows past the tile's: idle); in
+// its m16n8 fragments lane (gr, tq) = (lane / 4, lane % 4) holds rows gr
+// and gr + 8 and the column (or feature) pairs 8 n + 2 tq.
+//  A: the chunk's coefficients alpha (* S), computed in registers where
+//     mma.sync's A fragment wants them (the accumulator layout of two n8
+//     tiles is the A layout of one k16 slice), split into bf16 hi + lo,
+//     and dv^T += coeff . g^T: g's [f][c] chunk is the B operand by plain
+//     ldmatrix, two mma.sync a product (hi, lo) into one f32 accumulator,
+//     so the coefficient's rounding stays below 2^-16 where one bf16
+//     rounding would be 2^-9. A k16 slice without support is skipped; a
+//     warp marks the chunks where it found support. After the window,
+//     delta = sum_f v dv^T of each row (a quad's shuffles), and dv is
+//     rounded to bf16 and written through shared memory.
+//  B: over the chunks where some warp found support, for those warps:
+//     v^T g (A from v's [f][r] tile by ldmatrix.trans, B from g's chunk by
+//     ldmatrix.trans) into 16 x 64 f32 fragments, then dalpha, de, dpre;
+//     da2 sums along the thread's rows, the da1 partials down the columns
+//     (shuffles over the 8 row groups, then the warps' sums in warp order,
+//     one chunk later, through shared memory): deterministic, no atomics.
+// NF = FP / 16 (F <= 16 NF). Grid Q * nb, q fastest; dynamic shared memory
+// bwd_mma_layout(F, W, ibs).bytes; g, a1, v, slab_col, mask_row and dv
+// 16-byte aligned. Two blocks an SM up to F = 32 (~107 KB at w = 2); from
+// NF = 3 a block's shared memory (~120 KB at F = 48) leaves room for one,
+// so those instances take the registers of one (their dv^T fragments
+// spilled under the two-block limit of 128).
+template <bool kExt, int NF>
+__global__ void __launch_bounds__(kBwdThreads, NF <= 2 ? 2 : 1)
+attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
+                    const bf16* __restrict__ a2, const bf16* __restrict__ v,
+                    const float* __restrict__ rowmax,
+                    const float* __restrict__ rowsum,
+                    const bf16* __restrict__ slab_col,
+                    const bf16* __restrict__ mask_row,
+                    float* __restrict__ da2, float* __restrict__ da1p,
+                    bf16* __restrict__ dv, int Q, int F, int Np, int nb,
+                    int w, int ibs, int with_s, float slope) {
+  constexpr int FP = 16 * NF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = 2 * w + 1;
+  const BwdMmaLayout L = bwd_mma_layout(F, W, ibs);
+  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L.vs);
+  bf16* DVo = reinterpret_cast<bf16*>(smem_raw + L.dvo);
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);
+  float* da1s = reinterpret_cast<float*>(smem_raw + L.da1);
+  int* live = reinterpret_cast<int*>(smem_raw + L.live);
+  int* list = reinterpret_cast<int*>(smem_raw + L.list);
+  // stage b: mask [kBR][kLDC], slab [kBR][kLDC], g [FP][kLDC], a1 [kBC]
+  auto Ms = [&](int b) {
+    return reinterpret_cast<bf16*>(smem_raw + L.stage + b * L.stage_bytes);
+  };
+  auto Ss = [&](int b) { return Ms(b) + kBR * kLDC; };
+  auto Gs = [&](int b) { return Ms(b) + 2 * kBR * kLDC; };
+  auto A1s = [&](int b) { return Ms(b) + (2 * kBR + FP) * kLDC; };
+
+  const int q = blockIdx.x % Q;
+  const int i = blockIdx.x / Q;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int m0 = 16 * warp;  // the warp's first row of a tile
+  const int cols_len = kExt ? Np + 2 * w * ibs : Np;  // g's and a1's rows
+  const int lag = kExt ? 0 : w;  // column block of window block k: i + k - lag
+  const int64_t qn = (int64_t)q * Np;
+  const int64_t qc = (int64_t)q * cols_len;
+  const int64_t gq = (int64_t)q * F * cols_len;
+  const int k0 = kExt ? 0 : max(0, w - i);
+  const int k1 = kExt ? W : min(W, nb + w - i);
+  const int ncc = ibs / kBC;
+  const int nch = (k1 - k0) * ncc;  // chunk ci: tile k0 + ci / ncc
+  const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
+
+  // chunk ci of the window for the tile's rows t0 .. t0 + rows into
+  // stage b: the mask and (with_s) the slab, g's F rows, a1
+  auto stage = [&](int b, int ci, int t0, int rows) {
+    const int k = k0 + ci / ncc, cc = (ci % ncc) * kBC;
+    const int64_t c0 =
+        (int64_t)(i + k - lag) * ibs + cc;  // first column in g and a1
+    const bf16* mt = mask_row + (((int64_t)i * W + k) * ibs + t0) * ibs + cc;
+    const bf16* st =
+        slab_col +
+        (((int64_t)(i + k - lag) * W + (2 * w - k)) * ibs + t0) * ibs + cc;
+    bf16* ms = Ms(b);
+    bf16* ss = Ss(b);
+    bf16* gs = Gs(b);
+    for (int e = tid; e < rows * (kBC / 8); e += kBwdThreads) {
+      const int r = e / (kBC / 8), c = 8 * (e % (kBC / 8));
+      cp_async16b(ms + r * kLDC + c, mt + (int64_t)r * ibs + c);
+      if (with_s) cp_async16b(ss + r * kLDC + c, st + (int64_t)r * ibs + c);
+    }
+    for (int e = tid; e < F * (kBC / 8); e += kBwdThreads) {
+      const int f = e / (kBC / 8), c = 8 * (e % (kBC / 8));
+      cp_async16b(gs + f * kLDC + c, g + gq + (int64_t)f * cols_len + c0 + c);
+    }
+    if (tid < kBC / 8)
+      cp_async16b(A1s(b) + 8 * tid, a1 + qc + c0 + 8 * tid);
+  };
+  // the warps' da1 column sums of a chunk (red stage b), in warp order
+  auto fold = [&](int b, int ci) {
+    const int k = k0 + ci / ncc, cc = (ci % ncc) * kBC;
+    float s = 0.f;
+#pragma unroll
+    for (int wv = 0; wv < kBwdWarps; ++wv)
+      s += red[(b * kBwdWarps + wv) * kBC + tid];
+    da1s[k * ibs + cc + tid] += s;
+  };
+
+  // the padded features of v and of g are never staged: zeros
+  for (int e = tid; e < (FP - F) * kLDR; e += kBwdThreads)
+    Vs[F * kLDR + e] = zero;
+  for (int e = tid; e < 2 * (FP - F) * kLDC; e += kBwdThreads) {
+    const int b = e / ((FP - F) * kLDC);
+    Gs(b)[F * kLDC + e % ((FP - F) * kLDC)] = zero;
+  }
+  for (int e = tid; e < W * ibs; e += kBwdThreads) da1s[e] = 0.f;
+
+  for (int t0 = 0; t0 < ibs; t0 += kBR) {
+    const int rows = min(kBR, ibs - t0);
+    const bool active = m0 < rows;  // rows is a multiple of 64
+    const int64_t r0 = (int64_t)i * ibs + t0;
+    __syncthreads();  // the previous tile's readers are done
+    for (int e = tid; e < F * (kBR / 8); e += kBwdThreads) {
+      const int f = e / (kBR / 8), r = 8 * (e % (kBR / 8));
+      if (r < rows)
+        cp_async16b(Vs + f * kLDR + r,
+                    v + ((int64_t)q * F + f) * Np + r0 + r);
+    }
+    cp_commit();
+    for (int e = tid; e < nch; e += kBwdThreads) live[e] = 0;
+    // the thread's rows gr and gr + 8: a2, rowmax, 1 / rowsum
+    float ra2[2] = {0.f, 0.f}, rmx[2] = {0.f, 0.f}, rrv[2] = {0.f, 0.f};
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = qn + r0 + m0 + gr + 8 * h;
+        ra2[h] = __bfloat162float(a2[r]);
+        rmx[h] = rowmax[r];
+        rrv[h] = __fdiv_rn(1.f, fmaxf(rowsum[r], 1e-30f));
+      }
+    }
+
+    // pass A: the coefficients, dv^T, and which warps found support
+    float dva[2 * NF][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dva[n][e] = 0.f;
+    stage(0, 0, t0, rows);
+    cp_commit();
+    for (int ci = 0; ci < nch; ++ci) {
+      const int b = ci & 1;
+      cp_wait<0>();
+      // chunk ci (and v) landed for every thread, and every thread is
+      // done with chunk ci - 1's stage
+      __syncthreads();
+      if (ci + 1 < nch) stage(b ^ 1, ci + 1, t0, rows);
+      cp_commit();
+      if (!active) continue;
+      const bf16* ms = Ms(b) + (m0 + gr) * kLDC + 2 * tq;
+      const bf16* ss = Ss(b) + (m0 + gr) * kLDC + 2 * tq;
+      const bf16* gs = Gs(b);
+      bool found = false;
+#pragma unroll
+      for (int s = 0; s < kBC / 16; ++s) {
+        unsigned ahi[4], alo[4];
+        bool nz = false;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {  // columns 16 s + 8 p + 2 tq, + 1
+          const int c = 16 * s + 8 * p;
+          const unsigned a1p = ld_pair(A1s(b) + c + 2 * tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows gr + 8 h
+            const unsigned mm = ld_pair(ms + 8 * h * kLDC + c);
+            const unsigned sv = with_s ? ld_pair(ss + 8 * h * kLDC + c) : 0u;
+            float cf[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float m = j ? bf16_hi(mm) : bf16_lo(mm);
+              const float al = alpha(ra2[h], j ? bf16_hi(a1p) : bf16_lo(a1p),
+                                     m, rmx[h], rrv[h], slope);
+              cf[j] = with_s ? __fmul_rn(al, j ? bf16_hi(sv) : bf16_lo(sv))
+                             : al;
+              nz |= m != 0.f;
+            }
+            // A fragment register h + 2 p: rows gr + 8 h, k 8 p + 2 tq
+            split_pair(cf[0], cf[1], ahi[h + 2 * p], alo[h + 2 * p]);
+          }
+        }
+        if (!__any_sync(0xffffffffu, nz)) continue;  // adds exact zeros
+        found = true;
+#pragma unroll
+        for (int nj = 0; nj < NF; ++nj) {
+          // B of the features 16 nj .. + 16 (n) at k 16 s .. + 16: g's rows
+          // as stored ([n][k]); matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
+          // (n 8-15, k 0-7), (n 8-15, k 8-15)
+          unsigned bb[4];
+          ldsm_x4(bb, gs + (16 * nj + lane % 8 + 8 * (lane / 16)) * kLDC +
+                          16 * s + 8 * ((lane / 8) % 2));
+          mma_bf16(dva[2 * nj], ahi, bb[0], bb[1]);
+          mma_bf16(dva[2 * nj], alo, bb[0], bb[1]);
+          mma_bf16(dva[2 * nj + 1], ahi, bb[2], bb[3]);
+          mma_bf16(dva[2 * nj + 1], alo, bb[2], bb[3]);
+        }
+      }
+      if (found && lane == 0) atomicOr(live + ci, 1 << warp);
+    }
+    // delta = sum_f v dv of each row (the quad's 4 feature groups in a
+    // fixed tree); dv rounded to bf16 into DVo
+    float dl[2] = {0.f, 0.f};
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < 2 * NF; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int r = m0 + gr + 8 * h, f = 8 * n + 2 * tq + j;
+            const float d = dva[n][2 * h + j];
+            dl[h] = fmaf(__bfloat162float(Vs[f * kLDR + r]), d, dl[h]);
+            DVo[f * kLDR + r] = __float2bfloat16_rn(d);
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 1);
+        dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 2);
+      }
+    }
+    __syncthreads();  // DVo and the support bits complete; stages free
+    for (int e = tid; e < F * (kBR / 8); e += kBwdThreads) {
+      const int f = e / (kBR / 8), r = 8 * (e % (kBR / 8));
+      if (r < rows)
+        *reinterpret_cast<uint4*>(dv + ((int64_t)q * F + f) * Np + r0 + r) =
+            *reinterpret_cast<const uint4*>(DVo + f * kLDR + r);
+    }
+    if (tid == 0) {
+      int n = 0;
+      for (int ci = 0; ci < nch; ++ci)
+        if (live[ci]) list[n++] = ci;
+      list[nch] = n;
+    }
+    __syncthreads();
+
+    // pass B: dpre on the chunks with support; da2 and the da1 partials
+    const int n_live = list[nch];
+    float d2[2] = {0.f, 0.f};
+    if (n_live > 0) stage(0, list[0], t0, rows);
+    cp_commit();
+    for (int li = 0; li < n_live; ++li) {
+      const int b = li & 1, ci = list[li];
+      cp_wait<0>();
+      // chunk li landed; li - 1's stage is free and its column sums are
+      // complete
+      __syncthreads();
+      if (li > 0 && tid < kBC) fold(b ^ 1, list[li - 1]);
+      if (li + 1 < n_live) stage(b ^ 1, list[li + 1], t0, rows);
+      cp_commit();
+      float* rd = red + (b * kBwdWarps + warp) * kBC;
+      if (!(active && ((live[ci] >> warp) & 1))) {
+        if (lane < 4)
+#pragma unroll
+          for (int n = 0; n < kBC / 8; ++n) {
+            rd[8 * n + 2 * tq] = 0.f;
+            rd[8 * n + 2 * tq + 1] = 0.f;
+          }
+        continue;
+      }
+      const bf16* gs = Gs(b);
+      float acc[kBC / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+      for (int kf = 0; kf < NF; ++kf) {
+        // A = v^T (rows m0 .. + 16, features 16 kf .. + 16) from v's
+        // [f][r] tile: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+        // (m 0-7, k 8-15), (m 8-15, k 8-15), each stored k-major
+        unsigned a[4];
+        ldsm_x4_trans(a, Vs + (16 * kf + lane % 8 + 8 * (lane / 16)) * kLDR +
+                             m0 + 8 * ((lane / 8) % 2));
+#pragma unroll
+        for (int nj = 0; nj < kBC / 16; ++nj) {
+          // B = g (features 16 kf .. + 16, columns 16 nj .. + 16) from its
+          // row-major [k][n] chunk
+          unsigned bb[4];
+          ldsm_x4_trans(bb, gs + (16 * kf + lane % 16) * kLDC + 16 * nj +
+                                8 * (lane / 16));
+          mma_bf16(acc[2 * nj], a, bb[0], bb[1]);
+          mma_bf16(acc[2 * nj + 1], a, bb[2], bb[3]);
+        }
+      }
+      const bf16* ms = Ms(b) + (m0 + gr) * kLDC + 2 * tq;
+      const bf16* ss = Ss(b) + (m0 + gr) * kLDC + 2 * tq;
+      float cs[kBC / 8][2];  // dpre down the columns 8 n + 2 tq + j
+#pragma unroll
+      for (int n = 0; n < kBC / 8; ++n) {
+        const unsigned a1p = ld_pair(A1s(b) + 8 * n + 2 * tq);
+        cs[n][0] = cs[n][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned mm = ld_pair(ms + 8 * h * kLDC + 8 * n);
+          const unsigned sv =
+              with_s ? ld_pair(ss + 8 * h * kLDC + 8 * n) : 0u;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float a1v = j ? bf16_hi(a1p) : bf16_lo(a1p);
+            const float al = alpha(ra2[h], a1v, j ? bf16_hi(mm) : bf16_lo(mm),
+                                   rmx[h], rrv[h], slope);
+            const float dco = acc[n][2 * h + j];
+            const float dal =
+                with_s ? __fmul_rn(dco, j ? bf16_hi(sv) : bf16_lo(sv)) : dco;
+            const float de = __fmul_rn(al, __fsub_rn(dal, dl[h]));
+            // de * m: de is 0 where m is
+            const float dpre =
+                __fmul_rn(de, __fadd_rn(ra2[h], a1v) > 0.f ? 1.f : slope);
+            d2[h] = __fadd_rn(d2[h], dpre);
+            cs[n][j] = __fadd_rn(cs[n][j], dpre);
+          }
+        }
+      }
+      // the 8 row groups of each column (lanes tq, tq + 4, ...)
+#pragma unroll
+      for (int n = 0; n < kBC / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            cs[n][j] += __shfl_xor_sync(0xffffffffu, cs[n][j], o);
+      if (lane < 4)
+#pragma unroll
+        for (int n = 0; n < kBC / 8; ++n) {
+          rd[8 * n + 2 * tq] = cs[n][0];
+          rd[8 * n + 2 * tq + 1] = cs[n][1];
+        }
+    }
+    __syncthreads();  // the last chunk's column sums are complete
+    if (n_live > 0 && tid < kBC) fold((n_live - 1) & 1, list[n_live - 1]);
+    // da2 of each row: the quad's 4 column groups
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        d2[h] += __shfl_xor_sync(0xffffffffu, d2[h], 1);
+        d2[h] += __shfl_xor_sync(0xffffffffu, d2[h], 2);
+        if (tq == 0) da2[qn + r0 + m0 + gr + 8 * h] = d2[h];
+      }
+    }
+  }
+  __syncthreads();  // da1s complete
+  for (int e = tid; e < W * ibs; e += kBwdThreads) {
+    const int k = e / ibs;
+    da1p[((int64_t)q * nb + i) * W * ibs + e] =
+        k >= k0 && k < k1 ? da1s[e] : 0.f;
+  }
+}
+
+size_t bwd_mma_smem_bytes(int F, int W, int ibs) {
+  return bwd_mma_layout(F, W, ibs).bytes;
+}
+
+template <bool kExt, int NF>
+cudaError_t launch_bwd_mma_nf(const bf16* g, const bf16* a1, const bf16* a2,
+                              const bf16* v, const float* rowmax,
+                              const float* rowsum, const bf16* slab_col,
+                              const bf16* mask_row, float* da2, float* da1p,
+                              bf16* dv, int Q, int F, int Np, int nb, int w,
+                              int ibs, int with_s, float slope, size_t smem,
+                              unsigned blocks, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_mma_kernel<kExt, NF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_mma_kernel<kExt, NF><<<blocks, kBwdThreads, smem, stream>>>(
+      g, a1, a2, v, rowmax, rowsum, slab_col, mask_row, da2, da1p, dv, Q, F,
+      Np, nb, w, ibs, with_s, slope);
+  return cudaGetLastError();
+}
+
+// The bf16 backward: attn_bwd_mma_kernel<kExt, ceil(F / 16)>; refuses
+// what launch_bwd refuses, and F above 16 * kBwdMmaMaxNF.
+template <bool kExt>
+cudaError_t launch_bwd(const bf16* g, const bf16* a1, const bf16* a2,
+                       const bf16* v, const float* rowmax,
+                       const float* rowsum, const bf16* slab_col,
+                       const bf16* mask_row, float* da2, float* da1p,
+                       bf16* dv, int Q, int F, int Np, int nb, int w,
+                       int ibs, int with_s, float slope,
+                       cudaStream_t stream) {
+  if (Q <= 0 || F <= 0 || F > 16 * kBwdMmaMaxNF || ibs % kBC != 0 ||
+      Np != nb * ibs || w < 0 || (kExt && w > nb))
+    return cudaErrorInvalidValue;
+  for (const void* p : {(const void*)g, (const void*)a1, (const void*)v,
+                        (const void*)slab_col, (const void*)mask_row,
+                        (const void*)dv})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  const long long blocks = (long long)Q * nb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = bwd_mma_smem_bytes(F, 2 * w + 1, ibs);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const unsigned nblk = (unsigned)blocks;
+  switch ((F + 15) / 16) {
+    case 1:
+      return launch_bwd_mma_nf<kExt, 1>(g, a1, a2, v, rowmax, rowsum,
+                                        slab_col, mask_row, da2, da1p, dv, Q,
+                                        F, Np, nb, w, ibs, with_s, slope,
+                                        smem, nblk, stream);
+    case 2:
+      return launch_bwd_mma_nf<kExt, 2>(g, a1, a2, v, rowmax, rowsum,
+                                        slab_col, mask_row, da2, da1p, dv, Q,
+                                        F, Np, nb, w, ibs, with_s, slope,
+                                        smem, nblk, stream);
+    case 3:
+      return launch_bwd_mma_nf<kExt, 3>(g, a1, a2, v, rowmax, rowsum,
+                                        slab_col, mask_row, da2, da1p, dv, Q,
+                                        F, Np, nb, w, ibs, with_s, slope,
+                                        smem, nblk, stream);
+    default:
+      return launch_bwd_mma_nf<kExt, 4>(g, a1, a2, v, rowmax, rowsum,
+                                        slab_col, mask_row, da2, da1p, dv, Q,
+                                        F, Np, nb, w, ibs, with_s, slope,
+                                        smem, nblk, stream);
+  }
+}
+
 // stats: the signal rows a block stages (qb), the rows a warp serves (rw)
 // and the dynamic shared memory, for (Q, Np, W, ibs). qb: all Q if their a1
 // windows and the 8 support lists fit a quarter of a block's shared
@@ -1313,6 +1852,14 @@ const NamedKernel kKernels[] = {
      (const void*)attn_apply_kernel<false, 2, bf16>},
     {"attn_apply_kernel<false, 1, bf16>",
      (const void*)attn_apply_kernel<false, 1, bf16>},
+    {"attn_bwd_mma_kernel<false, 1, bf16>",
+     (const void*)attn_bwd_mma_kernel<false, 1>},
+    {"attn_bwd_mma_kernel<false, 2, bf16>",
+     (const void*)attn_bwd_mma_kernel<false, 2>},
+    {"attn_bwd_mma_kernel<false, 3, bf16>",
+     (const void*)attn_bwd_mma_kernel<false, 3>},
+    {"attn_bwd_mma_kernel<false, 4, bf16>",
+     (const void*)attn_bwd_mma_kernel<false, 4>},
 };
 
 }  // namespace
@@ -1420,6 +1967,27 @@ cudaError_t gnt_attn_bwd(const float* g, const float* a1, const float* a2,
   return launch_bwd<false>(g, a1, a2, v, rowmax, rowsum, slab_col, mask_row,
                            da2, da1p, dv, Q, F, Np, nb, w, ibs, with_s, slope,
                            stream);
+}
+
+// bf16 g, a1, a2, v, slab_col and mask_row; f32 rowmax, rowsum, da2 and
+// da1p; bf16 dv. F at most 64 (attn_bwd_mma_kernel keeps dv^T in
+// registers).
+cudaError_t gnt_attn_bwd_bf16(const bf16* g, const bf16* a1, const bf16* a2,
+                              const bf16* v, const float* rowmax,
+                              const float* rowsum, const bf16* slab_col,
+                              const bf16* mask_row, float* da2, float* da1p,
+                              bf16* dv, int Q, int F, int Np, int nb, int w,
+                              int ibs, int with_s, float slope,
+                              cudaStream_t stream) {
+  return launch_bwd<false>(g, a1, a2, v, rowmax, rowsum, slab_col, mask_row,
+                           da2, da1p, dv, Q, F, Np, nb, w, ibs, with_s, slope,
+                           stream);
+}
+
+// The dynamic shared memory attn_bwd_mma_kernel takes at (F, W, ibs), in
+// bytes: what the bf16 launch_bwd asks for, and refuses above kMaxSmem.
+int gnt_attn_bwd_smem_bytes_bf16(int F, int W, int ibs) {
+  return (int)bwd_mma_smem_bytes(F, W, ibs);
 }
 
 // g_ext (Q, F, Np + 2*w*ibs) and a1_ext (Q, Np + 2*w*ibs) halo-extended;

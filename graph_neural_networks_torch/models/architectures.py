@@ -336,9 +336,37 @@ class _ArchBase:
     of device tensors and the node order."""
 
     core: _ConvCore
-    ctx: dict
     order: list
     device: torch.device
+    # False: a bf16 forward computes in bf16 on the bf16 context. True for
+    # the architectures whose JAX forward casts x to f32 and passes the
+    # f32 context: under bf16 mixed precision their arithmetic is f32 on
+    # bf16-rounded parameters (JAX's type promotion of bf16 parameters
+    # against f32 activations).
+    compute_f32 = False
+
+    @property
+    def ctx(self) -> dict:
+        return self._ctx
+
+    @ctx.setter
+    def ctx(self, value: dict) -> None:
+        # a new context (changeGSO, to, shard): drop the per-dtype casts
+        self._ctx = value
+        self._ctx_cast = {}
+
+    def ctx_for_dtype(self, dtype: torch.dtype) -> dict:
+        """ctx with its float tensors in `dtype` (f32: ctx itself), cast
+        once by ``ops.gso.cast_ctx`` and memoized until ctx changes, so a
+        bf16 step does not re-cast the band slabs, BCSR blocks and
+        attention band structure (JAX ``_ctx_for_dtype``). An edge-list
+        GSO raises (ROADMAP item 2.2)."""
+        if dtype == torch.float32:
+            return self.ctx
+        if dtype not in self._ctx_cast:
+            self._ctx_cast[dtype] = {k: gso_lib.cast_ctx(v, dtype)
+                                     for k, v in self.ctx.items()}
+        return self._ctx_cast[dtype]
 
     def parameters(self):
         return self.core.parameters()
@@ -414,15 +442,18 @@ class _ArchBase:
                 new_map, dtype=torch.long, device=self.device))
             self.order = [self.order[i] for i in part.order]
         self.ctx["S"] = self.S = ShardedGso(mesh, part, data_axis=data_axis)
+        self._ctx_cast = {}
         return self
 
     # -- forward contracts -------------------------------------------------
     def split_forward(self, x):
-        """(readout output, last graph-filter-layer output)."""
+        """(readout output, last graph-filter-layer output), in x's dtype
+        on the context cast to it (:meth:`ctx_for_dtype`) for a bf16,
+        f16 or f32 x."""
         x = torch.as_tensor(x, device=self.device)
-        if x.dtype != torch.float32:
+        if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
             x = x.to(torch.float32)   # f64/int inputs: compute in f32
-        return self.core(x, self.ctx)
+        return self.core(x, self.ctx_for_dtype(x.dtype))
 
     def apply(self, x):
         return self.split_forward(x)[0]
@@ -1053,7 +1084,10 @@ class MultiNodeAggregationGNN:
     """Outer layers of per-node AggregationGNNs with rotated node orders.
     Reference: architectures.py:3230-3574. The JAX parameter tree is
     ``{"inner": [[tree of inner[r][p]]], "mlp": tree of the MLP}``; its
-    ``flax_names`` maps that tree."""
+    ``flax_names`` maps that tree. Its forward casts x to f32, as JAX's
+    (``compute_f32``)."""
+
+    compute_f32 = True
 
     def __init__(self, nSelectedNodes, nShifts, dimFeatures, nFilterTaps,
                  bias, nonlinearity, poolingFunction, poolingSize,
@@ -1219,6 +1253,8 @@ class GraphRecurrentNN(_ArchBase):
     """
 
     hidden_kind = "plain"
+    # the forward casts x to f32 and takes the f32 context, as JAX's
+    compute_f32 = True
 
     def __init__(self, dimInputSignals, dimOutputSignals, dimHiddenSignals,
                  nFilterTaps, bias, nonlinearityHidden, nonlinearityOutput,

@@ -43,8 +43,12 @@ f32; apply's y is bf16) and go through ``torch.library`` ops,
 plain version), a CUDA one (the kernel), a fake one (shapes, for
 ``torch.export`` and ``FlopCounterMode``) and a flop formula; each call
 adds one to ``kernels.OP_CALLS[name, dtype]``; on the CPU a call that needs
-a gradient runs the plain version directly. The backward and the ext
-kernels take f32 only (bf16 training and bf16 sharding are later items).
+a gradient runs the plain version directly. The backward (kernel 9) takes
+bf16 operands too, as bf16 training runs it: da2 and the da1 partials in
+f32, dv in bf16, rounded once (``attn_bwd_mma_kernel`` on tensor cores,
+F at most 64); :class:`FlashApply` rounds the folded da1 and da2 to the
+operands' dtype. The ext kernels take f32 only (bf16 sharding is ROADMAP
+item 2.1).
 
 The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
@@ -331,7 +335,14 @@ def bwd_plain(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     cotangent g (Q, F, Np), per row block over its column window:
     (da2 (Q, Np), da1p (Q, nb, W, ibs), dv (Q, F, Np)), where
     da1p[q, i, k] holds the sum over block i's rows at column block
-    i + k - w (see :func:`fold_window_partials`)."""
+    i + k - w (see :func:`fold_window_partials`). bf16 operands (the
+    stats f32): computed in f32, da2 and da1p f32, dv rounded to bf16
+    once (the JAX kernel on bf16 operands)."""
+    if v.dtype == torch.bfloat16:
+        da2, da1p, dv = bwd_plain(*(t.float() for t in (
+            a1x, a2x, v, rowmax, rowsum, slab_col, mask_row, g)), w=w,
+            ibs=ibs, with_s=with_s, slope=slope)
+        return da2, da1p, dv.to(v.dtype)
     Q, F, Np = v.shape
     nb = Np // ibs
     return _bwd_windowed(
@@ -590,10 +601,20 @@ _ATTN_APPLY = torch.ops.gnt.attn_apply.default
 _BLOCK_SMEM_BYTES = 227 * 1024
 
 
-def _check_bwd_smem(name: str, w: int, ibs: int, F: int) -> None:
-    """Raise unless attn_bwd_kernel's shared memory at (w, ibs, F) fits a
-    block."""
-    need = kernels.library().gnt_attn_bwd_smem_bytes(F, 2 * w + 1, ibs)
+# The most features the bf16 backward takes (attn_bwd_mma_kernel keeps a
+# warp's dv^T in registers)
+BWD_BF16_MAX_F = 64
+
+
+def _check_bwd_smem(name: str, w: int, ibs: int, F: int,
+                    dtype=torch.float32) -> None:
+    """Raise unless the backward kernel of `dtype` (attn_bwd_kernel, or
+    attn_bwd_mma_kernel in bf16) takes (w, ibs, F): its shared memory fits
+    a block, and in bf16 F is at most BWD_BF16_MAX_F."""
+    if dtype == torch.bfloat16 and F > BWD_BF16_MAX_F:
+        raise ValueError(f"{name}: the bf16 kernel takes F <= "
+                         f"{BWD_BF16_MAX_F} features, got {F}")
+    need = kernels.entry("gnt_attn_bwd_smem_bytes", dtype)(F, 2 * w + 1, ibs)
     if need > _BLOCK_SMEM_BYTES:
         raise ValueError(f"{name}: w={w}, ibs={ibs}, F={F} need {need} bytes "
                          f"of shared memory a block, above "
@@ -608,10 +629,13 @@ def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     (Q, F, Np): (da2 (Q, Np), da1p (Q, nb, W, ibs) window partials, dv
     (Q, F, Np)); fold da1p with :func:`fold_window_partials`. S is read in
     its column layout (slab_col) at the mirrored index of the row layout,
-    the support in the row layout (mask_row).
+    the support in the row layout (mask_row). a1x, a2x, v, slab_col,
+    mask_row and g all f32 or all bf16 (the stats f32); da2 and da1p are
+    f32, dv in v's dtype.
 
-    CUDA kernel: ``attn_bwd_kernel`` in kernels/csrc/attention_flash.cu,
-    replacing the Pallas kernel of the JAX package's
+    CUDA kernel: ``attn_bwd_kernel`` in kernels/csrc/attention_flash.cu
+    (``attn_bwd_mma_kernel`` in bf16: tensor cores, F <= 64), replacing
+    the Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_bwd_call``.
     """
     Q, F, Np = v.shape
@@ -627,27 +651,29 @@ def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
                      mask_row=mask_row)
     operands = (a1x, a2x, v, rowmax, rowsum, slab_col, mask_row, g)
     if not kernels.on_cuda("bwd_call", *operands):
+        kernels.OP_CALLS["bwd_call", v.dtype] += 1
         return bwd_plain(*operands, w=w, ibs=ibs, with_s=with_s, slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("bwd_call", a1x=(a1x, f32), a2x=(a2x, f32),
-                         v=(v, f32), rowmax=(rowmax, f32),
-                         rowsum=(rowsum, f32), slab_col=(slab_col, f32),
-                         mask_row=(mask_row, f32), g=(g, f32))
+    dt, f32 = kernels.io_dtype("bwd_call", v), torch.float32
+    kernels.check_inputs("bwd_call", a1x=(a1x, dt), a2x=(a2x, dt),
+                         v=(v, dt), rowmax=(rowmax, f32),
+                         rowsum=(rowsum, f32), slab_col=(slab_col, dt),
+                         mask_row=(mask_row, dt), g=(g, dt))
     _check_tile("bwd_call", ibs)
-    _check_bwd_smem("bwd_call", w, ibs, F)
+    _check_bwd_smem("bwd_call", w, ibs, F, dt)
     W = 2 * w + 1
     da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
     da1p = torch.empty((Q, nb, W, ibs), dtype=f32, device=v.device)
-    dv = torch.empty((Q, F, Np), dtype=f32, device=v.device)
+    dv = torch.empty((Q, F, Np), dtype=dt, device=v.device)
     if Q == 0 or F == 0:
         return da2.zero_(), da1p.zero_(), dv
-    err = kernels.library().gnt_attn_bwd(
+    err = kernels.entry("gnt_attn_bwd", dt)(
         g.data_ptr(), a1x.data_ptr(), a2x.data_ptr(), v.data_ptr(),
         rowmax.data_ptr(), rowsum.data_ptr(), slab_col.data_ptr(),
         mask_row.data_ptr(), da2.data_ptr(), da1p.data_ptr(), dv.data_ptr(),
         Q, F, Np, nb, w, ibs, int(with_s), slope, kernels.stream())
     kernels.check(err, "bwd_call")
     bwd_call.launches += 1
+    kernels.OP_CALLS["bwd_call", dt] += 1
     return da2, da1p, dv
 
 
@@ -916,7 +942,9 @@ class FlashApply(torch.autograd.Function):
     a2x and v (S and the support are structure). Forward: stats_call then
     apply_call, keeping a1x, a2x, v, rowmax and rowsum for backward (alpha
     is recomputed there, never kept). Backward: one bwd_call and the fold
-    of its da1 partials. The JAX package's ``flash_apply`` custom VJP.
+    of its da1 partials, rounded with da2 to the operands' dtype after the
+    fold (f32, or bf16 under bf16 training). The JAX package's
+    ``flash_apply`` custom VJP.
     """
 
     @staticmethod
@@ -941,9 +969,10 @@ class FlashApply(torch.autograd.Function):
                                  g.contiguous(), w=w, ibs=ibs, with_s=with_s,
                                  slope=slope)
         need = ctx.needs_input_grad
-        return (fold_window_partials(da1p, w) if need[0] else None,
-                da2 if need[1] else None, dv if need[2] else None,
-                None, None, None, None, None)
+        return (fold_window_partials(da1p, w).to(a1x.dtype)
+                if need[0] else None,
+                da2.to(a2x.dtype) if need[1] else None,
+                dv if need[2] else None, None, None, None, None, None)
 
 
 def flash_apply(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,

@@ -109,6 +109,26 @@ class Gso:
         return out
 
 
+def cast_ctx(v, dtype: torch.dtype):
+    """An architecture's context entry with its float tensors in `dtype`
+    (a Gso by :meth:`Gso.to`, which casts its cached band structure and
+    rebuilds nothing; tuples and lists entry by entry), its integer tables
+    kept: the JAX package's cast of ctx's float leaves
+    (``_ctx_for_dtype``), shared by bf16 serving and bf16 training. An
+    edge-list GSO raises (ROADMAP item 2.2), as does any other object."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype) if v.is_floating_point() else v
+    if isinstance(v, Gso):
+        return v.to(dtype=dtype)
+    if isinstance(v, (tuple, list)):
+        return type(v)(cast_ctx(t, dtype) for t in v)
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    raise NotImplementedError(
+        f"{dtype} of a model whose context holds a {type(v).__name__} is "
+        "not ported (ROADMAP item 2.2: band, bcsr and dense GSOs are)")
+
+
 def _normalize_dense(S) -> np.ndarray:
     S = np.asarray(S, dtype=np.float64)
     if S.ndim == 2:

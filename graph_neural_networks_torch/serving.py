@@ -79,21 +79,6 @@ def _as_f32(y):
         lambda a: a.float() if a.is_floating_point() else a, y)
 
 
-def _cast_ctx(v, dtype):
-    """A static model's ctx entry with its float tensors in `dtype`."""
-    if isinstance(v, torch.Tensor):
-        return v.to(dtype) if v.is_floating_point() else v
-    if isinstance(v, gso_lib.Gso):
-        return v.to(dtype=dtype)
-    if isinstance(v, (tuple, list)):
-        return type(v)(_cast_ctx(t, dtype) for t in v)
-    if v is None or isinstance(v, (bool, int, float, str)):
-        return v
-    raise NotImplementedError(
-        f"bf16 serving of a model whose context holds a {type(v).__name__} "
-        "is not ported (ROADMAP item 2: band, bcsr and dense GSOs)")
-
-
 def _is_sharded(arch) -> bool:
     S = getattr(arch, "ctx", {}).get("S")
     return S is not None and not isinstance(
@@ -121,7 +106,7 @@ def _served_copy(arch, dtype):
             "forward computes in f32")
     served = copy.copy(arch)
     served.core = copy.deepcopy(arch.core).to(dtype=dtype)
-    served.ctx = {k: _cast_ctx(v, dtype) for k, v in arch.ctx.items()}
+    served.ctx = {k: gso_lib.cast_ctx(v, dtype) for k, v in arch.ctx.items()}
     served.S = served.ctx.get("S")
     return served
 

@@ -29,9 +29,20 @@ gradient all-reduce (ROADMAP queue 1 item 10.2b) and raises.
 host-numpy store (``Flocking(...)``, ``Flocking.large``) or the
 device-resident one (``Flocking.large_device``: the grid kernels recompute
 each batch's supervision). ``TrainerSingleNode`` trains on the output at
-each sample's target node (MovieLens). Not ported yet: bf16 mixed
-precision (``precision="bf16"``): it waits for the backward kernels in bf16
-(ROADMAP item 1); the forward kernels of serving take bf16.
+each sample's target node (MovieLens).
+
+``precision="bf16"`` is the JAX Trainer's mixed precision (``_mixed``):
+the master parameters and the optimizer state stay f32; each training
+step's forward and backward run on bf16 casts of the parameters, made
+inside autograd so that the gradients reach the masters in f32 (no second
+copy of the weights is kept), on the batch's float tensors in bf16 and on
+the architecture's context cast once to bf16 (``ctx_for_dtype``): the
+bf16 instances of the kernels, forward and backward. The loss reduces in
+f32, without loss scaling; validation runs the f32 forward. An
+architecture whose JAX forward computes in f32 (``compute_f32``: the
+GRNNs, MultiNodeAggregationGNN) takes the parameters rounded through bf16
+as f32, as JAX's type promotion does. A sharded model (ROADMAP item 2.1)
+and a context with an edge-list GSO (item 2.2) raise.
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
 dispatches each step eagerly, and CUDA graphs would be the tool for that
@@ -48,9 +59,12 @@ import warnings
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils import _pytree
 
 from graph_neural_networks_torch.ops.ell import (
     EllGso, ell_from_dense, ell_to_dense)
+from graph_neural_networks_torch.training.model import _module
 from graph_neural_networks_torch.utils.misc import append_jsonl
 
 
@@ -77,6 +91,50 @@ def _takes_generator(fn) -> bool:
         return "generator" in inspect.signature(fn).parameters
     except (TypeError, ValueError):
         return False
+
+
+class _Bound(nn.Module):
+    """An architecture's parameter module under one of its forward
+    functions, so that ``torch.func.functional_call`` swaps the module's
+    parameters for the length of one call."""
+
+    def __init__(self, module: nn.Module, fn):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+def _cast_floats(tree, dtype: torch.dtype):
+    """Every float tensor leaf of `tree` (a tensor, an EllGso) in `dtype`;
+    integer leaves (labels, ELL indices) and anything else kept."""
+    return _pytree.tree_map(
+        lambda a: a.to(dtype) if isinstance(a, torch.Tensor)
+        and a.is_floating_point() else a, tree)
+
+
+def _check_mixed(archit) -> None:
+    """Raise for what bf16 training does not take: a sharded model (ROADMAP
+    item 2.1: bf16 instances of the ext kernels 10-12) and a context with
+    an edge-list GSO (item 2.2). Casts the bf16 context once (memoized on
+    the architecture)."""
+    ctx = getattr(archit, "ctx", None)
+    if ctx is None:                     # the DB family: no static context
+        return
+    from graph_neural_networks_torch.ops import attention_sparse as asp
+    from graph_neural_networks_torch.parallel.sharded_gso import ShardedGso
+    if isinstance(ctx.get("S"), ShardedGso):
+        raise NotImplementedError(
+            "Trainer(precision='bf16') of a sharded architecture is ROADMAP "
+            "item 2.1 (bf16 instances of the ext kernels 10-12)")
+    if any(isinstance(v, asp.EdgeList) for v in ctx.values()):
+        raise NotImplementedError(
+            "Trainer(precision='bf16') of a model whose context holds an "
+            "edge-list GSO (EdgeList) is ROADMAP item 2.2")
+    if hasattr(archit, "ctx_for_dtype") and not archit.compute_f32:
+        archit.ctx_for_dtype(torch.bfloat16)
 
 
 def staircase_decay(rate: float, period_steps: int):
@@ -113,14 +171,10 @@ class Trainer:
         if self.mesh is not None:
             self._check_mesh()
         self.precision = kwargs.get("precision")
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "Trainer(precision='bf16'): bf16 training waits for ROADMAP "
-                "item 1's backward kernels in bf16 (kernel 9 and the "
-                "shifts on the transposed layouts); bf16 serving is "
-                "InferenceEngine(dtype=torch.bfloat16)")
-        if self.precision not in (None, "f32"):
+        if self.precision not in (None, "f32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
+        if self.precision == "bf16":
+            _check_mixed(model.archit)
         self.rng = np.random.default_rng(kwargs.get("seed", 0))
         # stochastic forwards (a GRNN's z0 ~ N(0, 1) each call) draw from
         # the trainer's generator, which advances every step; validation
@@ -161,6 +215,28 @@ class Trainer:
             return self.model.archit.split_forward(x, generator=generator)[0]
         return self.model.archit.split_forward(x)[0]
 
+    def _mixed(self, fn, *args, **kwargs):
+        """fn(*args, **kwargs) in the step's precision (the JAX Trainer's
+        ``_mixed``): as it is in f32; under precision='bf16' with the float
+        tensors of args (an EllGso's val too) in bf16 and the architecture's
+        parameters swapped for bf16 casts of the f32 masters for the call,
+        so that autograd carries the gradients back to the masters in f32
+        (``compute_f32`` architectures: the casts back in f32)."""
+        if self.precision != "bf16":
+            return fn(*args, **kwargs)
+        bf16 = torch.bfloat16
+        module = _module(self.model.archit)
+        if getattr(self.model.archit, "compute_f32", False):
+            def cast(p):
+                return p.to(bf16).to(p.dtype)
+        else:
+            def cast(p):
+                return p.to(bf16)
+        params = {f"module.{n}": cast(p)
+                  for n, p in module.named_parameters()}
+        return torch.func.functional_call(_Bound(module, fn), params,
+                                          _cast_floats(args, bf16), kwargs)
+
     def _to_device(self, x, y):
         """The batch as the step takes it: f32 signals; integer targets
         kept, floating ones in f32 (as the JAX step's jnp.asarray)."""
@@ -173,7 +249,8 @@ class Trainer:
 
     def train_batch(self, idx):
         x, y = self._to_device(*self.data.getSamples("train", idx))
-        return self._optimize(lambda: self._forward(x, self.generator), y)
+        return self._optimize(
+            lambda: self._mixed(self._forward, x, self.generator), y)
 
     def _optimize(self, forward, y):
         """One optimizer step on loss(forward(), y); (loss, seconds)."""
@@ -334,8 +411,8 @@ class TrainerSingleNode(Trainer):
     def train_batch(self, idx):
         x, y = self._to_device(*self.data.getSamples("train", idx))
         pos = self._node_positions(self.data.getLabelID("train", idx))
-        return self._optimize(lambda: self._at_nodes(x, pos, self.generator),
-                              y)
+        return self._optimize(
+            lambda: self._mixed(self._at_nodes, x, pos, self.generator), y)
 
     def _valid_cost(self) -> float:
         x, y = self.data.getSamples("valid")
@@ -556,8 +633,8 @@ class TrainerFlocking(Trainer):
         model = self.model
         model.optimizer.zero_grad(set_to_none=True)
         kw = {} if self.generator is None else {"generator": self.generator}
-        loss = model.loss(model.archit.split_forward(x, S, **kw)[0].float(),
-                          y)
+        yhat = self._mixed(model.archit.split_forward, x, S, **kw)[0]
+        loss = model.loss(yhat.float(), y)
         loss.backward()
         model.optimizer.step()
         if model.scheduler is not None:

@@ -300,12 +300,14 @@ def test_checkpoint_roundtrip_and_resume(sbm_data, tmp_path):
 def test_trainer_unported_options_raise(sbm_data, tmp_path):
     S, data = sbm_data
     m = _small_model(S, tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match="bf16 training waits for ROADMAP item 1"):
-        ttrain.Trainer(m, data, 1, 8, precision="bf16")
+    from graph_neural_networks_torch import parallel as tpar
+    sharded = _small_model(S, tmp_path / "sharded")
+    sharded.archit.shard(tpar.make_mesh((1, 2), devices=[
+        torch.device("cpu")] * 2), 2)
+    with pytest.raises(NotImplementedError, match="item 2.1"):
+        ttrain.Trainer(sharded, data, 1, 8, precision="bf16")
     with pytest.raises(TypeError, match="parallel.Mesh"):
         ttrain.Trainer(m, data, 1, 8, mesh=object())
-    from graph_neural_networks_torch import parallel as tpar
     mesh = tpar.make_mesh((2,), ("data",), devices=[
         torch.device("cpu"), torch.device("cuda", 0)])
     with pytest.raises(NotImplementedError, match="item 10.2b"):
