@@ -350,16 +350,17 @@ def phase_build():
     for name, a in attrs.items():
         require(a["local_bytes"] == 0,
                 f"{name} uses {a['local_bytes']} bytes of local memory")
-    require(len(attrs) == 50, f"{len(attrs)} kernels in the library's "
-            "tables, not 50 (12 kernels; band_register_kernel in 4 "
+    require(len(attrs) == 58, f"{len(attrs)} kernels in the library's "
+            "tables, not 58 (12 kernels; band_register_kernel in 4 "
             "instances; bcsr_matmul_kernel and its 3 narrow-tile "
             "instances on 2 block layouts, BCSR and band, 8; "
             "attn_apply_kernel in 6, attn_stats_kernel and attn_bwd_kernel "
             "in 2 each, table_transpose_kernel in 2; and the bf16-io "
             "instances: bcsr_mma_kernel in 5 tiles on 2 block layouts, 10, "
             "band_register_mma_kernel in 3 tiles x 2 stagings, 6, "
-            "attn_stats_kernel<false>, the 3 attn_apply_kernel<false, G> "
-            "and attn_bwd_mma_kernel in 4 feature widths, 24)")
+            "attn_stats_kernel global and ext, 2, attn_apply_mma_kernel in "
+            "3 groups x global and ext, 6, and attn_bwd_mma_kernel in 4 "
+            "feature widths x global and ext, 8: 32)")
     for name, a in attrs.items():
         if name.endswith(", bf16>") and "attn" not in name:
             require(a["dynamic_shared_bytes"] > 0,
@@ -3213,8 +3214,8 @@ def phase_flock_ref_training(dev, card, out_dir):
     idx = np.arange(c["batch"])
     # the device store's step runs eigvalsh on 4000 50 x 50 matrices, which
     # torch loops one matrix at a time on the card: timed, not profiled
-    prof = dict(host_store=_step_profile(host_tr, idx, 4),
-                device_store=_step_profile(dev_tr, idx, 2, profiled=False))
+    prof = dict(host_store=_step_profile(host_tr, idx, 2),
+                device_store=_step_profile(dev_tr, idx, 1, profiled=False))
     # the dense recompute's lambda_max on the batch's 4000 graphs:
     # eigvalsh (what the step runs) against power iteration
     W = (torch.as_tensor(host_tr.SAll[idx], device=dev) > 0).float()
@@ -5414,13 +5415,16 @@ def phase_grnn_sharded(S_np, rng, dev, out_dir):
             trainer = model.trainer(_grnn_model(arch, name, out_dir), data,
                                     1, GRNN_BATCH)
             it = iter([np.arange(GRNN_BATCH)] * 20)
+            # one profiled call after one warm-up (PR 22's cut: the
+            # profiler's own processing of a sharded step's events took
+            # most of this phase)
             step_prof = _device_profile(lambda: trainer.train_batch(
-                next(it)), 3)
+                next(it)), 1, warmup=1)
 
             def forward(arch=arch):
                 with torch.inference_mode():
                     arch.apply(x, z0=z0)
-            fwd_prof = _device_profile(forward, 3)
+            fwd_prof = _device_profile(forward, 1, warmup=1)
             for what, prof in (("step", step_prof), ("forward", fwd_prof)):
                 emit(phase="grnn_shard_profile", model=f"{name} {label}",
                      of=what, host_ms=prof["wall_ms"],
@@ -8038,7 +8042,8 @@ def phase_multi_arg_serving(dev, card):
          "[4])", B=B, T=T, N=c["N"], D=FLOCK_D, edges=int((S.val > 0).sum()),
          rollout_seconds=t_roll, rows=rows, nvidia_smi=card,
          seconds=time.perf_counter() - t_phase)
-    return engines["f32"], (x[:1], EllGso(S.idx[:1], S.val[:1]))
+    return engines["f32"], (x[:1], EllGso(S.idx[:1], S.val[:1])), (net, x,
+                                                                     S)
 
 
 _EXPORT_RELOAD = """
@@ -8360,12 +8365,13 @@ def _twin(arch):
 
 
 def _bf16_vs_f32(label, archs, data, batch, model_fn, steps, expected=None,
-                 profile=None, **trainer_kw):
+                 profile=None, ref=None, **trainer_kw):
     """`steps` Trainer steps of one model in f32 and in bf16
     (precision='bf16') from the same masters (archs: f32, bf16 and, when a
     third is given, bf16 on the plain versions for the first step) on the
     same batches: the first step's gradients on the masters (the bf16
-    ones against the plain versions' and beside f32's), the losses, the
+    ones against the plain versions' or, given ref = (label, gradients),
+    against those, and beside f32's), the losses, the
     launches of the steps (counts from 0 just before, read just after:
     equal in both, `expected` a step when given) and the op calls by dtype
     (every one of the bf16 steps a bf16 instance, of the f32 steps an f32
@@ -8414,6 +8420,7 @@ def _bf16_vs_f32(label, archs, data, batch, model_fn, steps, expected=None,
     vs_f32 = shares(b["grads"], f["grads"])
     vs_plain = (shares(b["grads"], plain_grads) if len(archs) == 3
                 else None)
+    vs_ref = shares(b["grads"], ref[1]) if ref is not None else None
     per_step = {k: n / steps for k, n in b["counts"].items() if n}
     row = dict(model=label, steps=steps, batch=batch,
                losses_bf16=b["losses"], losses_f32=f["losses"],
@@ -8423,6 +8430,9 @@ def _bf16_vs_f32(label, archs, data, batch, model_fn, steps, expected=None,
                launches_per_step=per_step, op_calls_bf16=b["calls"],
                op_calls_f32=f["calls"], host_ms_bf16=b["host_ms"],
                host_ms_f32=f["host_ms"])
+    if ref is not None:
+        row.update(first_step_grad_reference=ref[0],
+                   first_step_grad_shares_vs_reference=vs_ref)
     require(all(p.dtype == torch.float32
                 for p in b["model"].archit.parameters()),
             f"{label}: the bf16 run's masters are not f32")
@@ -8438,6 +8448,10 @@ def _bf16_vs_f32(label, archs, data, batch, model_fn, steps, expected=None,
     require(vs_plain is None or max(vs_plain) <= BF16_TRAIN_GRAD_TOL,
             f"{label}: bf16 first-step gradients {vs_plain} of max|g| from "
             "the plain versions'")
+    if ref is not None:
+        require(max(vs_ref) <= BF16_TRAIN_GRAD_TOL,
+                f"{label}: bf16 first-step gradients {vs_ref} of max|g| "
+                f"from the {ref[0]}'s")
     require(bool(np.isfinite(b["losses"]).all()) and np.allclose(
         b["losses"], f["losses"], **BF16_TRAIN_LOSS),
         f"{label}: bf16 losses {b['losses']}, f32 {f['losses']}")
@@ -8567,6 +8581,532 @@ def phase_bf16_flock_training(data, dev, card, out_dir):
          grad_share_allowed=BF16_TRAIN_GRAD_TOL,
          loss_tolerance=BF16_TRAIN_LOSS, check=row,
          seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# Item 2.1: sharded models in bf16, served and trained, on the bf16
+# instances of the ext kernels (10b: attn_stats_kernel<true, bf16>; 11b:
+# attn_apply_mma_kernel<true, G>, the tensor-core apply that 8b shares;
+# 12b: attn_bwd_mma_kernel<true, NF>)
+# ---------------------------------------------------------------------------
+
+# 10b-12b against their bf16 plain versions: y and dv within BF16_ULPS bf16
+# ulps of the larger value (the ulp taken at no less than BF16_ULP_FLOOR of
+# the output's largest magnitude); da2 and the folded da1 within
+# BF16_BWD_REL of their largest magnitude; the f32 stats within
+# BF16_EXT_STATS_REL of theirs. Every shard assembled against the global
+# bf16 kernels 7b-9b on the same operands: the stats, y, da2 and dv
+# bit-equal (each global kernel and its ext form are one template walking
+# the same chunks in the same order; the f32 pairs are bit-equal too), the
+# halo-folded da1 within BF16_BWD_REL (its columns are summed in another
+# order at the shard edges).
+BF16_EXT_STATS_REL = 1e-5
+SHARD_BF16_KERNELS = ("stats_ext_call", "apply_ext_call", "bwd_ext_call")
+
+
+def _shard_case_bf16(rng, dev, part, Q, F, mc, mr):
+    """bf16 operands of one partition's ext kernels: each shard's own and
+    halo-extended a1, a2 and v (_shard_operands, rounded to bf16), its
+    masks and own slab, its halo-extended column slab, a cotangent g
+    (global, and each shard's halo-extended), and each shard's stats from
+    stats_ext_plain."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext
+    bf = torch.bfloat16
+    own, ext, masks = _shard_operands(rng, dev, part, Q, F, mc, mr)
+    own = {k: [t.to(bf) for t in ts] for k, ts in own.items()}
+    ext = {k: [t.to(bf) for t in ts] for k, ts in ext.items()}
+    masks = [tuple(t.to(bf) for t in m) for m in masks]
+    bs = part.block_size
+    g = _attn_operands(rng, dev, Q, F, part.n_orig, part.n_padded)[2].to(bf)
+    g_ext = halo_ext([g[..., p * bs:(p + 1) * bs].contiguous()
+                      for p in range(part.n_parts)], part.halo)
+    slabs = torch.as_tensor(par.attention._ext_slabs(part)[:, 0],
+                            device=dev).to(bf)
+    stats = [af.stats_ext_plain(ext["a1"][p], own["a2"][p], masks[p][1],
+                                w=part.w, ibs=part.inner_bs)
+             for p in range(part.n_parts)]
+    return dict(own=own, ext=ext, masks=masks, g=g, g_ext=g_ext,
+                slabs=slabs, stats=stats,
+                mx_ext=halo_ext([s[0] for s in stats], part.halo),
+                sm_ext=halo_ext([s[1] for s in stats], part.halo))
+
+
+def _ext_bwd_args(c, p):
+    return (c["ext"]["a1"][p], c["own"]["a2"][p], c["own"]["v"][p],
+            *c["stats"][p], c["slabs"][p], c["masks"][p][1], c["g_ext"][p])
+
+
+def _ext_apply_args(c, p):
+    return (c["own"]["a1"][p], c["ext"]["a2"][p], c["ext"]["v"][p],
+            c["mx_ext"][p], c["sm_ext"][p], c["masks"][p][2],
+            c["masks"][p][0])
+
+
+def phase_shard_bf16_kernels(part, mc, mr, dev):
+    """Kernels 10b, 11b and 12b (stats_ext_call, apply_ext_call and
+    bwd_ext_call on bf16 operands) against their bf16 plain versions on
+    operands halo-extended from real neighbour shards, synchronized after
+    each: at the served shard shape (gat_band_n16384 over 4: Q = 16,
+    F = 32, Np = 4096, w = 2) for the first, an interior and the last
+    shard, with_s both ways; on partitions with w = 1 (F = 24), w = 3
+    (F = 64 and F = 8) and the holes graph (w = 2, an empty window tile
+    and sub-tile); rows without support on the first and last shards.
+    Then every served shard assembled against the global bf16 kernels
+    7b-9b on the same operands, and the served shape timed by CUDA events
+    and graph_ms beside the f32 ext kernels on the same values, with the
+    plain versions and the bounds (bf16 bytes against the support's exps
+    and products at the bf16 tensor-core peak)."""
+    import torch
+    from graph_neural_networks_torch import kernels
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops import attention_flash as af
+    from graph_neural_networks_torch.parallel.mesh import halo_ext, halo_fold
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    rng = np.random.default_rng(38)
+    checks, errs = [], {k: 0.0 for k in SHARD_BF16_KERNELS}
+
+    def check(name, case, got, want, served, ulps=False, rel=None):
+        torch.cuda.synchronize()
+        require(got.dtype == want.dtype, f"{name} [{case}]: {got.dtype}")
+        err = (got.double() - want.double()).abs().max().item()
+        row = dict(kernel=name, case=case, max_abs_err=err)
+        if ulps:
+            row.update(max_ulps=_ulps_of(got, want), allowed_ulps=BF16_ULPS)
+            ok = row["max_ulps"] <= BF16_ULPS
+        else:
+            row.update(rel_err=_rel_err(got, want), allowed_rel=rel)
+            ok = row["rel_err"] <= rel
+        row["ok"] = ok = ok and bool(torch.isfinite(got.float()).all())
+        checks.append(row)
+        if served:
+            errs[name] = max(errs[name], err)
+        require(ok, f"bf16 {name} [{case}] disagrees with its plain "
+                    f"version: {row}")
+
+    def run(label, part, mc, mr, Q, F, served=False):
+        w, ibs = part.w, part.inner_bs
+        c = _shard_case_bf16(rng, dev, part, Q, F, mc, mr)
+        label = f"{label} G={_apply_group(Q, F, part.block_size, dev)}"
+        for p in sorted({0, 1, part.n_parts - 1}):
+            case = f"{label} shard {p}/{part.n_parts}"
+            kernels.OP_CALLS.clear()
+            mx, sm = af.stats_ext_call(c["ext"]["a1"][p], c["own"]["a2"][p],
+                                       c["masks"][p][1], w=w, ibs=ibs)
+            check("stats_ext_call", case + " rowmax", mx, c["stats"][p][0],
+                  served, rel=BF16_EXT_STATS_REL)
+            check("stats_ext_call", case + " rowsum", sm, c["stats"][p][1],
+                  served, rel=BF16_EXT_STATS_REL)
+            args = _ext_apply_args(c, p)
+            lists = af.support_lists(c["masks"][p][0])
+            for ws in (True, False):
+                got = af.apply_ext_call(*args, w=w, ibs=ibs, with_s=ws,
+                                        lists=lists)
+                check("apply_ext_call", f"{case} with_s={ws}", got,
+                      af.apply_ext_plain(*args, w=w, ibs=ibs, with_s=ws),
+                      served, ulps=True)
+                bargs = _ext_bwd_args(c, p)
+                got = af.bwd_ext_call(*bargs, w=w, ibs=ibs, with_s=ws)
+                want = af.bwd_ext_plain(*bargs, w=w, ibs=ibs, with_s=ws)
+                bcase = f"{case} with_s={ws}"
+                check("bwd_ext_call", bcase + " da2", got[0], want[0],
+                      served, rel=BF16_BWD_REL)
+                check("bwd_ext_call", bcase + " da1 (ext columns)",
+                      af.fold_ext_partials(got[1]),
+                      af.fold_ext_partials(want[1]), served,
+                      rel=BF16_BWD_REL)
+                check("bwd_ext_call", bcase + " dv", got[2], want[2], served,
+                      ulps=True)
+            calls = _op_calls()
+            require(calls == {"stats_ext_call:bfloat16": 1,
+                              "apply_ext_call:bfloat16": 2,
+                              "bwd_ext_call:bfloat16": 2},
+                    f"bf16 ext kernels [{case}]: op calls {calls}")
+        return c
+
+    served_c = run(f"served Q=16 F=32 Np={part.block_size} w={part.w}",
+                   part, mc, mr, GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1],
+                   served=True)
+    # rows without support on the first and last shards: in their first
+    # and last w row blocks and in the middle
+    w, ibs, Np = part.w, part.inner_bs, part.block_size
+    rows = [0, 7, ibs + 1, Np // 2, Np - ibs - 1, Np - 1]
+    for p in (0, part.n_parts - 1):
+        c = served_c
+        mr_e = _empty_rows(c["masks"][p][1], rows)
+        mx, sm = af.stats_ext_call(c["ext"]["a1"][p], c["own"]["a2"][p],
+                                   mr_e, w=w, ibs=ibs)
+        pmx, psm = af.stats_ext_plain(c["ext"]["a1"][p], c["own"]["a2"][p],
+                                      mr_e, w=w, ibs=ibs)
+        keep = _other_rows(Np, rows)
+        case = f"empty rows {rows} shard {p}/{part.n_parts}"
+        check("stats_ext_call", case + " rowmax", mx[:, keep], pmx[:, keep],
+              False, rel=BF16_EXT_STATS_REL)
+        check("stats_ext_call", case + " rowsum", sm[:, keep], psm[:, keep],
+              False, rel=BF16_EXT_STATS_REL)
+        _check_empty_rows("stats_ext_call bf16", mx, sm, rows, 2 * w + 1,
+                          ibs)
+    for bandwidth, wt, Q, F in ((100, 1, 4, 24), (300, 3, 3, 64),
+                                (300, 3, 5, 8)):
+        S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
+        part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
+        require(part3.is_ring and part3.w == wt,
+                f"w={part3.w}, expected {wt}")
+        run(f"N=4096 Q={Q} F={F} Np={part3.block_size} w={wt}", part3,
+            *par.attention._row_col_masks(part3), Q, F)
+    Sh = _attn_holes_case(np.random.default_rng(1))[0]
+    parth = par.partition_nodes(Sh, SHARD_PARTS, order="none")
+    require(parth.is_ring and parth.w == 2, f"holes: w={parth.w}")
+    run(f"holes N=2048 Q=3 F=32 Np={parth.block_size} w=2", parth,
+        *par.attention._row_col_masks(parth), 3, 32)
+
+    # every served shard assembled against the global bf16 kernels 7b-9b
+    c, P, halo = served_c, part.n_parts, part.halo
+    kw = dict(w=w, ibs=ibs)
+
+    def cat(ts):
+        return torch.cat(ts, dim=-1)
+    st = [af.stats_ext_call(c["ext"]["a1"][p], c["own"]["a2"][p],
+                            c["masks"][p][1], **kw) for p in range(P)]
+    mxe = halo_ext([s[0] for s in st], halo)
+    sme = halo_ext([s[1] for s in st], halo)
+    lists = [af.support_lists(c["masks"][p][0]) for p in range(P)]
+    ys = [af.apply_ext_call(c["own"]["a1"][p], c["ext"]["a2"][p],
+                            c["ext"]["v"][p], mxe[p], sme[p],
+                            c["masks"][p][2], c["masks"][p][0], **kw,
+                            lists=lists[p]) for p in range(P)]
+    bw = [af.bwd_ext_call(c["ext"]["a1"][p], c["own"]["a2"][p],
+                          c["own"]["v"][p], *st[p], c["slabs"][p],
+                          c["masks"][p][1], c["g_ext"][p], **kw)
+          for p in range(P)]
+    a1g, a2g, vg = (cat(c["own"][k]) for k in ("a1", "a2", "v"))
+    mcg, mrg = (torch.as_tensor(np.concatenate(list(m)), device=dev).to(bf)
+                for m in (mc, mr))
+    slabg = torch.as_tensor(np.concatenate(list(part.slabs[:, 0])),
+                            device=dev).to(bf)
+    gmx, gsm = af.stats_call(a1g, a2g, mrg, **kw)
+    gy = af.apply_call(a1g, a2g, vg, gmx, gsm, slabg, mcg, **kw,
+                       lists=af.support_lists(mcg))
+    gda2, gda1p, gdv = af.bwd_call(a1g, a2g, vg, gmx, gsm, slabg, mrg,
+                                   c["g"], **kw)
+    torch.cuda.synchronize()
+    assembled = []
+    for what, got, want, exact in (
+            ("rowmax", cat([s[0] for s in st]), gmx, True),
+            ("rowsum", cat([s[1] for s in st]), gsm, True),
+            ("y", cat(ys), gy, True),
+            ("da2", cat([b[0] for b in bw]), gda2, True),
+            ("dv", cat([b[2] for b in bw]), gdv, True),
+            ("da1", cat(halo_fold([af.fold_ext_partials(b[1]) for b in bw],
+                                  halo)),
+             af.fold_window_partials(gda1p, w), False)):
+        row = dict(output=what, bit_equal=bool(torch.equal(got, want)),
+                   rel_err=_rel_err(got, want))
+        row["ok"] = row["bit_equal"] if exact else (
+            row["rel_err"] <= BF16_BWD_REL)
+        assembled.append(row)
+        require(row["ok"], f"bf16 shards assembled against the global "
+                           f"kernels: {row}")
+
+    # timing at the served shape: an interior shard, bf16 and f32 on the
+    # same values
+    p, Q, F = 1, GAT_BATCH * GAT_HEADS[0], GAT_DIMS[1]
+    nbl, W = part.nbl, 2 * w + 1
+    n_rows, tile = Np + 2 * halo, nbl * W * ibs * ibs
+    sargs = (c["ext"]["a1"][p], c["own"]["a2"][p], c["masks"][p][1])
+    aargs = _ext_apply_args(c, p)
+    bargs = _ext_bwd_args(c, p)
+
+    def f32(args):
+        return tuple(t.float() for t in args)
+    lists = af.support_lists(c["masks"][p][0])
+    s_row = int(c["masks"][p][1].float().sum().item())
+    s_col = int(c["masks"][p][0].float().sum().item())
+    # bytes: each input read once, each output written once (bf16 operands
+    # 2 bytes, the f32 stats, da2 and da1 partials 4)
+    work = {
+        "stats_ext_call": (
+            2 * (Q * n_rows + Q * Np + tile) + 4 * 2 * Q * Np,
+            Q * s_row, 0,
+            lambda: af.stats_ext_call(*sargs, **kw),
+            lambda: af.stats_ext_call(*f32(sargs), **kw),
+            lambda: af.stats_ext_plain(*sargs, **kw)),
+        "apply_ext_call": (
+            2 * (Q * Np + Q * n_rows + Q * F * (n_rows + Np) + 2 * tile)
+            + 4 * 2 * Q * n_rows,
+            Q * s_col, 2 * F * Q * s_col,
+            lambda: af.apply_ext_call(*aargs, **kw, lists=lists),
+            lambda: af.apply_ext_call(*f32(aargs), **kw, lists=lists),
+            lambda: af.apply_ext_plain(*aargs, **kw)),
+        "bwd_ext_call": (
+            2 * (Q * F * (n_rows + 2 * Np) + Q * n_rows + Q * Np + 2 * tile)
+            + 4 * (3 * Q * Np + Q * nbl * W * ibs),
+            Q * s_row, 4 * F * Q * s_row,
+            lambda: af.bwd_ext_call(*bargs, **kw),
+            lambda: af.bwd_ext_call(*f32(bargs), **kw),
+            lambda: af.bwd_ext_plain(*bargs, **kw)),
+    }
+    rows = {}
+    for name, (nbytes, exps, flops, kern, kern32, plain) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_exp = exps / SFU_EXP_PER_S * 1e3
+        t_mma = flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_exp, t_mma)
+        rows[name] = dict(
+            shape=(f"Q={Q} F={F} Np={Np} (+2*{halo} halo) w={w} ibs={ibs} "
+                   "with_s"),
+            ms=time_ms(kern), graph_ms=graph_ms(kern),
+            f32_ms=time_ms(kern32), f32_graph_ms=graph_ms(kern32),
+            plain_ms=time_ms(plain, reps=5, inner=2), library_ms=None,
+            bytes=nbytes, support_scores=exps, bound_ms=bound,
+            bound_by="bytes" if bound == t_bytes else "operations",
+            bytes_ms=t_bytes, exp_ms=t_exp, products_ms=t_mma)
+    rows["apply_ext_call"]["G"] = _apply_group(Q, F, Np, dev)
+    emit(phase="shard_bf16_kernels", ulps_allowed=BF16_ULPS,
+         ulp_floor_share=BF16_ULP_FLOOR, bwd_rel_allowed=BF16_BWD_REL,
+         stats_rel_allowed=BF16_EXT_STATS_REL, checks=checks,
+         assembled=assembled, timing=rows,
+         library="none: no single PyTorch call computes these functions",
+         seconds=time.perf_counter() - t_phase)
+    return errs, rows
+
+
+def phase_shard_bf16_serving(rng, dev, S_sc, spart, db_req):
+    """Sharded models served in bf16 (InferenceEngine(dtype=bf16) on the
+    ShardedGso's bf16 twin), the main path of kernels 10b-11b and of the
+    shifts' bf16 instances on shards: gat_band_n16384 over the (1, 4) and
+    (2, 2) meshes (exactly 8 stats_ext_call + 8 apply_ext_call a forward,
+    every one bf16, no global flash launch); band_n4096 ring-sharded 4
+    ways and over the all-gather (32 band_matmul a forward, bf16);
+    scattered_n4096_sharded (32 bcsr_matmul a forward on the rectangular
+    slices, bf16). Each answer against the unsharded bf16 engine within
+    BF16_SERVE_TOL of max|y| and the f32 sharded engine within
+    BF16_VS_F32_TOL; host and device ms of a forward beside f32's (the
+    GAT meshes and the ring). Then flock_n262k_db_request's
+    LocalGNN_DB served as (x, ShardedEllGso) over mesh (1, 4), f32 and
+    bf16, against (x, EllGso): within f32 rounding in f32 (rtol
+    SHARD_GRAD_RTOL, atol SHARD_GRAD_ATOL_REL of max), within
+    BF16_SERVE_TOL in bf16. Returns the bf16
+    launches by kernel, and the sharded GATs ({mesh shape: arch}) and the
+    unsharded band GAT it served, for phase_shard_bf16_training."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.ops.ell import EllGso
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    checks, profiles, rows, launches = [], [], [], {}
+
+    def vs(label, got, want, tol=BF16_SERVE_TOL):
+        for i, (g, w_) in enumerate(zip(got, want)):
+            scale = w_.abs().max().item()
+            err = (g - w_).abs().max().item()
+            ok = bool(torch.isfinite(g).all()) and err <= tol * scale
+            checks.append(dict(check=label, request=i, max_abs_err=err,
+                               max_abs_ref=scale, share=err / scale,
+                               allowed_share=tol,
+                               bit_equal=bool(torch.equal(g, w_)), ok=ok))
+            require(ok, f"sharded bf16 serving: {label} request {i}: {err} "
+                        f"> {tol} * {scale}")
+
+    def serve(label, engs, reqs, per_forward, against, profile=True):
+        """The bf16 engine's answers, launches and op calls counted from 0
+        just before and read just after; against the unsharded bf16 and
+        the f32 sharded answers; both engines profiled unless not
+        `profile`."""
+        answers, counts, calls = _serve_counted(engs["bf16"], reqs)
+        got = {k: v / len(reqs) for k, v in counts.items() if v}
+        require(got == per_forward, f"{label}: launches a forward {got}, "
+                                    f"expected {per_forward}")
+        require(calls and all(k.endswith(":bfloat16") for k in calls),
+                f"{label}: a bf16 forward called {calls}")
+        for k, n in calls.items():
+            name = k.split(":")[0]
+            launches[name] = launches.get(name, 0) + n
+        want_f = [engs["f32"](x) for x in reqs]
+        vs(f"{label} vs unsharded bf16", answers, against)
+        vs(f"{label} vs f32 sharded", answers, want_f, BF16_VS_F32_TOL)
+        rows.append(dict(model=label, launches_per_forward=got,
+                         op_calls=calls))
+        for tag in ("f32", "bf16") if profile else ():
+            prof = _device_profile(lambda: engs[tag](reqs[0]), 5)
+            profiles.append(dict(model=label, dtype=tag,
+                                 host_ms=prof["wall_ms"],
+                                 device_ms=prof["device_ms"],
+                                 device_idle_share=prof["device_idle_share"],
+                                 top=prof["top"][:4]))
+
+    def engines(arch, batch):
+        return {"f32": InferenceEngine(arch, batch, dev),
+                "bf16": InferenceEngine(arch, batch, dev, dtype=bf)}
+
+    # gat_band_n16384 over the two meshes, against the unsharded band
+    # model in bf16 (kernels 7b-8b)
+    S, _ = make_graph(GAT_N, 0.01, 256, seed=1)
+    reqs = [rng.standard_normal((n, GAT_DIMS[0], GAT_N)).astype(np.float32)
+            for n in SHARD_REQUESTS]
+    gat_ref = _build_gat("GraphAttentionNetwork", S, "band", dev)
+    ref = InferenceEngine(gat_ref, GAT_BATCH, dev, dtype=bf)
+    want_u = [ref(x) for x in reqs]
+    del ref
+    gat_archs = {}
+    for shape, data_axis in SHARD_MESHES:
+        mesh = par.make_mesh(shape, devices=[dev] * SHARD_PARTS)
+        arch = _build_gat("GraphAttentionNetwork", S, "dense", dev)
+        arch.shard(mesh, shape[1], data_axis=data_axis)
+        require(arch.S.band_attention.use_flash,
+                f"mesh {shape}: the flash schedule is off")
+        engs = engines(arch, GAT_BATCH)
+        serve(f"gat_band_n16384 mesh {shape}", engs, reqs,
+              {"stats_ext_call": 8, "apply_ext_call": 8}, want_u)
+        twin = engs["bf16"]._served.ctx["S"]
+        require(twin is arch.S.to(dtype=bf) and twin.dtype == bf
+                and arch.S.dtype == torch.float32,
+                f"mesh {shape}: the served GSO is not the bf16 twin")
+        gat_archs[shape] = arch
+        del engs, twin
+
+    # band_n4096 ring and all-gather, scattered_n4096 BCSR: 4 shards
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    S4 = banded_graph(np.random.default_rng(0), N_GRAPH, 256, 0.05)
+    xs = [rng.standard_normal((n, 1, N_GRAPH)).astype(np.float32)
+          for n in (BATCH, 17, 1)]
+
+    def allgather():
+        arch = _build_model(S4, "band", dev).shard(mesh, SHARD_PARTS)
+        arch.ctx = dict(arch.ctx, S=par.ShardedGso(mesh, arch.S.partition,
+                                                   prefer_ring=False))
+        arch.S = arch.ctx["S"]
+        require(not arch.S.uses_ring, "the all-gather case took the ring")
+        return arch
+    shifts = 2 * (TAPS - 1) * SHARD_PARTS
+    band_ref = InferenceEngine(_build_model(S4, "band", dev), BATCH, dev,
+                               dtype=bf)
+    want_band = [band_ref(x) for x in xs]
+    del band_ref
+    serve("band_n4096 ring mesh (1, 4)", engines(_build_model(
+        S4, "band", dev).shard(mesh, SHARD_PARTS), BATCH), xs,
+        {"band_matmul": shifts}, want_band)
+    serve("band_n4096_allgather mesh (1, 4)", engines(allgather(), BATCH), xs,
+          {"band_matmul": shifts}, want_band, profile=False)
+    bcsr_ref = InferenceEngine(_build_model(S_sc, "bcsr", dev), BATCH, dev,
+                               dtype=bf)
+    serve("scattered_n4096_sharded mesh (1, 4)", engines(
+        _bcsr_sharded_model(S_sc, spart, mesh, dev), BATCH), xs,
+        {"bcsr_matmul": shifts}, [bcsr_ref(x) for x in xs], profile=False)
+    del bcsr_ref
+
+    # flock_n262k_db_request: LocalGNN_DB served as (x, ShardedEllGso)
+    net, x, S = db_req
+    Ssh = par.shard_ell(S, mesh)
+    for tag, dtype in (("f32", None), ("bf16", bf)):
+        eng = InferenceEngine(net, DB_REQ["B"], dev, dtype=dtype)
+        for n in DB_REQ["requests"]:
+            want = eng(x[:n], EllGso(S.idx[:n], S.val[:n]))
+            got = eng(x[:n], par.ShardedEllGso(Ssh.idx[:n], Ssh.val[:n],
+                                               mesh, n_orig=Ssh.n_orig))
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            row = dict(check=f"flock_n262k (x, ShardedEllGso) {tag} vs "
+                             "(x, EllGso)", request=n, max_abs_err=err,
+                       max_abs_ref=scale, bit_equal=bool(torch.equal(
+                           got, want)))
+            # f32: a shard's rows contract in kernels picked for its row
+            # count, so within f32 rounding (SHARD_GRAD_RTOL and _ATOL_REL)
+            row["ok"] = ok = bool(torch.isfinite(got).all()) and (
+                compare(got, want, SHARD_GRAD_RTOL, SHARD_GRAD_ATOL_REL)[2]
+                if tag == "f32" else err <= BF16_SERVE_TOL * scale)
+            checks.append(row)
+            require(ok, f"sharded DB request: {row}")
+        del eng
+    emit(phase="shard_bf16_serving", models=rows, checks=checks,
+         profiles=profiles, tolerance=dict(
+             vs_unsharded_bf16=f"{BF16_SERVE_TOL}*max|reference|",
+             vs_f32=f"{BF16_VS_F32_TOL}*max|reference|",
+             db_vs_ell=(f"f32 rtol {SHARD_GRAD_RTOL}, atol "
+                        f"{SHARD_GRAD_ATOL_REL}*max|reference|; bf16 "
+                        f"{BF16_SERVE_TOL}*max|reference|")),
+         seconds=time.perf_counter() - t_phase)
+    return launches, gat_archs, gat_ref
+
+
+def _bf16_step_grads(arch, data, batch, name, out_dir, **trainer_kw):
+    """The first bf16 Trainer step's gradients on the f32 masters (the
+    Trainer's first batch of _bf16_vs_f32)."""
+    import torch
+    model = _model(arch, name, out_dir)
+    trainer = model.trainer(model, data, 1, batch, precision="bf16",
+                            **trainer_kw)
+    trainer.train_batch(np.arange(batch) % data.nTrain)
+    torch.cuda.synchronize()
+    return [p.grad.detach().double().clone()
+            for p in model.archit.parameters()]
+
+
+def phase_shard_bf16_training(rng, dev, out_dir, gat_archs, gat_ref):
+    """Sharded models trained with Trainer(mesh=..., precision='bf16') on
+    the bf16 twins, the main path of kernel 12b: gat_band_n16384 over the
+    (1, 4) and (2, 2) meshes and band_n4096 ring-sharded 4 ways, 3 steps
+    each from the same masters as an f32 sharded run (_bf16_vs_f32): the
+    launches of a step equal the f32 sharded step's (8 bwd_ext_call + 8
+    stats_ext_call + 8 apply_ext_call; 48 band_matmul), every one bf16;
+    the first step's gradients within BF16_TRAIN_GRAD_TOL of each leaf's
+    max|g| of the unsharded bf16 step on the kernels (7b-9b; 2b-3b); the
+    losses within BF16_TRAIN_LOSS of f32's; host and device ms of a step
+    beside f32's. gat_archs, gat_ref: shard_bf16_serving's sharded GATs
+    and the unsharded band GAT (their masters as built). Returns the bf16
+    launches by kernel."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    t_phase = time.perf_counter()
+    rows, launches = [], {}
+
+    def add(calls):
+        for k, n in calls.items():
+            name = k.split(":")[0]
+            launches[name] = launches.get(name, 0) + n
+
+    def model_fn(a, name):
+        return _model(a, name, out_dir)
+    data = _synthetic_data(rng, (BF16_TRAIN_STEPS * GAT_BATCH, GAT_BATCH,
+                                 GAT_BATCH), GAT_DIMS[0], GAT_N, 4)
+    ref = _bf16_step_grads(gat_ref, data, GAT_BATCH, "gat_ref", out_dir)
+    for shape, data_axis in SHARD_MESHES:
+        arch = gat_archs.pop(shape)
+        mesh = arch.S.mesh
+        kw = dict(mesh=mesh, **(dict(meshAxis="data") if data_axis else {}))
+        row, calls = _bf16_vs_f32(
+            f"gat_band_n16384 mesh {shape}", (arch, _twin(arch)), data,
+            GAT_BATCH, model_fn, BF16_TRAIN_STEPS,
+            dict(stats_ext_call=8, apply_ext_call=8, bwd_ext_call=8),
+            _step_profile_fn(GAT_BATCH),
+            ref=("unsharded bf16 step (kernels 7b-9b)", ref), **kw)
+        rows.append(row)
+        add(calls)
+        del arch
+        torch.cuda.empty_cache()
+    S4 = banded_graph(np.random.default_rng(0), N_GRAPH, 256, 0.05)
+    data = _synthetic_data(rng, (BF16_TRAIN_STEPS * BATCH, BATCH, BATCH), 1,
+                           N_GRAPH, 5)
+    ref = _bf16_step_grads(_build_model(S4, "band", dev), data, BATCH,
+                           "band_ref", out_dir)
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    arch = _build_model(S4, "band", dev).shard(mesh, SHARD_PARTS)
+    shifts = 2 * (TAPS - 1) * SHARD_PARTS
+    row, calls = _bf16_vs_f32(
+        "band_n4096 ring mesh (1, 4)", (arch, _twin(arch)), data, BATCH,
+        model_fn, BF16_TRAIN_STEPS, dict(band_matmul=shifts + shifts // 2),
+        _step_profile_fn(BATCH),
+        ref=("unsharded bf16 step (kernels 2b-3b)", ref), mesh=mesh)
+    rows.append(row)
+    add(calls)
+    emit(phase="shard_bf16_training", grad_share_allowed=BF16_TRAIN_GRAD_TOL,
+         loss_tolerance=BF16_TRAIN_LOSS, checks=rows,
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 REPLACES = {
@@ -8848,8 +9388,8 @@ def main() -> int:
         bf16_launches, served = timed("bf16_serving", phase_bf16_serving,
                                       S_np, eng.arch,
                                       np.random.default_rng(32), dev)
-        db_engine, _ = timed("multi_arg_serving", phase_multi_arg_serving,
-                             dev, card)
+        db_engine, _, db_req = timed("multi_arg_serving",
+                                     phase_multi_arg_serving, dev, card)
         served["flock_n262k LocalGNN_DB (x, EllGso) f32"] = db_engine
         timed("export", phase_export, S_np, eng.arch,
               np.random.default_rng(33), dev)
@@ -8867,6 +9407,28 @@ def main() -> int:
         for k in BF16_KERNELS:
             bf16_launches[k] += bf16_train_launches.get(k, 0)
         bf16_launches["bwd_call"] = bf16_train_launches.get("bwd_call", 0)
+        # item 2.1: sharded models in bf16, served and trained, on kernels
+        # 10b-12b and the shifts' bf16 instances on shards
+        torch.cuda.empty_cache()
+        ext16_errs, ext16_rows = timed("shard_bf16_kernels",
+                                       phase_shard_bf16_kernels, part, mc,
+                                       mr, dev)
+        ext16_launches, gat_archs, gat_ref = timed(
+            "shard_bf16_serving", phase_shard_bf16_serving,
+            np.random.default_rng(39), dev, S_sc, spart, db_req)
+        del db_req
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            for k, n in timed("shard_bf16_training",
+                              phase_shard_bf16_training,
+                              np.random.default_rng(40), dev, out_dir,
+                              gat_archs, gat_ref).items():
+                ext16_launches[k] = ext16_launches.get(k, 0) + n
+        del gat_archs, gat_ref
+        for k in ("band_matmul", "bcsr_matmul"):
+            bf16_launches[k] += ext16_launches.get(k, 0)
+        for k in SHARD_BF16_KERNELS:
+            bf16_launches[k] = ext16_launches.get(k, 0)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8933,6 +9495,19 @@ def main() -> int:
         f32_graph_ms=row["f32_graph_ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
         library_ms=row["library_ms"], shape=row["shape"]))
+    # kernels 10b-12b: the sharded bf16 serving and training launches
+    for name in SHARD_BF16_KERNELS:
+        row = ext16_rows[name]
+        summary.append(dict(
+            name=f"{name}_bf16", route="cuda",
+            source="graph_neural_networks_torch/kernels/csrc/"
+                   "attention_flash.cu",
+            replaces=REPLACES[name], launches=bf16_launches[name],
+            max_abs_err=ext16_errs[name], ms=row["ms"], kernel_ms=row["ms"],
+            graph_ms=row["graph_ms"], f32_ms=row["f32_ms"],
+            f32_graph_ms=row["f32_graph_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=row["shape"]))
     print(card, flush=True)
     emit(kernels=summary)
     emit(ok=True, device=dict(platform="gpu",

@@ -27,7 +27,11 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
 SOURCES = ("spmm.cu", "attention_flash.cu", "gridwin.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# --split-compile=0: each source's device optimizations run in parallel
+# over the CPUs (attention_flash.cu's 26 instances were the build's long
+# pole)
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "--split-compile=0")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each export in csrc/ but the kernel tables; all return
@@ -83,15 +87,16 @@ _SIGNATURES.update({
     f"{name}_bf16": _SIGNATURES[name]
     for name in ("gnt_band_matmul", "gnt_bcsr_matmul", "gnt_band_register",
                  "gnt_attn_stats", "gnt_attn_apply", "gnt_attn_bwd",
-                 "gnt_attn_bwd_smem_bytes")})
+                 "gnt_attn_stats_ext", "gnt_attn_apply_ext",
+                 "gnt_attn_bwd_ext", "gnt_attn_bwd_smem_bytes")})
 
 # The io types a kernel has an instance for (its launcher's name suffix).
 IO_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 # Calls of the registered ops (ops.spmm, ops.attention_flash: the kernels
-# with a bf16 instance) and of bwd_call (kernel 9, which has one too), by
-# (name, io dtype), on the CPU and on CUDA alike: what shows that a path
-# ran in the dtype it was asked for.
+# with a bf16 instance) and of bwd_call and the ext wrappers (kernels 9-12,
+# which have one too), by (name, io dtype), on the CPU and on CUDA alike:
+# what shows that a path ran in the dtype it was asked for.
 OP_CALLS: collections.Counter = collections.Counter()
 # Each source's table of its kernels: gnt_<source>_kernel(i, &name) gives
 # kernel i's address and name, or null past the last.

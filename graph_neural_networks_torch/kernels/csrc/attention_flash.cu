@@ -1,16 +1,23 @@
 // Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
 //
-// The global stats and apply kernels also have a bf16-io instance
-// (template parameter T = __nv_bfloat16): a1, a2, the mask, v and the slab
-// are read in bf16 and converted to f32 where they are loaded or staged
-// (the JAX kernels' .astype(float32), ops/attention_flash.py:95-99 and
-// :118-133); every score, exp, sum and product stays f32; the stats are
-// written in f32, apply's y in bf16, rounded once (:138). The bf16 staging
-// is a plain 8-byte load stored converted, not a cp.async (which copies
-// bytes and cannot widen).
+// The stats kernel also has a bf16-io instance (template parameter T =
+// __nv_bfloat16), global and ext: a1, a2 and the mask are read in bf16 and
+// converted to f32 where they are loaded or staged (the JAX kernels'
+// .astype(float32), ops/attention_flash.py:95-99); every score, exp and
+// sum stays f32 and the stats are written in f32. The bf16 staging is a
+// plain 8-byte load stored converted, not a cp.async (which copies bytes
+// and cannot widen).
 //
-// The global backward has a bf16 kernel of its own, attn_bwd_mma_kernel
-// (bf16 training; the JAX _make_bwd_kernel on bf16 operands, :142-197):
+// The apply has a bf16 kernel of its own, attn_apply_mma_kernel (kernels 8
+// and 11 in bf16, global and ext from one template, as the f32 ones): the
+// chunk's v, slab and entry lists stay bf16 / int16 in shared memory (16-byte
+// cp.async), alpha (* S) is computed in f32 on the support and split into
+// bf16 hi + lo, and y = v . coeff runs as mma.sync.m16n8k16 with f32
+// accumulators; y is rounded to bf16 once (:138).
+//
+// The backward has a bf16 kernel of its own, attn_bwd_mma_kernel (bf16
+// training, global and ext; the JAX _make_bwd_kernel on bf16 operands,
+// :142-197):
 // bf16 stays bf16 in shared memory (mask, slab, g, a1 and v staged by
 // 16-byte cp.async, chunks in two stages) and both products run on tensor
 // cores, mma.sync.m16n8k16 with f32 accumulators. v^T g takes bf16 from
@@ -23,18 +30,21 @@
 // so dv^T and da2 stay in its registers; only the da1 column sums cross
 // warps, in warp order, without atomics (see attn_bwd_mma_kernel).
 //
-// Four kernels, the counterparts of six Pallas calls of the JAX package
+// Five kernels, the counterparts of six Pallas calls of the JAX package
 // (graph_neural_networks_tpu/ops/attention_flash.py); apply in instances
-// for G = 4, 2, 1 (attn_apply_kernel<kExt, G>), the bf16 backward for
-// F <= 16 NF, NF = 1 .. 4:
+// for G = 4, 2, 1 (attn_apply_kernel<kExt, G>, attn_apply_mma_kernel<kExt,
+// G>), the bf16 backward for F <= 16 NF, NF = 1 .. 4:
 //
-//   attn_stats_kernel<false> <- attention_flash.py:_stats_call
-//   attn_apply_kernel<false> <- attention_flash.py:_apply_call
-//   attn_bwd_kernel<false>   <- attention_flash.py:_bwd_call
+//   attn_stats_kernel<false[, bf16]>      <- attention_flash.py:_stats_call
+//   attn_apply_kernel<false>              <- attention_flash.py:_apply_call
+//   attn_apply_mma_kernel<false> (bf16)   <- attention_flash.py:_apply_call
+//   attn_bwd_kernel<false>                <- attention_flash.py:_bwd_call
 //   attn_bwd_mma_kernel<false, NF> (bf16) <- attention_flash.py:_bwd_call
-//   attn_stats_kernel<true>  <- attention_flash.py:_stats_ext_call
-//   attn_apply_kernel<true>  <- attention_flash.py:_apply_ext_call
-//   attn_bwd_kernel<true>    <- attention_flash.py:_bwd_ext_call
+//   attn_stats_kernel<true[, bf16]>       <- attention_flash.py:_stats_ext_call
+//   attn_apply_kernel<true>               <- attention_flash.py:_apply_ext_call
+//   attn_apply_mma_kernel<true> (bf16)    <- attention_flash.py:_apply_ext_call
+//   attn_bwd_kernel<true>                 <- attention_flash.py:_bwd_ext_call
+//   attn_bwd_mma_kernel<true, NF> (bf16)  <- attention_flash.py:_bwd_ext_call
 //
 // The JAX package runs one kernel body (_make_stats_kernel,
 // _make_apply_kernel, _make_bwd_kernel) for a global call and its ext
@@ -181,6 +191,7 @@
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -561,7 +572,10 @@ __device__ __forceinline__ float alpha(float a2, float a1, float m,
 // groups of one column tile adjacent (they read the same lists and slab
 // tiles); dynamic shared memory apply_smem_bytes(G, W, ibs). v,
 // sup_entries, slab_col and y 16-byte aligned. T: the io type of a1, a2,
-// v, the slab and y (the stats are f32; the staged tiles are f32).
+// v, the slab and y (the stats are f32; the staged tiles are f32). The
+// library instantiates it for f32 only; bf16 runs attn_apply_mma_kernel
+// (T = bf16 is the FMA form that kernel replaced, which
+// experiments/torch_apply_bf16_variants.py times against it).
 template <bool kExt, int G, class T = float>
 __global__ void __launch_bounds__(kApplyThreads, 2)
 attn_apply_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
@@ -1231,6 +1245,22 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// The same from a 32-bit shared-memory address.
+__device__ __forceinline__ void ldsm_x4_at(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans_at(unsigned (&r)[4],
+                                                 unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16,
 // column-major): each bf16 product exact, summed in f32.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
@@ -1686,6 +1716,288 @@ cudaError_t launch_bwd(const bf16* g, const bf16* a1, const bf16* a2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// attn_apply_mma_kernel: kernels 8 and 11 in bf16, on tensor cores
+// ---------------------------------------------------------------------------
+
+// 16 bytes, or (valid false) 16 zeros with nothing read
+__device__ __forceinline__ void cp_async16bz(void* dst, const void* src,
+                                             bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+constexpr int kApplyWarps = kApplyThreads / 32;
+constexpr int kLDVb = kAP + kMmaPad;  // a staged v row (bf16)
+constexpr int kLDCb = kCT + kMmaPad;  // a coefficient row (bf16)
+
+// Dynamic shared memory of attn_apply_mma_kernel<., G>, offsets in bytes:
+// two staged chunks of the support's entry list (at most kAP * kCT int16),
+// of the slab (bf16 [p][c]) and of the G rows' v (bf16 [s f][p]); each
+// slot's coefficients as bf16 hi and lo tiles [p][c]; two chunks of the
+// rows' a2, rowmax and 1 / rowsum (f32); a1 of the block's columns (f32).
+// The chunks' entry offsets follow past bytes (apply_mma_smem_bytes).
+struct ApplyMmaLayout {
+  int ents, slab, vs, coef, rows, a1, bytes;
+};
+
+__host__ __device__ constexpr ApplyMmaLayout apply_mma_layout(int G) {
+  return ApplyMmaLayout{
+      0,
+      2 * 2 * kAP * kCT,
+      4 * 2 * kAP * kCT,
+      4 * 2 * kAP * kCT + 2 * 2 * kApplyRows * kLDVb,
+      4 * 2 * kAP * kCT + 2 * 2 * kApplyRows * kLDVb + G * 2 * 2 * kAP * kLDCb,
+      4 * 2 * kAP * kCT + 2 * 2 * kApplyRows * kLDVb + G * 2 * 2 * kAP * kLDCb +
+          4 * 2 * 3 * G * kAP,
+      4 * 2 * kAP * kCT + 2 * 2 * kApplyRows * kLDVb + G * 2 * 2 * kAP * kLDCb +
+          4 * 2 * 3 * G * kAP + 4 * G * kCT};
+}
+
+// attn_apply_kernel's function on bf16 a1, a2, v and slab_col (f32 rowmax
+// and rowsum; y in bf16, rounded once), every score, exp and coefficient
+// in f32, as the JAX kernel computes it on bf16 operands
+// (_make_apply_kernel's .astype(float32), ops/attention_flash.py:118-138),
+// the product on tensor cores. The same grid, chunks, slots, support entry
+// lists, row reciprocals and skipped chunks as attn_apply_kernel; the
+// chunk's slab, v and entry lists stay bf16 / int16 in shared memory
+// (16-byte cp.async one chunk ahead, v's features past F zero-filled, so
+// F needs no padding in memory). Per chunk:
+//  * the coefficients alpha (* S) in f32 on the support only, a warp's
+//    lanes on the entries of its 4 G rows, each split into bf16 hi + lo
+//    (hi + lo within 2^-16 of the f32 value, where one bf16 rounding would
+//    be 2^-9) into the slot's two coefficient tiles, zeroed first;
+//  * unless the chunk has no support (__syncthreads_or), y^T += v . coeff
+//    as mma.sync.m16n8k16 (bf16 in, f32 accumulators), hi and lo into one
+//    accumulator: warp (slot, mt) = (warp / WPS, warp % WPS) owns features
+//    16 mt .. + 16 of its slot's pass and all kCT columns (8 n8 tiles, 32
+//    accumulators a lane), A = v's [f][p] rows by ldmatrix, B = the
+//    coefficient tiles' [p][c] rows by ldmatrix.trans.
+// A pass covers FP = 128 / G features (WPS = 8 / G m16 tiles a slot); the
+// warps whose tile lies past F only stage and score. y is written as bf16
+// pairs from the accumulators. v, sup_entries, slab_col and y 16-byte
+// aligned; dynamic shared memory apply_mma_smem_bytes(G, W, ibs).
+template <bool kExt, int G>
+__global__ void __launch_bounds__(kApplyThreads, 2)
+attn_apply_mma_kernel(const bf16* __restrict__ a1, const bf16* __restrict__ a2,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ rowmax,
+                      const float* __restrict__ rowsum,
+                      const bf16* __restrict__ slab_col,
+                      const int16_t* __restrict__ sup_entries,
+                      const int* __restrict__ sup_offs, bf16* __restrict__ y,
+                      int Q, int F, int Np, int nb, int w, int ibs, int with_s,
+                      float slope) {
+  constexpr int FP = kApplyRows / G;        // features a pass
+  constexpr int WPS = kApplyWarps / G;      // warps (m16 tiles) a slot
+  constexpr int GPW = G;                    // 4-row groups a warp
+  constexpr ApplyMmaLayout L = apply_mma_layout(G);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const a1s = reinterpret_cast<float*>(smem_raw + L.a1);
+  int* const offs = reinterpret_cast<int*>(smem_raw + L.bytes);
+  const int W = 2 * w + 1;
+  const int rows_len = kExt ? Np + 2 * w * ibs : Np;  // a2/stats/v rows
+  const int lag = kExt ? 0 : w;  // row block of window block k: j + k - lag
+  const int n_groups = (Q + G - 1) / G;
+  const int q0 = (blockIdx.x % n_groups) * G;
+  const int nq = min(G, Q - q0);  // slots in use
+  const int c0 = (blockIdx.x / n_groups) * kCT;
+  const int j = c0 / ibs, lc0 = c0 % ibs;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int slot = warp / WPS, mt = warp % WPS;
+  const int gr = lane / 4, tq = lane % 4;
+  const int k0 = kExt ? 0 : max(0, w - j);
+  const int k1 = kExt ? W : min(W, nb + w - j);
+  const int cpb = ibs / kAP;  // chunks a window block
+  const int nch = (k1 - k0) * cpb;
+  bf16* const chi =
+      reinterpret_cast<bf16*>(smem_raw + L.coef) + slot * 2 * kAP * kLDCb;
+  bf16* const clo = chi + kAP * kLDCb;
+  // the product's ldmatrix addresses (32-bit shared): v's stages, and
+  // this lane's row of the slot's hi tile (lo follows it)
+  const unsigned vs_u32 = smem_u32(smem_raw + L.vs);
+  const unsigned coef_u32 =
+      smem_u32(chi) + 2u * ((lane % 16) * kLDCb + 8 * (lane / 16));
+
+  // first row, in v's and the stats' rows, and slab offset of chunk ci
+  auto row_of = [&](int ci) {
+    return (int64_t)(j + k0 + ci / cpb - lag) * ibs + (ci % cpb) * kAP;
+  };
+  auto tile_of = [&](int ci) {
+    return (((int64_t)j * W + k0 + ci / cpb) * ibs + (ci % cpb) * kAP) * ibs +
+           lc0;
+  };
+  auto stage = [&](int b, int ci, int f0) {
+    const int64_t st = tile_of(ci), r0 = row_of(ci);
+    int16_t* es = reinterpret_cast<int16_t*>(smem_raw + L.ents) +
+                  b * kAP * kCT;
+    const int* o = offs + ci * 9;  // the chunk's entries, padded to 16 bytes
+    for (int e = tid; e < (o[8] - o[0] + 7) / 8; e += kApplyThreads)
+      cp_async16b(es + 8 * e, sup_entries + o[0] + 8 * e);
+    if (with_s) {
+      bf16* ss = reinterpret_cast<bf16*>(smem_raw + L.slab) + b * kAP * kCT;
+      for (int e = tid; e < kAP * kCT / 8; e += kApplyThreads) {
+        const int p = e / (kCT / 8), c = 8 * (e % (kCT / 8));
+        cp_async16b(ss + p * kCT + c, slab_col + st + (int64_t)p * ibs + c);
+      }
+    }
+    bf16* vs = reinterpret_cast<bf16*>(smem_raw + L.vs) +
+               b * kApplyRows * kLDVb;
+    for (int e = tid; e < kApplyRows * kAP / 8; e += kApplyThreads) {
+      const int row = e / (kAP / 8), p = 8 * (e % (kAP / 8));
+      const int s = row / FP, f = f0 + row % FP;
+      const bool ok = s < nq && f < F;
+      cp_async16bz(vs + row * kLDVb + p,
+                   ok ? v + ((int64_t)(q0 + s) * F + f) * rows_len + r0 + p
+                      : v,
+                   ok);
+    }
+  };
+  // a2, rowmax and 1 / rowsum of chunk ci's rows: one row a thread of the
+  // first G * kAP, loaded into registers after the chunk's first barrier
+  // and stored, the reciprocal taken, after its product
+  const bool has_row = tid < G * kAP && tid / kAP < nq;
+  float ra2 = 0.f, rmx = 0.f, rsm = 0.f;
+  auto load_rows = [&](int ci) {
+    if (has_row) {
+      const int64_t r =
+          (int64_t)(q0 + tid / kAP) * rows_len + row_of(ci) + tid % kAP;
+      ra2 = __bfloat162float(a2[r]);
+      rmx = rowmax[r];
+      rsm = rowsum[r];
+    }
+  };
+  auto store_rows = [&](int b) {
+    if (tid < G * kAP) {
+      float* rs = reinterpret_cast<float*>(smem_raw + L.rows) + b * 3 * G * kAP;
+      rs[tid] = ra2;
+      rs[G * kAP + tid] = rmx;
+      rs[2 * G * kAP + tid] = __fdiv_rn(1.f, fmaxf(rsm, 1e-30f));
+    }
+  };
+
+  for (int e = tid; e < G * kCT; e += kApplyThreads)
+    a1s[e] = e / kCT < nq
+                 ? __bfloat162float(a1[(int64_t)(q0 + e / kCT) * Np + c0 +
+                                       e % kCT])
+                 : 0.f;
+  {  // the 4-row groups' entry offsets of the block's chunks
+    const int64_t first =
+        (((int64_t)j * (ibs / kCT) + lc0 / kCT) * W + k0) * cpb;
+    for (int e = tid; e < nch * 9; e += kApplyThreads)
+      offs[e] = sup_offs[first * 9 + e];
+  }
+  for (int f0 = 0; f0 < F; f0 += FP) {
+    // this warp's m16 tile holds features of a slot in use
+    const bool mine = slot < nq && f0 + 16 * mt < F;
+    float acc[kCT / 8][4];
+#pragma unroll
+    for (int n = 0; n < kCT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    __syncthreads();  // the previous pass's readers are done
+    stage(0, 0, f0);
+    cp_commit();
+    load_rows(0);
+    store_rows(0);
+    for (int ci = 0; ci < nch; ++ci) {
+      const int b = ci & 1;
+      cp_wait<0>();
+      // chunk ci has landed for every thread; every thread is done with
+      // chunk ci - 1 (the coefficient tiles and the other buffers)
+      __syncthreads();
+      if (ci + 1 < nch) {
+        stage(b ^ 1, ci + 1, f0);
+        load_rows(ci + 1);
+      }
+      cp_commit();
+      // the slot's coefficients alpha (* S) of the chunk, as bf16 hi + lo
+      bool nz = false;
+      if (slot < nq) {
+        const int16_t* es =
+            reinterpret_cast<const int16_t*>(smem_raw + L.ents) +
+            b * kAP * kCT;
+        const bf16* ss =
+            reinterpret_cast<const bf16*>(smem_raw + L.slab) + b * kAP * kCT;
+        const float* rs = reinterpret_cast<const float*>(smem_raw + L.rows) +
+                          b * 3 * G * kAP + slot * kAP;
+        const int g0 = mt * GPW;
+        uint4* zh = reinterpret_cast<uint4*>(chi + 4 * g0 * kLDCb);
+        uint4* zl = reinterpret_cast<uint4*>(clo + 4 * g0 * kLDCb);
+        for (int e = lane; e < 4 * GPW * kLDCb / 8; e += 32) {
+          zh[e] = make_uint4(0u, 0u, 0u, 0u);
+          zl[e] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+        const int* o = offs + ci * 9;
+        const float* a1r = a1s + slot * kCT;
+        const int e1 = o[g0 + GPW] - o[0];
+        nz = o[g0] < o[g0 + GPW];
+        for (int e = o[g0] - o[0] + lane; e < e1; e += 32) {
+          const int idx = es[e], p = idx / kCT, c = idx % kCT;
+          const float al = alpha(rs[p], a1r[c], 1.f, rs[G * kAP + p],
+                                 rs[2 * G * kAP + p], slope);
+          const float cf =
+              with_s ? __fmul_rn(al, __bfloat162float(ss[p * kCT + c])) : al;
+          const bf16 h = __float2bfloat16_rn(cf);
+          chi[p * kLDCb + c] = h;
+          clo[p * kLDCb + c] =
+              __float2bfloat16_rn(__fsub_rn(cf, __bfloat162float(h)));
+        }
+      }
+      // a chunk with no support adds exact zeros: skip its product
+      const int live = __syncthreads_or(nz);
+      if (live && mine) {
+        // shared-memory addresses of this lane's ldmatrix rows: v's
+        // [f][p] rows (A: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+        // (m 0-7, k 8-15), (m 8-15, k 8-15)) and the coefficient tiles'
+        // row-major [k][n] rows (B, transposed); one B fragment live at a
+        // time, hi then lo
+        const unsigned va =
+            vs_u32 + 2u * (b * kApplyRows * kLDVb +
+                           (slot * FP + 16 * mt + lane % 16) * kLDVb +
+                           8 * (lane / 16));
+#pragma unroll
+        for (int ks = 0; ks < kAP / 16; ++ks) {
+          unsigned a[4];
+          ldsm_x4_at(a, va + 2u * 16 * ks);
+#pragma unroll
+          for (int nj = 0; nj < kCT / 16; ++nj) {
+            const unsigned ca = coef_u32 + 2u * ((16 * ks) * kLDCb + 16 * nj);
+            unsigned bb[4];
+            ldsm_x4_trans_at(bb, ca);
+            mma_bf16(acc[2 * nj], a, bb[0], bb[1]);
+            mma_bf16(acc[2 * nj + 1], a, bb[2], bb[3]);
+            ldsm_x4_trans_at(bb, ca + 2u * kAP * kLDCb);
+            mma_bf16(acc[2 * nj], a, bb[0], bb[1]);
+            mma_bf16(acc[2 * nj + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+      if (ci + 1 < nch) store_rows(b ^ 1);
+    }
+    if (mine) {
+      // rows gr and gr + 8 of the tile (features), columns 8 n + 2 tq, + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = f0 + 16 * mt + gr + 8 * h;
+        if (f < F) {
+          bf16* yr = y + ((int64_t)(q0 + slot) * F + f) * Np + c0 + 2 * tq;
+#pragma unroll
+          for (int n = 0; n < kCT / 8; ++n)
+            *reinterpret_cast<unsigned*>(yr + 8 * n) =
+                bf16_pair(acc[n][2 * h], acc[n][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+size_t apply_mma_smem_bytes(int G, int W, int ibs) {
+  return apply_mma_layout(G).bytes + sizeof(int) * (size_t)W * (ibs / kAP) * 9;
+}
+
 // stats: the signal rows a block stages (qb), the rows a warp serves (rw)
 // and the dynamic shared memory, for (Q, Np, W, ibs). qb: all Q if their a1
 // windows and the 8 support lists fit a quarter of a block's shared
@@ -1789,20 +2101,35 @@ struct ApplyArgs {
   float slope;
 };
 
+// f32: attn_apply_kernel<kExt, G>; bf16: attn_apply_mma_kernel<kExt, G>.
 template <bool kExt, int G, class T>
 cudaError_t launch_apply_g(const ApplyArgs<T>& A, cudaStream_t stream) {
   const long long blocks = (long long)(A.Np / kCT) * ((A.Q + G - 1) / G);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem = apply_smem_bytes(G, 2 * A.w + 1, A.ibs);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      attn_apply_kernel<kExt, G, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attn_apply_kernel<kExt, G, T><<<(unsigned)blocks, kApplyThreads, smem,
-                                  stream>>>(
-      A.a1, A.a2, A.v, A.rowmax, A.rowsum, A.slab_col, A.sup_entries,
-      A.sup_offs, A.y, A.Q, A.F, A.Np, A.nb, A.w, A.ibs, A.with_s, A.slope);
+  const int W = 2 * A.w + 1;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = apply_mma_smem_bytes(G, W, A.ibs);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_apply_mma_kernel<kExt, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_apply_mma_kernel<kExt, G><<<(unsigned)blocks, kApplyThreads, smem,
+                                     stream>>>(
+        A.a1, A.a2, A.v, A.rowmax, A.rowsum, A.slab_col, A.sup_entries,
+        A.sup_offs, A.y, A.Q, A.F, A.Np, A.nb, A.w, A.ibs, A.with_s, A.slope);
+  } else {
+    const size_t smem = apply_smem_bytes(G, W, A.ibs);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_apply_kernel<kExt, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_apply_kernel<kExt, G><<<(unsigned)blocks, kApplyThreads, smem,
+                                 stream>>>(
+        A.a1, A.a2, A.v, A.rowmax, A.rowsum, A.slab_col, A.sup_entries,
+        A.sup_offs, A.y, A.Q, A.F, A.Np, A.nb, A.w, A.ibs, A.with_s, A.slope);
+  }
   return cudaGetLastError();
 }
 
@@ -1846,12 +2173,20 @@ const NamedKernel kKernels[] = {
     {"attn_bwd_kernel<true>", (const void*)attn_bwd_kernel<true>},
     {"attn_stats_kernel<false, bf16>",
      (const void*)attn_stats_kernel<false, bf16>},
-    {"attn_apply_kernel<false, 4, bf16>",
-     (const void*)attn_apply_kernel<false, 4, bf16>},
-    {"attn_apply_kernel<false, 2, bf16>",
-     (const void*)attn_apply_kernel<false, 2, bf16>},
-    {"attn_apply_kernel<false, 1, bf16>",
-     (const void*)attn_apply_kernel<false, 1, bf16>},
+    {"attn_stats_kernel<true, bf16>",
+     (const void*)attn_stats_kernel<true, bf16>},
+    {"attn_apply_mma_kernel<false, 4, bf16>",
+     (const void*)attn_apply_mma_kernel<false, 4>},
+    {"attn_apply_mma_kernel<false, 2, bf16>",
+     (const void*)attn_apply_mma_kernel<false, 2>},
+    {"attn_apply_mma_kernel<false, 1, bf16>",
+     (const void*)attn_apply_mma_kernel<false, 1>},
+    {"attn_apply_mma_kernel<true, 4, bf16>",
+     (const void*)attn_apply_mma_kernel<true, 4>},
+    {"attn_apply_mma_kernel<true, 2, bf16>",
+     (const void*)attn_apply_mma_kernel<true, 2>},
+    {"attn_apply_mma_kernel<true, 1, bf16>",
+     (const void*)attn_apply_mma_kernel<true, 1>},
     {"attn_bwd_mma_kernel<false, 1, bf16>",
      (const void*)attn_bwd_mma_kernel<false, 1>},
     {"attn_bwd_mma_kernel<false, 2, bf16>",
@@ -1860,6 +2195,14 @@ const NamedKernel kKernels[] = {
      (const void*)attn_bwd_mma_kernel<false, 3>},
     {"attn_bwd_mma_kernel<false, 4, bf16>",
      (const void*)attn_bwd_mma_kernel<false, 4>},
+    {"attn_bwd_mma_kernel<true, 1, bf16>",
+     (const void*)attn_bwd_mma_kernel<true, 1>},
+    {"attn_bwd_mma_kernel<true, 2, bf16>",
+     (const void*)attn_bwd_mma_kernel<true, 2>},
+    {"attn_bwd_mma_kernel<true, 3, bf16>",
+     (const void*)attn_bwd_mma_kernel<true, 3>},
+    {"attn_bwd_mma_kernel<true, 4, bf16>",
+     (const void*)attn_bwd_mma_kernel<true, 4>},
 };
 
 }  // namespace
@@ -1889,6 +2232,16 @@ cudaError_t gnt_attn_stats_ext(const float* a1_ext, const float* a2,
                                const float* mask_row, float* rowmax,
                                float* rowsum, int Q, int Np, int nb, int w,
                                int ibs, float slope, cudaStream_t stream) {
+  return launch_stats<true>(a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb,
+                            w, ibs, slope, stream);
+}
+
+// bf16 a1_ext, a2 and mask_row; f32 rowmax and rowsum.
+cudaError_t gnt_attn_stats_ext_bf16(const bf16* a1_ext, const bf16* a2,
+                                    const bf16* mask_row, float* rowmax,
+                                    float* rowsum, int Q, int Np, int nb,
+                                    int w, int ibs, float slope,
+                                    cudaStream_t stream) {
   return launch_stats<true>(a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb,
                             w, ibs, slope, stream);
 }
@@ -1935,6 +2288,22 @@ cudaError_t gnt_attn_apply_ext(const float* a1, const float* a2_ext,
                                     slab_col, sup_entries, sup_offs, y, Q, F,
                                     Np, nb, w, ibs, with_s, slope},
                                    stream);
+}
+
+// bf16 a1, a2_ext, v_ext, slab_col and y; f32 mx_ext and sm_ext.
+cudaError_t gnt_attn_apply_ext_bf16(const bf16* a1, const bf16* a2_ext,
+                                    const bf16* v_ext, const float* mx_ext,
+                                    const float* sm_ext,
+                                    const bf16* slab_col,
+                                    const int16_t* sup_entries,
+                                    const int* sup_offs, bf16* y, int Q,
+                                    int F, int Np, int nb, int w, int ibs,
+                                    int with_s, float slope,
+                                    cudaStream_t stream) {
+  return launch_apply<true, bf16>({a1, a2_ext, v_ext, mx_ext, sm_ext,
+                                   slab_col, sup_entries, sup_offs, y, Q, F,
+                                   Np, nb, w, ibs, with_s, slope},
+                                  stream);
 }
 
 // Kernel i of this file and its name, or null past the last.
@@ -2003,6 +2372,21 @@ cudaError_t gnt_attn_bwd_ext(const float* g_ext, const float* a1_ext,
                              float* dv, int Q, int F, int Np, int nb, int w,
                              int ibs, int with_s, float slope,
                              cudaStream_t stream) {
+  return launch_bwd<true>(g_ext, a1_ext, a2, v, rowmax, rowsum, slab_col_ext,
+                          mask_row, da2, da1p, dv, Q, F, Np, nb, w, ibs,
+                          with_s, slope, stream);
+}
+
+// bf16 g_ext, a1_ext, a2, v, slab_col_ext and mask_row; f32 rowmax, rowsum,
+// da2 and da1p; bf16 dv. F at most 64 (attn_bwd_mma_kernel<true, NF>).
+cudaError_t gnt_attn_bwd_ext_bf16(const bf16* g_ext, const bf16* a1_ext,
+                                  const bf16* a2, const bf16* v,
+                                  const float* rowmax, const float* rowsum,
+                                  const bf16* slab_col_ext,
+                                  const bf16* mask_row, float* da2,
+                                  float* da1p, bf16* dv, int Q, int F,
+                                  int Np, int nb, int w, int ibs, int with_s,
+                                  float slope, cudaStream_t stream) {
   return launch_bwd<true>(g_ext, a1_ext, a2, v, rowmax, rowsum, slab_col_ext,
                           mask_row, da2, da1p, dv, Q, F, Np, nb, w, ibs,
                           with_s, slope, stream);

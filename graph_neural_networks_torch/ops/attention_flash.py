@@ -47,8 +47,10 @@ a gradient runs the plain version directly. The backward (kernel 9) takes
 bf16 operands too, as bf16 training runs it: da2 and the da1 partials in
 f32, dv in bf16, rounded once (``attn_bwd_mma_kernel`` on tensor cores,
 F at most 64); :class:`FlashApply` rounds the folded da1 and da2 to the
-operands' dtype. The ext kernels take f32 only (bf16 sharding is ROADMAP
-item 2.1).
+operands' dtype. The ext kernels (10-12) take f32 or bf16 alike, as
+sharded bf16 serving and training run them: the stats, da2 and the da1
+partials in f32, y and dv in v's dtype; their wrappers count each call in
+``kernels.OP_CALLS`` as bwd_call does.
 
 The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
@@ -457,8 +459,8 @@ def apply_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     the plain version.
 
     CUDA kernel: ``attn_apply_kernel<false, G>`` in
-    kernels/csrc/attention_flash.cu (``<false, G, bf16>`` in bf16),
-    replacing the Pallas kernel of the JAX package's
+    kernels/csrc/attention_flash.cu (``attn_apply_mma_kernel<false, G>`` in
+    bf16: tensor cores), replacing the Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_apply_call``.
     """
     Q, F, Np = v.shape
@@ -697,7 +699,10 @@ def stats_ext_plain(a1_ext: torch.Tensor, a2x: torch.Tensor,
                     slope: float = 0.2):
     """(rowmax, rowsum), each (Q, Np), of the shard's own rows over their
     whole column window. a1_ext (Q, Np + 2*w*ibs) halo-extended, a2x
-    (Q, Np) own, mask_row (nbl, W, ibs, ibs) in global-column layout."""
+    (Q, Np) own, mask_row (nbl, W, ibs, ibs) in global-column layout.
+    bf16 operands are upcast: the stats are f32 either way."""
+    a1_ext, a2x, mask_row = (t.float() if t.dtype == torch.bfloat16 else t
+                             for t in (a1_ext, a2x, mask_row))
     Q, Np = a2x.shape
     nbl, W = Np // ibs, 2 * w + 1
     a1w = _ext_win(a1_ext.reshape(Q, nbl + 2 * w, ibs), nbl, W)
@@ -719,7 +724,13 @@ def apply_ext_plain(a1x: torch.Tensor, a2_ext: torch.Tensor,
     (Q, Np + 2*w*ibs), aggregated over v_ext (Q, F, Np + 2*w*ibs);
     slab_col, mask_col (nbl, W, ibs, ibs). lists, the kernel's entry
     lists, is not read (mask_col is): it is taken so that the sharded
-    schedule calls this and :func:`apply_ext_call` alike."""
+    schedule calls this and :func:`apply_ext_call` alike. bf16 v_ext (a1x,
+    a2_ext, slab_col, mask_col too): computed in f32, y rounded to bf16
+    once."""
+    if v_ext.dtype == torch.bfloat16:
+        return apply_ext_plain(*(t.float() for t in (
+            a1x, a2_ext, v_ext, mx_ext, sm_ext, slab_col, mask_col)), w=w,
+            ibs=ibs, with_s=with_s, slope=slope).to(v_ext.dtype)
     Q, Np = a1x.shape
     F = v_ext.shape[1]
     nbl, W = Np // ibs, 2 * w + 1
@@ -762,7 +773,13 @@ def bwd_ext_plain(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     (nbl + 2w, W, ibs, ibs) the halo-extended column slab; mask_row
     (nbl, W, ibs, ibs). Returns (da2 (Q, Np), da1p (Q, nbl, W, ibs) with
     da1p[q, i, k] at ext column block i + k (:func:`fold_ext_partials`),
-    dv (Q, F, Np))."""
+    dv (Q, F, Np)). bf16 operands (the stats f32): computed in f32, da2
+    and da1p f32, dv rounded to bf16 once."""
+    if v.dtype == torch.bfloat16:
+        da2, da1p, dv = bwd_ext_plain(*(t.float() for t in (
+            a1_ext, a2x, v, rowmax, rowsum, slab_col_ext, mask_row, g_ext)),
+            w=w, ibs=ibs, with_s=with_s, slope=slope)
+        return da2, da1p, dv.to(v.dtype)
     Q, F, Np = v.shape
     nbl, W = Np // ibs, 2 * w + 1
     return _bwd_windowed(
@@ -790,35 +807,38 @@ def _check_ext_kernel(name: str, nbl: int, w: int, ibs: int) -> None:
 def stats_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor,
                    mask_row: torch.Tensor, *, w: int, ibs: int,
                    slope: float = 0.2):
-    """Row softmax stats (rowmax, rowsum), each (Q, Np), of one shard's own
-    rows: a1_ext (Q, Np + 2*w*ibs) halo-extended, a2x (Q, Np) own,
-    mask_row (nbl, W, ibs, ibs).
+    """Row softmax stats (rowmax, rowsum), each (Q, Np) in f32, of one
+    shard's own rows: a1_ext (Q, Np + 2*w*ibs) halo-extended, a2x (Q, Np)
+    own, mask_row (nbl, W, ibs, ibs), all three f32 or all bf16.
 
     CUDA kernel: ``attn_stats_kernel<true>`` in
-    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
-    JAX package's ``ops/attention_flash.py:_stats_ext_call``.
+    kernels/csrc/attention_flash.cu (``<true, bf16>`` in bf16), replacing
+    the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_stats_ext_call``.
     """
     Q, Np = a2x.shape
     nbl = _check_band("stats_ext_call", Np, w, ibs, mask_row=mask_row)
     _check_shapes("stats_ext_call",
                   a1_ext=(a1_ext, (Q, Np + 2 * w * ibs)))
     if not kernels.on_cuda("stats_ext_call", a1_ext, a2x, mask_row):
+        kernels.OP_CALLS["stats_ext_call", a1_ext.dtype] += 1
         return stats_ext_plain(a1_ext, a2x, mask_row, w=w, ibs=ibs,
                                slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("stats_ext_call", a1_ext=(a1_ext, f32),
-                         a2x=(a2x, f32), mask_row=(mask_row, f32))
+    dt, f32 = kernels.io_dtype("stats_ext_call", a1_ext), torch.float32
+    kernels.check_inputs("stats_ext_call", a1_ext=(a1_ext, dt),
+                         a2x=(a2x, dt), mask_row=(mask_row, dt))
     _check_ext_kernel("stats_ext_call", nbl, w, ibs)
     rowmax = torch.empty((Q, Np), dtype=f32, device=a2x.device)
     rowsum = torch.empty((Q, Np), dtype=f32, device=a2x.device)
     if Q == 0:
         return rowmax, rowsum
-    err = kernels.library().gnt_attn_stats_ext(
+    err = kernels.entry("gnt_attn_stats_ext", dt)(
         a1_ext.data_ptr(), a2x.data_ptr(), mask_row.data_ptr(),
         rowmax.data_ptr(), rowsum.data_ptr(), Q, Np, nbl, w, ibs, slope,
         kernels.stream())
     kernels.check(err, "stats_ext_call")
     stats_ext_call.launches += 1
+    kernels.OP_CALLS["stats_ext_call", dt] += 1
     return rowmax, rowsum
 
 
@@ -831,14 +851,17 @@ def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
                    mask_col: torch.Tensor, *, w: int, ibs: int,
                    with_s: bool = True, slope: float = 0.2,
                    lists: Optional[SupportLists] = None) -> torch.Tensor:
-    """y (Q, F, Np) = v @ (alpha (* S)) for one shard's own output columns:
-    a1x (Q, Np) own; a2_ext, mx_ext, sm_ext (Q, Np + 2*w*ibs) and v_ext
-    (Q, F, Np + 2*w*ibs) halo-extended rows; slab_col, mask_col
-    (nbl, W, ibs, ibs); lists as in :func:`apply_call`.
+    """y (Q, F, Np) = v @ (alpha (* S)) for one shard's own output columns,
+    in v_ext's dtype: a1x (Q, Np) own; a2_ext, mx_ext, sm_ext
+    (Q, Np + 2*w*ibs) and v_ext (Q, F, Np + 2*w*ibs) halo-extended rows;
+    slab_col, mask_col (nbl, W, ibs, ibs); lists as in :func:`apply_call`.
+    a1x, a2_ext, v_ext, slab_col and mask_col all f32 or all bf16, the
+    stats f32.
 
-    CUDA kernel: ``attn_apply_kernel<true>`` in
-    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
-    JAX package's ``ops/attention_flash.py:_apply_ext_call``.
+    CUDA kernel: ``attn_apply_kernel<true, G>`` in
+    kernels/csrc/attention_flash.cu (``attn_apply_mma_kernel<true, G>`` in
+    bf16: tensor cores), replacing the Pallas kernel of the JAX package's
+    ``ops/attention_flash.py:_apply_ext_call``.
     """
     Q, Np = a1x.shape
     F = v_ext.shape[1] if v_ext.dim() == 3 else -1
@@ -850,23 +873,25 @@ def apply_ext_call(a1x: torch.Tensor, a2_ext: torch.Tensor,
                   sm_ext=(sm_ext, (Q, Npe)))
     operands = (a1x, a2_ext, v_ext, mx_ext, sm_ext, slab_col, mask_col)
     if not kernels.on_cuda("apply_ext_call", *operands):
+        kernels.OP_CALLS["apply_ext_call", v_ext.dtype] += 1
         return apply_ext_plain(*operands, w=w, ibs=ibs, with_s=with_s,
                                slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("apply_ext_call", a1x=(a1x, f32),
-                         a2_ext=(a2_ext, f32), v_ext=(v_ext, f32),
+    dt, f32 = kernels.io_dtype("apply_ext_call", v_ext), torch.float32
+    kernels.check_inputs("apply_ext_call", a1x=(a1x, dt),
+                         a2_ext=(a2_ext, dt), v_ext=(v_ext, dt),
                          mx_ext=(mx_ext, f32), sm_ext=(sm_ext, f32),
-                         slab_col=(slab_col, f32), mask_col=(mask_col, f32))
+                         slab_col=(slab_col, dt), mask_col=(mask_col, dt))
     _check_ext_kernel("apply_ext_call", nbl, w, ibs)
     sup = _lists_ptrs("apply_ext_call", lists, mask_col)
-    y = torch.empty((Q, F, Np), dtype=f32, device=a1x.device)
+    y = torch.empty((Q, F, Np), dtype=dt, device=a1x.device)
     if Q == 0 or F == 0:
         return y
-    err = kernels.library().gnt_attn_apply_ext(
+    err = kernels.entry("gnt_attn_apply_ext", dt)(
         *(t.data_ptr() for t in operands[:6]), *sup, y.data_ptr(), Q, F, Np,
         nbl, w, ibs, int(with_s), slope, kernels.stream())
     kernels.check(err, "apply_ext_call")
     apply_ext_call.launches += 1
+    kernels.OP_CALLS["apply_ext_call", dt] += 1
     return y
 
 
@@ -883,11 +908,14 @@ def bwd_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     in ext column coordinates, dv (Q, F, Np)) from a1_ext and the
     cotangent g_ext halo-extended, a2x, v and the stats own, the
     halo-extended column slab (nbl + 2w, W, ibs, ibs) and mask_row
-    (nbl, W, ibs, ibs); see :func:`bwd_ext_plain`.
+    (nbl, W, ibs, ibs); see :func:`bwd_ext_plain`. a1_ext, a2x, v,
+    slab_col_ext, mask_row and g_ext all f32 or all bf16 (the stats f32);
+    da2 and da1p are f32, dv in v's dtype.
 
     CUDA kernel: ``attn_bwd_kernel<true>`` in
-    kernels/csrc/attention_flash.cu, replacing the Pallas kernel of the
-    JAX package's ``ops/attention_flash.py:_bwd_ext_call``.
+    kernels/csrc/attention_flash.cu (``attn_bwd_mma_kernel<true, NF>`` in
+    bf16: tensor cores, F <= 64), replacing the Pallas kernel of the JAX
+    package's ``ops/attention_flash.py:_bwd_ext_call``.
     """
     Q, F, Np = v.shape
     nbl = _check_band("bwd_ext_call", Np, w, ibs, mask_row=mask_row)
@@ -900,28 +928,30 @@ def bwd_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     operands = (a1_ext, a2x, v, rowmax, rowsum, slab_col_ext, mask_row,
                 g_ext)
     if not kernels.on_cuda("bwd_ext_call", *operands):
+        kernels.OP_CALLS["bwd_ext_call", v.dtype] += 1
         return bwd_ext_plain(*operands, w=w, ibs=ibs, with_s=with_s,
                              slope=slope)
-    f32 = torch.float32
-    kernels.check_inputs("bwd_ext_call", a1_ext=(a1_ext, f32),
-                         a2x=(a2x, f32), v=(v, f32), rowmax=(rowmax, f32),
+    dt, f32 = kernels.io_dtype("bwd_ext_call", v), torch.float32
+    kernels.check_inputs("bwd_ext_call", a1_ext=(a1_ext, dt),
+                         a2x=(a2x, dt), v=(v, dt), rowmax=(rowmax, f32),
                          rowsum=(rowsum, f32),
-                         slab_col_ext=(slab_col_ext, f32),
-                         mask_row=(mask_row, f32), g_ext=(g_ext, f32))
+                         slab_col_ext=(slab_col_ext, dt),
+                         mask_row=(mask_row, dt), g_ext=(g_ext, dt))
     _check_ext_kernel("bwd_ext_call", nbl, w, ibs)
-    _check_bwd_smem("bwd_ext_call", w, ibs, F)
+    _check_bwd_smem("bwd_ext_call", w, ibs, F, dt)
     da2 = torch.empty((Q, Np), dtype=f32, device=v.device)
     da1p = torch.empty((Q, nbl, W, ibs), dtype=f32, device=v.device)
-    dv = torch.empty((Q, F, Np), dtype=f32, device=v.device)
+    dv = torch.empty((Q, F, Np), dtype=dt, device=v.device)
     if Q == 0 or F == 0:
         return da2.zero_(), da1p.zero_(), dv
-    err = kernels.library().gnt_attn_bwd_ext(
+    err = kernels.entry("gnt_attn_bwd_ext", dt)(
         g_ext.data_ptr(), a1_ext.data_ptr(), a2x.data_ptr(), v.data_ptr(),
         rowmax.data_ptr(), rowsum.data_ptr(), slab_col_ext.data_ptr(),
         mask_row.data_ptr(), da2.data_ptr(), da1p.data_ptr(), dv.data_ptr(),
         Q, F, Np, nbl, w, ibs, int(with_s), slope, kernels.stream())
     kernels.check(err, "bwd_ext_call")
     bwd_ext_call.launches += 1
+    kernels.OP_CALLS["bwd_ext_call", dt] += 1
     return da2, da1p, dv
 
 

@@ -114,11 +114,15 @@ def cast_ctx(v, dtype: torch.dtype):
     (a Gso by :meth:`Gso.to`, which casts its cached band structure and
     rebuilds nothing; tuples and lists entry by entry), its integer tables
     kept: the JAX package's cast of ctx's float leaves
-    (``_ctx_for_dtype``), shared by bf16 serving and bf16 training. An
-    edge-list GSO raises (ROADMAP item 2.2), as does any other object."""
+    (``_ctx_for_dtype``), shared by bf16 serving and bf16 training. A
+    ``parallel.ShardedGso`` gives its twin in `dtype` (:meth:`ShardedGso.to`:
+    its per-shard slabs, blocks and masks cast once, integer tables and
+    entry lists shared). An edge-list GSO raises (ROADMAP item 2.2), as
+    does any other object."""
+    from graph_neural_networks_torch.parallel.sharded_gso import ShardedGso
     if isinstance(v, torch.Tensor):
         return v.to(dtype) if v.is_floating_point() else v
-    if isinstance(v, Gso):
+    if isinstance(v, (Gso, ShardedGso)):
         return v.to(dtype=dtype)
     if isinstance(v, (tuple, list)):
         return type(v)(cast_ctx(t, dtype) for t in v)

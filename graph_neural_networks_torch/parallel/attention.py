@@ -44,6 +44,7 @@ y at column m aggregates alpha-weighted rows, mask arithmetic
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -165,6 +166,20 @@ class ShardedBandAttention:
                     self._shard_ops[dev, p] = (ext[:, w:w + nbl], mcol,
                                                mrow, ext, lists)
 
+    def cast(self, dtype: torch.dtype) -> "ShardedBandAttention":
+        """A twin on the same mesh and partition whose shards' slabs and
+        masks are in `dtype` (cast once, here; the own slab a view of the
+        cast halo-extended one), the support's entry lists shared: what a
+        bf16 ShardedGso attends with."""
+        twin = copy.copy(self)
+        w, nbl = self.part.w, self.part.nbl
+        twin._shard_ops = {}
+        for key, (_, mcol, mrow, ext, lists) in self._shard_ops.items():
+            ext = ext.to(dtype)
+            twin._shard_ops[key] = (ext[:, w:w + nbl], mcol.to(dtype),
+                                    mrow.to(dtype), ext, lists)
+        return twin
+
     def apply(self, a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
               e: int = 0, with_s: bool = True) -> torch.Tensor:
         """One sharded attention application. a1x, a2x (Q, Np) and v
@@ -220,7 +235,8 @@ class ShardedBandAttention:
         (Q, F, Np) on the home device: per data slice, g cut into shards
         and halo-extended, ``bwd_ext_call`` on each shard, its da1 window
         partials folded into ext columns and ``halo_fold``ed back to their
-        owners. Returns (da1x, da2x, dv) on g's device."""
+        owners in f32, then da1 and da2 rounded once to the operands' dtype
+        (the JAX ``local_bwd``). Returns (da1x, da2x, dv) on g's device."""
         part = self.part
         w, ibs, halo = part.w, part.inner_bs, part.halo
         Qd = g.shape[0] // len(rows)
@@ -235,7 +251,8 @@ class ShardedBandAttention:
                      for p in range(len(devs))]
             da1 = halo_fold([af.fold_ext_partials(t[1]) for t in grads],
                             halo)
-            outs.append([torch.cat([t.to(g.device) for t in ts], dim=-1)
+            dt = a2s[0].dtype
+            outs.append([torch.cat([t.to(g.device, dt) for t in ts], dim=-1)
                          for ts in (da1, [t[0] for t in grads],
                                     [t[2] for t in grads])])
         return tuple(torch.cat(ts) if len(ts) > 1 else ts[0]

@@ -28,6 +28,7 @@ step of ``ops.filters.lsigf_db`` (``time_step``) stays sharded.
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree
 
 from graph_neural_networks_torch.ops import ell as ell_lib
 from graph_neural_networks_torch.parallel.mesh import Mesh
@@ -105,6 +106,22 @@ class ShardedEllGso(ell_lib.EllGso):
         return (f"ShardedEllGso(lead={tuple(self.idx.shape[:-2])}, "
                 f"N={self.n_orig}(pad {self.n}), D={self.d}, "
                 f"axis={self.axis!r})")
+
+
+# A pytree node with leaves idx and val and the mesh, axis and n_orig as
+# its context (the JAX package registers it so, parallel/db.py): padding a
+# request, casting it to bf16 (InferenceEngine, Trainer._mixed) rebuild a
+# ShardedEllGso on the same mesh, its idx kept.
+_pytree.register_pytree_node(
+    ShardedEllGso,
+    lambda e: ([e.idx, e.val], (e.mesh, e.axis, e.n_orig)),
+    lambda leaves, ctx: ShardedEllGso(*leaves, mesh=ctx[0], axis=ctx[1],
+                                      n_orig=ctx[2]),
+    serialized_type_name=(
+        "graph_neural_networks_torch.parallel.db.ShardedEllGso"),
+    flatten_with_keys_fn=lambda e: ([(_pytree.GetAttrKey("idx"), e.idx),
+                                     (_pytree.GetAttrKey("val"), e.val)],
+                                    (e.mesh, e.axis, e.n_orig)))
 
 
 def shard_ell(ell: ell_lib.EllGso, mesh: Mesh,

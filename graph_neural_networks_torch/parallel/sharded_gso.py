@@ -16,9 +16,19 @@ Routing: a ``BcsrPartition`` (a scattered graph) takes the BCSR shift; a
 ``GraphPartition`` takes the ring halo exchange when it is a ring and
 ``prefer_ring`` holds, else the all-gather shift (``uses_ring`` says
 which).
+
+``ShardedGso.to(dtype=torch.bfloat16)`` gives its bf16 twin on the same
+mesh and partition (what bf16 serving and bf16 training shift with): the
+shift's and the attention operator's per-shard float tensors cast once,
+their integer tables and the support's entry lists shared. The JAX
+``ShardedGso`` is a leafless pytree whose tables stay f32, so its bf16
+path multiplies bf16 signals by f32 S; the port's twin keeps S in bf16, as
+both packages' unsharded bf16 engines do (ROADMAP queue 3).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -57,8 +67,11 @@ class ShardedGso:
         self.partition = partition
         self.axis = axis
         self.data_axis = data_axis
+        self.dtype = torch.float32
         self._shift = build(mesh, partition, axis, data_axis)
         self._band_attention = None
+        self._f32 = None      # a cast twin: the f32 ShardedGso it came from
+        self._casts = {}      # dtype -> the twin (on the f32 one)
 
     # the Gso duck-type surface used by ops.gso.gshift and the layers
     @property
@@ -73,7 +86,7 @@ class ShardedGso:
     def S(self) -> torch.Tensor:
         """Dense (E, Np, Np) reconstruction on the home device: small-graph
         debug only (partition.S_perm refuses above its size guard)."""
-        return torch.as_tensor(self.partition.S_perm, dtype=torch.float32,
+        return torch.as_tensor(self.partition.S_perm, dtype=self.dtype,
                                device=self.mesh.home)
 
     def shift(self, x):
@@ -87,6 +100,8 @@ class ShardedGso:
         (parallel.attention.ShardedBandAttention); ops.filters routes
         graph_attention / gat_lsigf / gat_evgf here. Requires a ring
         partition."""
+        if self._band_attention is None and self._f32 is not None:
+            self._band_attention = self._f32.band_attention.cast(self.dtype)
         if self._band_attention is None:
             if not (isinstance(self.partition, GraphPartition)
                     and self.partition.is_ring):
@@ -104,13 +119,30 @@ class ShardedGso:
                 data_axis=self.data_axis)
         return self._band_attention
 
-    def to(self, device) -> "ShardedGso":
-        """self: a ShardedGso stays on its mesh, whose home device is the
-        only one its global inputs and outputs may live on."""
-        if normalize_device(device) != self.mesh.home:
+    def to(self, device=None, dtype=None) -> "ShardedGso":
+        """The ShardedGso in `dtype` (f32 or bf16) on its mesh: self when
+        nothing changes; else its twin on the same mesh and partition, made
+        once and memoized on the f32 one (its shift's and attention
+        operator's float tables cast, integer tables and entry lists
+        shared). A ShardedGso stays on its mesh, whose home device is the
+        only `device` it takes."""
+        if device is not None and normalize_device(device) != self.mesh.home:
             raise ValueError(f"a ShardedGso lives on its mesh (home "
                              f"{self.mesh.home}); cannot move it to {device}")
-        return self
+        if dtype is None or dtype == self.dtype:
+            return self
+        base = self._f32 or self
+        if dtype == torch.float32:
+            return base
+        if dtype not in base._casts:
+            twin = copy.copy(base)
+            twin.dtype = dtype
+            twin._shift = base._shift.cast(dtype)
+            twin._band_attention = (None if base._band_attention is None
+                                    else base._band_attention.cast(dtype))
+            twin._f32, twin._casts = base, {}
+            base._casts[dtype] = twin
+        return base._casts[dtype]
 
     def pad_signal(self, x: np.ndarray) -> np.ndarray:
         return self.partition.pad_signal(x)

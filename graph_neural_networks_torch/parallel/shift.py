@@ -34,8 +34,14 @@ contractions, as in the JAX package:
   * on the CPU: the windowed block einsum (the ring splits off the
     interior blocks, which read only the own block).
 
-All are differentiable by autograd. ``make_dp_train_step`` (a GSPMD
-data-parallel step) is not ported (ROADMAP queue 1 item 10.2b).
+All are differentiable by autograd. Each shift is a :class:`ShardShift`
+holding its per-shard tables; ``ShardShift.cast`` gives a twin with the
+float tables (slabs, halo corrections, BCSR blocks) cast once and the
+integer ones (block indices, segment offsets) shared, which a bf16
+``ShardedGso`` shifts with: its local contraction then runs on the bf16
+kernels (kernel 3b on the square local band, 1b on the rectangular BCSR
+slice) and its halo corrections are bf16 einsums. ``make_dp_train_step``
+(a GSPMD data-parallel step) is not ported (ROADMAP queue 1 item 10.2b).
 
 Signals follow the gshift convention: x (..., E, G, N_padded), node axis
 last, ordered and padded by the partition; any number of leading dims.
@@ -43,7 +49,7 @@ last, ordered and padded by the partition; any number of leading dims.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -202,16 +208,31 @@ def _all_gather(blks, devs) -> dict:
             for dev in dict.fromkeys(devs)}
 
 
-def _shard_loop(grid, bs: int, prepare, local):
+class ShardShift:
     """shift(x) on global (..., E, G, N_padded) tensors from a shard-local
     step: the leading dims flatten into L, which the data rows of `grid`
     split when they divide it (else the first data row takes all of it, as
     the JAX ShardedGso falls back to its graph-only shift). For each data
     row, ``prepare(blks, devs)`` exchanges what the shards need (halo
-    strips, the all-gather) and ``local(p, dev, blk, exchanged)`` maps
-    shard p's (L_d, E, G, bs) block to its (L_d, E, G, bs) output."""
+    strips, the all-gather) and ``local(p, dev, blk, exchanged, tables)``
+    maps shard p's (L_d, E, G, bs) block to its (L_d, E, G, bs) output,
+    reading its tables at ``tables[dev, p]`` (:func:`_per_shard`)."""
 
-    def shift4(x):
+    def __init__(self, grid, bs: int, prepare, local, tables: dict):
+        self.grid, self.bs = grid, bs
+        self.prepare, self.local, self.tables = prepare, local, tables
+
+    def cast(self, dtype: torch.dtype) -> "ShardShift":
+        """A twin whose float tables are in `dtype` (cast once, here), the
+        integer ones shared."""
+        tables = {key: tuple(t.to(dtype) if t.is_floating_point() else t
+                             for t in ts)
+                  for key, ts in self.tables.items()}
+        return ShardShift(self.grid, self.bs, self.prepare, self.local,
+                          tables)
+
+    def _shift4(self, x):
+        grid, bs = self.grid, self.bs
         L = x.shape[0]
         rows = grid if L % len(grid) == 0 else grid[:1]
         Ld = L // len(rows)
@@ -219,23 +240,21 @@ def _shard_loop(grid, bs: int, prepare, local):
         for d, devs in enumerate(rows):
             blks = [x[d * Ld:(d + 1) * Ld, ..., p * bs:(p + 1) * bs]
                     .to(dev).contiguous() for p, dev in enumerate(devs)]
-            exchanged = prepare(blks, devs)
-            y = [local(p, dev, blks[p], exchanged)
+            exchanged = self.prepare(blks, devs)
+            y = [self.local(p, dev, blks[p], exchanged, self.tables)
                  for p, dev in enumerate(devs)]
             ys.append(torch.cat([t.to(x.device) for t in y], dim=-1))
         return torch.cat(ys) if len(ys) > 1 else ys[0]
 
-    def shift(x):
+    def __call__(self, x):
         lead = x.shape[:-3]
-        y = shift4(x.reshape((-1,) + tuple(x.shape[-3:])))
+        y = self._shift4(x.reshape((-1,) + tuple(x.shape[-3:])))
         return y.reshape(tuple(lead) + tuple(y.shape[-3:]))
-
-    return shift
 
 
 def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
                         axis: str = "graph",
-                        data_axis: Optional[str] = None) -> Callable:
+                        data_axis: Optional[str] = None) -> ShardShift:
     """Halo-exchange shift: each shard receives the w*inner_bs boundary
     nodes of its neighbours and contracts against its local band slab.
     Requires part.is_ring. data_axis: also split the flattened leading
@@ -268,20 +287,20 @@ def sharded_gshift_ring(mesh: Mesh, part: GraphPartition,
         return (halo_strips(blks, halo) if exchange
                 else [(None, None)] * len(blks))
 
-    def local(p, dev, blk, halos):
-        s = slabs[dev, p]
+    def local(p, dev, blk, halos, tables):
+        s = tables[dev, p]
         if use_kernel:
             return _kernel_local_contract(blk, *halos[p], *s, w, ibs, nbl)
         if halo == 0:
             return _band_contract(blk, s[0])
         return _window_local_contract(blk, *halos[p], s[0], w, ibs, nbl)
 
-    return _shard_loop(grid, part.block_size, prepare, local)
+    return ShardShift(grid, bs, prepare, local, slabs)
 
 
 def sharded_gshift_allgather(mesh: Mesh, part: GraphPartition,
                              axis: str = "graph",
-                             data_axis: Optional[str] = None) -> Callable:
+                             data_axis: Optional[str] = None) -> ShardShift:
     """All-gather shift: each shard gathers the node axis, slices its
     halo-extended window (zeros beyond the global ends) and contracts it
     against its local band slab, as the ring does. Exact for any
@@ -295,22 +314,22 @@ def sharded_gshift_allgather(mesh: Mesh, part: GraphPartition,
     slabs = _per_shard(grid, _sq_slabs(part) if use_kernel
                        else (part.slabs,))
 
-    def local(p, dev, _, full):
+    def local(p, dev, _, full, tables):
         xp = torch.nn.functional.pad(full[dev], (halo, halo))
         x_ext = xp[..., p * bs:p * bs + bs + 2 * halo]
-        s = slabs[dev, p]
+        s = tables[dev, p]
         if use_kernel:
             return _kernel_local_contract(
                 x_ext[..., halo:halo + bs].contiguous(), x_ext[..., :halo],
                 x_ext[..., halo + bs:], *s, w, ibs, nbl)
         return _band_contract(x_ext, s[0])
 
-    return _shard_loop(grid, bs, _all_gather, local)
+    return ShardShift(grid, bs, _all_gather, local, slabs)
 
 
 def sharded_gshift_bcsr(mesh: Mesh, part: BcsrPartition,
                         axis: str = "graph",
-                        data_axis: Optional[str] = None) -> Callable:
+                        data_axis: Optional[str] = None) -> ShardShift:
     """Sharded shift for SCATTERED graphs (a ``BcsrPartition``): each shard
     gathers the node axis and contracts it against the BCSR blocks of its
     column slice of S, one ``spmm.bcsr_shift_rect`` an edge feature
@@ -336,9 +355,9 @@ def sharded_gshift_bcsr(mesh: Mesh, part: BcsrPartition,
                                 part.blocks_t, part.brow_t, part.bcol_t,
                                 cs_t))
 
-    def local(p, dev, _, full):
+    def local(p, dev, _, full, tables):
         blocks, brow, bcol, c, blocks_t, brow_t, bcol_t, c_t = \
-            layouts[dev, p]
+            tables[dev, p]
         x_full = full[dev]
         L, E, G, _ = x_full.shape
         return torch.stack([
@@ -348,4 +367,4 @@ def sharded_gshift_bcsr(mesh: Mesh, part: BcsrPartition,
                 c[e], c_t[e]).reshape(L, G, bs)
             for e in range(E)], dim=1)
 
-    return _shard_loop(grid, bs, _all_gather, local)
+    return ShardShift(grid, bs, _all_gather, local, layouts)

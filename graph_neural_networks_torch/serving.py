@@ -9,7 +9,9 @@ The counterpart of the JAX package's ``serving.py``:
     back; a larger request is refused. The forward runs eagerly under
     ``torch.inference_mode()`` on the architecture's device. A static-GSO
     model answers ``engine(x)``, a time-varying (DB family) one
-    ``engine(x, S)`` with S a dense (B, T, [E,] N, N) stack or an EllGso.
+    ``engine(x, S)`` with S a dense (B, T, [E,] N, N) stack, an EllGso or
+    a ``parallel.ShardedEllGso`` (also a pytree; padded and cast leaf by
+    leaf, still sharded).
     ``dtype=torch.bfloat16`` serves a bf16 copy of the model (parameters,
     float inputs and the GSO's float tensors in bf16, on the bf16
     instances of the kernels); outputs are f32 either way.
@@ -79,31 +81,21 @@ def _as_f32(y):
         lambda a: a.float() if a.is_floating_point() else a, y)
 
 
-def _is_sharded(arch) -> bool:
-    S = getattr(arch, "ctx", {}).get("S")
-    return S is not None and not isinstance(
-        S, (gso_lib.Gso, torch.Tensor)) and hasattr(S, "shift")
-
-
 def _served_copy(arch, dtype):
     """The architecture the engine runs: `arch` itself in f32; in bf16 a
     copy with its parameters and the float tensors of its context (the
-    GSO's, with its cached band structure) in bf16. The caller's model is
-    never cast."""
+    GSO's, with its cached band structure; a ShardedGso's twin) in bf16.
+    The caller's model is never cast."""
     if dtype == torch.float32:
         return arch
     if isinstance(arch, nn.Module):   # the DB family: weights only
         return copy.deepcopy(arch).to(dtype=dtype)
-    if _is_sharded(arch):
-        raise NotImplementedError(
-            "bf16 serving of a sharded architecture is ROADMAP item 2.1 "
-            "(bf16 instances of the ext kernels 10-11)")
     from graph_neural_networks_torch.models.architectures import _ArchBase
     if not (isinstance(arch, _ArchBase)
             and type(arch).split_forward is _ArchBase.split_forward):
         raise NotImplementedError(
-            f"bf16 serving of {type(arch).__name__} is not ported: its "
-            "forward computes in f32")
+            f"bf16 serving of {type(arch).__name__} is ROADMAP item 2.2: "
+            "its forward computes in f32")
     served = copy.copy(arch)
     served.core = copy.deepcopy(arch.core).to(dtype=dtype)
     served.ctx = {k: gso_lib.cast_ctx(v, dtype) for k, v in arch.ctx.items()}
@@ -161,7 +153,10 @@ class InferenceEngine:
     dtype: None (f32) or torch.bfloat16, which serves a bf16 copy of the
     architecture and of its GSO (the JAX ``_cast_floats`` of params, float
     inputs and ctx) on the bf16 kernels; outputs return as f32. A sharded
-    architecture takes f32 only.
+    architecture serves on its ShardedGso's bf16 twin
+    (``ShardedGso.to(dtype=)``) and the bf16 ext kernels. The GRNNs and
+    MultiNodeAggregationGNN, whose forward computes in f32, refuse bf16
+    (ROADMAP item 2.2).
 
     example_args: one example request (unpadded), so that the
     introspection can run before the first request; without it, it uses

@@ -41,8 +41,10 @@ bf16 instances of the kernels, forward and backward. The loss reduces in
 f32, without loss scaling; validation runs the f32 forward. An
 architecture whose JAX forward computes in f32 (``compute_f32``: the
 GRNNs, MultiNodeAggregationGNN) takes the parameters rounded through bf16
-as f32, as JAX's type promotion does. A sharded model (ROADMAP item 2.1)
-and a context with an edge-list GSO (item 2.2) raise.
+as f32, as JAX's type promotion does. A sharded model trains on its
+ShardedGso's bf16 twin (the bf16 ext kernels 10-12, a ``compute_f32``
+one on the f32 sharded path); a context with an edge-list GSO (ROADMAP
+item 2.2) raises.
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
 dispatches each step eagerly, and CUDA graphs would be the tool for that
@@ -108,27 +110,22 @@ class _Bound(nn.Module):
 
 
 def _cast_floats(tree, dtype: torch.dtype):
-    """Every float tensor leaf of `tree` (a tensor, an EllGso) in `dtype`;
-    integer leaves (labels, ELL indices) and anything else kept."""
+    """Every float tensor leaf of `tree` (a tensor, an EllGso or a
+    ShardedEllGso) in `dtype`; integer leaves (labels, ELL indices) and
+    anything else kept."""
     return _pytree.tree_map(
         lambda a: a.to(dtype) if isinstance(a, torch.Tensor)
         and a.is_floating_point() else a, tree)
 
 
 def _check_mixed(archit) -> None:
-    """Raise for what bf16 training does not take: a sharded model (ROADMAP
-    item 2.1: bf16 instances of the ext kernels 10-12) and a context with
-    an edge-list GSO (item 2.2). Casts the bf16 context once (memoized on
-    the architecture)."""
+    """Raise for what bf16 training does not take: a context with an
+    edge-list GSO (ROADMAP item 2.2). Casts the bf16 context once (memoized
+    on the architecture; a ShardedGso by its bf16 twin)."""
     ctx = getattr(archit, "ctx", None)
     if ctx is None:                     # the DB family: no static context
         return
     from graph_neural_networks_torch.ops import attention_sparse as asp
-    from graph_neural_networks_torch.parallel.sharded_gso import ShardedGso
-    if isinstance(ctx.get("S"), ShardedGso):
-        raise NotImplementedError(
-            "Trainer(precision='bf16') of a sharded architecture is ROADMAP "
-            "item 2.1 (bf16 instances of the ext kernels 10-12)")
     if any(isinstance(v, asp.EdgeList) for v in ctx.values()):
         raise NotImplementedError(
             "Trainer(precision='bf16') of a model whose context holds an "

@@ -39,7 +39,7 @@ from graph_neural_networks_tpu.ops import filters as jfilters
 from graph_neural_networks_tpu.ops import spmm as jspmm
 from tests.test_torch_attention import _kernel_operands
 from tests.test_torch_serving import (B, N, _banded, _db_pair, _db_request,
-                                      _selection, _tree, _x)
+                                      _graph, _selection, _tree, _x)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -287,9 +287,31 @@ def test_gso_cast_keeps_structure_and_cached_band():
 
 
 def test_sharded_bf16_raises_naming_2_1():
+    """Named when bf16 serving of a sharded model was refused (ROADMAP item
+    2.1); now its parity: the SelectionGNN sharded over a (1, 2) mesh
+    serves in bf16 (its ShardedGso's bf16 twin, the ring shift in bf16)
+    within ENGINE_TOL of JAX's bf16 engine on its sharded model and of the
+    port's unsharded bf16 engine; the GRNNs still refuse, naming item
+    2.2."""
     from graph_neural_networks_torch import parallel
-    _, _, ta = _selection("band", _banded())
+    from graph_neural_networks_tpu import parallel as jpar
+    ja, params, ta = _selection("band", _banded())
+    x = _x(12)
+    unsharded = tserving.InferenceEngine(ta, B, device="cpu",
+                                         dtype=torch.bfloat16)(x).numpy()
     mesh = parallel.make_mesh((1, 2), devices=[torch.device("cpu")] * 2)
     ta.shard(mesh, 2)
-    with pytest.raises(NotImplementedError, match="item 2.1"):
-        tserving.InferenceEngine(ta, B, device="cpu", dtype=torch.bfloat16)
+    jmesh = jpar.make_mesh((1, 2), devices=jax.devices()[:2])
+    ja.shard(jmesh, 2)
+    with jmesh:
+        want = np.asarray(jserving.InferenceEngine(
+            ja, params, (x,), dtype=jnp.bfloat16)(x))
+    got = tserving.InferenceEngine(ta, B, device="cpu",
+                                   dtype=torch.bfloat16)(x).numpy()
+    assert ta.S.dtype == torch.float32
+    for ref in (want, unsharded):
+        assert np.abs(got - ref).max() <= ENGINE_TOL * np.abs(ref).max()
+    grnn = tarch.GraphRecurrentNN(2, 3, 4, [3, 2], True, "tanh", "relu",
+                                  "identity", [3], _graph(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.2"):
+        tserving.InferenceEngine(grnn, B, device="cpu", dtype=torch.bfloat16)

@@ -652,12 +652,43 @@ def _small_model(S, d, **kw):
 
 
 def test_sharded_bf16_training_raises_naming_2_1(sbm_data, tmp_path):
+    """Named when bf16 training of a sharded model was refused (ROADMAP
+    item 2.1); now its parity: a band SelectionGNN sharded over a (1, 2)
+    mesh trains under precision='bf16' (the ring shift on its bf16 twin),
+    its first-step gradients on the f32 masters within STEP_GRAD_REL of
+    each leaf's largest magnitude of the unsharded bf16 step's, and 3
+    steps' losses within LOSS_TOL of the JAX sharded model's bf16
+    Trainer(mesh=...) from the same weights."""
+    from graph_neural_networks_tpu import parallel as jpar
     S, data = sbm_data
-    m = _small_model(S, tmp_path, gsoMode="band")
-    m.archit.shard(tpar.make_mesh((1, 2), devices=[torch.device("cpu")] * 2),
-                   2)
-    with pytest.raises(NotImplementedError, match="item 2.1"):
-        ttrain.Trainer(m, data, 1, 8, precision="bf16")
+    mesh = tpar.make_mesh((1, 2), devices=[torch.device("cpu")] * 2)
+    jmesh = jpar.make_mesh((1, 2), devices=jax.devices()[:2])
+    with pltpu.force_tpu_interpret_mode():
+        jm = _jax_model("selgnn_band", S, tmp_path)
+    jm.archit.shard(jmesh, 2)
+    _warm_jax_ctx(jm.archit)
+    grads = []
+    for shard in (False, True):
+        tm = _port_model("selgnn_band", S, jm.params, tmp_path / str(shard))
+        if shard:
+            tm.archit.shard(mesh, 2)
+        ttrain.Trainer(tm, data, 1, BATCH, precision="bf16").train_batch(
+            np.arange(BATCH))
+        grads.append([p.grad.double() for p in tm.archit.parameters()])
+    for g, g0 in zip(*reversed(grads)):
+        assert (g - g0).abs().max() <= STEP_GRAD_REL * max(
+            g0.abs().max().item(), 1e-12)
+    kw = dict(nEpochs=1, batchSize=BATCH, validationInterval=3,
+              precision="bf16")
+    with jmesh, pltpu.force_tpu_interpret_mode():
+        jout = jm.train(data, mesh=jmesh, **kw)
+    tm = _port_model("selgnn_band", S, jm.params, tmp_path / "run")
+    tm.archit.shard(mesh, 2)
+    tout = tm.train(data, mesh=mesh, **kw)
+    assert len(tout["lossTrain"]) == 3
+    np.testing.assert_allclose(tout["lossTrain"], jout["lossTrain"],
+                               **LOSS_TOL)
+    assert {p.dtype for p in tm.archit.parameters()} == {torch.float32}
 
 
 def test_edge_list_bf16_training_raises_naming_2_2(sbm_data, tmp_path):
