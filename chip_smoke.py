@@ -358,9 +358,10 @@ def phase_build():
             "in 2 each, table_transpose_kernel in 2; and the bf16-io "
             "instances: bcsr_mma_kernel in 5 tiles on 2 block layouts, 10, "
             "band_register_mma_kernel in 3 tiles x 2 stagings, 6, "
-            "attn_stats_kernel global and ext, 2, attn_apply_mma_kernel in "
-            "3 groups x global and ext, 6, and attn_bwd_mma_kernel in 4 "
-            "feature widths x global and ext, 8: 32)")
+            "attn_stats_bf16_kernel global and ext, 2, "
+            "attn_apply_mma_kernel in 3 groups x global and ext, 6, and "
+            "attn_bwd_mma_kernel in 4 feature widths x global and ext, 8: "
+            "32)")
     for name, a in attrs.items():
         if name.endswith(", bf16>") and "attn" not in name:
             require(a["dynamic_shared_bytes"] > 0,
@@ -7622,9 +7623,12 @@ def phase_bf16_kernels(graph, S_np, gat_gso, dev):
     shapes (R = 32 and 2048, K = 5) and at the edges of the tensor-core
     tiles (R = 1, 16, 17, 64, 65, 129; N = 4004 and the ragged 4001; an
     empty BCSR segment; the register at K = 2 and on each of its panels),
-    and at gat_band_n16384's (Q = 16, F = 32, w = 2), synchronized after
-    each; then each timed by CUDA events and graph_ms beside the f32
-    instance, with its bound and x_bf16 @ S_dense_bf16; the bf16
+    and at gat_band_n16384's (Q = 16, F = 32, w = 2; the stats kernel
+    also at the edges of its lanes' signal-row splits, Q = 1, 3, 4, 5, 17,
+    33, at a negative slope, on rows without support and at ibs = 64 and
+    192), synchronized after each; then each timed by CUDA events and
+    graph_ms beside the f32 instance, with its bound and x_bf16 @
+    S_dense_bf16; the bf16
     register_sweep; and a wrapper's host us a call at R = 32 without and
     with the op registration."""
     import torch
@@ -7732,6 +7736,48 @@ def phase_bf16_kernels(graph, S_np, gat_gso, dev):
     pmx, psm = af.stats_plain(a1, a2, aux.mask_row, w=wa, ibs=ibs)
     check("stats_call", f"Q={Q} N={Np} w={wa} rowmax", mx, pmx)
     check("stats_call", f"Q={Q} N={Np} w={wa} rowsum", sm, psm)
+    # the bf16 stats kernel's edges: signal rows on each side of its lanes'
+    # splits (a power of 2 of them a list, at most 32 a block), a negative
+    # slope, rows without support in the first, middle and last row blocks,
+    # and ibs = 64 and 192
+    for Qe in (1, 3, 4, 5, 17, 33):
+        a1e, a2e = randn(Qe, Np), randn(Qe, Np)
+        got = af.stats_call(a1e, a2e, aux.mask_row, w=wa, ibs=ibs)
+        want = af.stats_plain(a1e, a2e, aux.mask_row, w=wa, ibs=ibs)
+        for j, what in enumerate(("rowmax", "rowsum")):
+            check("stats_call", f"Q={Qe} N={Np} w={wa} {what}", got[j],
+                  want[j])
+    for Qe in (5, Q):  # a negative slope: the max over the scores
+        a1e, a2e = randn(Qe, Np), randn(Qe, Np)
+        got = af.stats_call(a1e, a2e, aux.mask_row, w=wa, ibs=ibs,
+                            slope=-0.2)
+        want = af.stats_plain(a1e, a2e, aux.mask_row, w=wa, ibs=ibs,
+                              slope=-0.2)
+        for j, what in enumerate(("rowmax", "rowsum")):
+            check("stats_call", f"Q={Qe} N={Np} w={wa} slope=-0.2 {what}",
+                  got[j], want[j])
+    rows_e = [0, 7, ibs + 1, Np // 2, Np - ibs - 1, Np - 1]
+    mr_e = _empty_rows(aux.mask_row, rows_e)
+    got = af.stats_call(a1, a2, mr_e, w=wa, ibs=ibs)
+    want = af.stats_plain(a1, a2, mr_e, w=wa, ibs=ibs)
+    keep = _other_rows(Np, rows_e)
+    for j, what in enumerate(("rowmax", "rowsum")):
+        check("stats_call", f"empty rows {rows_e} {what}", got[j][:, keep],
+              want[j][:, keep])
+    _check_empty_rows("stats_call bf16", *got, rows_e, 2 * wa + 1, ibs)
+    np_rng = np.random.default_rng(35)
+    for S_e, ibs_e, Qe in ((_attn_case(np_rng, 1000, 3, bs=64), 64, 5),
+                           (_attn_case(np_rng, 2000, 1, bs=192), 192, 16)):
+        g_e = gso_lib.as_gso(S_e, "band", block_size=ibs_e, device=dev)
+        m_e = af.band_auxes(g_e)[0].mask_row.to(bf)
+        Np_e, w_e = m_e.shape[0] * ibs_e, g_e.band_w
+        a1e, a2e = randn(Qe, Np_e), randn(Qe, Np_e)
+        got = af.stats_call(a1e, a2e, m_e, w=w_e, ibs=ibs_e)
+        want = af.stats_plain(a1e, a2e, m_e, w=w_e, ibs=ibs_e)
+        for j, what in enumerate(("rowmax", "rowsum")):
+            check("stats_call", f"Q={Qe} N={g_e.n} w={w_e} ibs={ibs_e} "
+                  f"{what}", got[j], want[j])
+    del a1e, a2e, mr_e, got, want
     y = af.apply_call(a1, a2, v, mx, sm, aux.slab_col, aux.mask_col, w=wa,
                       ibs=ibs, lists=aux.lists)
     check("apply_call", f"Q={Q} F={F} N={Np} w={wa}", y, af.apply_plain(
@@ -7796,6 +7842,12 @@ def phase_bf16_kernels(graph, S_np, gat_gso, dev):
         lambda: af.stats_plain(a1, a2, aux.mask_row, w=wa, ibs=ibs),
         None, None, 2 * (2 * Q * Np + twin) + 4 * 2 * Q * Np,
         5 * Q * support)
+    # its operations: an expf a support score, on the SFU (as
+    # shard_bf16_kernels bounds kernel 10b)
+    t_exp = Q * support / SFU_EXP_PER_S * 1e3
+    rows["stats_call"]["exp_ms"] = t_exp
+    if t_exp > rows["stats_call"]["bound_ms"]:
+        rows["stats_call"].update(bound_ms=t_exp, bound_by="operations")
     row("apply_call", f"Q={Q} F={F} N={Np} w={wa} with S",
         lambda: af.apply_call(a1, a2, v, mx, sm, aux.slab_col, aux.mask_col,
                               w=wa, ibs=ibs, lists=aux.lists),
@@ -8203,9 +8255,11 @@ def phase_bf16_train_kernels(gso, dev):
     """Kernel 9b (bwd_call on bf16 operands: attn_bwd_mma_kernel) against
     its bf16 plain version at gat_band_n16384's shape (Q = 16, F = 32,
     w = 2, with S, on the served model's band structure cast to bf16) and
-    at edge shapes: F = 8, 24, 32, 40, 64; w = 1, 2, 3; without S; a
-    window tile and a sub-tile without support; ragged N; ibs = 64 and 192
-    (half and partial row tiles); each synchronized. Then the served shape
+    at edge shapes: Q = 1, 2, 3 (the kernel's signal-row pairs); F = 8,
+    24, 32, 40, 48, 64; w = 1, 2, 3; without S; a window tile and a
+    sub-tile without support; ragged N; ibs = 64 and 192 (one and three
+    64-row tiles); each synchronized; and the shared memory the launcher
+    asks for against the Python check's layout. Then the served shape
     timed by CUDA events and graph_ms beside the f32 instance on the same
     values, with its plain version and its bound."""
     import torch
@@ -8259,6 +8313,10 @@ def phase_bf16_train_kernels(gso, dev):
                 served, served=True)
     case(f"served without S, F=8", gso, Q, 8, False, served)
     case(f"GCAT shape without S, F=64", gso, Q, 64, False, served)
+    # the kernel's signal-row pairs at their edges (Q = 1, 2, 3) and
+    # F = 48 (NF = 3)
+    for Qe, Fe in ((1, 32), (2, 32), (3, 32), (Q, 48)):
+        case(f"served Q={Qe} F={Fe}", gso, Qe, Fe, True, served)
     for label, S, ibs, Qe, Fe in (
             ("N=2048 w=1 F=24", _attn_case(rng, 2048, 1), 128, 4, 24),
             ("holes N=2048 w=2 F=32", _attn_holes_case(rng), 128, 3, 32),
@@ -8274,12 +8332,20 @@ def phase_bf16_train_kernels(gso, dev):
     require(_empty_subchunks(gso_lib.as_gso(
         _attn_holes_case(np.random.default_rng(1)), "band", device=dev))[0]
         > 0, "the holes graph has no sub-chunk to skip")
-    # the shared memory the bf16 launcher asks for, and F past the kernel
+    # the shared memory the bf16 launcher asks for (the library's against
+    # the Python check's layout), and F past the kernel
     smem = {Fs: kernels.entry("gnt_attn_bwd_smem_bytes", bf)(Fs, 2 * w + 1,
                                                               128)
             for Fs in (8, 32, 64)}
     require(all(0 < n <= af._BLOCK_SMEM_BYTES for n in smem.values()),
             f"attn_bwd_mma_kernel shared memory {smem}")
+    for Fs, Ws, ibs_s in ((8, 5, 128), (32, 5, 128), (48, 3, 64),
+                          (64, 7, 192), (16, 3, 256)):
+        got = kernels.entry("gnt_attn_bwd_smem_bytes", bf)(Fs, Ws, ibs_s)
+        require(got == af.bwd_bf16_smem_bytes(Fs, Ws, ibs_s),
+                f"attn_bwd_mma_kernel at F={Fs} W={Ws} ibs={ibs_s}: {got} "
+                "bytes, the Python check "
+                f"{af.bwd_bf16_smem_bytes(Fs, Ws, ibs_s)}")
     try:
         af._check_bwd_smem("bwd_call", w, gso.block_size, 65, bf)
         raise SmokeFailure("the bf16 backward took F = 65")
@@ -8651,9 +8717,10 @@ def phase_shard_bf16_kernels(part, mc, mr, dev):
     operands halo-extended from real neighbour shards, synchronized after
     each: at the served shard shape (gat_band_n16384 over 4: Q = 16,
     F = 32, Np = 4096, w = 2) for the first, an interior and the last
-    shard, with_s both ways; on partitions with w = 1 (F = 24), w = 3
-    (F = 64 and F = 8) and the holes graph (w = 2, an empty window tile
-    and sub-tile); rows without support on the first and last shards.
+    shard, with_s both ways; on partitions with w = 1 (Q = 4, F = 24;
+    Q = 1, F = 48), w = 3 (F = 64 and F = 8) and the holes graph (w = 2,
+    an empty window tile and sub-tile); rows without support on the first
+    and last shards.
     Then every served shard assembled against the global bf16 kernels
     7b-9b on the same operands, and the served shape timed by CUDA events
     and graph_ms beside the f32 ext kernels on the same values, with the
@@ -8749,8 +8816,8 @@ def phase_shard_bf16_kernels(part, mc, mr, dev):
               False, rel=BF16_EXT_STATS_REL)
         _check_empty_rows("stats_ext_call bf16", mx, sm, rows, 2 * w + 1,
                           ibs)
-    for bandwidth, wt, Q, F in ((100, 1, 4, 24), (300, 3, 3, 64),
-                                (300, 3, 5, 8)):
+    for bandwidth, wt, Q, F in ((100, 1, 4, 24), (100, 1, 1, 48),
+                                (300, 3, 3, 64), (300, 3, 5, 8)):
         S3, _ = make_graph(4096, 0.01, bandwidth, seed=3)
         part3 = par.partition_nodes(S3, SHARD_PARTS, order="none")
         require(part3.is_ring and part3.w == wt,

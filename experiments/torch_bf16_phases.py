@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's bf16 phases alone, on one CUDA card.
 
-    python3 experiments/torch_bf16_phases.py
+    python3 experiments/torch_bf16_phases.py [--sharded]
 
 Runs phase_device and phase_build, then phase_bf16_serving (band_n4096 in
 band, bcsr and dense mode and gat_band_n16384 served in bf16 beside f32,
@@ -11,8 +11,13 @@ gat_band_n16384 and movielens_n1186 trained in bf16 beside f32, each
 step profiled), early in a process: in the full chip_smoke.py they run
 last, where torch.profiler keeps only part of the kernel events.
 gat_band_n16384 is the untrained band model (its band structure built by
-one f32 request); its weights do not change the times. Prints
-chip_smoke.py's JSON lines.
+one f32 request); its weights do not change the times. With --sharded,
+then the sharded bf16 phases (phase_multi_arg_serving for the
+flock_n262k_db_request request, phase_shard_bf16_kernels,
+phase_shard_bf16_serving and phase_shard_bf16_training: gat_band_n16384
+over the (1, 4) and (2, 2) meshes, band_n4096 ring-sharded and
+scattered_n4096_sharded, each forward and step profiled beside f32).
+Prints chip_smoke.py's JSON lines.
 """
 
 import os
@@ -26,6 +31,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from graph_neural_networks_torch import parallel as par  # noqa: E402
 from graph_neural_networks_torch.ops import gso as gso_lib  # noqa: E402
 from graph_neural_networks_torch.serving import InferenceEngine  # noqa: E402
 from graph_neural_networks_torch.utils.device import resolve_device  # noqa: E402
@@ -33,7 +39,7 @@ from graph_neural_networks_torch.utils.device import resolve_device  # noqa: E40
 
 def main() -> int:
     dev = resolve_device("cuda")
-    cs.phase_device()
+    card = cs.phase_device()
     cs.timed("build", cs.phase_build)
     S_np = cs.banded_graph(np.random.default_rng(0), cs.N_GRAPH, 256, 0.05)
     graph = {m: gso_lib.as_gso(S_np, m, device=dev) for m in ("band", "bcsr")}
@@ -50,6 +56,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as out_dir:
         cs.timed("bf16_training", cs.phase_bf16_training, arch, S_np,
                  np.random.default_rng(37), dev, out_dir)
+    if "--sharded" not in sys.argv[1:]:
+        return 0
+    torch.cuda.empty_cache()
+    _, _, db_req = cs.timed("multi_arg_serving", cs.phase_multi_arg_serving,
+                            dev, card)
+    part = par.partition_nodes(S, cs.SHARD_PARTS, order="none")
+    cs.timed("shard_bf16_kernels", cs.phase_shard_bf16_kernels, part,
+             *par.attention._row_col_masks(part), dev)
+    S_sc = cs.scattered_graph(np.random.default_rng(16), cs.N_GRAPH,
+                              cs.SCATTER_IBS)
+    spart = par.partition_nodes_bcsr(S_sc, cs.SHARD_PARTS,
+                                     inner_block=cs.SCATTER_IBS)
+    _, gat_archs, gat_ref = cs.timed(
+        "shard_bf16_serving", cs.phase_shard_bf16_serving,
+        np.random.default_rng(39), dev, S_sc, spart, db_req)
+    del db_req
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as out_dir:
+        cs.timed("shard_bf16_training", cs.phase_shard_bf16_training,
+                 np.random.default_rng(40), dev, out_dir, gat_archs, gat_ref)
     return 0
 
 

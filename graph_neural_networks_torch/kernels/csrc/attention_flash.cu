@@ -1,50 +1,64 @@
-// Hopper (sm_90a) kernels for flash banded graph attention, in true FP32.
+// Hopper (sm_90a) kernels for flash banded graph attention, in true FP32,
+// and their bf16-io kernels. Which kernel each dtype runs:
 //
-// The stats kernel also has a bf16-io instance (template parameter T =
-// __nv_bfloat16), global and ext: a1, a2 and the mask are read in bf16 and
-// converted to f32 where they are loaded or staged (the JAX kernels'
-// .astype(float32), ops/attention_flash.py:95-99); every score, exp and
-// sum stays f32 and the stats are written in f32. The bf16 staging is a
-// plain 8-byte load stored converted, not a cp.async (which copies bytes
-// and cannot widen).
+//          f32                          bf16
+//   stats  attn_stats_kernel<kExt>      attn_stats_bf16_kernel<kExt>
+//   apply  attn_apply_kernel<kExt, G>   attn_apply_mma_kernel<kExt, G>
+//   bwd    attn_bwd_kernel<kExt>        attn_bwd_mma_kernel<kExt, NF>
+//
+// In bf16, a1, a2, v, g, the mask and the slab are read in bf16 and every
+// score, exp and sum stays f32 (the JAX kernels' .astype(float32),
+// ops/attention_flash.py:95-99, :118-138, :142-197); the stats, da2 and the
+// da1 partials are written in f32, y and dv in bf16, rounded once.
+//
+// The bf16 stats, attn_stats_bf16_kernel (kernels 7 and 10 in bf16, global
+// and ext from one template): a block stages its rows' mask across the
+// window by 16-byte cp.async and the a1 window of its signal rows by
+// 16-byte loads, in bf16, transposed so that the lanes reading one position
+// for consecutive signal rows hit consecutive halves of words; each warp
+// compacts its rows' support lists from shared memory in place, then walks
+// a list with its lanes over the signal rows (a serial max and exp-sum a
+// lane, one xor tree over the lanes that split the list), where the f32
+// kernel runs 4 signal rows at a time over lanes on the entries, each pass
+// ending in a 5-level shuffle tree.
 //
 // The apply has a bf16 kernel of its own, attn_apply_mma_kernel (kernels 8
 // and 11 in bf16, global and ext from one template, as the f32 ones): the
 // chunk's v, slab and entry lists stay bf16 / int16 in shared memory (16-byte
 // cp.async), alpha (* S) is computed in f32 on the support and split into
 // bf16 hi + lo, and y = v . coeff runs as mma.sync.m16n8k16 with f32
-// accumulators; y is rounded to bf16 once (:138).
+// accumulators.
 //
-// The backward has a bf16 kernel of its own, attn_bwd_mma_kernel (bf16
-// training, global and ext; the JAX _make_bwd_kernel on bf16 operands,
-// :142-197):
-// bf16 stays bf16 in shared memory (mask, slab, g, a1 and v staged by
-// 16-byte cp.async, chunks in two stages) and both products run on tensor
-// cores, mma.sync.m16n8k16 with f32 accumulators. v^T g takes bf16 from
-// memory, so it is JAX's f32 dot up to the order of the sum; the dv
-// product's coefficient alpha (* S) is f32, computed in registers in the A
-// fragment's layout and split into bf16 hi + lo, two mma into one
-// accumulator (2^-16 of the coefficient, where one bf16 rounding would be
-// 2^-9). Every score, exp and sum stays f32; da2 and the da1 partials are
-// written in f32, dv in bf16, rounded once (:285). Each warp owns 16 rows,
-// so dv^T and da2 stay in its registers; only the da1 column sums cross
-// warps, in warp order, without atomics (see attn_bwd_mma_kernel).
+// The bf16 backward, attn_bwd_mma_kernel (kernels 9 and 12 in bf16, global
+// and ext from one template): a block serves two signal rows of a row
+// block in 64-row tiles, so each window chunk's mask and slab are staged
+// once for both (16-byte cp.async, a ring of three chunks, two ahead), g
+// and a1 for each; both products run on tensor cores, mma.sync.m16n8k16
+// with f32 accumulators. v^T g takes bf16 from memory, so it is JAX's f32
+// dot up to the order of the sum; the dv product's coefficient alpha (* S)
+// is f32, computed in registers in the A fragment's layout and split into
+// bf16 hi + lo, two mma into one accumulator (2^-16 of the coefficient,
+// where one bf16 rounding would be 2^-9). Each warp owns 16 rows of one
+// signal row, so dv^T and da2 stay in its registers; only the da1 column
+// sums cross warps, in a fixed order, without atomics.
 //
-// Five kernels, the counterparts of six Pallas calls of the JAX package
+// Six kernels, the counterparts of six Pallas calls of the JAX package
 // (graph_neural_networks_tpu/ops/attention_flash.py); apply in instances
 // for G = 4, 2, 1 (attn_apply_kernel<kExt, G>, attn_apply_mma_kernel<kExt,
 // G>), the bf16 backward for F <= 16 NF, NF = 1 .. 4:
 //
-//   attn_stats_kernel<false[, bf16]>      <- attention_flash.py:_stats_call
+//   attn_stats_kernel<false>              <- attention_flash.py:_stats_call
+//   attn_stats_bf16_kernel<false> (bf16)  <- attention_flash.py:_stats_call
 //   attn_apply_kernel<false>              <- attention_flash.py:_apply_call
 //   attn_apply_mma_kernel<false> (bf16)   <- attention_flash.py:_apply_call
 //   attn_bwd_kernel<false>                <- attention_flash.py:_bwd_call
 //   attn_bwd_mma_kernel<false, NF> (bf16) <- attention_flash.py:_bwd_call
-//   attn_stats_kernel<true[, bf16]>       <- attention_flash.py:_stats_ext_call
-//   attn_apply_kernel<true>               <- attention_flash.py:_apply_ext_call
-//   attn_apply_mma_kernel<true> (bf16)    <- attention_flash.py:_apply_ext_call
-//   attn_bwd_kernel<true>                 <- attention_flash.py:_bwd_ext_call
-//   attn_bwd_mma_kernel<true, NF> (bf16)  <- attention_flash.py:_bwd_ext_call
+//   attn_stats_kernel<true>               <- ..._stats_ext_call
+//   attn_stats_bf16_kernel<true> (bf16)   <- ..._stats_ext_call
+//   attn_apply_kernel<true>               <- ..._apply_ext_call
+//   attn_apply_mma_kernel<true> (bf16)    <- ..._apply_ext_call
+//   attn_bwd_kernel<true>                 <- ..._bwd_ext_call
+//   attn_bwd_mma_kernel<true, NF> (bf16)  <- ..._bwd_ext_call
 //
 // The JAX package runs one kernel body (_make_stats_kernel,
 // _make_apply_kernel, _make_bwd_kernel) for a global call and its ext
@@ -116,7 +130,10 @@
 //    4 blocks an SM; else fewer, each group reading the mask again) and
 //    RW (the most rows that keep the grid at 90% of what the card holds
 //    at once): at the served shape QB = 16, 51 KB, RW = 4 for
-//    Np = 16384 and 1 for a 4096-row shard.
+//    Np = 16384 and 1 for a 4096-row shard. In bf16 the same bytes halve
+//    (23.9 MB: 0.007 ms); what bounds attn_stats_bf16_kernel is its
+//    instruction stream, the serial exp-sum over the support (3.7e7
+//    scores of a compare, an add, a multiply and an expf each).
 //  * apply: on the support, 0.05 ms of bytes (v, y, mask and slab, 155 MB);
 //    over the dense window tiles an FP32 product of 2*F flops a score
 //    (1.1e10 flops, 0.16 ms at 67 TFLOP/s). Design: a block owns a
@@ -172,7 +189,12 @@
 //    outside, as in the JAX package, so the result is deterministic
 //    without atomics. S in the row-window layout is the column-layout
 //    slab at a mirrored index, slab_row[i, k] = slab_col[i + k - w,
-//    2w - k], read in place.
+//    2w - k], read in place. In bf16 (attn_bwd_mma_kernel) the products
+//    run on tensor cores and what bounds the kernel is the scores of the
+//    dense window tiles, computed twice (alpha in each pass: about half
+//    its time, by the diagnostics of
+//    experiments/torch_attn_bf16_variants.py); restaging the mask and
+//    slab once a signal row (the form it replaced) cost it 6%.
 //  * stats, apply and bwd, ext: the same designs on one shard's own rows
 //    or columns (Np = 4096 of 16384 at the served shape sharded 4 ways),
 //    so the same bounds per shard, plus the 2*w*ibs halo columns the
@@ -350,7 +372,7 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
 // Stage 4 consecutive elements at src as floats at dst (16-byte aligned
 // shared memory); z: 4 zeros, nothing read, when !valid. f32: a 16-byte
 // cp.async, landed at the next cp_wait; bf16: an 8-byte load, converted
-// and stored at once. stage1: one element (f32: a 4-byte cp.async).
+// and stored at once. stage1: one f32 element, a 4-byte cp.async.
 __device__ __forceinline__ void stage4(float* dst, const float* src) {
   cp_async16(dst, src);
 }
@@ -368,9 +390,6 @@ __device__ __forceinline__ void stage4z(float* dst, const bf16* src,
 }
 __device__ __forceinline__ void stage1(float* dst, const float* src) {
   cp_async4(dst, src);
-}
-__device__ __forceinline__ void stage1(float* dst, const bf16* src) {
-  *dst = __bfloat162float(__ldg(src));
 }
 
 // rowmax and rowsum of one row for NQ signal rows, from the row's support
@@ -431,12 +450,11 @@ __device__ __forceinline__ void stats_rows(const float* a1s, int WI,
 // window block k; the global instance leaves out the blocks past the
 // matrix, whose mask is 0), so they give a row the same bits.
 // Dynamic shared memory: qb * W * ibs floats of a1, then 8 lists of
-// W * ibs int16 (stats_plan). T: the io type of a1, a2 and the mask (the
-// stats are f32 either way; the staged a1 window is f32).
-template <bool kExt, class T = float>
+// W * ibs int16 (stats_plan). The bf16 stats are attn_stats_bf16_kernel.
+template <bool kExt>
 __global__ void __launch_bounds__(kStatsThreads)
-attn_stats_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
-                  const T* __restrict__ mask_row,
+attn_stats_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
+                  const float* __restrict__ mask_row,
                   float* __restrict__ rowmax, float* __restrict__ rowsum,
                   int Q, int Np, int nb, int w, int ibs, float slope, int rw,
                   int qb, int vec) {
@@ -457,7 +475,8 @@ attn_stats_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
 
   // a1[q0 + qq, window blocks k0 .. k1) -> a1s[qq * WI + k * ibs + c]
   const int span = (k1 - k0) * ibs;
-  const T* a1w = a1 + (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
+  const float* a1w =
+      a1 + (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
   if (vec) {
     for (int e = 4 * tid; e < nq * span; e += 4 * kStatsThreads) {
       const int qq = e / span, c = e % span;
@@ -476,7 +495,7 @@ attn_stats_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
     const int row = row0 + warp * rw + r, p = row % ibs;
     int n = 0;
     for (int k = k0; k < k1; ++k) {
-      const T* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
+      const float* src = mask_row + (((int64_t)i * W + k) * ibs + p) * ibs;
       for (int c0 = 0; c0 < ibs; c0 += 128) {  // ibs % 32 == 0
         float m[4];
 #pragma unroll
@@ -1178,23 +1197,27 @@ cudaError_t launch_bwd(const float* g, const float* a1, const float* a2,
 }
 
 // ---------------------------------------------------------------------------
-// attn_bwd_mma_kernel: kernel 9 in bf16, on tensor cores
+// attn_bwd_mma_kernel: kernels 9 and 12 in bf16, on tensor cores
 // ---------------------------------------------------------------------------
 
 // The bf16 backward keeps bf16 in shared memory: a window chunk's mask,
-// slab, g and a1 (16-byte cp.async, two stages), the tile's v. Its two
-// products run as mma.sync.m16n8k16 (bf16 in, f32 accumulators). Each of
-// the 8 warps owns 16 rows of the 128-row tile, so dv^T (16 rows x F) and
-// the rows' da2 stay in the warp's registers over the whole window, and
-// only the da1 column sums cross warps.
+// slab, g and a1 (16-byte cp.async, a ring of kBwdMmaStages chunks), the
+// tile's v. Its two products run as mma.sync.m16n8k16 (bf16 in, f32
+// accumulators). A block serves kBwdG signal rows of one row block in
+// 64-row tiles; each of its warps owns 16 rows of the tile for one signal
+// row, so dv^T (16 rows x F) and the rows' da2 stay in the warp's
+// registers over the whole window, and only the da1 column sums cross
+// warps.
 constexpr int kMmaPad = 8;             // bf16 after each staged row: row
                                        // strides of an odd number of
                                        // 16-byte units, so the 8 rows of an
                                        // ldmatrix fall on distinct banks
 constexpr int kLDC = kBC + kMmaPad;    // a staged chunk row (mask, slab, g)
-constexpr int kLDR = kBR + kMmaPad;    // a staged v or dv row
-constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kLDRb = kBH + kMmaPad;   // a staged v or dv row (64-row tile)
+constexpr int kSliceWarps = kBH / 16;  // warps (16-row slices) a signal row
+constexpr int kBwdG = 2;               // signal rows (slots) a block
 constexpr int kBwdMmaMaxNF = 4;        // F <= 64: dv^T in registers
+constexpr int kBwdMmaStages = 3;       // chunks staged ahead: 2
 
 // Dynamic shared memory of attn_bwd_mma_kernel, offsets in bytes.
 struct BwdMmaLayout {
@@ -1205,18 +1228,20 @@ struct BwdMmaLayout {
 
 __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int F, int W,
                                                        int ibs) {
+  constexpr int G = kBwdG;
   BwdMmaLayout L;
   L.FP = (F + 15) / 16 * 16;
   L.nch = W * (ibs / kBC);
-  L.vs = 0;                                        // v of the tile, [f][r]
-  L.dvo = L.vs + 2 * (size_t)L.FP * kLDR;          // dv of the tile, [f][r]
-  L.stage = L.dvo + 2 * (size_t)L.FP * kLDR;       // 2 chunk stages:
-  L.stage_bytes = 2 * (2 * (size_t)kBR * kLDC      //   mask and slab [r][c]
-                       + (size_t)L.FP * kLDC       //   g [f][c]
-                       + kBC);                     //   a1
-  L.red = L.stage + 2 * L.stage_bytes;             // 2 x the warps' da1
-  L.da1 = L.red + sizeof(float) * 2 * kBwdWarps * kBC;  // column sums
-  L.live = L.da1 + sizeof(float) * (size_t)W * ibs;     // da1 partials
+  const size_t tile = 2 * (size_t)G * L.FP * kLDRb;  // [slot][f][r]
+  L.vs = 0;                                        // v of the tile
+  L.dvo = L.vs + tile;                             // dv of the tile
+  L.stage = L.dvo + tile;                          // the chunk ring:
+  L.stage_bytes = 2 * (2 * (size_t)kBH * kLDC      //   mask and slab [r][c]
+                       + (size_t)G * L.FP * kLDC   //   g [slot][f][c]
+                       + (size_t)G * kBC);         //   a1 [slot][c]
+  L.red = L.stage + kBwdMmaStages * L.stage_bytes;  // 2 x the warps' da1
+  L.da1 = L.red + sizeof(float) * 2 * kSliceWarps * G * kBC;  // column sums
+  L.live = L.da1 + sizeof(float) * (size_t)G * W * ibs;  // da1 partials
   L.list = L.live + sizeof(int) * (size_t)L.nch;   // warps with support
   L.bytes = L.list + sizeof(int) * ((size_t)L.nch + 1);
   return L;
@@ -1291,34 +1316,43 @@ __device__ __forceinline__ unsigned ld_pair(const bf16* p) {
 // attn_bwd_kernel's function on bf16 g, a1, a2, v, slab_col and mask_row
 // (f32 rowmax, rowsum; f32 da2 and da1p; dv in bf16, rounded once), every
 // score, exp and sum in f32, as the JAX kernel computes it on bf16
-// operands (_make_bwd_kernel's .astype(float32)). The same grid, window
-// chunks, two passes, skipped chunks, row reciprocals and da1 partials as
-// attn_bwd_kernel; the products on tensor cores. Warp wp owns rows
-// 16 wp .. 16 wp + 15 of a 128-row tile (rows past the tile's: idle); in
-// its m16n8 fragments lane (gr, tq) = (lane / 4, lane % 4) holds rows gr
-// and gr + 8 and the column (or feature) pairs 8 n + 2 tq.
+// operands (_make_bwd_kernel's .astype(float32)); the products on tensor
+// cores. A block serves the kBwdG = 2 signal rows q0, q0 + 1 (slots; one
+// past Q idles) of row block i, in tiles of kBH = 64 rows, and walks the
+// window in chunks of kBC columns: each chunk's mask and slab are staged
+// once for both slots, g and a1 for each, in a ring of kBwdMmaStages
+// (16-byte cp.async two chunks ahead, one barrier a chunk). Warp (slot,
+// slice) = (warp / 4, warp % 4) owns rows 16 slice .. + 15 of the tile
+// for its slot's signal row; in its m16n8 fragments lane (gr, tq) =
+// (lane / 4, lane % 4) holds rows gr and gr + 8 and the column (or
+// feature) pairs 8 n + 2 tq. Two passes a tile:
 //  A: the chunk's coefficients alpha (* S), computed in registers where
 //     mma.sync's A fragment wants them (the accumulator layout of two n8
 //     tiles is the A layout of one k16 slice), split into bf16 hi + lo,
-//     and dv^T += coeff . g^T: g's [f][c] chunk is the B operand by plain
-//     ldmatrix, two mma.sync a product (hi, lo) into one f32 accumulator,
-//     so the coefficient's rounding stays below 2^-16 where one bf16
-//     rounding would be 2^-9. A k16 slice without support is skipped; a
-//     warp marks the chunks where it found support. After the window,
+//     and dv^T += coeff . g^T: the slot's g [f][c] chunk is the B operand
+//     by plain ldmatrix, two mma.sync a product (hi, lo) into one f32
+//     accumulator, so the coefficient's rounding stays below 2^-16 where
+//     one bf16 rounding would be 2^-9. A k16 slice without support in the
+//     warp's rows skips its products; a warp marks the chunks where it
+//     found support. After the window,
 //     delta = sum_f v dv^T of each row (a quad's shuffles), and dv is
 //     rounded to bf16 and written through shared memory.
 //  B: over the chunks where some warp found support, for those warps:
-//     v^T g (A from v's [f][r] tile by ldmatrix.trans, B from g's chunk by
-//     ldmatrix.trans) into 16 x 64 f32 fragments, then dalpha, de, dpre;
-//     da2 sums along the thread's rows, the da1 partials down the columns
-//     (shuffles over the 8 row groups, then the warps' sums in warp order,
-//     one chunk later, through shared memory): deterministic, no atomics.
-// NF = FP / 16 (F <= 16 NF). Grid Q * nb, q fastest; dynamic shared memory
+//     v^T g (A from the slot's v [f][r] tile by ldmatrix.trans, B from its
+//     g chunk by ldmatrix.trans) into 16 x 64 f32 fragments, then dalpha,
+//     de, dpre; da2 sums along the thread's rows, the da1 partials
+//     down the columns (shuffles over the 8 row groups, then each slot's 4
+//     slices in order, one chunk later, through shared memory):
+//     deterministic, no atomics.
+// A warp's arithmetic depends on its own rows alone (the chunks and
+// slices it skips too), so each shard of the ext instance gives the global
+// one's rows. Two slots a block: the mask and slab come from L2 once for
+// two signal rows; four (16 warps, one block an SM) ran slower.
+// NF = FP / 16 (F <= 16 NF). Grid ceil(Q / 2) * nb, the slot pairs of a
+// row block adjacent; 256 threads; dynamic shared memory
 // bwd_mma_layout(F, W, ibs).bytes; g, a1, v, slab_col, mask_row and dv
-// 16-byte aligned. Two blocks an SM up to F = 32 (~107 KB at w = 2); from
-// NF = 3 a block's shared memory (~120 KB at F = 48) leaves room for one,
-// so those instances take the registers of one (their dv^T fragments
-// spilled under the two-block limit of 128).
+// 16-byte aligned. Two blocks an SM under 128 registers up to F = 32; one
+// from NF = 3 (their dv^T fragments spill under 128).
 template <bool kExt, int NF>
 __global__ void __launch_bounds__(kBwdThreads, NF <= 2 ? 2 : 1)
 attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
@@ -1331,6 +1365,9 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
                     bf16* __restrict__ dv, int Q, int F, int Np, int nb,
                     int w, int ibs, int with_s, float slope) {
   constexpr int FP = 16 * NF;
+  constexpr int G = kBwdG;
+  constexpr int kWarps = kSliceWarps * G;
+  static_assert(32 * kWarps == kBwdThreads, "a warp a 16-row slice a slot");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = 2 * w + 1;
   const BwdMmaLayout L = bwd_mma_layout(F, W, ibs);
@@ -1340,33 +1377,35 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
   float* da1s = reinterpret_cast<float*>(smem_raw + L.da1);
   int* live = reinterpret_cast<int*>(smem_raw + L.live);
   int* list = reinterpret_cast<int*>(smem_raw + L.list);
-  // stage b: mask [kBR][kLDC], slab [kBR][kLDC], g [FP][kLDC], a1 [kBC]
+  // stage b: mask [kBH][kLDC], slab [kBH][kLDC], g [G][FP][kLDC], a1 [G][kBC]
   auto Ms = [&](int b) {
     return reinterpret_cast<bf16*>(smem_raw + L.stage + b * L.stage_bytes);
   };
-  auto Ss = [&](int b) { return Ms(b) + kBR * kLDC; };
-  auto Gs = [&](int b) { return Ms(b) + 2 * kBR * kLDC; };
-  auto A1s = [&](int b) { return Ms(b) + (2 * kBR + FP) * kLDC; };
+  auto Ss = [&](int b) { return Ms(b) + kBH * kLDC; };
+  auto Gs = [&](int b) { return Ms(b) + 2 * kBH * kLDC; };
+  auto A1s = [&](int b) { return Ms(b) + (2 * kBH + G * FP) * kLDC; };
 
-  const int q = blockIdx.x % Q;
-  const int i = blockIdx.x / Q;
+  const int n_groups = (Q + G - 1) / G;
+  const int q0 = (blockIdx.x % n_groups) * G;
+  const int nq = min(G, Q - q0);  // slots in use
+  const int i = blockIdx.x / n_groups;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int slot = warp / kSliceWarps;
+  const int m0 = 16 * (warp % kSliceWarps);  // the warp's first row of a tile
+  const bool mine = slot < nq;  // the warp's signal row exists
   const int gr = lane / 4, tq = lane % 4;
-  const int m0 = 16 * warp;  // the warp's first row of a tile
   const int cols_len = kExt ? Np + 2 * w * ibs : Np;  // g's and a1's rows
   const int lag = kExt ? 0 : w;  // column block of window block k: i + k - lag
-  const int64_t qn = (int64_t)q * Np;
-  const int64_t qc = (int64_t)q * cols_len;
-  const int64_t gq = (int64_t)q * F * cols_len;
+  const int64_t qn = (int64_t)(q0 + slot) * Np;
   const int k0 = kExt ? 0 : max(0, w - i);
   const int k1 = kExt ? W : min(W, nb + w - i);
   const int ncc = ibs / kBC;
   const int nch = (k1 - k0) * ncc;  // chunk ci: tile k0 + ci / ncc
   const bf16 zero = __ushort_as_bfloat16((unsigned short)0);
 
-  // chunk ci of the window for the tile's rows t0 .. t0 + rows into
-  // stage b: the mask and (with_s) the slab, g's F rows, a1
-  auto stage = [&](int b, int ci, int t0, int rows) {
+  // chunk ci of the window for the tile's rows t0 .. t0 + kBH into stage
+  // b: the mask and (with_s) the slab once, g's F rows and a1 of each slot
+  auto stage = [&](int b, int ci, int t0) {
     const int k = k0 + ci / ncc, cc = (ci % ncc) * kBC;
     const int64_t c0 =
         (int64_t)(i + k - lag) * ibs + cc;  // first column in g and a1
@@ -1377,53 +1416,62 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
     bf16* ms = Ms(b);
     bf16* ss = Ss(b);
     bf16* gs = Gs(b);
-    for (int e = tid; e < rows * (kBC / 8); e += kBwdThreads) {
+    for (int e = tid; e < kBH * (kBC / 8); e += kBwdThreads) {
       const int r = e / (kBC / 8), c = 8 * (e % (kBC / 8));
       cp_async16b(ms + r * kLDC + c, mt + (int64_t)r * ibs + c);
       if (with_s) cp_async16b(ss + r * kLDC + c, st + (int64_t)r * ibs + c);
     }
-    for (int e = tid; e < F * (kBC / 8); e += kBwdThreads) {
-      const int f = e / (kBC / 8), c = 8 * (e % (kBC / 8));
-      cp_async16b(gs + f * kLDC + c, g + gq + (int64_t)f * cols_len + c0 + c);
+    for (int s = 0; s < nq; ++s)
+      for (int e = tid; e < F * (kBC / 8); e += kBwdThreads) {
+        const int f = e / (kBC / 8), c = 8 * (e % (kBC / 8));
+        cp_async16b(gs + (s * FP + f) * kLDC + c,
+                    g + ((int64_t)(q0 + s) * F + f) * cols_len + c0 + c);
+      }
+    if (tid < nq * (kBC / 8)) {
+      const int s = tid / (kBC / 8), c = 8 * (tid % (kBC / 8));
+      cp_async16b(A1s(b) + s * kBC + c,
+                  a1 + (int64_t)(q0 + s) * cols_len + c0 + c);
     }
-    if (tid < kBC / 8)
-      cp_async16b(A1s(b) + 8 * tid, a1 + qc + c0 + 8 * tid);
   };
-  // the warps' da1 column sums of a chunk (red stage b), in warp order
-  auto fold = [&](int b, int ci) {
+  // each slot's da1 column sums of a chunk (red buffer par): its 4 slices
+  // in order; thread tid < nq * kBC
+  auto fold = [&](int par, int ci) {
+    const int s = tid / kBC, c = tid % kBC;
     const int k = k0 + ci / ncc, cc = (ci % ncc) * kBC;
-    float s = 0.f;
+    float sum = 0.f;
 #pragma unroll
-    for (int wv = 0; wv < kBwdWarps; ++wv)
-      s += red[(b * kBwdWarps + wv) * kBC + tid];
-    da1s[k * ibs + cc + tid] += s;
+    for (int m = 0; m < kSliceWarps; ++m)
+      sum += red[(par * kWarps + s * kSliceWarps + m) * kBC + c];
+    da1s[s * W * ibs + k * ibs + cc + c] += sum;
   };
 
   // the padded features of v and of g are never staged: zeros
-  for (int e = tid; e < (FP - F) * kLDR; e += kBwdThreads)
-    Vs[F * kLDR + e] = zero;
-  for (int e = tid; e < 2 * (FP - F) * kLDC; e += kBwdThreads) {
-    const int b = e / ((FP - F) * kLDC);
-    Gs(b)[F * kLDC + e % ((FP - F) * kLDC)] = zero;
+  for (int e = tid; e < G * (FP - F) * kLDRb; e += kBwdThreads) {
+    const int s = e / ((FP - F) * kLDRb);
+    Vs[(s * FP + F) * kLDRb + e % ((FP - F) * kLDRb)] = zero;
   }
-  for (int e = tid; e < W * ibs; e += kBwdThreads) da1s[e] = 0.f;
+  for (int e = tid; e < kBwdMmaStages * G * (FP - F) * kLDC;
+       e += kBwdThreads) {
+    const int b = e / (G * (FP - F) * kLDC), r = e % (G * (FP - F) * kLDC);
+    const int s = r / ((FP - F) * kLDC);
+    Gs(b)[(s * FP + F) * kLDC + r % ((FP - F) * kLDC)] = zero;
+  }
+  for (int e = tid; e < G * W * ibs; e += kBwdThreads) da1s[e] = 0.f;
 
-  for (int t0 = 0; t0 < ibs; t0 += kBR) {
-    const int rows = min(kBR, ibs - t0);
-    const bool active = m0 < rows;  // rows is a multiple of 64
+  for (int t0 = 0; t0 < ibs; t0 += kBH) {
     const int64_t r0 = (int64_t)i * ibs + t0;
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < F * (kBR / 8); e += kBwdThreads) {
-      const int f = e / (kBR / 8), r = 8 * (e % (kBR / 8));
-      if (r < rows)
-        cp_async16b(Vs + f * kLDR + r,
-                    v + ((int64_t)q * F + f) * Np + r0 + r);
-    }
+    for (int s = 0; s < nq; ++s)
+      for (int e = tid; e < F * (kBH / 8); e += kBwdThreads) {
+        const int f = e / (kBH / 8), r = 8 * (e % (kBH / 8));
+        cp_async16b(Vs + (s * FP + f) * kLDRb + r,
+                    v + ((int64_t)(q0 + s) * F + f) * Np + r0 + r);
+      }
     cp_commit();
     for (int e = tid; e < nch; e += kBwdThreads) live[e] = 0;
     // the thread's rows gr and gr + 8: a2, rowmax, 1 / rowsum
     float ra2[2] = {0.f, 0.f}, rmx[2] = {0.f, 0.f}, rrv[2] = {0.f, 0.f};
-    if (active) {
+    if (mine) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int64_t r = qn + r0 + m0 + gr + 8 * h;
@@ -1432,6 +1480,7 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
         rrv[h] = __fdiv_rn(1.f, fmaxf(rowsum[r], 1e-30f));
       }
     }
+    const bf16* vs = Vs + slot * FP * kLDRb;
 
     // pass A: the coefficients, dv^T, and which warps found support
     float dva[2 * NF][4];
@@ -1439,20 +1488,23 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
     for (int n = 0; n < 2 * NF; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dva[n][e] = 0.f;
-    stage(0, 0, t0, rows);
+    stage(0, 0, t0);
+    cp_commit();
+    if (nch > 1) stage(1, 1, t0);
     cp_commit();
     for (int ci = 0; ci < nch; ++ci) {
-      const int b = ci & 1;
-      cp_wait<0>();
+      const int b = ci % kBwdMmaStages;
+      cp_wait<1>();
       // chunk ci (and v) landed for every thread, and every thread is
       // done with chunk ci - 1's stage
       __syncthreads();
-      if (ci + 1 < nch) stage(b ^ 1, ci + 1, t0, rows);
+      if (ci + 2 < nch) stage((ci + 2) % kBwdMmaStages, ci + 2, t0);
       cp_commit();
-      if (!active) continue;
+      if (!mine) continue;
       const bf16* ms = Ms(b) + (m0 + gr) * kLDC + 2 * tq;
       const bf16* ss = Ss(b) + (m0 + gr) * kLDC + 2 * tq;
-      const bf16* gs = Gs(b);
+      const bf16* gs = Gs(b) + slot * FP * kLDC;
+      const bf16* a1c = A1s(b) + slot * kBC + 2 * tq;
       bool found = false;
 #pragma unroll
       for (int s = 0; s < kBC / 16; ++s) {
@@ -1461,7 +1513,7 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
 #pragma unroll
         for (int p = 0; p < 2; ++p) {  // columns 16 s + 8 p + 2 tq, + 1
           const int c = 16 * s + 8 * p;
-          const unsigned a1p = ld_pair(A1s(b) + c + 2 * tq);
+          const unsigned a1p = ld_pair(a1c + c);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // rows gr + 8 h
             const unsigned mm = ld_pair(ms + 8 * h * kLDC + c);
@@ -1501,7 +1553,8 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
     // delta = sum_f v dv of each row (the quad's 4 feature groups in a
     // fixed tree); dv rounded to bf16 into DVo
     float dl[2] = {0.f, 0.f};
-    if (active) {
+    if (mine) {
+      bf16* dvo = DVo + slot * FP * kLDRb;
 #pragma unroll
       for (int n = 0; n < 2 * NF; ++n)
 #pragma unroll
@@ -1510,8 +1563,8 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
           for (int j = 0; j < 2; ++j) {
             const int r = m0 + gr + 8 * h, f = 8 * n + 2 * tq + j;
             const float d = dva[n][2 * h + j];
-            dl[h] = fmaf(__bfloat162float(Vs[f * kLDR + r]), d, dl[h]);
-            DVo[f * kLDR + r] = __float2bfloat16_rn(d);
+            dl[h] = fmaf(__bfloat162float(vs[f * kLDRb + r]), d, dl[h]);
+            dvo[f * kLDRb + r] = __float2bfloat16_rn(d);
           }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1519,13 +1572,14 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
         dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 2);
       }
     }
-    __syncthreads();  // DVo and the support bits complete; stages free
-    for (int e = tid; e < F * (kBR / 8); e += kBwdThreads) {
-      const int f = e / (kBR / 8), r = 8 * (e % (kBR / 8));
-      if (r < rows)
-        *reinterpret_cast<uint4*>(dv + ((int64_t)q * F + f) * Np + r0 + r) =
-            *reinterpret_cast<const uint4*>(DVo + f * kLDR + r);
-    }
+    __syncthreads();  // DVo and the support bits complete
+    for (int s = 0; s < nq; ++s)
+      for (int e = tid; e < F * (kBH / 8); e += kBwdThreads) {
+        const int f = e / (kBH / 8), r = 8 * (e % (kBH / 8));
+        *reinterpret_cast<uint4*>(dv + ((int64_t)(q0 + s) * F + f) * Np +
+                                  r0 + r) =
+            *reinterpret_cast<const uint4*>(DVo + (s * FP + f) * kLDRb + r);
+      }
     if (tid == 0) {
       int n = 0;
       for (int ci = 0; ci < nch; ++ci)
@@ -1537,100 +1591,112 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
     // pass B: dpre on the chunks with support; da2 and the da1 partials
     const int n_live = list[nch];
     float d2[2] = {0.f, 0.f};
-    if (n_live > 0) stage(0, list[0], t0, rows);
+    if (n_live > 0) stage(0, list[0], t0);
+    cp_commit();
+    if (n_live > 1) stage(1, list[1], t0);
     cp_commit();
     for (int li = 0; li < n_live; ++li) {
-      const int b = li & 1, ci = list[li];
-      cp_wait<0>();
+      const int b = li % kBwdMmaStages, ci = list[li];
+      cp_wait<1>();
       // chunk li landed; li - 1's stage is free and its column sums are
       // complete
       __syncthreads();
-      if (li > 0 && tid < kBC) fold(b ^ 1, list[li - 1]);
-      if (li + 1 < n_live) stage(b ^ 1, list[li + 1], t0, rows);
+      if (li > 0 && tid < nq * kBC) fold((li - 1) & 1, list[li - 1]);
+      if (li + 2 < n_live)
+        stage((li + 2) % kBwdMmaStages, list[li + 2], t0);
       cp_commit();
-      float* rd = red + (b * kBwdWarps + warp) * kBC;
-      if (!(active && ((live[ci] >> warp) & 1))) {
+      float* rd = red + ((li & 1) * kWarps + warp) * kBC + 2 * tq;
+      if (!(mine && ((live[ci] >> warp) & 1))) {
         if (lane < 4)
 #pragma unroll
-          for (int n = 0; n < kBC / 8; ++n) {
-            rd[8 * n + 2 * tq] = 0.f;
-            rd[8 * n + 2 * tq + 1] = 0.f;
-          }
+          for (int n = 0; n < kBC / 8; ++n)
+            *reinterpret_cast<float2*>(rd + 8 * n) = make_float2(0.f, 0.f);
         continue;
       }
-      const bf16* gs = Gs(b);
-      float acc[kBC / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBC / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-      for (int kf = 0; kf < NF; ++kf) {
-        // A = v^T (rows m0 .. + 16, features 16 kf .. + 16) from v's
-        // [f][r] tile: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
-        // (m 0-7, k 8-15), (m 8-15, k 8-15), each stored k-major
-        unsigned a[4];
-        ldsm_x4_trans(a, Vs + (16 * kf + lane % 8 + 8 * (lane / 16)) * kLDR +
-                             m0 + 8 * ((lane / 8) % 2));
-#pragma unroll
-        for (int nj = 0; nj < kBC / 16; ++nj) {
-          // B = g (features 16 kf .. + 16, columns 16 nj .. + 16) from its
-          // row-major [k][n] chunk
-          unsigned bb[4];
-          ldsm_x4_trans(bb, gs + (16 * kf + lane % 16) * kLDC + 16 * nj +
-                                8 * (lane / 16));
-          mma_bf16(acc[2 * nj], a, bb[0], bb[1]);
-          mma_bf16(acc[2 * nj + 1], a, bb[2], bb[3]);
-        }
-      }
+      const bf16* gs = Gs(b) + slot * FP * kLDC;
+      const bf16* a1c = A1s(b) + slot * kBC + 2 * tq;
       const bf16* ms = Ms(b) + (m0 + gr) * kLDC + 2 * tq;
       const bf16* ss = Ss(b) + (m0 + gr) * kLDC + 2 * tq;
-      float cs[kBC / 8][2];  // dpre down the columns 8 n + 2 tq + j
+      // the chunk in two halves of kBC / 2 columns (half the accumulators
+      // live at a time)
 #pragma unroll
-      for (int n = 0; n < kBC / 8; ++n) {
-        const unsigned a1p = ld_pair(A1s(b) + 8 * n + 2 * tq);
-        cs[n][0] = cs[n][1] = 0.f;
+      for (int half = 0; half < 2; ++half) {
+        constexpr int kN = kBC / 16;  // n8 tiles a half
+        float acc[kN][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const unsigned mm = ld_pair(ms + 8 * h * kLDC + 8 * n);
-          const unsigned sv =
-              with_s ? ld_pair(ss + 8 * h * kLDC + 8 * n) : 0u;
+        for (int n = 0; n < kN; ++n)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float a1v = j ? bf16_hi(a1p) : bf16_lo(a1p);
-            const float al = alpha(ra2[h], a1v, j ? bf16_hi(mm) : bf16_lo(mm),
-                                   rmx[h], rrv[h], slope);
-            const float dco = acc[n][2 * h + j];
-            const float dal =
-                with_s ? __fmul_rn(dco, j ? bf16_hi(sv) : bf16_lo(sv)) : dco;
-            const float de = __fmul_rn(al, __fsub_rn(dal, dl[h]));
-            // de * m: de is 0 where m is
-            const float dpre =
-                __fmul_rn(de, __fadd_rn(ra2[h], a1v) > 0.f ? 1.f : slope);
-            d2[h] = __fadd_rn(d2[h], dpre);
-            cs[n][j] = __fadd_rn(cs[n][j], dpre);
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+        for (int kf = 0; kf < NF; ++kf) {
+          // A = v^T (rows m0 .. + 16, features 16 kf .. + 16) from v's
+          // [f][r] tile: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+          // (m 0-7, k 8-15), (m 8-15, k 8-15), each stored k-major
+          unsigned a[4];
+          ldsm_x4_trans(a, vs + (16 * kf + lane % 8 + 8 * (lane / 16)) *
+                                    kLDRb +
+                               m0 + 8 * ((lane / 8) % 2));
+#pragma unroll
+          for (int nj = 0; nj < kN / 2; ++nj) {
+            // B = g (features 16 kf .. + 16, columns 16 nj .. + 16 of the
+            // half) from its row-major [k][n] chunk
+            unsigned bb[4];
+            ldsm_x4_trans(bb, gs + (16 * kf + lane % 16) * kLDC +
+                                  kBC / 2 * half + 16 * nj + 8 * (lane / 16));
+            mma_bf16(acc[2 * nj], a, bb[0], bb[1]);
+            mma_bf16(acc[2 * nj + 1], a, bb[2], bb[3]);
           }
         }
-      }
-      // the 8 row groups of each column (lanes tq, tq + 4, ...)
+        float cs[kN][2];  // dpre down the columns kBC/2 half + 8 n + 2 tq + j
 #pragma unroll
-      for (int n = 0; n < kBC / 8; ++n)
+        for (int n = 0; n < kN; ++n) {
+          const int c = kBC / 2 * half + 8 * n;
+          const unsigned a1p = ld_pair(a1c + c);
+          cs[n][0] = cs[n][1] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int h = 0; h < 2; ++h) {
+            const unsigned mm = ld_pair(ms + 8 * h * kLDC + c);
+            const unsigned sv =
+                with_s ? ld_pair(ss + 8 * h * kLDC + c) : 0u;
 #pragma unroll
-          for (int o = 4; o < 32; o <<= 1)
-            cs[n][j] += __shfl_xor_sync(0xffffffffu, cs[n][j], o);
-      if (lane < 4)
-#pragma unroll
-        for (int n = 0; n < kBC / 8; ++n) {
-          rd[8 * n + 2 * tq] = cs[n][0];
-          rd[8 * n + 2 * tq + 1] = cs[n][1];
+            for (int j = 0; j < 2; ++j) {
+              const float a1v = j ? bf16_hi(a1p) : bf16_lo(a1p);
+              const float al =
+                  alpha(ra2[h], a1v, j ? bf16_hi(mm) : bf16_lo(mm), rmx[h],
+                        rrv[h], slope);
+              const float dco = acc[n][2 * h + j];
+              const float dal =
+                  with_s ? __fmul_rn(dco, j ? bf16_hi(sv) : bf16_lo(sv))
+                         : dco;
+              const float de = __fmul_rn(al, __fsub_rn(dal, dl[h]));
+              // de * m: de is 0 where m is
+              const float dpre =
+                  __fmul_rn(de, __fadd_rn(ra2[h], a1v) > 0.f ? 1.f : slope);
+              d2[h] = __fadd_rn(d2[h], dpre);
+              cs[n][j] = __fadd_rn(cs[n][j], dpre);
+            }
+          }
         }
+        // the 8 row groups of each column (lanes tq, tq + 4, ...)
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1)
+              cs[n][j] += __shfl_xor_sync(0xffffffffu, cs[n][j], o);
+        if (lane < 4)
+#pragma unroll
+          for (int n = 0; n < kN; ++n)
+            *reinterpret_cast<float2*>(rd + kBC / 2 * half + 8 * n) =
+                make_float2(cs[n][0], cs[n][1]);
+      }
     }
     __syncthreads();  // the last chunk's column sums are complete
-    if (n_live > 0 && tid < kBC) fold((n_live - 1) & 1, list[n_live - 1]);
+    if (n_live > 0 && tid < nq * kBC)
+      fold((n_live - 1) & 1, list[n_live - 1]);
     // da2 of each row: the quad's 4 column groups
-    if (active) {
+    if (mine) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         d2[h] += __shfl_xor_sync(0xffffffffu, d2[h], 1);
@@ -1640,10 +1706,10 @@ attn_bwd_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a1,
     }
   }
   __syncthreads();  // da1s complete
-  for (int e = tid; e < W * ibs; e += kBwdThreads) {
-    const int k = e / ibs;
-    da1p[((int64_t)q * nb + i) * W * ibs + e] =
-        k >= k0 && k < k1 ? da1s[e] : 0.f;
+  for (int e = tid; e < nq * W * ibs; e += kBwdThreads) {
+    const int s = e / (W * ibs), ee = e % (W * ibs), k = ee / ibs;
+    da1p[((int64_t)(q0 + s) * nb + i) * W * ibs + ee] =
+        k >= k0 && k < k1 ? da1s[s * W * ibs + ee] : 0.f;
   }
 }
 
@@ -1680,14 +1746,14 @@ cudaError_t launch_bwd(const bf16* g, const bf16* a1, const bf16* a2,
                        int ibs, int with_s, float slope,
                        cudaStream_t stream) {
   if (Q <= 0 || F <= 0 || F > 16 * kBwdMmaMaxNF || ibs % kBC != 0 ||
-      Np != nb * ibs || w < 0 || (kExt && w > nb))
+      ibs % kBH != 0 || Np != nb * ibs || w < 0 || (kExt && w > nb))
     return cudaErrorInvalidValue;
   for (const void* p : {(const void*)g, (const void*)a1, (const void*)v,
                         (const void*)slab_col, (const void*)mask_row,
                         (const void*)dv})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return cudaErrorMisalignedAddress;
-  const long long blocks = (long long)Q * nb;
+  const long long blocks = (long long)((Q + kBwdG - 1) / kBwdG) * nb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const size_t smem = bwd_mma_smem_bytes(F, 2 * w + 1, ibs);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -1713,6 +1779,212 @@ cudaError_t launch_bwd(const bf16* g, const bf16* a1, const bf16* a2,
                                         slab_col, mask_row, da2, da1p, dv, Q,
                                         F, Np, nb, w, ibs, with_s, slope,
                                         smem, nblk, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attn_stats_bf16_kernel: kernels 7 and 10 on bf16 operands
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of attn_stats_bf16_kernel for qb signal rows, rb
+// rows and a window of WI = W * ibs positions, offsets in bytes: a1's
+// window transposed, bf16 [position][qs] (qs: qb rounded up to a whole
+// word); the rows' mask, bf16 [r][WI], compacted in place into their
+// support lists; a2 of the block, f32 [q][r]; rowmax and rowsum, f32
+// [q][r] each.
+struct StatsBf16Layout {
+  int qs;
+  size_t a1, ms, a2, out, bytes;
+};
+
+__host__ __device__ inline StatsBf16Layout stats_bf16_layout(int qb, int rb,
+                                                             int WI) {
+  StatsBf16Layout L;
+  L.qs = (qb + 1) / 2 * 2;
+  L.a1 = 0;
+  L.ms = ((size_t)WI * L.qs * 2 + 15) / 16 * 16;
+  L.a2 = L.ms + (size_t)rb * WI * 2;
+  L.out = L.a2 + sizeof(float) * (size_t)qb * rb;
+  L.bytes = L.out + 2 * sizeof(float) * (size_t)qb * rb;
+  return L;
+}
+
+// A bf16 value from its bits, exactly
+__device__ __forceinline__ float bf16_bits(unsigned short u) {
+  return __uint_as_float((unsigned)u << 16);
+}
+
+// attn_stats_kernel's function on bf16 a1, a2 and mask_row (f32 rowmax
+// and rowsum), every score, exp and sum in f32. A block serves rb rows of
+// one row block for the signal rows q0 .. q0 + qb - 1 (grid: Np / rb row
+// groups x ceil(Q / qb) signal groups, the signal group fastest). In one
+// round trip it stages the rows' mask across the window by 16-byte
+// cp.async, the a1 window of its signal rows by 16-byte loads stored
+// transposed ([position][q]: the lanes that read one position for
+// consecutive signal rows read consecutive halves of words, no bank
+// conflict) and a2. Each warp compacts the support of its rows from
+// shared memory in place (ballot and popc over 32 positions a step; the
+// list, ascending window positions, overwrites the row's mask behind the
+// read), then walks the list with lane (h, q) = (lane / QL, lane % QL),
+// QL the power of 2 from qb up, on signal row q over the entries h,
+// h + H, ... (H = 32 / QL): a serial max, the max over the H lanes (a xor
+// tree over h), then a serial exp-sum and its fixed xor tree. At slope >= 0
+// the max walks the a1 values alone (the score is monotone in a1). A masked
+// score is -1e12 and adds exactly 0 to the sum, so only the order of the
+// support's terms differs from the dense form. rowmax and rowsum go out
+// through shared memory in coalesced rows. A row without support gets
+// rowmax -1e12 and rowsum W * ibs. The list and H depend on the row's
+// support and on (Q, W * ibs) alone, so the global and ext instances give
+// a row the same bits (ext window block k is global window block k; the
+// global instance leaves out the blocks past the matrix, whose mask is 0).
+// vec: a1 and mask_row 16-byte aligned (else element copies). Dynamic
+// shared memory stats_bf16_layout(qb, rb, W * ibs).bytes.
+template <bool kExt>
+__global__ void __launch_bounds__(kStatsThreads, 4)
+attn_stats_bf16_kernel(const bf16* __restrict__ a1,
+                       const bf16* __restrict__ a2,
+                       const bf16* __restrict__ mask_row,
+                       float* __restrict__ rowmax,
+                       float* __restrict__ rowsum, int Q, int Np, int nb,
+                       int w, int ibs, float slope, int rb, int qb,
+                       int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = 2 * w + 1, WI = W * ibs;
+  const StatsBf16Layout L = stats_bf16_layout(qb, rb, WI);
+  unsigned short* a1t = reinterpret_cast<unsigned short*>(smem_raw + L.a1);
+  unsigned short* ms = reinterpret_cast<unsigned short*>(smem_raw + L.ms);
+  float* a2s = reinterpret_cast<float*>(smem_raw + L.a2);
+  float* mxs = reinterpret_cast<float*>(smem_raw + L.out);
+  float* sms = mxs + qb * rb;
+  const unsigned short* a1b = reinterpret_cast<const unsigned short*>(a1);
+  const unsigned short* mb = reinterpret_cast<const unsigned short*>(mask_row);
+  const int a1_len = kExt ? Np + 2 * w * ibs : Np;  // a1's row length
+  const int lag = kExt ? 0 : w;  // a1 block of window block k: i + k - lag
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_qg = (Q + qb - 1) / qb;
+  const int q0 = (blockIdx.x % n_qg) * qb, nq = min(qb, Q - q0);
+  const int row0 = (blockIdx.x / n_qg) * rb;
+  const int i = row0 / ibs, p0 = row0 % ibs;  // ibs % rb == 0
+  const int k0 = kExt ? 0 : max(0, w - i);
+  const int k1 = kExt ? W : min(W, nb + w - i);
+  const int first = k0 * ibs, span = (k1 - k0) * ibs;
+  // mask element (row p0 + r, window position first + c)
+  auto mask_at = [&](int r, int c) {
+    return (((int64_t)i * W + k0 + c / ibs) * ibs + p0 + r) * ibs + c % ibs;
+  };
+
+  // the rows' mask across the window -> ms[r * WI + position]
+  if (vec) {
+    for (int e = tid; e < rb * (span / 8); e += kStatsThreads) {
+      const int r = e / (span / 8), c = 8 * (e % (span / 8));
+      cp_async16b(ms + r * WI + first + c, mask_row + mask_at(r, c));
+    }
+  } else {
+    for (int e = tid; e < rb * span; e += kStatsThreads)
+      ms[e / span * WI + first + e % span] = mb[mask_at(e / span, e % span)];
+  }
+  cp_commit();
+  for (int e = tid; e < nq * rb; e += kStatsThreads)
+    a2s[e] = __bfloat162float(a2[(int64_t)(q0 + e / rb) * Np + row0 + e % rb]);
+  // a1[q0 + qq, window] -> a1t[position * qs + qq], consecutive threads on
+  // consecutive signal rows (8 positions a thread, all loads first)
+  const int64_t a1w = (int64_t)q0 * a1_len + (int64_t)(i + k0 - lag) * ibs;
+  if (vec) {
+    const int n8 = nq * (span / 8);
+    for (int e0 = tid; e0 < n8; e0 += 4 * kStatsThreads) {
+      uint4 u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = e0 + j * kStatsThreads;
+        if (e < n8)
+          u[j] = __ldg(reinterpret_cast<const uint4*>(
+              a1b + a1w + (int64_t)(e % nq) * a1_len + 8 * (e / nq)));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = e0 + j * kStatsThreads;
+        if (e < n8) {
+          unsigned short* dst = a1t + (first + 8 * (e / nq)) * L.qs + e % nq;
+          const unsigned words[4] = {u[j].x, u[j].y, u[j].z, u[j].w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            dst[2 * t * L.qs] = (unsigned short)(words[t] & 0xffffu);
+            dst[(2 * t + 1) * L.qs] = (unsigned short)(words[t] >> 16);
+          }
+        }
+      }
+    }
+  } else {
+    for (int e = tid; e < nq * span; e += kStatsThreads)
+      a1t[(first + e / nq) * L.qs + e % nq] =
+          a1b[a1w + (int64_t)(e % nq) * a1_len + e / nq];
+  }
+  cp_wait<0>();
+  __syncthreads();  // mask, a1 and a2 staged
+
+  int ql = 1;
+  while (ql < qb) ql *= 2;
+  const int H = 32 / ql, h = lane / ql, qq = lane % ql;
+  const bool on = qq < nq;
+  const int qr = on ? qq : 0;  // the idle lanes read a staged signal row
+  const unsigned below = (1u << lane) - 1u;
+  for (int r = warp; r < rb; r += kStatsWarps) {
+    unsigned short* row = ms + r * WI;
+    int n = 0;
+    for (int c0 = first; c0 < first + span; c0 += 32) {  // span % 32 == 0
+      const unsigned short u = row[c0 + lane];
+      const bool nz = (u & 0x7fffu) != 0;  // m != 0 (not +0 or -0)
+      const unsigned b = __ballot_sync(0xffffffffu, nz);
+      // entry n + j is at most position c0 + lane: behind every read
+      if (nz) row[n + __popc(b & below)] = (unsigned short)(c0 + lane);
+      n += __popc(b);
+    }
+    __syncwarp();  // the list is complete
+    float mx = -kInfinite, sm = (float)WI;
+    if (n > 0) {
+      const float a2v = a2s[qr * rb + r];
+      float m = -INFINITY;
+      if (slope >= 0.f) {
+        // the score is monotone in a1 (a rounded add, then a rounded
+        // product by slope >= 0 below 0): the largest a1 gives the max,
+        // bit for bit
+#pragma unroll 4
+        for (int t = h; t < n; t += H)
+          m = fmaxf(m, bf16_bits(a1t[row[t] * L.qs + qr]));
+        for (int o = ql; o < 32; o <<= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        m = leaky_score(a2v, m, slope);
+      } else {
+#pragma unroll 4
+        for (int t = h; t < n; t += H)
+          m = fmaxf(m, leaky_score(a2v, bf16_bits(a1t[row[t] * L.qs + qr]),
+                                   slope));
+        for (int o = ql; o < 32; o <<= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = h; t < n; t += H)
+        s = __fadd_rn(s, expf(__fsub_rn(
+                             leaky_score(a2v,
+                                         bf16_bits(a1t[row[t] * L.qs + qr]),
+                                         slope),
+                             m)));
+      for (int o = ql; o < 32; o <<= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+      mx = m;
+      sm = s;
+    }
+    if (h == 0 && on) {
+      mxs[qq * rb + r] = mx;
+      sms[qq * rb + r] = sm;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nq * rb; e += kStatsThreads) {
+    const int64_t o = (int64_t)(q0 + e / rb) * Np + row0 + e % rb;
+    rowmax[o] = mxs[e];
+    rowsum[o] = sms[e];
   }
 }
 
@@ -2010,7 +2282,7 @@ struct StatsPlan {
   size_t smem;
 };
 
-template <bool kExt, class T>
+template <bool kExt>
 cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   const size_t lists = sizeof(int16_t) * kStatsWarps * W * ibs;
   const size_t per_q = sizeof(float) * W * ibs;
@@ -2024,7 +2296,7 @@ cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   plan->qb = qb;
   plan->smem = sizeof(float) * (size_t)qb * W * ibs + lists;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_stats_kernel<kExt, T>,
+      attn_stats_kernel<kExt>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan->smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -2032,7 +2304,7 @@ cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, attn_stats_kernel<kExt, T>, kStatsThreads, plan->smem);
+      &per_sm, attn_stats_kernel<kExt>, kStatsThreads, plan->smem);
   if (err != cudaSuccess) return err;
   plan->rw = 4;
   while (plan->rw > 1 && (long long)Np / (kStatsWarps * plan->rw) * n_qg *
@@ -2042,8 +2314,9 @@ cudaError_t stats_plan(int Q, int Np, int W, int ibs, StatsPlan* plan) {
   return cudaSuccess;
 }
 
-template <bool kExt, class T>
-cudaError_t launch_stats(const T* a1, const T* a2, const T* mask_row,
+template <bool kExt>
+cudaError_t launch_stats(const float* a1, const float* a2,
+                         const float* mask_row,
                          float* rowmax, float* rowsum,
                          int Q, int Np, int nb, int w, int ibs, float slope,
                          cudaStream_t stream) {
@@ -2053,16 +2326,90 @@ cudaError_t launch_stats(const T* a1, const T* a2, const T* mask_row,
     return cudaErrorInvalidValue;
   StatsPlan plan;
   const cudaError_t err =
-      stats_plan<kExt, T>(Q, Np, 2 * w + 1, ibs, &plan);
+      stats_plan<kExt>(Q, Np, 2 * w + 1, ibs, &plan);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)Np / (kStatsWarps * plan.rw) *
                            ((Q + plan.qb - 1) / plan.qb);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const int vec = reinterpret_cast<uintptr_t>(a1) % 16 == 0;
-  attn_stats_kernel<kExt, T><<<(unsigned)blocks, kStatsThreads, plan.smem,
+  attn_stats_kernel<kExt><<<(unsigned)blocks, kStatsThreads, plan.smem,
                                stream>>>(a1, a2, mask_row, rowmax, rowsum,
                                          Q, Np, nb, w, ibs, slope, plan.rw,
                                          plan.qb, vec);
+  return cudaGetLastError();
+}
+
+// attn_stats_bf16_kernel's signal rows a block (qb), rows a block (rb) and
+// dynamic shared memory, for (Q, Np, W, ibs). qb: all Q up to 32 (the
+// lanes of a warp), else balanced groups of at most 32, fewer while the
+// layout at 8 rows would not fit a block (each group reads the mask
+// again); it depends on (Q, W * ibs) alone, so the global and ext calls
+// split a row's list over the lanes alike. rb: 16 or 8 rows, the most that
+// fits and keeps the grid at 90% of the blocks the card holds at once
+// (more rows a block stage the a1 window fewer times; 32 ran slower).
+struct StatsBf16Plan {
+  int qb, rb;
+  size_t smem;
+};
+
+template <bool kExt>
+cudaError_t stats_bf16_plan(int Q, int Np, int W, int ibs,
+                            StatsBf16Plan* plan) {
+  const int WI = W * ibs;
+  if (WI > 32767) return cudaErrorInvalidValue;  // as the f32 kernel's lists
+  int n_qg = (Q + 31) / 32, qb = (Q + n_qg - 1) / n_qg;
+  while (stats_bf16_layout(qb, kStatsWarps, WI).bytes > kMaxSmem) {
+    if (qb == 1) return cudaErrorInvalidValue;  // one signal row fits not
+    ++n_qg;
+    qb = (Q + n_qg - 1) / n_qg;
+  }
+  plan->qb = qb;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  for (int rb = 16; rb >= kStatsWarps; rb /= 2) {
+    const size_t smem = stats_bf16_layout(qb, rb, WI).bytes;
+    if (smem > kMaxSmem) continue;
+    err = cudaFuncSetAttribute(attn_stats_bf16_kernel<kExt>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, attn_stats_bf16_kernel<kExt>, kStatsThreads, smem);
+    if (err != cudaSuccess) return err;
+    plan->rb = rb;
+    plan->smem = smem;
+    if ((long long)Np / rb * n_qg * 10 >= 9LL * per_sm * sms) break;
+  }
+  return cudaSuccess;
+}
+
+template <bool kExt>
+cudaError_t launch_stats_bf16(const bf16* a1, const bf16* a2,
+                              const bf16* mask_row, float* rowmax,
+                              float* rowsum, int Q, int Np, int nb, int w,
+                              int ibs, float slope, cudaStream_t stream) {
+  // ibs % 32 == 0: a block's rb rows lie in one row block, a window's
+  // positions come in whole ballots
+  if (Q <= 0 || ibs % 32 != 0 || Np != nb * ibs || w < 0 ||
+      (kExt && w > nb))
+    return cudaErrorInvalidValue;
+  StatsBf16Plan plan;
+  const cudaError_t err =
+      stats_bf16_plan<kExt>(Q, Np, 2 * w + 1, ibs, &plan);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)(Np / plan.rb) * ((Q + plan.qb - 1) / plan.qb);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int vec = reinterpret_cast<uintptr_t>(a1) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(mask_row) % 16 == 0;
+  attn_stats_bf16_kernel<kExt><<<(unsigned)blocks, kStatsThreads, plan.smem,
+                                 stream>>>(a1, a2, mask_row, rowmax, rowsum,
+                                           Q, Np, nb, w, ibs, slope, plan.rb,
+                                           plan.qb, vec);
   return cudaGetLastError();
 }
 
@@ -2171,10 +2518,10 @@ const NamedKernel kKernels[] = {
     {"attn_apply_kernel<true, 1>", (const void*)attn_apply_kernel<true, 1>},
     {"attn_bwd_kernel<false>", (const void*)attn_bwd_kernel<false>},
     {"attn_bwd_kernel<true>", (const void*)attn_bwd_kernel<true>},
-    {"attn_stats_kernel<false, bf16>",
-     (const void*)attn_stats_kernel<false, bf16>},
-    {"attn_stats_kernel<true, bf16>",
-     (const void*)attn_stats_kernel<true, bf16>},
+    {"attn_stats_bf16_kernel<false>",
+     (const void*)attn_stats_bf16_kernel<false>},
+    {"attn_stats_bf16_kernel<true>",
+     (const void*)attn_stats_bf16_kernel<true>},
     {"attn_apply_mma_kernel<false, 4, bf16>",
      (const void*)attn_apply_mma_kernel<false, 4>},
     {"attn_apply_mma_kernel<false, 2, bf16>",
@@ -2222,8 +2569,8 @@ cudaError_t gnt_attn_stats_bf16(const bf16* a1, const bf16* a2,
                                 const bf16* mask_row, float* rowmax,
                                 float* rowsum, int Q, int Np, int nb, int w,
                                 int ibs, float slope, cudaStream_t stream) {
-  return launch_stats<false>(a1, a2, mask_row, rowmax, rowsum, Q, Np, nb, w,
-                             ibs, slope, stream);
+  return launch_stats_bf16<false>(a1, a2, mask_row, rowmax, rowsum, Q, Np,
+                                  nb, w, ibs, slope, stream);
 }
 
 // a1_ext (Q, Np + 2*w*ibs); a2 (Q, Np) the shard's own rows; nb = Np / ibs
@@ -2242,8 +2589,8 @@ cudaError_t gnt_attn_stats_ext_bf16(const bf16* a1_ext, const bf16* a2,
                                     float* rowsum, int Q, int Np, int nb,
                                     int w, int ibs, float slope,
                                     cudaStream_t stream) {
-  return launch_stats<true>(a1_ext, a2, mask_row, rowmax, rowsum, Q, Np, nb,
-                            w, ibs, slope, stream);
+  return launch_stats_bf16<true>(a1_ext, a2, mask_row, rowmax, rowsum, Q, Np,
+                                 nb, w, ibs, slope, stream);
 }
 
 // sup_entries, sup_offs: the entry lists of the support (the scores run

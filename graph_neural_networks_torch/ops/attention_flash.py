@@ -38,7 +38,8 @@ an input that requires grad, they raise NotImplementedError; the entry
 points differentiate through :class:`FlashApply`.
 
 stats and apply (kernels 7-8) also take bf16 operands (the stats stay
-f32; apply's y is bf16) and go through ``torch.library`` ops,
+f32, from ``attn_stats_bf16_kernel``; apply's y is bf16) and go through
+``torch.library`` ops,
 ``torch.ops.gnt.attn_stats`` and ``attn_apply``: a CPU implementation (the
 plain version), a CUDA one (the kernel), a fake one (shapes, for
 ``torch.export`` and ``FlopCounterMode``) and a flop formula; each call
@@ -46,11 +47,11 @@ adds one to ``kernels.OP_CALLS[name, dtype]``; on the CPU a call that needs
 a gradient runs the plain version directly. The backward (kernel 9) takes
 bf16 operands too, as bf16 training runs it: da2 and the da1 partials in
 f32, dv in bf16, rounded once (``attn_bwd_mma_kernel`` on tensor cores,
-F at most 64); :class:`FlashApply` rounds the folded da1 and da2 to the
-operands' dtype. The ext kernels (10-12) take f32 or bf16 alike, as
-sharded bf16 serving and training run them: the stats, da2 and the da1
-partials in f32, y and dv in v's dtype; their wrappers count each call in
-``kernels.OP_CALLS`` as bwd_call does.
+two signal rows a block, F at most 64); :class:`FlashApply` rounds the
+folded da1 and da2 to the operands' dtype. The ext kernels (10-12) take
+f32 or bf16 alike, as sharded bf16 serving and training run them: the
+stats, da2 and the da1 partials in f32, y and dv in v's dtype; their
+wrappers count each call in ``kernels.OP_CALLS`` as bwd_call does.
 
 The band structure (:class:`BandAux`: the slab in the column-window
 layout and the S+I support in the column- and row-window layouts) is built
@@ -404,8 +405,11 @@ def stats_call(a1x: torch.Tensor, a2x: torch.Tensor, mask_row: torch.Tensor,
     all three f32 or all bf16.
 
     CUDA kernel: ``attn_stats_kernel<false>`` in
-    kernels/csrc/attention_flash.cu (``<false, bf16>`` in bf16; the scores
-    on each row's support, compacted from mask_row on the card), replacing
+    kernels/csrc/attention_flash.cu (the scores on each row's support,
+    compacted from mask_row on the card; 4 signal rows at a time over lanes
+    on the entries), in bf16 ``attn_stats_bf16_kernel<false>`` (the mask
+    and a1 staged in bf16 by 16-byte copies, the lists compacted in shared
+    memory, each lane walking a row's list for one signal row), replacing
     the Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_stats_call``. The window (2w+1)*ibs must fit
     the kernel's int16 positions and shared memory (it raises past ~11,600
@@ -608,15 +612,35 @@ _BLOCK_SMEM_BYTES = 227 * 1024
 BWD_BF16_MAX_F = 64
 
 
+def bwd_bf16_smem_bytes(F: int, W: int, ibs: int) -> int:
+    """The dynamic shared memory of attn_bwd_mma_kernel at (F, W, ibs), in
+    bytes: bwd_mma_layout in attention_flash.cu (whose
+    gnt_attn_bwd_smem_bytes_bf16 gives the same). The 64-row tile's v and
+    dv of its 2 signal rows, a ring of 3 window chunks (the mask and slab
+    once, g and a1 for each signal row; bf16 rows padded by 8), the warps'
+    da1 column sums twice, the da1 partials of both signal rows and the
+    chunk lists."""
+    FP = -(-F // 16) * 16
+    nch = W * (ibs // 64)
+    tile = 2 * 2 * FP * 72
+    stage = 2 * (2 * 64 * 72 + 2 * FP * 72 + 2 * 64)
+    return (2 * tile + 3 * stage + 4 * 2 * 8 * 64 + 4 * 2 * W * ibs
+            + 4 * (2 * nch + 1))
+
+
 def _check_bwd_smem(name: str, w: int, ibs: int, F: int,
                     dtype=torch.float32) -> None:
     """Raise unless the backward kernel of `dtype` (attn_bwd_kernel, or
     attn_bwd_mma_kernel in bf16) takes (w, ibs, F): its shared memory fits
     a block, and in bf16 F is at most BWD_BF16_MAX_F."""
-    if dtype == torch.bfloat16 and F > BWD_BF16_MAX_F:
-        raise ValueError(f"{name}: the bf16 kernel takes F <= "
-                         f"{BWD_BF16_MAX_F} features, got {F}")
-    need = kernels.entry("gnt_attn_bwd_smem_bytes", dtype)(F, 2 * w + 1, ibs)
+    if dtype == torch.bfloat16:
+        if F > BWD_BF16_MAX_F:
+            raise ValueError(f"{name}: the bf16 kernel takes F <= "
+                             f"{BWD_BF16_MAX_F} features, got {F}")
+        need = bwd_bf16_smem_bytes(F, 2 * w + 1, ibs)
+    else:
+        need = kernels.entry("gnt_attn_bwd_smem_bytes", dtype)(
+            F, 2 * w + 1, ibs)
     if need > _BLOCK_SMEM_BYTES:
         raise ValueError(f"{name}: w={w}, ibs={ibs}, F={F} need {need} bytes "
                          f"of shared memory a block, above "
@@ -636,8 +660,12 @@ def bwd_call(a1x: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     f32, dv in v's dtype.
 
     CUDA kernel: ``attn_bwd_kernel`` in kernels/csrc/attention_flash.cu
-    (``attn_bwd_mma_kernel`` in bf16: tensor cores, F <= 64), replacing
-    the Pallas kernel of the JAX package's
+    (one signal row and row block a block), in bf16
+    ``attn_bwd_mma_kernel<false, NF>`` (tensor cores, F <= 64; a block
+    serves two signal rows of a row block in 64-row tiles, staging each
+    window chunk's mask and slab once for both; its shared memory is
+    :func:`bwd_bf16_smem_bytes`, checked before the launch), replacing the
+    Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_bwd_call``.
     """
     Q, F, Np = v.shape
@@ -812,8 +840,9 @@ def stats_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor,
     own, mask_row (nbl, W, ibs, ibs), all three f32 or all bf16.
 
     CUDA kernel: ``attn_stats_kernel<true>`` in
-    kernels/csrc/attention_flash.cu (``<true, bf16>`` in bf16), replacing
-    the Pallas kernel of the JAX package's
+    kernels/csrc/attention_flash.cu, in bf16 ``attn_stats_bf16_kernel<true>``
+    (:func:`stats_call`'s kernels on the ext addressing: a row gets the
+    global call's bits), replacing the Pallas kernel of the JAX package's
     ``ops/attention_flash.py:_stats_ext_call``.
     """
     Q, Np = a2x.shape
@@ -913,9 +942,10 @@ def bwd_ext_call(a1_ext: torch.Tensor, a2x: torch.Tensor, v: torch.Tensor,
     da2 and da1p are f32, dv in v's dtype.
 
     CUDA kernel: ``attn_bwd_kernel<true>`` in
-    kernels/csrc/attention_flash.cu (``attn_bwd_mma_kernel<true, NF>`` in
-    bf16: tensor cores, F <= 64), replacing the Pallas kernel of the JAX
-    package's ``ops/attention_flash.py:_bwd_ext_call``.
+    kernels/csrc/attention_flash.cu, in bf16 ``attn_bwd_mma_kernel<true,
+    NF>`` (:func:`bwd_call`'s kernels on the ext addressing: a shard's da2
+    and dv are the global call's rows bit for bit), replacing the Pallas
+    kernel of the JAX package's ``ops/attention_flash.py:_bwd_ext_call``.
     """
     Q, F, Np = v.shape
     nbl = _check_band("bwd_ext_call", Np, w, ibs, mask_row=mask_row)
