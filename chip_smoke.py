@@ -174,6 +174,18 @@ the node-sharded paths:
   main() at full width with --epochs 1 on the synthetic fallbacks, its
   first model's first step on the card against the CPU.
 
+* bf16 of the GRNNs, edge mode and MultiNodeAggregationGNN, and the
+  native graph-structure library (after the bf16 phases): kernels 1b-3b at
+  the bf16 GRNN's shapes (R = 800, 1200, 9600; a shard's 1024 columns)
+  against their plain versions, timed beside f32; grnn_band_n4096's GRNNs
+  served in bf16 in band and bcsr mode and sharded over mesh (1, 4), with
+  the f32 engine's exact launch counts, against bf16 dense and f32;
+  gat_edge_n16384 served and trained 3 steps in bf16 beside f32,
+  grnn_edge_n4096 served in bf16 (no kernel launched); the
+  MultiNodeAggregationGNN of static_families in bf16; and the native
+  library, built from the port's own source, bit-equal to the numpy
+  layouts, neighborhoods and Graclus coarsening, timed beside them.
+
 Every phase prints JSON lines (with its seconds); any failure exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -338,9 +350,17 @@ def phase_device():
 
 def phase_build():
     from graph_neural_networks_torch import kernels
+    from graph_neural_networks_torch.utils import native
     _, secs = kernels.build()
     kernels.library()
     emit(phase="build", seconds=secs, sources=list(kernels.SOURCES))
+    # the native graph-structure library, from the port's own source with
+    # the host compiler (the layouts built below run it)
+    lib, secs = native.build()
+    native.library()
+    emit(phase="native_build", seconds=secs,
+         library=os.path.relpath(lib, HERE), compiler=native.CXX,
+         flags=list(native.CXX_FLAGS))
     # every kernel's registers and local (spill) bytes, as the runtime
     # loaded them; the graph-shift kernels' dynamic shared memory a block
     # on band_n4096's layout (kernels.SMEM_LAYOUT)
@@ -9176,6 +9196,426 @@ def phase_shard_bf16_training(rng, dev, out_dir, gat_archs, gat_ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Item 2.2: bf16 of the GRNNs, MultiNodeAggregationGNN and the edge-list GSO;
+# item 9: the native graph-structure library
+# ---------------------------------------------------------------------------
+
+# grnn_band_n4096_bf16: the GRNN served in bf16 (band, bcsr, sharded over
+# mesh (1, 4)) against bf16 dense within BF16_SERVE_TOL and against its f32
+# engine within BF16_VS_F32_TOL (bf16 rounding alone moves a full-width
+# GRNN's answer 0.6-1.6% of max|y| from f32: the recurrence feeds each
+# step's rounding to the next); gat_edge_n16384_bf16 and
+# grnn_edge_n4096_bf16 served (and the GAT trained EDGE_BF16_STEPS steps)
+# in bf16 beside f32; multinode_bf16 at static_families' size.
+EDGE_BF16_STEPS = 3
+MULTI_REQUESTS = (4, 3, 1)
+
+
+def phase_grnn_bf16_kernels(graph, dev):
+    """Kernels 1b-3b at the bf16 GRNN's shapes against their bf16 plain
+    versions, with phase_bf16_kernels' ulp bounds: the register (2b) at R =
+    800 (the inputs' B*T*F rows) and 1200 (a recurrence step's B*H), K =
+    5, tap k within k + 1 ulps; band_matmul (3b) at R = 9600 (the output
+    filter's B*T*H) and on a shard's own block (n_cols = 1024, w = 1) at R
+    = 800, 1200 and 9600; bcsr_matmul (1b) at R = 800, 1200 and 9600;
+    within BF16_ULPS. Each timed by CUDA events and graph_ms beside its f32
+    instance, its plain version, x_bf16 @ S_bf16 and its bound."""
+    import torch
+    from graph_neural_networks_torch.ops import gso as gso_lib
+    from graph_neural_networks_torch.ops import spmm
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(41)
+    N, bs, K = N_GRAPH, 128, GRNN_K
+    g32, c32 = graph["band"], graph["bcsr"]
+    gb, gc = g32.to(dtype=bf), c32.to(dtype=bf)
+    w = gb.band_w
+    sb, sb32, Sd = gb.s_band[0], g32.s_band[0], gb.S[0]
+    bl, bl32 = gc.blocks[0], c32.blocks[0]
+    br, bc, cs = gc.block_row, gc.block_col, gc.col_start
+    nnzb, win = bl.shape[0], _window_blocks(N // bs, w)
+    Ns = N // SHARD_PARTS
+    gs32 = gso_lib.as_gso(_band_case(np.random.default_rng(2), Ns, bs, 1),
+                          "band", device=dev)
+    gs = gs32.to(dtype=bf)
+    wins = _window_blocks(Ns // bs, 1)
+    r_x, r_z = GRNN_BATCH * GRNN_T, GRNN_BATCH * GRNN_H
+    r_o = r_x * GRNN_H
+    checks, errs, rows = [], {k: 0.0 for k in BF16_KERNELS[:3]}, {}
+
+    def check(name, shape, got, want, ulps, **kw):
+        torch.cuda.synchronize()
+        require(got.dtype == want.dtype == bf, f"{name} {shape}: {got.dtype}")
+        err = (got.double() - want.double()).abs().max().item()
+        errs[name] = max(errs[name], err)
+        got_ulps = _ulps_of(got, want, **kw)
+        checks.append(dict(kernel=name, shape=shape, max_abs_err=err,
+                           max_ulps=got_ulps, allowed_ulps=ulps,
+                           ok=got_ulps <= ulps))
+        require(got_ulps <= ulps, f"bf16 {name} {shape} disagrees with its "
+                                  f"plain version: {checks[-1]}")
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(bf)
+
+    def row(key, shape, fn, fn32, plain, library, nbytes, flops):
+        r = dict(shape=shape, ms=time_ms(fn), graph_ms=graph_ms(fn),
+                 f32_ms=time_ms(fn32), f32_graph_ms=graph_ms(fn32),
+                 plain_ms=time_ms(plain, reps=5, inner=2),
+                 library_ms=time_ms(library, reps=5, inner=2),
+                 library_call="torch.matmul(x_bf16, S_dense_bf16)"
+                 if "register" not in key else
+                 f"{K - 1} chained torch.matmul(z_bf16, S_dense_bf16)",
+                 bytes=nbytes, flops=flops)
+        r["bound_ms"], r["bound_by"] = _bf16_bound(nbytes, flops)
+        rows[key] = r
+
+    for R in (r_x, r_z):
+        x = randn(R, N)
+        got = spmm.band_shift_register(x, sb, n_taps=K, n_cols=N, w=w)
+        want = spmm.band_shift_register_plain(x, sb, n_taps=K, n_cols=N,
+                                              w=w)
+        require(torch.equal(got[0], x), "bf16 register: tap 0 is not x")
+        for k in range(1, K):
+            check("band_shift_register", f"R={R} N={N} w={w} K={K} tap {k}",
+                  got[k], want[k], k + 1, scale=want[k].abs().max().item())
+        x32 = x.float()
+        out = torch.empty(K, R, N, device=dev, dtype=bf)
+
+        def chained(x=x, out=out):
+            out[0].copy_(x)
+            for k in range(1, K):
+                torch.matmul(out[k - 1], Sd, out=out[k])
+        row(f"band_shift_register@R={R}", f"R={R} N={N} w={w} K={K}",
+            lambda x=x: spmm.band_shift_register(x, sb, n_taps=K, n_cols=N,
+                                                 w=w),
+            lambda x=x32: spmm.band_shift_register(x, sb32, n_taps=K,
+                                                   n_cols=N, w=w),
+            lambda x=x: spmm.band_shift_register_plain(x, sb, n_taps=K,
+                                                       n_cols=N, w=w),
+            chained, 2 * ((1 + K) * R * N + win * bs * bs),
+            (K - 1) * 2 * R * win * bs * bs)
+    for R, n, slab, slab32, Sl, ww, nwin, tag in (
+            (r_o, N, sb, sb32, Sd, w, win, ""),
+            (r_x, Ns, gs.s_band[0], gs32.s_band[0], gs.S[0], 1, wins,
+             f" n_cols={Ns}"),
+            (r_z, Ns, gs.s_band[0], gs32.s_band[0], gs.S[0], 1, wins,
+             f" n_cols={Ns}"),
+            (r_o, Ns, gs.s_band[0], gs32.s_band[0], gs.S[0], 1, wins,
+             f" n_cols={Ns}")):
+        x = randn(R, n)
+        check("band_matmul", f"R={R} N={n} w={ww}",
+              spmm.band_matmul(x, slab, n_cols=n, w=ww),
+              spmm.band_matmul_plain(x, slab, n_cols=n, w=ww), BF16_ULPS)
+        row(f"band_matmul@R={R}{tag}", f"R={R} N={n} w={ww}",
+            lambda x=x, s=slab, n=n, ww=ww: spmm.band_matmul(
+                x, s, n_cols=n, w=ww),
+            lambda x=x.float(), s=slab32, n=n, ww=ww: spmm.band_matmul(
+                x, s, n_cols=n, w=ww),
+            lambda x=x, s=slab, n=n, ww=ww: spmm.band_matmul_plain(
+                x, s, n_cols=n, w=ww),
+            lambda x=x, S=Sl: torch.matmul(x, S),
+            2 * (2 * R * n + nwin * bs * bs), 2 * R * nwin * bs * bs)
+    for R in (r_x, r_z, r_o):
+        x = randn(R, N)
+        check("bcsr_matmul", f"R={R} N={N} nnzb={nnzb}",
+              spmm.bcsr_matmul(x, bl, br, bc, n_cols=N, col_start=cs),
+              spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N), BF16_ULPS)
+        row(f"bcsr_matmul@R={R}", f"R={R} N={N} nnzb={nnzb}",
+            lambda x=x: spmm.bcsr_matmul(x, bl, br, bc, n_cols=N,
+                                         col_start=cs),
+            lambda x=x.float(): spmm.bcsr_matmul(x, bl32, br, bc, n_cols=N,
+                                                 col_start=cs),
+            lambda x=x: spmm.bcsr_matmul_plain(x, bl, br, bc, n_cols=N),
+            lambda x=x: torch.matmul(x, Sd),
+            2 * (2 * R * N + bl.numel()) + 4 * nnzb, 2 * R * nnzb * bs * bs)
+    emit(phase="grnn_bf16_kernels", ulp_floor_share=BF16_ULP_FLOOR,
+         checks=checks)
+    emit(phase="grnn_bf16_timing", peaks=dict(
+        hbm_tb_s=HBM_BYTES_PER_S / 1e12,
+        bf16_dense_tflops=BF16_FLOPS_PER_S / 1e12), rows=rows)
+    return errs, rows
+
+
+def _vs(checks, label, got, want, tol):
+    """Each answer finite and within `tol` of the largest |want|."""
+    for i, (g, wnt) in enumerate(zip(got, want)):
+        share = (g - wnt).abs().max().item() / wnt.abs().max().item()
+        ok = bool(g.isfinite().all()) and share <= tol
+        checks.append(dict(check=label, request=i, share=share,
+                           allowed_share=tol, ok=ok))
+        require(ok, f"{label} request {i}: {share} of max|y| > {tol}")
+
+
+def _serve_pair(label, arch, batch, requests, dev, expected, profile):
+    """`arch` served by its f32 and its bf16 engine: the answers, the
+    launches of each (counts from 0 just before, read just after; both
+    equal to `expected` a request), every op call of the bf16 engine a
+    bf16 one and of the f32 engine an f32 one; host ms a forward; with
+    `profile`, each engine's forward profiled. Returns the answers by
+    dtype tag, the bf16 op calls and the row."""
+    import torch
+    from graph_neural_networks_torch.serving import InferenceEngine
+    out, row = {}, dict(model=label, batch=batch,
+                        requests=[int(r.shape[0]) for r in requests])
+    for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        eng = InferenceEngine(arch, batch, dev, dtype=dt)
+        eng(requests[0])                       # the first request's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _reset_all_counts()
+        answers, counts, calls = _serve_counted(eng, requests)
+        row[f"host_ms_per_request_{tag}"] = \
+            (time.perf_counter() - t0) * 1e3 / len(requests)
+        want = {k: v * len(requests) for k, v in expected.items()}
+        got = {k: v for k, v in dict(counts, **_flock_counts()).items()
+               if v}
+        require(got == {k: v for k, v in want.items() if v},
+                f"{label} {tag}: launches {got}, expected {want}")
+        suffix = ":bfloat16" if tag == "bf16" else ":float32"
+        require(all(k.endswith(suffix) for k in calls),
+                f"{label} {tag}: op calls {calls}")
+        out[tag] = answers
+        row[f"op_calls_{tag}"] = calls
+        if profile:
+            prof = _device_profile(lambda: eng(requests[0]), 5)
+            row[f"profile_{tag}"] = dict(
+                host_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                device_idle_share=prof["device_idle_share"],
+                top=prof["top"][:5])
+        del eng
+    row["launches_per_forward"] = {k: v for k, v in expected.items() if v}
+    return out, row["op_calls_bf16"], row
+
+
+def phase_grnn_bf16_serving(S_np, rng, dev, profile=False):
+    """grnn_band_n4096 (ungated, time and node gates) served in bf16 in
+    band and bcsr mode and, ungated and node-gated, .shard()ed over mesh
+    (1, 4) (the ShardedGso's bf16 twin), beside its f32 engine: requests
+    of GRNN_REQUESTS rows, z0 drawn by both engines alike (rounded to bf16
+    in the bf16 one); every launch a bf16 instance, exactly as many as the
+    f32 engine's (_grnn_launches); against the bf16 dense engine within
+    BF16_SERVE_TOL (sharded: BF16_VS_F32_TOL) and against the f32 engine
+    within BF16_VS_F32_TOL of max|y|, each distance printed. Returns the
+    bf16 launches."""
+    import torch
+    from graph_neural_networks_torch import parallel as par
+    from graph_neural_networks_torch.serving import InferenceEngine
+    t_phase = time.perf_counter()
+    B, N = GRNN_BATCH, N_GRAPH
+    requests = [rng.integers(0, 3, (n, GRNN_T, 1, N)).astype(np.float32)
+                for n in GRNN_REQUESTS]
+    mesh = par.make_mesh((1, SHARD_PARTS), devices=[dev] * SHARD_PARTS)
+    checks, rows, launches = [], [], {k: 0 for k in BF16_KERNELS[:3]}
+    for gate in GRNN_GATES:
+        name = _gate_name(gate)
+        dense = InferenceEngine(_grnn(S_np, "dense", dev, gate), B, dev,
+                                dtype=torch.bfloat16)
+        dense16 = [dense(r) for r in requests]
+        del dense
+        modes = ("band", "bcsr") + (
+            ("sharded",) if gate in GRNN_SHARD_GATES else ())
+        for mode in modes:
+            label = f"grnn_band_n4096 {name} {mode}"
+            arch = _grnn(S_np, "band" if mode == "sharded" else mode, dev,
+                         gate)
+            shards = 0
+            if mode == "sharded":
+                arch.shard(mesh, SHARD_PARTS)
+                shards = SHARD_PARTS
+                require(arch.S.uses_ring, f"{label}: not the ring shift")
+            fwd = _grnn_launches("band" if shards else mode, gate, False,
+                                 shards=shards)
+            out, calls, row = _serve_pair(label, arch, B, requests, dev, fwd,
+                                          profile)
+            for k, n in calls.items():
+                launches[k.split(":")[0]] += n
+            # the sharded ring shift rounds its band product and its halo
+            # corrections apiece, which the recurrence carries:
+            # 1.4% of max|y| from bf16 dense in the CPU rehearsal (N =
+            # 1024), so it is held as bf16 is to f32
+            _vs(checks, f"{label} bf16 vs dense bf16", out["bf16"], dense16,
+                BF16_VS_F32_TOL if shards else BF16_SERVE_TOL)
+            _vs(checks, f"{label} bf16 vs f32", out["bf16"], out["f32"],
+                BF16_VS_F32_TOL)
+            row["per_step_share_vs_f32"] = [
+                e / out["f32"][0].abs().max().item()
+                for e in _per_step_err(out["bf16"][0], out["f32"][0])]
+            rows.append(row)
+            emit(phase="grnn_bf16_serving", **row)
+            del arch
+            torch.cuda.empty_cache()
+    emit(phase="grnn_bf16_serving_check", checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_edge_bf16(S_np, rng, dev, out_dir, profile=False):
+    """Edge mode in bf16 (the EdgeList's s_val cast, no kernel of the
+    library anywhere): gat_edge_n16384 served in bf16 beside f32
+    (GAT_REQUESTS) and trained EDGE_BF16_STEPS steps in bf16 beside f32
+    from the same masters (losses within BF16_TRAIN_LOSS, first-step
+    gradient shares printed); grnn_edge_n4096 (ungated, time and node
+    gates) served in bf16 beside f32. Answers within BF16_VS_F32_TOL of
+    max|y| of f32's; with `profile`, forwards and steps profiled."""
+    import torch
+    from graph_neural_networks_torch.ops import attention_sparse as asp
+    t_phase = time.perf_counter()
+    checks = []
+    S, _ = make_graph(GAT_N, 0.01, 256, seed=1)
+    gat = _build_gat("GraphAttentionNetwork", S, "edge", dev)
+    require(isinstance(gat.S, asp.EdgeList), "gat_edge_n16384: no EdgeList")
+    requests = [rng.standard_normal((n, GAT_DIMS[0], GAT_N)).astype(
+        np.float32) for n in GAT_REQUESTS]
+    out, _, row = _serve_pair("gat_edge_n16384", gat, GAT_BATCH, requests,
+                              dev, {}, profile)
+    _vs(checks, "gat_edge_n16384 bf16 vs f32", out["bf16"], out["f32"],
+        BF16_VS_F32_TOL)
+    emit(phase="edge_bf16_serving", **row)
+    del out
+    data = _synthetic_data(rng, (EDGE_BF16_STEPS * GAT_BATCH, GAT_BATCH,
+                                 GAT_BATCH), GAT_DIMS[0], GAT_N, 4)
+    _reset_all_counts()
+    train_row, _ = _bf16_vs_f32(
+        "gat_edge_n16384", (gat, _twin(gat)), data, GAT_BATCH,
+        lambda a, name: _model(a, name, out_dir), EDGE_BF16_STEPS,
+        profile=_step_profile_fn(GAT_BATCH) if profile else None)
+    _no_kernel("gat_edge_n16384 bf16 training")
+    require(gat.ctx_for_dtype(torch.bfloat16)["S"].s_val.dtype
+            == torch.bfloat16, "gat_edge_n16384: the bf16 context")
+    emit(phase="edge_bf16_training", **train_row)
+    del gat, data
+    torch.cuda.empty_cache()
+    requests = [rng.integers(0, 3, (n, GRNN_T, 1, N_GRAPH)).astype(
+        np.float32) for n in GRNN_REQUESTS]
+    for gate in GRNN_GATES:
+        label = f"grnn_edge_n4096 {_gate_name(gate)}"
+        arch = _grnn(S_np, "edge", dev, gate)
+        out, _, row = _serve_pair(label, arch, GRNN_BATCH, requests, dev, {},
+                                  profile and gate is None)
+        _vs(checks, f"{label} bf16 vs f32", out["bf16"], out["f32"],
+            BF16_VS_F32_TOL)
+        emit(phase="edge_bf16_serving", **row)
+        del arch, out
+        torch.cuda.empty_cache()
+    emit(phase="edge_bf16_check", checks=checks,
+         loss_tolerance=BF16_TRAIN_LOSS,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_multinode_bf16(rng, dev):
+    """MultiNodeAggregationGNN at static_families' size (N = STATIC_N)
+    served in bf16 beside f32: f32 arithmetic on the bf16-rounded request
+    and parameters, as JAX's bf16 engine computes it; within
+    BF16_SERVE_TOL of the f32 engine; its bf16 argument bytes."""
+    import torch
+    from graph_neural_networks_torch.serving import InferenceEngine
+    N = STATIC_N
+    S = banded_graph(np.random.default_rng(20), N, 32, 0.2)
+    build = dict((name, b) for name, b, _, _ in _static_models(S, N))[
+        "MultiNodeAggregationGNN"]
+    arch = build(dev)
+    requests = [rng.standard_normal((n, 2, N)).astype(np.float32)
+                for n in MULTI_REQUESTS]
+    batch = MULTI_REQUESTS[0]
+    out, _, row = _serve_pair("multinode_bf16", arch, batch, requests, dev,
+                              {}, False)
+    checks = []
+    _vs(checks, "multinode_bf16 bf16 vs f32", out["bf16"], out["f32"],
+        BF16_SERVE_TOL)
+    eng = InferenceEngine(arch, batch, dev, dtype=torch.bfloat16,
+                          example_args=(requests[0],))
+    n_params = sum(p.numel() for p in arch.parameters())
+    mem = eng.memory_analysis()
+    require(mem.argument_size_in_bytes == 2 * (requests[0].size + n_params),
+            f"multinode_bf16: argument bytes {mem.argument_size_in_bytes}")
+    emit(phase="multinode_bf16", N=N, params=n_params,
+         argument_bytes=mem.argument_size_in_bytes,
+         temp_bytes=mem.temp_size_in_bytes, checks=checks, **row)
+
+
+@contextlib.contextmanager
+def _numpy_host():
+    """The layouts, neighborhoods and Graclus matching on their numpy plain
+    versions (GNT_NO_NATIVE) within the block."""
+    before = os.environ.get("GNT_NO_NATIVE")
+    os.environ["GNT_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["GNT_NO_NATIVE"]
+        else:
+            os.environ["GNT_NO_NATIVE"] = before
+
+
+def _bit_equal(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_bit_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    if hasattr(a, "toarray"):
+        return _bit_equal(a.toarray(), b.toarray())
+    return a == b
+
+
+def phase_native(S_np):
+    """The native graph-structure library built on this host from the
+    port's own copy of the source (utils/native.py; phase_build built it),
+    never the JAX package's; held bit-equal to the numpy plain versions: the band and
+    BCSR layouts of band_n4096's graph (N = 4096) and gat_band_n16384's (N
+    = 16384), the K-hop neighborhoods (K = 1-3, lists and tables) and the
+    Graclus coarsening of the left-outs' SBM (N = LEFT_N); host seconds of
+    each, native beside numpy."""
+    import scipy.sparse
+    from graph_neural_networks_torch.ops import spmm
+    from graph_neural_networks_torch.utils import graph as gt
+    from graph_neural_networks_torch.utils import native
+    t_phase = time.perf_counter()
+    path, _ = native.build()
+    require(path.startswith(os.path.join(HERE, "graph_neural_networks_torch",
+                                         "kernels", "build")),
+            f"native library at {path}")
+    require(native.library()._name == path, "another native library loaded")
+    rows = []
+
+    def both(label, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        native_s = time.perf_counter() - t0
+        with _numpy_host():
+            t0 = time.perf_counter()
+            want = fn()
+            numpy_s = time.perf_counter() - t0
+        ok = _bit_equal(got, want)
+        rows.append(dict(what=label, native_s=native_s, numpy_s=numpy_s,
+                         bit_equal=ok))
+        require(ok, f"native {label} differs from its numpy version")
+        return got
+
+    S_gat, _ = make_graph(GAT_N, 0.01, 256, seed=1)
+    for name, S in (("band_n4096", S_np), ("gat_band_n16384", S_gat)):
+        _, w = both(f"{name} dense_to_band",
+                    lambda S=S: spmm.dense_to_band(S, 128))
+        both(f"{name} dense_to_band_at w={w + 1}",
+             lambda S=S: spmm.dense_to_band_at(S, 128, w + 1))
+        both(f"{name} dense_to_bcsr", lambda S=S: spmm.dense_to_bcsr(S, 128))
+    del S_gat
+    W = gt.Graph("SBM", LEFT_N, {"nCommunities": 5, "probIntra": 0.8,
+                                 "probInter": 0.2},
+                 rng=np.random.default_rng(0)).W
+    for K in (1, 2, 3):
+        for kind in ("list", "matrix"):
+            both(f"left_outs SBM compute_neighborhood K={K} {kind}",
+                 lambda K=K, kind=kind: gt.compute_neighborhood(
+                     W, K, output_type=kind))
+    both("left_outs SBM coarsen levels=2", lambda: gt.coarsen(
+        scipy.sparse.csr_matrix(W), 2, rng=np.random.default_rng(1)))
+    emit(phase="native", library=os.path.relpath(path, HERE), rows=rows,
+         seconds=time.perf_counter() - t_phase)
+
+
 REPLACES = {
     "band_matmul": "graph_neural_networks_tpu/ops/spmm.py:624",
     "band_shift_register": "graph_neural_networks_tpu/ops/spmm.py:441",
@@ -9496,6 +9936,23 @@ def main() -> int:
             bf16_launches[k] += ext16_launches.get(k, 0)
         for k in SHARD_BF16_KERNELS:
             bf16_launches[k] = ext16_launches.get(k, 0)
+        # item 2.2: the GRNNs (kernels 1b-3b at their shapes), edge mode and
+        # MultiNodeAggregationGNN in bf16; item 9: the native library
+        torch.cuda.empty_cache()
+        g16_errs, g16_rows = timed("grnn_bf16_kernels",
+                                   phase_grnn_bf16_kernels, graph, dev)
+        for k, v in g16_errs.items():
+            bf16_errs[k] = max(bf16_errs[k], v)
+        for k, n in timed("grnn_bf16_serving", phase_grnn_bf16_serving, S_np,
+                          np.random.default_rng(41), dev).items():
+            bf16_launches[k] += n
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            timed("edge_bf16", phase_edge_bf16, S_np,
+                  np.random.default_rng(42), dev, out_dir)
+        timed("multinode_bf16", phase_multinode_bf16,
+              np.random.default_rng(43), dev)
+        timed("native", phase_native, S_np)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -9550,6 +10007,13 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+        if name in g16_errs:
+            # the bf16 GRNN's shapes (grnn_bf16_kernels)
+            summary[-1]["grnn_shapes"] = [
+                {k: r[k] for k in ("shape", "ms", "graph_ms", "f32_ms",
+                                   "f32_graph_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}
+                for key, r in g16_rows.items() if key.startswith(name + "@")]
     # kernel 9b: bf16_training's launches (bf16 training of
     # gat_band_n16384)
     row = bwd16_rows["bwd_call"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's bf16 phases alone, on one CUDA card.
 
-    python3 experiments/torch_bf16_phases.py [--sharded]
+    python3 experiments/torch_bf16_phases.py [--sharded] [--grnn-edge]
 
 Runs phase_device and phase_build, then phase_bf16_serving (band_n4096 in
 band, bcsr and dense mode and gat_band_n16384 served in bf16 beside f32,
@@ -17,6 +17,10 @@ flock_n262k_db_request request, phase_shard_bf16_kernels,
 phase_shard_bf16_serving and phase_shard_bf16_training: gat_band_n16384
 over the (1, 4) and (2, 2) meshes, band_n4096 ring-sharded and
 scattered_n4096_sharded, each forward and step profiled beside f32).
+With --grnn-edge, last: phase_grnn_bf16_serving (grnn_band_n4096's GRNNs
+in band and bcsr mode and sharded, bf16 beside f32) and phase_edge_bf16
+(gat_edge_n16384 served and trained, grnn_edge_n4096 served, bf16 beside
+f32), each forward and step profiled.
 Prints chip_smoke.py's JSON lines.
 """
 
@@ -56,8 +60,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as out_dir:
         cs.timed("bf16_training", cs.phase_bf16_training, arch, S_np,
                  np.random.default_rng(37), dev, out_dir)
-    if "--sharded" not in sys.argv[1:]:
-        return 0
+    if "--sharded" in sys.argv[1:]:
+        sharded(card, dev, S)
+    if "--grnn-edge" in sys.argv[1:]:
+        torch.cuda.empty_cache()
+        cs.timed("grnn_bf16_serving", cs.phase_grnn_bf16_serving, S_np,
+                 np.random.default_rng(41), dev, True)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as d:
+            cs.timed("edge_bf16", cs.phase_edge_bf16, S_np,
+                     np.random.default_rng(42), dev, d, True)
+    return 0
+
+
+def sharded(card, dev, S):
+    """The sharded bf16 phases."""
     torch.cuda.empty_cache()
     _, _, db_req = cs.timed("multi_arg_serving", cs.phase_multi_arg_serving,
                             dev, card)
@@ -76,7 +93,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="torch_bf16_phases_") as out_dir:
         cs.timed("shard_bf16_training", cs.phase_shard_bf16_training,
                  np.random.default_rng(40), dev, out_dir, gat_archs, gat_ref)
-    return 0
 
 
 if __name__ == "__main__":

@@ -100,17 +100,7 @@ class TorchDense(nn.Module):
                                            device) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.bfloat16:
-            # the bf16 product accumulated in f32 and rounded once, as the
-            # JAX package's bf16 dot, through an f32 GEMM: with cuBLAS's
-            # reduced-precision reductions off (utils/device.py) a bf16
-            # GEMM of few outputs and a long contraction (band_n4096's
-            # readout, 262,144 inputs to 5) runs unsplit, 42 ms on an H100
-            # against 0.33 ms in f32
-            b = None if self.bias is None else self.bias.float()
-            return nn.functional.linear(x.float(), self.weight.float(),
-                                        b).to(x.dtype)
-        return nn.functional.linear(x, self.weight, self.bias)
+        return gll.linear(x, self.weight, self.bias)
 
 
 class MLP(nn.Module):
@@ -359,8 +349,8 @@ class _ArchBase:
         """ctx with its float tensors in `dtype` (f32: ctx itself), cast
         once by ``ops.gso.cast_ctx`` and memoized until ctx changes, so a
         bf16 step does not re-cast the band slabs, BCSR blocks and
-        attention band structure (JAX ``_ctx_for_dtype``). An edge-list
-        GSO raises (ROADMAP item 2.2)."""
+        attention band structure (JAX ``_ctx_for_dtype``); an edge-list
+        GSO by its s_val."""
         if dtype == torch.float32:
             return self.ctx
         if dtype not in self._ctx_cast:
@@ -1289,13 +1279,19 @@ class GraphRecurrentNN(_ArchBase):
             x = x.to(torch.float32)
         B, T, F0, N = x.shape
         if z0 is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            z0 = torch.randn((B, self.H, N), generator=generator,
-                             device=self.device)
+            z0 = self.draw_z0(B, N, generator)
         else:
             z0 = torch.as_tensor(z0, dtype=torch.float32, device=self.device)
         return self.core(x, z0, self.ctx)
+
+    def draw_z0(self, B: int, N: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z0 ~ N(0, 1), (B, H, N) f32 on the model's device, from
+        `generator` or from a fresh one seeded 0."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return torch.randn((B, self.H, N), generator=generator,
+                           device=self.device)
 
     def apply(self, x, generator: Optional[torch.Generator] = None, z0=None):
         return self.split_forward(x, generator=generator, z0=z0)[0]

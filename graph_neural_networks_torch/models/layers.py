@@ -20,7 +20,7 @@ Signals: x is (B, F, N), or (B, T, F, N) for the hidden states.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -448,6 +448,20 @@ class EdgeVariantAttentional(nn.Module):
 # Static-GSO hidden states (the recurrent family)
 # ===========================================================================
 
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``nn.functional.linear``; in bf16 the product accumulated in f32 and
+    rounded once, as the JAX package's bf16 dot, through an f32 GEMM: with
+    cuBLAS's reduced-precision reductions off (utils/device.py) a bf16 GEMM
+    of few outputs and a long contraction (band_n4096's readout, 262,144
+    inputs to 5) runs unsplit, 42 ms on an H100 against 0.33 ms in f32."""
+    if x.dtype == torch.bfloat16:
+        b = None if bias is None else bias.float()
+        return nn.functional.linear(x.float(), weight.float(),
+                                    b).to(x.dtype)
+    return nn.functional.linear(x, weight, bias)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense`` with torch's layout: weight (out, in) (the flax
     kernel (in, out) transposed), bias (out,); flax's init, a
@@ -464,7 +478,7 @@ class Dense(nn.Module):
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
     def flax_names(self, scope: tuple) -> dict:
         names = {scope + ("kernel",): (self.weight, True)}

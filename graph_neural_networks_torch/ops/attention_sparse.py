@@ -18,7 +18,11 @@ y_m = sum_i s_im alpha_im Wx_i.
 Plain torch, as the JAX module is plain XLA: the segment sums of
 ``jax.ops.segment_sum`` are ``index_add_``, its segment max
 ``scatter_reduce(reduce='amax')``. The max only shifts the exponent: its
-gradient cancels, so it is taken without one. As the JAX module moves the
+gradient cancels, so it is taken without one. In bf16 (bf16 serving and
+bf16 mixed precision) every tensor here is bf16 as in JAX, but a segment
+sum accumulates in f32 and is rounded to bf16 once (JAX sums in bf16: an
+``index_add_`` in bf16 would round at every add, by atomics in an order
+of their own on the card). As the JAX module moves the
 edge axis first for its segment ops, the gathers and segment reductions
 here run node- or edge-major ((N, ...) and (nnz, ...) rows): a row is
 contiguous, and the backward of ``index_select`` is an ``index_add_`` of
@@ -33,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from graph_neural_networks_torch.utils.device import resolve_device
 
@@ -45,8 +50,10 @@ SCAN_ROWS = 1024
 @dataclasses.dataclass
 class EdgeList:
     """COO support of S+I (self-loops added, reference graphML.py:692),
-    sorted by row. row, col: (nnz,) int64; s_val: (E, nnz) f32 =
-    S[e, row, col] (0 on the added self-loops unless S had them)."""
+    sorted by row. row, col: (nnz,) int64; s_val: (E, nnz) f32 (bf16 in
+    a bf16 copy, :meth:`to`) = S[e, row, col] (0 on the added self-loops
+    unless S had them). A pytree node, as the JAX package's: its leaves
+    row, col and s_val, n_nodes its context."""
 
     row: torch.Tensor
     col: torch.Tensor
@@ -66,14 +73,31 @@ class EdgeList:
     def nnz(self) -> int:
         return self.row.shape[0]
 
-    def to(self, device) -> "EdgeList":
-        """A copy on `device` (self when it is there already)."""
-        dev = torch.device(device)
-        if self.row.device.type == dev.type and \
-                dev.index in (None, self.row.device.index):
+    def to(self, device=None, dtype=None) -> "EdgeList":
+        """A copy on `device` with s_val in `dtype` (row and col kept
+        int64); self when nothing changes."""
+        dev = None if device is None else torch.device(device)
+        moves = dev is not None and not (
+            self.row.device.type == dev.type
+            and dev.index in (None, self.row.device.index))
+        casts = dtype is not None and self.s_val.dtype != dtype
+        if not (moves or casts):
             return self
-        return EdgeList(self.row.to(dev), self.col.to(dev),
-                        self.s_val.to(dev), self.n_nodes)
+        row, col, s_val = (t.to(dev) if moves else t
+                           for t in (self.row, self.col, self.s_val))
+        return EdgeList(row, col, s_val.to(dtype) if casts else s_val,
+                        self.n_nodes)
+
+
+_pytree.register_pytree_node(
+    EdgeList,
+    lambda e: ([e.row, e.col, e.s_val], e.n_nodes),
+    lambda leaves, n: EdgeList(*leaves, n),
+    serialized_type_name="graph_neural_networks_torch.ops."
+                         "attention_sparse.EdgeList",
+    flatten_with_keys_fn=lambda e: (
+        [(_pytree.GetAttrKey(k), getattr(e, k))
+         for k in ("row", "col", "s_val")], e.n_nodes))
 
 
 def _host_dense(S) -> np.ndarray:
@@ -122,6 +146,14 @@ def _rows_first(t: torch.Tensor, lead: tuple, tail: tuple) -> torch.Tensor:
     return t.reshape((t.shape[0],) + (1,) * pad + t.shape[1:])
 
 
+def _segment_sum(e: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment sum of e (nnz, ...) over seg (nnz,) -> (n, ...), in e's
+    dtype; a bf16 (or f16) e accumulated in f32 and rounded once."""
+    if e.dtype in (torch.bfloat16, torch.float16):
+        return _segment_sum(e.float(), seg, n).to(e.dtype)
+    return e.new_zeros((n,) + e.shape[1:]).index_add_(0, seg, e)
+
+
 class _EdgeShift(torch.autograd.Function):
     """out[m] = sum over the edges k into m of cm[k] * vn[row[k]], node- and
     edge-major: vn (N, ..., D), cm (nnz, ..., 1) broadcasting against it.
@@ -132,8 +164,7 @@ class _EdgeShift(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vn, cm, row, col, n: int):
-        msg = cm * vn.index_select(0, row)
-        out = msg.new_zeros((n,) + msg.shape[1:]).index_add_(0, col, msg)
+        out = _segment_sum(cm * vn.index_select(0, row), col, n)
         ctx.save_for_backward(vn, cm, row, col)
         return out
 
@@ -143,9 +174,8 @@ class _EdgeShift(torch.autograd.Function):
         g_msg = g.index_select(0, col)                 # nnz x ... x D
         grad_v = grad_c = None
         if ctx.needs_input_grad[0]:
-            gv = cm * g_msg
-            grad_v = gv.new_zeros((vn.shape[0],) + gv.shape[1:]).index_add_(
-                0, row, gv).sum_to_size(vn.shape)
+            grad_v = _segment_sum(cm * g_msg, row,
+                                  vn.shape[0]).sum_to_size(vn.shape)
         if ctx.needs_input_grad[1]:
             grad_c = (g_msg * vn.index_select(0, row)).sum_to_size(cm.shape)
         return grad_v, grad_c, None, None, None
@@ -173,11 +203,6 @@ def _segment_max(e: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     idx = seg.reshape((-1,) + (1,) * (e.dim() - 1)).expand_as(e)
     return e.new_full((n,) + e.shape[1:], -torch.inf).scatter_reduce(
         0, idx, e, reduce="amax", include_self=False)
-
-
-def _segment_sum(e: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-segment sum of e (nnz, ...) over seg (nnz,) -> (n, ...)."""
-    return e.new_zeros((n,) + e.shape[1:]).index_add_(0, seg, e)
 
 
 def attention_coefficients_edges(x: torch.Tensor, a: torch.Tensor,

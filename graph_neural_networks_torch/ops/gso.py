@@ -117,20 +117,20 @@ def cast_ctx(v, dtype: torch.dtype):
     (``_ctx_for_dtype``), shared by bf16 serving and bf16 training. A
     ``parallel.ShardedGso`` gives its twin in `dtype` (:meth:`ShardedGso.to`:
     its per-shard slabs, blocks and masks cast once, integer tables and
-    entry lists shared). An edge-list GSO raises (ROADMAP item 2.2), as
-    does any other object."""
+    entry lists shared). An ``attention_sparse.EdgeList`` gives a copy
+    with its s_val cast (:meth:`EdgeList.to`; row and col shared). Any
+    other object raises."""
     from graph_neural_networks_torch.parallel.sharded_gso import ShardedGso
     if isinstance(v, torch.Tensor):
         return v.to(dtype) if v.is_floating_point() else v
-    if isinstance(v, (Gso, ShardedGso)):
+    if isinstance(v, (Gso, ShardedGso, asp.EdgeList)):
         return v.to(dtype=dtype)
     if isinstance(v, (tuple, list)):
         return type(v)(cast_ctx(t, dtype) for t in v)
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
-    raise NotImplementedError(
-        f"{dtype} of a model whose context holds a {type(v).__name__} is "
-        "not ported (ROADMAP item 2.2: band, bcsr and dense GSOs are)")
+    raise TypeError(f"cast_ctx: a context entry of type "
+                    f"{type(v).__name__} has no {dtype} cast")
 
 
 def _normalize_dense(S) -> np.ndarray:

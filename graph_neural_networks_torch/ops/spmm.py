@@ -1,8 +1,9 @@
 """The graph shift ``y = x @ S`` on block-sparse layouts: host layouts,
 three CUDA kernels, and their plain PyTorch versions.
 
-Layouts (numpy, built once on the host, bit-identical to the JAX
-package's ``ops/spmm.py``):
+Layouts (built once on the host by the native library,
+``utils/native.py``, or by their numpy plain versions under
+``GNT_NO_NATIVE``; bit-identical to the JAX package's ``ops/spmm.py``):
 
   * band  -- S block-banded with block bandwidth w, stored as the slab
     ``s_band (nb, (2w+1)*bs, bs)``: ``s_band[j, t*bs:(t+1)*bs]`` is the S
@@ -62,6 +63,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from graph_neural_networks_torch import kernels
+from graph_neural_networks_torch.utils import native
 
 ZERO_TOL = 1e-9
 
@@ -117,11 +119,15 @@ def dense_to_bcsr(S: np.ndarray, block_size: int = 128):
 
     Returns (blocks (nnzb, bs, bs) f32, block_row (nnzb,) i32, block_col
     (nnzb,) i32), sorted by (block_col, block_row). N is zero-padded up to
-    a multiple of block_size; an all-zero S keeps one zero block.
+    a multiple of block_size; an all-zero S keeps one zero block. Runs the
+    native library (``utils.native.bcsr_extract``, as the JAX package
+    does) unless ``GNT_NO_NATIVE`` is set, which takes this numpy version.
     """
     N = S.shape[0]
     if S.shape != (N, N):
         raise ValueError(f"S must be square, got {S.shape}")
+    if native.enabled():
+        return native.bcsr_extract(np.asarray(S, np.float32), block_size)
     tiles = _tiles(S, block_size, S.dtype)
     nz = np.abs(tiles).sum(axis=(2, 3)) > ZERO_TOL
     rows, cols = np.nonzero(nz)
@@ -165,7 +171,12 @@ def _band_slab(tiles: np.ndarray, w: int) -> np.ndarray:
 def dense_to_band(S: np.ndarray, block_size: int = 128):
     """Extract the block band of S: returns (s_band (nb, (2w+1)*bs, bs), w)
     with w the smallest block bandwidth that covers every nonzero (w = nb-1
-    degenerates to dense)."""
+    degenerates to dense). Natively (a pass at w = 0 finds w, a second
+    extracts) unless ``GNT_NO_NATIVE`` is set, as :func:`dense_to_bcsr`."""
+    if native.enabled():
+        S32 = np.asarray(S, np.float32)
+        _, w = native.band_extract(S32, block_size, 0)
+        return native.band_extract(S32, block_size, w)[0], w
     tiles = _tiles(S, block_size, np.float32)
     nz = np.abs(tiles).sum(axis=(2, 3)) > ZERO_TOL
     rows, cols = np.nonzero(nz)
@@ -175,7 +186,11 @@ def dense_to_band(S: np.ndarray, block_size: int = 128):
 
 def dense_to_band_at(S: np.ndarray, block_size: int, w: int) -> np.ndarray:
     """The band slab at a fixed block bandwidth w (nonzeros outside are
-    dropped; callers pick w >= the true bandwidth)."""
+    dropped; callers pick w >= the true bandwidth); natively unless
+    ``GNT_NO_NATIVE`` is set."""
+    if native.enabled():
+        return native.band_extract(np.asarray(S, np.float32), block_size,
+                                   w)[0]
     return _band_slab(_tiles(S, block_size, np.float32), w)
 
 

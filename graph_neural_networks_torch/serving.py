@@ -14,7 +14,10 @@ The counterpart of the JAX package's ``serving.py``:
     leaf, still sharded).
     ``dtype=torch.bfloat16`` serves a bf16 copy of the model (parameters,
     float inputs and the GSO's float tensors in bf16, on the bf16
-    instances of the kernels); outputs are f32 either way.
+    instances of the kernels); outputs are f32 either way. A GRNN's core
+    runs on its bf16 context with z0 drawn as the f32 engine draws it and
+    rounded to bf16; MultiNodeAggregationGNN computes in f32 on its bf16
+    parameters, as JAX's engine does.
   * ``cost_analysis``/``memory_analysis``/``flops_per_sample`` -- flops of
     one padded batch from ``FlopCounterMode`` (the kernels' ops carry flop
     formulas), bytes of its arguments (parameters included, as the JAX
@@ -84,18 +87,18 @@ def _as_f32(y):
 def _served_copy(arch, dtype):
     """The architecture the engine runs: `arch` itself in f32; in bf16 a
     copy with its parameters and the float tensors of its context (the
-    GSO's, with its cached band structure; a ShardedGso's twin) in bf16.
-    The caller's model is never cast."""
+    GSO's, with its cached band structure; a ShardedGso's twin; an
+    EdgeList's s_val) in bf16. MultiNodeAggregationGNN's inner contexts
+    stay f32, as JAX's. The caller's model is never cast."""
     if dtype == torch.float32:
         return arch
     if isinstance(arch, nn.Module):   # the DB family: weights only
         return copy.deepcopy(arch).to(dtype=dtype)
-    from graph_neural_networks_torch.models.architectures import _ArchBase
-    if not (isinstance(arch, _ArchBase)
-            and type(arch).split_forward is _ArchBase.split_forward):
-        raise NotImplementedError(
-            f"bf16 serving of {type(arch).__name__} is ROADMAP item 2.2: "
-            "its forward computes in f32")
+    from graph_neural_networks_torch.models import architectures as archs
+    if isinstance(arch, archs.MultiNodeAggregationGNN):
+        served = copy.deepcopy(arch)
+        served.core.to(dtype=dtype)
+        return served
     served = copy.copy(arch)
     served.core = copy.deepcopy(arch.core).to(dtype=dtype)
     served.ctx = {k: gso_lib.cast_ctx(v, dtype) for k, v in arch.ctx.items()}
@@ -104,12 +107,31 @@ def _served_copy(arch, dtype):
 
 
 def _forward_fn(arch, dtype):
-    """The raw forward: ``arch.apply`` in f32 (and for the DB family,
-    ``apply(x, S)``); the core on the static context in bf16, since
-    ``apply`` computes in f32 (the JAX ``_forward_fn``)."""
+    """The raw forward (the JAX ``_forward_fn``): ``arch.apply`` in f32
+    (and for the DB family, ``apply(x, S)``). In bf16 the core on the
+    static context, since ``apply`` computes in f32; a GRNN's core on z0
+    drawn as ``apply`` draws it (a fresh generator seeded 0, the padded
+    batch's rows) and rounded to bf16; MultiNodeAggregationGNN, whose
+    JAX forward casts x to f32 against bf16 parameters, ``apply`` on its
+    parameters taken as f32 (torch does not promote a bf16 x f32
+    product)."""
     if dtype == torch.float32 or isinstance(arch, nn.Module):
         return arch.apply
-    core, ctx = arch.core, arch.ctx
+    from graph_neural_networks_torch.models import architectures as archs
+    core = arch.core
+    if isinstance(arch, archs.MultiNodeAggregationGNN):
+        from graph_neural_networks_torch.training.trainer import _Bound
+        bound = _Bound(core, arch.apply)
+
+        def forward(x):
+            params = {f"module.{n}": p.float()
+                      for n, p in core.named_parameters()}
+            return torch.func.functional_call(bound, params, (x,))
+        return forward
+    ctx = arch.ctx
+    if isinstance(arch, archs.GraphRecurrentNN):
+        return lambda x: core(x, arch.draw_z0(x.shape[0], x.shape[-1]).to(
+            dtype), ctx)[0]
     return lambda x: core(x, ctx)[0]
 
 
@@ -154,9 +176,11 @@ class InferenceEngine:
     architecture and of its GSO (the JAX ``_cast_floats`` of params, float
     inputs and ctx) on the bf16 kernels; outputs return as f32. A sharded
     architecture serves on its ShardedGso's bf16 twin
-    (``ShardedGso.to(dtype=)``) and the bf16 ext kernels. The GRNNs and
-    MultiNodeAggregationGNN, whose forward computes in f32, refuse bf16
-    (ROADMAP item 2.2).
+    (``ShardedGso.to(dtype=)``) and the bf16 ext kernels. A GRNN
+    (request ``engine(x)``, z0 drawn for the padded batch from a generator
+    seeded 0, as in f32) runs its core in bf16, which JAX's engine runs on
+    the request ``(x, z0)``; MultiNodeAggregationGNN computes in f32 on
+    the bf16-rounded request and parameters, as JAX's.
 
     example_args: one example request (unpadded), so that the
     introspection can run before the first request; without it, it uses

@@ -43,8 +43,9 @@ architecture whose JAX forward computes in f32 (``compute_f32``: the
 GRNNs, MultiNodeAggregationGNN) takes the parameters rounded through bf16
 as f32, as JAX's type promotion does. A sharded model trains on its
 ShardedGso's bf16 twin (the bf16 ext kernels 10-12, a ``compute_f32``
-one on the f32 sharded path); a context with an edge-list GSO (ROADMAP
-item 2.2) raises.
+one on the f32 sharded path), an edge-list GSO on its bf16 s_val (the
+attention family in edge mode; a GRNN in edge mode, ``compute_f32``, on
+the f32 one).
 ``scanDispatch`` and ``scanMemoryBudget`` (the JAX Trainer's
 many-steps-in-one-dispatch scan) are accepted and have no effect: PyTorch
 dispatches each step eagerly, and CUDA graphs would be the tool for that
@@ -118,18 +119,10 @@ def _cast_floats(tree, dtype: torch.dtype):
         and a.is_floating_point() else a, tree)
 
 
-def _check_mixed(archit) -> None:
-    """Raise for what bf16 training does not take: a context with an
-    edge-list GSO (ROADMAP item 2.2). Casts the bf16 context once (memoized
-    on the architecture; a ShardedGso by its bf16 twin)."""
-    ctx = getattr(archit, "ctx", None)
-    if ctx is None:                     # the DB family: no static context
-        return
-    from graph_neural_networks_torch.ops import attention_sparse as asp
-    if any(isinstance(v, asp.EdgeList) for v in ctx.values()):
-        raise NotImplementedError(
-            "Trainer(precision='bf16') of a model whose context holds an "
-            "edge-list GSO (EdgeList) is ROADMAP item 2.2")
+def _cast_ctx_once(archit) -> None:
+    """Cast the bf16 context of a bf16-computing architecture once
+    (memoized on it; a ShardedGso by its bf16 twin, an EdgeList by its
+    s_val), before the first step."""
     if hasattr(archit, "ctx_for_dtype") and not archit.compute_f32:
         archit.ctx_for_dtype(torch.bfloat16)
 
@@ -171,7 +164,7 @@ class Trainer:
         if self.precision not in (None, "f32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.precision == "bf16":
-            _check_mixed(model.archit)
+            _cast_ctx_once(model.archit)
         self.rng = np.random.default_rng(kwargs.get("seed", 0))
         # stochastic forwards (a GRNN's z0 ~ N(0, 1) each call) draw from
         # the trainer's generator, which advances every step; validation

@@ -9,8 +9,10 @@ masks, the spectral filters' B-spline basis), Graclus multilevel
 coarsening, and for the source-localization task the graph generators
 (SBM, SmallWorld, fuseEdges), the ``Graph`` container, the GFT, matrix
 powers and source-node selection. Like there, everything here runs once at
-build time on the host, and a generator draws from the numpy `rng` in the
-JAX package's order, so one seed gives the same graphs in both packages.
+build time on the host (the neighborhoods and the Graclus matching in the
+native library, ``utils/native.py``, unless ``GNT_NO_NATIVE`` is set), and
+a generator draws from the numpy `rng` in the JAX package's order, so one
+seed gives the same graphs in both packages.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 import scipy.spatial.distance as _spdist
+
+from graph_neural_networks_torch.utils import native
 
 ZERO_TOL = 1e-9
 
@@ -160,7 +164,10 @@ def compute_neighborhood(S, K: int, n_rows=None, nb=None, output_type="list"):
                             slot re-reads the node itself (neutral for max
                             pooling).
 
-    Reachability is R_K = bool((I + A)^K), K sparse boolean products.
+    A breadth-first search a row in the native library
+    (``utils.native.bfs_khop``, as the JAX package), unless
+    ``GNT_NO_NATIVE`` is set; its numpy plain version takes reachability
+    as R_K = bool((I + A)^K), K sparse boolean products.
     """
     if output_type not in ("list", "matrix"):
         raise ValueError(f"unknown output_type {output_type!r}")
@@ -171,6 +178,11 @@ def compute_neighborhood(S, K: int, n_rows=None, nb=None, output_type="list"):
     if not (0 <= n_rows <= N and 0 <= nb <= N):
         raise ValueError(f"n_rows={n_rows}, nb={nb} out of range for N={N}")
 
+    if native.enabled():
+        tbl, counts = native.bfs_khop(A.indptr, A.indices, N, K, n_rows, nb)
+        if output_type == "matrix":
+            return tbl
+        return [tbl[i, :counts[i]].copy() for i in range(n_rows)]
     reach = scipy.sparse.identity(N, dtype=bool, format="csr")
     hop = (A > 0).astype(bool) + scipy.sparse.identity(N, dtype=bool,
                                                        format="csr")
@@ -736,14 +748,21 @@ def _match_one_level(W: scipy.sparse.csr_matrix, node_visit_order, weights):
 def _multilevel_matching(W, levels: int, rng):
     """`levels` Graclus halvings: the graphs (finest first) and each
     level's cluster ids. One ``rng.permutation`` draw, the first visit
-    order; later levels visit by increasing degree."""
+    order; later levels visit by increasing degree. Each level's matching
+    runs in the native library (``utils.native.graclus_match``) unless
+    ``GNT_NO_NATIVE`` is set (:func:`_match_one_level`)."""
+    use_native = native.enabled()
     W = scipy.sparse.csr_matrix(W)
     graphs = [W]
     parents = []
     visit = rng.permutation(W.shape[0])
     degree = np.asarray(W.sum(axis=0)).ravel() - W.diagonal()
     for _ in range(levels):
-        cluster_id = _match_one_level(W, visit, degree)
+        if use_native:
+            cluster_id, _ = native.graclus_match(
+                W.indptr, W.indices, W.data, degree, visit, W.shape[0])
+        else:
+            cluster_id = _match_one_level(W, visit, degree)
         parents.append(cluster_id)
         row, col = W.nonzero()
         vals = np.asarray(W[row, col]).ravel()

@@ -291,8 +291,9 @@ def test_sharded_bf16_raises_naming_2_1():
     2.1); now its parity: the SelectionGNN sharded over a (1, 2) mesh
     serves in bf16 (its ShardedGso's bf16 twin, the ring shift in bf16)
     within ENGINE_TOL of JAX's bf16 engine on its sharded model and of the
-    port's unsharded bf16 engine; the GRNNs still refuse, naming item
-    2.2."""
+    port's unsharded bf16 engine. The GRNN assertion, once a refusal
+    naming item 2.2, now serves a GRNN in bf16: f32 outputs within
+    ENGINE_TOL of JAX's bf16 engine on the same weights and z0."""
     from graph_neural_networks_torch import parallel
     from graph_neural_networks_tpu import parallel as jpar
     ja, params, ta = _selection("band", _banded())
@@ -311,7 +312,23 @@ def test_sharded_bf16_raises_naming_2_1():
     assert ta.S.dtype == torch.float32
     for ref in (want, unsharded):
         assert np.abs(got - ref).max() <= ENGINE_TOL * np.abs(ref).max()
-    grnn = tarch.GraphRecurrentNN(2, 3, 4, [3, 2], True, "tanh", "relu",
-                                  "identity", [3], _graph(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        tserving.InferenceEngine(grnn, B, device="cpu", dtype=torch.bfloat16)
+    grnn_args = (2, 3, 4, [3, 2], True, "tanh", "relu", "identity", [3],
+                 _graph())
+    jgrnn = jarch.GraphRecurrentNN(*grnn_args)
+    F0, _ = jgrnn._input_shape
+    jparams = jax.jit(jgrnn.core.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 2, F0, N)),
+        jnp.zeros((1, jgrnn.H, N)), jgrnn.ctx)
+    grnn = tarch.GraphRecurrentNN(*grnn_args, device="cpu")
+    load_flax_params(grnn, _tree(jparams))
+    xg = np.random.default_rng(13).standard_normal((B, 3, 2, N)).astype(
+        np.float32)
+    y16 = tserving.InferenceEngine(grnn, B, device="cpu",
+                                   dtype=torch.bfloat16)(xg)
+    z0 = grnn.draw_z0(B, N).numpy()
+    want = np.asarray(jserving.InferenceEngine(
+        jgrnn, jparams, (xg, z0), dtype=jnp.bfloat16)(xg, z0))
+    assert y16.dtype == torch.float32 and y16.shape == (B, 3, 3, N)
+    assert np.abs(y16.numpy() - want).max() <= ENGINE_TOL * np.abs(
+        want).max()
+    assert {p.dtype for p in grnn.parameters()} == {torch.float32}

@@ -692,9 +692,19 @@ def test_sharded_bf16_training_raises_naming_2_1(sbm_data, tmp_path):
 
 
 def test_edge_list_bf16_training_raises_naming_2_2(sbm_data, tmp_path):
+    """Named when bf16 training of an edge-list context was refused (ROADMAP
+    item 2.2); now it trains: the bf16 context holds the EdgeList with its
+    s_val in bf16 (row and col shared), and a step's gradients reach the
+    f32 masters, finite. Parity with JAX's bf16 Trainer:
+    tests/test_torch_bf16_grnn_edge.py."""
     S, data = sbm_data
     m = _small_model(S, tmp_path, gsoMode="edge")
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        ttrain.Trainer(m, data, 1, 8, precision="bf16")
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        m.archit.ctx_for_dtype(BF)
+    trainer = ttrain.Trainer(m, data, 1, 8, precision="bf16")
+    edges, cast = m.archit.ctx["S"], m.archit.ctx_for_dtype(BF)["S"]
+    assert cast.s_val.dtype == BF and edges.s_val.dtype == torch.float32
+    assert cast.row is edges.row and cast.col is edges.col
+    loss, _ = trainer.train_batch(np.arange(8))
+    assert np.isfinite(loss)
+    for p in m.archit.parameters():
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert bool(torch.isfinite(p.grad).all())

@@ -301,15 +301,16 @@ def test_trainer_unported_options_raise(sbm_data, tmp_path):
     S, data = sbm_data
     m = _small_model(S, tmp_path)
     from graph_neural_networks_torch import parallel as tpar
-    # bf16 of a sharded model trains since item 2.1; the bf16 refusal that
-    # stays is an edge-list context's (item 2.2)
+    # bf16 of a sharded model trains since item 2.1, of an edge-list
+    # context since item 2.2 (this assertion refused it before)
     edge = ttrain.Model(tarch.SelectionGNN(
         [1, 4], [3], True, "relu", [S.shape[0]], "NoPool", [1], [3], S,
         gsoMode="edge", device="cpu"), ttrain.losses.cross_entropy_loss,
         {"name": "ADAM", "lr": 5e-3}, ttrain.Trainer, ttrain.evaluate,
         name="e", saveDir=str(tmp_path / "edge"))
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        ttrain.Trainer(edge, data, 1, 8, precision="bf16")
+    loss, _ = ttrain.Trainer(edge, data, 1, 8, precision="bf16").train_batch(
+        np.arange(8))
+    assert np.isfinite(loss)
     sharded = _small_model(S, tmp_path / "sharded")
     sharded.archit.shard(tpar.make_mesh((1, 2), devices=[
         torch.device("cpu")] * 2), 2)
